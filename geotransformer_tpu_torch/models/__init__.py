@@ -1,0 +1,4 @@
+from geotransformer_tpu_torch.models.geotransformer import (  # noqa: F401
+    GeoTransformer,
+    create_model,
+)

@@ -1,0 +1,104 @@
+r"""KPConv feature-pyramid backbone (``geotransformer_tpu/models/backbone.py``).
+
+  encoder1  : ConvBlock(in, d) ; Residual(d, 2d)
+  encoder i : Residual(2^{i-1} d, strided) ; Residual(-> 2^i d) ; Residual(=)
+  decoder j : upsample + concat skip -> Unary(2^{j+1} d + 2^j d -> 2^j d)
+              (the last decoder emits ``output_dim`` without norm/relu)
+
+``encoder1_1`` convolves the precomputed input stream when the batch has
+one (the default PairBatch); the strided blocks fuse their shortcut
+max-pool into the conv. Returns ``feats_list`` finest-first.
+"""
+
+import torch
+from torch import nn
+
+from geotransformer_tpu_torch.models.kpconv import (
+    ConvBlock,
+    LastUnaryBlock,
+    ResidualBlock,
+    UnaryBlock,
+    nearest_upsample,
+)
+
+
+class KPConvFPN(nn.Module):
+    def __init__(self, input_dim, output_dim, init_dim, kernel_size, init_radius,
+                 init_sigma, group_norm, num_stages=4, first_fine_stage=1,
+                 neighbor_limits=(), force=None):
+        super().__init__()
+        self.input_dim = input_dim
+        self.num_stages = num_stages
+        self.first_fine_stage = first_fine_stage
+        d, k = init_dim, kernel_size
+        for i in range(num_stages):
+            radius = init_radius * (2**i)
+            sigma = init_sigma * (2**i)
+            cdim = d * (2**i)
+            if i == 0:
+                self.encoder1_1 = ConvBlock(input_dim, d, k, radius, sigma, group_norm, force=force)
+                self.encoder1_2 = ResidualBlock(d, 2 * d, k, radius, sigma, group_norm, force=force)
+            else:
+                # the shortcut pool is bounded by the true neighbor limit,
+                # not the sentinel-padded table width
+                pool_cols = neighbor_limits[i - 1] if neighbor_limits else None
+                setattr(self, f"encoder{i + 1}_1", ResidualBlock(
+                    cdim, cdim, k, radius / 2, sigma / 2, group_norm, strided=True,
+                    pool_cols=pool_cols, force=force))
+                setattr(self, f"encoder{i + 1}_2", ResidualBlock(
+                    cdim, 2 * cdim, k, radius, sigma, group_norm, force=force))
+                setattr(self, f"encoder{i + 1}_3", ResidualBlock(
+                    2 * cdim, 2 * cdim, k, radius, sigma, group_norm, force=force))
+        latent_dim = d * 2**num_stages
+        for j in range(num_stages - 2, first_fine_stage - 1, -1):
+            in_dim = latent_dim + d * 2 ** (j + 1)
+            if j == first_fine_stage:
+                latent_dim = output_dim
+                block = LastUnaryBlock(in_dim, output_dim)
+            else:
+                latent_dim = d * 2 ** (j + 1)
+                block = UnaryBlock(in_dim, latent_dim, group_norm)
+            setattr(self, f"decoder{j + 1}", block)
+
+    def forward(self, feats, batch):
+        """Run the pyramid over a PairBatch (torch tensors).
+
+        Returns:
+            feats_list, finest-first (fine decoded feats .. coarsest feats).
+        """
+        points = batch["points"]
+        masks = batch["masks"]
+        neighbors = batch["neighbors"]
+        subsampling = batch["subsampling"]
+        upsampling = batch["upsampling"]
+
+        stage_feats = []
+        x = feats
+        for i in range(self.num_stages):
+            if i == 0:
+                stream0 = batch.get("input_stream") if self.input_dim == 1 else None
+                x = self.encoder1_1(x, points[0], points[0], neighbors[0], masks[0],
+                                    stream=stream0)
+                x = self.encoder1_2(x, points[0], points[0], neighbors[0], masks[0], masks[0])
+            else:
+                x = getattr(self, f"encoder{i + 1}_1")(
+                    x, points[i], points[i - 1], subsampling[i - 1], masks[i], masks[i - 1])
+                x = getattr(self, f"encoder{i + 1}_2")(
+                    x, points[i], points[i], neighbors[i], masks[i], masks[i])
+                x = getattr(self, f"encoder{i + 1}_3")(
+                    x, points[i], points[i], neighbors[i], masks[i], masks[i])
+            stage_feats.append(x)
+
+        feats_list = [stage_feats[-1]]
+        latent = stage_feats[-1]
+        for j in range(self.num_stages - 2, self.first_fine_stage - 1, -1):
+            latent = nearest_upsample(latent, upsampling[j])
+            latent = torch.cat([latent, stage_feats[j]], dim=1)
+            decoder = getattr(self, f"decoder{j + 1}")
+            if j == self.first_fine_stage:
+                latent = decoder(latent)
+            else:
+                latent = decoder(latent, masks[j])
+            feats_list.append(latent)
+        feats_list.reverse()
+        return feats_list

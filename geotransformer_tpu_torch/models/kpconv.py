@@ -1,0 +1,138 @@
+r"""Kernel Point Convolution and the backbone blocks
+(``geotransformer_tpu/models/kpconv.py``; reference
+`modules/kpconv/kpconv.py:79-122`, `modules/kpconv/modules.py`).
+
+Every convolution goes through :mod:`geotransformer_tpu_torch.kernels.kpconv`:
+the CUDA kernel on the card, its plain PyTorch version on the CPU. The
+strided residual block's shortcut max-pool (reference functional.py:54-67,
+zero shadow row, first ``pool_cols`` columns) happens inside the same call,
+so there is no separate ``maxpool``.
+Parameter names are the reference torch ones (``KPConv.weights`` (K, C_in,
+C_out), ``KPConv.bias``, the ``kernel_points`` buffer).
+"""
+
+import torch
+from torch import nn
+import torch.nn.functional as F
+
+from geotransformer_tpu_torch.kernels.kpconv import kpconv_fused, kpconv_stream_fused
+from geotransformer_tpu_torch.models.kernel_points import load_kernel_points
+from geotransformer_tpu_torch.models.norms import GroupNorm
+from geotransformer_tpu_torch.ops.gather import gather_with_shadow
+
+
+class KPConv(nn.Module):
+    def __init__(self, in_channels, out_channels, kernel_size, radius, sigma,
+                 bias=False, force=None):
+        super().__init__()
+        self.sigma = sigma
+        self.force = force
+        self.weights = nn.Parameter(torch.zeros(kernel_size, in_channels, out_channels))
+        self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
+        self.register_buffer(
+            "kernel_points", torch.from_numpy(load_kernel_points(radius, kernel_size)))
+
+    def forward(self, s_feats, q_points, s_points, neighbor_indices,
+                pool_feats=None, pool_cols=None, stream=None, q_mask=None):
+        """KPConv forward.
+
+        Args:
+            s_feats: (N, C_in) support features.
+            q_points: (M, 3) query points.
+            s_points: (N, 3) support points.
+            neighbor_indices: (M, H) int32, sentinel N.
+            pool_feats: optional (N, C_pool) features max-pooled over the
+                first ``pool_cols`` columns of the same table.
+            stream: optional (5, M, H) input-conv edge stream (c_in == 1);
+                takes precedence over the neighbor gather.
+            q_mask: optional (M,) bool query validity.
+
+        Returns:
+            (M, C_out) features, or (features, pooled) with ``pool_feats``.
+        """
+        if stream is not None and self.weights.shape[1] == 1:
+            return kpconv_stream_fused(stream, self.kernel_points, self.weights,
+                                       self.sigma, self.bias, force=self.force)
+        return kpconv_fused(s_feats, q_points, s_points, neighbor_indices,
+                            self.kernel_points, self.weights, self.sigma, self.bias,
+                            pool_feats=pool_feats, pool_cols=pool_cols,
+                            q_mask=q_mask, force=self.force)
+
+
+def leaky_relu(x):
+    return F.leaky_relu(x, negative_slope=0.1)
+
+
+def nearest_upsample(s_feats, upsample_indices):
+    """Copy features of the nearest (first-column) coarse neighbor."""
+    return gather_with_shadow(s_feats, upsample_indices[:, 0], 0.0)
+
+
+class UnaryBlock(nn.Module):
+    def __init__(self, in_channels, out_channels, group_norm, has_relu=True):
+        super().__init__()
+        self.mlp = nn.Linear(in_channels, out_channels)
+        self.norm = GroupNorm(group_norm, out_channels)
+        self.has_relu = has_relu
+
+    def forward(self, x, mask=None):
+        x = self.norm(self.mlp(x), mask)
+        return leaky_relu(x) if self.has_relu else x
+
+
+class LastUnaryBlock(nn.Module):
+    def __init__(self, in_channels, out_channels):
+        super().__init__()
+        self.mlp = nn.Linear(in_channels, out_channels)
+
+    def forward(self, x):
+        return self.mlp(x)
+
+
+class ConvBlock(nn.Module):
+    def __init__(self, in_channels, out_channels, kernel_size, radius, sigma,
+                 group_norm, force=None):
+        super().__init__()
+        self.KPConv = KPConv(in_channels, out_channels, kernel_size, radius, sigma,
+                             bias=True, force=force)
+        self.norm = GroupNorm(group_norm, out_channels)
+
+    def forward(self, s_feats, q_points, s_points, neighbor_indices, q_mask=None,
+                stream=None):
+        x = self.KPConv(s_feats, q_points, s_points, neighbor_indices,
+                        stream=stream, q_mask=q_mask)
+        return leaky_relu(self.norm(x, q_mask))
+
+
+class ResidualBlock(nn.Module):
+    def __init__(self, in_channels, out_channels, kernel_size, radius, sigma,
+                 group_norm, strided=False, pool_cols=None, force=None):
+        super().__init__()
+        mid_channels = out_channels // 4
+        self.strided = strided
+        self.pool_cols = pool_cols  # true (pre-alignment) neighbor limit
+        self.unary1 = (UnaryBlock(in_channels, mid_channels, group_norm)
+                       if in_channels != mid_channels else None)
+        self.KPConv = KPConv(mid_channels, mid_channels, kernel_size, radius, sigma,
+                             bias=True, force=force)
+        self.norm_conv = GroupNorm(group_norm, mid_channels)
+        self.unary2 = UnaryBlock(mid_channels, out_channels, group_norm, has_relu=False)
+        self.unary_shortcut = (UnaryBlock(in_channels, out_channels, group_norm, has_relu=False)
+                               if in_channels != out_channels else None)
+
+    def forward(self, s_feats, q_points, s_points, neighbor_indices, q_mask=None,
+                s_mask=None):
+        x = self.unary1(s_feats, s_mask) if self.unary1 is not None else s_feats
+        if self.strided:
+            # one call serves the conv and the shortcut max-pool (same table)
+            x, shortcut = self.KPConv(x, q_points, s_points, neighbor_indices,
+                                      pool_feats=s_feats, pool_cols=self.pool_cols,
+                                      q_mask=q_mask)
+        else:
+            x = self.KPConv(x, q_points, s_points, neighbor_indices, q_mask=q_mask)
+            shortcut = s_feats
+        x = leaky_relu(self.norm_conv(x, q_mask))
+        x = self.unary2(x, q_mask)
+        if self.unary_shortcut is not None:
+            shortcut = self.unary_shortcut(shortcut, q_mask)
+        return leaky_relu(x + shortcut)

@@ -1,0 +1,8 @@
+from geotransformer_tpu_torch.preprocess.pyramid import (  # noqa: F401
+    PAD_COORD,
+    batch_to_torch,
+    build_input_stream,
+    build_pyramid,
+    caps_for_pyramid,
+    pad_registration_batch,
+)

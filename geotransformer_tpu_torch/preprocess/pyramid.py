@@ -1,0 +1,250 @@
+r"""Multi-stage pyramid precompute and fixed-capacity padding (host, numpy).
+
+The default path of ``geotransformer_tpu/preprocess/pyramid.py``: the same
+stacked pyramid (reference collate, `utils/data.py:13-77`), re-laid into the
+same fixed-capacity ``PairBatch`` so the JAX package and the port see
+byte-identical batches.
+
+Padded layout (per stage, per-cloud capacities ``(C_ref, C_src)``): rows
+``[0, C_ref)`` ref, ``[C_ref, C_ref + C_src)`` src, sentinel index
+``C_ref + C_src``, padded coordinates at ``PAD_COORD``.
+
+Not ported: the native ``geolib.cpp`` binding (this numpy path is the JAX
+package's own fallback) and the inverse/split/union tables (training and
+non-default table layouts only).
+"""
+
+import numpy as np
+import torch
+
+from geotransformer_tpu_torch.preprocess.neighbors import radius_search
+from geotransformer_tpu_torch.preprocess.voxel import grid_subsample
+
+PAD_COORD = 1.0e6
+# Neighbor-column alignment of the forward tables: what f32 tables give in
+# the JAX package (kernels/kpconv.py:table_align), kept so batches match.
+TABLE_ALIGN = 8
+
+
+def build_pyramid(points, lengths, num_stages, voxel_size, radius, neighbor_limits):
+    """Stack-mode multi-stage precompute (unpadded, mirrors the reference).
+
+    Args:
+        points: (N, 3) stacked ref+src points (stage-0 resolution).
+        lengths: (B,) stacked cloud sizes (for registration, B=2: [ref, src]).
+        num_stages: number of pyramid stages.
+        voxel_size: stage-0 voxel size; doubles per stage.
+        radius: stage-0 search radius; doubles per stage.
+        neighbor_limits: per-stage neighbor capacity K_i.
+
+    Returns:
+        dict with per-stage lists: points, lengths, neighbors, subsampling,
+        upsampling.
+    """
+    if num_stages != len(neighbor_limits):
+        raise ValueError(f"{num_stages} stages but {len(neighbor_limits)} neighbor limits")
+    points = np.asarray(points, dtype=np.float32)
+    lengths = np.asarray(lengths, dtype=np.int64)
+
+    points_list, lengths_list = [], []
+    for i in range(num_stages):
+        if i > 0:
+            points, lengths = grid_subsample(points, lengths, voxel_size=voxel_size)
+        points_list.append(points)
+        lengths_list.append(lengths)
+        voxel_size *= 2
+
+    neighbors_list, subsampling_list, upsampling_list = [], [], []
+    for i in range(num_stages):
+        cur_points, cur_lengths = points_list[i], lengths_list[i]
+        neighbors_list.append(
+            radius_search(cur_points, cur_points, cur_lengths, cur_lengths, radius, neighbor_limits[i])
+        )
+        if i < num_stages - 1:
+            sub_points, sub_lengths = points_list[i + 1], lengths_list[i + 1]
+            subsampling_list.append(
+                radius_search(sub_points, cur_points, sub_lengths, cur_lengths, radius, neighbor_limits[i])
+            )
+            upsampling_list.append(
+                radius_search(cur_points, sub_points, cur_lengths, sub_lengths, radius * 2, neighbor_limits[i + 1])
+            )
+        radius *= 2
+
+    return {
+        "points": points_list,
+        "lengths": lengths_list,
+        "neighbors": neighbors_list,
+        "subsampling": subsampling_list,
+        "upsampling": upsampling_list,
+    }
+
+
+def _cloud_caps(cap):
+    """A stage cap is an int (symmetric) or a (cap_ref, cap_src) pair."""
+    if isinstance(cap, (tuple, list)):
+        return int(cap[0]), int(cap[1])
+    return int(cap), int(cap)
+
+
+def _remap_indices(indices, ref_len, src_len, cap):
+    """Stacked-frame indices -> padded frame (sentinel -> cap_r + cap_s)."""
+    cap_r, cap_s = _cloud_caps(cap)
+    total = ref_len + src_len
+    out = np.where(
+        indices >= total,
+        cap_r + cap_s,
+        np.where(indices >= ref_len, indices + (cap_r - ref_len), indices),
+    )
+    return out.astype(np.int32)
+
+
+def _pad_rows(array, ref_len, src_len, cap, fill):
+    """Re-lay stacked rows [ref ++ src] into [ref pad to cap_r ++ src pad to cap_s]."""
+    cap_r, cap_s = _cloud_caps(cap)
+    out = np.full((cap_r + cap_s,) + array.shape[1:], fill, dtype=array.dtype)
+    out[:ref_len] = array[:ref_len]
+    out[cap_r : cap_r + src_len] = array[ref_len : ref_len + src_len]
+    return out
+
+
+def round_up(value, multiple):
+    return int(-(-value // multiple) * multiple)
+
+
+def _pad_cols(table, sentinel, multiple=TABLE_ALIGN):
+    """Pad a neighbor table's column count to ``multiple`` with sentinels
+    (extra columns behave as shadow neighbors everywhere)."""
+    h = table.shape[1]
+    h_pad = round_up(h, multiple)
+    if h_pad == h:
+        return table
+    out = np.full((table.shape[0], h_pad), sentinel, dtype=table.dtype)
+    out[:, :h] = table
+    return out
+
+
+def pad_registration_batch(pyramid, feats, transform, stage_caps, input_stream=True):
+    """Convert an unpadded pyramid into a fixed-capacity PairBatch (numpy).
+
+    Args:
+        pyramid: dict from :func:`build_pyramid` with B=2 clouds [ref, src].
+        feats: (N0, C_in) stacked stage-0 features.
+        transform: (4, 4) ground-truth transform (identity if unknown).
+        stage_caps: per-stage capacity — an int (symmetric) or a
+            (cap_ref, cap_src) pair.
+        input_stream: with 1-channel features, also build the
+            ``input_stream`` edge planes of the input conv.
+
+    Returns:
+        dict of numpy arrays (T_i = cap_ref_i + cap_src_i):
+          points[i] (T_i, 3) float32, masks[i] (T_i,) bool,
+          lengths[i] (2,) int32, neighbors[i] (T_i, K_i) int32 sentinel T_i,
+          subsampling[i] (T_{i+1}, K_i) sentinel T_i,
+          upsampling[i] (T_i, K_{i+1}) sentinel T_{i+1},
+          features (T_0, C_in) float32, transform (4, 4) float32,
+          [input_stream (5, T_0, K_0) float32].
+    Raises ValueError if a cloud exceeds its capacity.
+    """
+    num_stages = len(pyramid["points"])
+    if len(stage_caps) != num_stages:
+        raise ValueError(f"{len(stage_caps)} stage caps for {num_stages} stages")
+
+    out = {"points": [], "masks": [], "lengths": [], "neighbors": [], "subsampling": [], "upsampling": []}
+    ref_lens = [int(l[0]) for l in pyramid["lengths"]]
+    src_lens = [int(l[1]) for l in pyramid["lengths"]]
+
+    for i in range(num_stages):
+        cap_r, cap_s = _cloud_caps(stage_caps[i])
+        ref_len, src_len = ref_lens[i], src_lens[i]
+        if ref_len > cap_r or src_len > cap_s:
+            raise ValueError(
+                f"stage {i}: cloud sizes ({ref_len}, {src_len}) exceed "
+                f"capacity ({cap_r}, {cap_s})"
+            )
+        cap = (cap_r, cap_s)
+        pts = _pad_rows(pyramid["points"][i].astype(np.float32), ref_len, src_len, cap, PAD_COORD)
+        mask = np.zeros(cap_r + cap_s, dtype=bool)
+        mask[:ref_len] = True
+        mask[cap_r : cap_r + src_len] = True
+        nbrs = _remap_indices(pyramid["neighbors"][i], ref_len, src_len, cap)
+        nbrs = _pad_rows(nbrs, ref_len, src_len, cap, np.int32(cap_r + cap_s))
+        out["points"].append(pts)
+        out["masks"].append(mask)
+        out["lengths"].append(np.asarray([ref_len, src_len], dtype=np.int32))
+        out["neighbors"].append(_pad_cols(nbrs, np.int32(cap_r + cap_s)))
+
+    for i in range(num_stages - 1):
+        cap_cur, cap_sub = _cloud_caps(stage_caps[i]), _cloud_caps(stage_caps[i + 1])
+        sent_cur = np.int32(sum(cap_cur))
+        sent_sub = np.int32(sum(cap_sub))
+        sub = _remap_indices(pyramid["subsampling"][i], ref_lens[i], src_lens[i], cap_cur)
+        sub = _pad_rows(sub, ref_lens[i + 1], src_lens[i + 1], cap_sub, sent_cur)
+        # the strided block's shortcut maxpool is bounded by the true neighbor
+        # limit (KPConvFPN.neighbor_limits), not by this padded width
+        out["subsampling"].append(_pad_cols(sub, sent_cur))
+        up = _remap_indices(pyramid["upsampling"][i], ref_lens[i + 1], src_lens[i + 1], cap_sub)
+        up = _pad_rows(up, ref_lens[i], src_lens[i], cap_cur, sent_sub)
+        out["upsampling"].append(_pad_cols(up, sent_sub))
+
+    out["features"] = _pad_rows(
+        np.asarray(feats, dtype=np.float32), ref_lens[0], src_lens[0],
+        _cloud_caps(stage_caps[0]), 0.0
+    )
+    if input_stream and out["features"].shape[1] == 1:
+        out["input_stream"] = build_input_stream(
+            out["points"][0], out["features"], out["neighbors"][0])
+    out["transform"] = np.asarray(transform, dtype=np.float32)
+    return out
+
+
+def build_input_stream(points, feats, table):
+    """Precomputed edge stream of the input conv (kernels.kpconv_stream_fused).
+
+    Args:
+        points: (T0, 3) padded stage-0 points.
+        feats: (T0, 1) padded stage-0 features (c_in == 1 input layer).
+        table: (T0, H) int32 stage-0 neighbor table, sentinel T0.
+
+    Returns:
+        (5, T0, H) float32 planes [off_x, off_y, off_z, posflag, feat]
+        with zeros on invalid slots.
+    """
+    t0 = points.shape[0]
+    valid = table < t0
+    idx = np.where(valid, table, 0)
+    s = points[idx]  # (T0, H, 3)
+    off = np.where(valid[..., None], s - points[:, None, :], 0.0)
+    feat_sum = np.sum(feats, axis=1)  # (T0,)
+    flag = (valid & (feat_sum[idx] > 0.0)).astype(np.float32)
+    featv = np.where(valid, feats[idx, 0], 0.0).astype(np.float32)
+    return np.stack(
+        [off[:, :, 0], off[:, :, 1], off[:, :, 2], flag, featv], axis=0
+    ).astype(np.float32)
+
+
+def caps_for_pyramid(pyramid, multiple=128, margin=1.0, per_cloud=False):
+    """Per-stage capacities covering this pyramid: cloud sizes * margin
+    rounded up to ``multiple``; symmetric (max over clouds) or, with
+    ``per_cloud``, a (cap_ref, cap_src) pair per stage."""
+    caps = []
+    for lengths in pyramid["lengths"]:
+        if per_cloud:
+            caps.append(tuple(
+                max(round_up(int(l) * margin, multiple), multiple)
+                for l in lengths
+            ))
+        else:
+            biggest = int(np.max(lengths)) * margin
+            caps.append(max(round_up(biggest, multiple), multiple))
+    return caps
+
+
+def batch_to_torch(batch, device):
+    """PairBatch of numpy arrays (and per-stage lists) -> torch tensors on
+    ``device``; dtypes are kept (float32 / int32 / bool)."""
+    def convert(value):
+        if isinstance(value, (list, tuple)):
+            return [convert(v) for v in value]
+        return torch.from_numpy(np.ascontiguousarray(value)).to(device)
+
+    return {key: convert(value) for key, value in batch.items()}

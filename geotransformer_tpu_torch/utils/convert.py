@@ -1,0 +1,50 @@
+r"""JAX-package variables -> the port's state_dict.
+
+The inverse of ``geotransformer_tpu/utils/convert.py:_torch_key_candidates``
+(which maps reference torch keys onto the flax tree), so parameters carry
+across both ways:
+
+  * a Dense ``kernel`` (in, out) becomes ``weight`` (out, in);
+  * a norm's ``scale``/``bias`` become ``weight``/``bias`` — under
+    ``norm.`` for the backbone's GroupNorm wrapper (reference
+    `modules/kpconv/modules.py`), directly for the transformer LayerNorms;
+  * ``layers_<i>`` becomes ``layers.<i>``;
+  * KPConv ``weights``, ``kernel_points`` (the ``constants`` collection) and
+    the Sinkhorn ``alpha`` keep their names.
+
+Takes plain nested dicts of arrays (``params`` and ``constants``); imports
+neither JAX nor flax.
+"""
+
+import numpy as np
+import torch
+
+
+def _flatten(tree, prefix=()):
+    for key, value in tree.items():
+        if isinstance(value, dict) or hasattr(value, "items"):
+            yield from _flatten(value, prefix + (key,))
+        else:
+            yield prefix + (key,), value
+
+
+def variables_to_state_dict(variables):
+    """``{"params": ..., "constants": ...}`` nested dicts of arrays -> a flat
+    ``{torch key: tensor}`` state_dict for :class:`GeoTransformer`."""
+    state_dict = {}
+    for collection in ("params", "constants"):
+        leaves = dict(_flatten(variables.get(collection, {})))
+        for path, value in leaves.items():
+            *prefix, leaf = path
+            module = [p.replace("layers_", "layers.") for p in prefix]
+            is_norm = tuple(prefix) + ("scale",) in leaves
+            array = np.array(value, dtype=np.float32)  # a writable copy
+            if leaf == "kernel":
+                leaf, array = "weight", array.T
+            elif leaf == "scale":
+                leaf = "weight"
+            if is_norm and prefix and prefix[0] == "backbone":
+                module.append("norm")  # GroupNorm wrapper: norm.norm.weight
+            key = ".".join(module + [leaf])
+            state_dict[key] = torch.from_numpy(np.ascontiguousarray(array))
+    return state_dict
