@@ -20,6 +20,12 @@
 // wide late stages, the feature gather stage 0; tensor cores and a larger
 // query tile are the later redesign's work.
 //
+// For training, kpconv_fused also writes the per-query count divisor and,
+// with the pool, the number of columns tied at the max: the residuals of the
+// inverse-table backward (kpconv_bwd.cu), which cannot recompute a
+// query-side quantity from its support-side view. The stream conv writes its
+// t1 = sum_h infl * feat (M, K) and count, all its weight gradient needs.
+//
 // Geometry is exact f32: offsets by direct subtraction, |off - kp_k| by a
 // direct sqrt (the expanded |off|^2 - 2 off.kp + |kp|^2 form of the TPU
 // kernel was a workaround for the MXU's single bf16 pass). A query whose
@@ -50,6 +56,8 @@ __global__ void __launch_bounds__(kThreads) kpconv_fused_kernel(
     const float* __restrict__ pool_feats,   // (N, P) or null
     float* __restrict__ out,                // (M, D)
     float* __restrict__ pooled,             // (M, P) or null
+    float* __restrict__ count_out,          // (M,) or null
+    float* __restrict__ ties_out,           // (M, P) or null (with pooled)
     int M, int N, int H, int K, int C, int D, int P, int pool_cols, int tq,
     float sigma) {
   extern __shared__ float smem[];
@@ -82,9 +90,17 @@ __global__ void __launch_bounds__(kThreads) kpconv_fused_kernel(
       if (q < M) out[static_cast<size_t>(q) * D + i % D] = 0.0f;
     }
     if (pooled != nullptr) {
+      const float all_shadow = fmaxf(static_cast<float>(min(pool_cols, H)), 1.0f);
       for (int i = tid; i < tq * P; i += kThreads) {
         const int q = q0 + i / P;
-        if (q < M) pooled[static_cast<size_t>(q) * P + i % P] = 0.0f;
+        if (q >= M) continue;
+        pooled[static_cast<size_t>(q) * P + i % P] = 0.0f;
+        if (ties_out != nullptr) ties_out[static_cast<size_t>(q) * P + i % P] = all_shadow;
+      }
+    }
+    if (count_out != nullptr) {
+      for (int ql = tid; ql < tq; ql += kThreads) {
+        if (q0 + ql < M) count_out[q0 + ql] = 1.0f;
       }
     }
     return;
@@ -119,6 +135,7 @@ __global__ void __launch_bounds__(kThreads) kpconv_fused_kernel(
       if (n < N) c += posflag[n];
     }
     cnt_s[ql] = fmaxf(c, 1.0f);
+    if (count_out != nullptr && q0 + ql < M) count_out[q0 + ql] = cnt_s[ql];
   }
   __syncthreads();
 
@@ -163,6 +180,17 @@ __global__ void __launch_bounds__(kThreads) kpconv_fused_kernel(
         m = fmaxf(m, v);
       }
       pooled[static_cast<size_t>(q) * P + c] = m;
+      if (ties_out != nullptr) {
+        // columns equal to the max (shadows read 0), at least 1: the
+        // even split of the max's gradient, as XLA's reduce-max VJP does
+        float ties = 0.0f;
+        for (int h = 0; h < cols; ++h) {
+          const int n = nbr_s[ql * H + h];
+          const float v = n < N ? pool_feats[static_cast<size_t>(n) * P + c] : 0.0f;
+          ties += v == m ? 1.0f : 0.0f;
+        }
+        ties_out[static_cast<size_t>(q) * P + c] = fmaxf(ties, 1.0f);
+      }
     }
   }
   __syncthreads();
@@ -197,6 +225,8 @@ __global__ void __launch_bounds__(kThreads) kpconv_stream_kernel(
     const float* __restrict__ kp,      // (K, 3)
     const float* __restrict__ w,       // (K, 1, D)
     float* __restrict__ out,           // (M, D)
+    float* __restrict__ t1_out,        // (M, K) or null
+    float* __restrict__ count_out,     // (M,) or null
     int M, int H, int K, int D, float sigma) {
   extern __shared__ float smem[];
   float* planes = smem;                            // (5, kStreamQueries, H)
@@ -236,11 +266,13 @@ __global__ void __launch_bounds__(kThreads) kpconv_stream_kernel(
       acc = fmaf(fmaxf(1.0f - d / sigma, 0.0f), planes[4 * tile + j], acc);
     }
     t1_s[i] = acc;
+    if (t1_out != nullptr && ql < rows) t1_out[static_cast<size_t>(q0 + ql) * K + k] = acc;
   }
   for (int ql = tid; ql < kStreamQueries; ql += kThreads) {
     float c = 0.0f;
     for (int h = 0; h < H; ++h) c += planes[3 * tile + ql * H + h];
     cnt_s[ql] = fmaxf(c, 1.0f);
+    if (count_out != nullptr && ql < rows) count_out[q0 + ql] = cnt_s[ql];
   }
   __syncthreads();
 
@@ -279,7 +311,8 @@ int kpconv_fused_launch(const float* s_feats, const float* q_points,
                         const float* s_points, const int32_t* nbr,
                         const float* posflag, const float* kp, const float* w,
                         const uint8_t* q_mask, const float* pool_feats,
-                        float* out, float* pooled, int M, int N, int H, int K,
+                        float* out, float* pooled, float* count_out,
+                        float* ties_out, int M, int N, int H, int K,
                         int C, int D, int P, int pool_cols, float sigma,
                         void* stream) {
   if (K < 1 || K > kMaxKernelPoints || H < 1 || C < 1 || D < 1) {
@@ -299,20 +332,21 @@ int kpconv_fused_launch(const float* s_feats, const float* q_points,
     if (err != cudaSuccess) return static_cast<int>(err);
     kpconv_fused_kernel<4><<<blocks, kThreads, smem, s>>>(
         s_feats, q_points, s_points, nbr, posflag, kp, w, q_mask, pool_feats, out,
-        pooled, M, N, H, K, C, D, P, pool_cols, tq, sigma);
+        pooled, count_out, ties_out, M, N, H, K, C, D, P, pool_cols, tq, sigma);
   } else {
     err = cudaFuncSetAttribute(kpconv_fused_kernel<2>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     kpconv_fused_kernel<2><<<blocks, kThreads, smem, s>>>(
         s_feats, q_points, s_points, nbr, posflag, kp, w, q_mask, pool_feats, out,
-        pooled, M, N, H, K, C, D, P, pool_cols, tq, sigma);
+        pooled, count_out, ties_out, M, N, H, K, C, D, P, pool_cols, tq, sigma);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 int kpconv_stream_launch(const float* stream_planes, const float* kp,
-                         const float* w, float* out, int M, int H, int K, int D,
+                         const float* w, float* out, float* t1_out,
+                         float* count_out, int M, int H, int K, int D,
                          float sigma, void* stream) {
   if (K < 1 || H < 1 || D < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (M == 0) return 0;
@@ -323,7 +357,7 @@ int kpconv_stream_launch(const float* stream_planes, const float* kp,
   if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = (M + kStreamQueries - 1) / kStreamQueries;
   kpconv_stream_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      stream_planes, kp, w, out, M, H, K, D, sigma);
+      stream_planes, kp, w, out, t1_out, count_out, M, H, K, D, sigma);
   return static_cast<int>(cudaGetLastError());
 }
 

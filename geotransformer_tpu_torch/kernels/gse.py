@@ -1,7 +1,13 @@
-r"""Geometric structure embedding: CUDA kernel (``csrc/gse.cu``) and its plain
-version. Replaces ``geotransformer_tpu/kernels/gse.py:gse_embedding_full``.
+r"""Geometric structure embedding: CUDA kernels (``csrc/gse.cu``,
+``csrc/gse_bwd.cu``) and their plain versions.
+
+``gse_embedding_full`` replaces ``geotransformer_tpu/kernels/gse.py:gse_embedding_full``;
+``gse_full_bwd`` replaces ``_gse_full_bwd``, the backward of the
+differentiable :func:`gse_embedding_full_diff` (projection parameters only).
 
 The output is float32; the JAX kernel stores bfloat16 (``EMBED_DTYPE``).
+Pairs outside the valid rectangle ``[0, n_valid)^2`` are zero, so they get
+no gradient either.
 """
 
 import ctypes
@@ -14,10 +20,34 @@ from geotransformer_tpu_torch.ops.embedding import div_term, sinusoidal_embeddin
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {"gse_embedding_launch": [_P] * 8 + [_I] * 3 + [_F, _F, _P]}
+_BWD_SIGNATURES = {
+    "gse_bwd_launch": [_P] * 13 + [_I] * 4 + [_F, _F, _P],
+    "gse_bwd_slices": [_I] * 2,
+}
 
 
 def _angle_factor(sigma_a):
     return 180.0 / (sigma_a * math.pi)
+
+
+def _pair_indices(points, ref_vectors, sigma_d, sigma_a):
+    """Distance indices (N, N) and angle indices (N, N, k) of every pair,
+    taken directly (the XLA path of ``models/transformer.py:55-83``)."""
+    anchor = points[None, :, :] - points[:, None, :]  # [i, j] = p_j - p_i
+    d_idx = torch.linalg.vector_norm(anchor, dim=-1) / sigma_d
+    ref_b = ref_vectors[:, None, :, :]  # (N, 1, k, 3)
+    anc_b = anchor[:, :, None, :]  # (N, N, 1, 3)
+    sin_values = torch.linalg.vector_norm(torch.linalg.cross(ref_b, anc_b, dim=-1), dim=-1)
+    # + 0.0 turns a -0 sum (v = 0 on the diagonal) into +0: atan2(+0, -0)
+    # would be pi, the XLA path's diagonal angle is 0
+    cos_values = torch.sum(ref_b * anc_b, dim=-1) + 0.0  # (N, N, k)
+    return d_idx, torch.atan2(sin_values, cos_values) * _angle_factor(sigma_a)
+
+
+def _valid_pairs(n, n_valid, device):
+    """(N, N, 1) float mask of the valid rectangle [0, n_valid)^2."""
+    inside = torch.arange(n, device=device) < n_valid.reshape(())
+    return (inside[:, None] & inside[None, :])[..., None].float()
 
 
 def gse_embedding_full_plain(points, ref_vectors, w_d, b_d, w_a, b_a, sigma_d,
@@ -25,24 +55,13 @@ def gse_embedding_full_plain(points, ref_vectors, w_d, b_d, w_a, b_a, sigma_d,
     """Plain PyTorch version of :func:`gse_embedding_full` (the XLA path of
     ``models/transformer.py:55-83,141-157`` from given reference vectors,
     with the pair distance taken directly)."""
-    n = points.shape[0]
     hidden = w_d.shape[0]
-    anchor = points[None, :, :] - points[:, None, :]  # [i, j] = p_j - p_i
-    d_idx = torch.linalg.vector_norm(anchor, dim=-1) / sigma_d  # (N, N)
-    ref_b = ref_vectors[:, None, :, :]  # (N, 1, k, 3)
-    anc_b = anchor[:, :, None, :]  # (N, N, 1, 3)
-    sin_values = torch.linalg.vector_norm(torch.linalg.cross(ref_b, anc_b, dim=-1), dim=-1)
-    # + 0.0 turns a -0 sum (v = 0 on the diagonal) into +0: atan2(+0, -0)
-    # would be pi, the XLA path's diagonal angle is 0
-    cos_values = torch.sum(ref_b * anc_b, dim=-1) + 0.0  # (N, N, k)
-    a_idx = torch.atan2(sin_values, cos_values) * _angle_factor(sigma_a)
+    d_idx, a_idx = _pair_indices(points, ref_vectors, sigma_d, sigma_a)
     e_d = sinusoidal_embedding(d_idx, hidden) @ w_d + b_d
     e_a = torch.amax(sinusoidal_embedding(a_idx, hidden) @ w_a + b_a, dim=2)
     out = e_d + e_a
     if n_valid is not None:
-        idx = torch.arange(n, device=points.device)
-        inside = idx < n_valid.reshape(())
-        out = out * (inside[:, None] & inside[None, :])[..., None].to(out.dtype)
+        out = out * _valid_pairs(points.shape[0], n_valid, points.device).to(out.dtype)
     return out
 
 
@@ -91,3 +110,98 @@ def gse_embedding_full(points, ref_vectors, w_d, b_d, w_a, b_a, sigma_d,
     cuda.check(lib, code, "gse_embedding_full")
     cuda.launches["gse_embedding_full"] += 1
     return out
+
+
+def gse_full_bwd_plain(points, ref_vectors, w_a, sigma_d, sigma_a, de, n_valid=None):
+    """Plain PyTorch version of :func:`gse_full_bwd` (the math of the JAX
+    ``_gse_full_bwd_kernel``, ``kernels/gse.py:290-375``: bases recomputed,
+    the angle gradient routed to the first k attaining the max)."""
+    n, angle_k, _ = ref_vectors.shape
+    hidden = w_a.shape[0]
+    if n_valid is not None:
+        de = de * _valid_pairs(n, n_valid, de.device)
+    d_idx, a_idx = _pair_indices(points, ref_vectors, sigma_d, sigma_a)
+    basis_d = sinusoidal_embedding(d_idx, hidden)  # (N, N, C)
+    basis_a = sinusoidal_embedding(a_idx, hidden)  # (N, N, k, C)
+    first = torch.argmax(basis_a @ w_a, dim=2)  # (N, N, C): the first maximal k
+    take = torch.arange(angle_k, device=de.device)[None, None, :, None] == first[:, :, None, :]
+    dw_d = torch.einsum("ijf,ijc->fc", basis_d, de)
+    dw_a = torch.einsum("ijkf,ijkc->fc", basis_a, take.to(de.dtype) * de[:, :, None, :])
+    db = de.sum(dim=(0, 1))
+    return dw_d, db, dw_a, db
+
+
+def gse_full_bwd(points, ref_vectors, w_a, sigma_d, sigma_a, de, n_valid=None, force=None):
+    """Projection-parameter gradients of :func:`gse_embedding_full`.
+
+    Args:
+        points, ref_vectors, w_a, sigma_d, sigma_a, n_valid: as the forward.
+        de: (N, N, C) gradient of the embedding.
+        force: ``ModelConfig.force_pallas``.
+
+    Returns:
+        dW_d (C, C), db_d (C,), dW_a (C, C), db_a (C,), with
+        db_d = db_a = de summed over the valid rectangle.
+    """
+    if not cuda.use_kernel(points, force):
+        return gse_full_bwd_plain(points, ref_vectors, w_a, sigma_d, sigma_a, de, n_valid)
+
+    dev = points.device
+    n, angle_k, _ = ref_vectors.shape
+    hidden = w_a.shape[0]
+    f32 = torch.float32
+    cuda.require(points, "points", f32, (n, 3), dev)
+    cuda.require(ref_vectors, "ref_vectors", f32, (n, angle_k, 3), dev)
+    cuda.require(w_a, "w_a", f32, (hidden, hidden), dev)
+    cuda.require(de, "de", f32, (n, n, hidden), dev)
+    if n_valid is None:
+        n_valid = torch.full((), n, dtype=torch.int32, device=dev)
+    cuda.require(n_valid, "n_valid", torch.int32, (), dev)
+    lib = cuda.library("gse_bwd", _BWD_SIGNATURES)
+    slices = lib.gse_bwd_slices(n, hidden)
+    kstar = torch.empty((n, n, hidden), dtype=torch.uint8, device=dev)
+    part_d = torch.empty((slices, hidden, hidden), dtype=f32, device=dev)
+    part_a = torch.empty((slices, hidden, hidden), dtype=f32, device=dev)
+    part_b = torch.empty((slices, hidden), dtype=f32, device=dev)
+    dw_d = torch.empty((hidden, hidden), dtype=f32, device=dev)
+    dw_a = torch.empty((hidden, hidden), dtype=f32, device=dev)
+    db = torch.empty((hidden,), dtype=f32, device=dev)
+    freqs = div_term(hidden, dev)
+    code = lib.gse_bwd_launch(
+        cuda.ptr(points), cuda.ptr(ref_vectors), cuda.ptr(w_a), cuda.ptr(freqs),
+        cuda.ptr(n_valid), cuda.ptr(de), cuda.ptr(kstar), cuda.ptr(part_d), cuda.ptr(part_a),
+        cuda.ptr(part_b), cuda.ptr(dw_d), cuda.ptr(dw_a), cuda.ptr(db),
+        n, angle_k, hidden, slices, float(sigma_d), float(_angle_factor(sigma_a)),
+        cuda.stream_of(points))
+    cuda.check(lib, code, "gse_full_bwd")
+    cuda.launches["gse_full_bwd"] += 1
+    return dw_d, db, dw_a, db
+
+
+class _GSEFull(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, w_d, b_d, w_a, b_a, points, ref_vectors, sigma_d, sigma_a, n_valid,
+                force):
+        out = gse_embedding_full(points, ref_vectors, w_d, b_d, w_a, b_a, sigma_d, sigma_a,
+                                 n_valid, force=force)
+        ctx.save_for_backward(points, ref_vectors, w_a, n_valid)
+        ctx.sigma_d, ctx.sigma_a, ctx.force = sigma_d, sigma_a, force
+        return out
+
+    @staticmethod
+    def backward(ctx, de):
+        points, ref_vectors, w_a, n_valid = ctx.saved_tensors
+        dw_d, db_d, dw_a, db_a = gse_full_bwd(points, ref_vectors, w_a, ctx.sigma_d,
+                                              ctx.sigma_a, de.contiguous(), n_valid,
+                                              force=ctx.force)
+        return (dw_d, db_d, dw_a, db_a) + (None,) * 6
+
+
+def gse_embedding_full_diff(points, ref_vectors, w_d, b_d, w_a, b_a, sigma_d, sigma_a,
+                            n_valid=None, force=None):
+    """Differentiable :func:`gse_embedding_full` (JAX
+    ``gse_embedding_full_diff``): gradients reach the projections only;
+    points and reference vectors are constants (the reference computes the
+    embedding indices under no_grad)."""
+    return _GSEFull.apply(w_d, b_d, w_a, b_a, points, ref_vectors, sigma_d, sigma_a,
+                          n_valid, force)

@@ -7,7 +7,10 @@ r"""KPConv feature-pyramid backbone (``geotransformer_tpu/models/backbone.py``).
 
 ``encoder1_1`` convolves the precomputed input stream when the batch has
 one (the default PairBatch); the strided blocks fuse their shortcut
-max-pool into the conv. Returns ``feats_list`` finest-first.
+max-pool into the conv. Training batches carry the inverse neighbor tables
+(``neighbors_inv``, ``subsampling_inv``), which every conv but the input
+conv hands to its backward (JAX ``models/backbone.py:64-65,102-123``).
+Returns ``feats_list`` finest-first.
 """
 
 import torch
@@ -71,6 +74,8 @@ class KPConvFPN(nn.Module):
         neighbors = batch["neighbors"]
         subsampling = batch["subsampling"]
         upsampling = batch["upsampling"]
+        nb_inv = batch.get("neighbors_inv", [None] * self.num_stages)
+        sub_inv = batch.get("subsampling_inv", [None] * self.num_stages)
 
         stage_feats = []
         x = feats
@@ -79,14 +84,18 @@ class KPConvFPN(nn.Module):
                 stream0 = batch.get("input_stream") if self.input_dim == 1 else None
                 x = self.encoder1_1(x, points[0], points[0], neighbors[0], masks[0],
                                     stream=stream0)
-                x = self.encoder1_2(x, points[0], points[0], neighbors[0], masks[0], masks[0])
+                x = self.encoder1_2(x, points[0], points[0], neighbors[0], masks[0], masks[0],
+                                    inverse_table=nb_inv[0])
             else:
                 x = getattr(self, f"encoder{i + 1}_1")(
-                    x, points[i], points[i - 1], subsampling[i - 1], masks[i], masks[i - 1])
+                    x, points[i], points[i - 1], subsampling[i - 1], masks[i], masks[i - 1],
+                    inverse_table=sub_inv[i - 1])
                 x = getattr(self, f"encoder{i + 1}_2")(
-                    x, points[i], points[i], neighbors[i], masks[i], masks[i])
+                    x, points[i], points[i], neighbors[i], masks[i], masks[i],
+                    inverse_table=nb_inv[i])
                 x = getattr(self, f"encoder{i + 1}_3")(
-                    x, points[i], points[i], neighbors[i], masks[i], masks[i])
+                    x, points[i], points[i], neighbors[i], masks[i], masks[i],
+                    inverse_table=nb_inv[i])
             stage_feats.append(x)
 
         feats_list = [stage_feats[-1]]

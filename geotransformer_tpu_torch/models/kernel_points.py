@@ -1,22 +1,21 @@
 r"""KPConv kernel-point disposition.
 
-Read in place from the JAX package's cached disposition
-(``geotransformer_tpu/models/dispositions/k_<K>_center_<D>d.npy``), so both
-packages convolve with the same kernel points. Unlike the JAX
-``load_kernel_points``, nothing is generated: a missing file is an error.
+Read from the port's own copy of the cached disposition
+(``models/dispositions/k_<K>_center_<D>d.npy``, byte-identical to the JAX
+package's), so both packages convolve with the same kernel points. Unlike
+the JAX ``load_kernel_points``, nothing is generated: a missing file is an
+error.
 """
 
 import os
 
 import numpy as np
 
-import geotransformer_tpu
+DISPOSITIONS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "dispositions")
 
 
 def disposition_path(num_points, dimension=3):
-    return os.path.join(os.path.dirname(os.path.abspath(geotransformer_tpu.__file__)),
-                        "models", "dispositions",
-                        f"k_{num_points:03d}_center_{dimension}d.npy")
+    return os.path.join(DISPOSITIONS_DIR, f"k_{num_points:03d}_center_{dimension}d.npy")
 
 
 def load_kernel_points(radius, num_points, dimension=3):

@@ -6,7 +6,10 @@ Every convolution goes through :mod:`geotransformer_tpu_torch.kernels.kpconv`:
 the CUDA kernel on the card, its plain PyTorch version on the CPU. The
 strided residual block's shortcut max-pool (reference functional.py:54-67,
 zero shadow row, first ``pool_cols`` columns) happens inside the same call,
-so there is no separate ``maxpool``.
+so there is no separate ``maxpool``. With gradients enabled the convs take
+the autograd Functions of the training path (JAX ``models/kpconv.py:127-180``):
+the inverse-table backward where the batch has inverse tables, the
+weight-only backward for the input conv's edge stream.
 Parameter names are the reference torch ones (``KPConv.weights`` (K, C_in,
 C_out), ``KPConv.bias``, the ``kernel_points`` buffer).
 """
@@ -15,7 +18,14 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
-from geotransformer_tpu_torch.kernels.kpconv import kpconv_fused, kpconv_stream_fused
+from geotransformer_tpu_torch.kernels import cuda
+from geotransformer_tpu_torch.kernels.kpconv import (
+    kpconv_fused,
+    kpconv_inv_fused_diff,
+    kpconv_pool_inv_fused_diff,
+    kpconv_stream_fused,
+    kpconv_stream_input_diff,
+)
 from geotransformer_tpu_torch.models.kernel_points import load_kernel_points
 from geotransformer_tpu_torch.models.norms import GroupNorm
 from geotransformer_tpu_torch.ops.gather import gather_with_shadow
@@ -33,7 +43,8 @@ class KPConv(nn.Module):
             "kernel_points", torch.from_numpy(load_kernel_points(radius, kernel_size)))
 
     def forward(self, s_feats, q_points, s_points, neighbor_indices,
-                pool_feats=None, pool_cols=None, stream=None, q_mask=None):
+                pool_feats=None, pool_cols=None, stream=None, q_mask=None,
+                inverse_table=None):
         """KPConv forward.
 
         Args:
@@ -46,13 +57,33 @@ class KPConv(nn.Module):
             stream: optional (5, M, H) input-conv edge stream (c_in == 1);
                 takes precedence over the neighbor gather.
             q_mask: optional (M,) bool query validity.
+            inverse_table: optional (N, J) int32 inverse of
+                ``neighbor_indices`` (sentinel M; training batches): with
+                gradients enabled, the backward runs over it.
 
         Returns:
             (M, C_out) features, or (features, pooled) with ``pool_feats``.
         """
+        grad = torch.is_grad_enabled()
         if stream is not None and self.weights.shape[1] == 1:
-            return kpconv_stream_fused(stream, self.kernel_points, self.weights,
-                                       self.sigma, self.bias, force=self.force)
+            conv = kpconv_stream_input_diff if grad else kpconv_stream_fused
+            return conv(stream, self.kernel_points, self.weights, self.sigma, self.bias,
+                        force=self.force)
+        if grad and inverse_table is not None:
+            if pool_feats is not None:
+                return kpconv_pool_inv_fused_diff(
+                    s_feats, pool_feats, q_points, s_points, neighbor_indices, inverse_table,
+                    self.kernel_points, self.weights, self.sigma, self.bias,
+                    pool_cols=pool_cols, q_mask=q_mask, force=self.force)
+            return kpconv_inv_fused_diff(
+                s_feats, q_points, s_points, neighbor_indices, inverse_table,
+                self.kernel_points, self.weights, self.sigma, self.bias, q_mask=q_mask,
+                force=self.force)
+        if grad and cuda.use_kernel(s_feats, self.force):
+            raise ValueError(
+                "KPConv with gradients on the CUDA kernels needs the batch's inverse "
+                "tables: pad_registration_batch(..., inverse_limits=cfg.caps.inverse_limits)")
+        # inference, or the plain version (differentiable by autograd)
         return kpconv_fused(s_feats, q_points, s_points, neighbor_indices,
                             self.kernel_points, self.weights, self.sigma, self.bias,
                             pool_feats=pool_feats, pool_cols=pool_cols,
@@ -98,9 +129,9 @@ class ConvBlock(nn.Module):
         self.norm = GroupNorm(group_norm, out_channels)
 
     def forward(self, s_feats, q_points, s_points, neighbor_indices, q_mask=None,
-                stream=None):
+                stream=None, inverse_table=None):
         x = self.KPConv(s_feats, q_points, s_points, neighbor_indices,
-                        stream=stream, q_mask=q_mask)
+                        stream=stream, q_mask=q_mask, inverse_table=inverse_table)
         return leaky_relu(self.norm(x, q_mask))
 
 
@@ -121,15 +152,16 @@ class ResidualBlock(nn.Module):
                                if in_channels != out_channels else None)
 
     def forward(self, s_feats, q_points, s_points, neighbor_indices, q_mask=None,
-                s_mask=None):
+                s_mask=None, inverse_table=None):
         x = self.unary1(s_feats, s_mask) if self.unary1 is not None else s_feats
         if self.strided:
             # one call serves the conv and the shortcut max-pool (same table)
             x, shortcut = self.KPConv(x, q_points, s_points, neighbor_indices,
                                       pool_feats=s_feats, pool_cols=self.pool_cols,
-                                      q_mask=q_mask)
+                                      q_mask=q_mask, inverse_table=inverse_table)
         else:
-            x = self.KPConv(x, q_points, s_points, neighbor_indices, q_mask=q_mask)
+            x = self.KPConv(x, q_points, s_points, neighbor_indices, q_mask=q_mask,
+                            inverse_table=inverse_table)
             shortcut = s_feats
         x = leaky_relu(self.norm_conv(x, q_mask))
         x = self.unary2(x, q_mask)

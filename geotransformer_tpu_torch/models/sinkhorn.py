@@ -1,12 +1,17 @@
 r"""Learnable log-domain Sinkhorn optimal transport
 (``geotransformer_tpu/models/sinkhorn.py``; reference
 `modules/sinkhorn/learnable_sinkhorn.py:5-66`). The iterations run in
-:func:`geotransformer_tpu_torch.kernels.sinkhorn.sinkhorn_log_iterations`."""
+:func:`geotransformer_tpu_torch.kernels.sinkhorn.sinkhorn_log_iterations`, or,
+when training, in the differentiable ``sinkhorn_log_iterations_train`` (the
+JAX ``"pallas_vjp"`` backend, ``models/sinkhorn.py:95-103``)."""
 
 import torch
 from torch import nn
 
-from geotransformer_tpu_torch.kernels.sinkhorn import sinkhorn_log_iterations
+from geotransformer_tpu_torch.kernels.sinkhorn import (
+    sinkhorn_log_iterations,
+    sinkhorn_log_iterations_train,
+)
 
 _INF = 1e12
 
@@ -18,9 +23,10 @@ class LearnableLogOptimalTransport(nn.Module):
         self.force = force
         self.alpha = nn.Parameter(torch.tensor(1.0))
 
-    def forward(self, scores, row_masks=None, col_masks=None):
+    def forward(self, scores, row_masks=None, col_masks=None, training=False):
         """(B, M, N) scores [, (B, M) / (B, N) bool masks] -> (B, M+1, N+1)
-        log transport plan with a dustbin row and column."""
+        log transport plan with a dustbin row and column; ``training``
+        selects the differentiable iterations."""
         batch_size, num_row, num_col = scores.shape
         device = scores.device
         if row_masks is None:
@@ -49,7 +55,7 @@ class LearnableLogOptimalTransport(nn.Module):
                             (torch.log(torch.clamp(num_valid_row, min=1.0)) + norm)[:, None]], dim=1)
         log_nu = torch.where(padded_col_masks, -_INF, log_nu)
 
-        outputs = sinkhorn_log_iterations(padded_scores.contiguous(), log_mu.contiguous(),
-                                          log_nu.contiguous(), self.num_iterations,
-                                          force=self.force)
+        iterate = sinkhorn_log_iterations_train if training else sinkhorn_log_iterations
+        outputs = iterate(padded_scores.contiguous(), log_mu.contiguous(), log_nu.contiguous(),
+                          self.num_iterations, force=self.force)
         return outputs - norm[:, None, None]

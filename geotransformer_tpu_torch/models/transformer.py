@@ -6,7 +6,8 @@ r"""Geometric self/cross attention transformer
 
 The geometric structure embedding goes through
 :func:`geotransformer_tpu_torch.kernels.gse.gse_embedding_full` (CUDA kernel
-on the card). Attention is plain einsum: the two JAX attention kernels are
+on the card), or its differentiable form ``gse_embedding_full_diff`` when
+gradients are enabled. Attention is plain einsum: the two JAX attention kernels are
 off by default (``geotransformer_tpu/kernels/flags.py:39``). Padded tokens
 are excluded from keys; their query outputs are zeroed at the stack output.
 Module and parameter names follow the flax tree, so the state_dict keys are
@@ -18,7 +19,7 @@ import math
 import torch
 from torch import nn
 
-from geotransformer_tpu_torch.kernels.gse import gse_embedding_full
+from geotransformer_tpu_torch.kernels.gse import gse_embedding_full, gse_embedding_full_diff
 from geotransformer_tpu_torch.ops.pairwise_distance import pairwise_distance
 
 
@@ -67,10 +68,11 @@ class GeometricStructureEmbedding(nn.Module):
             n_valid = prefix_valid_count(masks, num_point)
         w_d = self.proj_d.weight.t().contiguous()
         w_a = self.proj_a.weight.t().contiguous()
+        embed = gse_embedding_full_diff if torch.is_grad_enabled() else gse_embedding_full
         return torch.stack([
-            gse_embedding_full(points[b].contiguous(), ref_vectors[b].contiguous(),
-                               w_d, self.proj_d.bias, w_a, self.proj_a.bias,
-                               self.sigma_d, self.sigma_a, n_valid[b], force=self.force)
+            embed(points[b].contiguous(), ref_vectors[b].contiguous(), w_d, self.proj_d.bias,
+                  w_a, self.proj_a.bias, self.sigma_d, self.sigma_a, n_valid[b],
+                  force=self.force)
             for b in range(batch_size)
         ])
 

@@ -4,5 +4,8 @@ from geotransformer_tpu_torch.ops.pairwise_distance import pairwise_distance  # 
 from geotransformer_tpu_torch.ops.partition import point_to_node_partition  # noqa: F401
 from geotransformer_tpu_torch.ops.se3 import (  # noqa: F401
     apply_transform,
+    get_rotation_translation_from_transform,
     get_transform_from_rotation_translation,
+    inverse_transform,
 )
+from geotransformer_tpu_torch.ops.vector_angle import deg2rad, rad2deg, vector_angle  # noqa: F401

@@ -22,3 +22,15 @@ def get_transform_from_rotation_translation(rotation, translation):
     transform[..., 3, 3] = 1.0
     return transform
 
+
+def get_rotation_translation_from_transform(transform):
+    """Split (.., 4, 4) transform into rotation (.., 3, 3), translation (.., 3)."""
+    return transform[..., :3, :3], transform[..., :3, 3]
+
+
+def inverse_transform(transform):
+    """Inverse of a rigid transform: R^T, -R^T t."""
+    rotation, translation = get_rotation_translation_from_transform(transform)
+    inv_rotation = rotation.transpose(-1, -2)
+    inv_translation = -torch.einsum("...dc,...c->...d", inv_rotation, translation)
+    return get_transform_from_rotation_translation(inv_rotation, inv_translation)

@@ -9,9 +9,10 @@ Padded layout (per stage, per-cloud capacities ``(C_ref, C_src)``): rows
 ``[0, C_ref)`` ref, ``[C_ref, C_ref + C_src)`` src, sentinel index
 ``C_ref + C_src``, padded coordinates at ``PAD_COORD``.
 
-Not ported: the native ``geolib.cpp`` binding (this numpy path is the JAX
-package's own fallback) and the inverse/split/union tables (training and
-non-default table layouts only).
+Training batches also carry the inverse neighbor tables of the KPConv
+backward (``inverse_limits``). Not ported: the native ``geolib.cpp``
+binding (this numpy path is the JAX package's own fallback) and the
+split/union tables (non-default table layouts only).
 """
 
 import numpy as np
@@ -123,7 +124,39 @@ def _pad_cols(table, sentinel, multiple=TABLE_ALIGN):
     return out
 
 
-def pad_registration_batch(pyramid, feats, transform, stage_caps, input_stream=True):
+def build_inverse_table(table, num_support, j_cap):
+    """Fixed-capacity inverse of a neighbor table, for the KPConv backward
+    (``kernels.kpconv.kpconv_bwd_fused``).
+
+    ``table`` is a padded (M, H) neighbor table (values in [0, num_support),
+    sentinel >= num_support). Returns (num_support, j_cap) int32 where row n
+    lists the query rows m with n in table[m] in ascending order, padded
+    with sentinel M. Raises ValueError if a support point's in-degree
+    exceeds ``j_cap``.
+    """
+    table = np.asarray(table)
+    m_rows, h = table.shape
+    q_idx = np.repeat(np.arange(m_rows, dtype=np.int64), h)
+    v = table.reshape(-1).astype(np.int64)
+    keep = v < num_support
+    v, q_idx = v[keep], q_idx[keep]
+    order = np.argsort(v, kind="stable")
+    v, q_idx = v[order], q_idx[order]
+    counts = np.bincount(v, minlength=num_support)
+    if counts.max(initial=0) > j_cap:
+        raise ValueError(
+            f"max in-degree {int(counts.max())} exceeds inverse capacity "
+            f"{j_cap}; raise caps.inverse_limits for this stage"
+        )
+    seg_starts = np.cumsum(counts) - counts
+    rank = np.arange(len(v)) - np.repeat(seg_starts, counts)
+    inv = np.full((num_support, j_cap), m_rows, dtype=np.int32)
+    inv[v, rank] = q_idx
+    return inv
+
+
+def pad_registration_batch(pyramid, feats, transform, stage_caps, inverse_limits=None,
+                           sub_inverse_limits=None, input_stream=True):
     """Convert an unpadded pyramid into a fixed-capacity PairBatch (numpy).
 
     Args:
@@ -132,6 +165,13 @@ def pad_registration_batch(pyramid, feats, transform, stage_caps, input_stream=T
         transform: (4, 4) ground-truth transform (identity if unknown).
         stage_caps: per-stage capacity — an int (symmetric) or a
             (cap_ref, cap_src) pair.
+        inverse_limits: optional per-stage in-degree capacities J_i
+            (training batches): adds ``neighbors_inv[i]`` (T_i, J_i)
+            sentinel T_i, the inverse of ``neighbors[i]``, and
+            ``subsampling_inv[i]`` (T_i, J'_i) sentinel T_{i+1}, the inverse
+            of ``subsampling[i]``; columns padded to a multiple of 8.
+        sub_inverse_limits: the J'_i of the subsampling inverses; default
+            ``max(16, J_i // 4 + 8)`` (a coarse point pools ~4 fine voxels).
         input_stream: with 1-channel features, also build the
             ``input_stream`` edge planes of the input conv.
 
@@ -142,8 +182,10 @@ def pad_registration_batch(pyramid, feats, transform, stage_caps, input_stream=T
           subsampling[i] (T_{i+1}, K_i) sentinel T_i,
           upsampling[i] (T_i, K_{i+1}) sentinel T_{i+1},
           features (T_0, C_in) float32, transform (4, 4) float32,
-          [input_stream (5, T_0, K_0) float32].
-    Raises ValueError if a cloud exceeds its capacity.
+          [input_stream (5, T_0, K_0) float32],
+          [neighbors_inv, subsampling_inv per-stage lists].
+    Raises ValueError if a cloud exceeds its capacity or an in-degree its
+    inverse capacity.
     """
     num_stages = len(pyramid["points"])
     if len(stage_caps) != num_stages:
@@ -185,6 +227,22 @@ def pad_registration_batch(pyramid, feats, transform, stage_caps, input_stream=T
         up = _remap_indices(pyramid["upsampling"][i], ref_lens[i + 1], src_lens[i + 1], cap_sub)
         up = _pad_rows(up, ref_lens[i], src_lens[i], cap_cur, sent_sub)
         out["upsampling"].append(_pad_cols(up, sent_sub))
+
+    if inverse_limits is not None:
+        if sub_inverse_limits is None:
+            sub_inverse_limits = tuple(max(16, int(l) // 4 + 8) for l in inverse_limits[:-1])
+        out["neighbors_inv"], out["subsampling_inv"] = [], []
+        for i in range(num_stages):
+            rows = out["neighbors"][i].shape[0]
+            out["neighbors_inv"].append(_pad_cols(
+                build_inverse_table(out["neighbors"][i], rows, int(inverse_limits[i])),
+                np.int32(rows)))
+            if i < num_stages - 1:
+                rows_sub = out["subsampling"][i].shape[0]
+                out["subsampling_inv"].append(_pad_cols(
+                    build_inverse_table(out["subsampling"][i], rows,
+                                        int(sub_inverse_limits[i])),
+                    np.int32(rows_sub)))
 
     out["features"] = _pad_rows(
         np.asarray(feats, dtype=np.float32), ref_lens[0], src_lens[0],
@@ -240,11 +298,13 @@ def caps_for_pyramid(pyramid, multiple=128, margin=1.0, per_cloud=False):
 
 
 def batch_to_torch(batch, device):
-    """PairBatch of numpy arrays (and per-stage lists) -> torch tensors on
-    ``device``; dtypes are kept (float32 / int32 / bool)."""
+    """PairBatch of numpy arrays or tensors (and per-stage lists) -> torch
+    tensors on ``device``; dtypes are kept (float32 / int32 / bool)."""
     def convert(value):
         if isinstance(value, (list, tuple)):
             return [convert(v) for v in value]
+        if isinstance(value, torch.Tensor):
+            return value.to(device)
         return torch.from_numpy(np.ascontiguousarray(value)).to(device)
 
     return {key: convert(value) for key, value in batch.items()}

@@ -13,7 +13,9 @@ across both ways:
     the Sinkhorn ``alpha`` keep their names.
 
 Takes plain nested dicts of arrays (``params`` and ``constants``); imports
-neither JAX nor flax.
+neither JAX nor flax. A gradient pytree (``jax.grad`` with respect to
+``params``) has the params' structure, so :func:`gradients_to_state_dict`
+maps it onto the same parameter names, to compare gradients name by name.
 """
 
 import numpy as np
@@ -46,5 +48,12 @@ def variables_to_state_dict(variables):
             if is_norm and prefix and prefix[0] == "backbone":
                 module.append("norm")  # GroupNorm wrapper: norm.norm.weight
             key = ".".join(module + [leaf])
-            state_dict[key] = torch.from_numpy(np.ascontiguousarray(array))
+            state_dict[key] = torch.tensor(array)  # a 0-d alpha stays 0-d
     return state_dict
+
+
+def gradients_to_state_dict(grads):
+    """A JAX gradient pytree of the ``params`` collection -> ``{torch
+    parameter name: tensor}`` in the port's layout (Dense gradients
+    transposed like their kernels)."""
+    return variables_to_state_dict({"params": grads})

@@ -3,9 +3,10 @@
 Marked ``cuda``; every test skips where no CUDA device exists (the kernels
 have no CPU or interpret mode). Run on the H100 with
 ``python -m pytest tests/test_torch_cuda.py -m cuda -q``. Tolerances are
-chip_smoke.py's: KPConv rtol 1e-4 + atol 1e-5 x max|plain| (f32 sums in
-another order), GSE atol 1e-3 (256-term f32 projections in another order,
-sincosf arguments up to ~12), Sinkhorn 1e-4.
+chip_smoke.py's: KPConv forward and backward rtol 1e-4 + atol 1e-5 x
+max|plain| (f32 sums in another order), GSE atol 1e-3 (256-term f32
+projections in another order, sincosf arguments up to ~12), its parameter
+gradients atol 1e-4 x max|plain|, Sinkhorn forward and backward 1e-4.
 """
 
 import numpy as np
@@ -13,18 +14,30 @@ import pytest
 import torch
 
 from geotransformer_tpu_torch.kernels import cuda
-from geotransformer_tpu_torch.kernels.gse import gse_embedding_full, gse_embedding_full_plain
+from geotransformer_tpu_torch.kernels.gse import (
+    gse_embedding_full,
+    gse_embedding_full_plain,
+    gse_full_bwd,
+    gse_full_bwd_plain,
+)
 from geotransformer_tpu_torch.kernels.kpconv import (
+    kpconv_bwd_fused,
+    kpconv_bwd_fused_plain,
     kpconv_fused,
     kpconv_fused_plain,
     kpconv_stream_fused,
     kpconv_stream_fused_plain,
 )
 from geotransformer_tpu_torch.kernels.sinkhorn import (
+    sinkhorn_bwd_train,
+    sinkhorn_bwd_train_plain,
+    sinkhorn_fwd_train,
+    sinkhorn_fwd_train_plain,
     sinkhorn_log_iterations,
     sinkhorn_log_iterations_plain,
 )
 from geotransformer_tpu_torch.models.kernel_points import load_kernel_points
+from geotransformer_tpu_torch.preprocess.pyramid import build_inverse_table
 
 pytestmark = pytest.mark.cuda
 
@@ -133,3 +146,109 @@ def test_wrapper_rejects_bad_inputs(device):
     args[3] = args[3].long()  # neighbor table must be int32
     with pytest.raises(ValueError, match="dtype"):
         kpconv_fused(*args, 0.05, bias)
+
+
+@pytest.mark.parametrize("c", [32, 64, 128, 256])
+@pytest.mark.parametrize("with_pool", [False, True])
+def test_kpconv_fused_residuals_match_plain(device, c, with_pool):
+    args, bias, pool, q_mask = kpconv_case(device, c, c_pool=2 * c if with_pool else 0)
+    kw = dict(pool_feats=pool, pool_cols=38) if with_pool else {}
+    got = kpconv_fused(*args, 0.05, bias, q_mask=q_mask, residuals=True, **kw)
+    want = kpconv_fused_plain(*args, 0.05, bias, q_mask=q_mask, residuals=True, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got[1:], want[1:]):  # pooled, count, ties are exact
+        assert torch.equal(g, w)
+    assert_kpconv_close(got[0], want[0])
+
+
+def kpconv_bwd_case(device, c_in, c_out, n, m, j, c_pool=0, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    s_points = torch.rand(n, 3, generator=g) * 0.3
+    q_points = torch.rand(m, 3, generator=g) * 0.3
+    h = min(24, n)
+    nbrs = torch.argsort(torch.cdist(q_points, s_points), dim=1)[:, :h].to(torch.int32)
+    nbrs[torch.rand(m, h, generator=g) < 0.3] = n
+    nbrs[m - 7:] = n  # padding queries
+    inv = torch.from_numpy(build_inverse_table(nbrs.numpy(), n, j))
+    kp = torch.from_numpy(load_kernel_points(0.0625, 15))
+    feats = torch.randn(n, c_in, generator=g)
+    w = torch.randn(15, c_in, c_out, generator=g) / c_in
+    gdiv = torch.randn(m, c_out, generator=g)
+    args = [feats, s_points, q_points, gdiv, inv, kp, w]
+    kw = {}
+    if c_pool:
+        pool = torch.randint(-2, 2, (n, c_pool), generator=g).float()  # tied maxima
+        _, pooled, _, ties = kpconv_fused_plain(
+            torch.ones(n, 1), q_points, s_points, nbrs, kp, torch.zeros(15, 1, 1), 0.05,
+            pool_feats=pool, residuals=True)
+        kw = dict(pool_feats=pool, pooled=pooled,
+                  dpool_over_ties=torch.randn(m, c_pool, generator=g) / ties)
+    return [t.to(device) for t in args], {k: v.to(device) for k, v in kw.items()}
+
+
+@pytest.mark.parametrize("c_in, c_out, n, m, j", [
+    (32, 32, 1000, 997, 80), (64, 128, 333, 301, 40), (128, 128, 517, 250, 32),
+    (256, 256, 130, 129, 80), (32, 64, 5, 3, 8)])
+@pytest.mark.parametrize("with_pool", [False, True])
+def test_kpconv_bwd_matches_plain(device, c_in, c_out, n, m, j, with_pool):
+    args, kw = kpconv_bwd_case(device, c_in, c_out, n, m, j, c_pool=2 * c_in if with_pool else 0)
+    before = cuda.launches["kpconv_bwd_fused"]
+    got = kpconv_bwd_fused(*args, 0.05, **kw)
+    assert cuda.launches["kpconv_bwd_fused"] == before + 1
+    want = kpconv_bwd_fused_plain(*args, 0.05, **kw)
+    torch.cuda.synchronize()
+    assert len(got) == len(want) == (3 if with_pool else 2)
+    for g, w in zip(got, want):
+        assert_kpconv_close(g, w)
+
+
+@pytest.mark.parametrize("c", [32, 256])
+@pytest.mark.parametrize("n, n_valid", [(100, 100), (100, 61), (37, 1)])
+def test_gse_bwd_matches_plain(device, c, n, n_valid):
+    g = torch.Generator().manual_seed(4)
+    points = torch.rand(n, 3, generator=g)
+    ref_vectors = torch.randn(n, 3, 3, generator=g) * 0.1
+    ref_vectors[0] = -0.1  # the signed-zero diagonal case
+    w_a = torch.randn(c, c, generator=g) / c**0.5
+    de = torch.randn(n, n, c, generator=g)
+    nv = torch.tensor(n_valid, dtype=torch.int32)
+    args = [t.to(device) for t in (points, ref_vectors, w_a)]
+    before = cuda.launches["gse_full_bwd"]
+    got = gse_full_bwd(*args, 0.2, 15.0, de.to(device), nv.to(device))
+    assert cuda.launches["gse_full_bwd"] == before + 1
+    want = gse_full_bwd_plain(*args, 0.2, 15.0, de.to(device), nv.to(device))
+    torch.cuda.synchronize()
+    for name, gv, wv in zip(("dW_d", "db_d", "dW_a", "db_a"), got, want):
+        err = (gv - wv).abs().max().item()
+        assert err <= 1e-4 * wv.abs().max().item() + 1e-6, f"{name}: {err}"
+
+
+def sinkhorn_train_case(device, p=64, m1=65, iterations=100):
+    g = torch.Generator().manual_seed(5)
+    scores = torch.randn(p, m1, m1, generator=g)
+    masked = torch.rand(p, m1, m1, generator=g) < 0.1
+    masked[0] = True  # an all-masked patch but for the dustbin corner
+    masked[0, -1, -1] = False
+    masked[1] = False
+    scores = torch.where(masked, -1e12, scores)
+    log_mu = torch.where(masked.all(dim=2), -1e12, -np.log(2 * m1))
+    log_nu = torch.where(masked.all(dim=1), -1e12, -np.log(2 * m1))
+    dout = torch.where(masked, 0.0, torch.randn(p, m1, m1, generator=g))
+    return [t.to(device) for t in (scores, log_mu, log_nu, dout)], masked.to(device)
+
+
+@pytest.mark.parametrize("p, m1", [(64, 65), (3, 17)])
+def test_sinkhorn_train_matches_plain(device, p, m1):
+    (scores, log_mu, log_nu, dout), masked = sinkhorn_train_case(device, p, m1)
+    out, v_hist = sinkhorn_fwd_train(scores, log_mu, log_nu, 100)
+    want_out, want_hist = sinkhorn_fwd_train_plain(scores, log_mu, log_nu, 100)
+    # the training forward is the inference kernel's arithmetic
+    assert torch.equal(out, sinkhorn_log_iterations(scores, log_mu, log_nu, 100))
+    got = sinkhorn_bwd_train(scores, log_mu, v_hist, dout)
+    want = sinkhorn_bwd_train_plain(scores, log_mu, want_hist, dout)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out[~masked], want_out[~masked], rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(v_hist, want_hist, rtol=1e-4, atol=1e-4)
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)

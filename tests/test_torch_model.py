@@ -116,7 +116,7 @@ def both(request):
         lambda v, b: jax_model.apply(v, b, training=False, with_gt=False))(variables, batch_j))
     variables_np = jax.tree.map(np.asarray, variables)
 
-    port = create_torch_model(cfg)
+    port = create_torch_model(cfg, device="cpu")
     port.load_state_dict(variables_to_state_dict(variables_np), strict=True)
     batch_t = batch_to_torch(batch, "cpu")
     out_t = {k: v.numpy() for k, v in port(batch_t).items()}
@@ -205,13 +205,19 @@ class TestTorchModelParity:
 def test_inference_only_and_kernel_dispatch():
     cfg, _, batch = make_batch(narrow_config(), seed=5, per_cloud=True)
     batch_t = batch_to_torch(batch, "cpu")
-    model = create_torch_model(cfg)
-    for kwargs in ({"training": True}, {"with_gt": True}):
-        with pytest.raises(NotImplementedError):
-            model(batch_t, **kwargs)
+    model = create_torch_model(cfg, device="cpu")
+    # training needs the GT targets, as in the JAX model
+    with pytest.raises(ValueError, match="with_gt"):
+        model(batch_t, training=True)
+    # the inference forward keeps no autograd graph
+    assert not model(batch_t)["ref_feats_c"].requires_grad
+    with pytest.raises(NotImplementedError, match="dustbin"):
+        dustbin = dataclasses.replace(cfg, fine_matching=dataclasses.replace(
+            cfg.fine_matching, use_dustbin=True))
+        create_torch_model(dustbin, device="cpu")(batch_t)
     # force_pallas=True demands the CUDA kernels, which have no CPU mode
     with pytest.raises(RuntimeError, match="CUDA"):
-        create_torch_model(cfg.with_model(force_pallas=True))(batch_t)
+        create_torch_model(cfg.with_model(force_pallas=True), device="cpu")(batch_t)
 
 
 def test_forward_without_jax():
@@ -241,7 +247,7 @@ def test_forward_without_jax():
         "                    correspondence_capacity=256)\n"
         "batch = pad_registration_batch(pyr, np.ones((len(points), 1), np.float32),\n"
         "                               np.eye(4, dtype=np.float32), caps)\n"
-        "out = create_model(cfg)(batch_to_torch(batch, 'cpu'))\n"
+        "out = create_model(cfg, device='cpu')(batch_to_torch(batch, 'cpu'))\n"
         "assert torch.isfinite(out['estimated_transform']).all()\n"
         "loaded = [m for m in sys.modules if sys.modules[m] is not None\n"
         "          and (m.split('.')[0] in ('jax', 'flax', 'jaxlib'))]\n"
