@@ -2,9 +2,7 @@
 r"""Drive the PyTorch port's 3DMatch inference and training paths on one CUDA
 card.
 
-    python3 chip_smoke.py                  # all phases
-    python3 chip_smoke.py --profile-train  # and a torch.profiler window over
-                                           # two training steps
+    python3 chip_smoke.py
 
 Phases (any failure exits non-zero; no phase's exception is caught):
   1. build   — nvcc compiles the CUDA kernels of geotransformer_tpu_torch/
@@ -35,13 +33,15 @@ Phases (any failure exits non-zero; no phase's exception is caught):
                forward; GSE gradients atol 1e-4 x the largest plain one; Sinkhorn
                1e-4), both timed; and the whole step: every parameter
                gradient of the kernel model within 1e-3 (relative norm) of the
-               force_pallas=False model's from the same weights and batch.
+               force_pallas=False model's from the same weights and batch;
+  7. profile — torch.profiler over two more training steps: device time by
+               kernel (chiprun_out/train_profile.txt) and the device's busy
+               share of phase 5's median step.
 Then it prints the {"kernels": [...]} line, the card's name and power limit,
 and, last, {"ok": true, "device": {...}}. Details go to
 chiprun_out/chip_smoke.json.
 """
 
-import argparse
 import collections
 import contextlib
 import json
@@ -70,7 +70,6 @@ from geotransformer_tpu_torch.preprocess import (
     caps_for_pyramid,
     pad_registration_batch,
 )
-from geotransformer_tpu_torch.preprocess.pyramid import round_up
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEEDS = (0, 1, 2)
@@ -79,37 +78,80 @@ PEAK_F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 DEVICE = "cuda"
 
-# kernel -> (module attribute the caller reaches it through, plain version,
-#            TPU kernel it replaces, CUDA source, launches per inference
-#            pair, launches per training step)
+
+# --- each kernel's tolerance against its plain version -------------------
+# tolerance(i, got, want, args, plain) -> (got, want, bound) for output i of
+# one call (plain: all the plain outputs), after restricting both sides to
+# the entries the rule covers.
+
+def tol_kpconv(i, got, want, args, plain):
+    return got, want, 1e-4 * want.abs() + 1e-5 * want.abs().max()
+
+
+def tol_gse_embedding(i, got, want, args, plain):
+    nv = int(args[8])  # the valid rectangle
+    return got[:nv, :nv], want[:nv, :nv], torch.full_like(want[:nv, :nv], 1e-3)
+
+
+def tol_sinkhorn_scores(i, got, want, args, plain):
+    # output 0 is the scores: masked slots (-1e12) are left out; v_hist is whole
+    if i == 0:
+        valid = args[0] > -1e11
+        got, want = got[valid], want[valid]
+    return got, want, 1e-4 + 1e-4 * want.abs()
+
+
+def tol_sinkhorn_bwd(i, got, want, args, plain):
+    return got, want, 1e-4 + 1e-4 * want.abs()
+
+
+def tol_gse_bwd(i, got, want, args, plain):
+    # the scale of the call's weight gradients (outputs 0 and 2): db vanishes
+    # in exact arithmetic (a bias under the attention softmax), both sides
+    # hold rounding noise there
+    scale = max(w.abs().max().item() for w in plain[0::2])
+    return got, want, torch.full_like(want, 1e-4 * scale)
+
+
+Kernel = collections.namedtuple(
+    "Kernel", "module plain replaces source per_pair per_step tolerance")
+# module: the module attribute the caller reaches the wrapper through;
+# per_pair / per_step: launches per inference pair / per training step
 KERNELS = {
-    "kpconv_stream_fused": (models_kpconv, kernels_kpconv.kpconv_stream_fused_plain,
-                            "geotransformer_tpu/kernels/kpconv.py:1679",
-                            "geotransformer_tpu_torch/kernels/csrc/kpconv.cu", 1, 1),
-    "kpconv_fused": (models_kpconv, kernels_kpconv.kpconv_fused_plain,
-                     "geotransformer_tpu/kernels/kpconv.py:286",
-                     "geotransformer_tpu_torch/kernels/csrc/kpconv.cu", 10, 10),
-    "gse_embedding_full": (models_transformer, kernels_gse.gse_embedding_full_plain,
-                           "geotransformer_tpu/kernels/gse.py:222",
-                           "geotransformer_tpu_torch/kernels/csrc/gse.cu", 2, 2),
-    "sinkhorn_log_iterations": (models_sinkhorn, kernels_sinkhorn.sinkhorn_log_iterations_plain,
-                                "geotransformer_tpu/kernels/sinkhorn.py:53",
-                                "geotransformer_tpu_torch/kernels/csrc/sinkhorn.cu", 1, 0),
-    "kpconv_bwd_fused": (kernels_kpconv, kernels_kpconv.kpconv_bwd_fused_plain,
-                         "geotransformer_tpu/kernels/kpconv.py:744",
-                         "geotransformer_tpu_torch/kernels/csrc/kpconv_bwd.cu", 0, 10),
-    "gse_full_bwd": (kernels_gse, kernels_gse.gse_full_bwd_plain,
-                     "geotransformer_tpu/kernels/gse.py:378",
-                     "geotransformer_tpu_torch/kernels/csrc/gse_bwd.cu", 0, 2),
-    "sinkhorn_fwd_train": (kernels_sinkhorn, kernels_sinkhorn.sinkhorn_fwd_train_plain,
-                           "geotransformer_tpu/kernels/sinkhorn.py:205",
-                           "geotransformer_tpu_torch/kernels/csrc/sinkhorn_train.cu", 0, 1),
-    "sinkhorn_bwd_train": (kernels_sinkhorn, kernels_sinkhorn.sinkhorn_bwd_train_plain,
-                           "geotransformer_tpu/kernels/sinkhorn.py:234",
-                           "geotransformer_tpu_torch/kernels/csrc/sinkhorn_train.cu", 0, 1),
+    "kpconv_stream_fused": Kernel(models_kpconv, kernels_kpconv.kpconv_stream_fused_plain,
+                                  "geotransformer_tpu/kernels/kpconv.py:1679",
+                                  "geotransformer_tpu_torch/kernels/csrc/kpconv.cu", 1, 1,
+                                  tol_kpconv),
+    "kpconv_fused": Kernel(models_kpconv, kernels_kpconv.kpconv_fused_plain,
+                           "geotransformer_tpu/kernels/kpconv.py:286",
+                           "geotransformer_tpu_torch/kernels/csrc/kpconv.cu", 10, 10, tol_kpconv),
+    "gse_embedding_full": Kernel(models_transformer, kernels_gse.gse_embedding_full_plain,
+                                 "geotransformer_tpu/kernels/gse.py:222",
+                                 "geotransformer_tpu_torch/kernels/csrc/gse.cu", 2, 2,
+                                 tol_gse_embedding),
+    "sinkhorn_log_iterations": Kernel(models_sinkhorn,
+                                      kernels_sinkhorn.sinkhorn_log_iterations_plain,
+                                      "geotransformer_tpu/kernels/sinkhorn.py:53",
+                                      "geotransformer_tpu_torch/kernels/csrc/sinkhorn.cu", 1, 0,
+                                      tol_sinkhorn_scores),
+    "kpconv_bwd_fused": Kernel(kernels_kpconv, kernels_kpconv.kpconv_bwd_fused_plain,
+                               "geotransformer_tpu/kernels/kpconv.py:744",
+                               "geotransformer_tpu_torch/kernels/csrc/kpconv_bwd.cu", 0, 10,
+                               tol_kpconv),
+    "gse_full_bwd": Kernel(kernels_gse, kernels_gse.gse_full_bwd_plain,
+                           "geotransformer_tpu/kernels/gse.py:378",
+                           "geotransformer_tpu_torch/kernels/csrc/gse_bwd.cu", 0, 2, tol_gse_bwd),
+    "sinkhorn_fwd_train": Kernel(kernels_sinkhorn, kernels_sinkhorn.sinkhorn_fwd_train_plain,
+                                 "geotransformer_tpu/kernels/sinkhorn.py:205",
+                                 "geotransformer_tpu_torch/kernels/csrc/sinkhorn_train.cu", 0, 1,
+                                 tol_sinkhorn_scores),
+    "sinkhorn_bwd_train": Kernel(kernels_sinkhorn, kernels_sinkhorn.sinkhorn_bwd_train_plain,
+                                 "geotransformer_tpu/kernels/sinkhorn.py:234",
+                                 "geotransformer_tpu_torch/kernels/csrc/sinkhorn_train.cu", 0, 1,
+                                 tol_sinkhorn_bwd),
 }
-INFERENCE = [k for k, v in KERNELS.items() if v[4]]
-TRAINING = [k for k, v in KERNELS.items() if not v[4]]
+INFERENCE = [k for k, v in KERNELS.items() if v.per_pair]
+TRAINING = [k for k, v in KERNELS.items() if not v.per_pair]
 
 
 def make_pair(seed, n_ref=19000, extent=1.3):
@@ -134,33 +176,6 @@ def make_pair(seed, n_ref=19000, extent=1.3):
     return ref, src, transform
 
 
-def max_in_degree(table, num_support):
-    values = table[table < num_support]
-    return int(np.bincount(values, minlength=num_support).max(initial=0))
-
-
-def inverse_limits_for(cfg, pyramids):
-    """The config's inverse capacities, raised (and said so) where a pair's
-    in-degree exceeds them, so build_inverse_table cannot overflow."""
-    limits = list(cfg.caps.inverse_limits)
-    sub_limits = [max(16, int(l) // 4 + 8) for l in limits[:-1]]  # the batch default
-    for stage in range(len(limits)):
-        need = max(max_in_degree(p["neighbors"][stage], len(p["points"][stage]))
-                   for p, _, _ in pyramids)
-        if need > limits[stage]:
-            print(f"inverse limit of stage {stage} raised from {limits[stage]} to "
-                  f"{round_up(need, 8)}: a support point has in-degree {need}", flush=True)
-            limits[stage] = round_up(need, 8)
-        if stage < len(sub_limits):
-            need = max(max_in_degree(p["subsampling"][stage], len(p["points"][stage]))
-                       for p, _, _ in pyramids)
-            if need > sub_limits[stage]:
-                print(f"subsampling inverse limit of stage {stage} raised from "
-                      f"{sub_limits[stage]} to {round_up(need, 8)}: in-degree {need}", flush=True)
-                sub_limits[stage] = round_up(need, 8)
-    return tuple(limits), tuple(sub_limits)
-
-
 def build_batches(cfg, seeds):
     pyramids = []
     for seed in seeds:
@@ -174,13 +189,11 @@ def build_batches(cfg, seeds):
     per_pair = [caps_for_pyramid(p, multiple=256, per_cloud=True) for p, _, _ in pyramids]
     caps = tuple(tuple(max(c[s][i] for c in per_pair) for i in range(2))
                  for s in range(cfg.backbone.num_stages))
-    inverse_limits, sub_inverse_limits = inverse_limits_for(cfg, pyramids)
     batches = [pad_registration_batch(p, np.ones((n, 1), np.float32), t, caps,
-                                      inverse_limits=inverse_limits,
-                                      sub_inverse_limits=sub_inverse_limits)
+                                      inverse_limits=cfg.caps.inverse_limits)
                for p, n, t in pyramids]
     stages = [[[int(v) for v in l] for l in p["lengths"]] for p, _, _ in pyramids]
-    return caps, inverse_limits, batches, stages
+    return caps, batches, stages
 
 
 @contextlib.contextmanager
@@ -189,7 +202,7 @@ def capture_kernel_calls(names):
     records = collections.defaultdict(list)
     saved = []
     for name in names:
-        module = KERNELS[name][0]
+        module = KERNELS[name].module
         fn = getattr(module, name)
         saved.append((module, name, fn))
 
@@ -233,28 +246,12 @@ def _plain_kwargs(kwargs):
 
 def check_call(name, kernel_out, plain_out, args):
     """Max |kernel - plain| of one call, after checking its tolerance."""
+    tolerance, plain = KERNELS[name].tolerance, _as_tuple(plain_out)
     worst = 0.0
-    for got, want in zip(_as_tuple(kernel_out), _as_tuple(plain_out)):
+    for i, (got, want) in enumerate(zip(_as_tuple(kernel_out), plain)):
         expect(got.shape == want.shape, f"{name}: shape {got.shape} vs plain {want.shape}")
         expect(bool(torch.isfinite(got).all()), f"{name}: non-finite kernel output")
-        if name == "gse_embedding_full":
-            nv = int(args[8])
-            got, want = got[:nv, :nv], want[:nv, :nv]
-            bound = torch.full_like(want, 1e-3)
-        elif name.startswith("sinkhorn") and got.shape == args[0].shape and name != "sinkhorn_bwd_train":
-            valid = args[0] > -1e11  # masked slots hold -1e12
-            got, want = got[valid], want[valid]
-            bound = 1e-4 + 1e-4 * want.abs()
-        elif name.startswith("sinkhorn"):
-            bound = 1e-4 + 1e-4 * want.abs()
-        elif name == "gse_full_bwd":
-            # the scale of the call's weight gradients: db vanishes in exact
-            # arithmetic (a bias under the attention softmax), both sides
-            # hold rounding noise there
-            scale = max(w.abs().max().item() for w in _as_tuple(plain_out))
-            bound = torch.full_like(want, 1e-4 * scale)
-        else:
-            bound = 1e-4 * want.abs() + 1e-5 * want.abs().max()
+        got, want, bound = tolerance(i, got, want, args, plain)
         diff = (got - want).abs()
         expect(bool((diff <= bound).all()),
                f"{name}: kernel disagrees with its plain version, max |diff| {diff.max().item()}")
@@ -322,13 +319,13 @@ def cost_sinkhorn_bwd_train(args, kwargs, out):
 
 def cost_kpconv_bwd_fused(args, kwargs, out):
     s_feats, _, q_points, gdiv, inv, kp, weights = args[:7]
-    n, c = s_feats.shape
+    c = s_feats.shape[1]
     m, d = gdiv.shape
     k = weights.shape[0]
     valid = inv < m
     edges = int(valid.sum())
     active = int(valid.any(dim=1).sum())
-    ops = 10 * edges * k + 2 * edges * k * d + 2 * active * k * d * c + 2 * n * k * c * d
+    ops = 10 * edges * k + 2 * edges * k * d + 4 * active * k * d * c  # u, d_s, dW
     pool = kwargs.get("pool_feats")
     if pool is not None:
         ops += 2 * edges * pool.shape[1]
@@ -350,7 +347,7 @@ def compare_kernels(records, names, reps):
     """Each kernel vs its plain version on the captured calls."""
     results = {}
     for name in names:
-        module, plain = KERNELS[name][:2]
+        module, plain = KERNELS[name].module, KERNELS[name].plain
         calls = records[name]
         kernel = getattr(module, name)
         expect(calls, f"{name}: no call captured")
@@ -476,10 +473,10 @@ def train_phase(cfg, model, batches, report):
         counts = dict(cuda.launches)
         cuda.launches.clear()
         total.update(counts)
-        for name, (*_rest, per_step) in KERNELS.items():
-            expect(counts.get(name, 0) == per_step,
+        for name, kernel in KERNELS.items():
+            expect(counts.get(name, 0) == kernel.per_step,
                    f"train step {i}: {name} launched {counts.get(name, 0)} times, expected "
-                   f"{per_step}")
+                   f"{kernel.per_step}")
         expect(metrics["grad_finite"].item() == 1.0, f"train step {i} skipped by the guard")
         loss = metrics["loss"].item()
         expect(np.isfinite(loss), f"train step {i}: loss {loss}")
@@ -533,10 +530,6 @@ def profile_train(cfg, model, batches, report):
 
 
 def main():
-    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--profile-train", action="store_true",
-                        help="also profile two training steps (chiprun_out/train_profile.txt)")
-    options = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device (torch.cuda.is_available() is False)")
     device = torch.device(DEVICE)
@@ -553,11 +546,11 @@ def main():
     # 2. batch
     cfg = make_3dmatch_config()
     start = time.perf_counter()
-    caps, inverse_limits, batches_np, stages = build_batches(cfg, SEEDS)
+    caps, batches_np, stages = build_batches(cfg, SEEDS)
     print(f"batch: {len(batches_np)} pairs in {time.perf_counter() - start:.1f} s; "
-          f"stages {stages}; caps {caps}; inverse limits {inverse_limits}", flush=True)
-    report.update(stages=stages, caps=caps, inverse_limits=inverse_limits)
-    cfg = cfg.with_caps(stage_caps=caps, inverse_limits=inverse_limits)
+          f"stages {stages}; caps {caps}; inverse limits {cfg.caps.inverse_limits}", flush=True)
+    report.update(stages=stages, caps=caps)
+    cfg = cfg.with_caps(stage_caps=caps)
     batches = [batch_to_torch(b, device) for b in batches_np]
 
     # 3. forward: the inference path, counted
@@ -571,7 +564,7 @@ def main():
         outs.append(out)
     launches = {"inference": dict(cuda.launches)}
     for name in KERNELS:
-        per_pair = KERNELS[name][4]
+        per_pair = KERNELS[name].per_pair
         got = launches["inference"].get(name, 0)
         expect(got == per_pair * len(batches),
                f"{name}: {got} launches in the inference path, expected {per_pair * len(batches)}")
@@ -631,8 +624,9 @@ def main():
               f"{r['ms']:.3f} ms vs plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']})", flush=True)
     report["kernels"] = results
-    if options.profile_train:
-        profile_train(cfg, model, batches, report)
+
+    # 7. profile two more training steps
+    profile_train(cfg, model, batches, report)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -644,10 +638,11 @@ def main():
         json.dump(report, f, indent=1, default=str)
 
     line = []
-    for name, (_m, _p, replaces, source, _pair, _step) in KERNELS.items():
+    for name, kernel in KERNELS.items():
         r = results[name]
         by_path = {path: counts.get(name, 0) for path, counts in launches.items()}
-        line.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+        line.append({"name": name, "route": "cuda", "source": kernel.source,
+                     "replaces": kernel.replaces,
                      "launches": sum(by_path.values()), "launches_by_path": by_path,
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
