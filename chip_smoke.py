@@ -1,10 +1,15 @@
 #!/usr/bin/env python3
-r"""Drive the PyTorch port's 3DMatch inference and training paths on one CUDA
-card.
+r"""Drive the PyTorch port's 3DMatch and KITTI inference, training and eval
+paths on one CUDA card.
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero; no phase's exception is caught):
+Phases (any failure exits non-zero; no phase's exception is caught). Every
+counted run clears the kernels' launch counts just before it and reads them
+just after; each count must equal what the batch's tables imply
+(``expected_launches``: a split conv launches the kpconv_fused kernel twice,
+both counted as kpconv_split_fused; a split inverse table launches
+kpconv_bwd_fused twice).
   1. build   — nvcc compiles the CUDA kernels of geotransformer_tpu_torch/
                kernels/csrc for sm_90a, one process per source, in parallel;
   2. batch   — three synthetic 3DMatch-scale pairs (19,000-point wavy
@@ -13,33 +18,59 @@ Phases (any failure exits non-zero; no phase's exception is caught):
                them (multiple 256, per cloud), with the inverse neighbor
                tables of training batches;
   3. forward — the full-width make_3dmatch_config() model, seeded random
-               weights, registers the three pairs; the kernels' launch counts
-               are cleared just before and read just after, and every kernel
-               of the path must have launched; per-pair time from CUDA events;
+               weights, registers the three pairs, counted; per-pair time
+               from CUDA events;
   4. kernel vs plain — each inference kernel on the inputs it got in a
                forward, held against its plain PyTorch version (KPConv rtol
                1e-4 and atol 1e-5 x max|plain|; GSE atol 1e-3 on the valid
                rectangle; Sinkhorn 1e-4 on valid entries), both timed; and the
                whole model with force_pallas=False, whose ref/src_feats_c must
                agree with the kernel run to 1e-3 of their largest magnitude;
-  5. train   — the same model takes 8 training steps (Adam at the config's
-               lr; pairs 0, 1, 2 in turn; GT targets precomputed on the card):
-               counts cleared before and read after every step, each exact;
-               every loss finite, no step skipped by the finite-gradient
-               guard, and the seed-0 loss after the steps below its first;
-               per-step time (CUDA events) and peak device memory;
-  6. backward kernels vs plain — each training kernel on the inputs it got
+  5. union   — the same pairs with per-tile neighbor unions and no edge
+               stream (union_cap 1536 or the next multiple of 512 that
+               holds, tile 128): one counted forward each through the
+               union-gather input conv, ref/src_feats_c within 1e-3 of
+               phase 3's; the union kernel vs its plain version;
+  6. train   — 8 training steps (Adam at the config's lr; pairs 0, 1, 2 in
+               turn; GT targets precomputed on the card), each counted; every
+               loss finite, no step skipped by the finite-gradient guard, and
+               the seed-0 loss after the steps below its first; per-step time
+               (CUDA events) and peak device memory;
+  7. backward kernels vs plain — each training kernel on the inputs it got
                in one step, against its plain version (KPConv backward as the
                forward; GSE gradients atol 1e-4 x the largest plain one; Sinkhorn
                1e-4), both timed; and the whole step: every parameter
                gradient of the kernel model within 1e-3 (relative norm) of the
                force_pallas=False model's from the same weights and batch;
-  7. profile — torch.profiler over two more training steps: device time by
+  8. profile — torch.profiler over two more training steps: device time by
                kernel (chiprun_out/train_profile.txt) and the device's busy
-               share of phase 5's median step.
-Then it prints the {"kernels": [...]} line, the card's name and power limit,
-and, last, {"ok": true, "device": {...}}. Details go to
-chiprun_out/chip_smoke.json.
+               share of phase 6's median step;
+  9. KITTI batch — three synthetic LiDAR pairs (seeds 0-2: ray-cast ground
+               and facades, ~30k points a scan after the 0.3 m voxel grid,
+               src sensor at (6, 2) with yaw 0.12 so ref = R_z(0.12) src +
+               (6, 2, 0)), per-cloud stage capacities (multiple 256) and
+               neighbor and subsampling split specs calibrated over the three
+               pairs, inverse tables with splits fitted to each pair;
+ 10. KITTI forward — the full-width make_kitti_config() model registers the
+               three pairs, counted, timed; each inference kernel of the KITTI
+               forward (kpconv_split_fused among them) vs its plain version on
+               the inputs it got there, as phase 4, and kpconv_split_fused
+               also vs the unsplit plain conv on the whole table; the
+               force_pallas=False model agrees on ref/src_feats_c to 1e-3;
+ 11. KITTI train — 6 steps (pairs 0, 1, 2 in turn) without precomputed
+               targets, so every step runs patch_overlaps; counted, finite
+               losses, no skip, falling seed-0 loss, step median, peak
+               memory; each training kernel of one KITTI step (the split
+               branch of kpconv_bwd_fused, Sinkhorn at 129 x 129, GSE at
+               C = 128) and patch_overlaps (equal on at least 99.9 % of valid
+               candidates, within 1/K elsewhere) vs its plain version;
+               whole-step gradients vs the plain model's; one eval step per
+               pair (no precomputed targets), counted, finite metrics; a
+               profile of two more steps (chiprun_out/kitti_train_profile.txt).
+Then it prints the {"kernels": [...]} line (each kernel's numbers summed over
+the paths it was compared on, with each path's own under "by_path"), the
+card's name and power limit, and, last, {"ok": true, "device": {...}}.
+Details go to chiprun_out/chip_smoke.json.
 """
 
 import collections
@@ -53,27 +84,36 @@ import time
 import numpy as np
 import torch
 
-from geotransformer_tpu_torch.configs import make_3dmatch_config
+from geotransformer_tpu_torch.configs import make_3dmatch_config, make_kitti_config
 from geotransformer_tpu_torch.kernels import cuda
 from geotransformer_tpu_torch.kernels import gse as kernels_gse
 from geotransformer_tpu_torch.kernels import kpconv as kernels_kpconv
+from geotransformer_tpu_torch.kernels import overlap as kernels_overlap
 from geotransformer_tpu_torch.kernels import sinkhorn as kernels_sinkhorn
 from geotransformer_tpu_torch.losses import overall_loss
 from geotransformer_tpu_torch.models import create_model, precompute_gt_targets
 from geotransformer_tpu_torch.models import kpconv as models_kpconv
+from geotransformer_tpu_torch.models import matching as models_matching
 from geotransformer_tpu_torch.models import sinkhorn as models_sinkhorn
 from geotransformer_tpu_torch.models import transformer as models_transformer
-from geotransformer_tpu_torch.parallel import make_optimizer, make_train_step
+from geotransformer_tpu_torch.parallel import make_eval_step, make_optimizer, make_train_step
 from geotransformer_tpu_torch.preprocess import (
     batch_to_torch,
     build_pyramid,
+    calibrate_split_specs,
+    calibrate_stage_caps,
     caps_for_pyramid,
+    fit_split_for_table,
     pad_registration_batch,
+    round_up,
 )
+from geotransformer_tpu_torch.preprocess.voxel import grid_subsample_single
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEEDS = (0, 1, 2)
 TRAIN_STEPS = 8
+KITTI_TRAIN_STEPS = 6
+UNION_CAP, UNION_TILE = 1536, 128
 PEAK_F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 DEVICE = "cuda"
@@ -113,45 +153,112 @@ def tol_gse_bwd(i, got, want, args, plain):
     return got, want, torch.full_like(want, 1e-4 * scale)
 
 
-Kernel = collections.namedtuple(
-    "Kernel", "module plain replaces source per_pair per_step tolerance")
-# module: the module attribute the caller reaches the wrapper through;
-# per_pair / per_step: launches per inference pair / per training step
+def tol_overlaps(i, got, want, args, plain):
+    # valid candidates: equal on at least 99.9 % (both take the same direct
+    # distance), within 1/K elsewhere (one cover flag flipped at the radius)
+    valid = args[5]
+    got, want = got[valid], want[valid]
+    equal = (got == want).float().mean().item() if want.numel() else 1.0
+    expect(equal >= 0.999, f"patch_overlaps: only {100 * equal:.3f} % of entries equal")
+    return got, want, torch.full_like(want, 1.0 / args[0].shape[1])
+
+
+Kernel = collections.namedtuple("Kernel", "module plain replaces source tolerance")
+# module: the module attribute the caller reaches the wrapper through
 KERNELS = {
     "kpconv_stream_fused": Kernel(models_kpconv, kernels_kpconv.kpconv_stream_fused_plain,
                                   "geotransformer_tpu/kernels/kpconv.py:1679",
-                                  "geotransformer_tpu_torch/kernels/csrc/kpconv.cu", 1, 1,
-                                  tol_kpconv),
+                                  "geotransformer_tpu_torch/kernels/csrc/kpconv.cu", tol_kpconv),
     "kpconv_fused": Kernel(models_kpconv, kernels_kpconv.kpconv_fused_plain,
                            "geotransformer_tpu/kernels/kpconv.py:286",
-                           "geotransformer_tpu_torch/kernels/csrc/kpconv.cu", 10, 10, tol_kpconv),
+                           "geotransformer_tpu_torch/kernels/csrc/kpconv.cu", tol_kpconv),
     "gse_embedding_full": Kernel(models_transformer, kernels_gse.gse_embedding_full_plain,
                                  "geotransformer_tpu/kernels/gse.py:222",
-                                 "geotransformer_tpu_torch/kernels/csrc/gse.cu", 2, 2,
+                                 "geotransformer_tpu_torch/kernels/csrc/gse.cu",
                                  tol_gse_embedding),
     "sinkhorn_log_iterations": Kernel(models_sinkhorn,
                                       kernels_sinkhorn.sinkhorn_log_iterations_plain,
                                       "geotransformer_tpu/kernels/sinkhorn.py:53",
-                                      "geotransformer_tpu_torch/kernels/csrc/sinkhorn.cu", 1, 0,
+                                      "geotransformer_tpu_torch/kernels/csrc/sinkhorn.cu",
                                       tol_sinkhorn_scores),
+    "kpconv_split_fused": Kernel(models_kpconv, kernels_kpconv.kpconv_split_fused_plain,
+                                 "geotransformer_tpu/kernels/kpconv.py:1288",
+                                 "geotransformer_tpu_torch/kernels/csrc/kpconv.cu", tol_kpconv),
     "kpconv_bwd_fused": Kernel(kernels_kpconv, kernels_kpconv.kpconv_bwd_fused_plain,
                                "geotransformer_tpu/kernels/kpconv.py:744",
-                               "geotransformer_tpu_torch/kernels/csrc/kpconv_bwd.cu", 0, 10,
-                               tol_kpconv),
+                               "geotransformer_tpu_torch/kernels/csrc/kpconv_bwd.cu", tol_kpconv),
+    "kpconv_union_input_fused": Kernel(models_kpconv,
+                                       kernels_kpconv.kpconv_union_input_fused_plain,
+                                       "geotransformer_tpu/kernels/kpconv.py:1135",
+                                       "geotransformer_tpu_torch/kernels/csrc/kpconv.cu",
+                                       tol_kpconv),
     "gse_full_bwd": Kernel(kernels_gse, kernels_gse.gse_full_bwd_plain,
                            "geotransformer_tpu/kernels/gse.py:378",
-                           "geotransformer_tpu_torch/kernels/csrc/gse_bwd.cu", 0, 2, tol_gse_bwd),
+                           "geotransformer_tpu_torch/kernels/csrc/gse_bwd.cu", tol_gse_bwd),
     "sinkhorn_fwd_train": Kernel(kernels_sinkhorn, kernels_sinkhorn.sinkhorn_fwd_train_plain,
                                  "geotransformer_tpu/kernels/sinkhorn.py:205",
-                                 "geotransformer_tpu_torch/kernels/csrc/sinkhorn_train.cu", 0, 1,
+                                 "geotransformer_tpu_torch/kernels/csrc/sinkhorn_train.cu",
                                  tol_sinkhorn_scores),
     "sinkhorn_bwd_train": Kernel(kernels_sinkhorn, kernels_sinkhorn.sinkhorn_bwd_train_plain,
                                  "geotransformer_tpu/kernels/sinkhorn.py:234",
-                                 "geotransformer_tpu_torch/kernels/csrc/sinkhorn_train.cu", 0, 1,
+                                 "geotransformer_tpu_torch/kernels/csrc/sinkhorn_train.cu",
                                  tol_sinkhorn_bwd),
+    "patch_overlaps": Kernel(models_matching, kernels_overlap.patch_overlaps_plain,
+                             "geotransformer_tpu/kernels/overlap.py:89",
+                             "geotransformer_tpu_torch/kernels/csrc/overlap.cu", tol_overlaps),
 }
-INFERENCE = [k for k, v in KERNELS.items() if v.per_pair]
-TRAINING = [k for k, v in KERNELS.items() if not v.per_pair]
+INFERENCE = ["kpconv_stream_fused", "kpconv_fused", "gse_embedding_full",
+             "sinkhorn_log_iterations"]
+TRAINING = ["kpconv_bwd_fused", "gse_full_bwd", "sinkhorn_fwd_train", "sinkhorn_bwd_train"]
+
+
+def expected_launches(batch, mode):
+    """Kernel launches of one forward (``mode`` "inference" or "eval") or one
+    training step ("train") on ``batch``, from the tables it carries."""
+    n = len(batch["points"])
+    nb_split = batch.get("neighbors_split", [None] * n)
+    sub_split = batch.get("subsampling_split", [None] * n)
+    nb_inv = batch.get("neighbors_inv", [None] * n)
+    sub_inv = batch.get("subsampling_inv", [None] * n)
+    counts = collections.Counter()
+
+    def conv(split):
+        if split is None:
+            counts["kpconv_fused"] += 1
+        else:  # the head pass and the tail pass
+            counts["kpconv_split_fused"] += 2
+
+    if "input_stream" in batch:
+        counts["kpconv_stream_fused"] += 1
+    elif "union_rows0" in batch:
+        counts["kpconv_union_input_fused"] += 1
+    else:
+        conv(nb_split[0])
+    # every later conv, with the inverse table its backward reads
+    convs = [(nb_split[0], nb_inv[0])]
+    for s in range(1, n):
+        convs += [(sub_split[s - 1], sub_inv[s - 1])] + [(nb_split[s], nb_inv[s])] * 2
+    for split, inv in convs:
+        conv(split)
+        if mode == "train":
+            counts["kpconv_bwd_fused"] += 2 if isinstance(inv, (tuple, list)) else 1
+    counts["gse_embedding_full"] += 2
+    if mode == "train":
+        counts.update(gse_full_bwd=2, sinkhorn_fwd_train=1, sinkhorn_bwd_train=1)
+    else:
+        counts["sinkhorn_log_iterations"] += 1
+    if mode != "inference" and "gt_cand_indices" not in batch:
+        counts["patch_overlaps"] += 1
+    return counts
+
+
+def expect_launches(got, batches, mode, what):
+    want = collections.Counter()
+    for batch in batches:
+        want.update(expected_launches(batch, mode))
+    for name in KERNELS:
+        expect(got.get(name, 0) == want.get(name, 0),
+               f"{what}: {name} launched {got.get(name, 0)} times, expected {want.get(name, 0)}")
 
 
 def make_pair(seed, n_ref=19000, extent=1.3):
@@ -176,15 +283,75 @@ def make_pair(seed, n_ref=19000, extent=1.3):
     return ref, src, transform
 
 
+def make_kitti_pair(seed, n_rays=180000):
+    """Synthetic LiDAR scan pair at KITTI scale (the JAX package's bench
+    generator, bench.py:97-154): returns on the ground plane and on 40
+    vertical facade planes, ray-cast from two sensor poses 1.7 m above the
+    ground, 2 cm noise, each scan in its own sensor frame through a 0.3 m
+    voxel grid (at most 30,000 points). The src sensor sits at (6, 2) with
+    yaw 0.12, so ref = R_z(0.12) src + (6, 2, 0)."""
+    rng = np.random.default_rng(seed)
+    n_planes = 40
+    c = rng.uniform(-50, 50, (n_planes, 2))
+    theta = rng.uniform(0, np.pi, n_planes)
+    nvec = np.stack([np.cos(theta), np.sin(theta)], 1)
+    tvec = np.stack([-np.sin(theta), np.cos(theta)], 1)
+    halfw = rng.uniform(3.0, 15.0, n_planes)
+    height = rng.uniform(2.5, 10.0, n_planes)
+
+    def scan(pos, yaw):
+        az = rng.uniform(0, 2 * np.pi, n_rays)
+        elev = np.deg2rad(rng.uniform(-24.0, 2.0, n_rays))
+        ce, se = np.cos(elev), np.sin(elev)
+        ca, sa = np.cos(az + yaw), np.sin(az + yaw)
+        dirs = np.stack([ce * ca, ce * sa, se], 1)  # world-frame rays
+        p = np.array([pos[0], pos[1], 1.7])
+        d = np.where(dirs[:, 2] < -1e-4, -p[2] / np.minimum(dirs[:, 2], -1e-4), np.inf)
+        for i in range(n_planes):
+            denom = dirs[:, 0] * nvec[i, 0] + dirs[:, 1] * nvec[i, 1]
+            denom = np.where(np.abs(denom) < 1e-6, 1e-6, denom)
+            t = ((c[i, 0] - p[0]) * nvec[i, 0] + (c[i, 1] - p[1]) * nvec[i, 1]) / denom
+            hz = p[2] + t * dirs[:, 2]
+            u = ((p[0] + t * dirs[:, 0] - c[i, 0]) * tvec[i, 0]
+                 + (p[1] + t * dirs[:, 1] - c[i, 1]) * tvec[i, 1])
+            ok = (t > 1.0) & (t < d) & (np.abs(u) < halfw[i]) & (hz > 0.0) & (hz < height[i])
+            d = np.where(ok, t, d)
+        keep = d < 75.0
+        d = d[keep]
+        # sensor-frame coordinates (rotation about z: the local azimuth drops yaw)
+        ca_l, sa_l = np.cos(az[keep]), np.sin(az[keep])
+        pts = np.stack([d * ce[keep] * ca_l, d * ce[keep] * sa_l, d * se[keep]],
+                       1).astype(np.float32)
+        pts += rng.normal(0, 0.02, pts.shape).astype(np.float32)
+        return grid_subsample_single(pts, 0.3)
+
+    ref = scan((0.0, 0.0), 0.0)
+    src = scan((6.0, 2.0), 0.12)
+    limit = 30000
+    if len(ref) > limit:
+        ref = ref[rng.permutation(len(ref))[:limit]]
+    if len(src) > limit:
+        src = src[rng.permutation(len(src))[:limit]]
+    transform = np.eye(4, dtype=np.float32)
+    cos, sin = np.cos(0.12), np.sin(0.12)
+    transform[:3, :3] = [[cos, -sin, 0.0], [sin, cos, 0.0], [0.0, 0.0, 1.0]]
+    transform[:3, 3] = (6.0, 2.0, 0.0)
+    return ref.astype(np.float32), src.astype(np.float32), transform
+
+
+def build_pyramids(cfg, pairs):
+    bb = cfg.backbone
+    return [(build_pyramid(np.concatenate([ref, src], 0), [len(ref), len(src)], bb.num_stages,
+                           bb.init_voxel_size, bb.init_radius, list(cfg.caps.neighbor_limits)),
+             len(ref) + len(src), transform) for ref, src, transform in pairs]
+
+
+def stage_sizes(pyramids):
+    return [[[int(v) for v in l] for l in p["lengths"]] for p, _, _ in pyramids]
+
+
 def build_batches(cfg, seeds):
-    pyramids = []
-    for seed in seeds:
-        ref, src, transform = make_pair(seed)
-        points = np.concatenate([ref, src], 0)
-        pyramid = build_pyramid(points, [len(ref), len(src)], cfg.backbone.num_stages,
-                                cfg.backbone.init_voxel_size, cfg.backbone.init_radius,
-                                list(cfg.caps.neighbor_limits))
-        pyramids.append((pyramid, points.shape[0], transform))
+    pyramids = build_pyramids(cfg, [make_pair(seed) for seed in seeds])
     # one capacity per stage and cloud covering every pair, as scripts/demo.py picks them
     per_pair = [caps_for_pyramid(p, multiple=256, per_cloud=True) for p, _, _ in pyramids]
     caps = tuple(tuple(max(c[s][i] for c in per_pair) for i in range(2))
@@ -192,8 +359,56 @@ def build_batches(cfg, seeds):
     batches = [pad_registration_batch(p, np.ones((n, 1), np.float32), t, caps,
                                       inverse_limits=cfg.caps.inverse_limits)
                for p, n, t in pyramids]
-    stages = [[[int(v) for v in l] for l in p["lengths"]] for p, _, _ in pyramids]
-    return caps, batches, stages
+    return caps, pyramids, batches, stage_sizes(pyramids)
+
+
+def union_capacity(batches, tile):
+    """UNION_CAP, or the next multiple of 512 holding every tile's union."""
+    largest = 0
+    for batch in batches:
+        table = batch["neighbors"][0]
+        for t in range(0, table.shape[0], tile):
+            block = table[t:t + tile]
+            largest = max(largest, np.unique(block[block < table.shape[0]]).size)
+    return max(UNION_CAP, round_up(largest, 512)), largest
+
+
+def build_kitti_batches(cfg, seeds):
+    """Three KITTI batches at capacities and splits calibrated over them, with
+    pair-fitted split inverse tables; host seconds per step."""
+    host = {}
+    start = time.perf_counter()
+    pairs = [make_kitti_pair(seed) for seed in seeds]
+    host["pairs"] = time.perf_counter() - start
+    start = time.perf_counter()
+    pyramids = build_pyramids(cfg, pairs)
+    host["pyramid"] = time.perf_counter() - start
+    bb = cfg.backbone
+    start = time.perf_counter()
+    # capacities and splits over the three pairs the smoke registers (the
+    # synthetic scans outgrow the config's caps from stage 1 on)
+    samples = [{"ref_points": r, "src_points": s} for r, s, _ in pairs]
+    args = (bb.num_stages, bb.init_voxel_size, bb.init_radius, list(cfg.caps.neighbor_limits))
+    caps = tuple(calibrate_stage_caps(iter(samples), *args, num_samples=len(pairs)))
+    nb_splits, sub_splits = calibrate_split_specs(iter(samples), *args, num_samples=len(pairs))
+    host["calibration"] = time.perf_counter() - start
+    start = time.perf_counter()
+    batches, inverse_splits = [], []
+    for p, n, t in pyramids:
+        args = (p, np.ones((n, 1), np.float32), t, caps)
+        kw = dict(inverse_limits=cfg.caps.inverse_limits, neighbor_splits=nb_splits,
+                  subsampling_splits=sub_splits)
+        whole = pad_registration_batch(*args, **kw)
+        rows = [nb.shape[0] for nb in whole["neighbors"]]
+        # the subsampling inverse's sentinel is the next stage's row count
+        kw["inverse_splits"] = [fit_split_for_table(inv, rows[i], align=8)
+                                for i, inv in enumerate(whole["neighbors_inv"])]
+        kw["sub_inverse_splits"] = [fit_split_for_table(inv, rows[i + 1], align=8)
+                                    for i, inv in enumerate(whole["subsampling_inv"])]
+        inverse_splits.append((kw["inverse_splits"], kw["sub_inverse_splits"]))
+        batches.append(pad_registration_batch(*args, **kw))
+    host["tables"] = time.perf_counter() - start
+    return caps, batches, stage_sizes(pyramids), (nb_splits, sub_splits), inverse_splits, host
 
 
 @contextlib.contextmanager
@@ -255,40 +470,75 @@ def check_call(name, kernel_out, plain_out, args):
         diff = (got - want).abs()
         expect(bool((diff <= bound).all()),
                f"{name}: kernel disagrees with its plain version, max |diff| {diff.max().item()}")
-        worst = max(worst, diff.max().item())
+        worst = max(worst, diff.max().item() if diff.numel() else 0.0)
     return worst
 
 
 # --- the least time the card could take for each call (bound_ms) --------
 # bytes: each input read once, each output written once; operations: what
-# these inputs need (valid edges, active queries, the valid GSE rectangle),
-# against 67 TFLOP/s f32 and 3.35 TB/s.
+# these inputs need (valid edges, active queries, the valid GSE rectangle,
+# valid point pairs of valid candidates), against 67 TFLOP/s f32 and
+# 3.35 TB/s.
 
 def _nbytes(*tensors):
-    return sum(t.numel() * t.element_size() for t in tensors if isinstance(t, torch.Tensor))
+    total = 0
+    for t in tensors:
+        if isinstance(t, (tuple, list)):
+            total += _nbytes(*t)
+        elif isinstance(t, torch.Tensor):
+            total += t.numel() * t.element_size()
+    return total
 
 
-def cost_kpconv_fused(args, kwargs, out):
-    s_feats, q_points, _, nbr, kp, weights = args[:6]
-    n, c = s_feats.shape
-    k, _, d = weights.shape
+def _whole_table(head, tail, rank, sentinel):
+    """The unsplit table of a split one: the head columns, then each row's
+    tail row brought back by rank (all sentinels where it has none)."""
+    tail = torch.cat([tail, torch.full_like(tail[:1], sentinel)])
+    return torch.cat([head, tail[rank.long()]], dim=1).contiguous()
+
+
+def _conv_ops(nbr, n, q_mask, k, c, d, pool):
     valid = nbr < n
-    if kwargs.get("q_mask") is not None:
-        valid &= kwargs["q_mask"][:, None]
+    if q_mask is not None:
+        valid &= q_mask[:, None]
     edges = int(valid.sum())
     active = int(valid.any(dim=1).sum())
     ops = 10 * edges * k + 2 * edges * k * c + 2 * active * k * c * d
-    pool = kwargs.get("pool_feats")
-    if pool is not None:
-        ops += edges * pool.shape[1]
-    return _nbytes(*args[:6], *kwargs.values(), *_as_tuple(out)), ops
+    return ops + (edges * pool.shape[1] if pool is not None else 0)
+
+
+def cost_kpconv_fused(args, kwargs, out):
+    s_feats, _, _, nbr, _, weights = args[:6]
+    k, c, d = weights.shape
+    ops = _conv_ops(nbr, s_feats.shape[0], kwargs.get("q_mask"), k, c, d,
+                    kwargs.get("pool_feats"))
+    return _nbytes(*args[:6], *kwargs.values(), out), ops
+
+
+def cost_kpconv_split_fused(args, kwargs, out):
+    # the edges of head and tail, the weight contraction once per active
+    # query: the unsplit conv's operations on the whole table
+    s_feats, _, _, head, tail, _, rank = args[:7]
+    k, c, d = args[8].shape
+    n = s_feats.shape[0]
+    ops = _conv_ops(_whole_table(head, tail, rank, n), n, kwargs.get("q_mask"), k, c, d,
+                    kwargs.get("pool_feats"))
+    return _nbytes(*args[:9], *kwargs.values(), out), ops
 
 
 def cost_kpconv_stream_fused(args, kwargs, out):
     stream, kp, weights = args[:3]
     _, m, h = stream.shape
     k, _, d = weights.shape
-    return _nbytes(*args[:3], *_as_tuple(out)), 12 * m * h * k + 2 * m * k * d
+    return _nbytes(*args[:3], out), 12 * m * h * k + 2 * m * k * d
+
+
+def cost_kpconv_union_input_fused(args, kwargs, out):
+    union_rows, union_sel, _, weights = args[3:7]
+    k, _, d = weights.shape
+    valid = union_sel < union_rows.shape[1]
+    edges, active = int(valid.sum()), int(valid.any(dim=1).sum())
+    return _nbytes(*args[:7], out), 12 * edges * k + 2 * active * k * d
 
 
 def cost_gse_embedding_full(args, kwargs, out):
@@ -322,6 +572,10 @@ def cost_kpconv_bwd_fused(args, kwargs, out):
     c = s_feats.shape[1]
     m, d = gdiv.shape
     k = weights.shape[0]
+    # a split table: the edges of head and tail, d_s and dW once per active
+    # support row, as on the whole table
+    if isinstance(inv, (tuple, list)):
+        inv = _whole_table(inv[0], inv[1], inv[3], m)
     valid = inv < m
     edges = int(valid.sum())
     active = int(valid.any(dim=1).sum())
@@ -338,6 +592,15 @@ def cost_gse_full_bwd(args, kwargs, out):
     nv = int(args[6]) if len(args) > 6 and args[6] is not None else points.shape[0]
     c, a = w_a.shape[0], ref_vectors.shape[1]
     return _nbytes(points, ref_vectors, w_a, de, *out[:3]), nv * nv * 2 * c * c * (a + 2)
+
+
+def cost_patch_overlaps(args, kwargs, out):
+    # per valid point pair of a valid candidate: 3 sub, 3 mul, 2 add, 1 compare
+    ref_pts, ref_mask, _, src_mask, cand, cand_mask = args[:6]
+    ref_valid = ref_mask.sum(dim=1).float()[:, None]
+    src_valid = src_mask.sum(dim=1).float()[cand.long()]
+    pairs = (ref_valid * src_valid)[cand_mask].sum().item()
+    return _nbytes(*args[:6], out), 9 * pairs
 
 
 COSTS = {name: globals()[f"cost_{name}"] for name in KERNELS}
@@ -367,21 +630,75 @@ def compare_kernels(records, names, reps):
             for args, kwargs in calls:
                 plain(*args, **_plain_kwargs(kwargs))
 
-        bytes_ms = total_bytes / PEAK_BYTES * 1e3
-        ops_ms = total_ops / PEAK_F32_FLOPS * 1e3
-        results[name] = {
+        results[name] = with_bound({
             "calls": len(calls),
             "max_abs_err": worst,
             "ms": time_ms(run_kernel, reps),
             "plain_ms": time_ms(run_plain, max(1, reps // 2)),
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "bytes": total_bytes,
             "operations": total_ops,
             # no single PyTorch call computes any of these functions
             "library_ms": None,
-        }
+        })
     return results
+
+
+def with_bound(r):
+    bytes_ms = r["bytes"] / PEAK_BYTES * 1e3
+    ops_ms = r["operations"] / PEAK_F32_FLOPS * 1e3
+    r["bound_ms"] = max(bytes_ms, ops_ms)
+    r["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+    return r
+
+
+def merge_paths(by_path):
+    """{path: {kernel: result}} -> {kernel: result}: calls, times, bytes and
+    operations summed over the paths the kernel was compared on (the bound
+    recomputed from the sums), the largest error, and each path's own."""
+    merged = {}
+    for path, results in by_path.items():
+        for name, r in results.items():
+            m = merged.setdefault(name, {"calls": 0, "max_abs_err": 0.0, "ms": 0.0,
+                                         "plain_ms": 0.0, "bytes": 0, "operations": 0,
+                                         "library_ms": None, "by_path": {}})
+            for key in ("calls", "ms", "plain_ms", "bytes", "operations"):
+                m[key] += r[key]
+            m["max_abs_err"] = max(m["max_abs_err"], r["max_abs_err"])
+            m["by_path"][path] = {key: r[key] for key in (
+                "calls", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
+    return {name: with_bound(m) for name, m in merged.items()}
+
+
+def check_split_against_unsplit(records):
+    """Every captured split conv against the plain conv on its whole table
+    (head columns, then the tail rows brought back by rank); and the time of
+    the unsplit kernel on those tables, which the split replaces."""
+    worst, whole = 0.0, []
+    for args, kwargs in records["kpconv_split_fused"]:
+        s_feats, q_points, s_points, head, tail, _, rank = args[:7]
+        table = _whole_table(head, tail, rank, s_feats.shape[0])
+        unsplit = (s_feats, q_points, s_points, table) + tuple(args[7:])
+        got = kernels_kpconv.kpconv_split_fused(*args, **kwargs)
+        want = kernels_kpconv.kpconv_fused_plain(*unsplit, **_plain_kwargs(kwargs))
+        worst = max(worst, check_call("kpconv_split_fused", got, want, args))
+        whole.append((unsplit, kwargs))
+
+    def run_unsplit():
+        for unsplit, kwargs in whole:
+            kernels_kpconv.kpconv_fused(*unsplit, **kwargs)
+
+    return worst, time_ms(run_unsplit, 5)
+
+
+def counted(fn):
+    """fn()'s result and the kernel launches it made."""
+    torch.cuda.synchronize()
+    cuda.launches.clear()
+    result = fn()
+    torch.cuda.synchronize()
+    counts = dict(cuda.launches)
+    cuda.launches.clear()
+    return result, counts
 
 
 def forward_ms(model, batch):
@@ -393,20 +710,19 @@ def forward_ms(model, batch):
     return start.elapsed_time(end), out
 
 
-def check_output(out, caps):
+def check_output(out, cfg, caps):
     est = out["estimated_transform"]
     expect(est.shape == (4, 4) and bool(torch.isfinite(est).all()), "non-finite transform")
     rot = est[:3, :3].double()
     ortho = (rot @ rot.T - torch.eye(3, dtype=torch.float64, device=rot.device)).abs().max().item()
     expect(ortho < 1e-3, f"R R^T deviates from I by {ortho}")
     expect(abs(torch.linalg.det(rot).item() - 1.0) < 1e-3, "det(R) is not 1")
-    cfg = make_3dmatch_config()
     p, k = cfg.coarse_matching.num_correspondences, cfg.model.num_points_in_patch
     expect(out["matching_scores"].shape == (p, k + 1, k + 1), "matching_scores shape")
     expect(out["ref_corr_points"].shape == (cfg.caps.correspondence_capacity, 3),
            "ref_corr_points shape")
-    expect(out["ref_feats_c"].shape == (caps[-1][0], cfg.geotransformer.output_dim),
-           "ref_feats_c shape")
+    cap = caps[-1][0] if isinstance(caps[-1], (tuple, list)) else caps[-1]
+    expect(out["ref_feats_c"].shape == (cap, cfg.geotransformer.output_dim), "ref_feats_c shape")
     for key in ("ref_feats_c", "src_feats_c", "ref_feats_f", "src_feats_f", "matching_scores"):
         expect(bool(torch.isfinite(out[key]).all()), f"non-finite {key}")
     expect(bool(out["node_corr_masks"].any()), "no superpoint correspondence")
@@ -418,6 +734,41 @@ def registration_error(est, gt):
     cos = (np.trace(est[:3, :3].T @ gt[:3, :3]) - 1.0) / 2.0
     rre = float(np.degrees(np.arccos(np.clip(cos, -1.0, 1.0))))
     return rre, float(np.linalg.norm(est[:3, 3] - gt[:3, 3]))
+
+
+def compare_coarse_features(got, want, what):
+    """ref/src_feats_c of two runs on their valid rows, relative to the
+    largest magnitude; at most 1e-3."""
+    rels = {}
+    for side in ("ref", "src"):
+        rows = want[f"{side}_masks_c"]
+        g, w = got[f"{side}_feats_c"][rows], want[f"{side}_feats_c"][rows]
+        rel = ((g - w).abs().max() / w.abs().max()).item()
+        expect(rel <= 1e-3, f"{side}_feats_c: {what} {rel:.2e} > 1e-3")
+        print(f"{what}: {side}_feats_c max rel diff {rel:.2e}", flush=True)
+        rels[side] = rel
+    return rels
+
+
+def register_pairs(model, cfg, caps, batches, batches_np, seeds, what):
+    """One counted, timed forward per pair; the outputs checked."""
+    forward_ms(model, batches[0])  # warm-up (cuBLAS, caching allocator)
+    times, outs, counts = [], [], collections.Counter()
+    for batch in batches:
+        (ms, out), c = counted(lambda: forward_ms(model, batch))
+        times.append(ms)
+        outs.append(out)
+        counts.update(c)
+    expect_launches(counts, batches, "inference", f"{what} forward")
+    for out, batch_np, seed in zip(outs, batches_np, seeds):
+        ortho = check_output(out, cfg, caps)
+        rre, rte = registration_error(out["estimated_transform"], batch_np["transform"])
+        print(f"{what} pair {seed}: |R R^T - I| = {ortho:.2e}; random weights: RRE {rre:.2f} deg, "
+              f"RTE {rte:.3f} m", flush=True)
+    median = statistics.median(times)
+    print(f"{what} forward: {median:.3f} ms per pair (median of {times}, CUDA events)",
+          flush=True)
+    return outs, times, dict(counts)
 
 
 def target_generator(seed):
@@ -447,12 +798,26 @@ def compare_step_gradients(got, want):
             vanishing.append(name)
             continue
         expect(diff <= 1e-3 * norm, f"{name}: step gradient kernel vs plain {diff / norm:.2e}")
-        worst = max(worst, (diff / norm, name))
+        if diff / norm >= worst[0]:
+            worst = (diff / norm, name)
     return worst, vanishing
 
 
-def train_phase(cfg, model, batches, report):
-    """TRAIN_STEPS steps over the pairs in turn, counted step by step."""
+def whole_step_vs_plain(model, plain_model, cfg, batch, what, report):
+    loss_kernel, grads_kernel = step_gradients(model, cfg, batch, 0)
+    plain_model.load_state_dict(model.state_dict())
+    loss_plain, grads_plain = step_gradients(plain_model, cfg, batch, 0)
+    worst, vanishing = compare_step_gradients(grads_kernel, grads_plain)
+    print(f"{what} whole step vs force_pallas=False: loss {loss_kernel:.6f} vs {loss_plain:.6f}; "
+          f"worst parameter gradient rel diff {worst[0]:.2e} ({worst[1]}) over "
+          f"{len(grads_plain)} tensors ({len(vanishing)} vanishing biases at the noise floor)",
+          flush=True)
+    report[what] = dict(step_loss_kernel=loss_kernel, step_loss_plain=loss_plain,
+                        step_grad_worst_rel=worst, step_grad_vanishing=vanishing)
+
+
+def train_phase(cfg, model, batches, steps, what, report):
+    """``steps`` steps over the pairs in turn, each counted."""
     optimizer, scheduler = make_optimizer(model, cfg, steps_per_epoch=len(batches))
     step = make_train_step(model, cfg, optimizer, scheduler, device=DEVICE)
     with torch.no_grad():
@@ -460,47 +825,46 @@ def train_phase(cfg, model, batches, report):
                                         generator=target_generator(0)),
                              batches[0]["transform"])[0].item()
     torch.cuda.reset_peak_memory_stats()
-    cuda.launches.clear()
     losses, times, total = [], [], collections.Counter()
-    for i in range(TRAIN_STEPS):
+    for i in range(steps):
         seed = SEEDS[i % len(SEEDS)]
+        batch = batches[i % len(batches)]
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        metrics = step(batches[seed], target_generator(seed))
-        end.record()
-        torch.cuda.synchronize()
+
+        def run():
+            start.record()
+            metrics = step(batch, target_generator(seed))
+            end.record()
+            return metrics
+
+        metrics, counts = counted(run)
         times.append(start.elapsed_time(end))
-        counts = dict(cuda.launches)
-        cuda.launches.clear()
         total.update(counts)
-        for name, kernel in KERNELS.items():
-            expect(counts.get(name, 0) == kernel.per_step,
-                   f"train step {i}: {name} launched {counts.get(name, 0)} times, expected "
-                   f"{kernel.per_step}")
-        expect(metrics["grad_finite"].item() == 1.0, f"train step {i} skipped by the guard")
+        expect_launches(counts, [batch], "train", f"{what} train step {i}")
+        expect(metrics["grad_finite"].item() == 1.0, f"{what} train step {i} skipped by the guard")
         loss = metrics["loss"].item()
-        expect(np.isfinite(loss), f"train step {i}: loss {loss}")
+        expect(np.isfinite(loss), f"{what} train step {i}: loss {loss}")
         losses.append((seed, loss))
     peak = torch.cuda.max_memory_allocated()
     with torch.no_grad():
         last = overall_loss(cfg, model(batches[0], training=True, with_gt=True,
                                        generator=target_generator(0)),
                             batches[0]["transform"])[0].item()
-    expect(last < first, f"seed-0 loss did not fall: {first} -> {last}")
+    expect(last < first, f"{what}: seed-0 loss did not fall: {first} -> {last}")
     median = statistics.median(times)
-    print(f"train: {TRAIN_STEPS} steps, losses {[round(l, 4) for _, l in losses]}; seed-0 loss "
+    print(f"{what} train: {steps} steps, losses {[round(l, 4) for _, l in losses]}; seed-0 loss "
           f"{first:.4f} -> {last:.4f}; {median:.3f} ms per step (median of "
           f"{[round(t, 2) for t in times]}, CUDA events); peak memory {peak / 2**30:.2f} GiB",
           flush=True)
-    report.update(train_losses=losses, train_step_ms=times, train_step_median_ms=median,
-                  train_peak_bytes=peak, seed0_loss=[first, last], train_launches=dict(total))
+    report[what] = dict(train_losses=losses, train_step_ms=times, train_step_median_ms=median,
+                        train_peak_bytes=peak, seed0_loss=[first, last])
     return dict(total)
 
 
-def profile_train(cfg, model, batches, report):
+def profile_train(cfg, model, batches, what, filename, report):
     """torch.profiler over two training steps: device time by kernel
-    (chiprun_out/train_profile.txt) and the device's busy share of an
-    unprofiled step (phase 5's median), the profiler's own host cost left out."""
+    (chiprun_out/<filename>) and the device's busy share of an unprofiled
+    step (the train phase's median), the profiler's own host cost left out."""
     optimizer, scheduler = make_optimizer(model, cfg, steps_per_epoch=len(batches))
     step = make_train_step(model, cfg, optimizer, scheduler, device=DEVICE)
     step(batches[0], target_generator(0))
@@ -517,16 +881,149 @@ def profile_train(cfg, model, batches, report):
     device_ms = sum(e.self_device_time_total for e in events
                     if e.device_type == torch.autograd.DeviceType.CUDA
                     and not getattr(e, "is_user_annotation", False)) / 1e3 / 2
-    step_ms = report["train_step_median_ms"]
+    step_ms = report[what]["train_step_median_ms"]
     table = events.table(sort_by="self_cuda_time_total", row_limit=40)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(ROOT, "chiprun_out", "train_profile.txt"), "w") as f:
+    with open(os.path.join(ROOT, "chiprun_out", filename), "w") as f:
         f.write(f"two training steps; device time {device_ms:.3f} ms per step against a "
                 f"{step_ms:.3f} ms unprofiled step\n{table}\n")
     busy = device_ms / step_ms
-    print(f"profile: device time {device_ms:.3f} ms per training step against a {step_ms:.3f} ms "
-          f"step: busy {100 * busy:.1f} %, idle {100 * (1 - busy):.1f} %", flush=True)
-    report["train_profile"] = {"device_ms_per_step": device_ms, "step_ms": step_ms}
+    print(f"{what} profile: device time {device_ms:.3f} ms per training step against a "
+          f"{step_ms:.3f} ms step: busy {100 * busy:.1f} %, idle {100 * (1 - busy):.1f} %",
+          flush=True)
+    report[f"{what}_train_profile"] = {"device_ms_per_step": device_ms, "step_ms": step_ms}
+
+
+def print_results(path, results):
+    for name, r in results.items():
+        print(f"{path} {name}: {r['calls']} calls, max|kernel - plain| {r['max_abs_err']:.3e}, kernel "
+              f"{r['ms']:.3f} ms vs plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})", flush=True)
+
+
+def threedmatch_phases(device, launches, report):
+    """Phases 2-8: the 3DMatch forward, union variant, training and profile.
+    Returns each kernel's comparison with its plain version on this path."""
+    cfg = make_3dmatch_config()
+    start = time.perf_counter()
+    caps, pyramids, batches_np, stages = build_batches(cfg, SEEDS)
+    print(f"batch: {len(batches_np)} pairs in {time.perf_counter() - start:.1f} s; "
+          f"stages {stages}; caps {caps}; inverse limits {cfg.caps.inverse_limits}", flush=True)
+    report["3dmatch_batches"] = dict(stages=stages, caps=caps)
+    cfg = cfg.with_caps(stage_caps=caps)
+    batches = [batch_to_torch(b, device) for b in batches_np]
+
+    # 3. forward: the inference path, counted
+    model = create_model(cfg, device=device)
+    outs, times, launches["3dmatch_inference"] = register_pairs(
+        model, cfg, caps, batches, batches_np, SEEDS, "3dmatch")
+    report["3dmatch_forward_ms"] = times
+
+    # 4. inference kernels vs plain, on the inputs of a forward
+    with capture_kernel_calls(INFERENCE) as records:
+        model(batches[0])
+    results = compare_kernels(records, INFERENCE, reps=10)
+    plain_model = create_model(cfg.with_model(force_pallas=False), device=device)
+    plain_model.load_state_dict(model.state_dict())
+    forward_ms(plain_model, batches[0])
+    plain_times = [forward_ms(plain_model, batch)[0] for batch in batches]
+    compare_coarse_features(outs[-1], plain_model(batches[-1]),
+                            "3dmatch whole model vs force_pallas=False")
+    print(f"3dmatch plain forward: {statistics.median(plain_times):.3f} ms per pair (median of "
+          f"{plain_times})", flush=True)
+    report["3dmatch_plain_forward_ms"] = plain_times
+
+    # 5. the union-gather input conv on the same pairs, no edge stream
+    union_cap, largest = union_capacity(batches_np, UNION_TILE)
+    union_np = [pad_registration_batch(p, np.ones((n, 1), np.float32), t, caps,
+                                       input_stream=False, union_cap=union_cap,
+                                       union_tile=UNION_TILE) for p, n, t in pyramids]
+    union = [batch_to_torch(b, device) for b in union_np]
+    print(f"union: cap {union_cap} (largest tile union {largest}), tile {UNION_TILE}", flush=True)
+    union_outs, union_times, launches["3dmatch_union"] = register_pairs(
+        model, cfg, caps, union, union_np, SEEDS, "3dmatch union")
+    for got, want in zip(union_outs, outs):
+        compare_coarse_features(got, want, "3dmatch union vs stream forward")
+    with capture_kernel_calls(["kpconv_union_input_fused"]) as records:
+        model(union[0])
+    results.update(compare_kernels(records, ["kpconv_union_input_fused"], reps=10))
+    report["3dmatch_union"] = dict(cap=union_cap, largest=largest, forward_ms=union_times)
+
+    # 6. train: the training path, counted step by step
+    for batch in batches:
+        batch.update(precompute_gt_targets(cfg, batch, device=device))
+    launches["3dmatch_train"] = train_phase(cfg, model, batches, TRAIN_STEPS, "3dmatch", report)
+
+    # 7. training kernels vs plain, on the inputs of one step; the whole step
+    with capture_kernel_calls(TRAINING) as records:
+        step_gradients(model, cfg, batches[0], 0)
+    results.update(compare_kernels(records, TRAINING, reps=5))
+    whole_step_vs_plain(model, plain_model, cfg, batches[0], "3dmatch_step_vs_plain", report)
+
+    # 8. profile two more training steps
+    profile_train(cfg, model, batches, "3dmatch", "train_profile.txt", report)
+    return results
+
+
+def kitti_phases(device, launches, report):
+    """Phases 9-11: the KITTI batches, forward, training and eval steps.
+    Returns each kernel's comparison with its plain version on this path."""
+    cfg = make_kitti_config()
+    caps, batches_np, stages, splits, inverse_splits, host = build_kitti_batches(cfg, SEEDS)
+    cfg = cfg.with_caps(stage_caps=caps)
+    per_pair = {k: round(v / len(SEEDS), 2) for k, v in host.items()}
+    print(f"kitti batch: host seconds a pair {per_pair}; stages {stages}; caps {caps}; "
+          f"neighbor splits {splits[0]}; subsampling splits {splits[1]}; inverse splits "
+          f"{inverse_splits}", flush=True)
+    report["kitti_batches"] = dict(stages=stages, caps=caps, splits=splits,
+                                   inverse_splits=inverse_splits, host_s=host)
+    batches = [batch_to_torch(b, device) for b in batches_np]
+
+    # 10. forward
+    model = create_model(cfg, device=device)
+    outs, times, launches["kitti_inference"] = register_pairs(
+        model, cfg, caps, batches, batches_np, SEEDS, "kitti")
+    report["kitti_forward_ms"] = times
+    # every inference kernel the KITTI forward reaches (its tables decide which)
+    forward = [name for name in INFERENCE + ["kpconv_split_fused"]
+               if expected_launches(batches[0], "inference")[name]]
+    with capture_kernel_calls(forward) as records:
+        model(batches[0])
+    results = compare_kernels(records, forward, reps=5)
+    worst, unsplit_ms = check_split_against_unsplit(records)
+    print(f"kpconv_split_fused vs the unsplit plain conv on the whole table: "
+          f"max |diff| {worst:.3e} over {len(records['kpconv_split_fused'])} convs; the unsplit "
+          f"kpconv_fused on those tables {unsplit_ms:.3f} ms", flush=True)
+    report["kitti_split_vs_unsplit"] = dict(max_abs=worst, unsplit_kernel_ms=unsplit_ms)
+    plain_model = create_model(cfg.with_model(force_pallas=False), device=device)
+    plain_model.load_state_dict(model.state_dict())
+    forward_ms(plain_model, batches[0])
+    plain_times = [forward_ms(plain_model, batch)[0] for batch in batches]
+    compare_coarse_features(outs[-1], plain_model(batches[-1]),
+                            "kitti whole model vs force_pallas=False")
+    print(f"kitti plain forward: {statistics.median(plain_times):.3f} ms per pair (median of "
+          f"{plain_times})", flush=True)
+    report["kitti_plain_forward_ms"] = plain_times
+
+    # 11. training without precomputed targets: the in-step GT overlaps
+    launches["kitti_train"] = train_phase(cfg, model, batches, KITTI_TRAIN_STEPS, "kitti", report)
+    with capture_kernel_calls(TRAINING + ["patch_overlaps"]) as records:
+        step_gradients(model, cfg, batches[0], 0)
+    results.update(compare_kernels(records, TRAINING + ["patch_overlaps"], reps=5))
+    whole_step_vs_plain(model, plain_model, cfg, batches[0], "kitti_step_vs_plain", report)
+    evaluate = make_eval_step(model, cfg, device=DEVICE)
+    counts, metrics = collections.Counter(), []
+    for batch, seed in zip(batches, SEEDS):
+        m, c = counted(lambda: evaluate(batch))
+        counts.update(c)
+        expect(all(bool(torch.isfinite(v)) for v in m.values()), f"kitti eval {seed}: {m}")
+        metrics.append({k: float(v) for k, v in m.items()})
+    expect_launches(counts, batches, "eval", "kitti eval")
+    launches["kitti_eval"] = dict(counts)
+    print(f"kitti eval: {[{k: round(v, 4) for k, v in m.items()} for m in metrics]}", flush=True)
+    report["kitti_eval"] = metrics
+    profile_train(cfg, model, batches, "kitti", "kitti_train_profile.txt", report)
+    return results
 
 
 def main():
@@ -543,90 +1040,13 @@ def main():
     print(f"build: {build_s:.1f} s for {', '.join(cuda.SOURCES)} (nvcc, sm_90a)", flush=True)
     report["build_s"] = build_s
 
-    # 2. batch
-    cfg = make_3dmatch_config()
-    start = time.perf_counter()
-    caps, batches_np, stages = build_batches(cfg, SEEDS)
-    print(f"batch: {len(batches_np)} pairs in {time.perf_counter() - start:.1f} s; "
-          f"stages {stages}; caps {caps}; inverse limits {cfg.caps.inverse_limits}", flush=True)
-    report.update(stages=stages, caps=caps)
-    cfg = cfg.with_caps(stage_caps=caps)
-    batches = [batch_to_torch(b, device) for b in batches_np]
-
-    # 3. forward: the inference path, counted
-    model = create_model(cfg, device=device)
-    forward_ms(model, batches[0])  # warm-up (cuBLAS, caching allocator)
-    cuda.launches.clear()
-    times, outs = [], []
-    for batch in batches:
-        ms, out = forward_ms(model, batch)
-        times.append(ms)
-        outs.append(out)
-    launches = {"inference": dict(cuda.launches)}
-    for name in KERNELS:
-        per_pair = KERNELS[name].per_pair
-        got = launches["inference"].get(name, 0)
-        expect(got == per_pair * len(batches),
-               f"{name}: {got} launches in the inference path, expected {per_pair * len(batches)}")
-    for out, batch_np, seed in zip(outs, batches_np, SEEDS):
-        ortho = check_output(out, caps)
-        rre, rte = registration_error(out["estimated_transform"], batch_np["transform"])
-        print(f"pair {seed}: |R R^T - I| = {ortho:.2e}; random weights: RRE {rre:.2f} deg, "
-              f"RTE {rte:.3f} m", flush=True)
-    forward_median = statistics.median(times)
-    print(f"forward: {forward_median:.3f} ms per pair (median of {times}, CUDA events)",
-          flush=True)
-    report.update(forward_ms=times, forward_median_ms=forward_median)
-
-    # 4. inference kernels vs plain, on the inputs of a forward
-    with capture_kernel_calls(INFERENCE) as records:
-        model(batches[0])
-    results = compare_kernels(records, INFERENCE, reps=10)
-    plain_model = create_model(cfg.with_model(force_pallas=False), device=device)
-    plain_model.load_state_dict(model.state_dict())
-    forward_ms(plain_model, batches[0])
-    plain_times = []
-    for batch in batches:
-        ms, plain_out = forward_ms(plain_model, batch)
-        plain_times.append(ms)
-    for side in ("ref", "src"):
-        rows = outs[-1][f"{side}_masks_c"]
-        got, want = outs[-1][f"{side}_feats_c"][rows], plain_out[f"{side}_feats_c"][rows]
-        rel = ((got - want).abs().max() / want.abs().max()).item()
-        expect(rel <= 1e-3, f"{side}_feats_c: kernel model vs plain model {rel:.2e} > 1e-3")
-        print(f"whole model vs force_pallas=False: {side}_feats_c max rel diff {rel:.2e}",
-              flush=True)
-    plain_median = statistics.median(plain_times)
-    print(f"plain forward: {plain_median:.3f} ms per pair (median of {plain_times})", flush=True)
-    report.update(plain_forward_ms=plain_times, plain_forward_median_ms=plain_median)
-
-    # 5. train: the training path, counted step by step
-    for batch in batches:
-        batch.update(precompute_gt_targets(cfg, batch, device=device))
-    launches["train"] = train_phase(cfg, model, batches, report)
-
-    # 6. training kernels vs plain, on the inputs of one step; the whole step
-    with capture_kernel_calls(TRAINING) as records:
-        step_gradients(model, cfg, batches[0], 0)
-    results.update(compare_kernels(records, TRAINING, reps=5))
-    loss_kernel, grads_kernel = step_gradients(model, cfg, batches[0], 0)
-    plain_model.load_state_dict(model.state_dict())
-    loss_plain, grads_plain = step_gradients(plain_model, cfg, batches[0], 0)
-    worst, vanishing = compare_step_gradients(grads_kernel, grads_plain)
-    print(f"whole step vs force_pallas=False: loss {loss_kernel:.6f} vs {loss_plain:.6f}; "
-          f"worst parameter gradient rel diff {worst[0]:.2e} ({worst[1]}) over "
-          f"{len(grads_plain)} tensors ({len(vanishing)} vanishing biases at the noise floor)",
-          flush=True)
-    report.update(step_loss_kernel=loss_kernel, step_loss_plain=loss_plain,
-                  step_grad_worst_rel=worst, step_grad_vanishing=vanishing)
-    for name, r in results.items():
-        print(f"{name}: {r['calls']} calls, max|kernel - plain| {r['max_abs_err']:.3e}, kernel "
-              f"{r['ms']:.3f} ms vs plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']})", flush=True)
+    launches = {}
+    by_path = {"3dmatch": threedmatch_phases(device, launches, report),
+               "kitti": kitti_phases(device, launches, report)}
+    for path, path_results in by_path.items():
+        print_results(path, path_results)
+    results = merge_paths(by_path)
     report["kernels"] = results
-
-    # 7. profile two more training steps
-    profile_train(cfg, model, batches, report)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -641,12 +1061,13 @@ def main():
     for name, kernel in KERNELS.items():
         r = results[name]
         by_path = {path: counts.get(name, 0) for path, counts in launches.items()}
+        expect(sum(by_path.values()) > 0, f"{name}: never launched on a counted path")
         line.append({"name": name, "route": "cuda", "source": kernel.source,
                      "replaces": kernel.replaces,
                      "launches": sum(by_path.values()), "launches_by_path": by_path,
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                     "library_ms": r["library_ms"]})
+                     "library_ms": r["library_ms"], "by_path": r["by_path"]})
     print(json.dumps({"kernels": line}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -139,7 +139,9 @@ class CapsConfig:
     gt_candidates: int = 64          # S: src candidates per ref node for GT overlaps
     gt_chunk_size: int = 32          # ref nodes per chunk of the overlap computation
     correspondence_capacity: int = 4096  # C: LGR verification-set capacity
-    # split tables (deep-column compaction); not ported, must stay None
+    # split-table specs, per stage (h1, m2_cap) or None, for
+    # pad_registration_batch (preprocess.calibrate_split_specs,
+    # fit_split_for_table); the model reads the tables from the batch
     neighbor_splits: Optional[Tuple[Optional[Tuple[int, int]], ...]] = None
     subsampling_splits: Optional[Tuple[Optional[Tuple[int, int]], ...]] = None
     inverse_splits: Optional[Tuple[Optional[Tuple[int, int]], ...]] = None

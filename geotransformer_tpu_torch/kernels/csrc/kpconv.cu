@@ -2,8 +2,12 @@
 //
 // kpconv_fused replaces geotransformer_tpu/kernels/kpconv.py:kpconv_fused
 // (pallas_call at :426/:467, body _kpconv_kernel_body :160, valid-tile skip
-// _kpconv_kernel :90). kpconv_stream_fused replaces kpconv_stream_fused
-// (:1679, body _kpconv_stream_kernel :1642), the c_in == 1 input conv.
+// _kpconv_kernel :90); its unnormalized mode (raw sums and raw count) is the
+// two passes of the split-table conv kpconv_split_fused (:1288).
+// kpconv_stream_fused replaces kpconv_stream_fused (:1679, body
+// _kpconv_stream_kernel :1642), the c_in == 1 input conv; kpconv_union
+// replaces kpconv_union_input_fused (:1135, pallas_call :1199), the c_in == 1
+// input conv over per-tile neighbour unions.
 //
 // What bounds them here. The TPU kernel read one pre-gathered (M, H, 12 + C)
 // block because XLA's gather engine fed it; on this card that block would be
@@ -19,6 +23,13 @@
 // feeds QB FMAs. The weight stream (15 C^2 floats per block) bounds the
 // wide late stages, the feature gather stage 0; tensor cores and a larger
 // query tile are the later redesign's work.
+//
+// The union conv: the TPU kernel scored every query against all U union
+// candidates through a membership matrix (Mosaic has no per-lane gather), U /
+// H (~38) times the geometry the edges need. Here the tile's union is staged
+// in shared memory once and each query indexes it per edge, which computes
+// the same sums over the edges alone; what the union saves is the support
+// reads, one per distinct row of the tile instead of one per edge.
 //
 // For training, kpconv_fused also writes the per-query count divisor and,
 // with the pool, the number of columns tied at the max: the residuals of the
@@ -58,8 +69,9 @@ __global__ void __launch_bounds__(kThreads) kpconv_fused_kernel(
     float* __restrict__ pooled,             // (M, P) or null
     float* __restrict__ count_out,          // (M,) or null
     float* __restrict__ ties_out,           // (M, P) or null (with pooled)
-    int M, int N, int H, int K, int C, int D, int P, int pool_cols, int tq,
-    float sigma) {
+    float* __restrict__ t1_out,             // (M, K) or null (C == 1 only)
+    int M, int N, int H, int K, int C, int D, int P, int pool_cols, int normalize,
+    int tq, float sigma) {
   extern __shared__ float smem[];
   int32_t* nbr_s = reinterpret_cast<int32_t*>(smem);  // (tq, H)
   float* kp_s = smem + tq * H;                         // (K, 3)
@@ -100,7 +112,12 @@ __global__ void __launch_bounds__(kThreads) kpconv_fused_kernel(
     }
     if (count_out != nullptr) {
       for (int ql = tid; ql < tq; ql += kThreads) {
-        if (q0 + ql < M) count_out[q0 + ql] = 1.0f;
+        if (q0 + ql < M) count_out[q0 + ql] = normalize ? 1.0f : 0.0f;
+      }
+    }
+    if (t1_out != nullptr) {
+      for (int i = tid; i < tq * K; i += kThreads) {
+        if (q0 + i / K < M) t1_out[static_cast<size_t>(q0) * K + i] = 0.0f;
       }
     }
     return;
@@ -127,14 +144,15 @@ __global__ void __launch_bounds__(kThreads) kpconv_fused_kernel(
     }
   }
   // Neighbour count: supports whose feature sum is positive, at least 1
-  // (the reference quirk, kpconv.py:113-116).
+  // (the reference quirk, kpconv.py:113-116); unnormalized (one pass of a
+  // split conv) the raw count, which the split combine clamps once.
   for (int ql = tid; ql < tq; ql += kThreads) {
     float c = 0.0f;
     for (int h = 0; h < H; ++h) {
       const int n = nbr_s[ql * H + h];
       if (n < N) c += posflag[n];
     }
-    cnt_s[ql] = fmaxf(c, 1.0f);
+    cnt_s[ql] = normalize ? fmaxf(c, 1.0f) : c;
     if (count_out != nullptr && q0 + ql < M) count_out[q0 + ql] = cnt_s[ql];
   }
   __syncthreads();
@@ -161,6 +179,13 @@ __global__ void __launch_bounds__(kThreads) kpconv_fused_kernel(
 #pragma unroll
     for (int k = 0; k < kMaxKernelPoints; ++k) {
       if (k < K) t_s[(ql * K + k) * C + c] = acc[k];
+    }
+    // the input conv's weight-gradient residual t1[q, k] = T[q, k, 0]
+    if (t1_out != nullptr && q0 + ql < M) {
+#pragma unroll
+      for (int k = 0; k < kMaxKernelPoints; ++k) {
+        if (k < K) t1_out[static_cast<size_t>(q0 + ql) * K + k] = acc[k];
+      }
     }
   }
 
@@ -195,8 +220,8 @@ __global__ void __launch_bounds__(kThreads) kpconv_fused_kernel(
   }
   __syncthreads();
 
-  // out[q, d] = sum_{k, c} T[q, k, c] * W[k, c, d] / count[q], QB queries
-  // per thread so each weight read feeds QB FMAs.
+  // out[q, d] = sum_{k, c} T[q, k, c] * W[k, c, d] / count[q] (no division
+  // unnormalized), QB queries per thread so each weight read feeds QB FMAs.
   const int kc_total = K * C;
   for (int o = tid; o < (tq / QB) * D; o += kThreads) {
     const int qa = QB * (o / D);
@@ -213,7 +238,7 @@ __global__ void __launch_bounds__(kThreads) kpconv_fused_kernel(
 #pragma unroll
     for (int j = 0; j < QB; ++j) {
       const int q = q0 + qa + j;
-      if (q < M) out[static_cast<size_t>(q) * D + d] = acc[j] / cnt_s[qa + j];
+      if (q < M) out[static_cast<size_t>(q) * D + d] = normalize ? acc[j] / cnt_s[qa + j] : acc[j];
     }
   }
 }
@@ -286,6 +311,98 @@ __global__ void __launch_bounds__(kThreads) kpconv_stream_kernel(
   }
 }
 
+constexpr int kUnionThreads = 256;
+
+// Union-gather input conv (c_in == 1): one block per query tile. The tile's
+// union of support rows is staged once in shared memory as (x, y, z, feat,
+// posflag) and the tile's (tile, H) positions into it beside; each thread then
+// owns (query, kernel point) pairs and walks the query's H positions into the
+// staged union, accumulating t1[q, k] = sum_h infl * feat and, for k == 0, the
+// count of positive-feature neighbours. out = t1 W[:, 0, :] / max(count, 1).
+__global__ void __launch_bounds__(kUnionThreads) kpconv_union_kernel(
+    const float* __restrict__ s_feats,    // (N,) the c_in == 1 features
+    const float* __restrict__ s_points,   // (N, 3)
+    const float* __restrict__ q_points,   // (M, 3)
+    const int32_t* __restrict__ rows,     // (T, U), sentinel N
+    const int32_t* __restrict__ sel,      // (M, H), sentinel U
+    const float* __restrict__ kp,         // (K, 3)
+    const float* __restrict__ w,          // (K, 1, D)
+    float* __restrict__ out,              // (M, D)
+    float* __restrict__ count_out,        // (M,) or null
+    float* __restrict__ t1_out,           // (M, K) or null
+    int M, int N, int U, int H, int K, int D, int tile, float sigma) {
+  extern __shared__ float smem[];
+  float* un = smem;                                     // (U, 5)
+  int32_t* sel_s = reinterpret_cast<int32_t*>(un + 5 * U);  // (tile, H)
+  float* kp_s = reinterpret_cast<float*>(sel_s + tile * H);  // (K, 3)
+  float* t1_s = kp_s + 3 * kMaxKernelPoints;           // (tile, K)
+  float* cnt_s = t1_s + tile * kMaxKernelPoints;       // (tile,)
+
+  const int tid = threadIdx.x;
+  const int t = blockIdx.x;
+  const int q0 = t * tile;
+  const int rows_here = min(tile, M - q0);
+
+  for (int u = tid; u < U; u += kUnionThreads) {
+    const int n = rows[static_cast<size_t>(t) * U + u];
+    float* e = un + 5 * u;
+    if (n >= 0 && n < N) {
+      const float f = s_feats[n];
+      e[0] = s_points[3 * n + 0];
+      e[1] = s_points[3 * n + 1];
+      e[2] = s_points[3 * n + 2];
+      e[3] = f;
+      e[4] = f > 0.0f ? 1.0f : 0.0f;
+    } else {
+      e[0] = e[1] = e[2] = e[3] = e[4] = 0.0f;
+    }
+  }
+  for (int i = tid; i < tile * H; i += kUnionThreads) {
+    const int u = i < rows_here * H ? sel[static_cast<size_t>(q0) * H + i] : U;
+    sel_s[i] = (u >= 0 && u < U) ? u : U;
+  }
+  for (int i = tid; i < 3 * K; i += kUnionThreads) kp_s[i] = kp[i];
+  __syncthreads();
+
+  for (int i = tid; i < rows_here * K; i += kUnionThreads) {
+    const int ql = i / K;
+    const int k = i % K;
+    const int q = q0 + ql;
+    const float ox = q_points[3 * q + 0];
+    const float oy = q_points[3 * q + 1];
+    const float oz = q_points[3 * q + 2];
+    float acc = 0.0f;
+    float cnt = 0.0f;
+    for (int h = 0; h < H; ++h) {
+      const int u = sel_s[ql * H + h];
+      if (u >= U) continue;
+      const float* e = un + 5 * u;
+      // (s - q) - kp_k: the offset first, as every KPConv of the port
+      const float dx = (e[0] - ox) - kp_s[3 * k + 0];
+      const float dy = (e[1] - oy) - kp_s[3 * k + 1];
+      const float dz = (e[2] - oz) - kp_s[3 * k + 2];
+      const float d = sqrtf(dx * dx + dy * dy + dz * dz);
+      acc = fmaf(fmaxf(1.0f - d / sigma, 0.0f), e[3], acc);
+      cnt += e[4];
+    }
+    t1_s[ql * kMaxKernelPoints + k] = acc;
+    if (t1_out != nullptr) t1_out[static_cast<size_t>(q) * K + k] = acc;
+    if (k == 0) {
+      cnt_s[ql] = fmaxf(cnt, 1.0f);
+      if (count_out != nullptr) count_out[q] = cnt_s[ql];
+    }
+  }
+  __syncthreads();
+
+  for (int o = tid; o < rows_here * D; o += kUnionThreads) {
+    const int ql = o / D;
+    const int d = o % D;
+    float acc = 0.0f;
+    for (int k = 0; k < K; ++k) acc = fmaf(t1_s[ql * kMaxKernelPoints + k], w[k * D + d], acc);
+    out[static_cast<size_t>(q0 + ql) * D + d] = acc / cnt_s[ql];
+  }
+}
+
 // Query tile: T holds TQ * K * C floats (30 KB at C <= 64, 61 KB above).
 int query_tile(int c) {
   int tq = (c <= 64 ? 512 : 1024) / (c > 0 ? c : 1);
@@ -312,10 +429,10 @@ int kpconv_fused_launch(const float* s_feats, const float* q_points,
                         const float* posflag, const float* kp, const float* w,
                         const uint8_t* q_mask, const float* pool_feats,
                         float* out, float* pooled, float* count_out,
-                        float* ties_out, int M, int N, int H, int K,
-                        int C, int D, int P, int pool_cols, float sigma,
+                        float* ties_out, float* t1_out, int M, int N, int H, int K,
+                        int C, int D, int P, int pool_cols, int normalize, float sigma,
                         void* stream) {
-  if (K < 1 || K > kMaxKernelPoints || H < 1 || C < 1 || D < 1) {
+  if (K < 1 || K > kMaxKernelPoints || H < 1 || C < 1 || D < 1 || (t1_out != nullptr && C != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (M == 0) return 0;
@@ -332,14 +449,16 @@ int kpconv_fused_launch(const float* s_feats, const float* q_points,
     if (err != cudaSuccess) return static_cast<int>(err);
     kpconv_fused_kernel<4><<<blocks, kThreads, smem, s>>>(
         s_feats, q_points, s_points, nbr, posflag, kp, w, q_mask, pool_feats, out,
-        pooled, count_out, ties_out, M, N, H, K, C, D, P, pool_cols, tq, sigma);
+        pooled, count_out, ties_out, t1_out, M, N, H, K, C, D, P, pool_cols, normalize, tq,
+        sigma);
   } else {
     err = cudaFuncSetAttribute(kpconv_fused_kernel<2>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     kpconv_fused_kernel<2><<<blocks, kThreads, smem, s>>>(
         s_feats, q_points, s_points, nbr, posflag, kp, w, q_mask, pool_feats, out,
-        pooled, count_out, ties_out, M, N, H, K, C, D, P, pool_cols, tq, sigma);
+        pooled, count_out, ties_out, t1_out, M, N, H, K, C, D, P, pool_cols, normalize, tq,
+        sigma);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -358,6 +477,28 @@ int kpconv_stream_launch(const float* stream_planes, const float* kp,
   const int blocks = (M + kStreamQueries - 1) / kStreamQueries;
   kpconv_stream_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       stream_planes, kp, w, out, t1_out, count_out, M, H, K, D, sigma);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int kpconv_union_launch(const float* s_feats, const float* s_points, const float* q_points,
+                        const int32_t* rows, const int32_t* sel, const float* kp,
+                        const float* w, float* out, float* count_out, float* t1_out, int M,
+                        int N, int U, int H, int K, int D, int tile, float sigma,
+                        void* stream) {
+  if (K < 1 || K > kMaxKernelPoints || H < 1 || D < 1 || U < 1 || tile < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (M == 0) return 0;
+  const size_t smem = sizeof(float) * (5 * static_cast<size_t>(U) + static_cast<size_t>(tile) * H +
+                                       3 * kMaxKernelPoints +
+                                       static_cast<size_t>(tile) * kMaxKernelPoints + tile);
+  cudaError_t err = cudaFuncSetAttribute(
+      kpconv_union_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (M + tile - 1) / tile;
+  kpconv_union_kernel<<<blocks, kUnionThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      s_feats, s_points, q_points, rows, sel, kp, w, out, count_out, t1_out, M, N, U, H, K, D,
+      tile, sigma);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -3,18 +3,26 @@ plain versions, and the autograd Functions of the training path.
 
 ``kpconv_fused`` replaces ``geotransformer_tpu/kernels/kpconv.py:kpconv_fused``
 (every conv of the backbone but the first, optionally fusing the strided
-block's shortcut max-pool); ``kpconv_stream_fused`` replaces
-``kpconv_stream_fused`` (the c_in == 1 input conv over the precomputed edge
-stream); ``kpconv_bwd_fused`` replaces ``kpconv_bwd_fused`` (the backward
-over the inverse neighbor table). Each wrapper takes the plain PyTorch
-version for CPU tensors and launches its kernel for CUDA tensors
-(:func:`cuda.use_kernel`).
+block's shortcut max-pool); ``kpconv_split_fused`` replaces
+``kpconv_split_fused`` (a conv over a split table: the head columns of every
+query and the compacted tail of the deep queries, two launches of the
+``kpconv_fused`` kernel in its unnormalized mode and a combine);
+``kpconv_stream_fused`` and ``kpconv_union_input_fused`` replace the JAX
+functions of the same names (the c_in == 1 input conv over the precomputed
+edge stream or over per-tile neighbor unions); ``kpconv_bwd_fused`` replaces
+``kpconv_bwd_fused`` (the backward over the inverse neighbor table, whole or
+split). Each wrapper takes the plain PyTorch version for CPU tensors and
+launches its kernel for CUDA tensors (:func:`cuda.use_kernel`).
 
-Training goes through :func:`kpconv_inv_fused_diff` (with the pool:
-:func:`kpconv_pool_inv_fused_diff`) and :func:`kpconv_stream_input_diff`,
-the counterparts of the JAX custom_vjps of the same names: the forward is
-the inference kernel, which also returns the residuals the backward needs
-(the count divisor, the pool's tie counts, the stream conv's t1).
+Training goes through :func:`kpconv_inv_fused_diff`,
+:func:`kpconv_pool_inv_fused_diff`, :func:`kpconv_split_diff`,
+:func:`kpconv_split_pool_diff` (the inverse-table backward) and the input
+convs' weight-only backward (:func:`kpconv_stream_input_diff`,
+:func:`kpconv_union_input_fused_diff`, :func:`kpconv_split_input_diff`,
+:func:`kpconv_input_diff`), the counterparts of the JAX custom_vjps of the
+same names: the forward is the inference kernel, which also returns the
+residuals the backward needs (the count divisor, the pool's tie counts, the
+input conv's t1).
 
 Layouts are the JAX package's: stacked ``[ref | src]`` rows, sentinel
 neighbor index = number of support rows, weights (K, C_in, C_out).
@@ -29,8 +37,9 @@ from geotransformer_tpu_torch.ops.gather import gather_with_shadow
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "kpconv_fused_launch": [_P] * 13 + [_I] * 8 + [_F, _P],
+    "kpconv_fused_launch": [_P] * 14 + [_I] * 9 + [_F, _P],
     "kpconv_stream_launch": [_P] * 6 + [_I] * 4 + [_F, _P],
+    "kpconv_union_launch": [_P] * 10 + [_I] * 7 + [_F, _P],
 }
 _BWD_SIGNATURES = {
     "kpconv_bwd_launch": [_P] * 15 + [_I] * 7 + [_F, _P],
@@ -44,10 +53,20 @@ def _influence(offsets, kernel_points, sigma):
     return torch.clamp(1.0 - dist / sigma, min=0.0)
 
 
+def _outputs(out, pooled, count, ties, t1, residuals, normalize, return_t1):
+    """out [, pooled] [, count [, ties]] [, t1], a bare tensor when alone."""
+    result = (out,) if pooled is None else (out, pooled)
+    if residuals or not normalize:
+        result += (count,) if pooled is None else (count, ties)
+    if return_t1:
+        result += (t1,)
+    return result[0] if len(result) == 1 else result
+
+
 def kpconv_fused_plain(s_feats, q_points, s_points, neighbor_indices,
                        kernel_points, weights, sigma, bias=None,
                        pool_feats=None, pool_cols=None, q_mask=None,
-                       residuals=False):
+                       residuals=False, normalize=True, return_t1=False):
     """Plain PyTorch version of :func:`kpconv_fused` (the JAX XLA KPConv,
     ``models/kpconv.py:198-240``, with the influence distance taken
     directly)."""
@@ -62,26 +81,28 @@ def kpconv_fused_plain(s_feats, q_points, s_points, neighbor_indices,
     weighted = torch.einsum("mhk,mhc->mkc", influence, neighbor_feats)
     out = torch.einsum("mkc,kcd->md", weighted, weights)
     # divisor: neighbors whose feature sum is positive, at least 1
-    # (reference kpconv.py:113-116)
+    # (reference kpconv.py:113-116); the raw count unnormalized
     posflag = (torch.sum(s_feats, dim=-1) > 0.0).to(out.dtype)
-    count = torch.clamp(gather_with_shadow(posflag, nbr, 0.0).sum(dim=-1), min=1.0)
-    out = out / count[:, None]
+    count = gather_with_shadow(posflag, nbr, 0.0).sum(dim=-1)
+    if normalize:
+        count = torch.clamp(count, min=1.0)
+        out = out / count[:, None]
     if bias is not None:
         out = out + bias
-    if pool_feats is None:
-        return (out, count) if residuals else out
-    cols = nbr if pool_cols is None else nbr[:, :pool_cols]
-    pool_block = gather_with_shadow(pool_feats, cols, 0.0)  # (M, cols, P)
-    pooled = pool_block.amax(dim=1)
-    if not residuals:
-        return out, pooled
-    ties = torch.clamp((pool_block == pooled[:, None, :]).to(out.dtype).sum(dim=1), min=1.0)
-    return out, pooled, count, ties
+    t1 = weighted[:, :, 0] if return_t1 else None
+    pooled = ties = None
+    if pool_feats is not None:
+        cols = nbr if pool_cols is None else nbr[:, :pool_cols]
+        pool_block = gather_with_shadow(pool_feats, cols, 0.0)  # (M, cols, P)
+        pooled = pool_block.amax(dim=1)
+        ties = torch.clamp((pool_block == pooled[:, None, :]).to(out.dtype).sum(dim=1), min=1.0)
+    return _outputs(out, pooled, count, ties, t1, residuals, normalize, return_t1)
 
 
 def kpconv_fused(s_feats, q_points, s_points, neighbor_indices, kernel_points,
                  weights, sigma, bias=None, pool_feats=None, pool_cols=None,
-                 q_mask=None, force=None, residuals=False):
+                 q_mask=None, force=None, residuals=False, normalize=True,
+                 return_t1=False, count_as="kpconv_fused"):
     """Fused KPConv forward.
 
     Args:
@@ -102,14 +123,25 @@ def kpconv_fused(s_feats, q_points, s_points, neighbor_indices, kernel_points,
         residuals: also return the backward's residuals: the (M,) count
             divisor and, with the pool, the (M, C_pool) number of pooled
             columns equal to the max (shadows count, at least 1).
+        normalize: False gives one pass of a split conv: the raw sums (no
+            division, no bias) and the raw (M,) count, always returned.
+        return_t1: (C_in == 1) also return t1 (M, K) = sum_h infl * feat,
+            the input conv's weight-gradient residual.
+        count_as: the ``cuda.launches`` entry the launch adds to (the two
+            passes of a split conv count as ``kpconv_split_fused``).
 
     Returns:
-        (M, C_out) float32 [, (M, C_pool) pooled] [, count [, ties]].
+        (M, C_out) float32 [, (M, C_pool) pooled] [, count [, ties]] [, t1].
     """
+    if not normalize and bias is not None:
+        raise ValueError("an unnormalized KPConv pass cannot carry the bias")
+    if return_t1 and weights.shape[1] != 1:
+        raise ValueError("t1 is the residual of a c_in == 1 conv")
     if not cuda.use_kernel(s_feats, force):
         return kpconv_fused_plain(
             s_feats, q_points, s_points, neighbor_indices, kernel_points,
-            weights, sigma, bias, pool_feats, pool_cols, q_mask, residuals)
+            weights, sigma, bias, pool_feats, pool_cols, q_mask, residuals, normalize,
+            return_t1)
 
     dev = s_feats.device
     m, h = neighbor_indices.shape
@@ -128,28 +160,97 @@ def kpconv_fused(s_feats, q_points, s_points, neighbor_indices, kernel_points,
     if pool_feats is not None:
         c_pool = pool_feats.shape[1]
         cuda.require(pool_feats, "pool_feats", f32, (n, c_pool), dev)
+    with_count = residuals or not normalize
     posflag = (torch.sum(s_feats, dim=-1) > 0.0).to(f32)
     out = torch.empty((m, c_out), dtype=f32, device=dev)
     pooled = torch.empty((m, c_pool), dtype=f32, device=dev) if pool_feats is not None else None
-    count = torch.empty((m,), dtype=f32, device=dev) if residuals else None
+    count = torch.empty((m,), dtype=f32, device=dev) if with_count else None
     ties = (torch.empty((m, c_pool), dtype=f32, device=dev)
-            if residuals and pool_feats is not None else None)
+            if with_count and pool_feats is not None else None)
+    t1 = torch.empty((m, k), dtype=f32, device=dev) if return_t1 else None
     lib = cuda.library("kpconv", _SIGNATURES)
     code = lib.kpconv_fused_launch(
         cuda.ptr(s_feats), cuda.ptr(q_points), cuda.ptr(s_points),
         cuda.ptr(neighbor_indices), cuda.ptr(posflag), cuda.ptr(kernel_points),
         cuda.ptr(weights), cuda.ptr(q_mask), cuda.ptr(pool_feats),
-        cuda.ptr(out), cuda.ptr(pooled), cuda.ptr(count), cuda.ptr(ties),
+        cuda.ptr(out), cuda.ptr(pooled), cuda.ptr(count), cuda.ptr(ties), cuda.ptr(t1),
         m, n, h, k, c_in, c_out, c_pool, h if pool_cols is None else int(pool_cols),
-        float(sigma), cuda.stream_of(s_feats))
-    cuda.check(lib, code, "kpconv_fused")
-    cuda.launches["kpconv_fused"] += 1
+        int(normalize), float(sigma), cuda.stream_of(s_feats))
+    cuda.check(lib, code, count_as)
+    cuda.launches[count_as] += 1
     if bias is not None:
         out = out + bias
-    result = (out,) if pool_feats is None else (out, pooled)
-    if residuals:
-        result += (count,) if pool_feats is None else (count, ties)
-    return result[0] if len(result) == 1 else result
+    return _outputs(out, pooled, count, ties, t1, residuals, normalize, return_t1)
+
+
+def kpconv_split_fused(s_feats, q_points, s_points, head_table, tail_table, tail_q, tail_rank,
+                       kernel_points, weights, sigma, bias=None, pool_feats=None,
+                       pool_cols=None, q_mask=None, force=None, residuals=False,
+                       return_t1=False):
+    """KPConv over a split neighbor table (JAX ``kpconv_split_fused``).
+
+    The head (M, H1) covers the first columns of every query, the tail
+    (M2, H - H1) the remaining columns of the deep queries
+    (``preprocess.build_split_tables``); together they are the unsplit
+    table's edges. Each part is one unnormalized pass of
+    :func:`kpconv_fused` (raw sums, raw count), and the tail's outputs come
+    back to their queries through ``tail_rank`` with a zero row for the
+    queries that have no tail row: count = max(count_h + count_t, 1),
+    out = (acc_h + acc_t) / count + bias, pooled = max(pooled_h, pooled_t)
+    (a missing tail row acts as the zero shadow row), and the pool's tie
+    counts are counted against the combined maximum. On the card both
+    passes count as ``kpconv_split_fused`` launches, not ``kpconv_fused``.
+
+    Args:
+        head_table: (M, H1) int32; tail_table: (M2, H - H1) int32, both
+            sentinel N.
+        tail_q: (M2,) int32 query row per tail row (0 on padding rows).
+        tail_rank: (M,) int32 tail row per query, sentinel M2.
+        pool_cols: the true width of the pool, > H1.
+        (the rest as :func:`kpconv_fused`.)
+
+    Returns:
+        out [, pooled] [, count [, ties]] [, t1], as :func:`kpconv_fused`.
+    """
+    h1 = head_table.shape[1]
+    if pool_cols is not None and h1 >= pool_cols:
+        raise ValueError(f"split head width {h1} covers the pool's {pool_cols} columns")
+    common = dict(pool_feats=pool_feats, force=force, residuals=True, normalize=False,
+                  return_t1=return_t1, count_as="kpconv_split_fused")
+    head = kpconv_fused(s_feats, q_points, s_points, head_table, kernel_points, weights, sigma,
+                        pool_cols=None if pool_cols is None else min(pool_cols, h1),
+                        q_mask=q_mask, **common)
+    rows = tail_q.long()
+    tail = kpconv_fused(s_feats, q_points[rows], s_points, tail_table, kernel_points, weights,
+                        sigma, pool_cols=None if pool_cols is None else max(pool_cols - h1, 1),
+                        q_mask=None if q_mask is None else q_mask[rows], **common)
+    names = ("acc",) + (("pooled",) if pool_feats is not None else ()) + ("count",) + (
+        ("ties",) if pool_feats is not None else ()) + (("t1",) if return_t1 else ())
+    h = dict(zip(names, head))
+    t = {name: v if v.dim() == 2 else v[:, None] for name, v in zip(names, tail)}
+    # one rank gather of every tail quantity, a zero row for the sentinel
+    packed = torch.cat(list(t.values()), dim=1)
+    packed = torch.cat([packed, packed.new_zeros((1, packed.shape[1]))], dim=0)
+    t = dict(zip(names, torch.split(packed[tail_rank.long()],
+                                    [v.shape[1] for v in t.values()], dim=1)))
+    count = torch.clamp(h["count"] + t["count"][:, 0], min=1.0)
+    out = (h["acc"] + t["acc"]) / count[:, None]
+    if bias is not None:
+        out = out + bias
+    pooled = ties = t1 = None
+    if pool_feats is not None:
+        pooled = torch.maximum(h["pooled"], t["pooled"])
+        ties = torch.clamp(h["ties"] * (h["pooled"] == pooled)
+                           + t["ties"] * (t["pooled"] == pooled), min=1.0)
+    if return_t1:
+        t1 = h["t1"] + t["t1"]
+    return _outputs(out, pooled, count, ties, t1, residuals, True, return_t1)
+
+
+def kpconv_split_fused_plain(*args, **kwargs):
+    """Plain version of :func:`kpconv_split_fused`: the same combine over the
+    two passes' plain versions."""
+    return kpconv_split_fused(*args, **dict(kwargs, force=False))
 
 
 def kpconv_stream_fused_plain(stream, kernel_points, weights, sigma, bias=None,
@@ -208,11 +309,90 @@ def kpconv_stream_fused(stream, kernel_points, weights, sigma, bias=None,
     return (out, t1, count) if residuals else out
 
 
+def kpconv_union_input_fused_plain(s_feats, q_points, s_points, union_rows, union_sel,
+                                   kernel_points, weights, sigma, bias=None, tile=128,
+                                   residuals=False):
+    """Plain version of :func:`kpconv_union_input_fused`: the neighbor table
+    rebuilt from the unions (table[q, h] = union_rows[q // tile, sel[q, h]],
+    the sentinel where sel is), then the plain KPConv."""
+    n = s_points.shape[0]
+    u = union_rows.shape[1]
+    sel = union_sel.long()
+    tiles = (torch.arange(sel.shape[0], device=sel.device) // tile)[:, None]
+    rows = torch.cat([union_rows.long(), torch.full_like(union_rows[:, :1], n).long()], dim=1)
+    table = rows[tiles, sel.clamp(max=u)]
+    out, count, t1 = kpconv_fused_plain(s_feats, q_points, s_points, table, kernel_points,
+                                        weights, sigma, bias, residuals=True, return_t1=True)
+    return (out, count, t1) if residuals else out
+
+
+def kpconv_union_input_fused(s_feats, q_points, s_points, union_rows, union_sel, kernel_points,
+                             weights, sigma, bias=None, tile=128, force=None, residuals=False):
+    """Union-gather input-layer KPConv (c_in == 1; JAX
+    ``kpconv_union_input_fused``).
+
+    Args:
+        s_feats: (N, 1); q_points: (M, 3); s_points: (N, 3).
+        union_rows: (ceil(M / tile), U) int32 the support rows of each tile
+            of ``tile`` queries, sentinel N; union_sel: (M, H) int32 each
+            edge's position in its tile's union, sentinel U
+            (``preprocess.build_union_tables`` with the same tile).
+        kernel_points: (K, 3); weights: (K, 1, C_out); sigma, bias as
+            :func:`kpconv_fused`.
+        residuals: also return the (M,) count divisor and t1 (M, K).
+
+    Returns:
+        (M, C_out) float32 [, count, t1].
+    """
+    m = q_points.shape[0]
+    num_tiles, u = union_rows.shape
+    if num_tiles != -(-m // tile):
+        raise ValueError(f"union tables of {num_tiles} tiles were built for another tile than {tile}")
+    if weights.shape[1] != 1:
+        raise ValueError("the union conv is the c_in == 1 input conv")
+    if not cuda.use_kernel(s_feats, force):
+        return kpconv_union_input_fused_plain(s_feats, q_points, s_points, union_rows,
+                                              union_sel, kernel_points, weights, sigma, bias,
+                                              tile, residuals)
+    dev = s_feats.device
+    n = s_points.shape[0]
+    h = union_sel.shape[1]
+    k, _, c_out = weights.shape
+    f32 = torch.float32
+    cuda.require(s_feats, "s_feats", f32, (n, 1), dev)
+    cuda.require(q_points, "q_points", f32, (m, 3), dev)
+    cuda.require(s_points, "s_points", f32, (n, 3), dev)
+    cuda.require(union_rows, "union_rows", torch.int32, (num_tiles, u), dev)
+    cuda.require(union_sel, "union_sel", torch.int32, (m, h), dev)
+    cuda.require(kernel_points, "kernel_points", f32, (k, 3), dev)
+    cuda.require(weights, "weights", f32, (k, 1, c_out), dev)
+    out = torch.empty((m, c_out), dtype=f32, device=dev)
+    count = torch.empty((m,), dtype=f32, device=dev) if residuals else None
+    t1 = torch.empty((m, k), dtype=f32, device=dev) if residuals else None
+    lib = cuda.library("kpconv", _SIGNATURES)
+    code = lib.kpconv_union_launch(
+        cuda.ptr(s_feats), cuda.ptr(s_points), cuda.ptr(q_points), cuda.ptr(union_rows),
+        cuda.ptr(union_sel), cuda.ptr(kernel_points), cuda.ptr(weights), cuda.ptr(out),
+        cuda.ptr(count), cuda.ptr(t1), m, n, u, h, k, c_out, int(tile), float(sigma),
+        cuda.stream_of(s_feats))
+    cuda.check(lib, code, "kpconv_union_input_fused")
+    cuda.launches["kpconv_union_input_fused"] += 1
+    if bias is not None:
+        out = out + bias
+    return (out, count, t1) if residuals else out
+
+
 def kpconv_bwd_fused_plain(s_feats, s_points, q_points, gdiv, inverse_table,
                            kernel_points, weights, sigma, pool_feats=None,
                            pooled=None, dpool_over_ties=None):
     """Plain PyTorch version of :func:`kpconv_bwd_fused` (the math of the JAX
     ``_kpconv_bwd_kernel``, ``kernels/kpconv.py:651-741``)."""
+    return kpconv_bwd_fused(s_feats, s_points, q_points, gdiv, inverse_table, kernel_points,
+                            weights, sigma, pool_feats, pooled, dpool_over_ties, force=False)
+
+
+def _bwd_pass_plain(s_feats, s_points, q_points, gdiv, inverse_table, kernel_points, weights,
+                    sigma, pool_feats=None, pooled=None, dpool_over_ties=None):
     m = q_points.shape[0]
     inv = inverse_table.long()
     valid = inv < m  # (N, J)
@@ -228,32 +408,12 @@ def kpconv_bwd_fused_plain(s_feats, s_points, q_points, gdiv, inverse_table,
     return d_s_feats, d_weights, d_pool
 
 
-def kpconv_bwd_fused(s_feats, s_points, q_points, gdiv, inverse_table,
-                     kernel_points, weights, sigma, pool_feats=None, pooled=None,
-                     dpool_over_ties=None, force=None):
-    """KPConv backward over the inverse neighbor table (no scatter).
-
-    Args:
-        s_feats: (N, C_in) the conv's input features (for d_weights).
-        s_points: (N, 3); q_points: (M, 3).
-        gdiv: (M, C_out) dout / the forward's count divisor.
-        inverse_table: (N, J) int32 query rows per support row, sentinel M
-            (preprocess.build_inverse_table).
-        kernel_points: (K, 3); weights: (K, C_in, C_out).
-        sigma: influence radius.
-        pool_feats / pooled / dpool_over_ties: optional (N, C_p) / (M, C_p)
-            / (M, C_p), the strided shortcut's max-pool backward. The pool
-            must have covered every real edge of the table (columns beyond
-            ``pool_cols`` sentinel-only), as the JAX kernel requires.
-        force: ``ModelConfig.force_pallas``.
-
-    Returns:
-        d_s_feats (N, C_in), d_weights (K, C_in, C_out) [, d_pool (N, C_p)].
-    """
+def _bwd_pass(s_feats, s_points, q_points, gdiv, inverse_table, kernel_points, weights, sigma,
+              pool_feats, pooled, dpool_over_ties, force):
+    """One launch of the backward kernel over a whole (N, J) inverse table."""
     if not cuda.use_kernel(s_feats, force):
-        return kpconv_bwd_fused_plain(s_feats, s_points, q_points, gdiv, inverse_table,
-                                      kernel_points, weights, sigma, pool_feats, pooled,
-                                      dpool_over_ties)
+        return _bwd_pass_plain(s_feats, s_points, q_points, gdiv, inverse_table, kernel_points,
+                               weights, sigma, pool_feats, pooled, dpool_over_ties)
 
     dev = s_feats.device
     n, c_in = s_feats.shape
@@ -296,50 +456,106 @@ def kpconv_bwd_fused(s_feats, s_points, q_points, gdiv, inverse_table,
     return d_s_feats, d_weights, d_pool
 
 
+def kpconv_bwd_fused(s_feats, s_points, q_points, gdiv, inverse_table,
+                     kernel_points, weights, sigma, pool_feats=None, pooled=None,
+                     dpool_over_ties=None, force=None):
+    """KPConv backward over the inverse neighbor table (no scatter).
+
+    Args:
+        s_feats: (N, C_in) the conv's input features (for d_weights).
+        s_points: (N, 3); q_points: (M, 3).
+        gdiv: (M, C_out) dout / the forward's count divisor.
+        inverse_table: (N, J) int32 query rows per support row, sentinel M
+            (preprocess.build_inverse_table), or its split 4-tuple (head
+            (N, J1), tail (N2, J - J1), tail_s (N2,), rank (N,)): then one
+            pass over the head, one over the tail's support rows, the second
+            brought back through ``rank`` (JAX ``kernels/kpconv.py:778-802``).
+        kernel_points: (K, 3); weights: (K, C_in, C_out).
+        sigma: influence radius.
+        pool_feats / pooled / dpool_over_ties: optional (N, C_p) / (M, C_p)
+            / (M, C_p), the strided shortcut's max-pool backward. The pool
+            must have covered every real edge of the table (columns beyond
+            ``pool_cols`` sentinel-only), as the JAX kernel requires.
+        force: ``ModelConfig.force_pallas``.
+
+    Returns:
+        d_s_feats (N, C_in), d_weights (K, C_in, C_out) [, d_pool (N, C_p)].
+    """
+    if not isinstance(inverse_table, (tuple, list)):
+        return _bwd_pass(s_feats, s_points, q_points, gdiv, inverse_table, kernel_points,
+                         weights, sigma, pool_feats, pooled, dpool_over_ties, force)
+    head, tail, tail_s, rank = inverse_table
+    first = _bwd_pass(s_feats, s_points, q_points, gdiv, head, kernel_points, weights, sigma,
+                      pool_feats, pooled, dpool_over_ties, force)
+    # the tail's padding rows (tail_s 0) hold only sentinels: exact zeros
+    rows = tail_s.long()
+    second = _bwd_pass(s_feats[rows], s_points[rows], q_points, gdiv, tail, kernel_points,
+                       weights, sigma, None if pool_feats is None else pool_feats[rows], pooled,
+                       dpool_over_ties, force)
+    rank = rank.long()
+
+    def by_rank(x):
+        return torch.cat([x, x.new_zeros((1, x.shape[1]))], dim=0)[rank]
+
+    result = (first[0] + by_rank(second[0]), first[1] + second[1])
+    if pool_feats is not None:
+        result += (first[2] + by_rank(second[2]),)
+    return result
+
+
 class _KPConvInv(torch.autograd.Function):
-    """KPConv [+ shortcut max-pool] with the inverse-table backward; the
-    bias stays outside (its gradient is dout summed over queries)."""
+    """KPConv [+ shortcut max-pool] with the inverse-table backward. ``conv``
+    (s_feats, weights, pool_feats) -> (out [, pooled], count [, ties]) is
+    the forward with its residuals, over a whole or a split table; the bias
+    stays outside (its gradient is dout summed over queries)."""
 
     @staticmethod
-    def forward(ctx, s_feats, weights, pool_feats, q_points, s_points, neighbor_indices,
-                inverse_table, kernel_points, sigma, pool_cols, q_mask, force):
-        res = kpconv_fused(s_feats, q_points, s_points, neighbor_indices, kernel_points,
-                           weights, sigma, pool_feats=pool_feats, pool_cols=pool_cols,
-                           q_mask=q_mask, force=force, residuals=True)
+    def forward(ctx, s_feats, weights, pool_feats, conv, q_points, s_points, inverse_table,
+                kernel_points, sigma, force):
+        res = conv(s_feats, weights, pool_feats)
         out, pooled, count, ties = res if pool_feats is not None else (res[0], None, res[1], None)
-        ctx.save_for_backward(s_feats, weights, pool_feats, q_points, s_points,
-                              inverse_table, kernel_points, count, pooled, ties)
-        ctx.sigma, ctx.force = sigma, force
+        ctx.save_for_backward(s_feats, weights, pool_feats, q_points, s_points, kernel_points,
+                              count, pooled, ties)
+        ctx.inverse_table, ctx.sigma, ctx.force = inverse_table, sigma, force
         return out if pool_feats is None else (out, pooled)
 
     @staticmethod
     def backward(ctx, dout, dpool=None):
-        (s_feats, weights, pool_feats, q_points, s_points, inverse_table, kernel_points,
-         count, pooled, ties) = ctx.saved_tensors
+        (s_feats, weights, pool_feats, q_points, s_points, kernel_points, count, pooled,
+         ties) = ctx.saved_tensors
         gdiv = (dout / count[:, None]).contiguous()
-        if pool_feats is None:
-            d_s_feats, d_weights = kpconv_bwd_fused(
-                s_feats, s_points, q_points, gdiv, inverse_table, kernel_points, weights,
-                ctx.sigma, force=ctx.force)
-            d_pool = None
-        else:
-            d_s_feats, d_weights, d_pool = kpconv_bwd_fused(
-                s_feats, s_points, q_points, gdiv, inverse_table, kernel_points, weights,
-                ctx.sigma, pool_feats=pool_feats, pooled=pooled,
-                dpool_over_ties=(dpool / ties).contiguous(), force=ctx.force)
-        return (d_s_feats, d_weights, d_pool) + (None,) * 9
+        pool = {}
+        if pool_feats is not None:
+            pool = dict(pool_feats=pool_feats, pooled=pooled,
+                        dpool_over_ties=(dpool / ties).contiguous())
+        grads = kpconv_bwd_fused(s_feats, s_points, q_points, gdiv, ctx.inverse_table,
+                                 kernel_points, weights, ctx.sigma, force=ctx.force, **pool)
+        d_pool = grads[2] if pool_feats is not None else None
+        return (grads[0], grads[1], d_pool) + (None,) * 7
+
+
+def _with_bias(out, bias):
+    if bias is None:
+        return out
+    if isinstance(out, tuple):
+        return (out[0] + bias,) + out[1:]
+    return out + bias
 
 
 def kpconv_inv_fused_diff(s_feats, q_points, s_points, neighbor_indices, inverse_table,
                           kernel_points, weights, sigma, bias=None, q_mask=None,
                           force=None):
     """Differentiable KPConv (JAX ``kpconv_inv_fused_diff``): the fused
-    forward, and :func:`kpconv_bwd_fused` over ``inverse_table`` (the (N, J)
-    inverse of ``neighbor_indices``, sentinel M) for d_s_feats and d_weights.
-    Points, tables and kernel points get no gradient."""
-    out = _KPConvInv.apply(s_feats, weights, None, q_points, s_points, neighbor_indices,
-                           inverse_table, kernel_points, sigma, None, q_mask, force)
-    return out if bias is None else out + bias
+    forward, and :func:`kpconv_bwd_fused` over ``inverse_table`` (the
+    inverse of ``neighbor_indices``, whole or split, sentinel M) for
+    d_s_feats and d_weights. Points, tables and kernel points get no
+    gradient."""
+    def conv(sf, w, _):
+        return kpconv_fused(sf, q_points, s_points, neighbor_indices, kernel_points, w, sigma,
+                            q_mask=q_mask, force=force, residuals=True)
+
+    return _with_bias(_KPConvInv.apply(s_feats, weights, None, conv, q_points, s_points,
+                                       inverse_table, kernel_points, sigma, force), bias)
 
 
 def kpconv_pool_inv_fused_diff(s_feats, pool_feats, q_points, s_points, neighbor_indices,
@@ -348,34 +564,112 @@ def kpconv_pool_inv_fused_diff(s_feats, pool_feats, q_points, s_points, neighbor
     """:func:`kpconv_inv_fused_diff` with the fused strided-shortcut max-pool
     (JAX ``kpconv_pool_inv_fused_diff``); the pool's gradient is split
     evenly over tied maxima. Returns (out, pooled)."""
-    out, pooled = _KPConvInv.apply(s_feats, weights, pool_feats, q_points, s_points,
-                                   neighbor_indices, inverse_table, kernel_points, sigma,
-                                   pool_cols, q_mask, force)
-    return (out if bias is None else out + bias), pooled
+    def conv(sf, w, pf):
+        return kpconv_fused(sf, q_points, s_points, neighbor_indices, kernel_points, w, sigma,
+                            pool_feats=pf, pool_cols=pool_cols, q_mask=q_mask, force=force,
+                            residuals=True)
+
+    return _with_bias(_KPConvInv.apply(s_feats, weights, pool_feats, conv, q_points, s_points,
+                                       inverse_table, kernel_points, sigma, force), bias)
 
 
-class _KPConvStreamInput(torch.autograd.Function):
-    """Input conv from the edge stream: the weight gradient only (the
-    stream is batch geometry and the features are the network input)."""
+def kpconv_split_diff(s_feats, q_points, s_points, head_table, split_tables, inverse_table,
+                      kernel_points, weights, sigma, bias=None, q_mask=None, force=None):
+    """Differentiable split-table KPConv (JAX ``kpconv_split_diff``):
+    :func:`kpconv_split_fused` forward, :func:`kpconv_bwd_fused` over the
+    inverse table (whole or split; it covers every edge of both parts).
+    ``split_tables`` is (tail, tail_q, tail_rank)."""
+    def conv(sf, w, _):
+        return kpconv_split_fused(sf, q_points, s_points, head_table, *split_tables,
+                                  kernel_points, w, sigma, q_mask=q_mask, force=force,
+                                  residuals=True)
+
+    return _with_bias(_KPConvInv.apply(s_feats, weights, None, conv, q_points, s_points,
+                                       inverse_table, kernel_points, sigma, force), bias)
+
+
+def kpconv_split_pool_diff(s_feats, pool_feats, q_points, s_points, head_table, split_tables,
+                           inverse_table, kernel_points, weights, sigma, bias=None,
+                           pool_cols=None, q_mask=None, force=None):
+    """:func:`kpconv_split_diff` with the fused strided-shortcut max-pool
+    (JAX ``kpconv_split_pool_diff``; the tie counts are the combined max's,
+    ``_split_pool_ties``). Returns (out, pooled)."""
+    def conv(sf, w, pf):
+        return kpconv_split_fused(sf, q_points, s_points, head_table, *split_tables,
+                                  kernel_points, w, sigma, pool_feats=pf, pool_cols=pool_cols,
+                                  q_mask=q_mask, force=force, residuals=True)
+
+    return _with_bias(_KPConvInv.apply(s_feats, weights, pool_feats, conv, q_points, s_points,
+                                       inverse_table, kernel_points, sigma, force), bias)
+
+
+class _KPConvInputT1(torch.autograd.Function):
+    """An input conv (c_in == 1) with the weight gradient only: the features
+    are the network input. ``conv`` (weights) -> (out, t1, count) is the
+    forward with its residuals, t1 (M, K) = sum_h infl * feat."""
 
     @staticmethod
-    def forward(ctx, weights, stream, kernel_points, sigma, force):
-        out, t1, count = kpconv_stream_fused(stream, kernel_points, weights, sigma,
-                                             force=force, residuals=True)
+    def forward(ctx, weights, conv):
+        out, t1, count = conv(weights)
         ctx.save_for_backward(t1, count)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         t1, count = ctx.saved_tensors
-        # d_w[k, 0, d] = sum_m t1[m, k] dout[m, d] / count[m] (JAX
-        # _kpconv_stream_bwd, kernels/kpconv.py:1779: XLA, no kernel)
-        d_weights = (t1.t() @ (dout / count[:, None]))[:, None, :]
-        return d_weights, None, None, None, None
+        # d_w[k, 0, d] = sum_m t1[m, k] dout[m, d] / count[m] (the JAX input
+        # convs' backward, e.g. _kpconv_stream_bwd, kernels/kpconv.py:1779: XLA,
+        # no kernel)
+        return (t1.t() @ (dout / count[:, None]))[:, None, :], None
 
 
 def kpconv_stream_input_diff(stream, kernel_points, weights, sigma, bias=None, force=None):
     """Differentiable edge-stream input conv (JAX ``kpconv_stream_input_diff``):
     gradients reach ``weights`` and ``bias`` only."""
-    out = _KPConvStreamInput.apply(weights, stream, kernel_points, sigma, force)
-    return out if bias is None else out + bias
+    def conv(w):
+        return kpconv_stream_fused(stream, kernel_points, w, sigma, force=force, residuals=True)
+
+    return _with_bias(_KPConvInputT1.apply(weights, conv), bias)
+
+
+def kpconv_union_input_fused_diff(s_feats, q_points, s_points, union_rows, union_sel,
+                                  kernel_points, weights, sigma, bias=None, tile=128,
+                                  force=None):
+    """Differentiable union-gather input conv (JAX
+    ``kpconv_union_input_fused_diff``): gradients reach ``weights`` and
+    ``bias`` only."""
+    def conv(w):
+        out, count, t1 = kpconv_union_input_fused(s_feats, q_points, s_points, union_rows,
+                                                  union_sel, kernel_points, w, sigma, tile=tile,
+                                                  force=force, residuals=True)
+        return out, t1, count
+
+    return _with_bias(_KPConvInputT1.apply(weights, conv), bias)
+
+
+def kpconv_split_input_diff(s_feats, q_points, s_points, head_table, split_tables, kernel_points,
+                            weights, sigma, bias=None, q_mask=None, force=None):
+    """Differentiable split-table input conv (JAX ``kpconv_split_input_diff``,
+    c_in == 1): gradients reach ``weights`` and ``bias`` only."""
+    def conv(w):
+        out, count, t1 = kpconv_split_fused(s_feats, q_points, s_points, head_table,
+                                            *split_tables, kernel_points, w, sigma,
+                                            q_mask=q_mask, force=force, residuals=True,
+                                            return_t1=True)
+        return out, t1, count
+
+    return _with_bias(_KPConvInputT1.apply(weights, conv), bias)
+
+
+def kpconv_input_diff(s_feats, q_points, s_points, neighbor_indices, kernel_points, weights,
+                      sigma, bias=None, q_mask=None, force=None):
+    """Differentiable input conv over the neighbor table (JAX
+    ``kpconv_input_fused_diff``, c_in == 1): gradients reach ``weights`` and
+    ``bias`` only."""
+    def conv(w):
+        out, count, t1 = kpconv_fused(s_feats, q_points, s_points, neighbor_indices,
+                                      kernel_points, w, sigma, q_mask=q_mask, force=force,
+                                      residuals=True, return_t1=True)
+        return out, t1, count
+
+    return _with_bias(_KPConvInputT1.apply(weights, conv), bias)

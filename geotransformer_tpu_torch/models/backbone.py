@@ -5,12 +5,15 @@ r"""KPConv feature-pyramid backbone (``geotransformer_tpu/models/backbone.py``).
   decoder j : upsample + concat skip -> Unary(2^{j+1} d + 2^j d -> 2^j d)
               (the last decoder emits ``output_dim`` without norm/relu)
 
-``encoder1_1`` convolves the precomputed input stream when the batch has
-one (the default PairBatch); the strided blocks fuse their shortcut
-max-pool into the conv. Training batches carry the inverse neighbor tables
-(``neighbors_inv``, ``subsampling_inv``), which every conv but the input
-conv hands to its backward (JAX ``models/backbone.py:64-65,102-123``).
-Returns ``feats_list`` finest-first.
+``encoder1_1`` reads, in this order of priority, the precomputed input
+stream (the default PairBatch), the per-tile neighbor unions
+(``union_rows0``, ``union_sel0``), the split stage-0 table, or the neighbor
+table; every later conv reads its split table where the batch has one
+(``neighbors_split``, and ``subsampling_split`` for the strided convs). The
+strided blocks fuse their shortcut max-pool into the conv. Training batches
+carry the inverse neighbor tables (``neighbors_inv``, ``subsampling_inv``,
+whole or split), which every conv but the input conv hands to its backward
+(JAX ``models/backbone.py:63-123``). Returns ``feats_list`` finest-first.
 """
 
 import torch
@@ -76,26 +79,32 @@ class KPConvFPN(nn.Module):
         upsampling = batch["upsampling"]
         nb_inv = batch.get("neighbors_inv", [None] * self.num_stages)
         sub_inv = batch.get("subsampling_inv", [None] * self.num_stages)
+        nb_split = batch.get("neighbors_split", [None] * self.num_stages)
+        sub_split = batch.get("subsampling_split", [None] * self.num_stages)
 
         stage_feats = []
         x = feats
         for i in range(self.num_stages):
             if i == 0:
+                # input conv: edge stream > union gather > split table > table
                 stream0 = batch.get("input_stream") if self.input_dim == 1 else None
-                x = self.encoder1_1(x, points[0], points[0], neighbors[0], masks[0],
-                                    stream=stream0)
+                union0 = None
+                if stream0 is None and "union_rows0" in batch:
+                    union0 = (batch["union_rows0"], batch["union_sel0"])
+                x = self.encoder1_1(
+                    x, points[0], points[0], neighbors[0], masks[0], stream=stream0,
+                    union_tables=union0,
+                    split_tables=nb_split[0] if stream0 is None and union0 is None else None)
                 x = self.encoder1_2(x, points[0], points[0], neighbors[0], masks[0], masks[0],
-                                    inverse_table=nb_inv[0])
+                                    inverse_table=nb_inv[0], split_tables=nb_split[0])
             else:
                 x = getattr(self, f"encoder{i + 1}_1")(
                     x, points[i], points[i - 1], subsampling[i - 1], masks[i], masks[i - 1],
-                    inverse_table=sub_inv[i - 1])
-                x = getattr(self, f"encoder{i + 1}_2")(
-                    x, points[i], points[i], neighbors[i], masks[i], masks[i],
-                    inverse_table=nb_inv[i])
-                x = getattr(self, f"encoder{i + 1}_3")(
-                    x, points[i], points[i], neighbors[i], masks[i], masks[i],
-                    inverse_table=nb_inv[i])
+                    inverse_table=sub_inv[i - 1], split_tables=sub_split[i - 1])
+                for block in (f"encoder{i + 1}_2", f"encoder{i + 1}_3"):
+                    x = getattr(self, block)(
+                        x, points[i], points[i], neighbors[i], masks[i], masks[i],
+                        inverse_table=nb_inv[i], split_tables=nb_split[i])
             stage_feats.append(x)
 
         feats_list = [stage_feats[-1]]

@@ -73,7 +73,8 @@ def _partition_pair(cfg, batch):
 
 
 def _gt_candidates(cfg, batch, part):
-    """GT node overlaps, fixed candidates per ref node (the chunked path)."""
+    """GT node overlaps, fixed candidates per ref node (the overlap kernel on
+    the card, JAX ``models/geotransformer.py:187-202``)."""
     fine, coarse = cfg.model.fine_level, cfg.backbone.num_stages - 1
     ref_points_c, src_points_c = _stage_pair(cfg, batch, coarse, "points")
     ref_points_f, src_points_f = _stage_pair(cfg, batch, fine, "points")
@@ -84,7 +85,8 @@ def _gt_candidates(cfg, batch, part):
         batch["transform"], cfg.model.ground_truth_matching_radius,
         ref_masks=part["ref_node_masks"], src_masks=part["src_node_masks"],
         ref_knn_masks=part["ref_node_knn_masks"], src_knn_masks=part["src_node_knn_masks"],
-        num_candidates=cfg.caps.gt_candidates, chunk_size=cfg.caps.gt_chunk_size)
+        num_candidates=cfg.caps.gt_candidates, chunk_size=cfg.caps.gt_chunk_size,
+        force=cfg.model.force_pallas)
     return {"gt_cand_indices": cand_indices, "gt_cand_overlaps": cand_overlaps,
             "gt_cand_masks": cand_masks}
 

@@ -6,10 +6,13 @@ Every convolution goes through :mod:`geotransformer_tpu_torch.kernels.kpconv`:
 the CUDA kernel on the card, its plain PyTorch version on the CPU. The
 strided residual block's shortcut max-pool (reference functional.py:54-67,
 zero shadow row, first ``pool_cols`` columns) happens inside the same call,
-so there is no separate ``maxpool``. With gradients enabled the convs take
-the autograd Functions of the training path (JAX ``models/kpconv.py:127-180``):
-the inverse-table backward where the batch has inverse tables, the
-weight-only backward for the input conv's edge stream.
+so there is no separate ``maxpool``. The table a conv reads goes by the JAX
+dispatch (``models/kpconv.py:127-196``): the input conv takes the edge
+stream, else the per-tile unions, else the split table, else the neighbor
+table; every other conv takes its split table where the batch has one. With
+gradients enabled the convs take the autograd Functions of the training
+path: the inverse-table backward where the batch has inverse tables, the
+weight-only backward for the input conv.
 Parameter names are the reference torch ones (``KPConv.weights`` (K, C_in,
 C_out), ``KPConv.bias``, the ``kernel_points`` buffer).
 """
@@ -21,14 +24,25 @@ import torch.nn.functional as F
 from geotransformer_tpu_torch.kernels import cuda
 from geotransformer_tpu_torch.kernels.kpconv import (
     kpconv_fused,
+    kpconv_input_diff,
     kpconv_inv_fused_diff,
     kpconv_pool_inv_fused_diff,
+    kpconv_split_diff,
+    kpconv_split_fused,
+    kpconv_split_input_diff,
+    kpconv_split_pool_diff,
     kpconv_stream_fused,
     kpconv_stream_input_diff,
+    kpconv_union_input_fused,
+    kpconv_union_input_fused_diff,
 )
 from geotransformer_tpu_torch.models.kernel_points import load_kernel_points
 from geotransformer_tpu_torch.models.norms import GroupNorm
 from geotransformer_tpu_torch.ops.gather import gather_with_shadow
+
+# query rows per tile of the union tables (pad_registration_batch's
+# union_tile default; the JAX input conv's kernel tile, models/kpconv.py:121)
+UNION_TILE = 128
 
 
 class KPConv(nn.Module):
@@ -44,7 +58,7 @@ class KPConv(nn.Module):
 
     def forward(self, s_feats, q_points, s_points, neighbor_indices,
                 pool_feats=None, pool_cols=None, stream=None, q_mask=None,
-                inverse_table=None):
+                inverse_table=None, union_tables=None, split_tables=None):
         """KPConv forward.
 
         Args:
@@ -54,40 +68,70 @@ class KPConv(nn.Module):
             neighbor_indices: (M, H) int32, sentinel N.
             pool_feats: optional (N, C_pool) features max-pooled over the
                 first ``pool_cols`` columns of the same table.
-            stream: optional (5, M, H) input-conv edge stream (c_in == 1);
-                takes precedence over the neighbor gather.
+            stream: optional (5, M, H) input-conv edge stream (c_in == 1).
             q_mask: optional (M,) bool query validity.
-            inverse_table: optional (N, J) int32 inverse of
-                ``neighbor_indices`` (sentinel M; training batches): with
+            inverse_table: optional inverse of ``neighbor_indices`` (N, J)
+                sentinel M, or its split 4-tuple (training batches): with
                 gradients enabled, the backward runs over it.
+            union_tables: optional (union_rows, union_sel) of the input conv
+                (c_in == 1), built with tile ``UNION_TILE``.
+            split_tables: optional (tail, tail_q, tail_rank) of
+                ``neighbor_indices`` (``preprocess.build_split_tables``).
 
         Returns:
             (M, C_out) features, or (features, pooled) with ``pool_feats``.
         """
         grad = torch.is_grad_enabled()
-        if stream is not None and self.weights.shape[1] == 1:
+        kp, w, sigma, bias, force = (self.kernel_points, self.weights, self.sigma, self.bias,
+                                     self.force)
+        input_layer = w.shape[1] == 1 and pool_feats is None
+        if input_layer and stream is not None:
             conv = kpconv_stream_input_diff if grad else kpconv_stream_fused
-            return conv(stream, self.kernel_points, self.weights, self.sigma, self.bias,
-                        force=self.force)
+            return conv(stream, kp, w, sigma, bias, force=force)
+        if input_layer and union_tables is not None:
+            conv = kpconv_union_input_fused_diff if grad else kpconv_union_input_fused
+            return conv(s_feats, q_points, s_points, *union_tables, kp, w, sigma, bias,
+                        tile=UNION_TILE, force=force)
+        pool = {} if pool_feats is None else dict(pool_feats=pool_feats, pool_cols=pool_cols)
+        if split_tables is not None:
+            h1 = neighbor_indices.shape[1] - split_tables[0].shape[1]
+            head = neighbor_indices[:, :h1].contiguous()
+            if input_layer and grad:
+                return kpconv_split_input_diff(s_feats, q_points, s_points, head, split_tables,
+                                               kp, w, sigma, bias, q_mask=q_mask, force=force)
+            if grad and inverse_table is not None:
+                if pool_feats is not None:
+                    return kpconv_split_pool_diff(
+                        s_feats, pool_feats, q_points, s_points, head, split_tables,
+                        inverse_table, kp, w, sigma, bias, pool_cols=pool_cols, q_mask=q_mask,
+                        force=force)
+                return kpconv_split_diff(s_feats, q_points, s_points, head, split_tables,
+                                         inverse_table, kp, w, sigma, bias, q_mask=q_mask,
+                                         force=force)
+            self._check_backward(grad, s_feats)
+            return kpconv_split_fused(s_feats, q_points, s_points, head, *split_tables, kp, w,
+                                      sigma, bias, q_mask=q_mask, force=force, **pool)
+        if input_layer and grad:
+            return kpconv_input_diff(s_feats, q_points, s_points, neighbor_indices, kp, w, sigma,
+                                     bias, q_mask=q_mask, force=force)
         if grad and inverse_table is not None:
             if pool_feats is not None:
                 return kpconv_pool_inv_fused_diff(
                     s_feats, pool_feats, q_points, s_points, neighbor_indices, inverse_table,
-                    self.kernel_points, self.weights, self.sigma, self.bias,
-                    pool_cols=pool_cols, q_mask=q_mask, force=self.force)
-            return kpconv_inv_fused_diff(
-                s_feats, q_points, s_points, neighbor_indices, inverse_table,
-                self.kernel_points, self.weights, self.sigma, self.bias, q_mask=q_mask,
-                force=self.force)
+                    kp, w, sigma, bias, pool_cols=pool_cols, q_mask=q_mask, force=force)
+            return kpconv_inv_fused_diff(s_feats, q_points, s_points, neighbor_indices,
+                                         inverse_table, kp, w, sigma, bias, q_mask=q_mask,
+                                         force=force)
+        self._check_backward(grad, s_feats)
+        # inference, or the plain version (differentiable by autograd)
+        return kpconv_fused(s_feats, q_points, s_points, neighbor_indices, kp, w, sigma, bias,
+                            q_mask=q_mask, force=force, **pool)
+
+    def _check_backward(self, grad, s_feats):
         if grad and cuda.use_kernel(s_feats, self.force):
             raise ValueError(
                 "KPConv with gradients on the CUDA kernels needs the batch's inverse "
                 "tables: pad_registration_batch(..., inverse_limits=cfg.caps.inverse_limits)")
-        # inference, or the plain version (differentiable by autograd)
-        return kpconv_fused(s_feats, q_points, s_points, neighbor_indices,
-                            self.kernel_points, self.weights, self.sigma, self.bias,
-                            pool_feats=pool_feats, pool_cols=pool_cols,
-                            q_mask=q_mask, force=self.force)
 
 
 def leaky_relu(x):
@@ -129,9 +173,10 @@ class ConvBlock(nn.Module):
         self.norm = GroupNorm(group_norm, out_channels)
 
     def forward(self, s_feats, q_points, s_points, neighbor_indices, q_mask=None,
-                stream=None, inverse_table=None):
-        x = self.KPConv(s_feats, q_points, s_points, neighbor_indices,
-                        stream=stream, q_mask=q_mask, inverse_table=inverse_table)
+                stream=None, inverse_table=None, union_tables=None, split_tables=None):
+        x = self.KPConv(s_feats, q_points, s_points, neighbor_indices, stream=stream,
+                        q_mask=q_mask, inverse_table=inverse_table, union_tables=union_tables,
+                        split_tables=split_tables)
         return leaky_relu(self.norm(x, q_mask))
 
 
@@ -152,16 +197,15 @@ class ResidualBlock(nn.Module):
                                if in_channels != out_channels else None)
 
     def forward(self, s_feats, q_points, s_points, neighbor_indices, q_mask=None,
-                s_mask=None, inverse_table=None):
+                s_mask=None, inverse_table=None, split_tables=None):
         x = self.unary1(s_feats, s_mask) if self.unary1 is not None else s_feats
+        tables = dict(q_mask=q_mask, inverse_table=inverse_table, split_tables=split_tables)
         if self.strided:
             # one call serves the conv and the shortcut max-pool (same table)
             x, shortcut = self.KPConv(x, q_points, s_points, neighbor_indices,
-                                      pool_feats=s_feats, pool_cols=self.pool_cols,
-                                      q_mask=q_mask, inverse_table=inverse_table)
+                                      pool_feats=s_feats, pool_cols=self.pool_cols, **tables)
         else:
-            x = self.KPConv(x, q_points, s_points, neighbor_indices, q_mask=q_mask,
-                            inverse_table=inverse_table)
+            x = self.KPConv(x, q_points, s_points, neighbor_indices, **tables)
             shortcut = s_feats
         x = leaky_relu(self.norm_conv(x, q_mask))
         x = self.unary2(x, q_mask)

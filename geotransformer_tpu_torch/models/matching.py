@@ -6,11 +6,13 @@ r"""Superpoint matching, training-target sampling and GT correspondences
   * target sampling (reference `superpoint_target.py:6-41`): a masked top-k
     over random keys;
   * GT node correspondences (reference `registration/matching.py:231-315`):
-    a fixed number of candidate src nodes per ref node, overlaps in chunks.
+    a fixed number of candidate src nodes per ref node, overlaps from
+    ``kernels.overlap.patch_overlaps``.
 """
 
 import torch
 
+from geotransformer_tpu_torch.kernels.overlap import patch_overlaps
 from geotransformer_tpu_torch.ops.pairwise_distance import pairwise_distance
 from geotransformer_tpu_torch.ops.se3 import apply_transform
 
@@ -78,10 +80,10 @@ def superpoint_target_sample(generator, gt_corr_overlaps, num_targets, overlap_t
 
 def get_node_correspondences(ref_nodes, src_nodes, ref_knn_points, src_knn_points, transform,
                              pos_radius, ref_masks=None, src_masks=None, ref_knn_masks=None,
-                             src_knn_masks=None, num_candidates=64, chunk_size=32):
+                             src_knn_masks=None, num_candidates=64, chunk_size=32, force=None):
     """Ground-truth patch overlaps with fixed-candidate static shapes
-    (``geotransformer_tpu/models/matching.py:113-238``, the chunked path
-    without the overlap kernel; reference `registration/matching.py:231-315`).
+    (``geotransformer_tpu/models/matching.py:113-238``, its ``use_pallas``
+    branch; reference `registration/matching.py:231-315`).
 
     Each ref node keeps the ``num_candidates`` nearest src nodes whose
     enclosing spheres (plus ``pos_radius``) intersect its own; the overlap
@@ -95,7 +97,10 @@ def get_node_correspondences(ref_nodes, src_nodes, ref_knn_points, src_knn_point
         pos_radius: matching radius.
         *_masks: node validity; *_knn_masks: patch-slot validity.
         num_candidates: S (at most N).
-        chunk_size: ref nodes per chunk (bounds the (chunk, S, K, K) work set).
+        chunk_size: ref nodes per chunk of the overlaps' plain version.
+        force: ``ModelConfig.force_pallas``: the overlaps go through
+            :func:`kernels.overlap.patch_overlaps`, the CUDA kernel for CUDA
+            tensors.
 
     Returns:
         cand_indices (M, S), cand_overlaps (M, S) in [0, 1] (0 where
@@ -130,22 +135,9 @@ def get_node_correspondences(ref_nodes, src_nodes, ref_knn_points, src_knn_point
     top_vals, cand_indices = torch.topk(sel_key, num_candidates, dim=1)
     cand_masks = top_vals > -torch.inf
 
-    overlaps = []
-    for c0 in range(0, m, chunk_size):
-        r_knn, r_mask = ref_knn_points[c0:c0 + chunk_size], ref_knn_masks[c0:c0 + chunk_size]
-        c_idx = cand_indices[c0:c0 + chunk_size]
-        s_knn, s_mask = src_knn_points[c_idx], src_knn_masks[c_idx]  # (c, S, K, 3), (c, S, K)
-        d2 = pairwise_distance(r_knn[:, None, :, :], s_knn)  # (c, S, K, K)
-        pm = r_mask[:, None, :, None].float() * s_mask[:, :, None, :].float()
-        match = (d2 < pos_radius**2).float() * pm
-        ref_counts = match.amax(dim=3).sum(dim=2)  # (c, S)
-        src_counts = match.amax(dim=2).sum(dim=2)
-        ref_total = torch.clamp(r_mask.sum(dim=1).float(), min=1.0)
-        src_total = torch.clamp(s_mask.sum(dim=2).float(), min=1.0)
-        overlap = 0.5 * (ref_counts / ref_total[:, None] + src_counts / src_total)
-        overlaps.append(torch.where(cand_masks[c0:c0 + chunk_size], overlap, 0.0))
-    overlaps = torch.cat(overlaps, dim=0)
-
+    overlaps = patch_overlaps(ref_knn_points.contiguous(), ref_knn_masks.contiguous(),
+                              src_knn_points.contiguous(), src_knn_masks.contiguous(),
+                              cand_indices, cand_masks, pos_radius, chunk_size, force=force)
     cand_masks = cand_masks & (overlaps > 0.0)
     return cand_indices, torch.where(cand_masks, overlaps, 0.0), cand_masks
 

@@ -9,10 +9,13 @@ Padded layout (per stage, per-cloud capacities ``(C_ref, C_src)``): rows
 ``[0, C_ref)`` ref, ``[C_ref, C_ref + C_src)`` src, sentinel index
 ``C_ref + C_src``, padded coordinates at ``PAD_COORD``.
 
-Training batches also carry the inverse neighbor tables of the KPConv
-backward (``inverse_limits``). Not ported: the native ``geolib.cpp``
-binding (this numpy path is the JAX package's own fallback) and the
-split/union tables (non-default table layouts only).
+Optional tables, each byte-identical to the JAX package's: the inverse
+neighbor tables of the KPConv backward (``inverse_limits``, optionally split
+into head and compacted tail), the split forward tables
+(``neighbor_splits``, ``subsampling_splits``: deep-column compaction) and
+the stage-0 per-tile neighbor unions of the union-gather input conv
+(``union_cap``). Not ported: the native ``geolib.cpp`` binding (this numpy
+path is the JAX package's own fallback).
 """
 
 import numpy as np
@@ -155,8 +158,110 @@ def build_inverse_table(table, num_support, j_cap):
     return inv
 
 
+def build_split_tables(table, num_support, h1, m2_cap):
+    """Split a padded neighbor table into its first ``h1`` columns (the head,
+    every query) and a compacted tail: the remaining columns of only the
+    queries with a valid neighbor beyond ``h1`` (``kernels.kpconv_split_fused``).
+
+    Args:
+        table: (M, H) padded neighbor table, values < num_support are valid.
+        num_support: sentinel base.
+        h1: head width; a multiple of 8 with 0 < h1 < H.
+        m2_cap: tail-row capacity.
+
+    Returns:
+        tail (m2_cap, H - h1) int32 sentinel-padded, tail_q (m2_cap,) int32
+        query row per tail row (0 on padding rows), tail_rank (M,) int32
+        query row -> tail row, sentinel m2_cap.
+    Raises ValueError on a bad head width or more deep queries than m2_cap.
+    """
+    table = np.asarray(table)
+    m, h = table.shape
+    if not (0 < h1 < h and h1 % 8 == 0):
+        raise ValueError(f"split head width {h1} invalid for table width {h}")
+    rows = np.nonzero((table[:, h1:] < num_support).any(axis=1))[0]
+    m2 = len(rows)
+    if m2 > m2_cap:
+        raise ValueError(
+            f"{m2} deep queries exceed split capacity {m2_cap}; raise this "
+            f"stage's split capacity (caps.neighbor_splits)")
+    tail = np.full((m2_cap, h - h1), num_support, dtype=table.dtype)
+    tail[:m2] = table[rows, h1:]
+    tail_q = np.zeros(m2_cap, dtype=np.int32)
+    tail_q[:m2] = rows
+    rank = np.full(m, m2_cap, dtype=np.int32)
+    rank[rows] = np.arange(m2, dtype=np.int32)
+    return tail, tail_q, rank
+
+
+def fit_split_for_table(table, num_support, multiple=128, min_saving=0.08, align=TABLE_ALIGN):
+    """The (h1, m2_cap) split of this table with the fewest table rows
+    M h1 + m2_cap (H - h1) (h1 sweeps multiples of ``align``, m2_cap the deep
+    queries rounded up to ``multiple``), or None when it saves less than
+    ``min_saving`` of the M H rows."""
+    table = np.asarray(table)
+    m, h = table.shape
+    valid = table < num_support
+    best = (m * h, None)
+    for h1 in range(align, h, align):
+        m2 = int(valid[:, h1:].any(axis=1).sum())
+        m2_cap = max(round_up(m2, multiple), multiple)
+        rows = m * h1 + m2_cap * (h - h1)
+        if rows < best[0]:
+            best = (rows, (h1, m2_cap))
+    if best[1] is None or best[0] > (1.0 - min_saving) * m * h:
+        return None
+    return best[1]
+
+
+def build_union_tables(table, num_support, tile=128, union_cap=1536):
+    """Per-query-tile neighbor unions of the union-gather input conv
+    (``kernels.kpconv_union_input_fused``).
+
+    Args:
+        table: (M, H) padded neighbor table, sentinel >= num_support.
+        num_support: support row count (sentinel).
+        tile: query rows per tile (the kernel's tile).
+        union_cap: per-tile union capacity U.
+
+    Returns:
+        union_rows (ceil(M / tile), U) int32 the sorted distinct support rows
+        of each tile, sentinel num_support; sel (M, H) int32 the position of
+        each edge's support row in its tile's union, sentinel U.
+    Raises ValueError if a tile's union exceeds ``union_cap``.
+    """
+    table = np.asarray(table)
+    m, h = table.shape
+    num_tiles = -(-m // tile)
+    union_rows = np.full((num_tiles, union_cap), num_support, np.int32)
+    sel = np.full((m, h), union_cap, np.int32)
+    for t in range(num_tiles):
+        blk = table[t * tile:(t + 1) * tile]
+        uniq = np.unique(blk[blk < num_support])
+        if uniq.size > union_cap:
+            raise ValueError(
+                f"tile {t}: neighbor union {uniq.size} exceeds capacity "
+                f"{union_cap}; raise the stage-0 union capacity")
+        union_rows[t, :uniq.size] = uniq
+        pos = np.clip(np.searchsorted(uniq, blk), 0, max(uniq.size - 1, 0))
+        hit = (blk < num_support) & (uniq[pos] == blk if uniq.size else False)
+        sel[t * tile:t * tile + blk.shape[0]] = np.where(hit, pos, union_cap)
+    return union_rows, sel
+
+
+def _split_inverse(inv, query_rows, spec):
+    """An inverse table, or with a (h1, m2_cap) spec its split 4-tuple
+    (head, tail, tail_s, rank) that ``kernels.kpconv_bwd_fused`` takes."""
+    if spec is None:
+        return inv
+    tail, tail_s, rank = build_split_tables(inv, query_rows, spec[0], spec[1])
+    return (inv[:, :spec[0]], tail, tail_s, rank)
+
+
 def pad_registration_batch(pyramid, feats, transform, stage_caps, inverse_limits=None,
-                           sub_inverse_limits=None, input_stream=True):
+                           sub_inverse_limits=None, union_cap=None, union_tile=128,
+                           neighbor_splits=None, subsampling_splits=None,
+                           inverse_splits=None, sub_inverse_splits=None, input_stream=True):
     """Convert an unpadded pyramid into a fixed-capacity PairBatch (numpy).
 
     Args:
@@ -172,6 +277,14 @@ def pad_registration_batch(pyramid, feats, transform, stage_caps, inverse_limits
             of ``subsampling[i]``; columns padded to a multiple of 8.
         sub_inverse_limits: the J'_i of the subsampling inverses; default
             ``max(16, J_i // 4 + 8)`` (a coarse point pools ~4 fine voxels).
+        union_cap, union_tile: adds ``union_rows0`` / ``union_sel0``, the
+            stage-0 per-tile neighbor unions (:func:`build_union_tables`).
+        neighbor_splits / subsampling_splits: per-stage (h1, m2_cap) or
+            None; adds ``neighbors_split[i]`` / ``subsampling_split[i]``,
+            the (tail, tail_q, tail_rank) of :func:`build_split_tables`
+            (None where the spec is None).
+        inverse_splits / sub_inverse_splits: per-stage (h1, m2_cap) or
+            None; the inverse tables become (head, tail, tail_s, rank).
         input_stream: with 1-channel features, also build the
             ``input_stream`` edge planes of the input conv.
 
@@ -234,15 +347,36 @@ def pad_registration_batch(pyramid, feats, transform, stage_caps, inverse_limits
         out["neighbors_inv"], out["subsampling_inv"] = [], []
         for i in range(num_stages):
             rows = out["neighbors"][i].shape[0]
-            out["neighbors_inv"].append(_pad_cols(
+            inv = _pad_cols(
                 build_inverse_table(out["neighbors"][i], rows, int(inverse_limits[i])),
-                np.int32(rows)))
+                np.int32(rows))
+            out["neighbors_inv"].append(_split_inverse(
+                inv, rows, None if inverse_splits is None else inverse_splits[i]))
             if i < num_stages - 1:
                 rows_sub = out["subsampling"][i].shape[0]
-                out["subsampling_inv"].append(_pad_cols(
+                sub_inv = _pad_cols(
                     build_inverse_table(out["subsampling"][i], rows,
                                         int(sub_inverse_limits[i])),
-                    np.int32(rows_sub)))
+                    np.int32(rows_sub))
+                out["subsampling_inv"].append(_split_inverse(
+                    sub_inv, rows_sub,
+                    None if sub_inverse_splits is None else sub_inverse_splits[i]))
+
+    if neighbor_splits is not None:
+        out["neighbors_split"] = [
+            None if spec is None else build_split_tables(
+                out["neighbors"][i], out["neighbors"][i].shape[0], spec[0], spec[1])
+            for i, spec in enumerate(neighbor_splits)]
+    if subsampling_splits is not None:
+        # the support of subsampling[i] is stage i
+        out["subsampling_split"] = [
+            None if spec is None else build_split_tables(
+                out["subsampling"][i], out["neighbors"][i].shape[0], spec[0], spec[1])
+            for i, spec in enumerate(subsampling_splits[:num_stages - 1])]
+    if union_cap is not None:
+        rows0 = out["neighbors"][0].shape[0]
+        out["union_rows0"], out["union_sel0"] = build_union_tables(
+            out["neighbors"][0], rows0, tile=union_tile, union_cap=union_cap)
 
     out["features"] = _pad_rows(
         np.asarray(feats, dtype=np.float32), ref_lens[0], src_lens[0],
@@ -298,10 +432,16 @@ def caps_for_pyramid(pyramid, multiple=128, margin=1.0, per_cloud=False):
 
 
 def batch_to_torch(batch, device):
-    """PairBatch of numpy arrays or tensors (and per-stage lists) -> torch
-    tensors on ``device``; dtypes are kept (float32 / int32 / bool)."""
+    """PairBatch of numpy arrays or tensors -> torch tensors on ``device``;
+    dtypes are kept (float32 / int32 / bool). Per-stage lists stay lists,
+    split tables stay tuples, and None entries (stages without a split) stay
+    None."""
     def convert(value):
-        if isinstance(value, (list, tuple)):
+        if value is None:
+            return None
+        if isinstance(value, tuple):
+            return tuple(convert(v) for v in value)
+        if isinstance(value, list):
             return [convert(v) for v in value]
         if isinstance(value, torch.Tensor):
             return value.to(device)

@@ -6,7 +6,11 @@ have no CPU or interpret mode). Run on the H100 with
 chip_smoke.py's: KPConv forward and backward rtol 1e-4 + atol 1e-5 x
 max|plain| (f32 sums in another order), GSE atol 1e-3 (256-term f32
 projections in another order, sincosf arguments up to ~12), its parameter
-gradients atol 1e-4 x max|plain|, Sinkhorn forward and backward 1e-4.
+gradients atol 1e-4 x max|plain|, Sinkhorn forward and backward 1e-4 (at
+3DMatch's 65 x 65 patches and KITTI's 129 x 129); the
+split-table and union convs as the KPConv forward (their counts and pooled
+values exactly), the GT patch overlaps exactly (the kernel and its plain
+version round the same direct distance alike).
 """
 
 import numpy as np
@@ -25,9 +29,14 @@ from geotransformer_tpu_torch.kernels.kpconv import (
     kpconv_bwd_fused_plain,
     kpconv_fused,
     kpconv_fused_plain,
+    kpconv_split_fused,
+    kpconv_split_fused_plain,
     kpconv_stream_fused,
     kpconv_stream_fused_plain,
+    kpconv_union_input_fused,
+    kpconv_union_input_fused_plain,
 )
+from geotransformer_tpu_torch.kernels.overlap import patch_overlaps, patch_overlaps_plain
 from geotransformer_tpu_torch.kernels.sinkhorn import (
     sinkhorn_bwd_train,
     sinkhorn_bwd_train_plain,
@@ -37,7 +46,11 @@ from geotransformer_tpu_torch.kernels.sinkhorn import (
     sinkhorn_log_iterations_plain,
 )
 from geotransformer_tpu_torch.models.kernel_points import load_kernel_points
-from geotransformer_tpu_torch.preprocess.pyramid import build_inverse_table
+from geotransformer_tpu_torch.preprocess.pyramid import (
+    build_inverse_table,
+    build_split_tables,
+    build_union_tables,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -202,6 +215,30 @@ def test_kpconv_bwd_matches_plain(device, c_in, c_out, n, m, j, with_pool):
         assert_kpconv_close(g, w)
 
 
+@pytest.mark.parametrize("c_in, c_out, n, m, j, h1", [
+    (32, 32, 1000, 997, 80, 8), (64, 128, 333, 301, 40, 16), (128, 128, 517, 250, 32, 8),
+    (256, 256, 130, 129, 80, 72)], ids=["deep", "wide", "narrow", "all-shallow"])
+@pytest.mark.parametrize("with_pool", [False, True])
+def test_kpconv_bwd_split_matches_plain_and_unsplit(device, c_in, c_out, n, m, j, h1, with_pool):
+    args, kw = kpconv_bwd_case(device, c_in, c_out, n, m, j, c_pool=2 * c_in if with_pool else 0)
+    inv = args[4].cpu().numpy()
+    m2 = int((inv[:, h1:] < m).any(axis=1).sum())
+    tail, tail_s, rank = build_split_tables(inv, m, h1, m2 + 3)  # padding tail rows too
+    split = (args[4][:, :h1].contiguous(),) + tuple(
+        torch.from_numpy(x).to(device) for x in (tail, tail_s, rank))
+    call = args[:4] + [split] + args[5:]
+    before = cuda.launches["kpconv_bwd_fused"]
+    got = kpconv_bwd_fused(*call, 0.05, **kw)
+    assert cuda.launches["kpconv_bwd_fused"] == before + 2  # the head pass and the tail pass
+    want = kpconv_bwd_fused_plain(*call, 0.05, **kw)
+    whole = kpconv_bwd_fused_plain(*args, 0.05, **kw)
+    torch.cuda.synchronize()
+    assert len(got) == len(whole) == (3 if with_pool else 2)
+    for g, w, u in zip(got, want, whole):
+        assert_kpconv_close(g, w)
+        assert_kpconv_close(g, u)
+
+
 @pytest.mark.parametrize("c", [32, 256])
 @pytest.mark.parametrize("n, n_valid", [(100, 100), (100, 61), (37, 1)])
 def test_gse_bwd_matches_plain(device, c, n, n_valid):
@@ -237,7 +274,7 @@ def sinkhorn_train_case(device, p=64, m1=65, iterations=100):
     return [t.to(device) for t in (scores, log_mu, log_nu, dout)], masked.to(device)
 
 
-@pytest.mark.parametrize("p, m1", [(64, 65), (3, 17)])
+@pytest.mark.parametrize("p, m1", [(64, 65), (3, 17), (16, 129)])
 def test_sinkhorn_train_matches_plain(device, p, m1):
     (scores, log_mu, log_nu, dout), masked = sinkhorn_train_case(device, p, m1)
     out, v_hist = sinkhorn_fwd_train(scores, log_mu, log_nu, 100)
@@ -252,3 +289,108 @@ def test_sinkhorn_train_matches_plain(device, p, m1):
     for g, w in zip(got, want):
         assert bool(torch.isfinite(g).all())
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("c", [1, 32, 128])
+def test_kpconv_unnormalized_and_t1_match_plain(device, c):
+    args, _, pool, q_mask = kpconv_case(device, c, m=301, c_pool=8 if c > 1 else 0)
+    kw = dict(pool_feats=pool, pool_cols=30) if c > 1 else dict(return_t1=True)
+    got = kpconv_fused(*args, 0.05, q_mask=q_mask, normalize=False, residuals=True, **kw)
+    want = kpconv_fused_plain(*args, 0.05, q_mask=q_mask, normalize=False, residuals=True, **kw)
+    torch.cuda.synchronize()
+    assert_kpconv_close(got[0], want[0])
+    if c == 1:
+        _, count, t1 = got
+        assert_kpconv_close(t1, want[2])
+    else:
+        _, pooled, count, ties = got
+        assert torch.equal(pooled, want[1]) and torch.equal(ties, want[3])
+    assert torch.equal(count, want[1] if c == 1 else want[2])  # the raw count
+    assert (count[~q_mask] == 0).all()  # no clamp at 1
+
+
+def split_case(device, c, m, h1, deep, seed=0):
+    """A conv case with its table split at h1; ``deep``: "some", "none" (M2
+    = 0 used rows) or "all"."""
+    args, bias, pool, q_mask = kpconv_case(device, c, m=m, c_pool=2 * c, seed=seed)
+    n = args[0].shape[0]
+    table = args[3].cpu().clone()
+    table = torch.where(table < n, table, n)
+    table = torch.sort(table, dim=1).values.to(torch.int32)  # valid columns first
+    if deep == "some":
+        table[::2, h1:] = n  # every other query shallow
+    elif deep == "none":
+        table[:, h1:] = n
+    elif deep == "all":
+        table[:, :h1 + 1] = torch.arange(h1 + 1, dtype=torch.int32)
+    m2 = int((table[:, h1:] < n).any(1).sum())
+    tail, tail_q, rank = build_split_tables(table.numpy(), n, h1, m2 + 3)
+    split = [torch.from_numpy(x).to(device) for x in (tail, tail_q, rank)]
+    args[3] = table.to(device)
+    return args, bias, pool, q_mask, table[:, :h1].contiguous().to(device), split
+
+
+@pytest.mark.parametrize("c, m, deep", [(32, 301, "some"), (128, 77, "some"), (64, 200, "none"),
+                                        (32, 130, "all")])
+@pytest.mark.parametrize("with_pool", [False, True])
+def test_kpconv_split_matches_plain_and_unsplit(device, c, m, deep, with_pool):
+    args, bias, pool, q_mask, head, split = split_case(device, c, m, 8, deep)
+    kw = dict(pool_feats=pool, pool_cols=38) if with_pool else {}
+    call = (args[0], args[1], args[2], head, *split, args[4], args[5], 0.05, bias)
+    before = dict(cuda.launches)
+    got = kpconv_split_fused(*call, q_mask=q_mask, residuals=True, **kw)
+    # two launches of the kpconv_fused kernel, counted as the split conv's
+    assert cuda.launches["kpconv_split_fused"] == before.get("kpconv_split_fused", 0) + 2
+    assert cuda.launches["kpconv_fused"] == before.get("kpconv_fused", 0)
+    want = kpconv_split_fused_plain(*call, q_mask=q_mask, residuals=True, **kw)
+    whole = kpconv_fused_plain(*args, 0.05, bias, q_mask=q_mask, residuals=True, **kw)
+    torch.cuda.synchronize()
+    for ref in (want, whole):
+        assert_kpconv_close(got[0], ref[0])
+        assert torch.equal(got[2 if with_pool else 1], ref[2 if with_pool else 1])  # count
+        if with_pool:
+            assert torch.equal(got[1], ref[1])  # pooled
+    if with_pool:
+        assert torch.equal(got[3], want[3])  # ties against the combined max
+
+
+@pytest.mark.parametrize("m, tile, h", [(300, 128, 40), (257, 64, 24)], ids=["ragged", "odd"])
+def test_kpconv_union_matches_plain(device, m, tile, h):
+    args, bias, _, _ = kpconv_case(device, 1, m=m, n=400, h=h)
+    feats = (torch.rand(400, 1, generator=torch.Generator().manual_seed(3)) > 0.2).float()
+    table = args[3].cpu().numpy()
+    rows, sel = build_union_tables(table, 400, tile=tile, union_cap=512)
+    rows, sel = torch.from_numpy(rows).to(device), torch.from_numpy(sel).to(device)
+    call = (feats.to(device), args[1], args[2], rows, sel, args[4], args[5], 0.05, bias)
+    before = cuda.launches["kpconv_union_input_fused"]
+    got = kpconv_union_input_fused(*call, tile=tile, residuals=True)
+    assert cuda.launches["kpconv_union_input_fused"] == before + 1
+    want = kpconv_union_input_fused_plain(*call, tile=tile, residuals=True)
+    torch.cuda.synchronize()
+    assert_kpconv_close(got[0], want[0])
+    assert torch.equal(got[1], want[1])  # count
+    assert_kpconv_close(got[2], want[2])  # t1
+
+
+@pytest.mark.parametrize("m, n, k, s", [(64, 70, 128, 64), (37, 41, 64, 8), (5, 9, 33, 13)])
+def test_patch_overlaps_match_plain(device, m, n, k, s):
+    g = torch.Generator().manual_seed(6)
+    ref_nodes, src_nodes = torch.rand(m, 1, 3, generator=g) * 3, torch.rand(n, 1, 3, generator=g) * 3
+    ref = ref_nodes + torch.rand(m, k, 3, generator=g) - 0.5
+    src = src_nodes + torch.rand(n, k, 3, generator=g) - 0.5
+    ref_mask = torch.rand(m, k, generator=g) > 0.2
+    src_mask = torch.rand(n, k, generator=g) > 0.2
+    ref_mask[0] = False  # an empty ref patch
+    src_mask[1] = False  # an empty candidate patch
+    cand = torch.randint(0, n, (m, s), generator=g)
+    cand_mask = torch.rand(m, s, generator=g) > 0.25
+    cand_mask[2] = False  # a ref node whose candidates are all masked
+    call = [x.to(device) for x in (ref, ref_mask, src, src_mask, cand, cand_mask)]
+    before = cuda.launches["patch_overlaps"]
+    got = patch_overlaps(*call, 0.3)
+    assert cuda.launches["patch_overlaps"] == before + 1
+    want = patch_overlaps_plain(*call, 0.3)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert 0.0 < (got > 0).float().mean().item() < 1.0
+    assert not got[2].any() and not got[0].any()
