@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
-r"""Drive the PyTorch port's 3DMatch and KITTI inference, training and eval
-paths on one CUDA card.
+r"""Drive the PyTorch port's 3DMatch, KITTI and ModelNet inference, training
+and eval paths on one CUDA card.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; no phase's exception is caught). Every
 counted run clears the kernels' launch counts just before it and reads them
-just after; each count must equal what the batch's tables imply
-(``expected_launches``: a split conv launches the kpconv_fused kernel twice,
-both counted as kpconv_split_fused; a split inverse table launches
-kpconv_bwd_fused twice).
+just after; each count must equal what the batch's tables and the
+transformer's blocks imply (``expected_launches``: a split conv launches the
+kpconv_fused kernel twice, both counted as kpconv_split_fused; a split
+inverse table launches kpconv_bwd_fused twice; each forward launches
+rpe_pair_scores twice a "self" block and fused_masked_attention twice a
+block).
   1. build   — nvcc compiles the CUDA kernels of geotransformer_tpu_torch/
                kernels/csrc for sm_90a, one process per source, in parallel;
   2. batch   — three synthetic 3DMatch-scale pairs (19,000-point wavy
@@ -23,9 +25,16 @@ kpconv_bwd_fused twice).
   4. kernel vs plain — each inference kernel on the inputs it got in a
                forward, held against its plain PyTorch version (KPConv rtol
                1e-4 and atol 1e-5 x max|plain|; GSE atol 1e-3 on the valid
-               rectangle; Sinkhorn 1e-4 on valid entries), both timed; and the
-               whole model with force_pallas=False, whose ref/src_feats_c must
-               agree with the kernel run to 1e-3 of their largest magnitude;
+               rectangle; RPE pair scores 1e-5 x max|plain|; attention 1e-5 x
+               max|plain| on valid rows, exact zeros on padded rows; Sinkhorn
+               1e-4 on valid entries), both timed (CUDA events), and the
+               attention kernels also against one PyTorch call (library_ms:
+               torch.bmm, SDPA), both also on the device alone from
+               torch.profiler (device_ms by the kernel's name,
+               library_device_ms);
+               and the whole model with force_pallas=False, whose
+               ref/src_feats_c must agree with the kernel run to 1e-3 of
+               their largest magnitude;
   5. union   — the same pairs with per-tile neighbor unions and no edge
                stream (union_cap 1536 or the next multiple of 512 that
                holds, tile 128): one counted forward each through the
@@ -40,8 +49,14 @@ kpconv_bwd_fused twice).
                in one step, against its plain version (KPConv backward as the
                forward; GSE gradients atol 1e-4 x the largest plain one; Sinkhorn
                1e-4), both timed; and the whole step: every parameter
-               gradient of the kernel model within 1e-3 (relative norm) of the
-               force_pallas=False model's from the same weights and batch;
+               gradient of the kernel model against the exact step, the
+               force_pallas=False model's in float64 from the same weights,
+               batch and GT targets along the kernel step's ReLU branches:
+               the whole step's and each tensor's within 1e-3 (relative
+               norm) plus twice the float32 plain step's distance of the
+               float64 step along its own branches, the vanishing ones under
+               the noise floor (proj_p.bias exactly 0 on the kernel route,
+               which drops q . b_p); a violation fails the run at its end;
   8. profile — torch.profiler over two more training steps: device time by
                kernel (chiprun_out/train_profile.txt) and the device's busy
                share of phase 6's median step;
@@ -67,6 +82,27 @@ kpconv_bwd_fused twice).
                whole-step gradients vs the plain model's; one eval step per
                pair (no precomputed targets), counted, finite metrics; a
                profile of two more steps (chiprun_out/kitti_train_profile.txt).
+ 12. ModelNet batch — a synthetic ModelNet pickle written from a seed into a
+               temporary directory (4 entries of 2048 points with normals on
+               random boxes and cylinders, asymmetric labels), read by the
+               port's ModelNetPairDataset at the reference settings (717
+               points, noise 0.05, keep 0.7, twice sampled, 45 deg, 0.5);
+               the config's caps (768, 384, 192) if every pair fits them,
+               else caps calibrated over the pairs (printed);
+ 13. ModelNet forward — the full-width make_modelnet_config() model (3
+               stages, fine level 0, 128-point patches) registers three
+               pairs, counted, timed; each inference kernel of the path vs
+               its plain version, as phase 4; the force_pallas=False model
+               agrees on ref/src_feats_c to 1e-3;
+ 14. ModelNet train — Trainer.run_iterations over a PairLoader (2 spawned
+               workers, GT targets precomputed there) for 8 iterations with a
+               4-step warmup (a cut of the config's 400000 / 10000), every
+               step counted, finite losses, no skip, each step's learning
+               rate on the warmup-cosine schedule, step median and peak
+               memory; the checkpoint of step 4 restored into a fresh model,
+               whose steps 5-8 repeat the run's losses to 1e-3; each training
+               kernel of one step vs its plain version and whole-step
+               gradients vs the plain model's; one eval step a pair.
 Then it prints the {"kernels": [...]} line (each kernel's numbers summed over
 the paths it was compared on, with each path's own under "by_path"), the
 card's name and power limit, and, last, {"ok": true, "device": {...}}.
@@ -75,16 +111,27 @@ Details go to chiprun_out/chip_smoke.json.
 
 import collections
 import contextlib
+import copy
+import dataclasses
 import json
 import os
+import pickle
 import statistics
 import subprocess
+import tempfile
 import time
 
 import numpy as np
 import torch
 
-from geotransformer_tpu_torch.configs import make_3dmatch_config, make_kitti_config
+from geotransformer_tpu_torch.configs import (
+    make_3dmatch_config,
+    make_kitti_config,
+    make_modelnet_config,
+)
+from geotransformer_tpu_torch.datasets import ASYMMETRIC_INDICES, ModelNetPairDataset
+from geotransformer_tpu_torch.engine import Trainer
+from geotransformer_tpu_torch.kernels import attention as kernels_attention
 from geotransformer_tpu_torch.kernels import cuda
 from geotransformer_tpu_torch.kernels import gse as kernels_gse
 from geotransformer_tpu_torch.kernels import kpconv as kernels_kpconv
@@ -96,7 +143,12 @@ from geotransformer_tpu_torch.models import kpconv as models_kpconv
 from geotransformer_tpu_torch.models import matching as models_matching
 from geotransformer_tpu_torch.models import sinkhorn as models_sinkhorn
 from geotransformer_tpu_torch.models import transformer as models_transformer
-from geotransformer_tpu_torch.parallel import make_eval_step, make_optimizer, make_train_step
+from geotransformer_tpu_torch.parallel import (
+    make_eval_step,
+    make_lr_schedule,
+    make_optimizer,
+    make_train_step,
+)
 from geotransformer_tpu_torch.preprocess import (
     batch_to_torch,
     build_pyramid,
@@ -107,12 +159,18 @@ from geotransformer_tpu_torch.preprocess import (
     pad_registration_batch,
     round_up,
 )
+from geotransformer_tpu_torch.preprocess.loader import PairLoader, prepare_pair
 from geotransformer_tpu_torch.preprocess.voxel import grid_subsample_single
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEEDS = (0, 1, 2)
 TRAIN_STEPS = 8
 KITTI_TRAIN_STEPS = 6
+# ModelNet training: a cut of the config's 400000 iterations / 10000 warmup
+MODELNET_ITERATIONS, MODELNET_WARMUP, MODELNET_SNAPSHOT = 8, 4, 4
+# synthetic pickle: entries, points each, and the seed (its pairs fit the
+# config's caps (768, 384, 192): at most 717, 379 and 136 points a stage)
+MODELNET_ENTRIES, MODELNET_POINTS, MODELNET_SEED = 4, 2048, 1
 UNION_CAP, UNION_TILE = 1536, 128
 PEAK_F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
@@ -163,6 +221,19 @@ def tol_overlaps(i, got, want, args, plain):
     return got, want, torch.full_like(want, 1.0 / args[0].shape[1])
 
 
+def tol_pair_scores(i, got, want, args, plain):
+    # both sides are exact zeros outside the valid rectangle
+    return got, want, torch.full_like(want, 1e-5 * want.abs().max().item())
+
+
+def tol_attention(i, got, want, args, plain):
+    # valid rows within 1e-5 x max|plain|; padded rows exact zeros
+    nv = got.shape[0] if args[4] is None else int(args[4])
+    expect(bool((got[nv:] == 0).all()), "fused_masked_attention: a padded row is not zero")
+    got, want = got[:nv], want[:nv]
+    return got, want, torch.full_like(want, 1e-5 * want.abs().max().item())
+
+
 Kernel = collections.namedtuple("Kernel", "module plain replaces source tolerance")
 # module: the module attribute the caller reaches the wrapper through
 KERNELS = {
@@ -206,15 +277,26 @@ KERNELS = {
     "patch_overlaps": Kernel(models_matching, kernels_overlap.patch_overlaps_plain,
                              "geotransformer_tpu/kernels/overlap.py:89",
                              "geotransformer_tpu_torch/kernels/csrc/overlap.cu", tol_overlaps),
+    "rpe_pair_scores": Kernel(models_transformer, kernels_attention.rpe_pair_scores_plain,
+                              "geotransformer_tpu/kernels/attention.py:117",
+                              "geotransformer_tpu_torch/kernels/csrc/attention.cu",
+                              tol_pair_scores),
+    "fused_masked_attention": Kernel(models_transformer,
+                                     kernels_attention.fused_masked_attention_plain,
+                                     "geotransformer_tpu/kernels/attention.py:291",
+                                     "geotransformer_tpu_torch/kernels/csrc/attention.cu",
+                                     tol_attention),
 }
-INFERENCE = ["kpconv_stream_fused", "kpconv_fused", "gse_embedding_full",
-             "sinkhorn_log_iterations"]
+INFERENCE = ["kpconv_stream_fused", "kpconv_fused", "gse_embedding_full", "rpe_pair_scores",
+             "fused_masked_attention", "sinkhorn_log_iterations"]
 TRAINING = ["kpconv_bwd_fused", "gse_full_bwd", "sinkhorn_fwd_train", "sinkhorn_bwd_train"]
 
 
-def expected_launches(batch, mode):
+def expected_launches(batch, mode, blocks):
     """Kernel launches of one forward (``mode`` "inference" or "eval") or one
-    training step ("train") on ``batch``, from the tables it carries."""
+    training step ("train") on ``batch``, from the tables it carries and the
+    transformer's ``blocks`` (each layer attends for both clouds; the
+    attention backward is the plain version's)."""
     n = len(batch["points"])
     nb_split = batch.get("neighbors_split", [None] * n)
     sub_split = batch.get("subsampling_split", [None] * n)
@@ -243,6 +325,8 @@ def expected_launches(batch, mode):
         if mode == "train":
             counts["kpconv_bwd_fused"] += 2 if isinstance(inv, (tuple, list)) else 1
     counts["gse_embedding_full"] += 2
+    counts["rpe_pair_scores"] += 2 * sum(block == "self" for block in blocks)
+    counts["fused_masked_attention"] += 2 * len(blocks)
     if mode == "train":
         counts.update(gse_full_bwd=2, sinkhorn_fwd_train=1, sinkhorn_bwd_train=1)
     else:
@@ -252,10 +336,10 @@ def expected_launches(batch, mode):
     return counts
 
 
-def expect_launches(got, batches, mode, what):
+def expect_launches(got, batches, mode, what, blocks):
     want = collections.Counter()
     for batch in batches:
-        want.update(expected_launches(batch, mode))
+        want.update(expected_launches(batch, mode, blocks))
     for name in KERNELS:
         expect(got.get(name, 0) == want.get(name, 0),
                f"{what}: {name} launched {got.get(name, 0)} times, expected {want.get(name, 0)}")
@@ -433,6 +517,28 @@ def capture_kernel_calls(names):
             setattr(module, name, fn)
 
 
+def profiled_ms(fn, launches, name=None, reps=10):
+    """Device milliseconds of one fn() from torch.profiler, the host's
+    dispatch left out: the self device time of the CUDA kernels whose name
+    holds ``name`` (every kernel if None) over ``reps`` runs, and those
+    kernels' times by name; (None, {...}) where the profiler saw fewer than
+    ``launches`` of them a run (it can drop events)."""
+    fn()
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)
+              and (name is None or name in e.key)]
+    by_name = {e.key: e.self_device_time_total / 1e3 / reps for e in events}
+    seen = sum(e.count for e in events)
+    return (sum(by_name.values()) if seen >= reps * launches else None), by_name
+
+
 def time_ms(fn, reps):
     """Mean milliseconds of fn() over reps runs, from CUDA events."""
     fn()
@@ -603,7 +709,65 @@ def cost_patch_overlaps(args, kwargs, out):
     return _nbytes(*args[:6], out), 9 * pairs
 
 
+def _valid(n_valid, full):
+    return full if n_valid is None else int(n_valid)
+
+
+def cost_rpe_pair_scores(args, kwargs, out):
+    # the valid rectangle of the embedding and the valid rows of qw read, the
+    # whole output written; H dot products of C per valid pair
+    embed, qw = args[:2]
+    n, m, c = embed.shape
+    h = qw.shape[1]
+    nv_q, nv_k = _valid(args[2], n), _valid(args[3], m)
+    return 4 * (nv_q * nv_k * c + nv_q * h * c) + _nbytes(out), 2 * nv_q * nv_k * c * h
+
+
+def cost_fused_masked_attention(args, kwargs, out):
+    # the valid rows of q, the valid keys of k and v, the valid rectangle of
+    # the bias read, the output written; two products of dh per valid pair
+    q, k, v, bias = args[:4]
+    h, n, dh = q.shape
+    m = k.shape[1]
+    nv_q, nv_k = _valid(args[4], n), _valid(args[5], m)
+    nbytes = 4 * (h * nv_q * dh + 2 * h * nv_k * dh) + _nbytes(args[7], out)
+    if bias is not None:
+        nbytes += 4 * nv_q * h * nv_k
+    return nbytes, 4 * nv_q * nv_k * h * dh
+
+
 COSTS = {name: globals()[f"cost_{name}"] for name in KERNELS}
+
+
+# --- one PyTorch call that computes the same function (library_ms) ------
+# timed on the captured inputs, never called by the port; the inputs it
+# needs beyond the kernel's (the SDPA mask) are built outside the timing
+
+def library_rpe_pair_scores(args, kwargs):
+    embed, qw = args[:2]
+    embed_t = embed.transpose(1, 2)
+    return lambda: torch.bmm(qw, embed_t)
+
+
+def library_fused_masked_attention(args, kwargs):
+    q, k, v, bias, _, nv_k, scale, key_masks = args[:8]
+    h, n, _ = q.shape
+    m = k.shape[1]
+    keep = torch.arange(m, device=q.device) < _valid(nv_k, m)
+    if key_masks is not None:
+        keep &= key_masks
+    mask = (torch.zeros((h, n, m), device=q.device) if bias is None
+            else (bias.transpose(0, 1) * scale).contiguous())
+    mask = mask.masked_fill(~keep, -torch.inf)
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, scale=scale)
+
+
+LIBRARY = {"rpe_pair_scores": library_rpe_pair_scores,
+           "fused_masked_attention": library_fused_masked_attention}
+# the CUDA kernel each of them launches (csrc/attention.cu)
+DEVICE_NAMES = {"rpe_pair_scores": "pair_scores_kernel",
+                "fused_masked_attention": "attention_kernel"}
 
 
 def compare_kernels(records, names, reps):
@@ -630,6 +794,20 @@ def compare_kernels(records, names, reps):
             for args, kwargs in calls:
                 plain(*args, **_plain_kwargs(kwargs))
 
+        library_ms = None
+        device = library_device = (None, None)
+        if name in LIBRARY:
+            library = [LIBRARY[name](args, kwargs) for args, kwargs in calls]
+
+            def run_library():
+                for call in library:
+                    call()
+
+            library_ms = time_ms(run_library, reps)
+            # the kernel and the library call on the device alone: at these
+            # sizes CUDA events around the calls can read host dispatch
+            device = profiled_ms(run_kernel, len(calls), DEVICE_NAMES[name])
+            library_device = profiled_ms(run_library, len(calls))
         results[name] = with_bound({
             "calls": len(calls),
             "max_abs_err": worst,
@@ -637,8 +815,11 @@ def compare_kernels(records, names, reps):
             "plain_ms": time_ms(run_plain, max(1, reps // 2)),
             "bytes": total_bytes,
             "operations": total_ops,
-            # no single PyTorch call computes any of these functions
-            "library_ms": None,
+            # one PyTorch call computes only the attention kernels' functions
+            "library_ms": library_ms,
+            "device_ms": device[0],
+            "library_device_ms": library_device[0],
+            "library_device_kernels_ms": library_device[1],
         })
     return results
 
@@ -663,9 +844,12 @@ def merge_paths(by_path):
                                          "library_ms": None, "by_path": {}})
             for key in ("calls", "ms", "plain_ms", "bytes", "operations"):
                 m[key] += r[key]
+            if r["library_ms"] is not None:
+                m["library_ms"] = (m["library_ms"] or 0.0) + r["library_ms"]
             m["max_abs_err"] = max(m["max_abs_err"], r["max_abs_err"])
             m["by_path"][path] = {key: r[key] for key in (
-                "calls", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
+                "calls", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "device_ms", "library_device_ms", "library_device_kernels_ms")}
     return {name: with_bound(m) for name, m in merged.items()}
 
 
@@ -759,7 +943,7 @@ def register_pairs(model, cfg, caps, batches, batches_np, seeds, what):
         times.append(ms)
         outs.append(out)
         counts.update(c)
-    expect_launches(counts, batches, "inference", f"{what} forward")
+    expect_launches(counts, batches, "inference", f"{what} forward", cfg.geotransformer.blocks)
     for out, batch_np, seed in zip(outs, batches_np, seeds):
         ortho = check_output(out, cfg, caps)
         rre, rte = registration_error(out["estimated_transform"], batch_np["transform"])
@@ -776,44 +960,159 @@ def target_generator(seed):
 
 
 def step_gradients(model, cfg, batch, seed):
-    """Parameter gradients of one training forward/backward (no update)."""
+    """Loss and parameter gradients (float64 copies) of one training
+    forward/backward, no update. Every parameter has a gradient (the kernel
+    route's proj_p.bias an exact 0)."""
     model.zero_grad(set_to_none=True)
     out = model(batch, training=True, with_gt=True, generator=target_generator(seed))
     loss, _ = overall_loss(cfg, out, batch["transform"])
     loss.backward()
-    return loss.item(), {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+    return loss.item(), {k: p.grad.detach().double() for k, p in model.named_parameters()}
 
 
-def compare_step_gradients(got, want):
-    """Per parameter |g_kernel - g_plain| <= 1e-3 |g_plain|. Gradients that
-    vanish in exact arithmetic (biases under a softmax row shift or a
-    one-channel GroupNorm group) are rounding noise on both sides and are
-    held to the noise floor (1e-6 of the largest gradient norm) instead."""
-    floor = 1e-6 * max(w.norm().item() for w in want.values())
-    worst, vanishing = (0.0, None), []
-    for name, w in want.items():
-        norm, diff = w.norm().item(), (got[name] - w).norm().item()
-        if norm <= floor:
-            expect(got[name].norm().item() <= floor, f"{name}: kernel gradient above noise")
+def float64(value):
+    """A batch entry with its floating tensors (in lists too) in float64."""
+    if isinstance(value, torch.Tensor):
+        return value.double() if value.is_floating_point() else value
+    if isinstance(value, (list, tuple)):
+        return type(value)(float64(v) for v in value)
+    return value
+
+
+def relative_errors(got, exact):
+    """|got - exact| / |exact| of the whole step (every gradient
+    concatenated) and of each tensor."""
+    diffs = {k: (got[k] - w).norm().item() for k, w in exact.items()}
+    norms = {k: w.norm().item() for k, w in exact.items()}
+    whole = (sum(d * d for d in diffs.values()) / sum(n * n for n in norms.values())) ** 0.5
+    return whole, {k: diffs[k] / norms[k] if norms[k] else diffs[k] for k in exact}
+
+
+@contextlib.contextmanager
+def kinks(masks, replay=False):
+    """Record, in call order, the branch (x > 0) each leaky ReLU of the
+    backbone and each ReLU of the transformer's feed-forward takes, or
+    impose recorded ones (``replay``): a float64 step along a float32
+    step's branches is the exact gradient of the function that step took."""
+    order = iter(masks)
+
+    def kink(x, slope):
+        if replay:
+            keep = next(order)
+        else:
+            keep = x > 0
+            masks.append(keep)
+        return torch.where(keep, x, slope * x)
+
+    def feed_forward(self, input_states):  # AttentionOutput.forward
+        hidden = self.squeeze(kink(self.expand(input_states), 0.0))
+        return self.norm(input_states + hidden)
+
+    saved = models_kpconv.leaky_relu, models_transformer.AttentionOutput.forward
+    models_kpconv.leaky_relu = lambda x: kink(x, 0.1)
+    models_transformer.AttentionOutput.forward = feed_forward
+    try:
+        yield
+    finally:
+        models_kpconv.leaky_relu, models_transformer.AttentionOutput.forward = saved
+    if replay:
+        expect(next(order, None) is None, "kinks: a recorded branch was not used")
+
+
+def branch_flips(a, b):
+    """Elements whose branch differs between two recordings."""
+    expect(len(a) == len(b), f"kinks: {len(a)} against {len(b)} calls")
+    return sum(int((x != y).sum()) for x, y in zip(a, b))
+
+
+def compare_step_gradients(kernel, plain, exact_kernel, exact_plain):
+    """The kernel step's gradients against the exact step along its own
+    ReLU branches (the plain, force_pallas=False, step in float64 on the
+    same weights and batch), beside the float32 plain step's distance from
+    the exact step along the plain step's branches. The two routes take the
+    same step in float64 (tests/test_torch_modelnet.py), so in float32 they
+    differ by rounding, and by the branch a ReLU takes where its input lies
+    within rounding of 0, which moves a gradient by up to ~1e-3. The whole
+    step and each tensor must stand within 1e-3 (relative norm) plus twice
+    the float32 plain step's distance of the exact step; a wrong kernel
+    gradient stands off both. Gradients that vanish in exact arithmetic
+    (biases under a softmax row shift, a one-channel GroupNorm group; the
+    exact norm under 1e-6 of the largest) must stay under that floor, and
+    proj_p.bias, whose term the kernel route drops, must be exactly 0.
+    Returns the readings and the violations."""
+    floor = 1e-6 * max(w.norm().item() for w in exact_kernel.values())
+    whole_k, per_k = relative_errors(kernel, exact_kernel)
+    whole_p, per_p = relative_errors(plain, exact_plain)
+    whole_kp, per_kp = relative_errors(kernel, plain)
+    worst, vanishing, violations = (0.0, None, 0.0), [], []
+    for name, w in exact_kernel.items():
+        if name.endswith("proj_p.bias") and kernel[name].any():
+            violations.append(f"{name}: kernel-route gradient is not exactly 0")
+        if w.norm().item() <= floor:
+            if kernel[name].norm().item() > floor:
+                violations.append(f"{name}: kernel gradient above the noise floor")
             vanishing.append(name)
             continue
-        expect(diff <= 1e-3 * norm, f"{name}: step gradient kernel vs plain {diff / norm:.2e}")
-        if diff / norm >= worst[0]:
-            worst = (diff / norm, name)
-    return worst, vanishing
+        if per_k[name] > 1e-3 + 2 * per_p[name]:
+            violations.append(f"{name}: kernel step {per_k[name]:.2e} from the float64 step, "
+                              f"float32 plain {per_p[name]:.2e}")
+        if per_k[name] >= worst[0]:
+            worst = (per_k[name], name, per_p[name])
+    if whole_k > 1e-3 + 2 * whole_p:
+        violations.append(f"whole step: kernel {whole_k:.2e} from the float64 step, float32 "
+                          f"plain {whole_p:.2e}")
+    tensors = {name: (per_k[name], per_p[name], per_kp[name]) for name in exact_kernel
+               if name not in vanishing}
+    return dict(whole_kernel=whole_k, whole_plain=whole_p, whole_kernel_vs_plain=whole_kp,
+                worst=worst, vanishing=vanishing, violations=violations,
+                above_1e3=sorted((v for v in tensors.items() if max(v[1][:2]) > 1e-3),
+                                 key=lambda v: -v[1][0]),
+                tensors=tensors)
 
 
 def whole_step_vs_plain(model, plain_model, cfg, batch, what, report):
-    loss_kernel, grads_kernel = step_gradients(model, cfg, batch, 0)
+    """One step's gradients on the kernel route and the float32 plain route,
+    and the float64 plain step free and along each float32 step's ReLU
+    branches, from the same weights, batch and GT targets (computed once,
+    so no route rounds its own). A violation fails the run at its end,
+    after every path has been read."""
+    if "gt_cand_indices" not in batch:
+        batch = dict(batch, **precompute_gt_targets(cfg, batch, device=DEVICE))
+    kernel_kinks, plain_kinks, exact_kinks = [], [], []
+    with kinks(kernel_kinks):
+        loss_kernel, grads_kernel = step_gradients(model, cfg, batch, 0)
     plain_model.load_state_dict(model.state_dict())
-    loss_plain, grads_plain = step_gradients(plain_model, cfg, batch, 0)
-    worst, vanishing = compare_step_gradients(grads_kernel, grads_plain)
-    print(f"{what} whole step vs force_pallas=False: loss {loss_kernel:.6f} vs {loss_plain:.6f}; "
-          f"worst parameter gradient rel diff {worst[0]:.2e} ({worst[1]}) over "
-          f"{len(grads_plain)} tensors ({len(vanishing)} vanishing biases at the noise floor)",
-          flush=True)
+    with kinks(plain_kinks):
+        loss_plain, grads_plain = step_gradients(plain_model, cfg, batch, 0)
+    exact_model = copy.deepcopy(plain_model).double()
+    batch64 = {k: float64(v) for k, v in batch.items()}
+    with kinks(exact_kinks):
+        loss_exact, grads_exact = step_gradients(exact_model, cfg, batch64, 0)
+    with kinks(kernel_kinks, replay=True):
+        _, exact_kernel = step_gradients(exact_model, cfg, batch64, 0)
+    with kinks(plain_kinks, replay=True):
+        _, exact_plain = step_gradients(exact_model, cfg, batch64, 0)
+    del exact_model
+    flips = {"kernel_vs_plain": branch_flips(kernel_kinks, plain_kinks),
+             "kernel_vs_float64": branch_flips(kernel_kinks, exact_kinks),
+             "plain_vs_float64": branch_flips(plain_kinks, exact_kinks)}
+    r = compare_step_gradients(grads_kernel, grads_plain, exact_kernel, exact_plain)
+    free = {"kernel": relative_errors(grads_kernel, grads_exact)[0],
+            "plain": relative_errors(grads_plain, grads_exact)[0]}
+    above = [(name, f"kernel {k:.2e}", f"plain {p:.2e}") for name, (k, p, _) in r["above_1e3"]]
+    print(f"{what} whole step: loss kernel {loss_kernel:.6f}, plain {loss_plain:.6f}, float64 "
+          f"{loss_exact:.6f}; ReLU branch flips {flips} over {len(kernel_kinks)} ReLUs; "
+          f"gradient rel diff from the float64 step along each route's branches: kernel "
+          f"{r['whole_kernel']:.2e}, float32 plain {r['whole_plain']:.2e} (free float64 step: "
+          f"kernel {free['kernel']:.2e}, plain {free['plain']:.2e}; kernel vs plain "
+          f"{r['whole_kernel_vs_plain']:.2e}); worst tensor {r['worst'][0]:.2e} "
+          f"({r['worst'][1]}; plain {r['worst'][2]:.2e}) over {len(grads_exact)} tensors; "
+          f"above 1e-3 on either route: {above}; {len(r['vanishing'])} vanishing biases at the "
+          f"noise floor; violations: {r['violations']}", flush=True)
     report[what] = dict(step_loss_kernel=loss_kernel, step_loss_plain=loss_plain,
-                        step_grad_worst_rel=worst, step_grad_vanishing=vanishing)
+                        step_loss_float64=loss_exact, relu_flips=flips,
+                        free_float64=free, **r)
+    report.setdefault("violations", []).extend(f"{what}: {v}" for v in r["violations"])
 
 
 def train_phase(cfg, model, batches, steps, what, report):
@@ -840,7 +1139,8 @@ def train_phase(cfg, model, batches, steps, what, report):
         metrics, counts = counted(run)
         times.append(start.elapsed_time(end))
         total.update(counts)
-        expect_launches(counts, [batch], "train", f"{what} train step {i}")
+        expect_launches(counts, [batch], "train", f"{what} train step {i}",
+                        cfg.geotransformer.blocks)
         expect(metrics["grad_finite"].item() == 1.0, f"{what} train step {i} skipped by the guard")
         loss = metrics["loss"].item()
         expect(np.isfinite(loss), f"{what} train step {i}: loss {loss}")
@@ -895,10 +1195,16 @@ def profile_train(cfg, model, batches, what, filename, report):
 
 
 def print_results(path, results):
+    def ms(t):
+        return "not measured" if t is None else f"{t:.3f} ms"
+
     for name, r in results.items():
-        print(f"{path} {name}: {r['calls']} calls, max|kernel - plain| {r['max_abs_err']:.3e}, kernel "
-              f"{r['ms']:.3f} ms vs plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']})", flush=True)
+        library = ("" if r["library_ms"] is None else
+                   f"; on the device (torch.profiler) kernel {ms(r['device_ms'])}, library "
+                   f"{ms(r['library_device_ms'])}; library {r['library_ms']:.3f} ms (CUDA events)")
+        print(f"{path} {name}: {r['calls']} calls, max|kernel - plain| {r['max_abs_err']:.3e}, "
+              f"kernel {r['ms']:.3f} ms vs plain {r['plain_ms']:.3f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}){library}", flush=True)
 
 
 def threedmatch_phases(device, launches, report):
@@ -986,7 +1292,7 @@ def kitti_phases(device, launches, report):
     report["kitti_forward_ms"] = times
     # every inference kernel the KITTI forward reaches (its tables decide which)
     forward = [name for name in INFERENCE + ["kpconv_split_fused"]
-               if expected_launches(batches[0], "inference")[name]]
+               if expected_launches(batches[0], "inference", cfg.geotransformer.blocks)[name]]
     with capture_kernel_calls(forward) as records:
         model(batches[0])
     results = compare_kernels(records, forward, reps=5)
@@ -1018,11 +1324,220 @@ def kitti_phases(device, launches, report):
         counts.update(c)
         expect(all(bool(torch.isfinite(v)) for v in m.values()), f"kitti eval {seed}: {m}")
         metrics.append({k: float(v) for k, v in m.items()})
-    expect_launches(counts, batches, "eval", "kitti eval")
+    expect_launches(counts, batches, "eval", "kitti eval", cfg.geotransformer.blocks)
     launches["kitti_eval"] = dict(counts)
     print(f"kitti eval: {[{k: round(v, 4) for k, v in m.items()} for m in metrics]}", flush=True)
     report["kitti_eval"] = metrics
     profile_train(cfg, model, batches, "kitti", "kitti_train_profile.txt", report)
+    return results
+
+
+def make_modelnet_entry(rng, num_points=MODELNET_POINTS):
+    """A ModelNet-style pickle entry: ``num_points`` points with normals on
+    the surfaces of two to four random boxes and z-axis cylinders, a label
+    from the asymmetric classes."""
+    points, normals = [], []
+    for _ in range(int(rng.integers(2, 5))):
+        center, size, n = rng.uniform(-0.5, 0.5, 3), rng.uniform(0.2, 0.8, 3), num_points
+        if rng.uniform() < 0.5:  # box: a face per point, uniform on it
+            face, side = rng.integers(0, 3, n), rng.choice([-1.0, 1.0], n)
+            p = rng.uniform(-0.5, 0.5, (n, 3)) * size
+            p[np.arange(n), face] = 0.5 * side * size[face]
+            q = np.zeros((n, 3))
+            q[np.arange(n), face] = side
+        else:  # cylinder: the wall and the two caps
+            radius, height = 0.5 * size[0], size[2]
+            theta = rng.uniform(0.0, 2 * np.pi, n)
+            wall = rng.uniform(size=n) < 0.7
+            r = np.where(wall, radius, radius * np.sqrt(rng.uniform(size=n)))
+            z = np.where(wall, rng.uniform(-0.5, 0.5, n), rng.choice([-0.5, 0.5], n)) * height
+            p = np.stack([r * np.cos(theta), r * np.sin(theta), z], 1)
+            radial = np.stack([np.cos(theta), np.sin(theta), np.zeros(n)], 1)
+            axial = np.stack([np.zeros(n), np.zeros(n), np.sign(z)], 1)
+            q = np.where(wall[:, None], radial, axial)
+        points.append(p + center)
+        normals.append(q)
+    points, normals = np.concatenate(points), np.concatenate(normals)
+    sel = rng.choice(len(points), num_points, replace=False)
+    return dict(points=points[sel].astype(np.float32), normals=normals[sel].astype(np.float32),
+                label=int(rng.choice(ASYMMETRIC_INDICES)))
+
+
+def write_modelnet_pickle(root, seed=MODELNET_SEED):
+    rng = np.random.default_rng(seed)
+    data = [make_modelnet_entry(rng) for _ in range(MODELNET_ENTRIES)]
+    os.makedirs(root, exist_ok=True)
+    for subset in ("train", "val", "test"):
+        with open(os.path.join(root, f"{subset}.pkl"), "wb") as f:
+            pickle.dump(data, f)
+
+
+def modelnet_dataset_and_caps(cfg, tmp):
+    """Phase 12: the synthetic pickle read by ModelNetPairDataset at the
+    reference settings; the config's caps if every pair fits them, else
+    capacities calibrated over the pairs."""
+    root = os.path.join(tmp, "ModelNet")
+    write_modelnet_pickle(root)
+    dataset = ModelNetPairDataset(root, "train", num_points=717, rotation_magnitude=45.0,
+                                  translation_magnitude=0.5, noise_magnitude=0.05,
+                                  keep_ratio=0.7, twice_sample=True, deterministic=True)
+    samples = [dataset[i] for i in range(len(dataset))]
+    bb = cfg.backbone
+    args = (bb.num_stages, bb.init_voxel_size, bb.init_radius, list(cfg.caps.neighbor_limits))
+    stages = stage_sizes(build_pyramids(
+        cfg, [(s["ref_points"], s["src_points"], s["transform"]) for s in samples]))
+    caps = tuple(cfg.caps.stage_caps)
+    fits = all(max(pair[i]) <= caps[i] for pair in stages for i in range(len(caps)))
+    if not fits:
+        calibrated = tuple(calibrate_stage_caps(iter(samples), *args, num_samples=len(samples)))
+        print(f"modelnet: the pairs outgrow the config's caps {caps}: calibrated {calibrated}",
+              flush=True)
+        caps = calibrated
+    print(f"modelnet batch: {len(samples)} pairs of 717 points (labels "
+          f"{[s['label'] for s in samples]}); stages {stages}; caps {caps} "
+          f"({'the config' if fits else 'calibrated'})", flush=True)
+    return dataset, samples, caps, stages, fits
+
+
+def counting_step(step, cfg, what, counts):
+    """``step`` with each call's launches counted and checked."""
+    def run(batch, generator=None):
+        metrics, c = counted(lambda: step(batch, generator))
+        expect_launches(c, [batch], "train", f"{what} step", cfg.geotransformer.blocks)
+        counts.update(c)
+        return metrics
+    return run
+
+
+def modelnet_phases(device, launches, report, tmp):
+    """Phases 12-14: the ModelNet dataset, forward, iteration training with
+    a checkpoint restored, and eval. Returns each kernel's comparison with
+    its plain version on this path."""
+    cfg = make_modelnet_config()
+    dataset, samples, caps, stages, fits = modelnet_dataset_and_caps(cfg, tmp)
+    cfg = cfg.with_caps(stage_caps=caps)
+    bb = cfg.backbone
+    pipeline = dict(num_stages=bb.num_stages, voxel_size=bb.init_voxel_size,
+                    search_radius=bb.init_radius, neighbor_limits=cfg.caps.neighbor_limits,
+                    stage_caps=caps, input_dim=bb.input_dim)
+    report["modelnet_batches"] = dict(stages=stages, caps=caps, config_caps=fits)
+
+    # 13. forward through the dataset's pairs
+    batches_np = []
+    for seed in SEEDS:
+        batch = prepare_pair(samples[seed], **pipeline)
+        batch.pop("meta")
+        batches_np.append(batch)
+    batches = [batch_to_torch(b, device) for b in batches_np]
+    model = create_model(cfg, device=device)
+    outs, times, launches["modelnet_inference"] = register_pairs(
+        model, cfg, caps, batches, batches_np, SEEDS, "modelnet")
+    report["modelnet_forward_ms"] = times
+    blocks = cfg.geotransformer.blocks
+    forward = [name for name in INFERENCE
+               if expected_launches(batches[0], "inference", blocks)[name]]
+    with capture_kernel_calls(forward) as records:
+        model(batches[0])
+    results = compare_kernels(records, forward, reps=10)
+    plain_model = create_model(cfg.with_model(force_pallas=False), device=device)
+    plain_model.load_state_dict(model.state_dict())
+    forward_ms(plain_model, batches[0])
+    plain_times = [forward_ms(plain_model, batch)[0] for batch in batches]
+    compare_coarse_features(outs[-1], plain_model(batches[-1]),
+                            "modelnet whole model vs force_pallas=False")
+    print(f"modelnet plain forward: {statistics.median(plain_times):.3f} ms per pair (median of "
+          f"{plain_times})", flush=True)
+    report["modelnet_plain_forward_ms"] = plain_times
+
+    # 14. Trainer.run_iterations over a PairLoader (2 workers, targets
+    # precomputed there), a checkpoint at step MODELNET_SNAPSHOT restored
+    train_cfg = dataclasses.replace(cfg, optim=dataclasses.replace(
+        cfg.optim, max_iteration=MODELNET_ITERATIONS, warmup_steps=MODELNET_WARMUP,
+        snapshot_steps=MODELNET_SNAPSHOT))
+    train_pipeline = dict(pipeline, inverse_limits=cfg.caps.inverse_limits,
+                          precompute_targets=True, model_cfg=train_cfg)
+    loader = PairLoader(dataset, train_pipeline, shuffle=True, num_workers=2, seed=0)
+    run_dir = os.path.join(tmp, "modelnet_run")
+    schedule = make_lr_schedule(train_cfg, steps_per_epoch=len(loader))
+    try:
+        trainer = Trainer(train_cfg, model, loader, output_dir=run_dir, log_steps=4,
+                          device=DEVICE)
+        counts = collections.Counter()
+        trainer.train_step = counting_step(trainer.train_step, train_cfg, "modelnet train",
+                                           counts)
+        torch.cuda.reset_peak_memory_stats()
+        start = time.perf_counter()
+        trainer.run_iterations()
+        wall = time.perf_counter() - start
+        peak = torch.cuda.max_memory_allocated()
+        history = trainer.history
+        expect([h["step"] for h in history] == list(range(1, MODELNET_ITERATIONS + 1)),
+               f"modelnet train: steps {[h['step'] for h in history]}")
+        for i, h in enumerate(history):
+            expect(h["grad_finite"] == 1.0, f"modelnet train step {h['step']} skipped")
+            expect(np.isfinite(h["loss"]), f"modelnet train step {h['step']}: loss {h['loss']}")
+            expect(abs(h["lr"] - schedule(i)) <= 1e-12 * schedule(i),
+                   f"modelnet train step {h['step']}: lr {h['lr']}, schedule {schedule(i)}")
+        expect(trainer.checkpoints.all_steps() == [MODELNET_SNAPSHOT, MODELNET_ITERATIONS],
+               f"modelnet checkpoints {trainer.checkpoints.all_steps()}")
+        step_ms = [1e3 * h["process_s"] for h in history]
+        median = statistics.median(step_ms)
+        print(f"modelnet train: {MODELNET_ITERATIONS} iterations (warmup {MODELNET_WARMUP}), "
+              f"losses {[round(h['loss'], 4) for h in history]}, lr "
+              f"{[round(h['lr'], 9) for h in history]}; {median:.3f} ms per step (median "
+              f"of {[round(t, 2) for t in step_ms]}, CUDA events); {wall:.1f} s wall with the "
+              f"loader; peak memory {peak / 2**30:.2f} GiB", flush=True)
+
+        # the checkpoint at MODELNET_SNAPSHOT restored into a fresh model
+        restored = Trainer(train_cfg, create_model(train_cfg, seed=train_cfg.seed + 1,
+                                                   device=device),
+                           loader, output_dir=run_dir, log_steps=4, device=DEVICE)
+        restored.train_step = counting_step(restored.train_step, train_cfg,
+                                            "modelnet resumed train", counts)
+        expect(restored.resume(step=MODELNET_SNAPSHOT), "modelnet: no checkpoint to restore")
+        lr = restored.scheduler.get_last_lr()[0]
+        expect(restored.step == MODELNET_SNAPSHOT and restored.epoch == 1
+               and abs(lr - schedule(MODELNET_SNAPSHOT)) <= 1e-12 * lr,
+               f"modelnet restore: step {restored.step}, epoch {restored.epoch}, lr {lr}")
+        restored.run_iterations()
+        again = restored.history
+        rel = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                  for a, b in zip(again, history[MODELNET_SNAPSHOT:]))
+        expect(len(again) == MODELNET_ITERATIONS - MODELNET_SNAPSHOT and rel <= 1e-3,
+               f"modelnet restore: steps {[h['step'] for h in again]}, loss rel diff {rel}")
+        print(f"modelnet restore: checkpoint {MODELNET_SNAPSHOT} into a fresh model, steps "
+              f"{[h['step'] for h in again]} repeat the run's losses to {rel:.2e}", flush=True)
+        launches["modelnet_train"] = dict(counts)
+        report["modelnet_train"] = dict(
+            losses=[h["loss"] for h in history], lr=[h["lr"] for h in history],
+            step_ms=step_ms, step_median_ms=median, peak_bytes=peak, wall_s=wall,
+            restored_losses=[h["loss"] for h in again], restored_loss_rel=rel)
+
+        # training kernels of one step vs plain; the whole step
+        batch = prepare_pair(samples[0], **train_pipeline)
+        batch.pop("meta")
+        batch = batch_to_torch(batch, device)
+        with capture_kernel_calls(TRAINING) as records:
+            step_gradients(trainer.model, train_cfg, batch, 0)
+        results.update(compare_kernels(records, TRAINING, reps=5))
+        whole_step_vs_plain(trainer.model, plain_model, train_cfg, batch,
+                            "modelnet_step_vs_plain", report)
+    finally:
+        loader.close()
+
+    # one eval step a pair (GT overlaps in the step: patch_overlaps)
+    evaluate = make_eval_step(trainer.model, cfg, device=DEVICE)
+    counts, metrics = collections.Counter(), []
+    for batch, seed in zip(batches, SEEDS):
+        m, c = counted(lambda: evaluate(batch))
+        counts.update(c)
+        expect(all(bool(torch.isfinite(v)) for v in m.values()), f"modelnet eval {seed}: {m}")
+        metrics.append({k: float(v) for k, v in m.items()})
+    expect_launches(counts, batches, "eval", "modelnet eval", blocks)
+    launches["modelnet_eval"] = dict(counts)
+    print(f"modelnet eval: {[{k: round(v, 4) for k, v in m.items()} for m in metrics]}",
+          flush=True)
+    report["modelnet_eval"] = metrics
     return results
 
 
@@ -1043,6 +1558,8 @@ def main():
     launches = {}
     by_path = {"3dmatch": threedmatch_phases(device, launches, report),
                "kitti": kitti_phases(device, launches, report)}
+    with tempfile.TemporaryDirectory() as tmp:
+        by_path["modelnet"] = modelnet_phases(device, launches, report, tmp)
     for path, path_results in by_path.items():
         print_results(path, path_results)
     results = merge_paths(by_path)
@@ -1056,6 +1573,8 @@ def main():
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1, default=str)
+    violations = report.get("violations", [])
+    expect(not violations, f"whole-step gradients: {violations}")
 
     line = []
     for name, kernel in KERNELS.items():

@@ -1,0 +1,237 @@
+r"""The geometric transformer's attention: CUDA kernels (``csrc/attention.cu``)
+and their plain versions.
+
+``rpe_pair_scores`` replaces ``geotransformer_tpu/kernels/attention.py:
+rpe_pair_scores``: the RPE pair-bias scores ``qw[i, h] . embed[i, j]``,
+with the pair projection moved to the query side (``qw = W_p q``).
+``fused_masked_attention`` replaces ``fused_masked_attention`` there: scores
+``(q k^T + bias) * scale``, a softmax over the kept keys and the product
+with ``v``, heads merged, without the scores reaching device memory.
+
+Both write exact zeros outside the valid rectangle: pair scores outside
+``[0, n_valid_q) x [0, n_valid_k)`` and attention rows at or past
+``n_valid_q`` (the JAX kernel leaves padded rows of a partly valid tile
+unzeroed). The attention kernel takes an (M,) key mask, so any mask is
+honoured; ``n_valid_k`` only cuts the keys it reads (the JAX fused path
+has no mask and treats a non-prefix one as all valid).
+
+Neither JAX kernel has a Pallas backward, and neither has a CUDA one here:
+the ``*_diff`` forms run the kernel forward and differentiate the plain
+version (the pair scores' two einsums; the attention's softmax rows
+recomputed, its gradient written out), as the JAX ``custom_vjp`` rules do.
+"""
+
+import ctypes
+
+import torch
+
+from geotransformer_tpu_torch.kernels import cuda
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "rpe_pair_scores_launch": [_P] * 5 + [_I] * 4 + [_P],
+    "fused_attention_launch": [_P] * 8 + [_I] * 4 + [_F, _P],
+}
+_HEAD_WIDTHS = (8, 16, 32, 64)
+
+
+def _count(n_valid, full, device):
+    """``n_valid`` (None, an int or a 0-d tensor) as a 0-d int32 tensor."""
+    if n_valid is None:
+        n_valid = full
+    return torch.as_tensor(n_valid, dtype=torch.int32, device=device).reshape(())
+
+
+def _prefix(n, n_valid, device):
+    """(n,) bool: index < n_valid."""
+    return torch.arange(n, device=device) < _count(n_valid, n, device)
+
+
+def _rectangle(n, m, n_valid_q, n_valid_k, device):
+    """(N, 1, M) bool: the valid rectangle in the (N, H, M) score layout."""
+    return _prefix(n, n_valid_q, device)[:, None, None] & _prefix(m, n_valid_k, device)[None, None]
+
+
+def rpe_pair_scores_plain(embed, qw, n_valid_q=None, n_valid_k=None):
+    """Plain PyTorch version of :func:`rpe_pair_scores` (the einsum of the
+    JAX XLA path, ``models/transformer.py:272-273``, zeroed outside the
+    valid rectangle)."""
+    n, m, _ = embed.shape
+    scores = torch.einsum("nmc,nhc->nhm", embed, qw)
+    return torch.where(_rectangle(n, m, n_valid_q, n_valid_k, embed.device), scores, 0.0)
+
+
+def rpe_pair_scores(embed, qw, n_valid_q=None, n_valid_k=None, force=None):
+    """Pair-bias attention scores with the valid-rectangle skip.
+
+    Args:
+        embed: (N, M, C) float32 pair embedding.
+        qw: (N, H, C) float32 query-side projected queries
+            (``einsum('hnc,dhc->nhd', q, W_p)``).
+        n_valid_q, n_valid_k: int32 scalars (0-d tensors or ints) or None;
+            rows [n_valid_q, N) and columns [n_valid_k, M) are padding.
+        force: ``ModelConfig.force_pallas`` (see :func:`cuda.use_kernel`).
+
+    Returns:
+        (N, H, M) float32 ``scores[i, h, j] = qw[i, h] . embed[i, j]``, zero
+        outside the valid rectangle.
+    """
+    if not cuda.use_kernel(embed, force):
+        return rpe_pair_scores_plain(embed, qw, n_valid_q, n_valid_k)
+    dev = embed.device
+    n, m, c = embed.shape
+    h = qw.shape[1]
+    f32 = torch.float32
+    cuda.require(embed, "embed", f32, (n, m, c), dev)
+    cuda.require(qw, "qw", f32, (n, h, c), dev)
+    if c % 4 or c > 512 or h > 8:
+        raise ValueError(f"rpe_pair_scores takes C a multiple of 4 up to 512 and H <= 8, "
+                         f"got C={c}, H={h}")
+    if embed.data_ptr() % 16 or qw.data_ptr() % 16:
+        raise ValueError("rpe_pair_scores reads float4: embed and qw must be 16-byte aligned")
+    nv_q, nv_k = _count(n_valid_q, n, dev), _count(n_valid_k, m, dev)
+    out = torch.empty((n, h, m), dtype=f32, device=dev)
+    lib = cuda.library("attention", _SIGNATURES)
+    code = lib.rpe_pair_scores_launch(cuda.ptr(embed), cuda.ptr(qw), cuda.ptr(nv_q),
+                                      cuda.ptr(nv_k), cuda.ptr(out), n, m, h, c,
+                                      cuda.stream_of(embed))
+    cuda.check(lib, code, "rpe_pair_scores")
+    cuda.launches["rpe_pair_scores"] += 1
+    return out
+
+
+class _PairScores(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, embed, qw, nv_q, nv_k, force):
+        ctx.save_for_backward(embed, qw, nv_q, nv_k)
+        return rpe_pair_scores(embed, qw, nv_q, nv_k, force=force)
+
+    @staticmethod
+    def backward(ctx, ds):
+        embed, qw, nv_q, nv_k = ctx.saved_tensors
+        n, m, _ = embed.shape
+        ds = torch.where(_rectangle(n, m, nv_q, nv_k, ds.device), ds, 0.0)
+        d_embed = torch.einsum("nhm,nhc->nmc", ds, qw) if ctx.needs_input_grad[0] else None
+        d_qw = torch.einsum("nhm,nmc->nhc", ds, embed) if ctx.needs_input_grad[1] else None
+        return d_embed, d_qw, None, None, None
+
+
+def rpe_pair_scores_diff(embed, qw, n_valid_q=None, n_valid_k=None, force=None):
+    """Differentiable :func:`rpe_pair_scores` (JAX ``rpe_pair_scores_diff``):
+    the kernel forward, the plain einsums' gradients (zero outside the
+    valid rectangle, where the forward is zero)."""
+    n, m, _ = embed.shape
+    return _PairScores.apply(embed, qw, _count(n_valid_q, n, embed.device),
+                             _count(n_valid_k, m, embed.device), force)
+
+
+def _probabilities(q, k, bias, n_valid_k, scale, key_masks):
+    """(H, N, M) softmax of ``(q k^T + bias) * scale`` over the kept keys;
+    rows without a kept key are zero."""
+    m = k.shape[1]
+    scores = torch.einsum("hnc,hmc->hnm", q, k)
+    if bias is not None:
+        scores = scores + bias.transpose(0, 1)
+    scores = scores * scale
+    keep = _prefix(m, n_valid_k, q.device)
+    if key_masks is not None:
+        keep = keep & key_masks
+    scores = torch.where(keep, scores, -torch.inf)
+    # the max is a shift the softmax does not see: no gradient through it
+    top = torch.amax(scores, dim=-1, keepdim=True).detach().clamp_min(-3.0e38)
+    p = torch.exp(scores - top)
+    return p / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+
+
+def fused_masked_attention_plain(q, k, v, bias=None, n_valid_q=None, n_valid_k=None, scale=1.0,
+                                 key_masks=None):
+    """Plain PyTorch version of :func:`fused_masked_attention`: the einsums
+    and the masked softmax of the JAX ``_xla_attention_ref``
+    (``kernels/attention.py:376-387``), rows without a kept key and padded
+    rows zero."""
+    h, n, dh = q.shape
+    p = _probabilities(q, k, bias, n_valid_k, scale, key_masks)
+    out = torch.einsum("hnm,hmc->hnc", p, v).transpose(0, 1).reshape(n, h * dh)
+    return torch.where(_prefix(n, n_valid_q, q.device)[:, None], out, 0.0)
+
+
+def fused_masked_attention(q, k, v, bias=None, n_valid_q=None, n_valid_k=None, scale=1.0,
+                           key_masks=None, force=None):
+    """Fused ``(q k^T [+ bias]) * scale`` -> key-masked softmax -> ``@ v``.
+
+    Args:
+        q: (H, N, dh) float32 queries (head-major).
+        k, v: (H, M, dh) float32 keys and values.
+        bias: optional (N, H, M) float32 additive pre-scale score bias (the
+            :func:`rpe_pair_scores` layout).
+        n_valid_q, n_valid_k: int32 scalars (0-d tensors or ints) or None:
+            query rows at or past ``n_valid_q`` are zero, keys at or past
+            ``n_valid_k`` are masked.
+        scale: score scale, applied after the bias.
+        key_masks: optional (M,) bool; False keys are masked too.
+        force: ``ModelConfig.force_pallas``.
+
+    Returns:
+        (N, H * dh) float32, heads merged in layer order.
+    """
+    if not cuda.use_kernel(q, force):
+        return fused_masked_attention_plain(q, k, v, bias, n_valid_q, n_valid_k, scale, key_masks)
+    dev = q.device
+    h, n, dh = q.shape
+    m = k.shape[1]
+    f32 = torch.float32
+    cuda.require(q, "q", f32, (h, n, dh), dev)
+    cuda.require(k, "k", f32, (h, m, dh), dev)
+    cuda.require(v, "v", f32, (h, m, dh), dev)
+    if bias is not None:
+        cuda.require(bias, "bias", f32, (n, h, m), dev)
+    if key_masks is not None:
+        cuda.require(key_masks, "key_masks", torch.bool, (m,), dev)
+    if dh not in _HEAD_WIDTHS:
+        raise ValueError(f"fused_masked_attention takes head widths {_HEAD_WIDTHS}, got {dh}")
+    nv_q, nv_k = _count(n_valid_q, n, dev), _count(n_valid_k, m, dev)
+    out = torch.empty((n, h * dh), dtype=f32, device=dev)
+    lib = cuda.library("attention", _SIGNATURES)
+    code = lib.fused_attention_launch(
+        cuda.ptr(q), cuda.ptr(k), cuda.ptr(v), cuda.ptr(bias), cuda.ptr(key_masks),
+        cuda.ptr(nv_q), cuda.ptr(nv_k), cuda.ptr(out), n, m, h, dh, float(scale),
+        cuda.stream_of(q))
+    cuda.check(lib, code, "fused_masked_attention")
+    cuda.launches["fused_masked_attention"] += 1
+    return out
+
+
+class _FusedAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, bias, nv_q, nv_k, scale, key_masks, force):
+        ctx.save_for_backward(q, k, v, bias, nv_q, nv_k, key_masks)
+        ctx.scale = scale
+        return fused_masked_attention(q, k, v, bias, nv_q, nv_k, scale, key_masks, force=force)
+
+    @staticmethod
+    def backward(ctx, dout):
+        # the gradient of the plain version, written out: softmax rows p
+        # recomputed, dS = p (dP - rowsum(dP p)) with dP = dO v^T
+        q, k, v, bias, nv_q, nv_k, key_masks = ctx.saved_tensors
+        h, n, dh = q.shape
+        p = _probabilities(q, k, bias, nv_k, ctx.scale, key_masks)
+        rows = _prefix(n, nv_q, q.device)[:, None]
+        d_out = torch.where(rows, dout, 0.0).reshape(n, h, dh).transpose(0, 1)  # (H, N, dh)
+        d_p = torch.bmm(d_out, v.transpose(1, 2))
+        d_s = p * (d_p - (d_p * p).sum(dim=-1, keepdim=True)) * ctx.scale
+        need = ctx.needs_input_grad
+        d_q = torch.bmm(d_s, k) if need[0] else None
+        d_k = torch.bmm(d_s.transpose(1, 2), q) if need[1] else None
+        d_v = torch.bmm(p.transpose(1, 2), d_out) if need[2] else None
+        d_bias = d_s.transpose(0, 1) if bias is not None and need[3] else None
+        return (d_q, d_k, d_v, d_bias) + (None,) * 5
+
+
+def fused_masked_attention_diff(q, k, v, bias=None, n_valid_q=None, n_valid_k=None, scale=1.0,
+                                key_masks=None, force=None):
+    """Differentiable :func:`fused_masked_attention` (JAX
+    ``fused_masked_attention_diff``): the kernel forward, the gradient of
+    the plain version (its softmax rows recomputed)."""
+    n, m = q.shape[1], k.shape[1]
+    return _FusedAttention.apply(q, k, v, bias, _count(n_valid_q, n, q.device),
+                                 _count(n_valid_k, m, q.device), scale, key_masks, force)

@@ -7,9 +7,17 @@ r"""Geometric self/cross attention transformer
 The geometric structure embedding goes through
 :func:`geotransformer_tpu_torch.kernels.gse.gse_embedding_full` (CUDA kernel
 on the card), or its differentiable form ``gse_embedding_full_diff`` when
-gradients are enabled. Attention is plain einsum: the two JAX attention kernels are
-off by default (``geotransformer_tpu/kernels/flags.py:39``). Padded tokens
-are excluded from keys; their query outputs are zeroed at the stack output.
+gradients are enabled. Attention goes through the two attention kernels of
+:mod:`geotransformer_tpu_torch.kernels.attention` (``rpe_pair_scores`` for
+the geometric bias, ``fused_masked_attention`` for every self and cross
+layer), in their ``*_diff`` forms when gradients are enabled, on every
+configuration; ``force_pallas=False`` takes the einsum path instead. The
+JAX package keeps its attention kernels behind ``kernels/flags.py``, an
+environment switch that guards a TPU hang of their clamped DMA index maps;
+the CUDA kernels have no such mechanism, so the port has no flag: what
+admits them on the card is ``chip_smoke.py`` holding each against its plain
+version. Padded tokens are excluded from keys; their query outputs are
+zeroed at the stack output.
 Module and parameter names follow the flax tree, so the state_dict keys are
 the reference torch keys.
 """
@@ -19,6 +27,12 @@ import math
 import torch
 from torch import nn
 
+from geotransformer_tpu_torch.kernels.attention import (
+    fused_masked_attention,
+    fused_masked_attention_diff,
+    rpe_pair_scores,
+    rpe_pair_scores_diff,
+)
 from geotransformer_tpu_torch.kernels.gse import gse_embedding_full, gse_embedding_full_diff
 from geotransformer_tpu_torch.ops.pairwise_distance import pairwise_distance
 
@@ -96,20 +110,29 @@ def _masked_softmax(scores, key_masks):
 
 
 class MultiHeadAttention(nn.Module):
-    """Vanilla scaled dot-product attention (keys maskable)."""
+    """Vanilla scaled dot-product attention (keys maskable).
 
-    def __init__(self, d_model, num_heads):
+    Unless ``force`` is False, the whole QK^T -> masked softmax -> AV chain
+    runs in :func:`fused_masked_attention` (the CUDA kernel on the card):
+    ``key_masks`` masks keys, ``input_masks`` zeroes padded query rows.
+    ``force=False`` takes the einsum path."""
+
+    def __init__(self, d_model, num_heads, force=None):
         super().__init__()
         self.num_heads = num_heads
+        self.force = force
         self.proj_q = nn.Linear(d_model, d_model)
         self.proj_k = nn.Linear(d_model, d_model)
         self.proj_v = nn.Linear(d_model, d_model)
 
-    def forward(self, input_q, input_k, input_v, key_masks=None):
+    def forward(self, input_q, input_k, input_v, key_masks=None, input_masks=None):
         q = _split_heads(self.proj_q(input_q), self.num_heads)
         k = _split_heads(self.proj_k(input_k), self.num_heads)
         v = _split_heads(self.proj_v(input_v), self.num_heads)
-        scores = torch.einsum("bhnc,bhmc->bhnm", q, k) / math.sqrt(q.shape[-1])
+        d_head = q.shape[-1]
+        if self.force is not False:
+            return _fused_attention(q, k, v, None, input_masks, key_masks, d_head, self.force)
+        scores = torch.einsum("bhnc,bhmc->bhnm", q, k) / math.sqrt(d_head)
         scores = _masked_softmax(scores, key_masks)
         return _merge_heads(torch.einsum("bhnm,bhmc->bhnc", scores, v))
 
@@ -119,12 +142,18 @@ class RPEMultiHeadAttention(nn.Module):
 
     ``proj_p`` is applied on the query side (the JAX ``_PairBiasProjection``,
     ``models/transformer.py:226-275``): q . (e W + b) = e . (W q) + q . b, so
-    the (B, N, M, C) embedding is never projected.
+    the (B, N, M, C) embedding is never projected. Unless ``force`` is
+    False, :func:`rpe_pair_scores` computes e . (W q) and feeds it as the
+    bias of :func:`fused_masked_attention`; the q . b term, the same for
+    every key of a row, is dropped (the softmax does not see it, so
+    ``proj_p.bias`` gets a gradient of exact zeros). RPE attention is
+    self-attention: the key mask is the query mask too.
     """
 
-    def __init__(self, d_model, num_heads):
+    def __init__(self, d_model, num_heads, force=None):
         super().__init__()
         self.num_heads = num_heads
+        self.force = force
         self.proj_q = nn.Linear(d_model, d_model)
         self.proj_k = nn.Linear(d_model, d_model)
         self.proj_v = nn.Linear(d_model, d_model)
@@ -137,6 +166,12 @@ class RPEMultiHeadAttention(nn.Module):
         d_model = self.proj_p.weight.shape[0]
         d_head = d_model // self.num_heads
         w = self.proj_p.weight.t().reshape(d_model, self.num_heads, d_head)
+        if self.force is not False:
+            # b_p joins the graph with weight 0: its gradient is an exact 0,
+            # not None, so the optimizer's weight decay reaches it as in JAX
+            qw = torch.einsum("bhnc,dhc->bnhd", q, w) + 0.0 * self.proj_p.bias.sum()
+            return _fused_attention(q, k, v, (embed_qk, qw), key_masks, key_masks, d_head,
+                                    self.force)
         qw = torch.einsum("bhnc,dhc->bhnd", q, w)
         scores_p = torch.einsum("bnmd,bhnd->bhnm", embed_qk, qw)
         qb = torch.einsum("bhnc,hc->bhn", q, self.proj_p.bias.reshape(self.num_heads, d_head))
@@ -144,6 +179,37 @@ class RPEMultiHeadAttention(nn.Module):
         scores = (scores_e + scores_p + qb[..., None]) / math.sqrt(d_head)
         scores = _masked_softmax(scores, key_masks)
         return _merge_heads(torch.einsum("bhnm,bhmc->bhnc", scores, v))
+
+
+def _fused_attention(q, k, v, pair, input_masks, key_masks, d_head, force):
+    """(B, N, H * dh) attention of (B, H, N, dh) heads, one batch element at
+    a time through the kernels: ``pair`` is None or (embed (B, N, M, C),
+    qw (B, N, H, C)) for the RPE bias. Valid counts come from the masks
+    (:func:`prefix_valid_count`); the kernel also takes the whole key mask,
+    so a non-prefix mask is honoured."""
+    grad = torch.is_grad_enabled()
+    pair_scores = rpe_pair_scores_diff if grad else rpe_pair_scores
+    attend = fused_masked_attention_diff if grad else fused_masked_attention
+    batch_size, _, num_q, _ = q.shape
+    num_k = k.shape[2]
+    nv_k = None if key_masks is None else prefix_valid_count(key_masks, num_k)
+    if input_masks is key_masks:  # self-attention: one mask, one count
+        nv_q = nv_k
+    else:
+        nv_q = None if input_masks is None else prefix_valid_count(input_masks, num_q)
+    hidden = []
+    for b in range(batch_size):
+        nq = None if nv_q is None else nv_q[b]
+        nk = None if nv_k is None else nv_k[b]
+        bias = None
+        if pair is not None:
+            embed, qw = pair
+            bias = pair_scores(embed[b].contiguous(), qw[b].contiguous(), nq, nk, force=force)
+        hidden.append(attend(q[b].contiguous(), k[b].contiguous(), v[b].contiguous(), bias, nq,
+                             nk, float(d_head) ** -0.5,
+                             None if key_masks is None else key_masks[b].contiguous(),
+                             force=force))
+    return torch.stack(hidden)
 
 
 class AttentionOutput(nn.Module):
@@ -161,22 +227,22 @@ class AttentionOutput(nn.Module):
 
 
 class AttentionLayer(nn.Module):
-    def __init__(self, d_model, num_heads):
+    def __init__(self, d_model, num_heads, force=None):
         super().__init__()
-        self.attention = MultiHeadAttention(d_model, num_heads)
+        self.attention = MultiHeadAttention(d_model, num_heads, force=force)
         self.linear = nn.Linear(d_model, d_model)
         self.norm = nn.LayerNorm(d_model)
 
-    def forward(self, input_states, memory_states, memory_masks=None):
+    def forward(self, input_states, memory_states, memory_masks=None, input_masks=None):
         hidden = self.attention(input_states, memory_states, memory_states,
-                                key_masks=memory_masks)
+                                key_masks=memory_masks, input_masks=input_masks)
         return self.norm(self.linear(hidden) + input_states)
 
 
 class RPEAttentionLayer(nn.Module):
-    def __init__(self, d_model, num_heads):
+    def __init__(self, d_model, num_heads, force=None):
         super().__init__()
-        self.attention = RPEMultiHeadAttention(d_model, num_heads)
+        self.attention = RPEMultiHeadAttention(d_model, num_heads, force=force)
         self.linear = nn.Linear(d_model, d_model)
         self.norm = nn.LayerNorm(d_model)
 
@@ -187,19 +253,20 @@ class RPEAttentionLayer(nn.Module):
 
 
 class TransformerLayer(nn.Module):
-    def __init__(self, d_model, num_heads):
+    def __init__(self, d_model, num_heads, force=None):
         super().__init__()
-        self.attention = AttentionLayer(d_model, num_heads)
+        self.attention = AttentionLayer(d_model, num_heads, force=force)
         self.output = AttentionOutput(d_model)
 
-    def forward(self, input_states, memory_states, memory_masks=None):
-        return self.output(self.attention(input_states, memory_states, memory_masks))
+    def forward(self, input_states, memory_states, memory_masks=None, input_masks=None):
+        return self.output(self.attention(input_states, memory_states, memory_masks,
+                                          input_masks))
 
 
 class RPETransformerLayer(nn.Module):
-    def __init__(self, d_model, num_heads):
+    def __init__(self, d_model, num_heads, force=None):
         super().__init__()
-        self.attention = RPEAttentionLayer(d_model, num_heads)
+        self.attention = RPEAttentionLayer(d_model, num_heads, force=force)
         self.output = AttentionOutput(d_model)
 
     def forward(self, input_states, memory_states, position_states, memory_masks=None):
@@ -211,15 +278,15 @@ class RPEConditionalTransformer(nn.Module):
     """Interleaved geometric self-attention / vanilla cross-attention stack
     (sequential cross updates: src attends to the updated ref)."""
 
-    def __init__(self, blocks, d_model, num_heads):
+    def __init__(self, blocks, d_model, num_heads, force=None):
         super().__init__()
         self.blocks = tuple(blocks)
         layers = []
         for block in self.blocks:
             if block == "self":
-                layers.append(RPETransformerLayer(d_model, num_heads))
+                layers.append(RPETransformerLayer(d_model, num_heads, force=force))
             elif block == "cross":
-                layers.append(TransformerLayer(d_model, num_heads))
+                layers.append(TransformerLayer(d_model, num_heads, force=force))
             else:
                 raise ValueError(f"Unsupported block type: {block}")
         self.layers = nn.ModuleList(layers)
@@ -230,8 +297,8 @@ class RPEConditionalTransformer(nn.Module):
                 feats0 = layer(feats0, feats0, embeddings0, memory_masks=masks0)
                 feats1 = layer(feats1, feats1, embeddings1, memory_masks=masks1)
             else:
-                feats0 = layer(feats0, feats1, memory_masks=masks1)
-                feats1 = layer(feats1, feats0, memory_masks=masks0)
+                feats0 = layer(feats0, feats1, memory_masks=masks1, input_masks=masks0)
+                feats1 = layer(feats1, feats0, memory_masks=masks0, input_masks=masks1)
         return feats0, feats1
 
 
@@ -245,7 +312,7 @@ class GeometricTransformer(nn.Module):
         self.embedding = GeometricStructureEmbedding(
             hidden_dim, sigma_d, sigma_a, angle_k, reduction_a, force=force)
         self.in_proj = nn.Linear(input_dim, hidden_dim)
-        self.transformer = RPEConditionalTransformer(blocks, hidden_dim, num_heads)
+        self.transformer = RPEConditionalTransformer(blocks, hidden_dim, num_heads, force=force)
         self.out_proj = nn.Linear(hidden_dim, output_dim)
 
     def forward(self, ref_points, src_points, ref_feats, src_feats, ref_masks=None,

@@ -17,6 +17,6 @@ def div_term(d_model, device):
 
 def sinusoidal_embedding(emb_indices, d_model):
     """(*) real-valued indices -> (*, d_model), interleaved [sin0, cos0, sin1, ...]."""
-    omegas = emb_indices[..., None] * div_term(d_model, emb_indices.device)
+    omegas = emb_indices[..., None] * div_term(d_model, emb_indices.device).to(emb_indices.dtype)
     emb = torch.stack([torch.sin(omegas), torch.cos(omegas)], dim=-1)
     return emb.reshape(emb_indices.shape + (d_model,))

@@ -10,7 +10,10 @@ gradients atol 1e-4 x max|plain|, Sinkhorn forward and backward 1e-4 (at
 3DMatch's 65 x 65 patches and KITTI's 129 x 129); the
 split-table and union convs as the KPConv forward (their counts and pooled
 values exactly), the GT patch overlaps exactly (the kernel and its plain
-version round the same direct distance alike).
+version round the same direct distance alike), the RPE pair scores and the
+fused attention 1e-5 x max|plain| (f32 dot products in another order; exact
+zeros outside the valid rectangle and on padded rows), the attention's
+gradients (the plain version's, recomputed) 1e-5.
 """
 
 import numpy as np
@@ -18,6 +21,13 @@ import pytest
 import torch
 
 from geotransformer_tpu_torch.kernels import cuda
+from geotransformer_tpu_torch.kernels.attention import (
+    fused_masked_attention,
+    fused_masked_attention_diff,
+    fused_masked_attention_plain,
+    rpe_pair_scores,
+    rpe_pair_scores_plain,
+)
 from geotransformer_tpu_torch.kernels.gse import (
     gse_embedding_full,
     gse_embedding_full_plain,
@@ -394,3 +404,69 @@ def test_patch_overlaps_match_plain(device, m, n, k, s):
     assert torch.equal(got, want)
     assert 0.0 < (got > 0).float().mean().item() < 1.0
     assert not got[2].any() and not got[0].any()
+
+
+@pytest.mark.parametrize("n, m, c, h, nv_q, nv_k", [
+    (192, 192, 256, 4, 150, 150), (300, 293, 128, 4, 281, 250), (50, 40, 64, 8, None, None),
+    (33, 70, 36, 2, 1, 69)], ids=["modelnet", "kitti-width", "eight-heads", "ragged"])
+def test_rpe_pair_scores_matches_plain(device, n, m, c, h, nv_q, nv_k):
+    g = torch.Generator().manual_seed(7)
+    embed = torch.randn(n, m, c, generator=g).to(device)
+    qw = torch.randn(n, h, c, generator=g).to(device)
+    nvq = None if nv_q is None else torch.tensor(nv_q, dtype=torch.int32, device=device)
+    before = cuda.launches["rpe_pair_scores"]
+    got = rpe_pair_scores(embed, qw, nvq, nv_k)
+    assert cuda.launches["rpe_pair_scores"] == before + 1
+    want = rpe_pair_scores_plain(embed, qw, nvq, nv_k)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+    rows, cols = nv_q or n, nv_k or m
+    assert not got[rows:].any() and not got[:, :, cols:].any()
+
+
+def test_rpe_pair_scores_rejects_misaligned_embed(device):
+    embed = torch.randn(8 * 8 * 32 + 1, device=device)[1:].view(8, 8, 32)
+    with pytest.raises(ValueError, match="aligned"):
+        rpe_pair_scores(embed, torch.randn(8, 2, 32, device=device))
+
+
+def attention_case(device, h, n, m, dh, with_bias, holes, seed=8):
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn(h, r, dh, generator=g) for r in (n, m, m))
+    bias = torch.randn(n, h, m, generator=g) if with_bias else None
+    key_masks = torch.rand(m, generator=g) > 0.3 if holes else None
+    to = lambda t: None if t is None else t.to(device)  # noqa: E731
+    return [to(t) for t in (q, k, v, bias)], to(key_masks)
+
+
+@pytest.mark.parametrize("h, n, m, dh, nv_q, nv_k", [
+    (4, 512, 512, 64, 411, 299), (4, 192, 192, 64, 136, 136), (4, 256, 256, 32, 256, 200),
+    (2, 100, 75, 16, 83, 61), (2, 17, 9, 8, None, None)],
+    ids=["3dmatch", "modelnet", "kitti", "ragged", "tiny"])
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("holes", [False, True], ids=["prefix", "key-holes"])
+def test_fused_attention_matches_plain(device, h, n, m, dh, nv_q, nv_k, with_bias, holes):
+    (q, k, v, bias), key_masks = attention_case(device, h, n, m, dh, with_bias, holes)
+    scale = dh ** -0.5
+    before = cuda.launches["fused_masked_attention"]
+    got = fused_masked_attention(q, k, v, bias, nv_q, nv_k, scale, key_masks)
+    assert cuda.launches["fused_masked_attention"] == before + 1
+    want = fused_masked_attention_plain(q, k, v, bias, nv_q, nv_k, scale, key_masks)
+    torch.cuda.synchronize()
+    rows = nv_q or n
+    assert bool(torch.isfinite(got).all())
+    assert (got[:rows] - want[:rows]).abs().max().item() <= 1e-5 * want[:rows].abs().max().item()
+    assert not got[rows:].any()
+
+
+def test_fused_attention_diff_gradients_on_the_card(device):
+    (q, k, v, bias), key_masks = attention_case(device, 4, 192, 160, 64, True, True)
+    inputs = [t.requires_grad_() for t in (q, k, v, bias)]
+    dout = torch.randn(192, 256, device=device)
+    out = fused_masked_attention_diff(*inputs, 150, 140, 0.125, key_masks)
+    got = torch.autograd.grad(out, inputs, dout)
+    want_out = fused_masked_attention_plain(*inputs, 150, 140, 0.125, key_masks)
+    want = torch.autograd.grad(want_out, inputs, dout)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
