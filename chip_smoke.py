@@ -27,14 +27,15 @@ block).
                1e-4 and atol 1e-5 x max|plain|; GSE atol 1e-3 on the valid
                rectangle; RPE pair scores 1e-5 x max|plain|; attention 1e-5 x
                max|plain| on valid rows, exact zeros on padded rows; Sinkhorn
-               1e-4 on valid entries), both timed (CUDA events), and the
-               attention kernels also against one PyTorch call (library_ms:
-               torch.bmm, SDPA), both also on the device alone from
-               torch.profiler (device_ms by the kernel's name,
-               library_device_ms);
-               and the whole model with force_pallas=False, whose
-               ref/src_feats_c must agree with the kernel run to 1e-3 of
-               their largest magnitude;
+               1e-4 on valid entries), both timed (CUDA events around the
+               calls, host dispatch included), the kernel also on the device
+               alone (device_ms: the calls captured in one CUDA graph, the
+               capture counting each kernel launch once, and the graph
+               replayed between two CUDA events), and the attention kernels
+               also against one PyTorch call (library_ms: torch.bmm, SDPA),
+               timed both ways (library_device_ms); and the whole model
+               with force_pallas=False, whose ref/src_feats_c must agree with
+               the kernel run to 1e-3 of their largest magnitude;
   5. union   — the same pairs with per-tile neighbor unions and no edge
                stream (union_cap 1536 or the next multiple of 512 that
                holds, tile 128): one counted forward each through the
@@ -48,10 +49,11 @@ block).
   7. backward kernels vs plain — each training kernel on the inputs it got
                in one step, against its plain version (KPConv backward as the
                forward; GSE gradients atol 1e-4 x the largest plain one; Sinkhorn
-               1e-4), both timed; and the whole step: every parameter
-               gradient of the kernel model against the exact step, the
-               force_pallas=False model's in float64 from the same weights,
-               batch and GT targets along the kernel step's ReLU branches:
+               1e-4), timed both ways, as phase 4; and the whole step:
+               every parameter gradient of the kernel model against the
+               exact step, the force_pallas=False model's in float64 from
+               the same weights, batch and GT targets along the kernel
+               step's ReLU branches:
                the whole step's and each tensor's within 1e-3 (relative
                norm) plus twice the float32 plain step's distance of the
                float64 step along its own branches, the vanishing ones under
@@ -173,6 +175,7 @@ MODELNET_ITERATIONS, MODELNET_WARMUP, MODELNET_SNAPSHOT = 8, 4, 4
 MODELNET_ENTRIES, MODELNET_POINTS, MODELNET_SEED = 4, 2048, 1
 UNION_CAP, UNION_TILE = 1536, 128
 PEAK_F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12  # H100 SXM, TF32 on the tensor cores, dense
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 DEVICE = "cuda"
 
@@ -517,26 +520,33 @@ def capture_kernel_calls(names):
             setattr(module, name, fn)
 
 
-def profiled_ms(fn, launches, name=None, reps=10):
-    """Device milliseconds of one fn() from torch.profiler, the host's
-    dispatch left out: the self device time of the CUDA kernels whose name
-    holds ``name`` (every kernel if None) over ``reps`` runs, and those
-    kernels' times by name; (None, {...}) where the profiler saw fewer than
-    ``launches`` of them a run (it can drop events)."""
+def graph_ms(fn, name=None, launches=0, reps=20):
+    """Device milliseconds of one fn(), replayed from a CUDA graph: fn()'s
+    launches are captured once, after a warm-up run, and the graph is
+    replayed ``reps`` times between two CUDA events, so the host puts
+    nothing between the launches. ``name``: the kernel fn() launches, whose
+    launch counter the capture must raise by ``launches`` (the counters
+    count wrapper calls, not replays); None for a library call. A capture
+    error is raised, never caught."""
     fn()
     torch.cuda.synchronize()
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and not getattr(e, "is_user_annotation", False)
-              and (name is None or name in e.key)]
-    by_name = {e.key: e.self_device_time_total / 1e3 / reps for e in events}
-    seen = sum(e.count for e in events)
-    return (sum(by_name.values()) if seen >= reps * launches else None), by_name
+    graph = torch.cuda.CUDAGraph()
+    before = cuda.launches[name] if name else 0
+    with torch.cuda.graph(graph):
+        fn()
+    if name:
+        captured = cuda.launches[name] - before
+        expect(captured == launches,
+               f"{name}: the graph captured {captured} launches, expected {launches}")
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def time_ms(fn, reps):
@@ -583,8 +593,8 @@ def check_call(name, kernel_out, plain_out, args):
 # --- the least time the card could take for each call (bound_ms) --------
 # bytes: each input read once, each output written once; operations: what
 # these inputs need (valid edges, active queries, the valid GSE rectangle,
-# valid point pairs of valid candidates), against 67 TFLOP/s f32 and
-# 3.35 TB/s.
+# valid point pairs of valid candidates), against 67 TFLOP/s f32 (the
+# attention's 3xTF32 products against 495 TFLOP/s TF32) and 3.35 TB/s.
 
 def _nbytes(*tensors):
     total = 0
@@ -725,7 +735,8 @@ def cost_rpe_pair_scores(args, kwargs, out):
 
 def cost_fused_masked_attention(args, kwargs, out):
     # the valid rows of q, the valid keys of k and v, the valid rectangle of
-    # the bias read, the output written; two products of dh per valid pair
+    # the bias read, the output written; two products of dh per valid pair,
+    # each on the tensor cores as three TF32 products (3xTF32)
     q, k, v, bias = args[:4]
     h, n, dh = q.shape
     m = k.shape[1]
@@ -733,7 +744,11 @@ def cost_fused_masked_attention(args, kwargs, out):
     nbytes = 4 * (h * nv_q * dh + 2 * h * nv_k * dh) + _nbytes(args[7], out)
     if bias is not None:
         nbytes += 4 * nv_q * h * nv_k
-    return nbytes, 4 * nv_q * nv_k * h * dh
+    return nbytes, 3 * 4 * nv_q * nv_k * h * dh
+
+
+# the peak rate of each kernel's operations where it is not f32 on the CUDA cores
+PEAK_FLOPS = {"fused_masked_attention": PEAK_TF32_FLOPS}
 
 
 COSTS = {name: globals()[f"cost_{name}"] for name in KERNELS}
@@ -765,13 +780,13 @@ def library_fused_masked_attention(args, kwargs):
 
 LIBRARY = {"rpe_pair_scores": library_rpe_pair_scores,
            "fused_masked_attention": library_fused_masked_attention}
-# the CUDA kernel each of them launches (csrc/attention.cu)
-DEVICE_NAMES = {"rpe_pair_scores": "pair_scores_kernel",
-                "fused_masked_attention": "attention_kernel"}
 
 
 def compare_kernels(records, names, reps):
-    """Each kernel vs its plain version on the captured calls."""
+    """Each kernel vs its plain version on the captured calls: the largest
+    difference, the CUDA-event ms of the calls (host dispatch included),
+    their device ms replayed from a CUDA graph, and the same two times of
+    one PyTorch call of the same function where there is one."""
     results = {}
     for name in names:
         module, plain = KERNELS[name].module, KERNELS[name].plain
@@ -779,12 +794,14 @@ def compare_kernels(records, names, reps):
         kernel = getattr(module, name)
         expect(calls, f"{name}: no call captured")
         worst, total_bytes, total_ops = 0.0, 0, 0
+        before = cuda.launches[name]
         for args, kwargs in calls:
             out = kernel(*args, **kwargs)
             worst = max(worst, check_call(name, out, plain(*args, **_plain_kwargs(kwargs)), args))
             nbytes, ops = COSTS[name](args, kwargs, out)
             total_bytes += nbytes
             total_ops += ops
+        launches = cuda.launches[name] - before
 
         def run_kernel():
             for args, kwargs in calls:
@@ -794,8 +811,7 @@ def compare_kernels(records, names, reps):
             for args, kwargs in calls:
                 plain(*args, **_plain_kwargs(kwargs))
 
-        library_ms = None
-        device = library_device = (None, None)
+        library_ms = library_device_ms = None
         if name in LIBRARY:
             library = [LIBRARY[name](args, kwargs) for args, kwargs in calls]
 
@@ -804,52 +820,52 @@ def compare_kernels(records, names, reps):
                     call()
 
             library_ms = time_ms(run_library, reps)
-            # the kernel and the library call on the device alone: at these
-            # sizes CUDA events around the calls can read host dispatch
-            device = profiled_ms(run_kernel, len(calls), DEVICE_NAMES[name])
-            library_device = profiled_ms(run_library, len(calls))
+            library_device_ms = graph_ms(run_library)
         results[name] = with_bound({
             "calls": len(calls),
             "max_abs_err": worst,
             "ms": time_ms(run_kernel, reps),
             "plain_ms": time_ms(run_plain, max(1, reps // 2)),
+            "device_ms": graph_ms(run_kernel, name, launches),
             "bytes": total_bytes,
             "operations": total_ops,
+            "peak_flops": PEAK_FLOPS.get(name, PEAK_F32_FLOPS),
             # one PyTorch call computes only the attention kernels' functions
             "library_ms": library_ms,
-            "device_ms": device[0],
-            "library_device_ms": library_device[0],
-            "library_device_kernels_ms": library_device[1],
+            "library_device_ms": library_device_ms,
         })
     return results
 
 
 def with_bound(r):
     bytes_ms = r["bytes"] / PEAK_BYTES * 1e3
-    ops_ms = r["operations"] / PEAK_F32_FLOPS * 1e3
+    ops_ms = r["operations"] / r["peak_flops"] * 1e3
     r["bound_ms"] = max(bytes_ms, ops_ms)
     r["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
     return r
 
 
 def merge_paths(by_path):
-    """{path: {kernel: result}} -> {kernel: result}: calls, times, bytes and
-    operations summed over the paths the kernel was compared on (the bound
+    """{path: {kernel: result}} -> {kernel: result}: calls, times (device
+    times too), bytes and operations summed over the paths the kernel was compared on (the bound
     recomputed from the sums), the largest error, and each path's own."""
     merged = {}
     for path, results in by_path.items():
         for name, r in results.items():
             m = merged.setdefault(name, {"calls": 0, "max_abs_err": 0.0, "ms": 0.0,
-                                         "plain_ms": 0.0, "bytes": 0, "operations": 0,
-                                         "library_ms": None, "by_path": {}})
-            for key in ("calls", "ms", "plain_ms", "bytes", "operations"):
+                                         "plain_ms": 0.0, "device_ms": 0.0, "bytes": 0,
+                                         "operations": 0, "peak_flops": r["peak_flops"],
+                                         "library_ms": None, "library_device_ms": None,
+                                         "by_path": {}})
+            for key in ("calls", "ms", "plain_ms", "device_ms", "bytes", "operations"):
                 m[key] += r[key]
-            if r["library_ms"] is not None:
-                m["library_ms"] = (m["library_ms"] or 0.0) + r["library_ms"]
+            for key in ("library_ms", "library_device_ms"):
+                if r[key] is not None:
+                    m[key] = (m[key] or 0.0) + r[key]
             m["max_abs_err"] = max(m["max_abs_err"], r["max_abs_err"])
             m["by_path"][path] = {key: r[key] for key in (
-                "calls", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                "device_ms", "library_device_ms", "library_device_kernels_ms")}
+                "calls", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "library_device_ms")}
     return {name: with_bound(m) for name, m in merged.items()}
 
 
@@ -1195,16 +1211,14 @@ def profile_train(cfg, model, batches, what, filename, report):
 
 
 def print_results(path, results):
-    def ms(t):
-        return "not measured" if t is None else f"{t:.3f} ms"
-
     for name, r in results.items():
         library = ("" if r["library_ms"] is None else
-                   f"; on the device (torch.profiler) kernel {ms(r['device_ms'])}, library "
-                   f"{ms(r['library_device_ms'])}; library {r['library_ms']:.3f} ms (CUDA events)")
+                   f"; library {r['library_ms']:.3f} ms (CUDA events), "
+                   f"{r['library_device_ms']:.3f} ms on the device (graph)")
         print(f"{path} {name}: {r['calls']} calls, max|kernel - plain| {r['max_abs_err']:.3e}, "
-              f"kernel {r['ms']:.3f} ms vs plain {r['plain_ms']:.3f} ms, bound "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']}){library}", flush=True)
+              f"kernel {r['ms']:.3f} ms (CUDA events), {r['device_ms']:.3f} ms on the device "
+              f"(graph) vs plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}){library}", flush=True)
 
 
 def threedmatch_phases(device, launches, report):
@@ -1584,9 +1598,11 @@ def main():
         line.append({"name": name, "route": "cuda", "source": kernel.source,
                      "replaces": kernel.replaces,
                      "launches": sum(by_path.values()), "launches_by_path": by_path,
-                     "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                     "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                     "library_ms": r["library_ms"], "by_path": r["by_path"]})
+                     "library_ms": r["library_ms"], "library_device_ms": r["library_device_ms"],
+                     "by_path": r["by_path"]})
     print(json.dumps({"kernels": line}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

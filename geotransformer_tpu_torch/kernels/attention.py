@@ -42,6 +42,14 @@ def _count(n_valid, full, device):
     return torch.as_tensor(n_valid, dtype=torch.int32, device=device).reshape(())
 
 
+def _kernel_count(n_valid, device):
+    """``n_valid`` as the kernels take it: None (the full extent, a null
+    pointer) or a 0-d int32 tensor on ``device``. A 0-d int32 tensor passes
+    through, so a call on device counts copies nothing from the host and
+    can be captured in a CUDA graph."""
+    return None if n_valid is None else _count(n_valid, None, device)
+
+
 def _prefix(n, n_valid, device):
     """(n,) bool: index < n_valid."""
     return torch.arange(n, device=device) < _count(n_valid, n, device)
@@ -89,7 +97,7 @@ def rpe_pair_scores(embed, qw, n_valid_q=None, n_valid_k=None, force=None):
                          f"got C={c}, H={h}")
     if embed.data_ptr() % 16 or qw.data_ptr() % 16:
         raise ValueError("rpe_pair_scores reads float4: embed and qw must be 16-byte aligned")
-    nv_q, nv_k = _count(n_valid_q, n, dev), _count(n_valid_k, m, dev)
+    nv_q, nv_k = _kernel_count(n_valid_q, dev), _kernel_count(n_valid_k, dev)
     out = torch.empty((n, h, m), dtype=f32, device=dev)
     lib = cuda.library("attention", _SIGNATURES)
     code = lib.rpe_pair_scores_launch(cuda.ptr(embed), cuda.ptr(qw), cuda.ptr(nv_q),
@@ -189,7 +197,10 @@ def fused_masked_attention(q, k, v, bias=None, n_valid_q=None, n_valid_k=None, s
         cuda.require(key_masks, "key_masks", torch.bool, (m,), dev)
     if dh not in _HEAD_WIDTHS:
         raise ValueError(f"fused_masked_attention takes head widths {_HEAD_WIDTHS}, got {dh}")
-    nv_q, nv_k = _count(n_valid_q, n, dev), _count(n_valid_k, m, dev)
+    if q.data_ptr() % 16 or k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("fused_masked_attention stages q, k and v with 16-byte copies: they "
+                         "must be 16-byte aligned")
+    nv_q, nv_k = _kernel_count(n_valid_q, dev), _kernel_count(n_valid_k, dev)
     out = torch.empty((n, h * dh), dtype=f32, device=dev)
     lib = cuda.library("attention", _SIGNATURES)
     code = lib.fused_attention_launch(

@@ -1,5 +1,5 @@
 // The two attention kernels of the geometric transformer, for Hopper
-// (sm_90a), f32 on the CUDA cores.
+// (sm_90a).
 //
 // pair_scores_kernel replaces geotransformer_tpu/kernels/attention.py:
 // rpe_pair_scores (pallas_call at :175): the RPE pair-bias scores
@@ -13,23 +13,41 @@
 // pairs' loads in flight before the arithmetic), then folds its H partial
 // sums with shuffles. Blocks entirely outside the valid rectangle read
 // nothing and write zeros (the valid-rectangle skip of the TPU kernel).
+// f32 on the CUDA cores.
 //
 // attention_kernel replaces geotransformer_tpu/kernels/attention.py:
 // fused_masked_attention (pallas_call at :355):
 //   out[i, h * dh + d] = sum_j softmax_j((q[h, i] . k[h, j] + bias[i, h, j])
 //                                        * scale) v[h, j, d]
 // over the keys j < nv_k that the key mask keeps, zero for query rows
-// i >= nv_q. What bounds it at these sizes (N, M <= ~640, dh <= 64, four
-// heads): latency, not bytes or flops: the scores never reach device
-// memory. A block takes one head and 16 query rows; 8 threads share a row,
-// each with its own running max / sum (online softmax) over every 8th key
-// of each 64-key chunk that the block stages in shared memory (rows padded
-// to dh + 1 floats: the 8 threads of a row read 8 keys in 8 banks). The 8
-// partial softmaxes of a row are merged with shuffles at the end. Chunks
-// past nv_k are never read; blocks of padded rows write zeros only.
-//
-// No tensor cores (no TF32, no bf16): the first correct kernels. The JAX
-// kernels read bf16 operands with f32 accumulation.
+// i >= nv_q and for rows without a kept key. What bounds it at these sizes
+// (N, M <= ~640, dh <= 64, four heads; ~88 MFLOP and ~1.4 MB of bias a call
+// at 3DMatch's 293 superpoints): latency, not bytes or flops, since the
+// scores never reach device memory. The first kernel (8 threads a query
+// row on the CUDA cores, 4 warps a block, 64-key chunks staged by scalar
+// loads between two barriers) left about one warp per scheduler waiting on
+// L2 and took 80 us a call on an H100 80GB HBM3 at 700 W (torch.profiler,
+// chip_smoke.py). This design:
+// - a block takes 16 query rows of one head (an m16 tile) and 8 warps; the
+//   warps split the keys (warp w takes 16-key chunks w, w + 8, ...), each
+//   with its own online softmax, and the block merges the 8 partial
+//   (m, l, acc) in warp order at the end: twice the warps of the first
+//   kernel on every live tile, and a fixed summation order (no atomics);
+// - each warp stages its chunks (K, V and the 16 x 16 bias tile) with
+//   16-byte cp.async into a two-stage ring of its own, so the next chunk's
+//   loads are in flight during this chunk's math, with no block barrier in
+//   the key loop (4-byte copies for a bias whose rows are not 16-byte
+//   aligned); ~160 KB of dynamic shared memory at dh 64;
+// - q k^T and p v run on the tensor cores as mma.sync m16n8k8 TF32 with the
+//   3xTF32 split (big b + big s + small b of each f32 operand), which keeps
+//   f32 accuracy: each k8 step lands in a fresh tile added to the f32
+//   accumulator. The probabilities go from the score fragment to the A
+//   fragment of p v without a trip through shared memory (A column t is
+//   key 2t, column t + 4 key 2t + 1, and V's B fragment reads the same keys);
+// - the q tile, too, is copied with cp.async, and the key mask becomes a
+//   bitmap in shared memory while the q tile and the first chunks are in
+//   flight: one memory latency before the key loop; tiles of padded rows
+//   write zeros and read nothing.
 
 #include <cuda_runtime.h>
 
@@ -49,15 +67,15 @@ template <int CPL>  // float4 loads per lane and pair: C <= 128 * CPL
 __global__ void __launch_bounds__(kPairThreads) pair_scores_kernel(
     const float* __restrict__ embed,     // (N, M, C)
     const float* __restrict__ qw,        // (N, H, C)
-    const int32_t* __restrict__ nv_q_ptr,
-    const int32_t* __restrict__ nv_k_ptr,
+    const int32_t* __restrict__ nv_q_ptr,  // or null: N
+    const int32_t* __restrict__ nv_k_ptr,  // or null: M
     float* __restrict__ out,             // (N, H, M)
     int N, int M, int H, int C) {
   extern __shared__ float4 qw_s[];  // (H, C / 4)
   const int i = blockIdx.y;
   const int j0 = blockIdx.x * kColsPerBlock;
-  const int nv_q = min(*nv_q_ptr, N);
-  const int nv_k = min(*nv_k_ptr, M);
+  const int nv_q = nv_q_ptr != nullptr ? min(*nv_q_ptr, N) : N;
+  const int nv_k = nv_k_ptr != nullptr ? min(*nv_k_ptr, M) : M;
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
   const int c4s = C / 4;
@@ -139,125 +157,343 @@ int launch_pair_scores(const float* embed, const float* qw, const int32_t* nv_q,
 
 // ---- fused masked attention ------------------------------------------------
 
-constexpr int kAttnThreads = 128;
-constexpr int kGroup = 8;                                  // threads per query row
-constexpr int kRowsPerBlock = kAttnThreads / kGroup;       // 16
-constexpr int kKeyChunk = 64;                              // keys staged at a time
-constexpr int kKeysPerThread = kKeyChunk / kGroup;         // 8
+constexpr int kAttnWarps = 8;
+constexpr int kAttnThreads = 32 * kAttnWarps;  // 256
+constexpr int kRows = 16;                      // query rows a block: one m16 tile
+constexpr int kKeys = 16;                      // keys a warp stages at a time: two n8 tiles
+constexpr int kBiasStride = kKeys + 8;         // floats: a half-warp's float2 reads, 16 banks
+constexpr size_t kMaxShared = 232448;          // the opt-in limit of a block on sm_90
+
+// Shared memory of the kernel, in floats: each warp owns a two-stage ring of
+// (K chunk, V chunk, bias tile), rows padded to DH + 4 floats, so the mma
+// fragment reads of K (8 keys x 4 dims) and V (4 key pairs x 8 dims) fall in
+// 32 distinct banks and every row stays 16-byte aligned for cp.async. After
+// the key loop the rings hold each warp's partial (16 x DH) output and its
+// (m, l) per row for the merge. The block's 16 query rows follow the rings
+// (same padding: the A fragment reads fall in 32 banks), then a bitmap of
+// the kept keys.
+template <int DH>
+struct AttnLayout {
+  static constexpr int kStride = DH + 4;
+  static constexpr int kKV = kKeys * kStride;
+  static constexpr int kStage = 2 * kKV + kRows * kBiasStride;
+  static constexpr int kWarp = 2 * kStage;
+  static constexpr int kRings = kAttnWarps * kWarp;
+  static constexpr int kFloats = kRings + kRows * kStride;  // rings, then the q tile
+  static_assert(kAttnWarps * kRows * (DH + 2) <= kRings, "the merge must fit in the rings");
+};
+
+__device__ __forceinline__ uint32_t shared_address(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 (or 4) bytes global -> shared, asynchronous; zeros where !valid
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(shared_address(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(shared_address(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
+}
+
+// x = big + small + O(2^-22 |x|), both halves TF32 (cvt.rna: round to
+// nearest, ties away, the low 13 bits zero); x - big is exact in f32
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(big) : "f"(x));
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(small) : "f"(x - __uint_as_float(big)));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// acc += a b to about f32 accuracy (3xTF32): the two cross terms, then the
+// big product, into a fresh tile that one f32 add brings into acc
+__device__ __forceinline__ void mma_3xtf32(float (&acc)[4], const uint32_t (&a_big)[4],
+                                           const uint32_t (&a_small)[4],
+                                           const uint32_t (&b_big)[2],
+                                           const uint32_t (&b_small)[2]) {
+  float t[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  mma_tf32(t, a_small, b_big);
+  mma_tf32(t, a_big, b_small);
+  mma_tf32(t, a_big, b_big);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) acc[e] += t[e];
+}
+
+// One warp's copies of keys [c0, c0 + 16): K and V rows (zeros past nv_k)
+// and the (16 x 16) bias tile (zeros past N or nv_k), one commit group.
+template <int DH>
+__device__ __forceinline__ void stage_chunk(float* stage, const float* k, const float* v,
+                                            const float* bias, bool bias16, int c0, int row0,
+                                            int h, int N, int M, int H, int nv_k, int lane) {
+  using L = AttnLayout<DH>;
+  float* k_s = stage;
+  float* v_s = stage + L::kKV;
+  float* b_s = stage + 2 * L::kKV;
+  constexpr int kVecs = DH / 4;  // float4 a row
+#pragma unroll
+  for (int t = 0; t < kKeys * kVecs / 32; ++t) {
+    const int e = lane + 32 * t;
+    const int jj = e / kVecs, c4 = e % kVecs;
+    const bool ok = c0 + jj < nv_k;
+    const size_t src = (static_cast<size_t>(h) * M + (ok ? c0 + jj : 0)) * DH + 4 * c4;
+    cp_async16(k_s + jj * L::kStride + 4 * c4, k + src, ok);
+    cp_async16(v_s + jj * L::kStride + 4 * c4, v + src, ok);
+  }
+  if (bias != nullptr) {
+    if (bias16) {  // M % 4 == 0: four keys j..j+3 from j % 4 == 0 lie below M together
+#pragma unroll
+      for (int t = 0; t < kRows * kKeys / 4 / 32; ++t) {
+        const int e = lane + 32 * t;
+        const int r = e / 4, j = c0 + 4 * (e % 4);
+        const bool ok = row0 + r < N && j < nv_k;
+        const size_t src = ok ? (static_cast<size_t>(row0 + r) * H + h) * M + j : 0;
+        cp_async16(b_s + r * kBiasStride + 4 * (e % 4), bias + src, ok);
+      }
+    } else {
+#pragma unroll
+      for (int t = 0; t < kRows * kKeys / 32; ++t) {
+        const int e = lane + 32 * t;
+        const int r = e / kKeys, j = c0 + e % kKeys;
+        const bool ok = row0 + r < N && j < nv_k;
+        const size_t src = ok ? (static_cast<size_t>(row0 + r) * H + h) * M + j : 0;
+        cp_async4(b_s + r * kBiasStride + e % kKeys, bias + src, ok);
+      }
+    }
+  }
+  cp_async_commit();
+}
 
 template <int DH>
-__global__ void __launch_bounds__(kAttnThreads) attention_kernel(
-    const float* __restrict__ q,            // (H, N, DH)
-    const float* __restrict__ k,            // (H, M, DH)
-    const float* __restrict__ v,            // (H, M, DH)
+__global__ void __launch_bounds__(kAttnThreads, 1) attention_kernel(
+    const float* __restrict__ q,            // (H, N, DH), 16-byte aligned
+    const float* __restrict__ k,            // (H, M, DH), 16-byte aligned
+    const float* __restrict__ v,            // (H, M, DH), 16-byte aligned
     const float* __restrict__ bias,         // (N, H, M) or null
     const uint8_t* __restrict__ key_masks,  // (M,) or null
-    const int32_t* __restrict__ nv_q_ptr,
-    const int32_t* __restrict__ nv_k_ptr,
+    const int32_t* __restrict__ nv_q_ptr,   // or null: N
+    const int32_t* __restrict__ nv_k_ptr,   // or null: M
     float* __restrict__ out,                // (N, H * DH)
-    int N, int M, int H, float scale) {
-  __shared__ float k_s[kKeyChunk][DH + 1];
-  __shared__ float v_s[kKeyChunk][DH + 1];
-  __shared__ bool ok_s[kKeyChunk];
+    int N, int M, int H, float scale, bool bias16) {
+  using L = AttnLayout<DH>;
+  constexpr int kSteps = DH / 8;  // k8 steps of q . k, n8 tiles of p . v
+  extern __shared__ float4 shared4[];
+  float* shared = reinterpret_cast<float*>(shared4);
+  float* q_s = shared + L::kRings;
+  uint32_t* kept = reinterpret_cast<uint32_t*>(shared + L::kFloats);
 
   const int h = blockIdx.y;
-  const int row0 = blockIdx.x * kRowsPerBlock;
-  const int tid = threadIdx.x;
-  const int g = tid % kGroup;
-  const int i = row0 + tid / kGroup;
-  const int nv_q = min(*nv_q_ptr, N);
-  const int nv_k = min(*nv_k_ptr, M);
+  const int row0 = blockIdx.x * kRows;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;  // mma fragment row and column group
+  const int nv_q = nv_q_ptr != nullptr ? max(0, min(*nv_q_ptr, N)) : N;
+  const int nv_k = nv_k_ptr != nullptr ? max(0, min(*nv_k_ptr, M)) : M;
   const size_t hd = static_cast<size_t>(H) * DH;
 
-  if (row0 >= nv_q) {
-    for (int e = tid; e < kRowsPerBlock * DH; e += kAttnThreads) {
-      const int ii = row0 + e / DH;
-      if (ii < N) out[ii * hd + h * DH + e % DH] = 0.0f;
+  if (row0 >= nv_q) {  // a tile of padded rows: zeros, nothing read
+    for (int e = tid; e < kRows * DH; e += kAttnThreads) {
+      const int i = row0 + e / DH;
+      if (i < N) out[i * hd + h * DH + e % DH] = 0.0f;
     }
     return;
   }
 
-  // rows past N (the last tile's tail) read row N - 1 and write nothing
-  const int ic = min(i, N - 1);
-  float qr[DH];
-  const float* q_row = q + (static_cast<size_t>(h) * N + ic) * DH;
+  // the q tile (rows past N as zeros), then warp w's first chunk (warp w
+  // takes chunks w, w + 8, ...), all in flight while the block builds the
+  // key bitmap: one memory latency before the key loop
+  for (int e = tid; e < kRows * DH / 4; e += kAttnThreads) {
+    const int r = e / (DH / 4), c4 = e % (DH / 4);
+    const bool ok = row0 + r < N;
+    cp_async16(q_s + r * L::kStride + 4 * c4,
+               q + (static_cast<size_t>(h) * N + (ok ? row0 + r : 0)) * DH + 4 * c4, ok);
+  }
+  cp_async_commit();
+  const int chunks = (nv_k + kKeys - 1) / kKeys;
+  float* ring = shared + warp * L::kWarp;
+  if (warp < chunks) {
+    stage_chunk<DH>(ring, k, v, bias, bias16, warp * kKeys, row0, h, N, M, H, nv_k, lane);
+  } else {
+    cp_async_commit();
+  }
+  for (int w = warp; w * 32 < nv_k; w += kAttnWarps) {
+    const int j = w * 32 + lane;
+    const bool ok = j < nv_k && (key_masks == nullptr || key_masks[j] != 0);
+    const uint32_t bits = __ballot_sync(0xffffffffu, ok);
+    if (lane == 0) kept[w] = bits;
+  }
+  cp_async_wait<1>();  // the q tile (the first chunk may still be in flight)
+  __syncthreads();     // the q tile and the bitmap are complete
+  // A fragments of the 16 query rows
+  uint32_t qa_big[kSteps][4], qa_small[kSteps][4];
 #pragma unroll
-  for (int d = 0; d < DH; ++d) qr[d] = q_row[d];
-  const float* bias_row = bias != nullptr ? bias + (static_cast<size_t>(ic) * H + h) * M : nullptr;
-
-  float acc[DH];
+  for (int s = 0; s < kSteps; ++s) {
 #pragma unroll
-  for (int d = 0; d < DH; ++d) acc[d] = 0.0f;
-  float m_run = -INFINITY, l_run = 0.0f;
-
-  for (int c0 = 0; c0 < nv_k; c0 += kKeyChunk) {
-    __syncthreads();  // the previous chunk is consumed
-    const int keys = min(kKeyChunk, nv_k - c0);
-    for (int e = tid; e < kKeyChunk * DH; e += kAttnThreads) {
-      const int jj = e / DH, d = e % DH;
-      const size_t src = (static_cast<size_t>(h) * M + c0 + jj) * DH + d;
-      k_s[jj][d] = jj < keys ? k[src] : 0.0f;
-      v_s[jj][d] = jj < keys ? v[src] : 0.0f;
+    for (int e = 0; e < 4; ++e) {
+      const float x = q_s[(g + 8 * (e % 2)) * L::kStride + 8 * s + t4 + 4 * (e / 2)];
+      split_tf32(x, qa_big[s][e], qa_small[s][e]);
     }
-    for (int jj = tid; jj < kKeyChunk; jj += kAttnThreads) {
-      ok_s[jj] = jj < keys && (key_masks == nullptr || key_masks[c0 + jj] != 0);
-    }
-    __syncthreads();
-
-    float s[kKeysPerThread];
-    float chunk_max = -INFINITY;
-#pragma unroll
-    for (int t = 0; t < kKeysPerThread; ++t) {
-      const int jj = g + kGroup * t;
-      float dot = 0.0f;
-#pragma unroll
-      for (int d = 0; d < DH; ++d) dot = fmaf(qr[d], k_s[jj][d], dot);
-      if (bias_row != nullptr && jj < keys) dot += bias_row[c0 + jj];
-      s[t] = ok_s[jj] ? dot * scale : -INFINITY;
-      chunk_max = fmaxf(chunk_max, s[t]);
-    }
-    if (chunk_max == -INFINITY) continue;  // none of this thread's keys is valid
-    const float m_new = fmaxf(m_run, chunk_max);
-    const float correction = expf(m_run - m_new);  // 0 while m_run is -inf
-    l_run *= correction;
-#pragma unroll
-    for (int d = 0; d < DH; ++d) acc[d] *= correction;
-#pragma unroll
-    for (int t = 0; t < kKeysPerThread; ++t) {
-      const int jj = g + kGroup * t;
-      const float p = s[t] == -INFINITY ? 0.0f : expf(s[t] - m_new);
-      l_run += p;
-#pragma unroll
-      for (int d = 0; d < DH; ++d) acc[d] = fmaf(p, v_s[jj][d], acc[d]);
-    }
-    m_run = m_new;
   }
 
-  // merge the row's kGroup partial softmaxes (its threads are adjacent lanes)
-  float m_all = m_run;
+  float o[kSteps][4];  // rows g, g + 8 of the warp's partial output
 #pragma unroll
-  for (int off = 1; off < kGroup; off <<= 1) {
-    m_all = fmaxf(m_all, __shfl_xor_sync(0xffffffffu, m_all, off));
+  for (int s = 0; s < kSteps; ++s) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[s][e] = 0.0f;
   }
-  const float w = m_run == -INFINITY ? 0.0f : expf(m_run - m_all);
-  float l_all = l_run * w;
-#pragma unroll
-  for (int off = 1; off < kGroup; off <<= 1) l_all += __shfl_xor_sync(0xffffffffu, l_all, off);
-#pragma unroll
-  for (int d = 0; d < DH; ++d) {
-    float a = acc[d] * w;
-#pragma unroll
-    for (int off = 1; off < kGroup; off <<= 1) a += __shfl_xor_sync(0xffffffffu, a, off);
-    acc[d] = a;
-  }
-  // padded rows, and rows without a valid key, write exact zeros
-  const float inv = i < nv_q ? 1.0f / fmaxf(l_all, 1e-30f) : 0.0f;
-  if (i < N) {
-    float* out_row = out + i * hd + h * DH;
-#pragma unroll
-    for (int d = 0; d < DH; ++d) {
-      if (d % kGroup == g) out_row[d] = acc[d] * inv;
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.0f, 0.0f};
+
+  int stage = 0;
+  for (int c = warp; c < chunks; c += kAttnWarps) {
+    const int c0 = c * kKeys;
+    if (c + kAttnWarps < chunks) {  // the next chunk's copies overlap this chunk's math
+      stage_chunk<DH>(ring + (stage ^ 1) * L::kStage, k, v, bias, bias16,
+                      c0 + kAttnWarps * kKeys, row0, h, N, M, H, nv_k, lane);
+    } else {
+      cp_async_commit();
     }
+    cp_async_wait<1>();
+    __syncwarp();
+    const float* k_s = ring + stage * L::kStage;
+    const float* v_s = k_s + L::kKV;
+    const float* b_s = k_s + 2 * L::kKV;
+
+    // scores of rows g, g + 8 and keys 2 t4, 2 t4 + 1 of each n8 tile
+    float s_acc[2][4];
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s_acc[nt][e] = 0.0f;
+#pragma unroll
+      for (int s = 0; s < kSteps; ++s) {
+        const float* kr = k_s + (8 * nt + g) * L::kStride + 8 * s + t4;
+        uint32_t b_big[2], b_small[2];
+        split_tf32(kr[0], b_big[0], b_small[0]);
+        split_tf32(kr[4], b_big[1], b_small[1]);
+        mma_3xtf32(s_acc[nt], qa_big[s], qa_small[s], b_big, b_small);
+      }
+    }
+    const uint32_t bits = kept[c0 / 32] >> (c0 % 32);
+    float row_max[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int jj = 8 * nt + 2 * t4 + e % 2;
+        float x = s_acc[nt][e];
+        if (bias != nullptr) x += b_s[(g + 8 * (e / 2)) * kBiasStride + jj];
+        x *= scale;
+        s_acc[nt][e] = (bits >> jj) & 1u ? x : -INFINITY;
+        row_max[e / 2] = fmaxf(row_max[e / 2], s_acc[nt][e]);
+      }
+    }
+    float correction[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      row_max[r] = fmaxf(row_max[r], __shfl_xor_sync(0xffffffffu, row_max[r], 1));
+      row_max[r] = fmaxf(row_max[r], __shfl_xor_sync(0xffffffffu, row_max[r], 2));
+      const float m_new = fmaxf(m_run[r], row_max[r]);
+      correction[r] = m_run[r] == -INFINITY ? 0.0f : expf(m_run[r] - m_new);  // 0 while empty
+      m_run[r] = m_new;
+      l_run[r] *= correction[r];
+    }
+    // probabilities as A fragments: A column t4 is key 2 t4 and column
+    // t4 + 4 key 2 t4 + 1 (the sum over keys does not see their order; V's
+    // B fragments below take the same keys)
+    uint32_t pa_big[2][4], pa_small[2][4];
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = s_acc[nt][e];
+        const float p = x == -INFINITY ? 0.0f : expf(x - m_run[e / 2]);
+        l_run[e / 2] += p;
+        const int slot = (e % 2) * 2 + e / 2;  // c0 -> a0, c2 -> a1, c1 -> a2, c3 -> a3
+        split_tf32(p, pa_big[nt][slot], pa_small[nt][slot]);
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < kSteps; ++s) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[s][e] *= correction[e / 2];
+#pragma unroll
+      for (int kt = 0; kt < 2; ++kt) {
+        const float* vr = v_s + (8 * kt + 2 * t4) * L::kStride + 8 * s + g;
+        uint32_t b_big[2], b_small[2];
+        split_tf32(vr[0], b_big[0], b_small[0]);
+        split_tf32(vr[L::kStride], b_big[1], b_small[1]);
+        mma_3xtf32(o[s], pa_big[kt], pa_small[kt], b_big, b_small);
+      }
+    }
+    __syncwarp();  // the stage is read before the next prefetch overwrites it
+    stage ^= 1;
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+  }
+
+  // merge the 8 warps' partial softmaxes in warp order (the same sums every
+  // run); the rings are free once every warp is past its loop
+  __syncthreads();
+  float* part = shared;                             // (warps, 16, DH)
+  float* stats = shared + kAttnWarps * kRows * DH;  // (warps, 16, 2): m, l
+#pragma unroll
+  for (int s = 0; s < kSteps; ++s) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = g + 8 * (e / 2);
+      part[(warp * kRows + r) * DH + 8 * s + 2 * t4 + e % 2] = o[s][e];
+    }
+  }
+  if (t4 == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      stats[(warp * kRows + g + 8 * r) * 2] = m_run[r];
+      stats[(warp * kRows + g + 8 * r) * 2 + 1] = l_run[r];
+    }
+  }
+  __syncthreads();
+  for (int e = tid; e < kRows * DH; e += kAttnThreads) {
+    const int r = e / DH, d = e % DH, i = row0 + r;
+    if (i >= N) continue;
+    float value = 0.0f;  // padded rows, and rows without a kept key
+    if (i < nv_q) {
+      float m_all = -INFINITY;
+      for (int w = 0; w < kAttnWarps; ++w) m_all = fmaxf(m_all, stats[(w * kRows + r) * 2]);
+      if (m_all != -INFINITY) {
+        float num = 0.0f, den = 0.0f;
+        for (int w = 0; w < kAttnWarps; ++w) {
+          const float m_w = stats[(w * kRows + r) * 2];
+          if (m_w == -INFINITY) continue;
+          const float f = expf(m_w - m_all);
+          num += part[(w * kRows + r) * DH + d] * f;
+          den += stats[(w * kRows + r) * 2 + 1] * f;
+        }
+        value = num / den;
+      }
+    }
+    out[i * hd + h * DH + d] = value;
   }
 }
 
@@ -265,9 +501,18 @@ template <int DH>
 int launch_attention(const float* q, const float* k, const float* v, const float* bias,
                      const uint8_t* key_masks, const int32_t* nv_q, const int32_t* nv_k,
                      float* out, int N, int M, int H, float scale, cudaStream_t stream) {
-  const dim3 grid((N + kRowsPerBlock - 1) / kRowsPerBlock, H);
-  attention_kernel<DH><<<grid, kAttnThreads, 0, stream>>>(
-      q, k, v, bias, key_masks, nv_q, nv_k, out, N, M, H, scale);
+  const size_t shared =
+      sizeof(float) * AttnLayout<DH>::kFloats + sizeof(uint32_t) * ((M + 31) / 32);
+  if (shared > kMaxShared) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = cudaFuncSetAttribute(
+      attention_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(shared));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const bool bias16 =
+      bias != nullptr && M % 4 == 0 && reinterpret_cast<uintptr_t>(bias) % 16 == 0;
+  const dim3 grid((N + kRows - 1) / kRows, H);
+  attention_kernel<DH><<<grid, kAttnThreads, shared, stream>>>(
+      q, k, v, bias, key_masks, nv_q, nv_k, out, N, M, H, scale, bias16);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -299,7 +544,10 @@ int rpe_pair_scores_launch(const float* embed, const float* qw, const int32_t* n
 int fused_attention_launch(const float* q, const float* k, const float* v, const float* bias,
                            const uint8_t* key_masks, const int32_t* nv_q, const int32_t* nv_k,
                            float* out, int N, int M, int H, int DH, float scale, void* stream) {
-  if (H < 1 || H > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  if (H < 1 || H > 65535 || reinterpret_cast<uintptr_t>(q) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(k) % 16 != 0 || reinterpret_cast<uintptr_t>(v) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (N == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (DH) {

@@ -11,6 +11,7 @@ no gradient either.
 """
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -24,6 +25,14 @@ _BWD_SIGNATURES = {
     "gse_bwd_launch": [_P] * 13 + [_I] * 4 + [_F, _F, _P],
     "gse_bwd_slices": [_I] * 2,
 }
+
+
+@functools.lru_cache(maxsize=None)
+def _frequencies(hidden, device):
+    """The kernels' ``div_term(hidden)`` on ``device``, copied from the host
+    once: a wrapper call then copies nothing from the host and can be
+    captured in a CUDA graph."""
+    return div_term(hidden, device)
 
 
 def _angle_factor(sigma_a):
@@ -99,7 +108,7 @@ def gse_embedding_full(points, ref_vectors, w_d, b_d, w_a, b_a, sigma_d,
         n_valid = torch.full((), n, dtype=torch.int32, device=dev)
     cuda.require(n_valid, "n_valid", torch.int32, (), dev)
     bias = (b_d + b_a).contiguous()
-    freqs = div_term(hidden, dev)
+    freqs = _frequencies(hidden, dev)
     out = torch.empty((n, n, hidden), dtype=f32, device=dev)
     lib = cuda.library("gse", _SIGNATURES)
     code = lib.gse_embedding_launch(
@@ -166,7 +175,7 @@ def gse_full_bwd(points, ref_vectors, w_a, sigma_d, sigma_a, de, n_valid=None, f
     dw_d = torch.empty((hidden, hidden), dtype=f32, device=dev)
     dw_a = torch.empty((hidden, hidden), dtype=f32, device=dev)
     db = torch.empty((hidden,), dtype=f32, device=dev)
-    freqs = div_term(hidden, dev)
+    freqs = _frequencies(hidden, dev)
     code = lib.gse_bwd_launch(
         cuda.ptr(points), cuda.ptr(ref_vectors), cuda.ptr(w_a), cuda.ptr(freqs),
         cuda.ptr(n_valid), cuda.ptr(de), cuda.ptr(kstar), cuda.ptr(part_d), cuda.ptr(part_a),

@@ -10,6 +10,9 @@ backward is f32 XLA) at 1e-5. Shapes include ModelNet's superpoint cap of
 192 and sizes that are no multiple of the Pallas tiles. One Adam update
 (optax's chain against the port's ``make_optimizer``) of an RPE stack whose
 ``proj_p.bias`` gets the fused route's exact zero gradient, at 1e-3 of lr.
+The CUDA attention kernel's arithmetic (3xTF32 products, keys split over
+8 warps), emulated in torch, at the kernel's own tolerance, 1e-5 x
+max|plain|.
 """
 
 import types
@@ -130,6 +133,99 @@ def test_attention_plain_matches_xla_reference_and_zeroes_padded_rows(h, n, m, d
     rows = n if nv_q is None else nv_q
     np.testing.assert_allclose(got[:rows], want[:rows], rtol=1e-5, atol=1e-5)
     assert (got[rows:] == 0.0).all()
+
+
+def tf32(x):
+    """f32 -> TF32 as the kernel's ``cvt.rna.tf32.f32``: rounded to nearest
+    (ties away from zero), the low 13 mantissa bits cleared."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_product(a, b, terms):
+    """a @ b in f32 from TF32 operands: big . big alone (``terms`` 1), or
+    with big . small + small . big (3, the kernel's 3xTF32 split)."""
+    a_big, b_big = tf32(a), tf32(b)
+    if terms == 1:
+        return a_big @ b_big
+    a_small, b_small = tf32(a - a_big), tf32(b - b_big)
+    return (a_small @ b_big + a_big @ b_small) + a_big @ b_big
+
+
+def attention_kernel_emulation(q, k, v, bias, nv_q, nv_k, scale, key_masks, terms):
+    """``csrc/attention.cu``'s attention_kernel in torch: 16-key chunks,
+    chunk c on warp c % 8, an online softmax a warp with both products from
+    TF32 operands, the 8 partial softmaxes merged in warp order."""
+    warps, keys = 8, 16
+    h, n, dh = q.shape
+    m = k.shape[1]
+    keep = torch.arange(m) < nv_k
+    if key_masks is not None:
+        keep &= key_masks
+    parts = []
+    for w in range(warps):
+        m_run = torch.full((h, n, 1), -torch.inf)
+        l_run, o = torch.zeros((h, n, 1)), torch.zeros((h, n, dh))
+        for c0 in range(keys * w, nv_k, keys * warps):
+            chunk = slice(c0, min(c0 + keys, nv_k))
+            s = tf32_product(q, k[:, chunk].transpose(1, 2), terms)
+            if bias is not None:
+                s = s + bias[:, :, chunk].transpose(0, 1)
+            s = torch.where(keep[chunk], s * scale, -torch.inf)
+            m_new = torch.maximum(m_run, s.amax(-1, keepdim=True))
+            correction = torch.where(m_run == -torch.inf, 0.0, torch.exp(m_run - m_new))
+            p = torch.where(s == -torch.inf, 0.0, torch.exp(s - m_new))
+            l_run = l_run * correction + p.sum(-1, keepdim=True)
+            o = o * correction + tf32_product(p, v[:, chunk], terms)
+            m_run = m_new
+        parts.append((m_run, l_run, o))
+    m_all = torch.stack([part[0] for part in parts]).amax(0)
+    num, den = torch.zeros((h, n, dh)), torch.zeros((h, n, 1))
+    for m_w, l_w, o_w in parts:
+        f = torch.where(m_w == -torch.inf, 0.0, torch.exp(m_w - m_all))
+        num, den = num + o_w * f, den + l_w * f
+    out = torch.where(den > 0, num / den, 0.0).transpose(0, 1).reshape(n, h * dh)
+    return torch.where(torch.arange(n)[:, None] < nv_q, out, 0.0)
+
+
+# (H, N, M, dh, n_valid_q, n_valid_k, key holes): the superpoint caps, head
+# widths and valid counts of chip_smoke.py's 3DMatch, KITTI and ModelNet
+# pairs (self and cross attention)
+TF32_CASES = [(4, 512, 512, 64, 293, 293, False), (4, 512, 512, 64, 293, 262, True),
+              (4, 512, 512, 32, 357, 357, False), (4, 512, 512, 32, 357, 273, True),
+              (4, 192, 192, 64, 107, 107, False), (4, 192, 192, 64, 107, 116, True)]
+
+
+@pytest.mark.parametrize("h, n, m, dh, nv_q, nv_k, holes", TF32_CASES,
+                         ids=["3dmatch-self", "3dmatch-cross", "kitti-self", "kitti-cross",
+                              "modelnet-self", "modelnet-cross"])
+def test_3xtf32_split_keeps_the_attention_within_its_tolerance(h, n, m, dh, nv_q, nv_k, holes):
+    """The kernel's 3xTF32 products and key-split merge, emulated, stand
+    within 1e-5 x max|plain| of the f32 plain version, of the float64 one
+    and of the JAX f32 reference; one TF32 product alone would not."""
+    rng = np.random.default_rng(12)
+    q, k, v = (rng.normal(size=(h, r, dh)).astype(np.float32) for r in (n, m, m))
+    bias = (2.0 * rng.normal(size=(n, h, m))).astype(np.float32)
+    key_masks = rng.uniform(size=m) > 0.2 if holes else np.ones(m, bool)
+    args = [torch.from_numpy(x) for x in (q, k, v, bias)]
+    masks = torch.from_numpy(key_masks)
+    scale = dh ** -0.5
+    plain = fused_masked_attention_plain(*args, nv_q, nv_k, scale, masks)
+    exact = fused_masked_attention_plain(*(x.double() for x in args), nv_q, nv_k, scale, masks)
+    with jax.default_matmul_precision("highest"):
+        # the JAX reference takes a prefix of valid keys: drop the holes from k, v, bias
+        kept = np.flatnonzero(key_masks[:nv_k])
+        reference = np.asarray(jax_attention._xla_attention_ref(
+            jnp.asarray(q), jnp.asarray(k[:, kept]), jnp.asarray(v[:, kept]),
+            jnp.asarray(bias[:, :, kept]), len(kept), scale))
+    split = attention_kernel_emulation(*args, nv_q, nv_k, scale, masks, terms=3)
+    single = attention_kernel_emulation(*args, nv_q, nv_k, scale, masks, terms=1)
+    bound = 1e-5 * plain[:nv_q].abs().max().item()
+    assert (split[:nv_q] - plain[:nv_q]).abs().max().item() <= bound
+    assert (split[:nv_q].double() - exact[:nv_q]).abs().max().item() <= bound
+    assert np.abs(split[:nv_q].numpy() - reference[:nv_q]).max() <= bound
+    assert not split[nv_q:].any()
+    assert (single[:nv_q] - plain[:nv_q]).abs().max().item() > bound
 
 
 def test_pair_scores_diff_gradients_match_jax_vjp():

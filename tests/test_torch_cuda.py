@@ -13,7 +13,10 @@ values exactly), the GT patch overlaps exactly (the kernel and its plain
 version round the same direct distance alike), the RPE pair scores and the
 fused attention 1e-5 x max|plain| (f32 dot products in another order; exact
 zeros outside the valid rectangle and on padded rows), the attention's
-gradients (the plain version's, recomputed) 1e-5.
+gradients (the plain version's, recomputed) 1e-5. The attention kernel
+also repeats bit for bit, and an attention call and a KPConv call are
+captured in a CUDA graph (one launch counted at capture, a replay equal to
+an eager call).
 """
 
 import numpy as np
@@ -470,3 +473,94 @@ def test_fused_attention_diff_gradients_on_the_card(device):
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+# the attention kernel's edges: N and M off the 16-row tile and the 16-key
+# chunk, nv_k of 0, 1 and below one chunk, nv_q of 0, M = 640 (several
+# chunks a warp, so the 8 warps' partial softmaxes merge), a bias row stride
+# that is no multiple of 4 floats (the 4-byte copies), every head width
+@pytest.mark.parametrize("h, n, m, dh, nv_q, nv_k", [
+    (4, 77, 83, 64, 70, 81), (4, 64, 64, 64, 50, 0), (4, 64, 64, 32, 50, 1),
+    (4, 64, 64, 16, 64, 11), (4, 64, 64, 8, 0, 64), (4, 640, 640, 64, 600, 640),
+    (4, 640, 640, 32, 640, 555), (2, 50, 67, 16, 50, 67), (3, 130, 257, 8, 129, 250)],
+    ids=["ragged", "no-key", "one-key", "part-chunk", "no-row", "640-dh64", "640-dh32",
+         "odd-stride", "dh8"])
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("holes", [False, True], ids=["prefix", "key-holes"])
+def test_fused_attention_edges_match_plain(device, h, n, m, dh, nv_q, nv_k, with_bias, holes):
+    (q, k, v, bias), key_masks = attention_case(device, h, n, m, dh, with_bias, holes, seed=3)
+    nvq = torch.tensor(nv_q, dtype=torch.int32, device=device)
+    got = fused_masked_attention(q, k, v, bias, nvq, nv_k, dh ** -0.5, key_masks)
+    want = fused_masked_attention_plain(q, k, v, bias, nvq, nv_k, dh ** -0.5, key_masks)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert not got[nv_q:].any()
+    if nv_q:
+        bound = 1e-5 * want[:nv_q].abs().max().item()
+        assert (got[:nv_q] - want[:nv_q]).abs().max().item() <= bound
+    if nv_k == 0:
+        assert not got.any()
+
+
+def test_fused_attention_repeats_bit_for_bit(device):
+    (q, k, v, bias), key_masks = attention_case(device, 4, 512, 512, 64, True, True, seed=5)
+    runs = [fused_masked_attention(q, k, v, bias, 411, 299, 0.125, key_masks) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+
+
+def test_fused_attention_rejects_misaligned_kv(device):
+    (q, k, v, _), _ = attention_case(device, 2, 16, 16, 8, False, False)
+    shifted = torch.randn(k.numel() + 1, device=device)[1:].view(k.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        fused_masked_attention(q, shifted, v)
+
+
+def captured(fn, kernel):
+    """fn() captured in a CUDA graph after a warm-up run: (graph, output of
+    the captured call, the launches the capture counted)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = cuda.launches[kernel]
+    with torch.cuda.graph(graph):
+        out = fn()
+    return graph, out, cuda.launches[kernel] - before
+
+
+def test_graph_capture_of_attention_and_rpe_scores(device):
+    (q, k, v, _), key_masks = attention_case(device, 4, 192, 192, 64, False, True, seed=6)
+    embed = torch.randn(192, 192, 64, device=device)
+    qw = torch.randn(192, 4, 64, device=device)
+    nv = torch.tensor(107, dtype=torch.int32, device=device)
+
+    def forward():
+        bias = rpe_pair_scores(embed, qw, nv, nv)
+        return fused_masked_attention(q, k, v, bias, nv, nv, 0.125, key_masks)
+
+    graph, out, launches = captured(forward, "fused_masked_attention")
+    assert launches == 1
+    graph.replay()
+    want = fused_masked_attention_plain(q, k, v, rpe_pair_scores_plain(embed, qw, nv, nv), nv,
+                                        nv, 0.125, key_masks)
+    torch.cuda.synchronize()
+    assert torch.equal(out, forward())
+    assert (out[:107] - want[:107]).abs().max().item() <= 1e-5 * want[:107].abs().max().item()
+    qw.mul_(2.0)  # a replay reads the captured inputs anew
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, forward())
+
+
+def test_graph_capture_of_kpconv(device):
+    args, bias, pool, q_mask = kpconv_case(device, 64, c_pool=64)
+    kw = dict(pool_feats=pool, pool_cols=38, q_mask=q_mask)
+    graph, out, launches = captured(lambda: kpconv_fused(*args, 0.05, bias, **kw),
+                                    "kpconv_fused")
+    assert launches == 1
+    args[0].mul_(0.5)
+    graph.replay()
+    want = kpconv_fused_plain(*args, 0.05, bias, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out[1], want[1])
+    assert_kpconv_close(out[0], want[0])
