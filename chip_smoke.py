@@ -7,11 +7,11 @@ and eval paths on one CUDA card.
 Phases (any failure exits non-zero; no phase's exception is caught). Every
 counted run clears the kernels' launch counts just before it and reads them
 just after; each count must equal what the batch's tables and the
-transformer's blocks imply (``expected_launches``: a split conv launches the
-kpconv_fused kernel twice, both counted as kpconv_split_fused; a split
-inverse table launches kpconv_bwd_fused twice; each forward launches
-rpe_pair_scores twice a "self" block and fused_masked_attention twice a
-block).
+transformer's blocks imply (``expected_launches``: one launch a conv, whole
+or split table, counted as kpconv_fused or kpconv_split_fused; one
+kpconv_bwd_fused launch a conv's backward, whole or split inverse table;
+each forward launches rpe_pair_scores twice a "self" block and
+fused_masked_attention twice a block).
   1. build   — nvcc compiles the CUDA kernels of geotransformer_tpu_torch/
                kernels/csrc for sm_90a, one process per source, in parallel;
   2. batch   — three synthetic 3DMatch-scale pairs (19,000-point wavy
@@ -33,7 +33,10 @@ block).
                capture counting each kernel launch once, and the graph
                replayed between two CUDA events), and the attention kernels
                also against one PyTorch call (library_ms: torch.bmm, SDPA),
-               timed both ways (library_device_ms); and the whole model
+               timed both ways (library_device_ms); the KPConv rows
+               (kpconv_fused, kpconv_split_fused, kpconv_bwd_fused) also
+               each call alone from its own graph, with its stage, shape and
+               bound (by_call); and the whole model
                with force_pallas=False, whose ref/src_feats_c must agree with
                the kernel run to 1e-3 of their largest magnitude;
   5. union   — the same pairs with per-tile neighbor unions and no edge
@@ -72,8 +75,10 @@ block).
                three pairs, counted, timed; each inference kernel of the KITTI
                forward (kpconv_split_fused among them) vs its plain version on
                the inputs it got there, as phase 4, and kpconv_split_fused
-               also vs the unsplit plain conv on the whole table; the
-               force_pallas=False model agrees on ref/src_feats_c to 1e-3;
+               also vs the unsplit plain conv on the whole table, and on the
+               device (graph replay) against the unsplit kpconv_fused on the
+               whole tables; the force_pallas=False model agrees on
+               ref/src_feats_c to 1e-3;
  11. KITTI train — 6 steps (pairs 0, 1, 2 in turn) without precomputed
                targets, so every step runs patch_overlaps; counted, finite
                losses, no skip, falling seed-0 loss, step median, peak
@@ -106,8 +111,9 @@ block).
                kernel of one step vs its plain version and whole-step
                gradients vs the plain model's; one eval step a pair.
 Then it prints the {"kernels": [...]} line (each kernel's numbers summed over
-the paths it was compared on, with each path's own under "by_path"), the
-card's name and power limit, and, last, {"ok": true, "device": {...}}.
+the paths it was compared on, with each path's own under "by_path" and the
+KPConv rows' calls one by one under "by_call"), the card's name and power
+limit, and, last, {"ok": true, "device": {...}}.
 Details go to chiprun_out/chip_smoke.json.
 """
 
@@ -303,15 +309,10 @@ def expected_launches(batch, mode, blocks):
     n = len(batch["points"])
     nb_split = batch.get("neighbors_split", [None] * n)
     sub_split = batch.get("subsampling_split", [None] * n)
-    nb_inv = batch.get("neighbors_inv", [None] * n)
-    sub_inv = batch.get("subsampling_inv", [None] * n)
     counts = collections.Counter()
 
     def conv(split):
-        if split is None:
-            counts["kpconv_fused"] += 1
-        else:  # the head pass and the tail pass
-            counts["kpconv_split_fused"] += 2
+        counts["kpconv_fused" if split is None else "kpconv_split_fused"] += 1
 
     if "input_stream" in batch:
         counts["kpconv_stream_fused"] += 1
@@ -319,14 +320,15 @@ def expected_launches(batch, mode, blocks):
         counts["kpconv_union_input_fused"] += 1
     else:
         conv(nb_split[0])
-    # every later conv, with the inverse table its backward reads
-    convs = [(nb_split[0], nb_inv[0])]
+    # every later conv, and in a training step its backward (one launch over
+    # a whole or a split inverse table)
+    splits = [nb_split[0]]
     for s in range(1, n):
-        convs += [(sub_split[s - 1], sub_inv[s - 1])] + [(nb_split[s], nb_inv[s])] * 2
-    for split, inv in convs:
+        splits += [sub_split[s - 1], nb_split[s], nb_split[s]]
+    for split in splits:
         conv(split)
-        if mode == "train":
-            counts["kpconv_bwd_fused"] += 2 if isinstance(inv, (tuple, list)) else 1
+    if mode == "train":
+        counts["kpconv_bwd_fused"] += len(splits)
     counts["gse_embedding_full"] += 2
     counts["rpe_pair_scores"] += 2 * sum(block == "self" for block in blocks)
     counts["fused_masked_attention"] += 2 * len(blocks)
@@ -594,7 +596,10 @@ def check_call(name, kernel_out, plain_out, args):
 # bytes: each input read once, each output written once; operations: what
 # these inputs need (valid edges, active queries, the valid GSE rectangle,
 # valid point pairs of valid candidates), against 67 TFLOP/s f32 (the
-# attention's 3xTF32 products against 495 TFLOP/s TF32) and 3.35 TB/s.
+# attention's 3xTF32 products against 495 TFLOP/s TF32) and 3.35 TB/s. A
+# cost function returns (bytes, operations) or, for a kernel whose work is
+# part f32 and part TF32 (the KPConv edge pass and its 3xTF32 contraction),
+# (bytes, f32 operations, TF32 operations); the two times add.
 
 def _nbytes(*tensors):
     total = 0
@@ -613,22 +618,32 @@ def _whole_table(head, tail, rank, sentinel):
     return torch.cat([head, tail[rank.long()]], dim=1).contiguous()
 
 
+def _contraction(ops, c, d):
+    """(f32, TF32) operations of a KPConv contraction of ``ops`` f32
+    operations between widths c and d: on the tensor cores (both widths at
+    least 8 and multiples of 4, csrc/kpconv_common.cuh) three TF32 products
+    each (3xTF32), else f32 on the CUDA cores."""
+    on_tensor_cores = c >= 8 and d >= 8 and c % 4 == 0 and d % 4 == 0
+    return (0, 3 * ops) if on_tensor_cores else (ops, 0)
+
+
 def _conv_ops(nbr, n, q_mask, k, c, d, pool):
     valid = nbr < n
     if q_mask is not None:
         valid &= q_mask[:, None]
     edges = int(valid.sum())
     active = int(valid.any(dim=1).sum())
-    ops = 10 * edges * k + 2 * edges * k * c + 2 * active * k * c * d
-    return ops + (edges * pool.shape[1] if pool is not None else 0)
+    f32, tf32 = _contraction(2 * active * k * c * d, c, d)
+    f32 += 10 * edges * k + 2 * edges * k * c  # the edge pass
+    return f32 + (edges * pool.shape[1] if pool is not None else 0), tf32
 
 
 def cost_kpconv_fused(args, kwargs, out):
     s_feats, _, _, nbr, _, weights = args[:6]
     k, c, d = weights.shape
-    ops = _conv_ops(nbr, s_feats.shape[0], kwargs.get("q_mask"), k, c, d,
-                    kwargs.get("pool_feats"))
-    return _nbytes(*args[:6], *kwargs.values(), out), ops
+    ops, tf32 = _conv_ops(nbr, s_feats.shape[0], kwargs.get("q_mask"), k, c, d,
+                          kwargs.get("pool_feats"))
+    return _nbytes(*args[:6], *kwargs.values(), out), ops, tf32
 
 
 def cost_kpconv_split_fused(args, kwargs, out):
@@ -637,9 +652,9 @@ def cost_kpconv_split_fused(args, kwargs, out):
     s_feats, _, _, head, tail, _, rank = args[:7]
     k, c, d = args[8].shape
     n = s_feats.shape[0]
-    ops = _conv_ops(_whole_table(head, tail, rank, n), n, kwargs.get("q_mask"), k, c, d,
-                    kwargs.get("pool_feats"))
-    return _nbytes(*args[:9], *kwargs.values(), out), ops
+    ops, tf32 = _conv_ops(_whole_table(head, tail, rank, n), n, kwargs.get("q_mask"), k, c, d,
+                          kwargs.get("pool_feats"))
+    return _nbytes(*args[:9], *kwargs.values(), out), ops, tf32
 
 
 def cost_kpconv_stream_fused(args, kwargs, out):
@@ -695,11 +710,12 @@ def cost_kpconv_bwd_fused(args, kwargs, out):
     valid = inv < m
     edges = int(valid.sum())
     active = int(valid.any(dim=1).sum())
-    ops = 10 * edges * k + 2 * edges * k * d + 4 * active * k * d * c  # u, d_s, dW
+    ops, tf32 = _contraction(4 * active * k * d * c, c, d)  # d_s, dW
+    ops += 10 * edges * k + 2 * edges * k * d  # the u pass
     pool = kwargs.get("pool_feats")
     if pool is not None:
         ops += 2 * edges * pool.shape[1]
-    return _nbytes(*args[:7], *kwargs.values(), *out), ops
+    return _nbytes(*args[:7], *kwargs.values(), *out), ops, tf32
 
 
 def cost_gse_full_bwd(args, kwargs, out):
@@ -782,26 +798,64 @@ LIBRARY = {"rpe_pair_scores": library_rpe_pair_scores,
            "fused_masked_attention": library_fused_masked_attention}
 
 
-def compare_kernels(records, names, reps):
+def call_shape(name, args, kwargs, stage_of):
+    """The shape of one KPConv call for its by_call entry: the stage (the
+    support stage and the query stage of a strided conv), the query rows M
+    (the support rows N of a backward), the table width H (J; head + tail
+    of a split table), K, C_in, C_out, the pool width and whether the table
+    is split."""
+    if name == "kpconv_bwd_fused":
+        s_feats, s_points, q_points, _, table, _, weights = args[:7]
+        rows, pool = s_points.shape[0], kwargs.get("pool_feats")
+        split = isinstance(table, (tuple, list))
+        width = table[0].shape[1] + table[1].shape[1] if split else table.shape[1]
+    else:
+        s_feats, q_points, s_points = args[:3]
+        split = name == "kpconv_split_fused"
+        table = args[3]
+        width = table.shape[1] + (args[4].shape[1] if split else 0)
+        weights = args[8] if split else args[5]
+        rows, pool = q_points.shape[0], kwargs.get("pool_feats")
+    k, c, d = weights.shape
+    s, q = stage_of.get(s_points.shape[0], "?"), stage_of.get(q_points.shape[0], "?")
+    return {"stage": str(q) if s == q else f"{s}->{q}", "rows": rows, "width": width, "K": k,
+            "C": c, "D": d, "pool": 0 if pool is None else pool.shape[1], "split": split}
+
+
+BY_CALL = ("kpconv_fused", "kpconv_split_fused", "kpconv_bwd_fused")
+
+
+def compare_kernels(records, names, reps, stage_of=None):
     """Each kernel vs its plain version on the captured calls: the largest
     difference, the CUDA-event ms of the calls (host dispatch included),
     their device ms replayed from a CUDA graph, and the same two times of
-    one PyTorch call of the same function where there is one."""
+    one PyTorch call of the same function where there is one. The KPConv
+    rows (``BY_CALL``) also time each call alone from its own graph, beside
+    its bound (``by_call``; ``stage_of`` maps a row count to its stage)."""
     results = {}
     for name in names:
         module, plain = KERNELS[name].module, KERNELS[name].plain
         calls = records[name]
         kernel = getattr(module, name)
         expect(calls, f"{name}: no call captured")
-        worst, total_bytes, total_ops = 0.0, 0, 0
-        before = cuda.launches[name]
+        worst, total_bytes, total_ops, total_tf32, by_call, launches = 0.0, 0, 0, 0, [], 0
         for args, kwargs in calls:
+            start = cuda.launches[name]
             out = kernel(*args, **kwargs)
+            per_call = cuda.launches[name] - start
+            launches += per_call
             worst = max(worst, check_call(name, out, plain(*args, **_plain_kwargs(kwargs)), args))
-            nbytes, ops = COSTS[name](args, kwargs, out)
+            nbytes, ops, tf32 = (COSTS[name](args, kwargs, out) + (0,))[:3]
             total_bytes += nbytes
             total_ops += ops
-        launches = cuda.launches[name] - before
+            total_tf32 += tf32
+            if name in BY_CALL:
+                entry = call_shape(name, args, kwargs, stage_of or {})
+                entry["device_ms"] = graph_ms(lambda: kernel(*args, **kwargs), name, per_call)
+                entry["bound_ms"] = with_bound(dict(
+                    bytes=nbytes, operations=ops, tf32_operations=tf32,
+                    peak_flops=PEAK_FLOPS.get(name, PEAK_F32_FLOPS)))["bound_ms"]
+                by_call.append(entry)
 
         def run_kernel():
             for args, kwargs in calls:
@@ -829,17 +883,20 @@ def compare_kernels(records, names, reps):
             "device_ms": graph_ms(run_kernel, name, launches),
             "bytes": total_bytes,
             "operations": total_ops,
+            "tf32_operations": total_tf32,
             "peak_flops": PEAK_FLOPS.get(name, PEAK_F32_FLOPS),
             # one PyTorch call computes only the attention kernels' functions
             "library_ms": library_ms,
             "library_device_ms": library_device_ms,
+            "by_call": by_call,
         })
     return results
 
 
 def with_bound(r):
     bytes_ms = r["bytes"] / PEAK_BYTES * 1e3
-    ops_ms = r["operations"] / r["peak_flops"] * 1e3
+    ops_ms = (r["operations"] / r["peak_flops"]
+              + r.get("tf32_operations", 0) / PEAK_TF32_FLOPS) * 1e3
     r["bound_ms"] = max(bytes_ms, ops_ms)
     r["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
     return r
@@ -854,25 +911,35 @@ def merge_paths(by_path):
         for name, r in results.items():
             m = merged.setdefault(name, {"calls": 0, "max_abs_err": 0.0, "ms": 0.0,
                                          "plain_ms": 0.0, "device_ms": 0.0, "bytes": 0,
-                                         "operations": 0, "peak_flops": r["peak_flops"],
+                                         "operations": 0, "tf32_operations": 0,
+                                         "peak_flops": r["peak_flops"],
                                          "library_ms": None, "library_device_ms": None,
-                                         "by_path": {}})
-            for key in ("calls", "ms", "plain_ms", "device_ms", "bytes", "operations"):
+                                         "by_path": {}, "by_call": []})
+            for key in ("calls", "ms", "plain_ms", "device_ms", "bytes", "operations",
+                        "tf32_operations"):
                 m[key] += r[key]
             for key in ("library_ms", "library_device_ms"):
                 if r[key] is not None:
                     m[key] = (m[key] or 0.0) + r[key]
             m["max_abs_err"] = max(m["max_abs_err"], r["max_abs_err"])
+            m["by_call"] += [dict(path=path, **entry) for entry in r["by_call"]]
             m["by_path"][path] = {key: r[key] for key in (
                 "calls", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "library_device_ms")}
     return {name: with_bound(m) for name, m in merged.items()}
 
 
+def stages_of(batch):
+    """Row count -> stage of a batch's stacked points (the caps differ from
+    stage to stage)."""
+    return {p.shape[0]: s for s, p in enumerate(batch["points"])}
+
+
 def check_split_against_unsplit(records):
     """Every captured split conv against the plain conv on its whole table
-    (head columns, then the tail rows brought back by rank); and the time of
-    the unsplit kernel on those tables, which the split replaces."""
+    (head columns, then the tail rows brought back by rank); and the device
+    time of the split convs beside that of the unsplit kernel on the whole
+    tables (each from a CUDA-graph replay), which the split replaces."""
     worst, whole = 0.0, []
     for args, kwargs in records["kpconv_split_fused"]:
         s_feats, q_points, s_points, head, tail, _, rank = args[:7]
@@ -887,7 +954,16 @@ def check_split_against_unsplit(records):
         for unsplit, kwargs in whole:
             kernels_kpconv.kpconv_fused(*unsplit, **kwargs)
 
-    return worst, time_ms(run_unsplit, 5)
+    def run_split():
+        for args, kwargs in records["kpconv_split_fused"]:
+            kernels_kpconv.kpconv_split_fused(*args, **kwargs)
+
+    before = cuda.launches["kpconv_split_fused"]
+    run_split()
+    split_launches = cuda.launches["kpconv_split_fused"] - before
+    return worst, {"split_device_ms": graph_ms(run_split, "kpconv_split_fused", split_launches),
+                   "unsplit_device_ms": graph_ms(run_unsplit, "kpconv_fused", len(whole)),
+                   "unsplit_ms": time_ms(run_unsplit, 5)}
 
 
 def counted(fn):
@@ -1242,7 +1318,7 @@ def threedmatch_phases(device, launches, report):
     # 4. inference kernels vs plain, on the inputs of a forward
     with capture_kernel_calls(INFERENCE) as records:
         model(batches[0])
-    results = compare_kernels(records, INFERENCE, reps=10)
+    results = compare_kernels(records, INFERENCE, reps=10, stage_of=stages_of(batches[0]))
     plain_model = create_model(cfg.with_model(force_pallas=False), device=device)
     plain_model.load_state_dict(model.state_dict())
     forward_ms(plain_model, batches[0])
@@ -1277,7 +1353,7 @@ def threedmatch_phases(device, launches, report):
     # 7. training kernels vs plain, on the inputs of one step; the whole step
     with capture_kernel_calls(TRAINING) as records:
         step_gradients(model, cfg, batches[0], 0)
-    results.update(compare_kernels(records, TRAINING, reps=5))
+    results.update(compare_kernels(records, TRAINING, reps=5, stage_of=stages_of(batches[0])))
     whole_step_vs_plain(model, plain_model, cfg, batches[0], "3dmatch_step_vs_plain", report)
 
     # 8. profile two more training steps
@@ -1309,12 +1385,14 @@ def kitti_phases(device, launches, report):
                if expected_launches(batches[0], "inference", cfg.geotransformer.blocks)[name]]
     with capture_kernel_calls(forward) as records:
         model(batches[0])
-    results = compare_kernels(records, forward, reps=5)
-    worst, unsplit_ms = check_split_against_unsplit(records)
+    results = compare_kernels(records, forward, reps=5, stage_of=stages_of(batches[0]))
+    worst, unsplit = check_split_against_unsplit(records)
     print(f"kpconv_split_fused vs the unsplit plain conv on the whole table: "
-          f"max |diff| {worst:.3e} over {len(records['kpconv_split_fused'])} convs; the unsplit "
-          f"kpconv_fused on those tables {unsplit_ms:.3f} ms", flush=True)
-    report["kitti_split_vs_unsplit"] = dict(max_abs=worst, unsplit_kernel_ms=unsplit_ms)
+          f"max |diff| {worst:.3e} over {len(records['kpconv_split_fused'])} convs; on the "
+          f"device the split convs take {unsplit['split_device_ms']:.3f} ms, the unsplit "
+          f"kpconv_fused on the whole tables {unsplit['unsplit_device_ms']:.3f} ms (CUDA-graph "
+          f"replay; CUDA events {unsplit['unsplit_ms']:.3f} ms)", flush=True)
+    report["kitti_split_vs_unsplit"] = dict(max_abs=worst, **unsplit)
     plain_model = create_model(cfg.with_model(force_pallas=False), device=device)
     plain_model.load_state_dict(model.state_dict())
     forward_ms(plain_model, batches[0])
@@ -1329,7 +1407,8 @@ def kitti_phases(device, launches, report):
     launches["kitti_train"] = train_phase(cfg, model, batches, KITTI_TRAIN_STEPS, "kitti", report)
     with capture_kernel_calls(TRAINING + ["patch_overlaps"]) as records:
         step_gradients(model, cfg, batches[0], 0)
-    results.update(compare_kernels(records, TRAINING + ["patch_overlaps"], reps=5))
+    results.update(compare_kernels(records, TRAINING + ["patch_overlaps"], reps=5,
+                                   stage_of=stages_of(batches[0])))
     whole_step_vs_plain(model, plain_model, cfg, batches[0], "kitti_step_vs_plain", report)
     evaluate = make_eval_step(model, cfg, device=DEVICE)
     counts, metrics = collections.Counter(), []
@@ -1452,7 +1531,7 @@ def modelnet_phases(device, launches, report, tmp):
                if expected_launches(batches[0], "inference", blocks)[name]]
     with capture_kernel_calls(forward) as records:
         model(batches[0])
-    results = compare_kernels(records, forward, reps=10)
+    results = compare_kernels(records, forward, reps=10, stage_of=stages_of(batches[0]))
     plain_model = create_model(cfg.with_model(force_pallas=False), device=device)
     plain_model.load_state_dict(model.state_dict())
     forward_ms(plain_model, batches[0])
@@ -1533,7 +1612,7 @@ def modelnet_phases(device, launches, report, tmp):
         batch = batch_to_torch(batch, device)
         with capture_kernel_calls(TRAINING) as records:
             step_gradients(trainer.model, train_cfg, batch, 0)
-        results.update(compare_kernels(records, TRAINING, reps=5))
+        results.update(compare_kernels(records, TRAINING, reps=5, stage_of=stages_of(batch)))
         whole_step_vs_plain(trainer.model, plain_model, train_cfg, batch,
                             "modelnet_step_vs_plain", report)
     finally:
@@ -1602,7 +1681,7 @@ def main():
                      "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"], "library_device_ms": r["library_device_ms"],
-                     "by_path": r["by_path"]})
+                     "by_path": r["by_path"], **({"by_call": r["by_call"]} if r["by_call"] else {})})
     print(json.dumps({"kernels": line}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -18,6 +18,12 @@
 //      a time in shared memory beside the matching rows of W_a; a 4-pair x
 //      C/32-channel register tile a thread) and stores k* as one byte per
 //      (pair, channel). Blocks outside the valid rectangle return at once.
+//      Where the best two projections lie within f32 rounding of each other
+//      (2^-18 of sum_f |W_a[f, c]|; off the diagonal), it leaves k*
+//      undecided, and gse_tie_kernel settles it by the float64 argmax, as
+//      the plain version routes every entry: f32 rounding in either never
+//      picks the k (a tie routed to another k moved dW_a by ~|de|, 1e-4 of
+//      a small gradient, on the ModelNet path in one state of training).
 //   2. gse_wgrad_partial_kernel: a block owns 32 basis rows f of both dW
 //      and one slice of the valid pairs. For 32 pairs at a time it rebuilds
 //      the bases of its 32 rows for the distance and every angle in shared
@@ -49,8 +55,19 @@ constexpr int kPairs = 32;       // pairs per block (pass 1) / per batch (pass 2
 constexpr int kChunk = 32;       // basis rows per shared-memory chunk
 constexpr int kMaxAngles = 4;
 constexpr int kMaxChannels = 256;
+constexpr uint8_t kUndecided = 0xFF;  // k* of a tie within f32 rounding, settled in float64
+// A projection sum_f B[f] W_a[f, c] of C f32 terms (|B| <= 1) errs by at
+// most C 2^-24 sum_f |W_a[f, c]| (wabs) and, its roundings falling either
+// way, by a few sqrt(C) 2^-24 wabs in practice: about 2^-20 wabs at C = 256.
+// Where the best two of the A projections are closer than 2^-18 wabs, pass 1
+// leaves the choice to float64.
+constexpr float kTieTolerance = 3.814697265625e-06f;  // 2^-18
 
 // Distance index (idx[A]) and angle indices (idx[0..A-1]) of pair (i, j).
+// The angles are rounded one operation at a time (no contraction into FMAs),
+// in the order the plain version (kernels/gse.py:_pair_indices) writes them:
+// both take bit-identical angle indices, so a projection tie is settled on
+// the same numbers.
 __device__ __forceinline__ void pair_indices(const float* __restrict__ points,
                                              const float* __restrict__ ref_vectors,
                                              int i, int j, int A, float sigma_d,
@@ -61,12 +78,15 @@ __device__ __forceinline__ void pair_indices(const float* __restrict__ points,
   idx[A] = sqrtf(vx * vx + vy * vy + vz * vz) / sigma_d;
   for (int k = 0; k < A; ++k) {
     const float* u = ref_vectors + (static_cast<size_t>(i) * A + k) * 3;
-    const float cx = u[1] * vz - u[2] * vy;
-    const float cy = u[2] * vx - u[0] * vz;
-    const float cz = u[0] * vy - u[1] * vx;
-    const float s = sqrtf(cx * cx + cy * cy + cz * cz);
-    const float c = (u[0] * vx + u[1] * vy + u[2] * vz) + 0.0f;
-    idx[k] = atan2f(s, c) * factor_a;
+    const float cx = __fsub_rn(__fmul_rn(u[1], vz), __fmul_rn(u[2], vy));
+    const float cy = __fsub_rn(__fmul_rn(u[2], vx), __fmul_rn(u[0], vz));
+    const float cz = __fsub_rn(__fmul_rn(u[0], vy), __fmul_rn(u[1], vx));
+    const float s = __fsqrt_rn(
+        __fadd_rn(__fadd_rn(__fmul_rn(cx, cx), __fmul_rn(cy, cy)), __fmul_rn(cz, cz)));
+    const float c = __fadd_rn(
+        __fadd_rn(__fadd_rn(__fmul_rn(u[0], vx), __fmul_rn(u[1], vy)), __fmul_rn(u[2], vz)),
+        0.0f);
+    idx[k] = __fmul_rn(atan2f(s, c), factor_a);
   }
 }
 
@@ -77,6 +97,7 @@ __global__ void __launch_bounds__(kThreads) gse_argmax_kernel(
     const float* __restrict__ w_a,          // (C, C)
     const float* __restrict__ div_term,     // (C / 2,)
     const int32_t* __restrict__ n_valid,
+    const float* __restrict__ wabs,         // (C,) sum_f |W_a[f, c]|
     uint8_t* __restrict__ kstar,            // (N, N, C)
     int N, int A, float sigma_d, float factor_a) {
   constexpr int C = 32 * CPT;
@@ -98,7 +119,7 @@ __global__ void __launch_bounds__(kThreads) gse_argmax_kernel(
 
   const int pg = tid / 32;
   const int cl = tid % 32;
-  float best[4][CPT];
+  float best[4][CPT], second[4][CPT];
   uint8_t arg[4][CPT];
   float cur[4][CPT];
   for (int pass = 0; pass < A; ++pass) {
@@ -139,22 +160,82 @@ __global__ void __launch_bounds__(kThreads) gse_argmax_kernel(
     for (int pp = 0; pp < 4; ++pp) {
 #pragma unroll
       for (int jj = 0; jj < CPT; ++jj) {
-        if (pass == 0 || cur[pp][jj] > best[pp][jj]) {
+        if (pass == 0) {
+          best[pp][jj] = cur[pp][jj];
+          second[pp][jj] = -INFINITY;
+          arg[pp][jj] = 0;
+        } else if (cur[pp][jj] > best[pp][jj]) {
+          second[pp][jj] = best[pp][jj];
           best[pp][jj] = cur[pp][jj];
           arg[pp][jj] = static_cast<uint8_t>(pass);
+        } else {
+          second[pp][jj] = fmaxf(second[pp][jj], cur[pp][jj]);
         }
       }
     }
   }
 
+  // on the diagonal every k ties exactly with equal bases: any k, the first
 #pragma unroll
   for (int pp = 0; pp < 4; ++pp) {
     const int j = j0 + 4 * pg + pp;
     if (j >= nv) continue;
 #pragma unroll
     for (int jj = 0; jj < CPT; ++jj) {
-      kstar[(static_cast<size_t>(i) * N + j) * C + cl + 32 * jj] = arg[pp][jj];
+      const int c = cl + 32 * jj;
+      const bool tie = j != i && best[pp][jj] - second[pp][jj] <= kTieTolerance * wabs[c];
+      kstar[(static_cast<size_t>(i) * N + j) * C + c] = tie ? kUndecided : arg[pp][jj];
     }
+  }
+}
+
+// k* of the entries pass 1 left undecided: the A projections in float64 over
+// bases whose arguments are the f32 products idx * div_term of pass 1 and
+// whose sines and cosines are exact to float64; the first k attaining the
+// max. A thread looks at one entry of the valid square; a warp settles its
+// undecided entries one after the other, each lane taking every 32nd
+// frequency and an xor butterfly adding the lanes' sums (the same sum in
+// every lane). The plain version routes every entry by the float64 argmax.
+__global__ void __launch_bounds__(kThreads) gse_tie_kernel(
+    const float* __restrict__ points, const float* __restrict__ ref_vectors,
+    const float* __restrict__ w_a, const float* __restrict__ div_term,
+    const int32_t* __restrict__ n_valid, uint8_t* __restrict__ kstar, int N, int A, int C,
+    float sigma_d, float factor_a) {
+  const int nv = min(*n_valid, N);
+  const long long e = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  const int lane = threadIdx.x % 32;
+  const bool inside = e < static_cast<long long>(nv) * nv * C;
+  const bool mine =
+      inside && kstar[(e / (static_cast<long long>(C) * nv) * N + (e / C) % nv) * C + e % C] ==
+                    kUndecided;
+  unsigned undecided = __ballot_sync(0xffffffffu, mine);
+  while (undecided != 0) {
+    const int src = __ffs(undecided) - 1;
+    undecided &= undecided - 1;
+    const long long t = __shfl_sync(0xffffffffu, e, src);
+    const int c = static_cast<int>(t % C);
+    const int j = static_cast<int>((t / C) % nv);
+    const int i = static_cast<int>(t / (static_cast<long long>(C) * nv));
+    float idx[kMaxAngles + 1];
+    pair_indices(points, ref_vectors, i, j, A, sigma_d, factor_a, idx);
+    double best = 0.0;
+    int arg = 0;
+    for (int k = 0; k < A; ++k) {
+      double proj = 0.0;
+      for (int fr = lane; fr < C / 2; fr += 32) {
+        double sn, cs;
+        sincos(static_cast<double>(idx[k] * div_term[fr]), &sn, &cs);
+        proj = fma(sn, static_cast<double>(w_a[static_cast<size_t>(2 * fr) * C + c]), proj);
+        proj = fma(cs, static_cast<double>(w_a[static_cast<size_t>(2 * fr + 1) * C + c]), proj);
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) proj += __shfl_xor_sync(0xffffffffu, proj, off);
+      if (k == 0 || proj > best) {
+        best = proj;
+        arg = k;
+      }
+    }
+    if (lane == src) kstar[(static_cast<size_t>(i) * N + j) * C + c] = static_cast<uint8_t>(arg);
   }
 }
 
@@ -267,14 +348,20 @@ __global__ void __launch_bounds__(kThreads) gse_wgrad_reduce_kernel(
 }
 
 template <int CPT>
-int launch(const float* points, const float* ref_vectors, const float* w_a,
+int launch(const float* points, const float* ref_vectors, const float* w_a, const float* wabs,
            const float* div_term, const int32_t* n_valid, const float* de, uint8_t* kstar,
            float* part_d, float* part_a, float* part_b, float* dw_d, float* dw_a, float* db,
            int N, int A, int S, float sigma_d, float factor_a, cudaStream_t stream) {
   constexpr int C = 32 * CPT;
   gse_argmax_kernel<CPT><<<dim3((N + kPairs - 1) / kPairs, N), kThreads, 0, stream>>>(
-      points, ref_vectors, w_a, div_term, n_valid, kstar, N, A, sigma_d, factor_a);
+      points, ref_vectors, w_a, div_term, n_valid, wabs, kstar, N, A, sigma_d, factor_a);
   cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long entries = static_cast<long long>(N) * N * C;  // covers the valid square
+  gse_tie_kernel<<<static_cast<unsigned>((entries + kThreads - 1) / kThreads), kThreads, 0,
+                   stream>>>(points, ref_vectors, w_a, div_term, n_valid, kstar, N, A, C,
+                             sigma_d, factor_a);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   gse_wgrad_partial_kernel<C><<<dim3(C / kChunk, S), kThreads, 0, stream>>>(
       points, ref_vectors, div_term, n_valid, de, kstar, part_d, part_a, part_b, N, A,
@@ -305,8 +392,8 @@ int gse_bwd_slices(int N, int C) {
 }
 
 int gse_bwd_launch(const float* points, const float* ref_vectors, const float* w_a,
-                   const float* div_term, const int32_t* n_valid, const float* de,
-                   uint8_t* kstar, float* part_d, float* part_a, float* part_b,
+                   const float* wabs, const float* div_term, const int32_t* n_valid,
+                   const float* de, uint8_t* kstar, float* part_d, float* part_a, float* part_b,
                    float* dw_d, float* dw_a, float* db, int N, int A, int C, int S,
                    float sigma_d, float factor_a, void* stream) {
   if (A < 1 || A > kMaxAngles || C > kMaxChannels || S < 1) {
@@ -319,10 +406,10 @@ int gse_bwd_launch(const float* points, const float* ref_vectors, const float* w
     return static_cast<int>(cudaMemsetAsync(db, 0, sizeof(float) * C, s));
   }
   switch (C) {
-    case 32: return launch<1>(points, ref_vectors, w_a, div_term, n_valid, de, kstar, part_d, part_a, part_b, dw_d, dw_a, db, N, A, S, sigma_d, factor_a, s);
-    case 64: return launch<2>(points, ref_vectors, w_a, div_term, n_valid, de, kstar, part_d, part_a, part_b, dw_d, dw_a, db, N, A, S, sigma_d, factor_a, s);
-    case 128: return launch<4>(points, ref_vectors, w_a, div_term, n_valid, de, kstar, part_d, part_a, part_b, dw_d, dw_a, db, N, A, S, sigma_d, factor_a, s);
-    case 256: return launch<8>(points, ref_vectors, w_a, div_term, n_valid, de, kstar, part_d, part_a, part_b, dw_d, dw_a, db, N, A, S, sigma_d, factor_a, s);
+    case 32: return launch<1>(points, ref_vectors, w_a, wabs, div_term, n_valid, de, kstar, part_d, part_a, part_b, dw_d, dw_a, db, N, A, S, sigma_d, factor_a, s);
+    case 64: return launch<2>(points, ref_vectors, w_a, wabs, div_term, n_valid, de, kstar, part_d, part_a, part_b, dw_d, dw_a, db, N, A, S, sigma_d, factor_a, s);
+    case 128: return launch<4>(points, ref_vectors, w_a, wabs, div_term, n_valid, de, kstar, part_d, part_a, part_b, dw_d, dw_a, db, N, A, S, sigma_d, factor_a, s);
+    case 256: return launch<8>(points, ref_vectors, w_a, wabs, div_term, n_valid, de, kstar, part_d, part_a, part_b, dw_d, dw_a, db, N, A, S, sigma_d, factor_a, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

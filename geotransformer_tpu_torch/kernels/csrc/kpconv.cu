@@ -1,28 +1,32 @@
-// KPConv forward kernels for Hopper (sm_90a), f32 on the CUDA cores.
+// KPConv forward kernels for Hopper (sm_90a).
 //
-// kpconv_fused replaces geotransformer_tpu/kernels/kpconv.py:kpconv_fused
-// (pallas_call at :426/:467, body _kpconv_kernel_body :160, valid-tile skip
-// _kpconv_kernel :90); its unnormalized mode (raw sums and raw count) is the
-// two passes of the split-table conv kpconv_split_fused (:1288).
+// kpconv_conv_launch replaces geotransformer_tpu/kernels/kpconv.py:
+// kpconv_fused (pallas_call at :426/:467, body _kpconv_kernel_body :160,
+// valid-tile skip _kpconv_kernel :90) and kpconv_split_fused (:1288), which
+// on the TPU reaches the same pallas_call once for the head and once for the
+// tail and combines them in XLA. Here a conv is two kernels of
+// kpconv_common.cuh, whole table or split alike:
+//   1. the edge pass: T[q, k, c] = sum_h infl[q, h, k] f[n(q, h), c] into an
+//      (M, K * C) workspace, with the count divisor and the shortcut
+//      max-pool and its tie counts; a split table is walked in the same pass
+//      (each query's head columns, then its tail row through tail_rank), so
+//      count = max(count_h + count_t, 1), pooled = max(pooled_h, pooled_t)
+//      with a missing tail row as the zero shadow row, and ties counted
+//      against the combined max, as the two passes and the combine did;
+//   2. the contraction out = T W / count (W viewed as (K * C, D)) on the
+//      tensor cores in 3xTF32 (f32 accuracy), W read once per 64-128 queries.
+// What bounded the kernel it replaces (chip_smoke.py on an H100 80GB HBM3 at
+// 700 W): a 4-32-query tile held T in shared memory and streamed all of W
+// through L2 per block onto the CUDA cores (~2 GB of L2 reads for one
+// stage-5 KITTI conv); a split conv paid that twice and a torch combine.
+// Now the contraction runs at tensor-core rates and the edge pass, bound by
+// its FMAs on the CUDA cores and the gathers from L2, sizes its tile by the
+// thread count alone.
+//
 // kpconv_stream_fused replaces kpconv_stream_fused (:1679, body
 // _kpconv_stream_kernel :1642), the c_in == 1 input conv; kpconv_union
 // replaces kpconv_union_input_fused (:1135, pallas_call :1199), the c_in == 1
 // input conv over per-tile neighbour unions.
-//
-// What bounds them here. The TPU kernel read one pre-gathered (M, H, 12 + C)
-// block because XLA's gather engine fed it; on this card that block would be
-// the largest tensor of the backbone (~0.2 GB at stage 0) written once and
-// read once. This kernel instead reads neighbour coordinates and features
-// straight through the index table: a block of TQ queries stages its
-// (TQ, H) indices and (TQ, H, K) influences in shared memory, then each
-// thread owns one (query, channel) pair and accumulates
-// T[q, k, c] = sum_h infl[q, h, k] * f[n(q, h), c] in K registers (neighbour
-// feature rows are read coalesced across c). T stays in shared memory and
-// is contracted with W (K * C_in, C_out) by a plain loop in which every
-// thread keeps QB (2 or 4) queries' outputs, so each weight read from L2
-// feeds QB FMAs. The weight stream (15 C^2 floats per block) bounds the
-// wide late stages, the feature gather stage 0; tensor cores and a larger
-// query tile are the later redesign's work.
 //
 // The union conv: the TPU kernel scored every query against all U union
 // candidates through a membership matrix (Mosaic has no per-lane gather), U /
@@ -31,217 +35,33 @@
 // the same sums over the edges alone; what the union saves is the support
 // reads, one per distinct row of the tile instead of one per edge.
 //
-// For training, kpconv_fused also writes the per-query count divisor and,
-// with the pool, the number of columns tied at the max: the residuals of the
+// For training the conv also writes the per-query count divisor and, with
+// the pool, the number of columns tied at the max: the residuals of the
 // inverse-table backward (kpconv_bwd.cu), which cannot recompute a
-// query-side quantity from its support-side view. The stream conv writes its
-// t1 = sum_h infl * feat (M, K) and count, all its weight gradient needs.
+// query-side quantity from its support-side view. At c_in == 1 the workspace
+// T is t1 = sum_h infl * feat (M, K), the input conv's weight-gradient
+// residual. The stream conv writes its t1 and count, all its weight gradient
+// needs.
 //
 // Geometry is exact f32: offsets by direct subtraction, |off - kp_k| by a
 // direct sqrt (the expanded |off|^2 - 2 off.kp + |kp|^2 form of the TPU
 // kernel was a workaround for the MXU's single bf16 pass). A query whose
 // mask is off sees only shadow neighbours: output 0, count 1, pool 0 —
-// what the TPU kernel writes on skipped tiles. A block whose queries are
-// all masked writes zeros and returns (the valid-tile skip).
+// what the TPU kernel writes on skipped tiles. A tile of the contraction
+// whose queries have no edge writes zeros and reads nothing (the valid-tile
+// skip).
 
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstdint>
 
+#include "kpconv_common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxKernelPoints = 16;
-
-template <int QB>
-__global__ void __launch_bounds__(kThreads) kpconv_fused_kernel(
-    const float* __restrict__ s_feats,      // (N, C)
-    const float* __restrict__ q_points,     // (M, 3)
-    const float* __restrict__ s_points,     // (N, 3)
-    const int32_t* __restrict__ nbr,        // (M, H), sentinel N
-    const float* __restrict__ posflag,      // (N,) 1 where the feature sum > 0
-    const float* __restrict__ kp,           // (K, 3)
-    const float* __restrict__ w,            // (K, C, D)
-    const uint8_t* __restrict__ q_mask,     // (M,) or null
-    const float* __restrict__ pool_feats,   // (N, P) or null
-    float* __restrict__ out,                // (M, D)
-    float* __restrict__ pooled,             // (M, P) or null
-    float* __restrict__ count_out,          // (M,) or null
-    float* __restrict__ ties_out,           // (M, P) or null (with pooled)
-    float* __restrict__ t1_out,             // (M, K) or null (C == 1 only)
-    int M, int N, int H, int K, int C, int D, int P, int pool_cols, int normalize,
-    int tq, float sigma) {
-  extern __shared__ float smem[];
-  int32_t* nbr_s = reinterpret_cast<int32_t*>(smem);  // (tq, H)
-  float* kp_s = smem + tq * H;                         // (K, 3)
-  float* cnt_s = kp_s + 3 * kMaxKernelPoints;          // (tq,)
-  float* infl_s = cnt_s + tq;                          // (tq, H, K)
-  float* t_s = infl_s + tq * H * K;                    // (tq, K, C)
-
-  const int tid = threadIdx.x;
-  const int q0 = blockIdx.x * tq;
-
-  int any_valid = 0;
-  for (int i = tid; i < tq * H; i += kThreads) {
-    const int q = q0 + i / H;
-    int n = N;
-    if (q < M && (q_mask == nullptr || q_mask[q])) {
-      n = nbr[static_cast<size_t>(q) * H + i % H];
-      if (n < 0 || n >= N) n = N;
-    }
-    nbr_s[i] = n;
-    any_valid |= (n < N);
-  }
-  for (int i = tid; i < 3 * K; i += kThreads) kp_s[i] = kp[i];
-  if (!__syncthreads_or(any_valid)) {
-    // Every query of the tile is padding (or has no neighbour): the compute
-    // path would write exactly these zeros.
-    for (int i = tid; i < tq * D; i += kThreads) {
-      const int q = q0 + i / D;
-      if (q < M) out[static_cast<size_t>(q) * D + i % D] = 0.0f;
-    }
-    if (pooled != nullptr) {
-      const float all_shadow = fmaxf(static_cast<float>(min(pool_cols, H)), 1.0f);
-      for (int i = tid; i < tq * P; i += kThreads) {
-        const int q = q0 + i / P;
-        if (q >= M) continue;
-        pooled[static_cast<size_t>(q) * P + i % P] = 0.0f;
-        if (ties_out != nullptr) ties_out[static_cast<size_t>(q) * P + i % P] = all_shadow;
-      }
-    }
-    if (count_out != nullptr) {
-      for (int ql = tid; ql < tq; ql += kThreads) {
-        if (q0 + ql < M) count_out[q0 + ql] = normalize ? 1.0f : 0.0f;
-      }
-    }
-    if (t1_out != nullptr) {
-      for (int i = tid; i < tq * K; i += kThreads) {
-        if (q0 + i / K < M) t1_out[static_cast<size_t>(q0) * K + i] = 0.0f;
-      }
-    }
-    return;
-  }
-
-  // Kernel-point influences of every (query, neighbour) slot of the tile.
-  for (int i = tid; i < tq * H; i += kThreads) {
-    const int n = nbr_s[i];
-    float* dst = infl_s + i * K;
-    if (n < N) {
-      const int q = q0 + i / H;
-      const float ox = s_points[3 * n + 0] - q_points[3 * q + 0];
-      const float oy = s_points[3 * n + 1] - q_points[3 * q + 1];
-      const float oz = s_points[3 * n + 2] - q_points[3 * q + 2];
-      for (int k = 0; k < K; ++k) {
-        const float dx = ox - kp_s[3 * k + 0];
-        const float dy = oy - kp_s[3 * k + 1];
-        const float dz = oz - kp_s[3 * k + 2];
-        const float d = sqrtf(dx * dx + dy * dy + dz * dz);
-        dst[k] = fmaxf(1.0f - d / sigma, 0.0f);
-      }
-    } else {
-      for (int k = 0; k < K; ++k) dst[k] = 0.0f;
-    }
-  }
-  // Neighbour count: supports whose feature sum is positive, at least 1
-  // (the reference quirk, kpconv.py:113-116); unnormalized (one pass of a
-  // split conv) the raw count, which the split combine clamps once.
-  for (int ql = tid; ql < tq; ql += kThreads) {
-    float c = 0.0f;
-    for (int h = 0; h < H; ++h) {
-      const int n = nbr_s[ql * H + h];
-      if (n < N) c += posflag[n];
-    }
-    cnt_s[ql] = normalize ? fmaxf(c, 1.0f) : c;
-    if (count_out != nullptr && q0 + ql < M) count_out[q0 + ql] = cnt_s[ql];
-  }
-  __syncthreads();
-
-  // T[q, k, c] = sum_h infl[q, h, k] * f[n(q, h), c]
-  for (int pair = tid; pair < tq * C; pair += kThreads) {
-    const int ql = pair / C;
-    const int c = pair % C;
-    float acc[kMaxKernelPoints];
-#pragma unroll
-    for (int k = 0; k < kMaxKernelPoints; ++k) acc[k] = 0.0f;
-    const int32_t* nb = nbr_s + ql * H;
-    const float* inf = infl_s + ql * H * K;
-    for (int h = 0; h < H; ++h) {
-      const int n = nb[h];
-      if (n < N) {
-        const float f = s_feats[static_cast<size_t>(n) * C + c];
-#pragma unroll
-        for (int k = 0; k < kMaxKernelPoints; ++k) {
-          if (k < K) acc[k] = fmaf(inf[h * K + k], f, acc[k]);
-        }
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < kMaxKernelPoints; ++k) {
-      if (k < K) t_s[(ql * K + k) * C + c] = acc[k];
-    }
-    // the input conv's weight-gradient residual t1[q, k] = T[q, k, 0]
-    if (t1_out != nullptr && q0 + ql < M) {
-#pragma unroll
-      for (int k = 0; k < kMaxKernelPoints; ++k) {
-        if (k < K) t1_out[static_cast<size_t>(q0 + ql) * K + k] = acc[k];
-      }
-    }
-  }
-
-  // Shortcut max-pool over the first pool_cols columns; shadows read 0
-  // (the reference's implicit clamp at 0, functional.py:54-67).
-  if (pooled != nullptr) {
-    const int cols = pool_cols < H ? pool_cols : H;
-    for (int i = tid; i < tq * P; i += kThreads) {
-      const int ql = i / P;
-      const int c = i % P;
-      const int q = q0 + ql;
-      if (q >= M) continue;
-      float m = cols > 0 ? -INFINITY : 0.0f;
-      for (int h = 0; h < cols; ++h) {
-        const int n = nbr_s[ql * H + h];
-        const float v = n < N ? pool_feats[static_cast<size_t>(n) * P + c] : 0.0f;
-        m = fmaxf(m, v);
-      }
-      pooled[static_cast<size_t>(q) * P + c] = m;
-      if (ties_out != nullptr) {
-        // columns equal to the max (shadows read 0), at least 1: the
-        // even split of the max's gradient, as XLA's reduce-max VJP does
-        float ties = 0.0f;
-        for (int h = 0; h < cols; ++h) {
-          const int n = nbr_s[ql * H + h];
-          const float v = n < N ? pool_feats[static_cast<size_t>(n) * P + c] : 0.0f;
-          ties += v == m ? 1.0f : 0.0f;
-        }
-        ties_out[static_cast<size_t>(q) * P + c] = fmaxf(ties, 1.0f);
-      }
-    }
-  }
-  __syncthreads();
-
-  // out[q, d] = sum_{k, c} T[q, k, c] * W[k, c, d] / count[q] (no division
-  // unnormalized), QB queries per thread so each weight read feeds QB FMAs.
-  const int kc_total = K * C;
-  for (int o = tid; o < (tq / QB) * D; o += kThreads) {
-    const int qa = QB * (o / D);
-    const int d = o % D;
-    const float* t = t_s + qa * kc_total;
-    float acc[QB];
-#pragma unroll
-    for (int j = 0; j < QB; ++j) acc[j] = 0.0f;
-    for (int kc = 0; kc < kc_total; ++kc) {
-      const float wv = w[static_cast<size_t>(kc) * D + d];
-#pragma unroll
-      for (int j = 0; j < QB; ++j) acc[j] = fmaf(t[j * kc_total + kc], wv, acc[j]);
-    }
-#pragma unroll
-    for (int j = 0; j < QB; ++j) {
-      const int q = q0 + qa + j;
-      if (q < M) out[static_cast<size_t>(q) * D + d] = normalize ? acc[j] / cnt_s[qa + j] : acc[j];
-    }
-  }
-}
 
 constexpr int kStreamQueries = 16;
 
@@ -403,19 +223,6 @@ __global__ void __launch_bounds__(kUnionThreads) kpconv_union_kernel(
   }
 }
 
-// Query tile: T holds TQ * K * C floats (30 KB at C <= 64, 61 KB above).
-int query_tile(int c) {
-  int tq = (c <= 64 ? 512 : 1024) / (c > 0 ? c : 1);
-  tq = tq < 4 ? 4 : (tq > 32 ? 32 : tq);
-  return tq & ~3;
-}
-
-// Queries per thread in the weight contraction: enough (query group,
-// channel) slots for all threads, at most 4.
-int queries_per_thread(int tq, int d) {
-  return tq * d >= 4 * kThreads ? 4 : 2;
-}
-
 }  // namespace
 
 extern "C" {
@@ -424,43 +231,74 @@ const char* error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-int kpconv_fused_launch(const float* s_feats, const float* q_points,
-                        const float* s_points, const int32_t* nbr,
-                        const float* posflag, const float* kp, const float* w,
-                        const uint8_t* q_mask, const float* pool_feats,
-                        float* out, float* pooled, float* count_out,
-                        float* ties_out, float* t1_out, int M, int N, int H, int K,
-                        int C, int D, int P, int pool_cols, int normalize, float sigma,
-                        void* stream) {
-  if (K < 1 || K > kMaxKernelPoints || H < 1 || C < 1 || D < 1 || (t1_out != nullptr && C != 1)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+// Floats of the split-K workspace of a conv's contraction (M x K C) (K C x
+// D) (0: none); the wrapper allocates it for kpconv_conv_launch.
+long long kpconv_conv_workspace(int M, int K, int C, int D) {
+  return kpconv::contraction_workspace(M, D, K * C, kpconv::tensor_core_widths(C, D));
+}
+
+// One KPConv: the edge pass into the workspaces t_ws (M, K * C) and div_ws
+// (M,), then the contraction into out (through part_ws, the split-K
+// partial sums, where kpconv_conv_workspace asks for them). head (M, H1)
+// sentinel N; tail (M2, H2) and tail_rank (M,) (sentinel M2) or null for a
+// whole table; pool_head and pool_tail the pooled columns of the head and
+// of a tail row.
+int kpconv_conv_launch(const float* s_feats, const float* q_points, const float* s_points,
+                       const int32_t* head, const int32_t* tail, const int32_t* tail_rank,
+                       const float* posflag, const float* kp, const float* w,
+                       const uint8_t* q_mask, const float* pool_feats, float* t_ws,
+                       float* div_ws, float* part_ws, float* out, float* pooled,
+                       float* count_out, float* ties_out, int M, int N, int H1, int H2, int M2,
+                       int K, int C, int D, int P, int pool_head, int pool_tail, float sigma,
+                       void* stream) {
+  if (D < 1 || H1 < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (M == 0) return 0;
-  const int tq = query_tile(C);
-  const size_t smem = sizeof(float) * (static_cast<size_t>(tq) * H + 3 * kMaxKernelPoints +
-                                       tq + static_cast<size_t>(tq) * H * K +
-                                       static_cast<size_t>(tq) * K * C);
-  const int blocks = (M + tq - 1) / tq;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (queries_per_thread(tq, D) == 4) {
-    err = cudaFuncSetAttribute(kpconv_fused_kernel<4>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    kpconv_fused_kernel<4><<<blocks, kThreads, smem, s>>>(
-        s_feats, q_points, s_points, nbr, posflag, kp, w, q_mask, pool_feats, out,
-        pooled, count_out, ties_out, t1_out, M, N, H, K, C, D, P, pool_cols, normalize, tq,
-        sigma);
-  } else {
-    err = cudaFuncSetAttribute(kpconv_fused_kernel<2>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    kpconv_fused_kernel<2><<<blocks, kThreads, smem, s>>>(
-        s_feats, q_points, s_points, nbr, posflag, kp, w, q_mask, pool_feats, out,
-        pooled, count_out, ties_out, t1_out, M, N, H, K, C, D, P, pool_cols, normalize, tq,
-        sigma);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  kpconv::EdgeArgs e{};
+  e.feats = s_feats;
+  e.self_pts = q_points;
+  e.other_pts = s_points;
+  e.head = head;
+  e.tail = tail;
+  e.rank = tail_rank;
+  e.mask = q_mask;
+  e.kp = kp;
+  e.t_out = t_ws;
+  e.R = M;
+  e.n_other = N;
+  e.C = C;
+  e.K = K;
+  e.h1 = H1;
+  e.h2 = H2;
+  e.r2 = M2;
+  e.sigma = sigma;
+  kpconv::FwdExtras x{};
+  x.posflag = posflag;
+  x.div_out = div_ws;
+  x.count_out = count_out;
+  x.pool_feats = pool_feats;
+  x.pooled = pool_feats != nullptr ? pooled : nullptr;
+  x.ties = pool_feats != nullptr ? ties_out : nullptr;
+  x.P = P;
+  x.pool_head = pool_head;
+  x.pool_tail = pool_tail;
+  const int pool_width = pool_feats == nullptr ? 0
+                         : min(pool_head, H1) + (tail != nullptr ? min(pool_tail, H2) : 0);
+  int err = kpconv::launch_edges<false>(e, x, pool_width, st);
+  if (err != 0) return err;
+  kpconv::GemmArgs g{};
+  g.a = t_ws;
+  g.lda = K * C;
+  g.b = w;
+  g.ldb = D;
+  g.c = out;
+  g.ldc = D;
+  g.div = div_ws;
+  g.M = M;
+  g.N = D;
+  g.Kdim = K * C;
+  g.k_per_z = K * C;
+  return kpconv::launch_contraction(g, kpconv::tensor_core_widths(C, D), part_ws, st);
 }
 
 int kpconv_stream_launch(const float* stream_planes, const float* kp,

@@ -1,9 +1,10 @@
 r"""Build, load and dispatch of the hand-written CUDA kernels.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
-``nvcc`` into its own shared library, keyed by a hash of the source and the
-flags (like ``geotransformer_tpu/native/__init__.py:31-42``), under
-``kernels/build/`` (git-ignored), then loaded with ``ctypes``. Nothing is
+``nvcc`` into its own shared library, keyed by a hash of the source, the
+``csrc/*.cuh`` headers it includes and the flags (like
+``geotransformer_tpu/native/__init__.py:31-42``), under ``kernels/build/``
+(git-ignored), then loaded with ``ctypes``. Nothing is
 compiled or loaded when a module is imported: the first launch builds its
 library, and :func:`build` compiles several at once, one ``nvcc`` process
 per source, all started together.
@@ -18,6 +19,7 @@ import collections
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -64,11 +66,31 @@ def nvcc_path():
     return path
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def source_files(name):
+    """``csrc/<name>.cu`` and every header of ``csrc/`` it includes, directly
+    or through another header, in include order."""
+    files, pending = [], [f"{name}.cu"]
+    while pending:
+        file = pending.pop(0)
+        if file in files:
+            continue
+        files.append(file)
+        with open(os.path.join(CSRC_DIR, file), "rb") as f:
+            pending += [m.decode() for m in _INCLUDE.findall(f.read())]
+    return files
+
+
 def library_path(name):
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        source = f.read()
-    digest = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    """The library's path, keyed by the source, the headers it includes and
+    the flags, so an edit to a shared header rebuilds every user."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for file in source_files(name):
+        with open(os.path.join(CSRC_DIR, file), "rb") as f:
+            digest.update(file.encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 
 def build(names=SOURCES):
@@ -98,17 +120,18 @@ def build(names=SOURCES):
     return time.perf_counter() - start
 
 
-def library(name, signatures):
+def library(name, signatures, restypes=None):
     """The loaded library of ``csrc/<name>.cu``, built on first use.
     ``signatures`` maps each C entry point to its ctypes argument types;
-    every entry point returns an int error code."""
+    every entry point returns an int error code, but those ``restypes``
+    maps to another ctypes type."""
     lib = _libraries.get(name)
     if lib is None:
         build((name,))
         lib = ctypes.CDLL(library_path(name))
         for fn, argtypes in signatures.items():
             getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
+            getattr(lib, fn).restype = (restypes or {}).get(fn, ctypes.c_int)
         lib.error_string.argtypes = [ctypes.c_int]
         lib.error_string.restype = ctypes.c_char_p
         _libraries[name] = lib

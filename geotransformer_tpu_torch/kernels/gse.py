@@ -22,7 +22,7 @@ from geotransformer_tpu_torch.ops.embedding import div_term, sinusoidal_embeddin
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {"gse_embedding_launch": [_P] * 8 + [_I] * 3 + [_F, _F, _P]}
 _BWD_SIGNATURES = {
-    "gse_bwd_launch": [_P] * 13 + [_I] * 4 + [_F, _F, _P],
+    "gse_bwd_launch": [_P] * 14 + [_I] * 4 + [_F, _F, _P],
     "gse_bwd_slices": [_I] * 2,
 }
 
@@ -41,15 +41,22 @@ def _angle_factor(sigma_a):
 
 def _pair_indices(points, ref_vectors, sigma_d, sigma_a):
     """Distance indices (N, N) and angle indices (N, N, k) of every pair,
-    taken directly (the XLA path of ``models/transformer.py:55-83``)."""
+    taken directly (the XLA path of ``models/transformer.py:55-83``). The
+    angle's cross and dot products, norm and sum are written out one
+    rounded operation at a time, in the order of ``pair_indices`` in
+    ``csrc/gse_bwd.cu``: the kernel's angle indices are these, bit for bit,
+    so the two never route a projection tie differently for want of an ulp."""
     anchor = points[None, :, :] - points[:, None, :]  # [i, j] = p_j - p_i
     d_idx = torch.linalg.vector_norm(anchor, dim=-1) / sigma_d
-    ref_b = ref_vectors[:, None, :, :]  # (N, 1, k, 3)
-    anc_b = anchor[:, :, None, :]  # (N, N, 1, 3)
-    sin_values = torch.linalg.vector_norm(torch.linalg.cross(ref_b, anc_b, dim=-1), dim=-1)
+    u = ref_vectors[:, None, :, :].unbind(-1)  # 3 x (N, 1, k)
+    v = anchor[:, :, None, :].unbind(-1)  # 3 x (N, N, 1)
+    cx = u[1] * v[2] - u[2] * v[1]
+    cy = u[2] * v[0] - u[0] * v[2]
+    cz = u[0] * v[1] - u[1] * v[0]
+    sin_values = torch.sqrt((cx * cx + cy * cy) + cz * cz)
     # + 0.0 turns a -0 sum (v = 0 on the diagonal) into +0: atan2(+0, -0)
     # would be pi, the XLA path's diagonal angle is 0
-    cos_values = torch.sum(ref_b * anc_b, dim=-1) + 0.0  # (N, N, k)
+    cos_values = ((u[0] * v[0] + u[1] * v[1]) + u[2] * v[2]) + 0.0  # (N, N, k)
     return d_idx, torch.atan2(sin_values, cos_values) * _angle_factor(sigma_a)
 
 
@@ -124,20 +131,40 @@ def gse_embedding_full(points, ref_vectors, w_d, b_d, w_a, b_a, sigma_d,
 def gse_full_bwd_plain(points, ref_vectors, w_a, sigma_d, sigma_a, de, n_valid=None):
     """Plain PyTorch version of :func:`gse_full_bwd` (the math of the JAX
     ``_gse_full_bwd_kernel``, ``kernels/gse.py:290-375``: bases recomputed,
-    the angle gradient routed to the first k attaining the max)."""
+    the angle gradient routed to the first k attaining the max).
+
+    The routing and the sums are taken in float64 and returned in ``de``'s
+    dtype: the max over k of three f32 projections can be a tie within f32
+    rounding, which two f32 implementations may break differently (one pair
+    and channel routed to another k moves dW_a by ~|de| there), and dW, a
+    sum over every valid pair, loses digits in f32 where the weight
+    gradients are small. The float64 argmax is the one exact
+    arithmetic takes on these f32 indices; the kernel settles its ties the
+    same way (``csrc/gse_bwd.cu``)."""
     n, angle_k, _ = ref_vectors.shape
     hidden = w_a.shape[0]
     if n_valid is not None:
         de = de * _valid_pairs(n, n_valid, de.device)
     d_idx, a_idx = _pair_indices(points, ref_vectors, sigma_d, sigma_a)
-    basis_d = sinusoidal_embedding(d_idx, hidden)  # (N, N, C)
-    basis_a = sinusoidal_embedding(a_idx, hidden)  # (N, N, k, C)
-    first = torch.argmax(basis_a @ w_a, dim=2)  # (N, N, C): the first maximal k
-    take = torch.arange(angle_k, device=de.device)[None, None, :, None] == first[:, :, None, :]
-    dw_d = torch.einsum("ijf,ijc->fc", basis_d, de)
-    dw_a = torch.einsum("ijkf,ijkc->fc", basis_a, take.to(de.dtype) * de[:, :, None, :])
-    db = de.sum(dim=(0, 1))
-    return dw_d, db, dw_a, db
+    exact = torch.float64
+    basis_a = _exact_bases(a_idx, hidden)  # (N, N, k, C)
+    first = torch.argmax(basis_a @ w_a.to(exact), dim=2)  # (N, N, C): the first maximal k
+    de64 = de.to(exact)
+    dw_d = torch.einsum("ijf,ijc->fc", sinusoidal_embedding(d_idx, hidden).to(exact), de64)
+    dw_a = sum(torch.einsum("ijf,ijc->fc", sinusoidal_embedding(a_idx[:, :, k], hidden).to(exact),
+                            (first == k).to(exact) * de64) for k in range(angle_k))
+    db = de64.sum(dim=(0, 1))
+    dtype = de.dtype
+    return dw_d.to(dtype), db.to(dtype), dw_a.to(dtype), db.to(dtype)
+
+
+def _exact_bases(idx, hidden):
+    """Interleaved sin/cos bases of ``idx`` in float64: the arguments
+    idx * div_term rounded as the f32 bases' are, their sines and cosines
+    exact to float64 (the kernel's tie-break takes the same)."""
+    omegas = (idx[..., None] * div_term(hidden, idx.device).to(idx.dtype)).to(torch.float64)
+    return torch.stack([torch.sin(omegas), torch.cos(omegas)], dim=-1).reshape(
+        idx.shape + (hidden,))
 
 
 def gse_full_bwd(points, ref_vectors, w_a, sigma_d, sigma_a, de, n_valid=None, force=None):
@@ -176,8 +203,9 @@ def gse_full_bwd(points, ref_vectors, w_a, sigma_d, sigma_a, de, n_valid=None, f
     dw_a = torch.empty((hidden, hidden), dtype=f32, device=dev)
     db = torch.empty((hidden,), dtype=f32, device=dev)
     freqs = _frequencies(hidden, dev)
+    wabs = w_a.abs().sum(dim=0)  # the scale of f32 rounding in each channel's projections
     code = lib.gse_bwd_launch(
-        cuda.ptr(points), cuda.ptr(ref_vectors), cuda.ptr(w_a), cuda.ptr(freqs),
+        cuda.ptr(points), cuda.ptr(ref_vectors), cuda.ptr(w_a), cuda.ptr(wabs), cuda.ptr(freqs),
         cuda.ptr(n_valid), cuda.ptr(de), cuda.ptr(kstar), cuda.ptr(part_d), cuda.ptr(part_a),
         cuda.ptr(part_b), cuda.ptr(dw_d), cuda.ptr(dw_a), cuda.ptr(db),
         n, angle_k, hidden, slices, float(sigma_d), float(_angle_factor(sigma_a)),

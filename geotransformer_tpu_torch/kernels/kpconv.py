@@ -5,14 +5,20 @@ plain versions, and the autograd Functions of the training path.
 (every conv of the backbone but the first, optionally fusing the strided
 block's shortcut max-pool); ``kpconv_split_fused`` replaces
 ``kpconv_split_fused`` (a conv over a split table: the head columns of every
-query and the compacted tail of the deep queries, two launches of the
-``kpconv_fused`` kernel in its unnormalized mode and a combine);
+query and the compacted tail of the deep queries, walked in one pass of the
+same kernels);
 ``kpconv_stream_fused`` and ``kpconv_union_input_fused`` replace the JAX
 functions of the same names (the c_in == 1 input conv over the precomputed
 edge stream or over per-tile neighbor unions); ``kpconv_bwd_fused`` replaces
 ``kpconv_bwd_fused`` (the backward over the inverse neighbor table, whole or
-split). Each wrapper takes the plain PyTorch version for CPU tensors and
-launches its kernel for CUDA tensors (:func:`cuda.use_kernel`).
+split, in one pass). Each wrapper takes the plain PyTorch version for CPU
+tensors and launches its kernel for CUDA tensors (:func:`cuda.use_kernel`).
+A conv on the card is two kernels of ``csrc/kpconv_common.cuh``: the edge
+pass (T = sum over edges of influence x gathered row, into an (M, K C)
+workspace, with the count, the pool and its ties) and a 3xTF32 tensor-core
+contraction with the weights; the backward runs the edge pass over the
+inverse table (u), the same contraction with the transposed weights (d_s)
+and a sliced tensor-core product for dW, added in a fixed order.
 
 Training goes through :func:`kpconv_inv_fused_diff`,
 :func:`kpconv_pool_inv_fused_diff`, :func:`kpconv_split_diff`,
@@ -37,14 +43,26 @@ from geotransformer_tpu_torch.ops.gather import gather_with_shadow
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "kpconv_fused_launch": [_P] * 14 + [_I] * 9 + [_F, _P],
+    "kpconv_conv_launch": [_P] * 18 + [_I] * 11 + [_F, _P],
+    "kpconv_conv_workspace": [_I] * 4,
     "kpconv_stream_launch": [_P] * 6 + [_I] * 4 + [_F, _P],
     "kpconv_union_launch": [_P] * 10 + [_I] * 7 + [_F, _P],
 }
 _BWD_SIGNATURES = {
-    "kpconv_bwd_launch": [_P] * 15 + [_I] * 7 + [_F, _P],
+    "kpconv_bwd_launch": [_P] * 18 + [_I] * 9 + [_F, _P],
+    "kpconv_ds_workspace": [_I] * 4,
     "kpconv_dw_slices": [_I] * 4,
 }
+
+
+# entry points that return something else than an int error code
+_RESTYPES = {"kpconv_conv_workspace": ctypes.c_longlong,
+             "kpconv_ds_workspace": ctypes.c_longlong}
+
+
+def _workspace(floats, device):
+    """A split-K partial-sum workspace of ``floats`` floats, or None."""
+    return torch.empty((floats,), dtype=torch.float32, device=device) if floats else None
 
 
 def _influence(offsets, kernel_points, sigma):
@@ -101,8 +119,7 @@ def kpconv_fused_plain(s_feats, q_points, s_points, neighbor_indices,
 
 def kpconv_fused(s_feats, q_points, s_points, neighbor_indices, kernel_points,
                  weights, sigma, bias=None, pool_feats=None, pool_cols=None,
-                 q_mask=None, force=None, residuals=False, normalize=True,
-                 return_t1=False, count_as="kpconv_fused"):
+                 q_mask=None, force=None, residuals=False, return_t1=False):
     """Fused KPConv forward.
 
     Args:
@@ -123,64 +140,78 @@ def kpconv_fused(s_feats, q_points, s_points, neighbor_indices, kernel_points,
         residuals: also return the backward's residuals: the (M,) count
             divisor and, with the pool, the (M, C_pool) number of pooled
             columns equal to the max (shadows count, at least 1).
-        normalize: False gives one pass of a split conv: the raw sums (no
-            division, no bias) and the raw (M,) count, always returned.
         return_t1: (C_in == 1) also return t1 (M, K) = sum_h infl * feat,
             the input conv's weight-gradient residual.
-        count_as: the ``cuda.launches`` entry the launch adds to (the two
-            passes of a split conv count as ``kpconv_split_fused``).
 
     Returns:
         (M, C_out) float32 [, (M, C_pool) pooled] [, count [, ties]] [, t1].
     """
-    if not normalize and bias is not None:
-        raise ValueError("an unnormalized KPConv pass cannot carry the bias")
     if return_t1 and weights.shape[1] != 1:
         raise ValueError("t1 is the residual of a c_in == 1 conv")
     if not cuda.use_kernel(s_feats, force):
         return kpconv_fused_plain(
             s_feats, q_points, s_points, neighbor_indices, kernel_points,
-            weights, sigma, bias, pool_feats, pool_cols, q_mask, residuals, normalize,
-            return_t1)
+            weights, sigma, bias, pool_feats, pool_cols, q_mask, residuals,
+            return_t1=return_t1)
+    h = neighbor_indices.shape[1]
+    out, pooled, count, ties, t1 = _conv_launch(
+        "kpconv_fused", s_feats, q_points, s_points, neighbor_indices, None, None, kernel_points,
+        weights, sigma, pool_feats, h if pool_cols is None else int(pool_cols), 0, q_mask,
+        residuals)
+    if bias is not None:
+        out = out + bias
+    return _outputs(out, pooled, count, ties, t1 if return_t1 else None, residuals, True,
+                    return_t1)
 
+
+def _conv_launch(name, s_feats, q_points, s_points, head, tail, tail_rank, kernel_points,
+                 weights, sigma, pool_feats, pool_head, pool_tail, q_mask, with_count):
+    """One conv on the card (``kpconv_conv_launch``: the edge pass, then the
+    contraction) over a whole table (``tail`` None) or a split one; counted
+    as one launch of ``name``. Returns out, pooled, count, ties and the
+    (M, K C) workspace T, which is t1 at C_in == 1 (None where not asked)."""
     dev = s_feats.device
-    m, h = neighbor_indices.shape
+    m, h1 = head.shape
     n, c_in = s_feats.shape
     k, _, c_out = weights.shape
     f32 = torch.float32
     cuda.require(s_feats, "s_feats", f32, (n, c_in), dev)
     cuda.require(q_points, "q_points", f32, (m, 3), dev)
     cuda.require(s_points, "s_points", f32, (n, 3), dev)
-    cuda.require(neighbor_indices, "neighbor_indices", torch.int32, (m, h), dev)
+    cuda.require(head, "neighbor_indices", torch.int32, (m, h1), dev)
     cuda.require(kernel_points, "kernel_points", f32, (k, 3), dev)
     cuda.require(weights, "weights", f32, (k, c_in, c_out), dev)
+    m2 = h2 = 0
+    if tail is not None:
+        m2, h2 = tail.shape
+        cuda.require(tail, "tail_table", torch.int32, (m2, h2), dev)
+        cuda.require(tail_rank, "tail_rank", torch.int32, (m,), dev)
     if q_mask is not None:
         cuda.require(q_mask, "q_mask", torch.bool, (m,), dev)
     c_pool = 0
     if pool_feats is not None:
         c_pool = pool_feats.shape[1]
         cuda.require(pool_feats, "pool_feats", f32, (n, c_pool), dev)
-    with_count = residuals or not normalize
     posflag = (torch.sum(s_feats, dim=-1) > 0.0).to(f32)
+    t = torch.empty((m, k * c_in), dtype=f32, device=dev)
+    div = torch.empty((m,), dtype=f32, device=dev)
     out = torch.empty((m, c_out), dtype=f32, device=dev)
     pooled = torch.empty((m, c_pool), dtype=f32, device=dev) if pool_feats is not None else None
     count = torch.empty((m,), dtype=f32, device=dev) if with_count else None
     ties = (torch.empty((m, c_pool), dtype=f32, device=dev)
             if with_count and pool_feats is not None else None)
-    t1 = torch.empty((m, k), dtype=f32, device=dev) if return_t1 else None
-    lib = cuda.library("kpconv", _SIGNATURES)
-    code = lib.kpconv_fused_launch(
-        cuda.ptr(s_feats), cuda.ptr(q_points), cuda.ptr(s_points),
-        cuda.ptr(neighbor_indices), cuda.ptr(posflag), cuda.ptr(kernel_points),
-        cuda.ptr(weights), cuda.ptr(q_mask), cuda.ptr(pool_feats),
-        cuda.ptr(out), cuda.ptr(pooled), cuda.ptr(count), cuda.ptr(ties), cuda.ptr(t1),
-        m, n, h, k, c_in, c_out, c_pool, h if pool_cols is None else int(pool_cols),
-        int(normalize), float(sigma), cuda.stream_of(s_feats))
-    cuda.check(lib, code, count_as)
-    cuda.launches[count_as] += 1
-    if bias is not None:
-        out = out + bias
-    return _outputs(out, pooled, count, ties, t1, residuals, normalize, return_t1)
+    lib = cuda.library("kpconv", _SIGNATURES, _RESTYPES)
+    part = _workspace(lib.kpconv_conv_workspace(m, k, c_in, c_out), dev)
+    code = lib.kpconv_conv_launch(
+        cuda.ptr(s_feats), cuda.ptr(q_points), cuda.ptr(s_points), cuda.ptr(head),
+        cuda.ptr(tail), cuda.ptr(tail_rank), cuda.ptr(posflag), cuda.ptr(kernel_points),
+        cuda.ptr(weights), cuda.ptr(q_mask), cuda.ptr(pool_feats), cuda.ptr(t), cuda.ptr(div),
+        cuda.ptr(part), cuda.ptr(out), cuda.ptr(pooled), cuda.ptr(count), cuda.ptr(ties),
+        m, n, h1, h2, m2, k, c_in, c_out, c_pool, int(pool_head), int(pool_tail),
+        float(sigma), cuda.stream_of(s_feats))
+    cuda.check(lib, code, name)
+    cuda.launches[name] += 1
+    return out, pooled, count, ties, t
 
 
 def kpconv_split_fused(s_feats, q_points, s_points, head_table, tail_table, tail_q, tail_rank,
@@ -192,14 +223,15 @@ def kpconv_split_fused(s_feats, q_points, s_points, head_table, tail_table, tail
     The head (M, H1) covers the first columns of every query, the tail
     (M2, H - H1) the remaining columns of the deep queries
     (``preprocess.build_split_tables``); together they are the unsplit
-    table's edges. Each part is one unnormalized pass of
-    :func:`kpconv_fused` (raw sums, raw count), and the tail's outputs come
-    back to their queries through ``tail_rank`` with a zero row for the
-    queries that have no tail row: count = max(count_h + count_t, 1),
-    out = (acc_h + acc_t) / count + bias, pooled = max(pooled_h, pooled_t)
-    (a missing tail row acts as the zero shadow row), and the pool's tie
-    counts are counted against the combined maximum. On the card both
-    passes count as ``kpconv_split_fused`` launches, not ``kpconv_fused``.
+    table's edges. The result is the conv over those edges: count =
+    max(count_h + count_t, 1), out = (acc_h + acc_t) / count + bias,
+    pooled = max(pooled_h, pooled_t) (a query without a tail row takes the
+    zero shadow row), and the pool's tie counts are counted against the
+    combined maximum. On the card one pass of the conv kernels walks each
+    query's head columns, then its tail row through ``tail_rank``; the
+    plain version runs each part unnormalized (raw sums, raw count) and
+    brings the tail back through ``tail_rank`` with a zero row for the
+    queries that have none.
 
     Args:
         head_table: (M, H1) int32; tail_table: (M2, H - H1) int32, both
@@ -215,15 +247,28 @@ def kpconv_split_fused(s_feats, q_points, s_points, head_table, tail_table, tail
     h1 = head_table.shape[1]
     if pool_cols is not None and h1 >= pool_cols:
         raise ValueError(f"split head width {h1} covers the pool's {pool_cols} columns")
-    common = dict(pool_feats=pool_feats, force=force, residuals=True, normalize=False,
-                  return_t1=return_t1, count_as="kpconv_split_fused")
-    head = kpconv_fused(s_feats, q_points, s_points, head_table, kernel_points, weights, sigma,
-                        pool_cols=None if pool_cols is None else min(pool_cols, h1),
-                        q_mask=q_mask, **common)
+    if return_t1 and weights.shape[1] != 1:
+        raise ValueError("t1 is the residual of a c_in == 1 conv")
+    if cuda.use_kernel(s_feats, force):
+        h2 = tail_table.shape[1]
+        out, pooled, count, ties, t1 = _conv_launch(
+            "kpconv_split_fused", s_feats, q_points, s_points, head_table, tail_table, tail_rank,
+            kernel_points, weights, sigma, pool_feats,
+            h1 if pool_cols is None else min(pool_cols, h1),
+            h2 if pool_cols is None else max(pool_cols - h1, 1), q_mask, residuals)
+        if bias is not None:
+            out = out + bias
+        return _outputs(out, pooled, count, ties, t1 if return_t1 else None, residuals, True,
+                        return_t1)
+    common = dict(pool_feats=pool_feats, residuals=True, normalize=False, return_t1=return_t1)
+    head = kpconv_fused_plain(s_feats, q_points, s_points, head_table, kernel_points, weights,
+                              sigma, pool_cols=None if pool_cols is None else min(pool_cols, h1),
+                              q_mask=q_mask, **common)
     rows = tail_q.long()
-    tail = kpconv_fused(s_feats, q_points[rows], s_points, tail_table, kernel_points, weights,
-                        sigma, pool_cols=None if pool_cols is None else max(pool_cols - h1, 1),
-                        q_mask=None if q_mask is None else q_mask[rows], **common)
+    tail = kpconv_fused_plain(s_feats, q_points[rows], s_points, tail_table, kernel_points,
+                              weights, sigma,
+                              pool_cols=None if pool_cols is None else max(pool_cols - h1, 1),
+                              q_mask=None if q_mask is None else q_mask[rows], **common)
     names = ("acc",) + (("pooled",) if pool_feats is not None else ()) + ("count",) + (
         ("ties",) if pool_feats is not None else ()) + (("t1",) if return_t1 else ())
     h = dict(zip(names, head))
@@ -408,24 +453,28 @@ def _bwd_pass_plain(s_feats, s_points, q_points, gdiv, inverse_table, kernel_poi
     return d_s_feats, d_weights, d_pool
 
 
-def _bwd_pass(s_feats, s_points, q_points, gdiv, inverse_table, kernel_points, weights, sigma,
-              pool_feats, pooled, dpool_over_ties, force):
-    """One launch of the backward kernel over a whole (N, J) inverse table."""
-    if not cuda.use_kernel(s_feats, force):
-        return _bwd_pass_plain(s_feats, s_points, q_points, gdiv, inverse_table, kernel_points,
-                               weights, sigma, pool_feats, pooled, dpool_over_ties)
-
+def _bwd_launch(s_feats, s_points, q_points, gdiv, inverse_table, kernel_points, weights, sigma,
+                pool_feats, pooled, dpool_over_ties):
+    """One backward on the card (``kpconv_bwd_launch``: the u pass, d_s, dW)
+    over a whole inverse table or a split 4-tuple, walked in one pass."""
     dev = s_feats.device
     n, c_in = s_feats.shape
     m, c_out = gdiv.shape
-    j = inverse_table.shape[1]
     k = weights.shape[0]
     f32 = torch.float32
+    split = isinstance(inverse_table, (tuple, list))
+    head, tail, _, rank = inverse_table if split else (inverse_table, None, None, None)
+    j1 = head.shape[1]
     cuda.require(s_feats, "s_feats", f32, (n, c_in), dev)
     cuda.require(s_points, "s_points", f32, (n, 3), dev)
     cuda.require(q_points, "q_points", f32, (m, 3), dev)
     cuda.require(gdiv, "gdiv", f32, (m, c_out), dev)
-    cuda.require(inverse_table, "inverse_table", torch.int32, (n, j), dev)
+    cuda.require(head, "inverse_table", torch.int32, (n, j1), dev)
+    n2 = j2 = 0
+    if split:
+        n2, j2 = tail.shape
+        cuda.require(tail, "inverse tail", torch.int32, (n2, j2), dev)
+        cuda.require(rank, "inverse rank", torch.int32, (n,), dev)
     cuda.require(kernel_points, "kernel_points", f32, (k, 3), dev)
     cuda.require(weights, "weights", f32, (k, c_in, c_out), dev)
     c_pool = 0
@@ -434,9 +483,10 @@ def _bwd_pass(s_feats, s_points, q_points, gdiv, inverse_table, kernel_points, w
         cuda.require(pool_feats, "pool_feats", f32, (n, c_pool), dev)
         cuda.require(pooled, "pooled", f32, (m, c_pool), dev)
         cuda.require(dpool_over_ties, "dpool_over_ties", f32, (m, c_pool), dev)
-    lib = cuda.library("kpconv_bwd", _BWD_SIGNATURES)
-    wt = weights.transpose(1, 2).contiguous()  # (K, C_out, C_in): coalesced over C_in
+    lib = cuda.library("kpconv_bwd", _BWD_SIGNATURES, _RESTYPES)
+    wt = weights.transpose(1, 2).contiguous()  # (K, C_out, C_in): d_s = u Wt
     u = torch.empty((n, k, c_out), dtype=f32, device=dev)
+    part_ds = _workspace(lib.kpconv_ds_workspace(n, k, c_in, c_out), dev)
     slices = lib.kpconv_dw_slices(n, k, c_in, c_out)
     part = torch.empty((slices, k, c_in, c_out), dtype=f32, device=dev) if slices > 1 else None
     d_s_feats = torch.empty((n, c_in), dtype=f32, device=dev)
@@ -444,10 +494,10 @@ def _bwd_pass(s_feats, s_points, q_points, gdiv, inverse_table, kernel_points, w
     d_pool = torch.empty((n, c_pool), dtype=f32, device=dev) if pool_feats is not None else None
     code = lib.kpconv_bwd_launch(
         cuda.ptr(s_feats), cuda.ptr(s_points), cuda.ptr(q_points), cuda.ptr(gdiv),
-        cuda.ptr(inverse_table), cuda.ptr(kernel_points), cuda.ptr(wt),
+        cuda.ptr(head), cuda.ptr(tail), cuda.ptr(rank), cuda.ptr(kernel_points), cuda.ptr(wt),
         cuda.ptr(pool_feats), cuda.ptr(pooled), cuda.ptr(dpool_over_ties),
-        cuda.ptr(u), cuda.ptr(part), cuda.ptr(d_s_feats), cuda.ptr(d_weights),
-        cuda.ptr(d_pool), n, m, j, k, c_in, c_out, c_pool, float(sigma),
+        cuda.ptr(u), cuda.ptr(part_ds), cuda.ptr(part), cuda.ptr(d_s_feats), cuda.ptr(d_weights),
+        cuda.ptr(d_pool), n, m, j1, j2, n2, k, c_in, c_out, c_pool, float(sigma),
         cuda.stream_of(s_feats))
     cuda.check(lib, code, "kpconv_bwd_fused")
     cuda.launches["kpconv_bwd_fused"] += 1
@@ -467,9 +517,11 @@ def kpconv_bwd_fused(s_feats, s_points, q_points, gdiv, inverse_table,
         gdiv: (M, C_out) dout / the forward's count divisor.
         inverse_table: (N, J) int32 query rows per support row, sentinel M
             (preprocess.build_inverse_table), or its split 4-tuple (head
-            (N, J1), tail (N2, J - J1), tail_s (N2,), rank (N,)): then one
-            pass over the head, one over the tail's support rows, the second
-            brought back through ``rank`` (JAX ``kernels/kpconv.py:778-802``).
+            (N, J1), tail (N2, J - J1), tail_s (N2,), rank (N,)). On the
+            card one pass walks each support row's head edges, then its
+            tail row through ``rank``; the plain version takes one pass over
+            the head, one over the tail's support rows and brings the second
+            back through ``rank`` (JAX ``kernels/kpconv.py:778-802``).
         kernel_points: (K, 3); weights: (K, C_in, C_out).
         sigma: influence radius.
         pool_feats / pooled / dpool_over_ties: optional (N, C_p) / (M, C_p)
@@ -481,17 +533,20 @@ def kpconv_bwd_fused(s_feats, s_points, q_points, gdiv, inverse_table,
     Returns:
         d_s_feats (N, C_in), d_weights (K, C_in, C_out) [, d_pool (N, C_p)].
     """
+    if cuda.use_kernel(s_feats, force):
+        return _bwd_launch(s_feats, s_points, q_points, gdiv, inverse_table, kernel_points,
+                           weights, sigma, pool_feats, pooled, dpool_over_ties)
     if not isinstance(inverse_table, (tuple, list)):
-        return _bwd_pass(s_feats, s_points, q_points, gdiv, inverse_table, kernel_points,
-                         weights, sigma, pool_feats, pooled, dpool_over_ties, force)
+        return _bwd_pass_plain(s_feats, s_points, q_points, gdiv, inverse_table, kernel_points,
+                               weights, sigma, pool_feats, pooled, dpool_over_ties)
     head, tail, tail_s, rank = inverse_table
-    first = _bwd_pass(s_feats, s_points, q_points, gdiv, head, kernel_points, weights, sigma,
-                      pool_feats, pooled, dpool_over_ties, force)
+    first = _bwd_pass_plain(s_feats, s_points, q_points, gdiv, head, kernel_points, weights,
+                            sigma, pool_feats, pooled, dpool_over_ties)
     # the tail's padding rows (tail_s 0) hold only sentinels: exact zeros
     rows = tail_s.long()
-    second = _bwd_pass(s_feats[rows], s_points[rows], q_points, gdiv, tail, kernel_points,
-                       weights, sigma, None if pool_feats is None else pool_feats[rows], pooled,
-                       dpool_over_ties, force)
+    second = _bwd_pass_plain(s_feats[rows], s_points[rows], q_points, gdiv, tail, kernel_points,
+                             weights, sigma, None if pool_feats is None else pool_feats[rows],
+                             pooled, dpool_over_ties)
     rank = rank.long()
 
     def by_rank(x):

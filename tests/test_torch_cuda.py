@@ -16,7 +16,14 @@ zeros outside the valid rectangle and on padded rows), the attention's
 gradients (the plain version's, recomputed) 1e-5. The attention kernel
 also repeats bit for bit, and an attention call and a KPConv call are
 captured in a CUDA graph (one launch counted at capture, a replay equal to
-an eager call).
+an eager call). The KPConv kernels (an edge pass and a 3xTF32 tensor-core
+contraction, one launch a conv or a backward, whole or split table) are
+also held to their plain versions at C_in x C_out from 1 x 4 to 512 x 512
+(tensor-core and CUDA-core widths), ragged M and N, whole masked and
+all-sentinel tiles, J = 136 inverse tables of mostly sentinels, split tables
+without tail rows and with every query in the tail, and pool ties at the
+zero shadow; they repeat bit for bit (dW over several row slices included)
+and a split conv and its backward replay from a CUDA graph as run eagerly.
 """
 
 import numpy as np
@@ -242,7 +249,7 @@ def test_kpconv_bwd_split_matches_plain_and_unsplit(device, c_in, c_out, n, m, j
     call = args[:4] + [split] + args[5:]
     before = cuda.launches["kpconv_bwd_fused"]
     got = kpconv_bwd_fused(*call, 0.05, **kw)
-    assert cuda.launches["kpconv_bwd_fused"] == before + 2  # the head pass and the tail pass
+    assert cuda.launches["kpconv_bwd_fused"] == before + 1  # head and tail in one pass
     want = kpconv_bwd_fused_plain(*call, 0.05, **kw)
     whole = kpconv_bwd_fused_plain(*args, 0.05, **kw)
     torch.cuda.synchronize()
@@ -304,24 +311,6 @@ def test_sinkhorn_train_matches_plain(device, p, m1):
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("c", [1, 32, 128])
-def test_kpconv_unnormalized_and_t1_match_plain(device, c):
-    args, _, pool, q_mask = kpconv_case(device, c, m=301, c_pool=8 if c > 1 else 0)
-    kw = dict(pool_feats=pool, pool_cols=30) if c > 1 else dict(return_t1=True)
-    got = kpconv_fused(*args, 0.05, q_mask=q_mask, normalize=False, residuals=True, **kw)
-    want = kpconv_fused_plain(*args, 0.05, q_mask=q_mask, normalize=False, residuals=True, **kw)
-    torch.cuda.synchronize()
-    assert_kpconv_close(got[0], want[0])
-    if c == 1:
-        _, count, t1 = got
-        assert_kpconv_close(t1, want[2])
-    else:
-        _, pooled, count, ties = got
-        assert torch.equal(pooled, want[1]) and torch.equal(ties, want[3])
-    assert torch.equal(count, want[1] if c == 1 else want[2])  # the raw count
-    assert (count[~q_mask] == 0).all()  # no clamp at 1
-
-
 def split_case(device, c, m, h1, deep, seed=0):
     """A conv case with its table split at h1; ``deep``: "some", "none" (M2
     = 0 used rows) or "all"."""
@@ -352,8 +341,8 @@ def test_kpconv_split_matches_plain_and_unsplit(device, c, m, deep, with_pool):
     call = (args[0], args[1], args[2], head, *split, args[4], args[5], 0.05, bias)
     before = dict(cuda.launches)
     got = kpconv_split_fused(*call, q_mask=q_mask, residuals=True, **kw)
-    # two launches of the kpconv_fused kernel, counted as the split conv's
-    assert cuda.launches["kpconv_split_fused"] == before.get("kpconv_split_fused", 0) + 2
+    # one pass over head and tail, counted as the split conv's
+    assert cuda.launches["kpconv_split_fused"] == before.get("kpconv_split_fused", 0) + 1
     assert cuda.launches["kpconv_fused"] == before.get("kpconv_fused", 0)
     want = kpconv_split_fused_plain(*call, q_mask=q_mask, residuals=True, **kw)
     whole = kpconv_fused_plain(*args, 0.05, bias, q_mask=q_mask, residuals=True, **kw)
@@ -564,3 +553,215 @@ def test_graph_capture_of_kpconv(device):
     torch.cuda.synchronize()
     assert torch.equal(out[1], want[1])
     assert_kpconv_close(out[0], want[0])
+
+
+# ---- the KPConv kernels of csrc/kpconv_common.cuh: widths, edges, splits ----
+
+def wide_case(device, c, d, m, n, h, c_pool=0, seed=11, sentinel_share=0.3):
+    """A conv of C_in = c, C_out = d over an (M, H) table of the nearest
+    supports, ``sentinel_share`` of its slots sentinels, valid columns first,
+    a ragged query mask with whole masked runs."""
+    g = torch.Generator().manual_seed(seed)
+    s_points = torch.rand(n, 3, generator=g) * 0.3
+    q_points = torch.rand(m, 3, generator=g) * 0.3
+    nbrs = torch.argsort(torch.cdist(q_points, s_points), dim=1)[:, :h].to(torch.int32)
+    nbrs[torch.rand(m, h, generator=g) < sentinel_share] = n
+    nbrs = torch.sort(nbrs, dim=1).values
+    feats = torch.randn(n, c, generator=g)
+    kp = torch.from_numpy(load_kernel_points(0.0625, 15))
+    w = torch.randn(15, c, d, generator=g) / c
+    pool = torch.randint(-2, 2, (n, c_pool), generator=g).float() if c_pool else None
+    q_mask = torch.rand(m, generator=g) < 0.9
+    q_mask[m // 3: m // 3 + 150] = False  # whole masked tiles
+    to = lambda t: None if t is None else t.to(device)  # noqa: E731
+    return [to(t) for t in (feats, q_points, s_points, nbrs, kp, w)], to(pool), to(q_mask)
+
+
+def split_of(table, n, h1):
+    m2 = int((table[:, h1:] < n).any(1).sum())
+    tail, tail_q, rank = build_split_tables(table.cpu().numpy(), n, h1, m2 + 5)
+    return (table[:, :h1].contiguous(),) + tuple(
+        torch.from_numpy(x).to(table.device) for x in (tail, tail_q, rank))
+
+
+# (C_in, C_out): the tensor-core widths of the three configurations (32 ...
+# 512), a width that is a multiple of 8 but not of 32 (48), and the CUDA-core
+# widths (1: the input conv, 4)
+WIDTHS = [(1, 64), (1, 4), (4, 4), (4, 32), (32, 32), (48, 48), (32, 48), (512, 512)]
+
+
+@pytest.mark.parametrize("c, d", WIDTHS, ids=[f"{c}x{d}" for c, d in WIDTHS])
+@pytest.mark.parametrize("split", [False, True])
+def test_kpconv_widths_match_plain(device, c, d, split):
+    m, n, h = (301, 517, 40) if c < 512 else (133, 211, 40)
+    args, pool, q_mask = wide_case(device, c, d, m, n, h, c_pool=0 if c == 1 else 24)
+    kw = dict(q_mask=q_mask, residuals=True)
+    if c == 1:
+        kw["return_t1"] = True
+    else:
+        kw.update(pool_feats=pool, pool_cols=30)
+    name = "kpconv_split_fused" if split else "kpconv_fused"
+    before = cuda.launches[name]
+    if split:
+        call = (*args[:3], *split_of(args[3], n, 16), args[4], args[5], 0.05)
+        got = kpconv_split_fused(*call, **kw)
+        want = kpconv_split_fused_plain(*call, **kw)
+    else:
+        got = kpconv_fused(*args, 0.05, **kw)
+        want = kpconv_fused_plain(*args, 0.05, **kw)
+    assert cuda.launches[name] == before + 1
+    torch.cuda.synchronize()
+    assert_kpconv_close(got[0], want[0])
+    for g, w in zip(got[1:], want[1:]):
+        if c == 1 and g is got[-1]:
+            assert_kpconv_close(g, w)  # t1
+        else:
+            assert torch.equal(g, w)  # pooled, count, ties
+    assert not got[0][~q_mask].any()
+
+
+@pytest.mark.parametrize("case", ["all-masked", "all-sentinel"])
+@pytest.mark.parametrize("split", [False, True])
+def test_kpconv_dead_tiles_match_plain(device, case, split):
+    m, n, h = 200, 300, 40
+    args, pool, q_mask = wide_case(device, 32, 32, m, n, h, c_pool=16)
+    if case == "all-masked":
+        q_mask = torch.zeros_like(q_mask)
+    else:
+        args[3] = torch.full_like(args[3], n)
+        args[3][: m // 2, 0] = 7  # some live queries, whole dead tiles after them
+    kw = dict(q_mask=q_mask, residuals=True, pool_feats=pool, pool_cols=30)
+    if split:
+        call = (*args[:3], *split_of(args[3], n, 16), args[4], args[5], 0.05)
+        got = kpconv_split_fused(*call, **kw)
+        want = kpconv_split_fused_plain(*call, **kw)
+    else:
+        got = kpconv_fused(*args, 0.05, **kw)
+        want = kpconv_fused_plain(*args, 0.05, **kw)
+    torch.cuda.synchronize()
+    assert_kpconv_close(got[0], want[0])
+    for g, w in zip(got[1:], want[1:]):
+        assert torch.equal(g, w)
+
+
+def test_kpconv_split_pool_ties_at_the_zero_shadow(device):
+    """Pool features in {-2, -1, 0, 1}: many maxima are 0, the zero shadow
+    of a query without a tail row among them; the kernel counts the ties as
+    the plain combine does (against the combined max, no tie from a missing
+    tail row)."""
+    m, n, h, h1 = 300, 400, 40, 16
+    args, pool, q_mask = wide_case(device, 8, 8, m, n, h, c_pool=32, seed=5, sentinel_share=0.5)
+    table = args[3].clone()
+    table[::3, h1:] = n  # every third query without a tail row
+    head, tail, tail_q, rank = split_of(table, n, h1)
+    call = (*args[:3], head, tail, tail_q, rank, args[4], args[5], 0.05)
+    kw = dict(q_mask=q_mask, residuals=True, pool_feats=pool, pool_cols=38)
+    got = kpconv_split_fused(*call, **kw)
+    want = kpconv_split_fused_plain(*call, **kw)
+    torch.cuda.synchronize()
+    shadow = (rank.long() == tail.shape[0])[:, None] & (want[1] == 0)
+    assert shadow.sum() > 50
+    for g, w in zip(got[1:], want[1:]):
+        assert torch.equal(g, w)
+    assert_kpconv_close(got[0], want[0])
+
+
+def bwd_wide_case(device, c_in, c_out, n, m, j, seed=2):
+    """A backward over an (N, J) inverse table of a 24-column conv table:
+    with J = 136 (KITTI's inverse limit) mostly sentinels."""
+    g = torch.Generator().manual_seed(seed)
+    s_points = torch.rand(n, 3, generator=g) * 0.3
+    q_points = torch.rand(m, 3, generator=g) * 0.3
+    h = min(24, n)
+    nbrs = torch.argsort(torch.cdist(q_points, s_points), dim=1)[:, :h].to(torch.int32)
+    nbrs[torch.rand(m, h, generator=g) < 0.3] = n
+    nbrs[m - 70:] = n  # padding queries
+    inv = torch.from_numpy(build_inverse_table(nbrs.numpy(), n, j))
+    kp = torch.from_numpy(load_kernel_points(0.0625, 15))
+    feats = torch.randn(n, c_in, generator=g)
+    w = torch.randn(15, c_in, c_out, generator=g) / c_in
+    gdiv = torch.randn(m, c_out, generator=g)
+    c_pool = 0 if c_in == 1 else 16
+    kw = {}
+    if c_pool:
+        pool = torch.randint(-2, 2, (n, c_pool), generator=g).float()
+        _, pooled, _, ties = kpconv_fused_plain(
+            torch.ones(n, 1), q_points, s_points, nbrs, kp, torch.zeros(15, 1, 1), 0.05,
+            pool_feats=pool, residuals=True)
+        kw = dict(pool_feats=pool, pooled=pooled,
+                  dpool_over_ties=torch.randn(m, c_pool, generator=g) / ties)
+    args = [t.to(device) for t in (feats, s_points, q_points, gdiv, inv, kp, w)]
+    return args, {k: v.to(device) for k, v in kw.items()}
+
+
+@pytest.mark.parametrize("c, d", WIDTHS, ids=[f"{c}x{d}" for c, d in WIDTHS])
+@pytest.mark.parametrize("split", [False, True])
+def test_kpconv_bwd_widths_match_plain(device, c, d, split):
+    n, m = (1037, 901) if c < 512 else (301, 283)
+    args, kw = bwd_wide_case(device, c, d, n, m, 136)
+    assert (args[4] < m).float().mean() < 0.25  # mostly sentinels
+    if split:
+        inv = args[4].cpu().numpy()
+        n2 = int((inv[:, 16:] < m).any(1).sum())
+        tail, tail_s, rank = build_split_tables(inv, m, 16, n2 + 3)
+        args[4] = (args[4][:, :16].contiguous(),) + tuple(
+            torch.from_numpy(x).to(device) for x in (tail, tail_s, rank))
+    before = cuda.launches["kpconv_bwd_fused"]
+    got = kpconv_bwd_fused(*args, 0.05, **kw)
+    assert cuda.launches["kpconv_bwd_fused"] == before + 1
+    want = kpconv_bwd_fused_plain(*args, 0.05, **kw)
+    torch.cuda.synchronize()
+    assert len(got) == len(want) == (2 if c == 1 else 3)
+    for g, w in zip(got, want):
+        assert_kpconv_close(g, w)
+
+
+def test_kpconv_forward_and_backward_repeat_bit_for_bit(device):
+    """Three runs of a split conv, a whole-table conv and a split backward
+    whose dW sums several row slices: bit-equal."""
+    m, n = 1500, 1700
+    args, pool, q_mask = wide_case(device, 64, 64, m, n, 40, c_pool=32)
+    split = split_of(args[3], n, 16)
+    kw = dict(q_mask=q_mask, residuals=True, pool_feats=pool, pool_cols=30)
+    runs = [(kpconv_fused(*args, 0.05, **kw),
+             kpconv_split_fused(*args[:3], *split, args[4], args[5], 0.05, **kw))
+            for _ in range(3)]
+    bargs, bkw = bwd_wide_case(device, 64, 64, 5000, 4000, 80)
+    inv = bargs[4].cpu().numpy()
+    tail, tail_s, rank = build_split_tables(inv, 4000, 16, int((inv[:, 16:] < 4000).any(1).sum()))
+    bargs[4] = (bargs[4][:, :16].contiguous(),) + tuple(
+        torch.from_numpy(x).to(device) for x in (tail, tail_s, rank))
+    bwd = [kpconv_bwd_fused(*bargs, 0.05, **bkw) for _ in range(3)]
+    torch.cuda.synchronize()
+    for fwd in runs[1:]:
+        for a, b in zip(fwd, runs[0]):
+            assert all(torch.equal(x, y) for x, y in zip(a, b))
+    for grads in bwd[1:]:
+        assert all(torch.equal(x, y) for x, y in zip(grads, bwd[0]))  # d_s, dW, d_pool
+
+
+def test_graph_capture_of_split_kpconv_and_its_backward(device):
+    m, n = 300, 400
+    args, pool, q_mask = wide_case(device, 32, 32, m, n, 40, c_pool=32)
+    split = split_of(args[3], n, 16)
+    kw = dict(q_mask=q_mask, residuals=True, pool_feats=pool, pool_cols=30)
+    bargs, bkw = bwd_wide_case(device, 32, 32, 1037, 901, 136)
+    inv = bargs[4].cpu().numpy()
+    tail, tail_s, rank = build_split_tables(inv, 901, 16, int((inv[:, 16:] < 901).any(1).sum()))
+    bargs[4] = (bargs[4][:, :16].contiguous(),) + tuple(
+        torch.from_numpy(x).to(device) for x in (tail, tail_s, rank))
+
+    def both():
+        return (kpconv_split_fused(*args[:3], *split, args[4], args[5], 0.05, **kw),
+                kpconv_bwd_fused(*bargs, 0.05, **bkw))
+
+    before = cuda.launches["kpconv_bwd_fused"]
+    graph, out, launches = captured(both, "kpconv_split_fused")
+    assert launches == 1 and cuda.launches["kpconv_bwd_fused"] == before + 2  # warm-up, capture
+    args[0].mul_(0.5)
+    bargs[3].mul_(2.0)
+    graph.replay()
+    eager = both()
+    torch.cuda.synchronize()
+    for a, b in zip(out, eager):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))

@@ -14,7 +14,10 @@ and:
     bf16 bases, polynomial sin/cos, tests/test_gse_kernel.py:45,142), with
     ``n_valid < n`` too;
   * autograd through the port's plain forward, and the autograd Function
-    (rtol 1e-5: the same bases; first-argmax and amax's even split agree).
+    (rtol 1e-5: the same bases; first-argmax and amax's even split agree);
+  * a tie of two angle projections within f32 rounding, off the diagonal:
+    the gradient goes to the float64 argmax's k (the kernel settles such
+    ties the same way).
 """
 
 import jax
@@ -26,11 +29,13 @@ import torch
 from geotransformer_tpu.kernels.gse import _gse_full_bwd as jax_gse_full_bwd
 from geotransformer_tpu.models.transformer import GeometricStructureEmbedding as JaxGSE
 
+from geotransformer_tpu_torch.kernels import gse as port_gse
 from geotransformer_tpu_torch.kernels.gse import (
     gse_embedding_full_diff,
     gse_embedding_full_plain,
     gse_full_bwd,
 )
+from geotransformer_tpu_torch.ops.embedding import sinusoidal_embedding
 from geotransformer_tpu_torch.models.transformer import GeometricStructureEmbedding
 
 HIDDEN, SIGMA_D, SIGMA_A, ANGLE_K = 64, 0.2, 15.0, 3
@@ -116,3 +121,30 @@ def test_force_true_on_cpu_raises():
     with pytest.raises(RuntimeError, match="CUDA"):
         gse_full_bwd(torch.from_numpy(points), ref_vectors, torch.from_numpy(w_a), SIGMA_D,
                      SIGMA_A, torch.from_numpy(de), force=True)
+
+
+def test_a_tie_within_f32_rounding_routes_by_the_float64_argmax():
+    n, i, j, c = 20, 2, 7, 5
+    points, _, _, w_a, ref_vectors = make_case(5, n, n)
+    p = torch.from_numpy(points)
+    _, a_idx = port_gse._pair_indices(p, ref_vectors, SIGMA_D, SIGMA_A)
+    bases = port_gse._exact_bases(a_idx[i, j], HIDDEN)  # (k, C) float64
+    w = torch.from_numpy(w_a).double()
+    proj = bases @ w[:, c]
+    k1, k2 = proj.topk(2).indices.tolist()
+    # move column c along the difference of the two best bases until their
+    # projections are 1e-9 of the column's scale apart
+    diff = bases[k1] - bases[k2]
+    scale = w[:, c].abs().sum()
+    w[:, c] -= diff * ((proj[k1] - proj[k2]) - 1e-9 * scale) / diff.dot(diff)
+    w32 = w.float()
+    proj = bases @ w32.double()[:, c]
+    top = proj.topk(2)
+    assert sorted(top.indices.tolist()) == sorted([k1, k2])
+    assert top.values[0] - top.values[1] < 1e-6 * scale  # within f32 rounding of the sums
+    de = torch.zeros(n, n, HIDDEN)
+    de[i, j, c] = 1.0
+    dw_a = gse_full_bwd(p, ref_vectors, w32, SIGMA_D, SIGMA_A, de)[2]
+    want = sinusoidal_embedding(a_idx[i, j, int(proj.argmax())], HIDDEN)
+    np.testing.assert_allclose(dw_a[:, c].numpy(), want.numpy(), rtol=1e-6, atol=1e-7)
+    assert not dw_a[:, :c].any() and not dw_a[:, c + 1:].any()
