@@ -34,9 +34,10 @@ fused_masked_attention twice a block).
                replayed between two CUDA events), and the attention kernels
                also against one PyTorch call (library_ms: torch.bmm, SDPA),
                timed both ways (library_device_ms); the KPConv rows
-               (kpconv_fused, kpconv_split_fused, kpconv_bwd_fused) also
-               each call alone from its own graph, with its stage, shape and
-               bound (by_call); and the whole model
+               (kpconv_fused, kpconv_split_fused, kpconv_bwd_fused), the
+               GSE backward (gse_full_bwd) and the Sinkhorn training
+               backward (sinkhorn_bwd_train) also each call alone from its
+               own graph, with its shape and bound (by_call); and the whole model
                with force_pallas=False, whose ref/src_feats_c must agree with
                the kernel run to 1e-3 of their largest magnitude;
   5. union   — the same pairs with per-tile neighbor unions and no edge
@@ -51,8 +52,10 @@ fused_masked_attention twice a block).
                (CUDA events) and peak device memory;
   7. backward kernels vs plain — each training kernel on the inputs it got
                in one step, against its plain version (KPConv backward as the
-               forward; GSE gradients atol 1e-4 x the largest plain one; Sinkhorn
-               1e-4), timed both ways, as phase 4; and the whole step:
+               forward; GSE gradients atol 1e-4 x the largest plain one, and
+               the share of its (pair, channel) entries whose angle argmax
+               the kernel settled in float64; Sinkhorn 1e-4), timed both
+               ways, as phase 4; and the whole step:
                every parameter gradient of the kernel model against the
                exact step, the force_pallas=False model's in float64 from
                the same weights, batch and GT targets along the kernel
@@ -112,8 +115,9 @@ fused_masked_attention twice a block).
                gradients vs the plain model's; one eval step a pair.
 Then it prints the {"kernels": [...]} line (each kernel's numbers summed over
 the paths it was compared on, with each path's own under "by_path" and the
-KPConv rows' calls one by one under "by_call"), the card's name and power
-limit, and, last, {"ok": true, "device": {...}}.
+calls of the KPConv rows, gse_full_bwd and sinkhorn_bwd_train one by one
+under "by_call"), the card's name and power limit, and, last,
+{"ok": true, "device": {...}}.
 Details go to chiprun_out/chip_smoke.json.
 """
 
@@ -719,11 +723,15 @@ def cost_kpconv_bwd_fused(args, kwargs, out):
 
 
 def cost_gse_full_bwd(args, kwargs, out):
+    # the minimum work: (A + 2) C^2 multiply-adds a valid pair (A projections,
+    # dW_d and dW_a once each), on the tensor cores as three TF32 products
+    # each (3xTF32, csrc/gse_bwd.cu); the kernel's A-fold masked dW_a
+    # products are not counted
     points, ref_vectors, w_a = args[:3]
     de = args[5]
     nv = int(args[6]) if len(args) > 6 and args[6] is not None else points.shape[0]
     c, a = w_a.shape[0], ref_vectors.shape[1]
-    return _nbytes(points, ref_vectors, w_a, de, *out[:3]), nv * nv * 2 * c * c * (a + 2)
+    return _nbytes(points, ref_vectors, w_a, de, *out[:3]), 0, 3 * nv * nv * 2 * c * c * (a + 2)
 
 
 def cost_patch_overlaps(args, kwargs, out):
@@ -822,16 +830,34 @@ def call_shape(name, args, kwargs, stage_of):
             "C": c, "D": d, "pool": 0 if pool is None else pool.shape[1], "split": split}
 
 
-BY_CALL = ("kpconv_fused", "kpconv_split_fused", "kpconv_bwd_fused")
+def gse_bwd_shape(name, args, kwargs, stage_of):
+    """One gse_full_bwd call: rows N, valid rows, channels C, angles A."""
+    points, ref_vectors, w_a = args[:3]
+    return {"rows": points.shape[0], "n_valid": _valid(args[6], points.shape[0]),
+            "C": w_a.shape[0], "A": ref_vectors.shape[1]}
+
+
+def sinkhorn_bwd_shape(name, args, kwargs, stage_of):
+    """One sinkhorn_bwd_train call: patches P, rows M1, columns N1, iterations."""
+    scores, _, v_hist = args[:3]
+    p, m1, n1 = scores.shape
+    return {"P": p, "M1": m1, "N1": n1, "iterations": v_hist.shape[1]}
+
+
+# the rows whose calls are also timed one by one (by_call), with their shape
+BY_CALL = {"kpconv_fused": call_shape, "kpconv_split_fused": call_shape,
+           "kpconv_bwd_fused": call_shape, "gse_full_bwd": gse_bwd_shape,
+           "sinkhorn_bwd_train": sinkhorn_bwd_shape}
 
 
 def compare_kernels(records, names, reps, stage_of=None):
     """Each kernel vs its plain version on the captured calls: the largest
     difference, the CUDA-event ms of the calls (host dispatch included),
     their device ms replayed from a CUDA graph, and the same two times of
-    one PyTorch call of the same function where there is one. The KPConv
-    rows (``BY_CALL``) also time each call alone from its own graph, beside
-    its bound (``by_call``; ``stage_of`` maps a row count to its stage)."""
+    one PyTorch call of the same function where there is one. The rows of
+    ``BY_CALL`` also time each call alone from its own graph, beside its
+    shape and bound (``by_call``; ``stage_of`` maps a row count to a KPConv
+    stage); gse_full_bwd also counts the entries it settled in float64."""
     results = {}
     for name in names:
         module, plain = KERNELS[name].module, KERNELS[name].plain
@@ -839,18 +865,22 @@ def compare_kernels(records, names, reps, stage_of=None):
         kernel = getattr(module, name)
         expect(calls, f"{name}: no call captured")
         worst, total_bytes, total_ops, total_tf32, by_call, launches = 0.0, 0, 0, 0, [], 0
+        settled = entries = 0
         for args, kwargs in calls:
             start = cuda.launches[name]
             out = kernel(*args, **kwargs)
             per_call = cuda.launches[name] - start
             launches += per_call
+            if name == "gse_full_bwd":  # entries whose angle argmax went to float64
+                settled += int(kernels_gse.last_settled)
+                entries += _valid(args[6], args[0].shape[0]) ** 2 * args[2].shape[0]
             worst = max(worst, check_call(name, out, plain(*args, **_plain_kwargs(kwargs)), args))
             nbytes, ops, tf32 = (COSTS[name](args, kwargs, out) + (0,))[:3]
             total_bytes += nbytes
             total_ops += ops
             total_tf32 += tf32
             if name in BY_CALL:
-                entry = call_shape(name, args, kwargs, stage_of or {})
+                entry = BY_CALL[name](name, args, kwargs, stage_of or {})
                 entry["device_ms"] = graph_ms(lambda: kernel(*args, **kwargs), name, per_call)
                 entry["bound_ms"] = with_bound(dict(
                     bytes=nbytes, operations=ops, tf32_operations=tf32,
@@ -889,6 +919,7 @@ def compare_kernels(records, names, reps, stage_of=None):
             "library_ms": library_ms,
             "library_device_ms": library_device_ms,
             "by_call": by_call,
+            "settled": (settled, entries) if name == "gse_full_bwd" else None,
         })
     return results
 
@@ -925,7 +956,7 @@ def merge_paths(by_path):
             m["by_call"] += [dict(path=path, **entry) for entry in r["by_call"]]
             m["by_path"][path] = {key: r[key] for key in (
                 "calls", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms", "library_device_ms")}
+                "library_ms", "library_device_ms", "settled")}
     return {name: with_bound(m) for name, m in merged.items()}
 
 
@@ -1295,6 +1326,10 @@ def print_results(path, results):
               f"kernel {r['ms']:.3f} ms (CUDA events), {r['device_ms']:.3f} ms on the device "
               f"(graph) vs plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}){library}", flush=True)
+        if r["settled"] is not None:
+            settled, entries = r["settled"]
+            print(f"{path} {name}: {settled} of {entries} (pair, channel) entries settled in "
+                  f"float64 ({settled / max(entries, 1):.3e})", flush=True)
 
 
 def threedmatch_phases(device, launches, report):

@@ -1,5 +1,6 @@
 // f32 products on Hopper's tensor cores (3xTF32) and cp.async staging: the
-// helpers that attention.cu and the KPConv kernels (kpconv_gemm.cuh) share.
+// helpers that attention.cu, the KPConv kernels (kpconv_common.cuh) and
+// gse_bwd.cu share.
 //
 // mma.sync m16n8k8 TF32 keeps 10 mantissa bits of each operand. Splitting an
 // f32 value x into big = tf32(x) and small = tf32(x - big) and summing the

@@ -22,9 +22,14 @@ from geotransformer_tpu_torch.ops.embedding import div_term, sinusoidal_embeddin
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {"gse_embedding_launch": [_P] * 8 + [_I] * 3 + [_F, _F, _P]}
 _BWD_SIGNATURES = {
-    "gse_bwd_launch": [_P] * 14 + [_I] * 4 + [_F, _F, _P],
+    "gse_bwd_launch": [_P] * 15 + [_I] * 4 + [_F, _F, _P],
     "gse_bwd_slices": [_I] * 2,
 }
+
+
+# the count of (pair, channel) entries whose angle argmax the last kernel
+# call of gse_full_bwd settled in float64 (an int32 tensor on its device)
+last_settled = None
 
 
 @functools.lru_cache(maxsize=None)
@@ -195,23 +200,27 @@ def gse_full_bwd(points, ref_vectors, w_a, sigma_d, sigma_a, de, n_valid=None, f
     cuda.require(n_valid, "n_valid", torch.int32, (), dev)
     lib = cuda.library("gse_bwd", _BWD_SIGNATURES)
     slices = lib.gse_bwd_slices(n, hidden)
-    kstar = torch.empty((n, n, hidden), dtype=torch.uint8, device=dev)
+    pair_idx = torch.empty((n * n, angle_k + 1), dtype=f32, device=dev)
     part_d = torch.empty((slices, hidden, hidden), dtype=f32, device=dev)
     part_a = torch.empty((slices, hidden, hidden), dtype=f32, device=dev)
     part_b = torch.empty((slices, hidden), dtype=f32, device=dev)
+    part_ties = torch.empty((slices, max(hidden // 32, 1)), dtype=torch.int32, device=dev)
     dw_d = torch.empty((hidden, hidden), dtype=f32, device=dev)
     dw_a = torch.empty((hidden, hidden), dtype=f32, device=dev)
     db = torch.empty((hidden,), dtype=f32, device=dev)
+    settled = torch.empty((), dtype=torch.int32, device=dev)
     freqs = _frequencies(hidden, dev)
-    wabs = w_a.abs().sum(dim=0)  # the scale of f32 rounding in each channel's projections
     code = lib.gse_bwd_launch(
-        cuda.ptr(points), cuda.ptr(ref_vectors), cuda.ptr(w_a), cuda.ptr(wabs), cuda.ptr(freqs),
-        cuda.ptr(n_valid), cuda.ptr(de), cuda.ptr(kstar), cuda.ptr(part_d), cuda.ptr(part_a),
-        cuda.ptr(part_b), cuda.ptr(dw_d), cuda.ptr(dw_a), cuda.ptr(db),
+        cuda.ptr(points), cuda.ptr(ref_vectors), cuda.ptr(w_a), cuda.ptr(freqs),
+        cuda.ptr(n_valid), cuda.ptr(de), cuda.ptr(pair_idx), cuda.ptr(part_d), cuda.ptr(part_a),
+        cuda.ptr(part_b), cuda.ptr(part_ties), cuda.ptr(dw_d), cuda.ptr(dw_a), cuda.ptr(db),
+        cuda.ptr(settled),
         n, angle_k, hidden, slices, float(sigma_d), float(_angle_factor(sigma_a)),
         cuda.stream_of(points))
     cuda.check(lib, code, "gse_full_bwd")
     cuda.launches["gse_full_bwd"] += 1
+    global last_settled
+    last_settled = settled
     return dw_d, db, dw_a, db
 
 

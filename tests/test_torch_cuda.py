@@ -24,6 +24,12 @@ all-sentinel tiles, J = 136 inverse tables of mostly sentinels, split tables
 without tail rows and with every query in the tail, and pool ties at the
 zero shadow; they repeat bit for bit (dW over several row slices included)
 and a split conv and its backward replay from a CUDA graph as run eagerly.
+The GSE backward (3xTF32 tensor-core products, ties settled in float64 in
+the kernel) is held to its plain version at C = 32 to 256, ragged N,
+n_valid N, below N and 1, and exact ties of two angle projections; the
+Sinkhorn backward (one sweep and one merge an iteration) at (P, M1) from
+(1, 17) to (200, 129) and 0, 1 and 100 iterations; both repeat bit for bit,
+replay from a CUDA graph as run eagerly, and raise beyond their capacity.
 """
 
 import numpy as np
@@ -31,6 +37,7 @@ import pytest
 import torch
 
 from geotransformer_tpu_torch.kernels import cuda
+from geotransformer_tpu_torch.kernels import gse as gse_kernels
 from geotransformer_tpu_torch.kernels.attention import (
     fused_masked_attention,
     fused_masked_attention_diff,
@@ -765,3 +772,106 @@ def test_graph_capture_of_split_kpconv_and_its_backward(device):
     torch.cuda.synchronize()
     for a, b in zip(out, eager):
         assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+# ---- gse_full_bwd on the tensor cores, the Sinkhorn backward's merged sweeps ----
+
+def gse_bwd_case(device, c, n, n_valid, tied=False, seed=12):
+    g = torch.Generator().manual_seed(seed)
+    points = torch.rand(n, 3, generator=g)
+    ref_vectors = torch.randn(n, 3, 3, generator=g) * 0.1
+    if tied:  # two equal reference vectors: their projections tie exactly everywhere
+        ref_vectors[:, 2] = ref_vectors[:, 0]
+    w_a = torch.randn(c, c, generator=g) / c**0.5
+    de = torch.randn(n, n, c, generator=g)
+    nv = torch.tensor(n_valid, dtype=torch.int32)
+    return [t.to(device) for t in (points, ref_vectors, w_a)], de.to(device), nv.to(device)
+
+
+def assert_gse_bwd_close(got, want):
+    for name, gv, wv in zip(("dW_d", "db_d", "dW_a", "db_a"), got, want):
+        err = (gv - wv).abs().max().item()
+        assert err <= 1e-4 * wv.abs().max().item() + 1e-6, f"{name}: {err}"
+
+
+@pytest.mark.parametrize("c", [32, 64, 128, 256])
+@pytest.mark.parametrize("n, n_valid, tied", [(37, 37, False), (53, 29, False), (21, 1, False),
+                                              (45, 40, True)])
+def test_gse_bwd_tensor_cores_match_plain(device, c, n, n_valid, tied):
+    """Ragged N (no multiple of the 16-pair tile or the 64-channel block),
+    partial and single valid rows, and exact ties of two angle projections
+    (every off-diagonal entry settled in float64, to the first k)."""
+    args, de, nv = gse_bwd_case(device, c, n, n_valid, tied)
+    got = gse_full_bwd(*args, 0.2, 15.0, de, nv)
+    settled = int(gse_kernels.last_settled)
+    want = gse_full_bwd_plain(*args, 0.2, 15.0, de, nv)
+    torch.cuda.synchronize()
+    assert_gse_bwd_close(got, want)
+    if tied:  # wherever k = 0 and 2 are the best two
+        assert settled > 0
+
+
+def test_gse_bwd_repeats_bit_for_bit_and_replays_from_a_graph(device):
+    args, de, nv = gse_bwd_case(device, 256, 150, 131)
+    runs = [gse_full_bwd(*args, 0.2, 15.0, de, nv) for _ in range(3)]
+    graph, out, launches = captured(lambda: gse_full_bwd(*args, 0.2, 15.0, de, nv),
+                                    "gse_full_bwd")
+    assert launches == 1
+    de.mul_(0.5)  # a replay reads the captured inputs anew
+    graph.replay()
+    eager = gse_full_bwd(*args, 0.2, 15.0, de, nv)
+    torch.cuda.synchronize()
+    for run in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(run, runs[0]))
+    assert all(torch.equal(a, b) for a, b in zip(out, eager))
+    assert all(torch.equal(a, 0.5 * b) for a, b in zip(eager, runs[0]))
+
+
+@pytest.mark.parametrize("c, angles", [(512, 3), (256, 4)])
+def test_gse_bwd_beyond_capacity_raises(device, c, angles):
+    g = torch.Generator().manual_seed(0)
+    n = 20
+    points = torch.rand(n, 3, generator=g).to(device)
+    ref_vectors = torch.randn(n, angles, 3, generator=g).to(device)
+    w_a = torch.randn(c, c, generator=g).to(device)
+    de = torch.randn(n, n, c, generator=g).to(device)
+    with pytest.raises(RuntimeError, match="gse_full_bwd"):
+        gse_full_bwd(points, ref_vectors, w_a, 0.2, 15.0, de)
+
+
+@pytest.mark.parametrize("p, m1", [(1, 17), (128, 65), (128, 129), (200, 129)])
+@pytest.mark.parametrize("iterations", [0, 1, 100])
+def test_sinkhorn_bwd_merged_sweeps_match_plain(device, p, m1, iterations):
+    (scores, log_mu, log_nu, dout), _ = sinkhorn_train_case(device, max(p, 2), m1, iterations)
+    if p == 1:  # the case's unmasked patch alone
+        scores, log_mu, log_nu, dout = (x[1:2].contiguous() for x in (scores, log_mu, log_nu, dout))
+    _, v_hist = sinkhorn_fwd_train_plain(scores, log_mu, log_nu, iterations)
+    got = sinkhorn_bwd_train(scores, log_mu, v_hist, dout)
+    want = sinkhorn_bwd_train_plain(scores, log_mu, v_hist, dout)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+
+
+def test_sinkhorn_bwd_repeats_bit_for_bit_and_replays_from_a_graph(device):
+    (scores, log_mu, log_nu, dout), _ = sinkhorn_train_case(device, 128, 129, 100)
+    _, v_hist = sinkhorn_fwd_train(scores, log_mu, log_nu, 100)
+    runs = [sinkhorn_bwd_train(scores, log_mu, v_hist, dout) for _ in range(3)]
+    graph, out, launches = captured(lambda: sinkhorn_bwd_train(scores, log_mu, v_hist, dout),
+                                    "sinkhorn_bwd_train")
+    assert launches == 1
+    dout.mul_(2.0)
+    graph.replay()
+    eager = sinkhorn_bwd_train(scores, log_mu, v_hist, dout)
+    torch.cuda.synchronize()
+    for run in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(run, runs[0]))
+    assert all(torch.equal(a, b) for a, b in zip(out, eager))
+
+
+def test_sinkhorn_bwd_beyond_capacity_raises(device):
+    (scores, log_mu, log_nu, dout), _ = sinkhorn_train_case(device, 2, 161, 3)
+    _, v_hist = sinkhorn_fwd_train_plain(scores, log_mu, log_nu, 3)
+    with pytest.raises(RuntimeError, match="sinkhorn_bwd_train"):
+        sinkhorn_bwd_train(scores, log_mu, v_hist, dout)
