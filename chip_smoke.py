@@ -35,9 +35,10 @@ fused_masked_attention twice a block).
                also against one PyTorch call (library_ms: torch.bmm, SDPA),
                timed both ways (library_device_ms); the KPConv rows
                (kpconv_fused, kpconv_split_fused, kpconv_bwd_fused), the
-               GSE backward (gse_full_bwd) and the Sinkhorn training
-               backward (sinkhorn_bwd_train) also each call alone from its
-               own graph, with its shape and bound (by_call); and the whole model
+               GSE rows (gse_embedding_full, gse_full_bwd) and the Sinkhorn
+               rows (sinkhorn_log_iterations, sinkhorn_fwd_train,
+               sinkhorn_bwd_train) also each call alone from its own graph,
+               with its shape and bound (by_call); and the whole model
                with force_pallas=False, whose ref/src_feats_c must agree with
                the kernel run to 1e-3 of their largest magnitude;
   5. union   — the same pairs with per-tile neighbor unions and no edge
@@ -115,8 +116,8 @@ fused_masked_attention twice a block).
                gradients vs the plain model's; one eval step a pair.
 Then it prints the {"kernels": [...]} line (each kernel's numbers summed over
 the paths it was compared on, with each path's own under "by_path" and the
-calls of the KPConv rows, gse_full_bwd and sinkhorn_bwd_train one by one
-under "by_call"), the card's name and power limit, and, last,
+calls of the KPConv, GSE and Sinkhorn rows one by one under "by_call"),
+the card's name and power limit, and, last,
 {"ok": true, "device": {...}}.
 Details go to chiprun_out/chip_smoke.json.
 """
@@ -125,6 +126,7 @@ import collections
 import contextlib
 import copy
 import dataclasses
+import functools
 import json
 import os
 import pickle
@@ -187,6 +189,11 @@ UNION_CAP, UNION_TILE = 1536, 128
 PEAK_F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores
 PEAK_TF32_FLOPS = 495e12  # H100 SXM, TF32 on the tensor cores, dense
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
+# exponentials, logarithms (and the fast sines and cosines): 16 results a
+# clock an SM on compute capability 9.0, the special function units' rate in
+# the CUDA C++ Programming Guide's table of arithmetic instruction
+# throughput; taken at the card's maximum SM clock (peak_sfu)
+SFU_PER_CLOCK_SM = 16
 DEVICE = "cuda"
 
 
@@ -281,7 +288,7 @@ KERNELS = {
                            "geotransformer_tpu_torch/kernels/csrc/gse_bwd.cu", tol_gse_bwd),
     "sinkhorn_fwd_train": Kernel(kernels_sinkhorn, kernels_sinkhorn.sinkhorn_fwd_train_plain,
                                  "geotransformer_tpu/kernels/sinkhorn.py:205",
-                                 "geotransformer_tpu_torch/kernels/csrc/sinkhorn_train.cu",
+                                 "geotransformer_tpu_torch/kernels/csrc/sinkhorn.cu",
                                  tol_sinkhorn_scores),
     "sinkhorn_bwd_train": Kernel(kernels_sinkhorn, kernels_sinkhorn.sinkhorn_bwd_train_plain,
                                  "geotransformer_tpu/kernels/sinkhorn.py:234",
@@ -603,7 +610,10 @@ def check_call(name, kernel_out, plain_out, args):
 # attention's 3xTF32 products against 495 TFLOP/s TF32) and 3.35 TB/s. A
 # cost function returns (bytes, operations) or, for a kernel whose work is
 # part f32 and part TF32 (the KPConv edge pass and its 3xTF32 contraction),
-# (bytes, f32 operations, TF32 operations); the two times add.
+# (bytes, f32 operations, TF32 operations), the two times adding; the
+# Sinkhorn rows add a fourth, their exponentials and logarithms, whose time
+# at the SFU rate (peak_sfu) is a bound of its own: the bound is the
+# largest of the bytes', the operations' and the SFU's times.
 
 def _nbytes(*tensors):
     total = 0
@@ -677,29 +687,48 @@ def cost_kpconv_union_input_fused(args, kwargs, out):
 
 
 def cost_gse_embedding_full(args, kwargs, out):
+    # per valid pair: the A + 1 basis projections, 2 C^2 flops each, on the
+    # tensor cores as three TF32 products (3xTF32, csrc/gse.cu); in f32 the
+    # (A + 1) C / 2 sincosf of the bases and the A atan2f of the angles (20
+    # operations each: the CUDA math library's argument reduction and
+    # polynomials on the FMA pipe), the rest of the geometry (10 + 20 A) and
+    # the max and the sums of the epilogue ((A + 1) C)
     points, ref_vectors, w_d = args[:3]
     nv, c, a = int(args[8]), w_d.shape[0], ref_vectors.shape[1]
-    return _nbytes(*args[:6], out), nv * nv * 2 * c * c * (a + 1)
+    pairs = nv * nv
+    f32 = pairs * ((a + 1) * (c // 2) * 20 + 40 * a + 10 + (a + 1) * c)
+    return _nbytes(*args[:6], out), f32, 3 * pairs * 2 * c * c * (a + 1)
 
 
-def _sinkhorn_elements(scores, iterations):
-    return scores.numel() * int(iterations)
+def _sinkhorn_work(scores, iterations, exps, ops):
+    """(f32 operations, SFU operations) of ``iterations`` Sinkhorn
+    iterations over (P, M1, N1) scores: ``ops`` f32 operations and ``exps``
+    exponentials an element and iteration, and a logarithm a row and a
+    column (each row and column log-sum-exp) an iteration."""
+    p, m1, n1 = scores.shape
+    t = int(iterations)
+    return ops * scores.numel() * t, exps * scores.numel() * t + p * (m1 + n1) * t
 
 
 def cost_sinkhorn_log_iterations(args, kwargs, out):
-    # per element and iteration, two half-steps of add, max, add, sub, exp, add
-    return _nbytes(*args[:3], out), 12 * _sinkhorn_elements(args[0], args[3])
+    # per element and iteration, two half-steps of add, max, add, sub, exp,
+    # add; the exponentials and logarithms at the SFU rate
+    ops, sfu = _sinkhorn_work(args[0], args[3], 2, 12)
+    return _nbytes(*args[:3], out), ops, 0, sfu
 
 
 def cost_sinkhorn_fwd_train(args, kwargs, out):
-    return _nbytes(*args[:3], *out), 12 * _sinkhorn_elements(args[0], args[3])
+    ops, sfu = _sinkhorn_work(args[0], args[3], 2, 12)
+    return _nbytes(*args[:3], *out), ops, 0, sfu
 
 
 def cost_sinkhorn_bwd_train(args, kwargs, out):
     # per element and iteration: two log-sum-exp passes (12) and the two
-    # softmax-weighted updates of dS and the marginal gradients (16)
+    # softmax-weighted updates of dS and the marginal gradients (16); four
+    # exponentials (the two log-sum-exps, g and h)
     scores, _, v_hist = args[:3]
-    return _nbytes(*args[:4], *out), 28 * scores.numel() * v_hist.shape[1]
+    ops, sfu = _sinkhorn_work(scores, v_hist.shape[1], 4, 28)
+    return _nbytes(*args[:4], *out), ops, 0, sfu
 
 
 def cost_kpconv_bwd_fused(args, kwargs, out):
@@ -837,17 +866,39 @@ def gse_bwd_shape(name, args, kwargs, stage_of):
             "C": w_a.shape[0], "A": ref_vectors.shape[1]}
 
 
-def sinkhorn_bwd_shape(name, args, kwargs, stage_of):
-    """One sinkhorn_bwd_train call: patches P, rows M1, columns N1, iterations."""
-    scores, _, v_hist = args[:3]
+def gse_shape(name, args, kwargs, stage_of):
+    """One gse_embedding_full call: rows N, valid rows, channels C, angles A."""
+    points, ref_vectors, w_d = args[:3]
+    return {"rows": points.shape[0], "n_valid": _valid(args[8], points.shape[0]),
+            "C": w_d.shape[0], "A": ref_vectors.shape[1]}
+
+
+def sinkhorn_shape(name, args, kwargs, stage_of):
+    """One Sinkhorn call (forward or backward): patches P, rows M1, columns
+    N1, iterations."""
+    scores = args[0]
     p, m1, n1 = scores.shape
-    return {"P": p, "M1": m1, "N1": n1, "iterations": v_hist.shape[1]}
+    iterations = args[2].shape[1] if name == "sinkhorn_bwd_train" else int(args[3])
+    return {"P": p, "M1": m1, "N1": n1, "iterations": iterations}
 
 
 # the rows whose calls are also timed one by one (by_call), with their shape
 BY_CALL = {"kpconv_fused": call_shape, "kpconv_split_fused": call_shape,
-           "kpconv_bwd_fused": call_shape, "gse_full_bwd": gse_bwd_shape,
-           "sinkhorn_bwd_train": sinkhorn_bwd_shape}
+           "kpconv_bwd_fused": call_shape, "gse_embedding_full": gse_shape,
+           "gse_full_bwd": gse_bwd_shape, "sinkhorn_log_iterations": sinkhorn_shape,
+           "sinkhorn_fwd_train": sinkhorn_shape, "sinkhorn_bwd_train": sinkhorn_shape}
+
+
+def call_cost(name, args, kwargs, out):
+    """(bytes, f32 operations, TF32 operations, SFU operations) of one call."""
+    return (COSTS[name](args, kwargs, out) + (0, 0))[:4]
+
+
+def call_bound(name, args, kwargs, out):
+    """One call's bound (``with_bound``'s dict)."""
+    nbytes, ops, tf32, sfu = call_cost(name, args, kwargs, out)
+    return with_bound(dict(bytes=nbytes, operations=ops, tf32_operations=tf32,
+                           sfu_operations=sfu, peak_flops=PEAK_FLOPS.get(name, PEAK_F32_FLOPS)))
 
 
 def compare_kernels(records, names, reps, stage_of=None):
@@ -864,7 +915,8 @@ def compare_kernels(records, names, reps, stage_of=None):
         calls = records[name]
         kernel = getattr(module, name)
         expect(calls, f"{name}: no call captured")
-        worst, total_bytes, total_ops, total_tf32, by_call, launches = 0.0, 0, 0, 0, [], 0
+        worst, total_bytes, total_ops, total_tf32, total_sfu, by_call, launches = (
+            0.0, 0, 0, 0, 0, [], 0)
         settled = entries = 0
         for args, kwargs in calls:
             start = cuda.launches[name]
@@ -875,16 +927,15 @@ def compare_kernels(records, names, reps, stage_of=None):
                 settled += int(kernels_gse.last_settled)
                 entries += _valid(args[6], args[0].shape[0]) ** 2 * args[2].shape[0]
             worst = max(worst, check_call(name, out, plain(*args, **_plain_kwargs(kwargs)), args))
-            nbytes, ops, tf32 = (COSTS[name](args, kwargs, out) + (0,))[:3]
+            nbytes, ops, tf32, sfu = call_cost(name, args, kwargs, out)
             total_bytes += nbytes
             total_ops += ops
             total_tf32 += tf32
+            total_sfu += sfu
             if name in BY_CALL:
                 entry = BY_CALL[name](name, args, kwargs, stage_of or {})
                 entry["device_ms"] = graph_ms(lambda: kernel(*args, **kwargs), name, per_call)
-                entry["bound_ms"] = with_bound(dict(
-                    bytes=nbytes, operations=ops, tf32_operations=tf32,
-                    peak_flops=PEAK_FLOPS.get(name, PEAK_F32_FLOPS)))["bound_ms"]
+                entry["bound_ms"] = call_bound(name, args, kwargs, out)["bound_ms"]
                 by_call.append(entry)
 
         def run_kernel():
@@ -914,6 +965,7 @@ def compare_kernels(records, names, reps, stage_of=None):
             "bytes": total_bytes,
             "operations": total_ops,
             "tf32_operations": total_tf32,
+            "sfu_operations": total_sfu,
             "peak_flops": PEAK_FLOPS.get(name, PEAK_F32_FLOPS),
             # one PyTorch call computes only the attention kernels' functions
             "library_ms": library_ms,
@@ -924,10 +976,22 @@ def compare_kernels(records, names, reps, stage_of=None):
     return results
 
 
+@functools.lru_cache(maxsize=None)
+def peak_sfu():
+    """SFU results a second: SFU_PER_CLOCK_SM on every SM at the maximum SM
+    clock nvidia-smi reports."""
+    mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                                "--format=csv,noheader,nounits"], capture_output=True,
+                               text=True, check=True).stdout.split()[0])
+    return SFU_PER_CLOCK_SM * torch.cuda.get_device_properties(0).multi_processor_count * mhz * 1e6
+
+
 def with_bound(r):
     bytes_ms = r["bytes"] / PEAK_BYTES * 1e3
     ops_ms = (r["operations"] / r["peak_flops"]
               + r.get("tf32_operations", 0) / PEAK_TF32_FLOPS) * 1e3
+    if r.get("sfu_operations", 0):
+        ops_ms = max(ops_ms, r["sfu_operations"] / peak_sfu() * 1e3)
     r["bound_ms"] = max(bytes_ms, ops_ms)
     r["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
     return r
@@ -943,11 +1007,12 @@ def merge_paths(by_path):
             m = merged.setdefault(name, {"calls": 0, "max_abs_err": 0.0, "ms": 0.0,
                                          "plain_ms": 0.0, "device_ms": 0.0, "bytes": 0,
                                          "operations": 0, "tf32_operations": 0,
+                                         "sfu_operations": 0,
                                          "peak_flops": r["peak_flops"],
                                          "library_ms": None, "library_device_ms": None,
                                          "by_path": {}, "by_call": []})
             for key in ("calls", "ms", "plain_ms", "device_ms", "bytes", "operations",
-                        "tf32_operations"):
+                        "tf32_operations", "sfu_operations"):
                 m[key] += r[key]
             for key in ("library_ms", "library_device_ms"):
                 if r[key] is not None:

@@ -1,15 +1,10 @@
-// Log-domain Sinkhorn for training, forward and backward, for Hopper
-// (sm_90a), one block per patch.
+// Log-domain Sinkhorn for training, the backward, for Hopper (sm_90a), one
+// block per patch.
 //
-// Replaces geotransformer_tpu/kernels/sinkhorn.py:_fwd_train (pallas_call at
-// :211, body _sinkhorn_fwd_train_kernel :127) and _bwd_train (pallas_call at
-// :245, body _sinkhorn_bwd_kernel :146), the custom_vjp of
-// sinkhorn_log_iterations_train.
-//
-// Forward: the inference kernel's iteration (sinkhorn.cu), same arithmetic in
-// the same order, so `out` is bitwise the inference result; before iteration
-// k it also stores v_{k-1} (v_hist[k], N1 floats) — the only state the
-// reverse sweep cannot rebuild cheaply.
+// Replaces geotransformer_tpu/kernels/sinkhorn.py:_bwd_train (pallas_call at
+// :245, body _sinkhorn_bwd_kernel :146), the backward of the custom_vjp of
+// sinkhorn_log_iterations_train; its forward, _fwd_train, is the inference
+// kernel storing v before each iteration (sinkhorn.cu, STORE_HIST).
 //
 // Backward: the exact reverse of the T iterations (JAX :152-183). For
 // k = T-1 .. 0, with v_prev = v_hist[k]:
@@ -24,9 +19,9 @@
 // sinkhorn_bwd_train_kernel).
 //
 // What bounds it: latency. A patch is ~17k elements at 129 x 129, and each
-// iteration is a chain of warp reductions and barriers; the forward takes 2
-// barrier-separated passes an iteration, the backward a sweep and a merge.
-// Bytes (the scores once in, once out) are a few MB for the whole call.
+// iteration is a chain of warp reductions and barriers: a sweep and a
+// merge. Bytes (the scores once in, once out) are a few MB for the whole
+// call.
 // Masked slots hold -1e12 (finite): every exponent difference stays finite,
 // so masked rows and columns give finite values, never NaN.
 
@@ -36,9 +31,6 @@
 #include <cstdint>
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -50,67 +42,6 @@ __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
-}
-
-__global__ void __launch_bounds__(kThreads) sinkhorn_fwd_train_kernel(
-    const float* __restrict__ scores,  // (P, M1, N1)
-    const float* __restrict__ log_mu,  // (P, M1)
-    const float* __restrict__ log_nu,  // (P, N1)
-    float* __restrict__ out,           // (P, M1, N1)
-    float* __restrict__ v_hist,        // (P, T, N1)
-    int M1, int N1, int iterations) {
-  extern __shared__ float smem[];
-  float* s = smem;  // (M1, N1)
-  float* u = s + M1 * N1;
-  float* v = u + M1;
-  float* lmu = v + N1;
-  float* lnu = lmu + M1;
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const size_t base = static_cast<size_t>(blockIdx.x) * M1 * N1;
-  float* hist = v_hist + static_cast<size_t>(blockIdx.x) * iterations * N1;
-
-  for (int e = tid; e < M1 * N1; e += kThreads) s[e] = scores[base + e];
-  for (int m = tid; m < M1; m += kThreads) {
-    u[m] = 0.0f;
-    lmu[m] = log_mu[static_cast<size_t>(blockIdx.x) * M1 + m];
-  }
-  for (int n = tid; n < N1; n += kThreads) {
-    v[n] = 0.0f;
-    lnu[n] = log_nu[static_cast<size_t>(blockIdx.x) * N1 + n];
-  }
-  __syncthreads();
-
-  for (int it = 0; it < iterations; ++it) {
-    for (int n = tid; n < N1; n += kThreads) hist[static_cast<size_t>(it) * N1 + n] = v[n];
-    for (int m = warp; m < M1; m += kWarps) {
-      const float* row = s + m * N1;
-      float mx = -INFINITY;
-      for (int n = lane; n < N1; n += 32) mx = fmaxf(mx, row[n] + v[n]);
-      mx = warp_max(mx);
-      float sum = 0.0f;
-      for (int n = lane; n < N1; n += 32) sum += expf(row[n] + v[n] - mx);
-      sum = warp_sum(sum);
-      if (lane == 0) u[m] = lmu[m] - (mx + logf(sum));
-    }
-    __syncthreads();
-    for (int n = warp; n < N1; n += kWarps) {
-      float mx = -INFINITY;
-      for (int m = lane; m < M1; m += 32) mx = fmaxf(mx, s[m * N1 + n] + u[m]);
-      mx = warp_max(mx);
-      float sum = 0.0f;
-      for (int m = lane; m < M1; m += 32) sum += expf(s[m * N1 + n] + u[m] - mx);
-      sum = warp_sum(sum);
-      if (lane == 0) v[n] = lnu[n] - (mx + logf(sum));
-    }
-    __syncthreads();
-  }
-
-  for (int e = tid; e < M1 * N1; e += kThreads) {
-    out[base + e] = s[e] + u[e / N1] + v[e % N1];
-  }
 }
 
 // --- backward: one row sweep and one column merge an iteration -----------
@@ -386,21 +317,6 @@ extern "C" {
 
 const char* error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
-
-int sinkhorn_fwd_train_launch(const float* scores, const float* log_mu, const float* log_nu,
-                              float* out, float* v_hist, int P, int M1, int N1, int iterations,
-                              void* stream) {
-  if (M1 < 1 || N1 < 1 || iterations < 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (P == 0) return 0;
-  const size_t smem = sizeof(float) * (static_cast<size_t>(M1) * N1 + 2 * M1 + 2 * N1);
-  cudaError_t err = cudaFuncSetAttribute(sinkhorn_fwd_train_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  sinkhorn_fwd_train_kernel<<<P, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      scores, log_mu, log_nu, out, v_hist, M1, N1, iterations);
-  return static_cast<int>(cudaGetLastError());
 }
 
 int sinkhorn_bwd_train_launch(const float* scores, const float* log_mu, const float* v_hist,

@@ -20,7 +20,7 @@ from geotransformer_tpu_torch.kernels import cuda
 from geotransformer_tpu_torch.ops.embedding import div_term, sinusoidal_embedding
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURES = {"gse_embedding_launch": [_P] * 8 + [_I] * 3 + [_F, _F, _P]}
+_SIGNATURES = {"gse_embedding_launch": [_P] * 9 + [_I] * 3 + [_F, _F, _P]}
 _BWD_SIGNATURES = {
     "gse_bwd_launch": [_P] * 15 + [_I] * 4 + [_F, _F, _P],
     "gse_bwd_slices": [_I] * 2,
@@ -121,11 +121,13 @@ def gse_embedding_full(points, ref_vectors, w_d, b_d, w_a, b_a, sigma_d,
     cuda.require(n_valid, "n_valid", torch.int32, (), dev)
     bias = (b_d + b_a).contiguous()
     freqs = _frequencies(hidden, dev)
+    # W_a and W_d as TF32 halves in the kernel's fragment order
+    w_frag = torch.empty((4 * hidden * hidden,), dtype=torch.int32, device=dev)
     out = torch.empty((n, n, hidden), dtype=f32, device=dev)
     lib = cuda.library("gse", _SIGNATURES)
     code = lib.gse_embedding_launch(
         cuda.ptr(points), cuda.ptr(ref_vectors), cuda.ptr(w_d), cuda.ptr(w_a),
-        cuda.ptr(bias), cuda.ptr(freqs), cuda.ptr(n_valid), cuda.ptr(out),
+        cuda.ptr(bias), cuda.ptr(freqs), cuda.ptr(n_valid), cuda.ptr(w_frag), cuda.ptr(out),
         n, angle_k, hidden, float(sigma_d), float(_angle_factor(sigma_a)),
         cuda.stream_of(points))
     cuda.check(lib, code, "gse_embedding_full")

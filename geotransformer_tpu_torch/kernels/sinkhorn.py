@@ -1,5 +1,6 @@
-r"""Log-domain Sinkhorn iterations: CUDA kernels (``csrc/sinkhorn.cu``,
-``csrc/sinkhorn_train.cu``) and their plain versions.
+r"""Log-domain Sinkhorn iterations: CUDA kernels (``csrc/sinkhorn.cu``, the
+forward loop of inference and training; ``csrc/sinkhorn_train.cu``, the
+training backward) and their plain versions.
 
 ``sinkhorn_log_iterations`` replaces
 ``geotransformer_tpu/kernels/sinkhorn.py:sinkhorn_log_iterations`` (inference);
@@ -15,11 +16,11 @@ import torch
 from geotransformer_tpu_torch.kernels import cuda
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"sinkhorn_launch": [_P] * 4 + [_I] * 4 + [_P]}
-_TRAIN_SIGNATURES = {
+_SIGNATURES = {
+    "sinkhorn_launch": [_P] * 4 + [_I] * 4 + [_P],
     "sinkhorn_fwd_train_launch": [_P] * 5 + [_I] * 4 + [_P],
-    "sinkhorn_bwd_train_launch": [_P] * 7 + [_I] * 4 + [_P],
 }
+_BWD_SIGNATURES = {"sinkhorn_bwd_train_launch": [_P] * 7 + [_I] * 4 + [_P]}
 
 
 def sinkhorn_log_iterations_plain(padded_scores, log_mu, log_nu, num_iterations):
@@ -99,7 +100,7 @@ def sinkhorn_fwd_train(padded_scores, log_mu, log_nu, num_iterations, force=None
     cuda.require(log_nu, "log_nu", f32, (p, n1), dev)
     out = torch.empty_like(padded_scores)
     v_hist = torch.empty((p, t, n1), dtype=f32, device=dev)
-    lib = cuda.library("sinkhorn_train", _TRAIN_SIGNATURES)
+    lib = cuda.library("sinkhorn", _SIGNATURES)
     code = lib.sinkhorn_fwd_train_launch(
         cuda.ptr(padded_scores), cuda.ptr(log_mu), cuda.ptr(log_nu), cuda.ptr(out),
         cuda.ptr(v_hist), p, m1, n1, t, cuda.stream_of(padded_scores))
@@ -162,7 +163,7 @@ def sinkhorn_bwd_train(padded_scores, log_mu, v_hist, dout, force=None):
     d_scores = torch.empty_like(padded_scores)
     d_mu = torch.empty((p, m1), dtype=f32, device=dev)
     d_nu = torch.empty((p, n1), dtype=f32, device=dev)
-    lib = cuda.library("sinkhorn_train", _TRAIN_SIGNATURES)
+    lib = cuda.library("sinkhorn_train", _BWD_SIGNATURES)
     code = lib.sinkhorn_bwd_train_launch(
         cuda.ptr(padded_scores), cuda.ptr(log_mu), cuda.ptr(v_hist), cuda.ptr(dout),
         cuda.ptr(d_scores), cuda.ptr(d_mu), cuda.ptr(d_nu), p, m1, n1, t,

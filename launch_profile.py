@@ -1,18 +1,21 @@
-"""Device time of each launch of the GSE backward (gse_full_bwd) and the
-Sinkhorn training backward (sinkhorn_bwd_train) on one path's training
-step, on one CUDA card:
+"""Device time of each call of the GSE forward (gse_embedding_full), the
+Sinkhorn forward (sinkhorn_log_iterations, and sinkhorn_fwd_train in
+training), the GSE backward (gse_full_bwd) and the Sinkhorn training
+backward (sinkhorn_bwd_train) on one path, on one CUDA card:
 
     python3 launch_profile.py --path 3dmatch|kitti|modelnet [--reps 20]
 
 Builds chip_smoke.py's pairs of that path at its full-width config, records
-the two wrappers' calls in one training step (seed-0 weights, pair 0), then
-prints one JSON line: for each call its shape and its device ms replayed
-alone from its own CUDA graph (chip_smoke.graph_ms), and for each kernel
-the GSE backward's calls launch (by name) its device ms summed over the
-calls, from torch.profiler's CUPTI durations of ``reps`` eager runs (one
-profiler session a process: the profiler loses the events of
-ctypes-launched kernels after its first). Written to
-chiprun_out/launch_profile_<path>.json too."""
+the wrappers' calls in one inference forward (the GSE forward, the
+inference Sinkhorn) and in one training step (the rest; seed-0 weights,
+pair 0), then prints one JSON line: for each call its shape, its device ms
+replayed alone from its own CUDA graph (chip_smoke.graph_ms) and its bound
+ms (chip_smoke's cost functions), each gse_full_bwd call also the entries
+it settled in float64, and for each kernel the GSE backward's calls launch
+(by name) its device ms summed over the calls, from torch.profiler's CUPTI
+durations of ``reps`` eager runs (one profiler session a process: the
+profiler loses the events of ctypes-launched kernels after its first).
+Written to chiprun_out/launch_profile_<path>.json too."""
 
 import argparse
 import collections
@@ -33,7 +36,8 @@ from geotransformer_tpu_torch.models import create_model, precompute_gt_targets
 from geotransformer_tpu_torch.preprocess import batch_to_torch
 from geotransformer_tpu_torch.preprocess.loader import prepare_pair
 
-NAMES = ("gse_full_bwd", "sinkhorn_bwd_train")
+FORWARD = ("gse_embedding_full", "sinkhorn_log_iterations")
+TRAINING = ("sinkhorn_fwd_train", "gse_full_bwd", "sinkhorn_bwd_train")
 
 
 def path_batch(path, tmp):
@@ -62,13 +66,22 @@ def path_batch(path, tmp):
     return cfg, batch_to_torch(batch, cs.DEVICE)
 
 
-def call_shape(name, args):
-    if name == "gse_full_bwd":
-        nv = args[6]
-        return {"N": args[0].shape[0], "n_valid": int(nv) if nv is not None else args[0].shape[0],
-                "C": args[2].shape[0], "A": args[1].shape[1]}
-    return {"P": args[0].shape[0], "M1": args[0].shape[1], "N1": args[0].shape[2],
-            "iterations": args[2].shape[1]}
+def time_calls(records, names):
+    """Each recorded call of ``names`` alone from its own CUDA graph, with
+    its shape and bound."""
+    calls = []
+    for name in names:
+        kernel = getattr(cs.KERNELS[name].module, name)
+        for args, kwargs in records[name]:
+            before = cs.cuda.launches[name]
+            out = kernel(*args, **kwargs)
+            launches = cs.cuda.launches[name] - before
+            settled = (int(cs.kernels_gse.last_settled) if name == "gse_full_bwd" else None)
+            device_ms = cs.graph_ms(lambda: kernel(*args, **kwargs), name, launches)
+            calls.append(dict(kernel=name, **cs.BY_CALL[name](name, args, kwargs, {}),
+                              settled=settled, device_ms=device_ms,
+                              bound_ms=cs.call_bound(name, args, kwargs, out)["bound_ms"]))
+    return calls
 
 
 def main():
@@ -84,16 +97,12 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         cfg, batch = path_batch(opts.path, tmp)
     model = create_model(cfg, device=cs.DEVICE)
-    with cs.capture_kernel_calls(NAMES) as records:
+    with cs.capture_kernel_calls(FORWARD) as records:
+        model(batch)
+    calls = time_calls(records, FORWARD)
+    with cs.capture_kernel_calls(TRAINING) as records:
         cs.step_gradients(model, cfg, batch, 0)
-    calls = []
-    for name in NAMES:
-        kernel = getattr(cs.KERNELS[name].module, name)
-        for args, kwargs in records[name]:
-            before = cs.cuda.launches[name]
-            kernel(*args, **kwargs)
-            calls.append(dict(kernel=name, **call_shape(name, args), device_ms=cs.graph_ms(
-                lambda: kernel(*args, **kwargs), name, cs.cuda.launches[name] - before)))
+    calls += time_calls(records, TRAINING)
     torch.cuda.synchronize()
     # row 8 launches several kernels a call: their device time by name, from
     # one profiler session over reps eager runs of its calls

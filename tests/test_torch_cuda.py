@@ -30,6 +30,14 @@ n_valid N, below N and 1, and exact ties of two angle projections; the
 Sinkhorn backward (one sweep and one merge an iteration) at (P, M1) from
 (1, 17) to (200, 129) and 0, 1 and 100 iterations; both repeat bit for bit,
 replay from a CUDA graph as run eagerly, and raise beyond their capacity.
+The GSE forward (3xTF32 tensor-core projections) is held to its plain
+version at C = 32 to 256, A = 1 to 4, ragged N, n_valid N, below N and 1,
+and on the diagonal (angle 0) to the cosine rows' sum; the Sinkhorn
+forward (rows 4 and 9, one kernel) at the paths' (P, M1) of (256, 65),
+(256, 129), (128, 129) and odd shapes with a patch masked entirely, within
+1e-4 + 1e-4 |plain|, the training forward's result the inference result
+bit for bit; both repeat bit for bit, replay from a CUDA graph as run
+eagerly, and raise beyond their capacity.
 """
 
 import numpy as np
@@ -875,3 +883,164 @@ def test_sinkhorn_bwd_beyond_capacity_raises(device):
     _, v_hist = sinkhorn_fwd_train_plain(scores, log_mu, log_nu, 3)
     with pytest.raises(RuntimeError, match="sinkhorn_bwd_train"):
         sinkhorn_bwd_train(scores, log_mu, v_hist, dout)
+
+
+# ---- gse_embedding_full on the tensor cores, the Sinkhorn forward's sweep and merge ----
+
+def gse_case(device, c, n, angles, seed=13):
+    g = torch.Generator().manual_seed(seed)
+    points = torch.rand(n, 3, generator=g)
+    ref_vectors = torch.randn(n, angles, 3, generator=g) * 0.1
+    ref_vectors[0] = -0.1  # the signed-zero diagonal case
+    w_d, w_a = (torch.randn(c, c, generator=g) / c**0.5 for _ in range(2))
+    b_d, b_a = torch.randn(c, generator=g), torch.randn(c, generator=g)
+    return [t.to(device) for t in (points, ref_vectors, w_d, b_d, w_a, b_a)]
+
+
+@pytest.mark.parametrize("c", [32, 64, 128, 256])
+@pytest.mark.parametrize("angles", [1, 2, 3, 4])
+@pytest.mark.parametrize("n, n_valid", [(77, 77), (77, 45), (21, 1)])
+def test_gse_tensor_cores_match_plain(device, c, angles, n, n_valid):
+    """Every width and angle count, ragged N (no multiple of the 64-pair
+    tile), n_valid N, below N and 1; zeros outside the valid square; the
+    diagonal (v = 0: distance and every angle 0) equal to the sum of the
+    cosine rows of W_d and W_a plus the biases."""
+    args = gse_case(device, c, n, angles)
+    nv = torch.tensor(n_valid, dtype=torch.int32, device=device)
+    before = cuda.launches["gse_embedding_full"]
+    got = gse_embedding_full(*args, 0.2, 15.0, nv)
+    assert cuda.launches["gse_embedding_full"] == before + 1
+    want = gse_embedding_full_plain(*args, 0.2, 15.0, nv)
+    torch.cuda.synchronize()
+    assert (got[:n_valid, :n_valid] - want[:n_valid, :n_valid]).abs().max().item() <= 1e-3
+    assert not got[n_valid:].any() and not got[:, n_valid:].any()
+    _, _, w_d, b_d, w_a, b_a = args
+    diagonal = w_d[1::2].sum(dim=0) + w_a[1::2].sum(dim=0) + b_d + b_a
+    rows = torch.arange(n_valid, device=device)
+    assert (got[rows, rows] - diagonal).abs().max().item() <= 1e-3
+
+
+def test_gse_repeats_bit_for_bit_and_replays_from_a_graph(device):
+    args = gse_case(device, 256, 150, 3)
+    nv = torch.tensor(131, dtype=torch.int32, device=device)
+    runs = [gse_embedding_full(*args, 0.2, 15.0, nv) for _ in range(3)]
+    graph, out, launches = captured(lambda: gse_embedding_full(*args, 0.2, 15.0, nv),
+                                    "gse_embedding_full")
+    assert launches == 1
+    for t in args[2:]:  # a replay reads the captured weights anew: halved, exactly half
+        t.mul_(0.5)
+    graph.replay()
+    eager = gse_embedding_full(*args, 0.2, 15.0, nv)
+    torch.cuda.synchronize()
+    for run in runs[1:]:
+        assert torch.equal(run, runs[0])
+    assert torch.equal(out, eager)
+    assert torch.equal(eager, 0.5 * runs[0])
+
+
+@pytest.mark.parametrize("c", [32, 64, 128, 256])
+def test_gse_stands_within_bound_of_float64(device, c):
+    """Row 3 at 3DMatch's size (293 valid of 300) against the float64
+    embedding (float64 bases of the same f32 indices): every valid (pair,
+    channel) within 2^-22 of sum_f |W_d[f, c]| + sum_f |W_a[f, c]|, the
+    3xTF32 products' f32 accuracy (tests/test_torch_gse_fwd_tc.py emulates
+    the kernel's sums within 2^-23 of it; the plain version's f32 loop
+    reads ~2^-23.5)."""
+    n, n_valid = 300, 293
+    points, ref_vectors, w_d, b_d, w_a, b_a = args = gse_case(device, c, n, 3)
+    nv = torch.tensor(n_valid, dtype=torch.int32, device=device)
+    got = gse_embedding_full(*args, 0.2, 15.0, nv)[:n_valid, :n_valid].double()
+    d_idx, a_idx = gse_kernels._pair_indices(points, ref_vectors, 0.2, 15.0)
+    d_idx, a_idx = d_idx[:n_valid, :n_valid], a_idx[:n_valid, :n_valid]
+    exact = (gse_kernels._exact_bases(d_idx, c) @ w_d.double()
+             + (gse_kernels._exact_bases(a_idx, c) @ w_a.double()).amax(dim=2)
+             + (b_d.double() + b_a.double()))
+    scale = w_d.abs().sum(dim=0).double() + w_a.abs().sum(dim=0).double()
+    err = ((got - exact).abs() / scale).max().item()
+    assert err <= 2.0**-22, f"2^{np.log2(err):.2f} of sum |W|"
+
+
+@pytest.mark.parametrize("c, angles", [(512, 3), (256, 5), (48, 3)])
+def test_gse_beyond_capacity_raises(device, c, angles):
+    args = gse_case(device, c, 20, angles)
+    with pytest.raises(RuntimeError, match="gse_embedding_full"):
+        gse_embedding_full(*args, 0.2, 15.0)
+
+
+def sinkhorn_fwd_case(device, p, m1, n1, seed=14):
+    g = torch.Generator().manual_seed(seed)
+    scores = torch.randn(p, m1, n1, generator=g)
+    rows = torch.rand(p, m1, generator=g) < 0.85
+    cols = torch.rand(p, n1, generator=g) < 0.85
+    rows[:, -1] = cols[:, -1] = True  # the dustbins
+    rows[0, :-1] = cols[0, :-1] = False  # masked but for the dustbin corner
+    if p > 2:
+        rows[2] = cols[2] = False  # masked entirely
+    if p > 1:
+        rows[1] = cols[1] = True
+    masked = ~(rows[:, :, None] & cols[:, None, :])
+    scores = torch.where(masked, -1e12, scores)
+    log_mu = torch.where(rows, -np.log(m1 + n1), -1e12)
+    log_nu = torch.where(cols, -np.log(m1 + n1), -1e12)
+    return [t.to(device) for t in (scores, log_mu, log_nu)], masked.to(device)
+
+
+@pytest.mark.parametrize("p, m1, n1", [(256, 65, 65), (256, 129, 129), (128, 129, 129),
+                                       (5, 17, 30), (3, 160, 97), (2, 1, 1), (3, 200, 200),
+                                       (3, 239, 239), (3, 256, 33)])
+@pytest.mark.parametrize("iterations", [0, 1, 100])
+def test_sinkhorn_sweep_and_merge_match_plain(device, p, m1, n1, iterations):
+    """Rows 4 and 9 at the paths' shapes (P = 256 at inference, 128 in
+    training) and odd ones (rectangular, 160 and 256 rows, a warp without
+    rows, 239 x 239: the column partials a group of 16 columns at a time), a
+    patch masked but for its dustbin and one masked entirely: within
+    chip_smoke.py's tol_sinkhorn_scores of the plain version, every output
+    finite, the training forward's result the inference result bit for bit."""
+    (scores, log_mu, log_nu), masked = sinkhorn_fwd_case(device, p, m1, n1)
+    before = cuda.launches["sinkhorn_log_iterations"], cuda.launches["sinkhorn_fwd_train"]
+    out = sinkhorn_log_iterations(scores, log_mu, log_nu, iterations)
+    out_t, v_hist = sinkhorn_fwd_train(scores, log_mu, log_nu, iterations)
+    assert (cuda.launches["sinkhorn_log_iterations"], cuda.launches["sinkhorn_fwd_train"]) == (
+        before[0] + 1, before[1] + 1)
+    want, want_hist = sinkhorn_fwd_train_plain(scores, log_mu, log_nu, iterations)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out_t)
+    assert bool(torch.isfinite(out).all()) and bool(torch.isfinite(v_hist).all())
+    assert v_hist.shape == want_hist.shape
+    valid = ~masked
+    for got, ref in ((out[valid], want[valid]), (v_hist, want_hist)):
+        assert bool(((got - ref).abs() <= 1e-4 + 1e-4 * ref.abs()).all()), (
+            (got - ref).abs().max().item())
+
+
+def test_sinkhorn_fwd_repeats_bit_for_bit_and_replays_from_a_graph(device):
+    (scores, log_mu, log_nu), _ = sinkhorn_fwd_case(device, 256, 129, 129)
+    runs = [sinkhorn_fwd_train(scores, log_mu, log_nu, 100) for _ in range(3)]
+    infer = [sinkhorn_log_iterations(scores, log_mu, log_nu, 100) for _ in range(3)]
+    graph, out, launches = captured(lambda: sinkhorn_fwd_train(scores, log_mu, log_nu, 100),
+                                    "sinkhorn_fwd_train")
+    graph_i, out_i, launches_i = captured(
+        lambda: sinkhorn_log_iterations(scores, log_mu, log_nu, 100), "sinkhorn_log_iterations")
+    assert launches == launches_i == 1
+    scores.mul_(0.5)  # a replay reads the captured scores anew
+    graph.replay()
+    graph_i.replay()
+    eager = sinkhorn_fwd_train(scores, log_mu, log_nu, 100)
+    torch.cuda.synchronize()
+    for run in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(run, runs[0]))
+    for run in infer[1:]:
+        assert torch.equal(run, infer[0])
+    assert torch.equal(infer[0], runs[0][0])
+    assert all(torch.equal(a, b) for a, b in zip(out, eager))
+    assert torch.equal(out_i, eager[0])
+    assert not torch.equal(eager[0], runs[0][0])
+
+
+@pytest.mark.parametrize("m1, n1", [(257, 65), (65, 257), (240, 240)])
+def test_sinkhorn_fwd_beyond_capacity_raises(device, m1, n1):
+    (scores, log_mu, log_nu), _ = sinkhorn_fwd_case(device, 2, m1, n1)
+    with pytest.raises(RuntimeError, match="sinkhorn_log_iterations"):
+        sinkhorn_log_iterations(scores, log_mu, log_nu, 3)
+    with pytest.raises(RuntimeError, match="sinkhorn_fwd_train"):
+        sinkhorn_fwd_train(scores, log_mu, log_nu, 3)
