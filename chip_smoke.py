@@ -53,7 +53,10 @@ fused_masked_attention twice a block).
                (CUDA events) and peak device memory;
   7. backward kernels vs plain — each training kernel on the inputs it got
                in one step, against its plain version (KPConv backward as the
-               forward; GSE gradients atol 1e-4 x the largest plain one, and
+               forward; the input conv's training call, which also writes the
+               weight gradient's residuals t1 and count, as its own entry
+               "kpconv_stream_fused (residuals)": out and t1 as KPConv, the
+               count bit for bit; GSE gradients atol 1e-4 x the largest plain one, and
                the share of its (pair, channel) entries whose angle argmax
                the kernel settled in float64; Sinkhorn 1e-4), timed both
                ways, as phase 4; and the whole step:
@@ -206,6 +209,14 @@ def tol_kpconv(i, got, want, args, plain):
     return got, want, 1e-4 * want.abs() + 1e-5 * want.abs().max()
 
 
+def tol_kpconv_residuals(i, got, want, args, plain):
+    # out, t1 and count: the count is a sum of 0/1 flags, exact in any order
+    if i == 2:
+        expect(torch.equal(got, want), "kpconv_stream_fused: count differs from its plain version")
+        return got, want, torch.zeros_like(want)
+    return tol_kpconv(i, got, want, args, plain)
+
+
 def tol_gse_embedding(i, got, want, args, plain):
     nv = int(args[8])  # the valid rectangle
     return got[:nv, :nv], want[:nv, :nv], torch.full_like(want[:nv, :nv], 1e-3)
@@ -254,12 +265,26 @@ def tol_attention(i, got, want, args, plain):
     return got, want, torch.full_like(want, 1e-5 * want.abs().max().item())
 
 
-Kernel = collections.namedtuple("Kernel", "module plain replaces source tolerance")
-# module: the module attribute the caller reaches the wrapper through
+Kernel = collections.namedtuple("Kernel", "module plain replaces source tolerance wrapper runs",
+                                defaults=(None, None))
+# module: the module attribute the caller reaches the wrapper through;
+# wrapper: the wrapper's name (its launch counter) where the entry is not
+# named after it; runs: the suffixes of the counted runs whose launches the
+# entry reports (None: every run). The input conv's two entries share one
+# counter: the forward one reports the forward runs, the residuals one the
+# training runs, where every launch is the residuals call.
 KERNELS = {
     "kpconv_stream_fused": Kernel(models_kpconv, kernels_kpconv.kpconv_stream_fused_plain,
                                   "geotransformer_tpu/kernels/kpconv.py:1679",
-                                  "geotransformer_tpu_torch/kernels/csrc/kpconv.cu", tol_kpconv),
+                                  "geotransformer_tpu_torch/kernels/csrc/kpconv.cu", tol_kpconv,
+                                  runs=("_inference", "_union", "_eval")),
+    # the training call: reached through kpconv_stream_input_diff, with the
+    # weight gradient's residuals t1 and count
+    "kpconv_stream_fused (residuals)": Kernel(
+        kernels_kpconv, kernels_kpconv.kpconv_stream_fused_plain,
+        "geotransformer_tpu/kernels/kpconv.py:1679",
+        "geotransformer_tpu_torch/kernels/csrc/kpconv.cu", tol_kpconv_residuals,
+        wrapper="kpconv_stream_fused", runs=("_train",)),
     "kpconv_fused": Kernel(models_kpconv, kernels_kpconv.kpconv_fused_plain,
                            "geotransformer_tpu/kernels/kpconv.py:286",
                            "geotransformer_tpu_torch/kernels/csrc/kpconv.cu", tol_kpconv),
@@ -309,7 +334,13 @@ KERNELS = {
 }
 INFERENCE = ["kpconv_stream_fused", "kpconv_fused", "gse_embedding_full", "rpe_pair_scores",
              "fused_masked_attention", "sinkhorn_log_iterations"]
-TRAINING = ["kpconv_bwd_fused", "gse_full_bwd", "sinkhorn_fwd_train", "sinkhorn_bwd_train"]
+TRAINING = ["kpconv_stream_fused (residuals)", "kpconv_bwd_fused", "gse_full_bwd",
+            "sinkhorn_fwd_train", "sinkhorn_bwd_train"]
+
+
+def wrapper_of(name):
+    """The wrapper (and launch counter) of a KERNELS entry."""
+    return KERNELS[name].wrapper or name
 
 
 def expected_launches(batch, mode, blocks):
@@ -517,15 +548,15 @@ def capture_kernel_calls(names):
     records = collections.defaultdict(list)
     saved = []
     for name in names:
-        module = KERNELS[name].module
-        fn = getattr(module, name)
-        saved.append((module, name, fn))
+        module, wrapper = KERNELS[name].module, wrapper_of(name)
+        fn = getattr(module, wrapper)
+        saved.append((module, wrapper, fn))
 
         def recorder(*args, _fn=fn, _name=name, **kwargs):
             records[_name].append((args, kwargs))
             return _fn(*args, **kwargs)
 
-        setattr(module, name, recorder)
+        setattr(module, wrapper, recorder)
     try:
         yield records
     finally:
@@ -672,10 +703,13 @@ def cost_kpconv_split_fused(args, kwargs, out):
 
 
 def cost_kpconv_stream_fused(args, kwargs, out):
+    # operations over the valid slots (flag or feature non-zero; the kernel
+    # skips the others, whose terms are exactly 0) and the queries with one
     stream, kp, weights = args[:3]
-    _, m, h = stream.shape
     k, _, d = weights.shape
-    return _nbytes(*args[:3], out), 12 * m * h * k + 2 * m * k * d
+    valid = (stream[3] != 0) | (stream[4] != 0)
+    slots, active = int(valid.sum()), int(valid.any(dim=1).sum())
+    return _nbytes(*args[:3], out), 12 * slots * k + 2 * active * k * d
 
 
 def cost_kpconv_union_input_fused(args, kwargs, out):
@@ -804,7 +838,7 @@ def cost_fused_masked_attention(args, kwargs, out):
 PEAK_FLOPS = {"fused_masked_attention": PEAK_TF32_FLOPS}
 
 
-COSTS = {name: globals()[f"cost_{name}"] for name in KERNELS}
+COSTS = {name: globals()[f"cost_{wrapper_of(name)}"] for name in KERNELS}
 
 
 # --- one PyTorch call that computes the same function (library_ms) ------
@@ -911,17 +945,17 @@ def compare_kernels(records, names, reps, stage_of=None):
     stage); gse_full_bwd also counts the entries it settled in float64."""
     results = {}
     for name in names:
-        module, plain = KERNELS[name].module, KERNELS[name].plain
+        module, plain, counter = KERNELS[name].module, KERNELS[name].plain, wrapper_of(name)
         calls = records[name]
-        kernel = getattr(module, name)
+        kernel = getattr(module, counter)
         expect(calls, f"{name}: no call captured")
         worst, total_bytes, total_ops, total_tf32, total_sfu, by_call, launches = (
             0.0, 0, 0, 0, 0, [], 0)
         settled = entries = 0
         for args, kwargs in calls:
-            start = cuda.launches[name]
+            start = cuda.launches[counter]
             out = kernel(*args, **kwargs)
-            per_call = cuda.launches[name] - start
+            per_call = cuda.launches[counter] - start
             launches += per_call
             if name == "gse_full_bwd":  # entries whose angle argmax went to float64
                 settled += int(kernels_gse.last_settled)
@@ -934,7 +968,7 @@ def compare_kernels(records, names, reps, stage_of=None):
             total_sfu += sfu
             if name in BY_CALL:
                 entry = BY_CALL[name](name, args, kwargs, stage_of or {})
-                entry["device_ms"] = graph_ms(lambda: kernel(*args, **kwargs), name, per_call)
+                entry["device_ms"] = graph_ms(lambda: kernel(*args, **kwargs), counter, per_call)
                 entry["bound_ms"] = call_bound(name, args, kwargs, out)["bound_ms"]
                 by_call.append(entry)
 
@@ -961,7 +995,7 @@ def compare_kernels(records, names, reps, stage_of=None):
             "max_abs_err": worst,
             "ms": time_ms(run_kernel, reps),
             "plain_ms": time_ms(run_plain, max(1, reps // 2)),
-            "device_ms": graph_ms(run_kernel, name, launches),
+            "device_ms": graph_ms(run_kernel, counter, launches),
             "bytes": total_bytes,
             "operations": total_ops,
             "tf32_operations": total_tf32,
@@ -1772,7 +1806,8 @@ def main():
     line = []
     for name, kernel in KERNELS.items():
         r = results[name]
-        by_path = {path: counts.get(name, 0) for path, counts in launches.items()}
+        by_path = {path: counts.get(wrapper_of(name), 0) for path, counts in launches.items()
+                   if kernel.runs is None or path.endswith(kernel.runs)}
         expect(sum(by_path.values()) > 0, f"{name}: never launched on a counted path")
         line.append({"name": name, "route": "cuda", "source": kernel.source,
                      "replaces": kernel.replaces,

@@ -23,17 +23,56 @@
 // its FMAs on the CUDA cores and the gathers from L2, sizes its tile by the
 // thread count alone.
 //
-// kpconv_stream_fused replaces kpconv_stream_fused (:1679, body
-// _kpconv_stream_kernel :1642), the c_in == 1 input conv; kpconv_union
-// replaces kpconv_union_input_fused (:1135, pallas_call :1199), the c_in == 1
-// input conv over per-tile neighbour unions.
-//
-// The union conv: the TPU kernel scored every query against all U union
-// candidates through a membership matrix (Mosaic has no per-lane gather), U /
-// H (~38) times the geometry the edges need. Here the tile's union is staged
-// in shared memory once and each query indexes it per edge, which computes
-// the same sums over the edges alone; what the union saves is the support
-// reads, one per distinct row of the tile instead of one per edge.
+// The c_in == 1 input conv, t1[q, k] = sum_h infl(s_h - q, kp_k) feat_h and
+// out = t1 W / max(count, 1), is two kernels that share one edge body
+// (add_edge) and one epilogue (write_outputs):
+//   kpconv_stream_kernel replaces kpconv_stream_fused (geotransformer_tpu/
+//   kernels/kpconv.py:1679, body _kpconv_stream_kernel :1642): an edge's
+//   offset, flag and feature come from five precomputed (M, H) planes;
+//   kpconv_union_kernel replaces kpconv_union_input_fused (:1135, body
+//   _kpconv_union_input_kernel :1057): they come from the tile's union of
+//   support rows through union_sel. The TPU kernel scored every query
+//   against all U union candidates through a membership matrix (Mosaic has
+//   no per-lane gather), U / H (~38) times the geometry the edges need; here
+//   each edge indexes the union staged in shared memory.
+// What bounds them on an H100: row 2 reads 5 M H floats and writes M D
+// (~35 MB a 3DMatch forward, ~92 MB a KITTI one); the edge body is ~11
+// instructions a (slot, kernel point), ~10 on the FMA pipe and one MUFU
+// square root, which at the full instruction rate takes about as long as the
+// bytes; t1 W (2 M K D, ~66 MFLOP a 3DMatch forward, ~1 us at the CUDA
+// cores' 67 TFLOP/s) would gain nothing on the tensor cores. So the design takes each
+// edge's geometry once and keeps the loads off the critical path:
+//   - a group of L lanes (the stream 8 or 16, the union 4) owns a query and
+//     splits its H slots; each slot's values are read once from shared
+//     memory into registers and all K influences are taken there, into K
+//     register accumulators (the kernel points in registers), the count in
+//     the same loop; the L partial sums merge by xor shuffles in a fixed
+//     order, so every run gives the same bits;
+//   - a slot whose flag and feature are both 0 adds exactly 0: skipped;
+//   - |off - kp_k| is sqrt.approx, 1 - d / sigma one fma with 1 / sigma
+//     taken once, its clamp a saturate: local intrinsics, not a fast-math
+//     flag (NVCC_FLAGS builds every library); tests/
+//     test_torch_input_conv_order.py holds that arithmetic within
+//     chip_smoke.py's tolerance of float64;
+//   - stream: persistent blocks (two an SM) walk tiles of 256 / L queries;
+//     a tile's five planes are five bulk copies (cp.async.bulk, one thread,
+//     completion counted on an mbarrier) in a two-stage ring, the next tile
+//     in flight while this one computes
+//     (4-byte cp.async where M H % 4 != 0 leaves the planes unaligned).
+//     Rows keep the planes' layout, unpadded, since a bulk copy is
+//     contiguous: a warp's reads of its 32 / L queries conflict at most
+//     2-way in the banks, beside ~170 instructions each slot's values feed.
+//     L is 8 where two blocks fit an SM and the 32-query tiles cover the
+//     SMs (3DMatch, KITTI), else 16 (ModelNet's ~1.5k queries); 4 lanes
+//     (64-query tiles) ran no faster on 3DMatch;
+//   - union: a block takes 64 queries of a union tile (L = 4): its sel rows
+//     (at an odd stride) by cp.async while its threads gather the tile's
+//     union as float4 (x, y, z, feat; the flag is feat > 0), a zero entry
+//     at U for the sentinel; each lane reads its query point once;
+//   - the epilogue: t1 and the count in shared memory, W staged once a
+//     block, warps over query rows with lanes over D and their W columns in
+//     registers, so that a warp stores whole rows; t1 and the count go out
+//     only when asked, coalesced.
 //
 // For training the conv also writes the per-query count divisor and, with
 // the pool, the number of columns tied at the max: the residuals of the
@@ -43,9 +82,10 @@
 // residual. The stream conv writes its t1 and count, all its weight gradient
 // needs.
 //
-// Geometry is exact f32: offsets by direct subtraction, |off - kp_k| by a
-// direct sqrt (the expanded |off|^2 - 2 off.kp + |kp|^2 form of the TPU
-// kernel was a workaround for the MXU's single bf16 pass). A query whose
+// Geometry is exact f32 but for the input convs' sqrt.approx (above):
+// offsets by direct subtraction, |off - kp_k| by a direct sqrt (the
+// expanded |off|^2 - 2 off.kp + |kp|^2 form of the TPU kernel was a
+// workaround for the MXU's single bf16 pass). A query whose
 // mask is off sees only shadow neighbours: output 0, count 1, pool 0 —
 // what the TPU kernel writes on skipped tiles. A tile of the contraction
 // whose queries have no edge writes zeros and reads nothing (the valid-tile
@@ -61,85 +101,309 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 constexpr int kMaxKernelPoints = 16;
+constexpr int kT1Stride = 16;      // t1 rows in shared memory: K padded to 16 (float4 reads)
+constexpr int kUnionQueries = 64;  // queries a union block (L = 4)
+constexpr float kFarAway = 1e18f;  // kernel points beyond K: influence 0, d^2 still finite
 
-constexpr int kStreamQueries = 16;
+__device__ __forceinline__ float sqrt_approx(float x) {
+  float y;
+  asm("sqrt.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
-__global__ void __launch_bounds__(kThreads) kpconv_stream_kernel(
+// A tile's planes by the Tensor Memory Accelerator: one thread asks for
+// each plane's rows as one contiguous bulk copy, whose bytes complete a
+// transaction count on an mbarrier in shared memory that the block waits on.
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(shared_address(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_bytes(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   shared_address(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(shared_address(dst)),
+      "l"(src), "r"(bytes), "r"(shared_address(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" ::"r"(shared_address(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// The kernel points in registers; those from K to KP (a generic instance)
+// far away, so that their influence is 0.
+template <int KP>
+struct KernelPoints {
+  float x[KP], y[KP], z[KP];
+
+  __device__ __forceinline__ void load(const float* __restrict__ kp, int K) {
+#pragma unroll
+    for (int k = 0; k < KP; ++k) {
+      x[k] = k < K ? __ldg(kp + 3 * k + 0) : kFarAway;
+      y[k] = k < K ? __ldg(kp + 3 * k + 1) : kFarAway;
+      z[k] = k < K ? __ldg(kp + 3 * k + 2) : kFarAway;
+    }
+  }
+};
+
+// One edge of a query: offset o = s - q, flag (its count term) and feature.
+// acc[k] += max(0, 1 - |o - kp_k| / sigma) * feat, cnt += flag; a slot whose
+// flag and feature are both 0 adds exactly 0 and is skipped.
+template <int KP>
+__device__ __forceinline__ void add_edge(float ox, float oy, float oz, float flag, float feat,
+                                         const KernelPoints<KP>& kp, float inv_sigma,
+                                         float (&acc)[KP], float& cnt) {
+  if (flag == 0.0f && feat == 0.0f) return;
+  cnt += flag;
+#pragma unroll
+  for (int k = 0; k < KP; ++k) {
+    const float dx = ox - kp.x[k];
+    const float dy = oy - kp.y[k];
+    const float dz = oz - kp.z[k];
+    const float d = sqrt_approx(fmaf(dz, dz, fmaf(dy, dy, dx * dx)));
+    // 1 - d / sigma <= 1, so clamping to [0, 1] is max(0, .): one FFMA.SAT
+    acc[k] = fmaf(__saturatef(fmaf(-d, inv_sigma, 1.0f)), feat, acc[k]);
+  }
+}
+
+// The L lanes of a query's group (L consecutive lanes) add their partial
+// sums by xor butterflies: every lane of the group ends with the same bits.
+template <int KP, int L>
+__device__ __forceinline__ void merge_lanes(float (&acc)[KP], float& cnt) {
+#pragma unroll
+  for (int offset = 1; offset < L; offset <<= 1) {
+#pragma unroll
+    for (int k = 0; k < KP; ++k) acc[k] += __shfl_xor_sync(0xffffffffu, acc[k], offset);
+    cnt += __shfl_xor_sync(0xffffffffu, cnt, offset);
+  }
+}
+
+// A group's first lane puts its query's t1 row and divisor in shared memory.
+template <int KP, int L>
+__device__ __forceinline__ void keep_query(const float (&acc)[KP], float cnt, int ql, int rows,
+                                           float* t1_s, float* cnt_s) {
+  if (threadIdx.x % L != 0 || ql >= rows) return;
+#pragma unroll
+  for (int k = 0; k < KP; ++k) t1_s[ql * kT1Stride + k] = acc[k];
+  cnt_s[ql] = fmaxf(cnt, 1.0f);
+}
+
+// out[q0 + r, :] = t1[r, :] W * (1 / count[r]) for the tile's rows (after a
+// barrier): each warp takes rows, its lanes columns d and d + 32 with their
+// W columns in registers (one warp-wide store of whole rows at D = 64);
+// then t1 and the count when asked, coalesced.
+template <int KP>
+__device__ __forceinline__ void write_outputs(const float* t1_s, const float* cnt_s,
+                                              const float* w_s, float* __restrict__ out,
+                                              float* __restrict__ t1_out,
+                                              float* __restrict__ count_out, int q0, int rows,
+                                              int K, int D) {
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  for (int d0 = lane; d0 < D; d0 += 64) {
+    const int d1 = d0 + 32;
+    float w0[KP], w1[KP];
+#pragma unroll
+    for (int k = 0; k < KP; ++k) {
+      w0[k] = k < K ? w_s[k * D + d0] : 0.0f;
+      w1[k] = k < K && d1 < D ? w_s[k * D + d1] : 0.0f;
+    }
+    for (int r = warp; r < rows; r += kWarps) {
+      const float4* t4 = reinterpret_cast<const float4*>(t1_s + r * kT1Stride);
+      float a0 = 0.0f;
+      float a1 = 0.0f;
+#pragma unroll
+      for (int k4 = 0; k4 < (KP + 3) / 4; ++k4) {
+        const float4 v = t4[k4];
+        const float t[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (4 * k4 + j < KP) {
+            a0 = fmaf(t[j], w0[4 * k4 + j], a0);
+            a1 = fmaf(t[j], w1[4 * k4 + j], a1);
+          }
+        }
+      }
+      const float inv_count = 1.0f / cnt_s[r];
+      float* row = out + static_cast<size_t>(q0 + r) * D;
+      row[d0] = a0 * inv_count;
+      if (d1 < D) row[d1] = a1 * inv_count;
+    }
+  }
+  if (t1_out != nullptr) {
+    for (int i = threadIdx.x; i < rows * K; i += kThreads) {
+      const int r = i / K;
+      t1_out[static_cast<size_t>(q0) * K + i] = t1_s[r * kT1Stride + (i - r * K)];
+    }
+  }
+  if (count_out != nullptr) {
+    for (int i = threadIdx.x; i < rows; i += kThreads) count_out[q0 + i] = cnt_s[i];
+  }
+}
+
+__device__ __forceinline__ void stage_weights(const float* __restrict__ w, float* w_s, int K,
+                                              int D) {
+  for (int i = threadIdx.x; i < K * D; i += kThreads) w_s[i] = __ldg(w + i);
+}
+
+// Copies rows [q0, q0 + rows) of `planes` (P planes of (M, H), contiguous)
+// into dst (P, Q, hs) by 4-byte cp.async, one element a thread at a time.
+template <int P, int Q, typename T>
+__device__ __forceinline__ void copy_rows(const T* __restrict__ planes, T* dst, int M, int H,
+                                          int hs, int q0, int rows) {
+  static_assert(sizeof(T) == 4, "4-byte elements");
+  const int n = rows * H;
+  const int dq = kThreads / H;
+  const int dh = kThreads - dq * H;
+  int q = threadIdx.x / H;
+  int h = threadIdx.x - q * H;
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      cp_async4(reinterpret_cast<float*>(dst + (p * Q + q) * hs + h),
+                reinterpret_cast<const float*>(planes + static_cast<size_t>(p) * M * H +
+                                               static_cast<size_t>(q0) * H + i),
+                true);
+    }
+    h += dh;
+    q += dq;
+    if (h >= H) {
+      h -= H;
+      ++q;
+    }
+  }
+}
+
+// floats of a stream block's shared memory: the two-stage ring of (5, Q, H)
+// planes, W (K D, padded to 4), t1 (Q, 16) and the divisors (then the two
+// stages' mbarriers)
+inline size_t stream_smem_floats(int Q, int H, int K, int D) {
+  return 2 * 5 * static_cast<size_t>(Q) * H + ((static_cast<size_t>(K) * D + 3) / 4 * 4) +
+         static_cast<size_t>(Q) * kT1Stride + (Q + 3) / 4 * 4 + 4;
+}
+
+// Edge-stream input conv: persistent blocks walk tiles of Q = 256 / L
+// queries; lanes [L ql, L ql + L) own query ql of a tile. `bulk`: the planes
+// and their tiles start at multiples of 16 bytes (M H % 4 == 0), so a
+// tile's plane is one bulk copy; else 4-byte cp.async, an element a thread.
+template <int KP, int L>
+__global__ void __launch_bounds__(kThreads, 2) kpconv_stream_kernel(
     const float* __restrict__ stream,  // (5, M, H): off xyz, posflag, feat
     const float* __restrict__ kp,      // (K, 3)
     const float* __restrict__ w,       // (K, 1, D)
     float* __restrict__ out,           // (M, D)
     float* __restrict__ t1_out,        // (M, K) or null
     float* __restrict__ count_out,     // (M,) or null
-    int M, int H, int K, int D, float sigma) {
-  extern __shared__ float smem[];
-  float* planes = smem;                            // (5, kStreamQueries, H)
-  float* t1_s = planes + 5 * kStreamQueries * H;   // (kStreamQueries, K)
-  float* cnt_s = t1_s + kStreamQueries * K;        // (kStreamQueries,)
-  float* kp_s = cnt_s + kStreamQueries;            // (K, 3)
+    int M, int H, int K, int D, float sigma, bool bulk) {
+  constexpr int Q = kThreads / L;
+  const int stage = 5 * Q * H;
+  extern __shared__ __align__(16) float smem[];
+  float* ring = smem;                                     // (2, 5, Q, H)
+  float* w_s = ring + 2 * stage;                          // (K, D)
+  float* t1_s = w_s + (K * D + 3) / 4 * 4;                // (Q, 16)
+  float* cnt_s = t1_s + Q * kT1Stride;                    // (Q,)
+  uint64_t* bars = reinterpret_cast<uint64_t*>(cnt_s + (Q + 3) / 4 * 4);  // (2,)
 
-  const int tid = threadIdx.x;
-  const int q0 = blockIdx.x * kStreamQueries;
-  const int rows = min(kStreamQueries, M - q0);
-  const int tile = kStreamQueries * H;
-
-  // The tile's rows of each plane are contiguous: coalesced loads.
-  for (int p = 0; p < 5; ++p) {
-    const float* src = stream + static_cast<size_t>(p) * M * H + static_cast<size_t>(q0) * H;
-    for (int i = tid; i < tile; i += kThreads) {
-      planes[p * tile + i] = i < rows * H ? src[i] : 0.0f;
+  const int tiles = (M + Q - 1) / Q;
+  // the copy of tile t's planes into stage s
+  auto fetch = [&](int t, int s) {
+    const int q0 = t * Q;
+    const int rows = min(Q, M - q0);
+    float* dst = ring + s * stage;
+    if (!bulk) {
+      copy_rows<5, Q>(stream, dst, M, H, H, q0, rows);
+    } else if (threadIdx.x == 0) {
+      const uint32_t bytes = static_cast<uint32_t>(rows * H) * sizeof(float);
+      mbar_expect_bytes(bars + s, 5 * bytes);
+      for (int p = 0; p < 5; ++p) {
+        bulk_copy(dst + p * Q * H, stream + static_cast<size_t>(p) * M * H +
+                                       static_cast<size_t>(q0) * H,
+                  bytes, bars + s);
+      }
     }
-  }
-  for (int i = tid; i < 3 * K; i += kThreads) kp_s[i] = kp[i];
-  __syncthreads();
-
-  // t1[q, k] = sum_h infl(off[q, h], kp_k) * feat[q, h], exact f32.
-  for (int i = tid; i < kStreamQueries * K; i += kThreads) {
-    const int ql = i / K;
-    const int k = i % K;
-    const float kx = kp_s[3 * k + 0];
-    const float ky = kp_s[3 * k + 1];
-    const float kz = kp_s[3 * k + 2];
-    float acc = 0.0f;
-    for (int h = 0; h < H; ++h) {
-      const int j = ql * H + h;
-      const float dx = planes[j] - kx;
-      const float dy = planes[tile + j] - ky;
-      const float dz = planes[2 * tile + j] - kz;
-      const float d = sqrtf(dx * dx + dy * dy + dz * dz);
-      acc = fmaf(fmaxf(1.0f - d / sigma, 0.0f), planes[4 * tile + j], acc);
-    }
-    t1_s[i] = acc;
-    if (t1_out != nullptr && ql < rows) t1_out[static_cast<size_t>(q0 + ql) * K + k] = acc;
-  }
-  for (int ql = tid; ql < kStreamQueries; ql += kThreads) {
-    float c = 0.0f;
-    for (int h = 0; h < H; ++h) c += planes[3 * tile + ql * H + h];
-    cnt_s[ql] = fmaxf(c, 1.0f);
-    if (count_out != nullptr && ql < rows) count_out[q0 + ql] = cnt_s[ql];
+    cp_async_commit();
+  };
+  if (bulk && threadIdx.x == 0) {
+    mbar_init(bars);
+    mbar_init(bars + 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
+  int tile = blockIdx.x;
+  fetch(tile, 0);
+  stage_weights(w, w_s, K, D);
+  KernelPoints<KP> kpr;
+  kpr.load(kp, K);
+  const float inv_sigma = 1.0f / sigma;
+  const int ql = threadIdx.x / L;
 
-  // out[q, d] = sum_k t1[q, k] * W[k, 0, d] / count[q]
-  for (int o = tid; o < rows * D; o += kThreads) {
-    const int ql = o / D;
-    const int d = o % D;
-    float acc = 0.0f;
-    for (int k = 0; k < K; ++k) acc = fmaf(t1_s[ql * K + k], w[k * D + d], acc);
-    out[static_cast<size_t>(q0 + ql) * D + d] = acc / cnt_s[ql];
+  for (int it = 0; tile < tiles; ++it, tile += gridDim.x) {
+    const int next = tile + gridDim.x;
+    if (next < tiles) {
+      fetch(next, (it + 1) & 1);
+    } else {
+      cp_async_commit();
+    }
+    if (bulk) {
+      mbar_wait(bars + (it & 1), (it >> 1) & 1);
+    } else {
+      cp_async_wait<1>();
+    }
+    __syncthreads();
+
+    const int q0 = tile * Q;
+    const int rows = min(Q, M - q0);
+    const float* st = ring + (it & 1) * stage + ql * H;
+    float acc[KP];
+#pragma unroll
+    for (int k = 0; k < KP; ++k) acc[k] = 0.0f;
+    float cnt = 0.0f;
+    if (ql < rows) {
+      for (int h = threadIdx.x % L; h < H; h += L) {
+        add_edge(st[h], st[Q * H + h], st[2 * Q * H + h], st[3 * Q * H + h],
+                 st[4 * Q * H + h], kpr, inv_sigma, acc, cnt);
+      }
+    }
+    merge_lanes<KP, L>(acc, cnt);
+    keep_query<KP, L>(acc, cnt, ql, rows, t1_s, cnt_s);
+    __syncthreads();
+    write_outputs<KP>(t1_s, cnt_s, w_s, out, t1_out, count_out, q0, rows, K, D);
   }
+  cp_async_wait<0>();
 }
 
-constexpr int kUnionThreads = 256;
+// floats of a union block's shared memory: the union as float4 (U + 1
+// entries, the last the sentinel's zeros), the block's sel rows (Q, hs),
+// W, t1 and the divisors
+inline size_t union_smem_floats(int U, int hs, int K, int D) {
+  return 4 * (static_cast<size_t>(U) + 1) + static_cast<size_t>(kUnionQueries) * hs +
+         ((static_cast<size_t>(K) * D + 3) / 4 * 4) +
+         static_cast<size_t>(kUnionQueries) * kT1Stride + kUnionQueries;
+}
 
-// Union-gather input conv (c_in == 1): one block per query tile. The tile's
-// union of support rows is staged once in shared memory as (x, y, z, feat,
-// posflag) and the tile's (tile, H) positions into it beside; each thread then
-// owns (query, kernel point) pairs and walks the query's H positions into the
-// staged union, accumulating t1[q, k] = sum_h infl * feat and, for k == 0, the
-// count of positive-feature neighbours. out = t1 W[:, 0, :] / max(count, 1).
-__global__ void __launch_bounds__(kUnionThreads) kpconv_union_kernel(
+// Union-gather input conv: block b takes queries [q0, q0 + 64) of union
+// tile b / sub (sub = ceil(tile / 64) blocks a tile); lanes [4 ql, 4 ql + 4)
+// own query ql.
+template <int KP>
+__global__ void __launch_bounds__(kThreads, 2) kpconv_union_kernel(
     const float* __restrict__ s_feats,    // (N,) the c_in == 1 features
     const float* __restrict__ s_points,   // (N, 3)
     const float* __restrict__ q_points,   // (M, 3)
@@ -150,77 +414,101 @@ __global__ void __launch_bounds__(kUnionThreads) kpconv_union_kernel(
     float* __restrict__ out,              // (M, D)
     float* __restrict__ count_out,        // (M,) or null
     float* __restrict__ t1_out,           // (M, K) or null
-    int M, int N, int U, int H, int K, int D, int tile, float sigma) {
-  extern __shared__ float smem[];
-  float* un = smem;                                     // (U, 5)
-  int32_t* sel_s = reinterpret_cast<int32_t*>(un + 5 * U);  // (tile, H)
-  float* kp_s = reinterpret_cast<float*>(sel_s + tile * H);  // (K, 3)
-  float* t1_s = kp_s + 3 * kMaxKernelPoints;           // (tile, K)
-  float* cnt_s = t1_s + tile * kMaxKernelPoints;       // (tile,)
+    int M, int N, int U, int H, int K, int D, int tile, int sub, float sigma) {
+  constexpr int L = kThreads / kUnionQueries;
+  const int t = blockIdx.x / sub;
+  const int q0 = t * tile + (blockIdx.x - t * sub) * kUnionQueries;
+  const int rows_here = min(min(kUnionQueries, (t + 1) * tile - q0), M - q0);
+  if (rows_here <= 0) return;
+  const int hs = H | 1;
+  extern __shared__ __align__(16) float smem[];
+  // every part starts at a multiple of 4 floats: t1_s is read as float4
+  float4* un = reinterpret_cast<float4*>(smem);                       // (U + 1,)
+  int32_t* sel_s = reinterpret_cast<int32_t*>(smem + 4 * (U + 1));   // (Q, hs)
+  float* w_s = smem + 4 * (U + 1) + kUnionQueries * hs;               // (K, D)
+  float* t1_s = w_s + (K * D + 3) / 4 * 4;                            // (Q, 16)
+  float* cnt_s = t1_s + kUnionQueries * kT1Stride;                    // (Q,)
 
-  const int tid = threadIdx.x;
-  const int t = blockIdx.x;
-  const int q0 = t * tile;
-  const int rows_here = min(tile, M - q0);
-
-  for (int u = tid; u < U; u += kUnionThreads) {
-    const int n = rows[static_cast<size_t>(t) * U + u];
-    float* e = un + 5 * u;
+  copy_rows<1, kUnionQueries>(sel, sel_s, M, H, hs, q0, rows_here);
+  cp_async_commit();
+  for (int u = threadIdx.x; u <= U; u += kThreads) {
+    const int n = u < U ? __ldg(rows + static_cast<size_t>(t) * U + u) : N;
+    float4 e = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     if (n >= 0 && n < N) {
-      const float f = s_feats[n];
-      e[0] = s_points[3 * n + 0];
-      e[1] = s_points[3 * n + 1];
-      e[2] = s_points[3 * n + 2];
-      e[3] = f;
-      e[4] = f > 0.0f ? 1.0f : 0.0f;
-    } else {
-      e[0] = e[1] = e[2] = e[3] = e[4] = 0.0f;
+      e.x = __ldg(s_points + 3 * static_cast<size_t>(n) + 0);
+      e.y = __ldg(s_points + 3 * static_cast<size_t>(n) + 1);
+      e.z = __ldg(s_points + 3 * static_cast<size_t>(n) + 2);
+      e.w = __ldg(s_feats + n);
     }
+    un[u] = e;
   }
-  for (int i = tid; i < tile * H; i += kUnionThreads) {
-    const int u = i < rows_here * H ? sel[static_cast<size_t>(q0) * H + i] : U;
-    sel_s[i] = (u >= 0 && u < U) ? u : U;
-  }
-  for (int i = tid; i < 3 * K; i += kUnionThreads) kp_s[i] = kp[i];
+  stage_weights(w, w_s, K, D);
+  KernelPoints<KP> kpr;
+  kpr.load(kp, K);
+  const float inv_sigma = 1.0f / sigma;
+  const int ql = threadIdx.x / L;
+  cp_async_wait<0>();
   __syncthreads();
 
-  for (int i = tid; i < rows_here * K; i += kUnionThreads) {
-    const int ql = i / K;
-    const int k = i % K;
-    const int q = q0 + ql;
-    const float ox = q_points[3 * q + 0];
-    const float oy = q_points[3 * q + 1];
-    const float oz = q_points[3 * q + 2];
-    float acc = 0.0f;
-    float cnt = 0.0f;
-    for (int h = 0; h < H; ++h) {
-      const int u = sel_s[ql * H + h];
-      if (u >= U) continue;
-      const float* e = un + 5 * u;
+  float acc[KP];
+#pragma unroll
+  for (int k = 0; k < KP; ++k) acc[k] = 0.0f;
+  float cnt = 0.0f;
+  if (ql < rows_here) {
+    const size_t q = static_cast<size_t>(q0 + ql);
+    const float qx = __ldg(q_points + 3 * q + 0);
+    const float qy = __ldg(q_points + 3 * q + 1);
+    const float qz = __ldg(q_points + 3 * q + 2);
+    for (int h = threadIdx.x % L; h < H; h += L) {
+      int u = sel_s[ql * hs + h];
+      u = (u >= 0 && u < U) ? u : U;
+      const float4 e = un[u];
       // (s - q) - kp_k: the offset first, as every KPConv of the port
-      const float dx = (e[0] - ox) - kp_s[3 * k + 0];
-      const float dy = (e[1] - oy) - kp_s[3 * k + 1];
-      const float dz = (e[2] - oz) - kp_s[3 * k + 2];
-      const float d = sqrtf(dx * dx + dy * dy + dz * dz);
-      acc = fmaf(fmaxf(1.0f - d / sigma, 0.0f), e[3], acc);
-      cnt += e[4];
-    }
-    t1_s[ql * kMaxKernelPoints + k] = acc;
-    if (t1_out != nullptr) t1_out[static_cast<size_t>(q) * K + k] = acc;
-    if (k == 0) {
-      cnt_s[ql] = fmaxf(cnt, 1.0f);
-      if (count_out != nullptr) count_out[q] = cnt_s[ql];
+      add_edge(e.x - qx, e.y - qy, e.z - qz, e.w > 0.0f ? 1.0f : 0.0f, e.w, kpr, inv_sigma,
+               acc, cnt);
     }
   }
+  merge_lanes<KP, L>(acc, cnt);
+  keep_query<KP, L>(acc, cnt, ql, rows_here, t1_s, cnt_s);
   __syncthreads();
+  write_outputs<KP>(t1_s, cnt_s, w_s, out, t1_out, count_out, q0, rows_here, K, D);
+}
 
-  for (int o = tid; o < rows_here * D; o += kUnionThreads) {
-    const int ql = o / D;
-    const int d = o % D;
-    float acc = 0.0f;
-    for (int k = 0; k < K; ++k) acc = fmaf(t1_s[ql * kMaxKernelPoints + k], w[k * D + d], acc);
-    out[static_cast<size_t>(q0 + ql) * D + d] = acc / cnt_s[ql];
+// the current device, its SM count and shared-memory limits, read once
+constexpr int kMaxDevices = 64;
+
+struct Limits {
+  int device = 0;       // its index, below kMaxDevices
+  int sms = 0;
+  int block_bytes = 0;  // a block's shared memory at most (opt-in)
+  int sm_bytes = 0;     // an SM's
+};
+
+const Limits& device_limits() {
+  static Limits cache[kMaxDevices];
+  int device = 0;
+  cudaGetDevice(&device);
+  device = device < kMaxDevices ? device : 0;
+  Limits& d = cache[device];
+  if (d.sms == 0) {
+    d.device = device;
+    cudaDeviceGetAttribute(&d.block_bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+    cudaDeviceGetAttribute(&d.sm_bytes, cudaDevAttrMaxSharedMemoryPerMultiprocessor, device);
+    cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount, device);
   }
+  return d;
+}
+
+// Lets `kernel` take `smem` bytes of dynamic shared memory; `allowed` is what
+// an earlier launch of that instance on this device already set, so that a
+// launch on the host-bound paths makes the driver call only when it grows.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem, size_t& allowed) {
+  if (smem <= allowed) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err == cudaSuccess) allowed = smem;
+  return err;
 }
 
 }  // namespace
@@ -305,17 +593,39 @@ int kpconv_stream_launch(const float* stream_planes, const float* kp,
                          const float* w, float* out, float* t1_out,
                          float* count_out, int M, int H, int K, int D,
                          float sigma, void* stream) {
-  if (K < 1 || H < 1 || D < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (K < 1 || K > kMaxKernelPoints || H < 1 || D < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (M == 0) return 0;
-  const size_t smem = sizeof(float) * (5 * kStreamQueries * static_cast<size_t>(H) +
-                                       kStreamQueries * K + kStreamQueries + 3 * K);
-  cudaError_t err = cudaFuncSetAttribute(
-      kpconv_stream_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (M + kStreamQueries - 1) / kStreamQueries;
-  kpconv_stream_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      stream_planes, kp, w, out, t1_out, count_out, M, H, K, D, sigma);
-  return static_cast<int>(cudaGetLastError());
+  const Limits& limits = device_limits();
+  // 8 lanes a query (32-query tiles), or 16 (16-query tiles) where the
+  // 32-query tiles do not cover the SMs or two such blocks do not fit an SM
+  // (1 KB of an SM's shared memory is reserved a block)
+  auto smem_of = [&](int L) { return sizeof(float) * stream_smem_floats(kThreads / L, H, K, D); };
+  const bool wide = 2 * (smem_of(8) + 1024) <= static_cast<size_t>(limits.sm_bytes) &&
+                    (M + kThreads / 8 - 1) / (kThreads / 8) >= limits.sms;
+  const int L = wide ? 8 : 16;
+  const size_t smem = smem_of(L);
+  if (smem > static_cast<size_t>(limits.block_bytes)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // persistent blocks, two an SM (__launch_bounds__(kThreads, 2))
+  const int tiles = (M + kThreads / L - 1) / (kThreads / L);
+  const int blocks = min(tiles, 2 * limits.sms);
+  const bool bulk = reinterpret_cast<uintptr_t>(stream_planes) % 16 == 0 &&
+                    static_cast<long long>(M) * H % 4 == 0;
+  // shared memory set so far, per device and instance (K = 15 or not, L)
+  static size_t allowed[kMaxDevices][2][2] = {};
+  const bool k15 = K == 15;  // every configuration's kernel size
+  auto run = [&](auto kernel) {
+    const cudaError_t err = allow_smem(kernel, smem, allowed[limits.device][k15][wide]);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+        stream_planes, kp, w, out, t1_out, count_out, M, H, K, D, sigma, bulk);
+    return static_cast<int>(cudaGetLastError());
+  };
+  if (wide) return k15 ? run(kpconv_stream_kernel<15, 8>) : run(kpconv_stream_kernel<16, 8>);
+  return k15 ? run(kpconv_stream_kernel<15, 16>) : run(kpconv_stream_kernel<16, 16>);
 }
 
 int kpconv_union_launch(const float* s_feats, const float* s_points, const float* q_points,
@@ -327,17 +637,24 @@ int kpconv_union_launch(const float* s_feats, const float* s_points, const float
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (M == 0) return 0;
-  const size_t smem = sizeof(float) * (5 * static_cast<size_t>(U) + static_cast<size_t>(tile) * H +
-                                       3 * kMaxKernelPoints +
-                                       static_cast<size_t>(tile) * kMaxKernelPoints + tile);
-  cudaError_t err = cudaFuncSetAttribute(
-      kpconv_union_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (M + tile - 1) / tile;
-  kpconv_union_kernel<<<blocks, kUnionThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      s_feats, s_points, q_points, rows, sel, kp, w, out, count_out, t1_out, M, N, U, H, K, D,
-      tile, sigma);
-  return static_cast<int>(cudaGetLastError());
+  const Limits& limits = device_limits();
+  const size_t smem = sizeof(float) * union_smem_floats(U, H | 1, K, D);
+  if (smem > static_cast<size_t>(limits.block_bytes)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int sub = (tile + kUnionQueries - 1) / kUnionQueries;
+  const long long blocks = static_cast<long long>((M + tile - 1) / tile) * sub;
+  static size_t allowed[kMaxDevices][2] = {};  // as the stream launch's
+  const bool k15 = K == 15;
+  auto run = [&](auto kernel) {
+    const cudaError_t err = allow_smem(kernel, smem, allowed[limits.device][k15]);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<static_cast<unsigned>(blocks), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+        s_feats, s_points, q_points, rows, sel, kp, w, out, count_out, t1_out, M, N, U, H, K, D,
+        tile, sub, sigma);
+    return static_cast<int>(cudaGetLastError());
+  };
+  return k15 ? run(kpconv_union_kernel<15>) : run(kpconv_union_kernel<16>);
 }
 
 }  // extern "C"

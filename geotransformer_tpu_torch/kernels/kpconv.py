@@ -319,7 +319,7 @@ def kpconv_stream_fused(stream, kernel_points, weights, sigma, bias=None,
     Args:
         stream: (5, M, H) float32 planes [off_x, off_y, off_z, posflag,
             feat], zeros on invalid slots (preprocess.build_input_stream).
-        kernel_points: (K, 3).
+        kernel_points: (K, 3), K <= 16 on the card.
         weights: (K, 1, C_out).
         sigma: influence radius.
         bias: optional (C_out,).
@@ -382,8 +382,8 @@ def kpconv_union_input_fused(s_feats, q_points, s_points, union_rows, union_sel,
             of ``tile`` queries, sentinel N; union_sel: (M, H) int32 each
             edge's position in its tile's union, sentinel U
             (``preprocess.build_union_tables`` with the same tile).
-        kernel_points: (K, 3); weights: (K, 1, C_out); sigma, bias as
-            :func:`kpconv_fused`.
+        kernel_points: (K, 3), K <= 16 on the card; weights: (K, 1, C_out);
+            sigma, bias as :func:`kpconv_fused`.
         residuals: also return the (M,) count divisor and t1 (M, K).
 
     Returns:

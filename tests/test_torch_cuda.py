@@ -37,7 +37,14 @@ forward (rows 4 and 9, one kernel) at the paths' (P, M1) of (256, 65),
 (256, 129), (128, 129) and odd shapes with a patch masked entirely, within
 1e-4 + 1e-4 |plain|, the training forward's result the inference result
 bit for bit; both repeat bit for bit, replay from a CUDA graph as run
-eagerly, and raise beyond their capacity.
+eagerly, and raise beyond their capacity. The input convs (rows 2 and 7:
+lanes split a query's slots, bulk copies or 4-byte cp.async into the
+stream's ring) are held to their plain versions at the three paths' (H,
+D), ragged M, K = 7 and 15, both copy routes with blocks that walk one to
+six tiles of the ring, features of both signs with flags that differ
+from them, queries without a valid slot, a union at its cap and a tile of
+100 queries, with t1 and the count (bit-equal); both repeat bit for bit
+and replay from a CUDA graph as run eagerly.
 """
 
 import numpy as np
@@ -136,19 +143,64 @@ def test_kpconv_fused_matches_plain(device, c, with_pool):
     assert_kpconv_close(got, want)
 
 
-def test_kpconv_stream_matches_plain(device):
-    g = torch.Generator().manual_seed(1)
-    m, h = 1000, 40
+def stream_case(device, m, h, k=15, d=64, seed=1):
+    """An edge stream as build_input_stream lays it out (padded slots all
+    zeros), with features of both signs, flags that differ from the
+    features on some slots (flag 1 on a zero feature, flag 0 on a positive
+    one) and every seventh query without a valid slot."""
+    g = torch.Generator().manual_seed(seed)
+    valid = torch.rand(m, h, generator=g) < 0.8
+    valid[::7] = False
+    feat = torch.randn(m, h, generator=g)
+    feat[torch.rand(m, h, generator=g) < 0.05] = 0.0
+    flag = feat > 0
+    flag ^= torch.rand(m, h, generator=g) < 0.05
     stream = torch.randn(5, m, h, generator=g) * 0.03
-    stream[3] = (torch.rand(m, h, generator=g) < 0.8).float()
-    stream[4] = stream[3]
-    kp = torch.from_numpy(load_kernel_points(0.0625, 15))
-    w = torch.randn(15, 1, 64, generator=g)
-    args = [t.to(device) for t in (stream, kp, w)]
-    got = kpconv_stream_fused(*args, 0.05)
-    want = kpconv_stream_fused_plain(*args, 0.05)
+    stream[3] = flag.float()
+    stream[4] = feat
+    stream *= valid
+    kp = torch.from_numpy(load_kernel_points(0.0625, 15))[:k].contiguous()
+    w = torch.randn(k, 1, d, generator=g)
+    return [t.to(device) for t in (stream, kp, w)]
+
+
+def stream_launch(m, h):
+    """What csrc/kpconv.cu's kpconv_stream_launch picks for an (M, H)
+    stream on this card: 32-query tiles (8 lanes a query) where they cover
+    the SMs, else 16-query tiles (two 32-query blocks fit an SM at every H
+    here); the bulk-copy ring where M H % 4 == 0 (a fresh tensor is 16-byte
+    aligned), else 4-byte cp.async; two blocks an SM, so a block walks up to
+    `walk` tiles (three or more cycle its ring's mbarrier parities)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    queries = 32 if -(-m // 32) >= sms else 16
+    tiles = -(-m // queries)
+    return {"queries": queries, "bulk": m * h % 4 == 0, "walk": -(-tiles // min(tiles, 2 * sms))}
+
+
+# M not a multiple of the tile; the three paths' (H, D), tiles of 32 queries
+# (3DMatch, KITTI) and 16 (ModelNet), a K the configs do not use, blocks that
+# walk one to six tiles, the bulk-copy route and (unaligned) the 4-byte one
+@pytest.mark.parametrize("m, h, k, queries, bulk, walk", [
+    (50002, 38, 15, 32, True, 6), (20004, 65, 15, 32, True, 3), (1502, 34, 15, 16, True, 1),
+    (1000, 40, 7, 16, True, 1), (17002, 38, 7, 32, True, 3), (9001, 38, 15, 32, False, 2)],
+    ids=["3dmatch", "kitti", "modelnet", "k7", "k7-walk", "unaligned"])
+def test_kpconv_stream_matches_plain(device, m, h, k, queries, bulk, walk):
+    assert stream_launch(m, h) == {"queries": queries, "bulk": bulk, "walk": walk}
+    stream, kp, w = stream_case(device, m, h, k)
+    before = cuda.launches["kpconv_stream_fused"]
+    got = kpconv_stream_fused(stream, kp, w, 0.05, residuals=True)
+    out = kpconv_stream_fused(stream, kp, w, 0.05)
+    assert cuda.launches["kpconv_stream_fused"] == before + 2
+    want = kpconv_stream_fused_plain(stream, kp, w, 0.05, residuals=True)
     torch.cuda.synchronize()
-    assert_kpconv_close(got, want)
+    assert torch.equal(out, got[0])
+    assert_kpconv_close(got[0], want[0])
+    assert_kpconv_close(got[1], want[1])  # t1
+    assert torch.equal(got[2], want[2])  # count: a sum of 0/1 flags
+    empty = ~(stream[3] != 0).any(1) & ~(stream[4] != 0).any(1)
+    assert bool(empty[::7].all())
+    assert not got[0][empty].any() and not got[1][empty].any()
+    assert bool((got[2][empty] == 1).all())
 
 
 @pytest.mark.parametrize("c", [32, 256])
@@ -387,6 +439,65 @@ def test_kpconv_union_matches_plain(device, m, tile, h):
     assert_kpconv_close(got[0], want[0])
     assert torch.equal(got[1], want[1])  # count
     assert_kpconv_close(got[2], want[2])  # t1
+
+
+def union_case(device, m, n, h, tile, seed=0):
+    """The union conv's inputs at a tile's union cap: the cap is the largest
+    tile's union; every eleventh query has no edge; features of both signs
+    and some zeros."""
+    args, _, _, _ = kpconv_case(device, 1, m=m, n=n, h=h, seed=seed)
+    g = torch.Generator().manual_seed(seed)
+    w, bias = torch.randn(15, 1, 64, generator=g).to(device), torch.randn(64, generator=g).to(device)
+    table = args[3].cpu().numpy().copy()
+    table[5::11] = n
+    blocks = [table[t:t + tile] for t in range(0, m, tile)]
+    cap = max(np.unique(b[b < n]).size for b in blocks)
+    rows, sel = build_union_tables(table, n, tile=tile, union_cap=cap)
+    feats = args[0].clone()
+    feats[::9] = 0.0
+    call = (feats, args[1], args[2], torch.from_numpy(rows).to(device),
+            torch.from_numpy(sel).to(device), args[4], w, 0.05, bias)
+    return call, torch.from_numpy((table >= n).all(1)).to(device)
+
+
+@pytest.mark.parametrize("m, n, h, tile", [(700, 900, 38, 128), (611, 700, 65, 100)],
+                         ids=["3dmatch", "odd-tile"])
+def test_kpconv_union_at_cap_with_empty_queries(device, m, n, h, tile):
+    call, empty = union_case(device, m, n, h, tile)
+    assert bool(empty.any())
+    got = kpconv_union_input_fused(*call, tile=tile, residuals=True)
+    want = kpconv_union_input_fused_plain(*call, tile=tile, residuals=True)
+    torch.cuda.synchronize()
+    assert_kpconv_close(got[0], want[0])
+    assert torch.equal(got[1], want[1])  # count
+    assert_kpconv_close(got[2], want[2])  # t1
+    bias = call[-1]
+    assert torch.equal(got[0][empty], bias.expand(int(empty.sum()), -1))
+    assert bool((got[1][empty] == 1).all()) and not got[2][empty].any()
+
+
+def test_input_convs_repeat_bit_for_bit_and_replay_from_a_graph(device):
+    """Both input convs (the stream on its bulk-copy route with blocks that
+    walk six tiles, and on the 4-byte one): two runs bit-equal, and a
+    CUDA-graph capture (one launch counted) whose replay equals the eager
+    call."""
+    streams = {shape: stream_case(device, *shape) for shape in [(50002, 38), (9001, 38)]}
+    assert [stream_launch(*shape)["bulk"] for shape in streams] == [True, False]
+    call, _ = union_case(device, 700, 900, 38, 128)
+    convs = [("kpconv_stream_fused", lambda s=s: kpconv_stream_fused(*s, 0.05, residuals=True))
+             for s in streams.values()]
+    convs.append(("kpconv_union_input_fused",
+                  lambda: kpconv_union_input_fused(*call, tile=128, residuals=True)))
+    for name, conv in convs:
+        first, second = conv(), conv()
+        graph, out, launches = captured(conv, name)
+        assert launches == 1
+        for x in out:
+            x.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
+        assert all(torch.equal(a, b) for a, b in zip(out, first))
 
 
 @pytest.mark.parametrize("m, n, k, s", [(64, 70, 128, 64), (37, 41, 64, 8), (5, 9, 33, 13)])
