@@ -62,13 +62,22 @@ fused_masked_attention twice a block).
                ways, as phase 4; and the whole step:
                every parameter gradient of the kernel model against the
                exact step, the force_pallas=False model's in float64 from
-               the same weights, batch and GT targets along the kernel
-               step's ReLU branches:
+               the same weights, batch and GT targets (the k-NN patches and
+               GT candidate overlaps computed once in float32) along every
+               discrete choice of the kernel step (``witness``: its ReLU
+               branches, sampled GT node pairs, coarse loss labels, fine
+               GT matches within the positive radius, max-pool routes and
+               tie counts, conv divisors):
                the whole step's and each tensor's within 1e-3 (relative
                norm) plus twice the float32 plain step's distance of the
-               float64 step along its own branches, the vanishing ones under
+               float64 step along its own choices, the vanishing ones under
                the noise floor (proj_p.bias exactly 0 on the kernel route,
-               which drops q . b_p); a violation fails the run at its end;
+               which drops q . b_p); the ReLU branch flips between the
+               routes counted on valid rows (the stage masks) and padded
+               rows apart, and none on a valid row whose float64 input lies
+               outside the f32 rounding band of 0; the distances along the
+               ReLU branches alone printed beside; a violation fails the
+               run at its end;
   8. profile — torch.profiler over two more training steps: device time by
                kernel (chiprun_out/train_profile.txt) and the device's busy
                share of phase 6's median step;
@@ -91,11 +100,12 @@ fused_masked_attention twice a block).
                losses, no skip, falling seed-0 loss, step median, peak
                memory; each training kernel of one KITTI step (the split
                branch of kpconv_bwd_fused, Sinkhorn at 129 x 129, GSE at
-               C = 128) and patch_overlaps (equal on at least 99.9 % of valid
-               candidates, within 1/K elsewhere) vs its plain version;
-               whole-step gradients vs the plain model's; one eval step per
-               pair (no precomputed targets), counted, finite metrics; a
-               profile of two more steps (chiprun_out/kitti_train_profile.txt).
+               C = 128) and patch_overlaps (bit-equal on every valid
+               candidate) vs its plain version; whole-step gradients vs the
+               plain model's; one eval step per pair (no precomputed
+               targets), counted, finite metrics, and patch_overlaps of the
+               first vs its plain version (path "kitti_eval"); a profile of
+               two more steps (chiprun_out/kitti_train_profile.txt).
  12. ModelNet batch — a synthetic ModelNet pickle written from a seed into a
                temporary directory (4 entries of 2048 points with normals on
                random boxes and cylinders, asymmetric labels), read by the
@@ -116,10 +126,23 @@ fused_masked_attention twice a block).
                memory; the checkpoint of step 4 restored into a fresh model,
                whose steps 5-8 repeat the run's losses to 1e-3; each training
                kernel of one step vs its plain version and whole-step
-               gradients vs the plain model's; one eval step a pair.
+               gradients vs the plain model's; one eval step a pair, and
+               patch_overlaps of the first vs its plain version (path
+               "modelnet_eval").
+ 15. limits — each kernel at shapes its CUDA kernel once refused, at the
+               former limit and past it (limit_calls: the input convs at
+               K = 16, 20, 32; the Sinkhorn forwards at 256 x 256, 257 x 257,
+               400 x 300 and the backward at 160, 161, 257; the RPE pair
+               scores at C = 130, 640, 1024 and H = 12, 16; the attention at
+               head widths 24, 48, 96, 128; both with misaligned operands):
+               each call launches its kernel once, agrees with its plain
+               version within its row's tolerance, and is timed alone from
+               its own graph with its shape and bound (by_call, path
+               "limits"; kept out of the paths' sums).
 Then it prints the {"kernels": [...]} line (each kernel's numbers summed over
 the paths it was compared on, with each path's own under "by_path" and the
-calls of the KPConv, GSE and Sinkhorn rows one by one under "by_call"),
+calls of the KPConv, GSE, Sinkhorn and overlap rows, and phase 15's, one by
+one under "by_call"),
 the card's name and power limit, and, last,
 {"ok": true, "device": {...}}.
 Details go to chiprun_out/chip_smoke.json.
@@ -135,6 +158,7 @@ import os
 import pickle
 import statistics
 import subprocess
+import sys
 import tempfile
 import time
 
@@ -154,12 +178,15 @@ from geotransformer_tpu_torch.kernels import gse as kernels_gse
 from geotransformer_tpu_torch.kernels import kpconv as kernels_kpconv
 from geotransformer_tpu_torch.kernels import overlap as kernels_overlap
 from geotransformer_tpu_torch.kernels import sinkhorn as kernels_sinkhorn
+from geotransformer_tpu_torch.losses import overall as losses_overall
 from geotransformer_tpu_torch.losses import overall_loss
 from geotransformer_tpu_torch.models import create_model, precompute_gt_targets
+from geotransformer_tpu_torch.models import geotransformer as models_geotransformer
 from geotransformer_tpu_torch.models import kpconv as models_kpconv
 from geotransformer_tpu_torch.models import matching as models_matching
 from geotransformer_tpu_torch.models import sinkhorn as models_sinkhorn
 from geotransformer_tpu_torch.models import transformer as models_transformer
+from geotransformer_tpu_torch.ops.gather import gather_with_shadow
 from geotransformer_tpu_torch.parallel import (
     make_eval_step,
     make_lr_schedule,
@@ -169,6 +196,7 @@ from geotransformer_tpu_torch.parallel import (
 from geotransformer_tpu_torch.preprocess import (
     batch_to_torch,
     build_pyramid,
+    build_union_tables,
     calibrate_split_specs,
     calibrate_stage_caps,
     caps_for_pyramid,
@@ -243,13 +271,10 @@ def tol_gse_bwd(i, got, want, args, plain):
 
 
 def tol_overlaps(i, got, want, args, plain):
-    # valid candidates: equal on at least 99.9 % (both take the same direct
-    # distance), within 1/K elsewhere (one cover flag flipped at the radius)
+    # valid candidates: bit-equal (both round the same direct distance term
+    # by term, so every cover flag and count agrees)
     valid = args[5]
-    got, want = got[valid], want[valid]
-    equal = (got == want).float().mean().item() if want.numel() else 1.0
-    expect(equal >= 0.999, f"patch_overlaps: only {100 * equal:.3f} % of entries equal")
-    return got, want, torch.full_like(want, 1.0 / args[0].shape[1])
+    return got[valid], want[valid], torch.zeros_like(want[valid])
 
 
 def tol_pair_scores(i, got, want, args, plain):
@@ -916,11 +941,63 @@ def sinkhorn_shape(name, args, kwargs, stage_of):
     return {"P": p, "M1": m1, "N1": n1, "iterations": iterations}
 
 
+def overlap_shape(name, args, kwargs, stage_of):
+    """One patch_overlaps call: ref nodes M, candidates S, patch points K,
+    valid candidates and their valid point pairs."""
+    ref_pts, ref_mask, _, src_mask, cand, cand_mask = args[:6]
+    pairs = (ref_mask.sum(dim=1)[:, None] * src_mask.sum(dim=1)[cand.long()])[cand_mask]
+    return {"M": ref_pts.shape[0], "S": cand.shape[1], "K": ref_pts.shape[1],
+            "valid_candidates": int(cand_mask.sum()), "valid_pairs": int(pairs.sum())}
+
+
+def input_conv_shape(name, args, kwargs, stage_of):
+    """One input conv call: rows M, table width H, K, D, its instance."""
+    k, _, d = (args[2] if name.startswith("kpconv_stream") else args[6]).shape
+    m, h = (args[0].shape[1:] if name.startswith("kpconv_stream") else args[4].shape)
+    return {"M": m, "H": h, "K": k, "D": d,
+            "instance": kernels_kpconv.input_conv_variant(k)}
+
+
+def limit_sinkhorn_shape(name, args, kwargs, stage_of):
+    """sinkhorn_shape and the instance (general or a register one)."""
+    entry = sinkhorn_shape(name, args, kwargs, stage_of)
+    route = (kernels_sinkhorn.backward_route if name == "sinkhorn_bwd_train"
+             else kernels_sinkhorn.forward_route)
+    entry["general"] = route(entry["M1"], entry["N1"],
+                             kernels_sinkhorn.device_block_bytes(args[0].device)).general
+    return entry
+
+
+def pair_shape(name, args, kwargs, stage_of):
+    embed, qw = args[:2]
+    n, m, c = embed.shape
+    h = qw.shape[1]
+    aligned = embed.data_ptr() % 16 == 0 and qw.data_ptr() % 16 == 0
+    return {"N": n, "M": m, "C": c, "H": h, "aligned": aligned,
+            "route": kernels_attention.pair_scores_route(c, h, aligned)}
+
+
+def attention_shape(name, args, kwargs, stage_of):
+    q, k, v = args[:3]
+    h, n, dh = q.shape
+    aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v))
+    return {"H": h, "N": n, "M": k.shape[1], "dh": dh, "aligned": aligned,
+            "route": kernels_attention.attention_route(dh, aligned)}
+
+
 # the rows whose calls are also timed one by one (by_call), with their shape
 BY_CALL = {"kpconv_fused": call_shape, "kpconv_split_fused": call_shape,
            "kpconv_bwd_fused": call_shape, "gse_embedding_full": gse_shape,
            "gse_full_bwd": gse_bwd_shape, "sinkhorn_log_iterations": sinkhorn_shape,
-           "sinkhorn_fwd_train": sinkhorn_shape, "sinkhorn_bwd_train": sinkhorn_shape}
+           "sinkhorn_fwd_train": sinkhorn_shape, "sinkhorn_bwd_train": sinkhorn_shape,
+           "patch_overlaps": overlap_shape}
+# phase 15 times every call alone, with these shapes
+LIMIT_SHAPES = {"kpconv_stream_fused (residuals)": input_conv_shape,
+                "kpconv_union_input_fused": input_conv_shape,
+                "sinkhorn_log_iterations": limit_sinkhorn_shape,
+                "sinkhorn_fwd_train": limit_sinkhorn_shape,
+                "sinkhorn_bwd_train": limit_sinkhorn_shape,
+                "rpe_pair_scores": pair_shape, "fused_masked_attention": attention_shape}
 
 
 def call_cost(name, args, kwargs, out):
@@ -935,14 +1012,16 @@ def call_bound(name, args, kwargs, out):
                            sfu_operations=sfu, peak_flops=PEAK_FLOPS.get(name, PEAK_F32_FLOPS)))
 
 
-def compare_kernels(records, names, reps, stage_of=None):
+def compare_kernels(records, names, reps, stage_of=None, shapes=None):
     """Each kernel vs its plain version on the captured calls: the largest
     difference, the CUDA-event ms of the calls (host dispatch included),
     their device ms replayed from a CUDA graph, and the same two times of
     one PyTorch call of the same function where there is one. The rows of
     ``BY_CALL`` also time each call alone from its own graph, beside its
-    shape and bound (``by_call``; ``stage_of`` maps a row count to a KPConv
-    stage); gse_full_bwd also counts the entries it settled in float64."""
+    shape, bound and largest difference (``by_call``; ``stage_of`` maps a
+    row count to a KPConv stage; ``shapes`` replaces BY_CALL); gse_full_bwd
+    also counts the entries it settled in float64."""
+    shapes = BY_CALL if shapes is None else shapes
     results = {}
     for name in names:
         module, plain, counter = KERNELS[name].module, KERNELS[name].plain, wrapper_of(name)
@@ -960,16 +1039,18 @@ def compare_kernels(records, names, reps, stage_of=None):
             if name == "gse_full_bwd":  # entries whose angle argmax went to float64
                 settled += int(kernels_gse.last_settled)
                 entries += _valid(args[6], args[0].shape[0]) ** 2 * args[2].shape[0]
-            worst = max(worst, check_call(name, out, plain(*args, **_plain_kwargs(kwargs)), args))
+            call_worst = check_call(name, out, plain(*args, **_plain_kwargs(kwargs)), args)
+            worst = max(worst, call_worst)
             nbytes, ops, tf32, sfu = call_cost(name, args, kwargs, out)
             total_bytes += nbytes
             total_ops += ops
             total_tf32 += tf32
             total_sfu += sfu
-            if name in BY_CALL:
-                entry = BY_CALL[name](name, args, kwargs, stage_of or {})
+            if name in shapes:
+                entry = shapes[name](name, args, kwargs, stage_of or {})
                 entry["device_ms"] = graph_ms(lambda: kernel(*args, **kwargs), counter, per_call)
                 entry["bound_ms"] = call_bound(name, args, kwargs, out)["bound_ms"]
+                entry["max_abs_err"] = call_worst
                 by_call.append(entry)
 
         def run_kernel():
@@ -1210,41 +1291,233 @@ def relative_errors(got, exact):
     return whole, {k: diffs[k] / norms[k] if norms[k] else diffs[k] for k in exact}
 
 
-@contextlib.contextmanager
-def kinks(masks, replay=False):
-    """Record, in call order, the branch (x > 0) each leaky ReLU of the
-    backbone and each ReLU of the transformer's feed-forward takes, or
-    impose recorded ones (``replay``): a float64 step along a float32
-    step's branches is the exact gradient of the function that step took."""
-    order = iter(masks)
+# --- the float64 witness: a float32 step's discrete choices -------------
+# A float64 step taken along every discrete choice a float32 step made is the
+# exact gradient of the function that float32 step computed. The partition
+# (k-NN patches) and the GT candidate overlaps come in the batch, computed
+# once in float32 for every route; `witness` records the rest in call order
+# and replays them.
+CHOICES = ("relu", "targets", "coarse", "fine", "pool", "ties", "count")
+# The rounding band of 0 on a ReLU input tensor: twice the float32 plain
+# step's largest distance from float64 on its valid rows, the factor the
+# gradient check allows the kernel step over the plain one (readings: PERF.md).
+BAND_FACTOR = 2
 
-    def kink(x, slope):
-        if replay:
-            keep = next(order)
+
+def _site(frame):
+    """The module (its class name) whose forward made a call."""
+    owner = frame.f_locals.get("self")
+    return type(owner).__name__ if owner is not None else frame.f_code.co_name
+
+
+def pool_routes(pool_feats, pooled, table):
+    """The support rows each pooled value's gradient goes to (its argmax and
+    ties), per pass of the inverse-table backward (whole table, or the head
+    and the tail of a split one), as ``_bwd_pass_plain`` takes them."""
+    m = pooled.shape[0]
+
+    def routes(feats, inv):
+        inv = inv.long()
+        return (feats[:, None, :] == gather_with_shadow(pooled, inv, 0.0)) & (inv < m)[..., None]
+
+    if isinstance(table, (tuple, list)):
+        head, tail, tail_s, _ = table
+        return [routes(pool_feats, head), routes(pool_feats[tail_s.long()], tail)]
+    return [routes(pool_feats, table)]
+
+
+@contextlib.contextmanager
+def witness(record, replay=(), inputs=False):
+    """Record into ``record`` (a dict of lists, in call order) the discrete
+    choices of one forward and backward, or impose recorded ones (the kinds
+    in ``replay``):
+      relu: the branch (x > 0) of each backbone leaky ReLU and each ReLU of
+        the transformer's feed-forward, beside its site (the calling module)
+        and, with ``inputs``, its input x;
+      targets: the GT node pairs a training step samples (the overlap
+        threshold);
+      coarse: the coarse loss's positive and negative node pairs (its
+        overlap thresholds);
+      fine: the fine loss's GT point matches (the positive radius);
+      pool: the support rows each strided shortcut max-pool's gradient goes
+        to (its argmax, ties included);
+      ties: how many columns tie at each pooled maximum (two values equal in
+        float32 may differ in float64), the pooled gradient's divisor;
+      count: each conv's divisor, the neighbours whose feature sum is
+        positive (a sum within rounding of 0 may count either way): the
+        replay divides the conv's sums by the recorded divisor.
+    A replaying run records nothing."""
+    position = collections.Counter()
+    recording = not replay
+
+    def next_of(kind):
+        position[kind] += 1
+        return record[kind][position[kind] - 1]
+
+    def kink(x, slope, site):
+        if "relu" in replay:
+            keep = next_of("relu")
         else:
             keep = x > 0
-            masks.append(keep)
+        if recording:
+            record.setdefault("relu", []).append(keep)
+            record.setdefault("relu_site", []).append(site)
+            if inputs:
+                record.setdefault("relu_x", []).append(x.detach().clone())
         return torch.where(keep, x, slope * x)
 
+    def leaky_relu(x):
+        return kink(x, 0.1, _site(sys._getframe(1)))
+
     def feed_forward(self, input_states):  # AttentionOutput.forward
-        hidden = self.squeeze(kink(self.expand(input_states), 0.0))
+        hidden = self.squeeze(kink(self.expand(input_states), 0.0, "AttentionOutput"))
         return self.norm(input_states + hidden)
 
-    saved = models_kpconv.leaky_relu, models_transformer.AttentionOutput.forward
-    models_kpconv.leaky_relu = lambda x: kink(x, 0.1)
+    def target_sample(*args):
+        if "targets" in replay:
+            return next_of("targets")
+        out = saved["targets"](*args)
+        if recording:
+            record.setdefault("targets", []).append(out)
+        return out
+
+    def coarse_labels(*args):
+        if "coarse" in replay:
+            return next_of("coarse")
+        out = saved["coarse"](*args)
+        if recording:
+            record.setdefault("coarse", []).append(out)
+        return out
+
+    def fine_labels(*args):
+        if "fine" in replay:
+            return next_of("fine")
+        out = saved["fine"](*args)
+        if recording:
+            record.setdefault("fine", []).append(out)
+        return out
+
+    def conv_forward(ctx, s_feats, weights, pool_feats, conv, *rest):  # _KPConvInv.forward
+        at = 1 if pool_feats is None else 2  # the divisor's place in conv's result
+        count = next_of("count") if "count" in replay else None
+        ties = next_of("ties") if "ties" in replay and pool_feats is not None else None
+
+        def conv(sf, w, pf, _conv=conv):
+            res = list(_conv(sf, w, pf))
+            if recording:
+                record.setdefault("count", []).append(res[at])
+                if pf is not None:
+                    record.setdefault("ties", []).append(res[3])
+            if count is not None:
+                res[0] = res[0] * (res[at] / count)[:, None]
+                res[at] = count
+            if ties is not None:
+                res[3] = ties
+            return tuple(res)
+        out = saved["conv_forward"](ctx, s_feats, weights, pool_feats, conv, *rest)
+        if pool_feats is not None and recording:
+            record.setdefault("pool", []).append(pool_routes(pool_feats, out[1], ctx.inverse_table))
+        return out
+
+    pending = []
+
+    def bwd_pass(s_feats, s_points, q_points, gdiv, inverse_table, kernel_points, weights, sigma,
+                 pool_feats=None, pooled=None, dpool_over_ties=None):  # _bwd_pass_plain
+        if pool_feats is None or "pool" not in replay:
+            return saved["bwd_pass"](s_feats, s_points, q_points, gdiv, inverse_table,
+                                     kernel_points, weights, sigma, pool_feats, pooled,
+                                     dpool_over_ties)
+        # the backward walks the convs in reverse, each conv's passes in order
+        if not pending:
+            position["pool"] += 1
+            pending.extend(record["pool"][len(record["pool"]) - position["pool"]])
+        is_max = pending.pop(0)
+        d_s_feats, d_weights = saved["bwd_pass"](s_feats, s_points, q_points, gdiv,
+                                                 inverse_table, kernel_points, weights, sigma)
+        d_pool = torch.sum(is_max.to(gdiv.dtype)
+                           * gather_with_shadow(dpool_over_ties, inverse_table.long(), 0.0), dim=1)
+        return d_s_feats, d_weights, d_pool
+
+    saved = {"leaky_relu": models_kpconv.leaky_relu,
+             "feed_forward": models_transformer.AttentionOutput.forward,
+             "targets": models_geotransformer.superpoint_target_sample,
+             "coarse": losses_overall.coarse_labels, "fine": losses_overall.fine_labels,
+             "conv_forward": kernels_kpconv._KPConvInv.forward,
+             "bwd_pass": kernels_kpconv._bwd_pass_plain}
+    models_kpconv.leaky_relu = leaky_relu
     models_transformer.AttentionOutput.forward = feed_forward
+    models_geotransformer.superpoint_target_sample = target_sample
+    losses_overall.coarse_labels, losses_overall.fine_labels = coarse_labels, fine_labels
+    kernels_kpconv._KPConvInv.forward = staticmethod(conv_forward)
+    kernels_kpconv._bwd_pass_plain = bwd_pass
     try:
         yield
     finally:
-        models_kpconv.leaky_relu, models_transformer.AttentionOutput.forward = saved
-    if replay:
-        expect(next(order, None) is None, "kinks: a recorded branch was not used")
+        models_kpconv.leaky_relu = saved["leaky_relu"]
+        models_transformer.AttentionOutput.forward = saved["feed_forward"]
+        models_geotransformer.superpoint_target_sample = saved["targets"]
+        losses_overall.coarse_labels, losses_overall.fine_labels = saved["coarse"], saved["fine"]
+        kernels_kpconv._KPConvInv.forward = staticmethod(saved["conv_forward"])
+        kernels_kpconv._bwd_pass_plain = saved["bwd_pass"]
+    expect(not pending, f"witness: {len(pending)} pool routes of a conv not replayed")
+    for kind in replay:
+        expect(position[kind] == len(record.get(kind, [])),
+               f"witness: {position[kind]} of {len(record.get(kind, []))} recorded {kind} "
+               f"choices replayed")
 
 
-def branch_flips(a, b):
-    """Elements whose branch differs between two recordings."""
-    expect(len(a) == len(b), f"kinks: {len(a)} against {len(b)} calls")
-    return sum(int((x != y).sum()) for x, y in zip(a, b))
+def relu_rows(cfg, batch, record):
+    """Each recorded ReLU's valid rows, broadcastable to its input: a
+    backbone call's rows are a stage's points (the stage masks, matched by
+    row count), the feed-forward's the ref or the src superpoints (the
+    self and cross blocks take ref, then src)."""
+    by_rows = {}
+    for mask in batch["masks"]:
+        prior = by_rows.setdefault(mask.shape[0], mask)
+        expect(torch.equal(prior, mask), "relu_rows: two stages of one size with other masks")
+    coarse = models_geotransformer._stage_pair(cfg, batch, cfg.backbone.num_stages - 1, "masks")
+    rows, ffn = [], 0
+    for keep, site in zip(record["relu"], record["relu_site"]):
+        if site == "AttentionOutput":
+            rows.append(coarse[ffn % 2][None, :, None])
+            ffn += 1
+        else:
+            rows.append(by_rows[keep.shape[0]][:, None])
+    return rows
+
+
+def branch_flips(a, b, rows, exact=None, plain=None):
+    """ReLU inputs whose branch (x > 0) differs between recordings a and b:
+    on valid rows, on padded rows (and the sites with the most), and, given
+    the float64 step's inputs (``exact``) and the float32 plain step's
+    (``plain``), the valid-row flips whose float64 input lies outside the
+    f32 rounding band of 0 (BAND_FACTOR times the plain step's largest
+    distance from float64 on that tensor's valid rows, at least 2^-20 of
+    its largest |x|), with the largest |x| / band among the valid flips."""
+    expect(len(a["relu"]) == len(b["relu"]), f"witness: {len(a['relu'])} against "
+                                             f"{len(b['relu'])} ReLUs")
+    valid = padded = outside = 0
+    worst = 0.0
+    sites = collections.Counter()
+    for i, (x, y, r) in enumerate(zip(a["relu"], b["relu"], rows)):
+        flip = x != y
+        on_valid = flip & r
+        valid += int(on_valid.sum())
+        n_padded = int((flip & ~r).sum())
+        padded += n_padded
+        if n_padded:
+            sites[f"{i}:{a['relu_site'][i]}"] += n_padded
+        if exact is not None and bool(on_valid.any()):
+            x64 = exact["relu_x"][i]
+            err = torch.where(r, (plain["relu_x"][i].double() - x64).abs(), 0.0).max()
+            band = max(BAND_FACTOR * err.item(),
+                       2.0**-20 * torch.where(r, x64.abs(), 0.0).max().item())
+            ratio = x64.abs()[on_valid] / band
+            outside += int((ratio > 1.0).sum())
+            worst = max(worst, ratio.max().item())
+    return {"valid": valid, "padded": padded, "padded_sites": sites.most_common(5),
+            **({"valid_outside_band": outside, "worst_valid_over_band": worst}
+               if exact is not None else {})}
 
 
 def compare_step_gradients(kernel, plain, exact_kernel, exact_plain):
@@ -1294,47 +1567,70 @@ def compare_step_gradients(kernel, plain, exact_kernel, exact_plain):
 
 def whole_step_vs_plain(model, plain_model, cfg, batch, what, report):
     """One step's gradients on the kernel route and the float32 plain route,
-    and the float64 plain step free and along each float32 step's ReLU
-    branches, from the same weights, batch and GT targets (computed once,
-    so no route rounds its own). A violation fails the run at its end,
-    after every path has been read."""
+    and the float64 plain step free and along each float32 step's discrete
+    choices (``witness``), from the same weights, batch and GT targets
+    (computed once, so no route rounds its own). The check reads the
+    witness along every choice; the one along the ReLU branches alone (the
+    witness before it replayed the other choices) is printed beside it. A
+    violation fails the run at its end, after every path has been read."""
     if "gt_cand_indices" not in batch:
         batch = dict(batch, **precompute_gt_targets(cfg, batch, device=DEVICE))
-    kernel_kinks, plain_kinks, exact_kinks = [], [], []
-    with kinks(kernel_kinks):
+    kernel_rec, plain_rec, exact_rec = {}, {}, {}
+    with witness(kernel_rec):
         loss_kernel, grads_kernel = step_gradients(model, cfg, batch, 0)
     plain_model.load_state_dict(model.state_dict())
-    with kinks(plain_kinks):
+    with witness(plain_rec, inputs=True):
         loss_plain, grads_plain = step_gradients(plain_model, cfg, batch, 0)
     exact_model = copy.deepcopy(plain_model).double()
     batch64 = {k: float64(v) for k, v in batch.items()}
-    with kinks(exact_kinks):
+    with witness(exact_rec, inputs=True):
         loss_exact, grads_exact = step_gradients(exact_model, cfg, batch64, 0)
-    with kinks(kernel_kinks, replay=True):
-        _, exact_kernel = step_gradients(exact_model, cfg, batch64, 0)
-    with kinks(plain_kinks, replay=True):
-        _, exact_plain = step_gradients(exact_model, cfg, batch64, 0)
+    exact = {}
+    for route, rec in (("kernel", kernel_rec), ("plain", plain_rec)):
+        for replay in (("relu",), CHOICES):
+            with witness(rec, replay=replay):
+                exact[route, replay] = step_gradients(exact_model, cfg, batch64, 0)[1]
     del exact_model
-    flips = {"kernel_vs_plain": branch_flips(kernel_kinks, plain_kinks),
-             "kernel_vs_float64": branch_flips(kernel_kinks, exact_kinks),
-             "plain_vs_float64": branch_flips(plain_kinks, exact_kinks)}
-    r = compare_step_gradients(grads_kernel, grads_plain, exact_kernel, exact_plain)
+    rows = relu_rows(cfg, batch, kernel_rec)
+    flips = {"kernel_vs_plain": branch_flips(kernel_rec, plain_rec, rows, exact_rec, plain_rec),
+             "kernel_vs_float64": branch_flips(kernel_rec, exact_rec, rows, exact_rec, plain_rec),
+             "plain_vs_float64": branch_flips(plain_rec, exact_rec, rows)}
+    choices = {kind: sum(int((x != y).sum()) for x, y in zip(
+                   _flat(kernel_rec.get(kind, [])), _flat(plain_rec.get(kind, []))))
+               for kind in CHOICES[1:]}
+    r = compare_step_gradients(grads_kernel, grads_plain, exact["kernel", CHOICES],
+                               exact["plain", CHOICES])
+    relu_only = {"kernel": relative_errors(grads_kernel, exact["kernel", ("relu",)])[0],
+                 "plain": relative_errors(grads_plain, exact["plain", ("relu",)])[0]}
     free = {"kernel": relative_errors(grads_kernel, grads_exact)[0],
             "plain": relative_errors(grads_plain, grads_exact)[0]}
     above = [(name, f"kernel {k:.2e}", f"plain {p:.2e}") for name, (k, p, _) in r["above_1e3"]]
+    for pair in ("kernel_vs_plain", "kernel_vs_float64"):
+        if flips[pair]["valid_outside_band"]:
+            r["violations"].append(f"{pair}: {flips[pair]['valid_outside_band']} valid-row ReLU "
+                                   f"flips outside the f32 rounding band of 0")
     print(f"{what} whole step: loss kernel {loss_kernel:.6f}, plain {loss_plain:.6f}, float64 "
-          f"{loss_exact:.6f}; ReLU branch flips {flips} over {len(kernel_kinks)} ReLUs; "
-          f"gradient rel diff from the float64 step along each route's branches: kernel "
-          f"{r['whole_kernel']:.2e}, float32 plain {r['whole_plain']:.2e} (free float64 step: "
-          f"kernel {free['kernel']:.2e}, plain {free['plain']:.2e}; kernel vs plain "
-          f"{r['whole_kernel_vs_plain']:.2e}); worst tensor {r['worst'][0]:.2e} "
-          f"({r['worst'][1]}; plain {r['worst'][2]:.2e}) over {len(grads_exact)} tensors; "
-          f"above 1e-3 on either route: {above}; {len(r['vanishing'])} vanishing biases at the "
-          f"noise floor; violations: {r['violations']}", flush=True)
+          f"{loss_exact:.6f}; ReLU branch flips over {len(kernel_rec['relu'])} ReLUs {flips}; "
+          f"kernel vs plain choices that differ (targets, coarse labels, fine matches, pool "
+          f"routes, pool ties, conv divisors) {choices}; gradient rel diff from the float64 step along each route's "
+          f"choices: kernel {r['whole_kernel']:.2e}, float32 plain {r['whole_plain']:.2e} (along "
+          f"the ReLU branches alone: kernel {relu_only['kernel']:.2e}, plain "
+          f"{relu_only['plain']:.2e}; free float64 step: kernel {free['kernel']:.2e}, plain "
+          f"{free['plain']:.2e}; kernel vs plain {r['whole_kernel_vs_plain']:.2e}); worst tensor "
+          f"{r['worst'][0]:.2e} ({r['worst'][1]}; plain {r['worst'][2]:.2e}) over "
+          f"{len(grads_exact)} tensors; above 1e-3 on either route: {above}; "
+          f"{len(r['vanishing'])} vanishing biases at the noise floor; violations: "
+          f"{r['violations']}", flush=True)
     report[what] = dict(step_loss_kernel=loss_kernel, step_loss_plain=loss_plain,
-                        step_loss_float64=loss_exact, relu_flips=flips,
-                        free_float64=free, **r)
+                        step_loss_float64=loss_exact, relu_flips=flips, choices_differ=choices,
+                        relu_only_float64=relu_only, free_float64=free, **r)
     report.setdefault("violations", []).extend(f"{what}: {v}" for v in r["violations"])
+
+
+def _flat(choices):
+    """The tensors of recorded choices, in order (pool routes per pass)."""
+    for c in choices:
+        yield from (_flat(c) if isinstance(c, (tuple, list)) else (c,))
 
 
 def train_phase(cfg, model, batches, steps, what, report):
@@ -1497,7 +1793,9 @@ def threedmatch_phases(device, launches, report):
 
 def kitti_phases(device, launches, report):
     """Phases 9-11: the KITTI batches, forward, training and eval steps.
-    Returns each kernel's comparison with its plain version on this path."""
+    Returns each kernel's comparison with its plain version on this path
+    ("kitti": a forward's and a training step's calls) and patch_overlaps'
+    on an eval step ("kitti_eval")."""
     cfg = make_kitti_config()
     caps, batches_np, stages, splits, inverse_splits, host = build_kitti_batches(cfg, SEEDS)
     cfg = cfg.with_caps(stage_caps=caps)
@@ -1555,8 +1853,11 @@ def kitti_phases(device, launches, report):
     launches["kitti_eval"] = dict(counts)
     print(f"kitti eval: {[{k: round(v, 4) for k, v in m.items()} for m in metrics]}", flush=True)
     report["kitti_eval"] = metrics
+    with capture_kernel_calls(["patch_overlaps"]) as records:
+        evaluate(batches[0])
+    eval_results = compare_kernels(records, ["patch_overlaps"], reps=5)
     profile_train(cfg, model, batches, "kitti", "kitti_train_profile.txt", report)
-    return results
+    return {"kitti": results, "kitti_eval": eval_results}
 
 
 def make_modelnet_entry(rng, num_points=MODELNET_POINTS):
@@ -1639,7 +1940,8 @@ def counting_step(step, cfg, what, counts):
 def modelnet_phases(device, launches, report, tmp):
     """Phases 12-14: the ModelNet dataset, forward, iteration training with
     a checkpoint restored, and eval. Returns each kernel's comparison with
-    its plain version on this path."""
+    its plain version on this path ("modelnet") and patch_overlaps' on an
+    eval step ("modelnet_eval")."""
     cfg = make_modelnet_config()
     dataset, samples, caps, stages, fits = modelnet_dataset_and_caps(cfg, tmp)
     cfg = cfg.with_caps(stage_caps=caps)
@@ -1765,6 +2067,120 @@ def modelnet_phases(device, launches, report, tmp):
     print(f"modelnet eval: {[{k: round(v, 4) for k, v in m.items()} for m in metrics]}",
           flush=True)
     report["modelnet_eval"] = metrics
+    with capture_kernel_calls(["patch_overlaps"]) as records:
+        evaluate(batches[0])
+    return {"modelnet": results,
+            "modelnet_eval": compare_kernels(records, ["patch_overlaps"], reps=5)}
+
+
+def limit_calls(device):
+    """Phase 15's calls (inputs from a seed): each kernel at shapes its CUDA
+    kernel once refused, at the former limit and past it, under its KERNELS
+    entry: the input convs at K = 16, 20 and 32 kernel points (the configs
+    use 15; KITTI's stream, a union of 2,000 queries), the Sinkhorn forward
+    and training forward at 256 x 256, 257 x 257 and 400 x 300 and its
+    backward at 160, 161 and 257 (16 patches, 100 iterations), the RPE pair
+    scores at C = 130, 640 and 1024 and H = 12 and 16, the attention at head
+    widths 24, 48, 96 and 128 (300 superpoints, 280 valid, a bias, holes in
+    the key mask), and both with operands 4 bytes off a 16-byte boundary."""
+    g = torch.Generator().manual_seed(15)
+    to = lambda *ts: [t.to(device) for t in ts]  # noqa: E731
+    calls = collections.defaultdict(list)
+
+    def kernel_points(k):
+        return (torch.rand(k, 3, generator=g) - 0.5) * 0.1
+
+    m, h = 20004, 65  # KITTI's stream
+    valid = torch.rand(m, h, generator=g) < 0.8
+    feat = torch.randn(m, h, generator=g)
+    stream = torch.randn(5, m, h, generator=g) * 0.03
+    stream[3], stream[4] = (feat > 0).float(), feat
+    stream = (stream * valid).to(device)
+    for k in (16, 20, 32):
+        kp, w = to(kernel_points(k), torch.randn(k, 1, 64, generator=g))
+        calls["kpconv_stream_fused (residuals)"].append(((stream, kp, w, 0.3), {"residuals": True}))
+
+    m, n, h, tile = 2000, 3000, 38, 128
+    q_points, s_points = torch.rand(m, 3, generator=g), torch.rand(n, 3, generator=g)
+    table = torch.argsort(torch.cdist(q_points, s_points), dim=1)[:, :h].to(torch.int32)
+    table[torch.rand(m, h, generator=g) < 0.3] = n
+    table = table.numpy()
+    cap = max(np.unique(table[t:t + tile][table[t:t + tile] < n]).size for t in range(0, m, tile))
+    rows, sel = build_union_tables(table, n, tile=tile, union_cap=cap)
+    feats = (torch.rand(n, 1, generator=g) > 0.2).float()
+    union = to(feats, q_points, s_points, torch.from_numpy(rows), torch.from_numpy(sel))
+    for k in (16, 20, 32):
+        kp, w, bias = to(kernel_points(k), torch.randn(k, 1, 64, generator=g),
+                         torch.randn(64, generator=g))
+        calls["kpconv_union_input_fused"].append(
+            ((*union, kp, w, 0.05, bias), {"tile": tile, "residuals": True}))
+
+    def sinkhorn_case(p, m1, n1):
+        scores = torch.randn(p, m1, n1, generator=g)
+        rows = torch.rand(p, m1, generator=g) < 0.85
+        cols = torch.rand(p, n1, generator=g) < 0.85
+        rows[:, -1] = cols[:, -1] = True
+        masked = ~(rows[:, :, None] & cols[:, None, :])
+        return to(torch.where(masked, -1e12, scores),
+                  torch.where(rows, -np.log(m1 + n1), -1e12).float(),
+                  torch.where(cols, -np.log(m1 + n1), -1e12).float())
+
+    for m1, n1 in ((256, 256), (257, 257), (400, 300)):
+        scores, log_mu, log_nu = sinkhorn_case(16, m1, n1)
+        for name in ("sinkhorn_log_iterations", "sinkhorn_fwd_train"):
+            calls[name].append(((scores, log_mu, log_nu, 100), {}))
+    for m1 in (160, 161, 257):
+        scores, log_mu, log_nu = sinkhorn_case(16, m1, m1)
+        _, v_hist = kernels_sinkhorn.sinkhorn_fwd_train_plain(scores, log_mu, log_nu, 100)
+        dout = torch.where(scores > -1e11, torch.randn(scores.shape, generator=g).to(device), 0.0)
+        calls["sinkhorn_bwd_train"].append(((scores, log_mu, v_hist, dout), {}))
+
+    def shifted(t):
+        """t's values in a view 4 bytes off a 16-byte boundary."""
+        view = torch.empty(t.numel() + 1, device=device)[1:].view(t.shape)
+        return view.copy_(t)
+
+    n, nv = 300, torch.tensor(280, dtype=torch.int32, device=device)
+    for c, heads, aligned in ((130, 4, True), (640, 4, True), (1024, 4, True), (256, 12, True),
+                              (256, 16, True), (256, 4, False)):
+        embed, qw = to(torch.randn(n, n, c, generator=g), torch.randn(n, heads, c, generator=g))
+        if not aligned:
+            embed, qw = shifted(embed), shifted(qw)
+        calls["rpe_pair_scores"].append(((embed, qw, nv, nv), {}))
+    key_masks = (torch.rand(n, generator=g) > 0.2).to(device)
+    for dh, aligned in ((24, True), (48, True), (96, True), (128, True), (64, False)):
+        q, k, v, bias = to(*(torch.randn(s, generator=g) for s in
+                             ((4, n, dh), (4, n, dh), (4, n, dh), (n, 4, n))))
+        if not aligned:
+            q, k, v = shifted(q), shifted(k), shifted(v)
+        calls["fused_masked_attention"].append(
+            ((q, k, v, bias, nv, nv, dh ** -0.5, key_masks), {}))
+    return calls
+
+
+def limits_phase(device, report):
+    """Phase 15: each kernel at the shapes of ``limit_calls``, every call
+    launching the kernel once (its counter rises: no plain route), held to
+    its plain version within its row's tolerance and timed alone from its
+    own graph with its shape and bound (by_call)."""
+    calls = limit_calls(device)
+    for name, entries in calls.items():
+        kernel, counter = getattr(KERNELS[name].module, wrapper_of(name)), wrapper_of(name)
+        for args, kwargs in entries:
+            before = cuda.launches[counter]
+            kernel(*args, **kwargs)
+            expect(cuda.launches[counter] == before + 1,
+                   f"limits: {name} did not launch its kernel once")
+    results = compare_kernels(calls, list(calls), reps=3, shapes=LIMIT_SHAPES)
+    print_results("limits", results)
+    for name, r in results.items():
+        for entry in r["by_call"]:
+            shape = {k: v for k, v in entry.items() if k not in ("device_ms", "bound_ms",
+                                                                  "max_abs_err")}
+            print(f"limits {name} {shape}: {entry['device_ms']:.4f} ms on the device (graph), "
+                  f"bound {entry['bound_ms']:.4f} ms, max|kernel - plain| "
+                  f"{entry['max_abs_err']:.3e}", flush=True)
+    report["limits"] = results
     return results
 
 
@@ -1783,13 +2199,19 @@ def main():
     report["build_s"] = build_s
 
     launches = {}
-    by_path = {"3dmatch": threedmatch_phases(device, launches, report),
-               "kitti": kitti_phases(device, launches, report)}
+    by_path = {"3dmatch": threedmatch_phases(device, launches, report)}
+    by_path.update(kitti_phases(device, launches, report))
     with tempfile.TemporaryDirectory() as tmp:
-        by_path["modelnet"] = modelnet_phases(device, launches, report, tmp)
+        by_path.update(modelnet_phases(device, launches, report, tmp))
     for path, path_results in by_path.items():
         print_results(path, path_results)
     results = merge_paths(by_path)
+    # 15. every lifted limit: each call under by_call (path "limits"), apart
+    # from the paths' sums
+    for name, r in limits_phase(device, report).items():
+        results[name]["by_call"] += [dict(path="limits", **entry) for entry in r["by_call"]]
+        results[name]["limits"] = {key: r[key] for key in ("calls", "max_abs_err",
+                                                           "device_ms", "bound_ms")}
     report["kernels"] = results
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1816,7 +2238,8 @@ def main():
                      "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"], "library_device_ms": r["library_device_ms"],
-                     "by_path": r["by_path"], **({"by_call": r["by_call"]} if r["by_call"] else {})})
+                     "by_path": r["by_path"], **({"by_call": r["by_call"]} if r["by_call"] else {}),
+                     **({"limits": r["limits"]} if "limits" in r else {})})
     print(json.dumps({"kernels": line}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -29,10 +29,35 @@ from geotransformer_tpu_torch.kernels import cuda
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "rpe_pair_scores_launch": [_P] * 5 + [_I] * 4 + [_P],
-    "fused_attention_launch": [_P] * 8 + [_I] * 4 + [_F, _P],
+    "rpe_pair_scores_launch": [_P] * 5 + [_I] * 5 + [_P],
+    "fused_attention_launch": [_P] * 8 + [_I] * 6 + [_F, _P],
 }
-_HEAD_WIDTHS = (8, 16, 32, 64)
+_WIDTHS = (8, 16, 32, 64)  # head widths of attention_kernel's instances
+
+
+def _aligned(*tensors):
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def pair_scores_route(c, h, aligned):
+    """The instance ``csrc/attention.cu`` runs for rpe_pair_scores:
+    "float4" (pair_scores_kernel: C a multiple of 4 up to 512, H <= 8, embed
+    and qw 16-byte aligned, every shipped configuration) or "scalar"
+    (pair_scores_any_kernel: any C, H and alignment)."""
+    return "float4" if c % 4 == 0 and c <= 512 and h <= 8 and aligned else "scalar"
+
+
+def attention_route(dh, aligned):
+    """(width, vec16) of the instance ``csrc/attention.cu`` runs for
+    fused_masked_attention: attention_kernel of head width ``width`` with
+    16-byte copies where dh is that width and q, k, v are 16-byte aligned
+    (every shipped configuration); else the next width up to 64 with
+    4-byte copies, the columns past dh zero in shared memory; dh > 64
+    width 0, attention_wide_kernel."""
+    if dh > _WIDTHS[-1]:
+        return 0, False
+    width = next(w for w in _WIDTHS if w >= dh)
+    return width, width == dh and aligned
 
 
 def _count(n_valid, full, device):
@@ -92,16 +117,12 @@ def rpe_pair_scores(embed, qw, n_valid_q=None, n_valid_k=None, force=None):
     f32 = torch.float32
     cuda.require(embed, "embed", f32, (n, m, c), dev)
     cuda.require(qw, "qw", f32, (n, h, c), dev)
-    if c % 4 or c > 512 or h > 8:
-        raise ValueError(f"rpe_pair_scores takes C a multiple of 4 up to 512 and H <= 8, "
-                         f"got C={c}, H={h}")
-    if embed.data_ptr() % 16 or qw.data_ptr() % 16:
-        raise ValueError("rpe_pair_scores reads float4: embed and qw must be 16-byte aligned")
     nv_q, nv_k = _kernel_count(n_valid_q, dev), _kernel_count(n_valid_k, dev)
     out = torch.empty((n, h, m), dtype=f32, device=dev)
+    vec4 = pair_scores_route(c, h, _aligned(embed, qw)) == "float4"
     lib = cuda.library("attention", _SIGNATURES)
     code = lib.rpe_pair_scores_launch(cuda.ptr(embed), cuda.ptr(qw), cuda.ptr(nv_q),
-                                      cuda.ptr(nv_k), cuda.ptr(out), n, m, h, c,
+                                      cuda.ptr(nv_k), cuda.ptr(out), n, m, h, c, int(vec4),
                                       cuda.stream_of(embed))
     cuda.check(lib, code, "rpe_pair_scores")
     cuda.launches["rpe_pair_scores"] += 1
@@ -195,18 +216,14 @@ def fused_masked_attention(q, k, v, bias=None, n_valid_q=None, n_valid_k=None, s
         cuda.require(bias, "bias", f32, (n, h, m), dev)
     if key_masks is not None:
         cuda.require(key_masks, "key_masks", torch.bool, (m,), dev)
-    if dh not in _HEAD_WIDTHS:
-        raise ValueError(f"fused_masked_attention takes head widths {_HEAD_WIDTHS}, got {dh}")
-    if q.data_ptr() % 16 or k.data_ptr() % 16 or v.data_ptr() % 16:
-        raise ValueError("fused_masked_attention stages q, k and v with 16-byte copies: they "
-                         "must be 16-byte aligned")
     nv_q, nv_k = _kernel_count(n_valid_q, dev), _kernel_count(n_valid_k, dev)
     out = torch.empty((n, h * dh), dtype=f32, device=dev)
+    width, vec16 = attention_route(dh, _aligned(q, k, v))
     lib = cuda.library("attention", _SIGNATURES)
     code = lib.fused_attention_launch(
         cuda.ptr(q), cuda.ptr(k), cuda.ptr(v), cuda.ptr(bias), cuda.ptr(key_masks),
-        cuda.ptr(nv_q), cuda.ptr(nv_k), cuda.ptr(out), n, m, h, dh, float(scale),
-        cuda.stream_of(q))
+        cuda.ptr(nv_q), cuda.ptr(nv_k), cuda.ptr(out), n, m, h, dh, width, int(vec16),
+        float(scale), cuda.stream_of(q))
     cuda.check(lib, code, "fused_masked_attention")
     cuda.launches["fused_masked_attention"] += 1
     return out

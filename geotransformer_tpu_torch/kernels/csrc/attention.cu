@@ -48,15 +48,29 @@
 //   bitmap in shared memory while the q tile and the first chunks are in
 //   flight: one memory latency before the key loop; tiles of padded rows
 //   write zeros and read nothing.
+//
+// Every shape computes. The instances above serve the shipped
+// configurations: pair_scores_kernel C a multiple of 4 up to 512, H <= 8
+// and 16-byte aligned operands; attention_kernel head widths 8, 16, 32 and
+// 64 with q, k and v 16-byte aligned. Any other C, H or alignment takes
+// pair_scores_any_kernel (4-byte loads, heads 8 at a time); another head
+// width up to 64, or a misaligned operand, attention_kernel of the next of
+// those widths with 4-byte copies, the columns past dh zero in shared
+// memory (exact under 3xTF32); dh > 64 attention_wide_kernel (64 output
+// columns a block, K and V read in place).
 
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstdint>
 
+#include "launch_common.cuh"
+
 #include "tf32_mma.cuh"
 
 namespace {
+
+using launch_util::allow_smem;
 
 // ---- RPE pair scores -------------------------------------------------------
 
@@ -146,6 +160,77 @@ __global__ void __launch_bounds__(kPairThreads) pair_scores_kernel(
   }
 }
 
+// Any C, any H and any alignment: pair_scores_kernel's blocks and warps
+// with 4-byte loads (lane l takes channels l, l + 32, ...), the heads a
+// group of kMaxHeads at a time (the embedding row re-read from L1 for each
+// group), qw[i] in shared memory where it fits a block, else read from
+// global memory.
+__global__ void __launch_bounds__(kPairThreads) pair_scores_any_kernel(
+    const float* __restrict__ embed,       // (N, M, C)
+    const float* __restrict__ qw,          // (N, H, C)
+    const int32_t* __restrict__ nv_q_ptr,  // or null: N
+    const int32_t* __restrict__ nv_k_ptr,  // or null: M
+    float* __restrict__ out,               // (N, H, M)
+    int N, int M, int H, int C, bool qw_shared) {
+  extern __shared__ float4 qw4_s[];
+  const int i = blockIdx.y;
+  const int j0 = blockIdx.x * kColsPerBlock;
+  const int nv_q = nv_q_ptr != nullptr ? min(*nv_q_ptr, N) : N;
+  const int nv_k = nv_k_ptr != nullptr ? min(*nv_k_ptr, M) : M;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  float* out_row = out + static_cast<size_t>(i) * H * M;
+
+  if (i >= nv_q || j0 >= nv_k) {
+    for (int e = tid; e < H * kColsPerBlock; e += kPairThreads) {
+      const int j = j0 + e % kColsPerBlock;
+      if (j < M) out_row[static_cast<size_t>(e / kColsPerBlock) * M + j] = 0.0f;
+    }
+    return;
+  }
+  const float* qrow = qw + static_cast<size_t>(i) * H * C;
+  if (qw_shared) {
+    float* qw_s = reinterpret_cast<float*>(qw4_s);
+    for (int e = tid; e < H * C; e += kPairThreads) qw_s[e] = qrow[e];
+    __syncthreads();
+    qrow = qw_s;
+  }
+  const float* e_row = embed + static_cast<size_t>(i) * M * C;
+  for (int cc = 0; cc < kColsPerWarp; ++cc) {
+    const int j = j0 + warp * kColsPerWarp + cc;
+    if (j >= M) break;
+    if (j >= nv_k) {
+      for (int h = lane; h < H; h += 32) out_row[static_cast<size_t>(h) * M + j] = 0.0f;
+      continue;
+    }
+    const float* e_pair = e_row + static_cast<size_t>(j) * C;
+    for (int h0 = 0; h0 < H; h0 += kMaxHeads) {
+      float acc[kMaxHeads];
+#pragma unroll
+      for (int hh = 0; hh < kMaxHeads; ++hh) acc[hh] = 0.0f;
+      for (int c = lane; c < C; c += 32) {
+        const float e = e_pair[c];
+#pragma unroll
+        for (int hh = 0; hh < kMaxHeads; ++hh) {
+          if (h0 + hh < H) acc[hh] = fmaf(e, qrow[static_cast<size_t>(h0 + hh) * C + c], acc[hh]);
+        }
+      }
+      float value = 0.0f;
+#pragma unroll
+      for (int hh = 0; hh < kMaxHeads; ++hh) {
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+          acc[hh] += __shfl_xor_sync(0xffffffffu, acc[hh], off);
+        }
+        if (hh == lane) value = acc[hh];
+      }
+      if (lane < kMaxHeads && h0 + lane < H) {
+        out_row[static_cast<size_t>(h0 + lane) * M + j] = value;
+      }
+    }
+  }
+}
+
 template <int CPL>
 int launch_pair_scores(const float* embed, const float* qw, const int32_t* nv_q,
                        const int32_t* nv_k, float* out, int N, int M, int H, int C,
@@ -187,23 +272,38 @@ struct AttnLayout {
 
 // One warp's copies of keys [c0, c0 + 16): K and V rows (zeros past nv_k)
 // and the (16 x 16) bias tile (zeros past N or nv_k), one commit group.
-template <int DH>
+// VEC16: rows of DH floats by 16-byte copies; else rows of dw <= DH floats
+// (any width, any 4-byte alignment) by 4-byte copies, zero-filled from dw
+// to DH (the padding adds exact zeros to every product).
+template <int DH, bool VEC16>
 __device__ __forceinline__ void stage_chunk(float* stage, const float* k, const float* v,
                                             const float* bias, bool bias16, int c0, int row0,
-                                            int h, int N, int M, int H, int nv_k, int lane) {
+                                            int h, int N, int M, int H, int nv_k, int dw,
+                                            int lane) {
   using L = AttnLayout<DH>;
   float* k_s = stage;
   float* v_s = stage + L::kKV;
   float* b_s = stage + 2 * L::kKV;
-  constexpr int kVecs = DH / 4;  // float4 a row
+  if constexpr (VEC16) {
+    constexpr int kVecs = DH / 4;  // float4 a row
 #pragma unroll
-  for (int t = 0; t < kKeys * kVecs / 32; ++t) {
-    const int e = lane + 32 * t;
-    const int jj = e / kVecs, c4 = e % kVecs;
-    const bool ok = c0 + jj < nv_k;
-    const size_t src = (static_cast<size_t>(h) * M + (ok ? c0 + jj : 0)) * DH + 4 * c4;
-    cp_async16(k_s + jj * L::kStride + 4 * c4, k + src, ok);
-    cp_async16(v_s + jj * L::kStride + 4 * c4, v + src, ok);
+    for (int t = 0; t < kKeys * kVecs / 32; ++t) {
+      const int e = lane + 32 * t;
+      const int jj = e / kVecs, c4 = e % kVecs;
+      const bool ok = c0 + jj < nv_k;
+      const size_t src = (static_cast<size_t>(h) * M + (ok ? c0 + jj : 0)) * DH + 4 * c4;
+      cp_async16(k_s + jj * L::kStride + 4 * c4, k + src, ok);
+      cp_async16(v_s + jj * L::kStride + 4 * c4, v + src, ok);
+    }
+  } else {
+#pragma unroll 4
+    for (int e = lane; e < kKeys * DH; e += 32) {
+      const int jj = e / DH, d = e % DH;
+      const bool ok = c0 + jj < nv_k && d < dw;
+      const size_t src = ok ? (static_cast<size_t>(h) * M + c0 + jj) * dw + d : 0;
+      cp_async4(k_s + jj * L::kStride + d, k + src, ok);
+      cp_async4(v_s + jj * L::kStride + d, v + src, ok);
+    }
   }
   if (bias != nullptr) {
     if (bias16) {  // M % 4 == 0: four keys j..j+3 from j % 4 == 0 lie below M together
@@ -229,18 +329,22 @@ __device__ __forceinline__ void stage_chunk(float* stage, const float* k, const 
   cp_async_commit();
 }
 
-template <int DH>
+// VEC16: q, k and v 16-byte aligned with head width DH; else head width
+// dh <= DH (any, padded with zeros to DH in shared memory) and any 4-byte
+// alignment, staged by 4-byte copies.
+template <int DH, bool VEC16 = true>
 __global__ void __launch_bounds__(kAttnThreads, 1) attention_kernel(
-    const float* __restrict__ q,            // (H, N, DH), 16-byte aligned
-    const float* __restrict__ k,            // (H, M, DH), 16-byte aligned
-    const float* __restrict__ v,            // (H, M, DH), 16-byte aligned
+    const float* __restrict__ q,            // (H, N, dh)
+    const float* __restrict__ k,            // (H, M, dh)
+    const float* __restrict__ v,            // (H, M, dh)
     const float* __restrict__ bias,         // (N, H, M) or null
     const uint8_t* __restrict__ key_masks,  // (M,) or null
     const int32_t* __restrict__ nv_q_ptr,   // or null: N
     const int32_t* __restrict__ nv_k_ptr,   // or null: M
-    float* __restrict__ out,                // (N, H * DH)
-    int N, int M, int H, float scale, bool bias16) {
+    float* __restrict__ out,                // (N, H * dh)
+    int N, int M, int H, int dh, float scale, bool bias16) {
   using L = AttnLayout<DH>;
+  const int dw = VEC16 ? DH : dh;  // the head width in device memory
   constexpr int kSteps = DH / 8;  // k8 steps of q . k, n8 tiles of p . v
   extern __shared__ float4 shared4[];
   float* shared = reinterpret_cast<float*>(shared4);
@@ -253,12 +357,12 @@ __global__ void __launch_bounds__(kAttnThreads, 1) attention_kernel(
   const int g = lane / 4, t4 = lane % 4;  // mma fragment row and column group
   const int nv_q = nv_q_ptr != nullptr ? max(0, min(*nv_q_ptr, N)) : N;
   const int nv_k = nv_k_ptr != nullptr ? max(0, min(*nv_k_ptr, M)) : M;
-  const size_t hd = static_cast<size_t>(H) * DH;
+  const size_t hd = static_cast<size_t>(H) * dw;
 
   if (row0 >= nv_q) {  // a tile of padded rows: zeros, nothing read
-    for (int e = tid; e < kRows * DH; e += kAttnThreads) {
-      const int i = row0 + e / DH;
-      if (i < N) out[i * hd + h * DH + e % DH] = 0.0f;
+    for (int e = tid; e < kRows * dw; e += kAttnThreads) {
+      const int i = row0 + e / dw;
+      if (i < N) out[i * hd + h * dw + e % dw] = 0.0f;
     }
     return;
   }
@@ -266,17 +370,27 @@ __global__ void __launch_bounds__(kAttnThreads, 1) attention_kernel(
   // the q tile (rows past N as zeros), then warp w's first chunk (warp w
   // takes chunks w, w + 8, ...), all in flight while the block builds the
   // key bitmap: one memory latency before the key loop
-  for (int e = tid; e < kRows * DH / 4; e += kAttnThreads) {
-    const int r = e / (DH / 4), c4 = e % (DH / 4);
-    const bool ok = row0 + r < N;
-    cp_async16(q_s + r * L::kStride + 4 * c4,
-               q + (static_cast<size_t>(h) * N + (ok ? row0 + r : 0)) * DH + 4 * c4, ok);
+  if constexpr (VEC16) {
+    for (int e = tid; e < kRows * DH / 4; e += kAttnThreads) {
+      const int r = e / (DH / 4), c4 = e % (DH / 4);
+      const bool ok = row0 + r < N;
+      cp_async16(q_s + r * L::kStride + 4 * c4,
+                 q + (static_cast<size_t>(h) * N + (ok ? row0 + r : 0)) * DH + 4 * c4, ok);
+    }
+  } else {
+    for (int e = tid; e < kRows * DH; e += kAttnThreads) {
+      const int r = e / DH, d = e % DH;
+      const bool ok = row0 + r < N && d < dw;
+      cp_async4(q_s + r * L::kStride + d,
+                q + (ok ? (static_cast<size_t>(h) * N + row0 + r) * dw + d : 0), ok);
+    }
   }
   cp_async_commit();
   const int chunks = (nv_k + kKeys - 1) / kKeys;
   float* ring = shared + warp * L::kWarp;
   if (warp < chunks) {
-    stage_chunk<DH>(ring, k, v, bias, bias16, warp * kKeys, row0, h, N, M, H, nv_k, lane);
+    stage_chunk<DH, VEC16>(ring, k, v, bias, bias16, warp * kKeys, row0, h, N, M, H, nv_k, dw,
+                           lane);
   } else {
     cp_async_commit();
   }
@@ -311,8 +425,8 @@ __global__ void __launch_bounds__(kAttnThreads, 1) attention_kernel(
   for (int c = warp; c < chunks; c += kAttnWarps) {
     const int c0 = c * kKeys;
     if (c + kAttnWarps < chunks) {  // the next chunk's copies overlap this chunk's math
-      stage_chunk<DH>(ring + (stage ^ 1) * L::kStage, k, v, bias, bias16,
-                      c0 + kAttnWarps * kKeys, row0, h, N, M, H, nv_k, lane);
+      stage_chunk<DH, VEC16>(ring + (stage ^ 1) * L::kStage, k, v, bias, bias16,
+                             c0 + kAttnWarps * kKeys, row0, h, N, M, H, nv_k, dw, lane);
     } else {
       cp_async_commit();
     }
@@ -422,7 +536,7 @@ __global__ void __launch_bounds__(kAttnThreads, 1) attention_kernel(
   __syncthreads();
   for (int e = tid; e < kRows * DH; e += kAttnThreads) {
     const int r = e / DH, d = e % DH, i = row0 + r;
-    if (i >= N) continue;
+    if (i >= N || d >= dw) continue;
     float value = 0.0f;  // padded rows, and rows without a kept key
     if (i < nv_q) {
       float m_all = -INFINITY;
@@ -439,26 +553,240 @@ __global__ void __launch_bounds__(kAttnThreads, 1) attention_kernel(
         value = num / den;
       }
     }
-    out[i * hd + h * DH + d] = value;
+    out[i * hd + h * dw + d] = value;
   }
 }
 
-template <int DH>
+template <int DH, bool VEC16>
 int launch_attention(const float* q, const float* k, const float* v, const float* bias,
                      const uint8_t* key_masks, const int32_t* nv_q, const int32_t* nv_k,
-                     float* out, int N, int M, int H, float scale, cudaStream_t stream) {
+                     float* out, int N, int M, int H, int dh, float scale, cudaStream_t stream) {
   const size_t shared =
       sizeof(float) * AttnLayout<DH>::kFloats + sizeof(uint32_t) * ((M + 31) / 32);
   if (shared > kMaxShared) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err = cudaFuncSetAttribute(
-      attention_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(shared));
+  const cudaError_t err =
+      allow_smem(reinterpret_cast<const void*>(attention_kernel<DH, VEC16>), shared);
   if (err != cudaSuccess) return static_cast<int>(err);
   const bool bias16 =
       bias != nullptr && M % 4 == 0 && reinterpret_cast<uintptr_t>(bias) % 16 == 0;
   const dim3 grid((N + kRows - 1) / kRows, H);
-  attention_kernel<DH><<<grid, kAttnThreads, shared, stream>>>(
-      q, k, v, bias, key_masks, nv_q, nv_k, out, N, M, H, scale, bias16);
+  attention_kernel<DH, VEC16><<<grid, kAttnThreads, shared, stream>>>(
+      q, k, v, bias, key_masks, nv_q, nv_k, out, N, M, H, dh, scale, bias16);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dh > 64: attention_kernel's arithmetic (16 query rows and 8 warps a block,
+// the warps splitting the keys into 16-key chunks with an online softmax
+// each, q k^T and p v as 3xTF32 mma.sync m16n8k8, the merge in warp order)
+// for one 64-column slice of the output a block (blockIdx.z). The q tile
+// sits in shared memory zero-padded to a multiple of 8 columns (exact under
+// the products); K, V and the bias are read in place through L1 by 4-byte
+// loads, zeros past nv_k and dh: the rings of attention_kernel would not
+// fit a block's shared memory at these widths.
+constexpr int kWideSlice = 64;
+
+__global__ void __launch_bounds__(kAttnThreads, 1) attention_wide_kernel(
+    const float* __restrict__ q,            // (H, N, dh)
+    const float* __restrict__ k,            // (H, M, dh)
+    const float* __restrict__ v,            // (H, M, dh)
+    const float* __restrict__ bias,         // (N, H, M) or null
+    const uint8_t* __restrict__ key_masks,  // (M,) or null
+    const int32_t* __restrict__ nv_q_ptr,   // or null: N
+    const int32_t* __restrict__ nv_k_ptr,   // or null: M
+    float* __restrict__ out,                // (N, H * dh)
+    int N, int M, int H, int dh, float scale) {
+  constexpr int kSlice = kWideSlice / 8;  // n8 tiles of p v in the slice
+  extern __shared__ float4 shared4[];
+  float* shared = reinterpret_cast<float*>(shared4);
+  const int dhp = (dh + 7) / 8 * 8;
+  const int qs = dhp + 4;                                  // q tile row stride
+  float* part = shared;                                    // (warps, 16, 64)
+  float* stats = part + kAttnWarps * kRows * kWideSlice;   // (warps, 16, 2): m, l
+  float* q_s = stats + kAttnWarps * kRows * 2;             // (16, qs)
+  uint32_t* kept = reinterpret_cast<uint32_t*>(q_s + kRows * qs);
+
+  const int h = blockIdx.y;
+  const int row0 = blockIdx.x * kRows;
+  const int d0 = blockIdx.z * kWideSlice;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int nv_q = nv_q_ptr != nullptr ? max(0, min(*nv_q_ptr, N)) : N;
+  const int nv_k = nv_k_ptr != nullptr ? max(0, min(*nv_k_ptr, M)) : M;
+  const size_t hd = static_cast<size_t>(H) * dh;
+  const float* kh = k + static_cast<size_t>(h) * M * dh;
+  const float* vh = v + static_cast<size_t>(h) * M * dh;
+
+  if (row0 >= nv_q) {  // a tile of padded rows: zeros, nothing read
+    for (int e = tid; e < kRows * kWideSlice; e += kAttnThreads) {
+      const int i = row0 + e / kWideSlice, d = d0 + e % kWideSlice;
+      if (i < N && d < dh) out[i * hd + h * dh + d] = 0.0f;
+    }
+    return;
+  }
+  for (int e = tid; e < kRows * dhp; e += kAttnThreads) {
+    const int r = e / dhp, d = e % dhp;
+    const bool ok = row0 + r < N && d < dh;
+    q_s[r * qs + d] = ok ? q[(static_cast<size_t>(h) * N + row0 + r) * dh + d] : 0.0f;
+  }
+  for (int w = warp; w * 32 < nv_k; w += kAttnWarps) {
+    const int j = w * 32 + lane;
+    const bool ok = j < nv_k && (key_masks == nullptr || key_masks[j] != 0);
+    const uint32_t bits = __ballot_sync(0xffffffffu, ok);
+    if (lane == 0) kept[w] = bits;
+  }
+  __syncthreads();
+  // K[key][d] and V[key][d] in place, zeros past nv_k and dh
+  auto k_at = [&](int key, int d) {
+    return key < nv_k && d < dh ? __ldg(kh + static_cast<size_t>(key) * dh + d) : 0.0f;
+  };
+  auto v_at = [&](int key, int d) {
+    return key < nv_k && d < dh ? __ldg(vh + static_cast<size_t>(key) * dh + d) : 0.0f;
+  };
+
+  float o[kSlice][4];
+#pragma unroll
+  for (int s = 0; s < kSlice; ++s) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[s][e] = 0.0f;
+  }
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.0f, 0.0f};
+  const int chunks = (nv_k + kKeys - 1) / kKeys;
+  for (int c = warp; c < chunks; c += kAttnWarps) {
+    const int c0 = c * kKeys;
+    float s_acc[2][4];
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s_acc[nt][e] = 0.0f;
+    }
+    for (int s = 0; s < dhp / 8; ++s) {
+      uint32_t a_big[4], a_small[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        split_tf32(q_s[(g + 8 * (e % 2)) * qs + 8 * s + t4 + 4 * (e / 2)], a_big[e], a_small[e]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const int key = c0 + 8 * nt + g;
+        uint32_t b_big[2], b_small[2];
+        split_tf32(k_at(key, 8 * s + t4), b_big[0], b_small[0]);
+        split_tf32(k_at(key, 8 * s + t4 + 4), b_big[1], b_small[1]);
+        mma_3xtf32(s_acc[nt], a_big, a_small, b_big, b_small);
+      }
+    }
+    const uint32_t bits = kept[c0 / 32] >> (c0 % 32);
+    float row_max[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int jj = 8 * nt + 2 * t4 + e % 2;
+        const int i = row0 + g + 8 * (e / 2);
+        float x = s_acc[nt][e];
+        if (bias != nullptr && i < N && c0 + jj < nv_k) {
+          x += __ldg(bias + (static_cast<size_t>(i) * H + h) * M + c0 + jj);
+        }
+        x *= scale;
+        s_acc[nt][e] = (bits >> jj) & 1u ? x : -INFINITY;
+        row_max[e / 2] = fmaxf(row_max[e / 2], s_acc[nt][e]);
+      }
+    }
+    float correction[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      row_max[r] = fmaxf(row_max[r], __shfl_xor_sync(0xffffffffu, row_max[r], 1));
+      row_max[r] = fmaxf(row_max[r], __shfl_xor_sync(0xffffffffu, row_max[r], 2));
+      const float m_new = fmaxf(m_run[r], row_max[r]);
+      correction[r] = m_run[r] == -INFINITY ? 0.0f : expf(m_run[r] - m_new);
+      m_run[r] = m_new;
+      l_run[r] *= correction[r];
+    }
+    uint32_t pa_big[2][4], pa_small[2][4];
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = s_acc[nt][e];
+        const float p = x == -INFINITY ? 0.0f : expf(x - m_run[e / 2]);
+        l_run[e / 2] += p;
+        const int slot = (e % 2) * 2 + e / 2;
+        split_tf32(p, pa_big[nt][slot], pa_small[nt][slot]);
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < kSlice; ++s) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[s][e] *= correction[e / 2];
+#pragma unroll
+      for (int kt = 0; kt < 2; ++kt) {
+        const int key = c0 + 8 * kt + 2 * t4;
+        const int d = d0 + 8 * s + g;
+        uint32_t b_big[2], b_small[2];
+        split_tf32(v_at(key, d), b_big[0], b_small[0]);
+        split_tf32(v_at(key + 1, d), b_big[1], b_small[1]);
+        mma_3xtf32(o[s], pa_big[kt], pa_small[kt], b_big, b_small);
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+  }
+#pragma unroll
+  for (int s = 0; s < kSlice; ++s) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = g + 8 * (e / 2);
+      part[(warp * kRows + r) * kWideSlice + 8 * s + 2 * t4 + e % 2] = o[s][e];
+    }
+  }
+  if (t4 == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      stats[(warp * kRows + g + 8 * r) * 2] = m_run[r];
+      stats[(warp * kRows + g + 8 * r) * 2 + 1] = l_run[r];
+    }
+  }
+  __syncthreads();
+  for (int e = tid; e < kRows * kWideSlice; e += kAttnThreads) {
+    const int r = e / kWideSlice, d = e % kWideSlice, i = row0 + r;
+    if (i >= N || d0 + d >= dh) continue;
+    float value = 0.0f;  // padded rows, and rows without a kept key
+    if (i < nv_q) {
+      float m_all = -INFINITY;
+      for (int w = 0; w < kAttnWarps; ++w) m_all = fmaxf(m_all, stats[(w * kRows + r) * 2]);
+      if (m_all != -INFINITY) {
+        float num = 0.0f, den = 0.0f;
+        for (int w = 0; w < kAttnWarps; ++w) {
+          const float m_w = stats[(w * kRows + r) * 2];
+          if (m_w == -INFINITY) continue;
+          const float f = expf(m_w - m_all);
+          num += part[(w * kRows + r) * kWideSlice + d] * f;
+          den += stats[(w * kRows + r) * 2 + 1] * f;
+        }
+        value = num / den;
+      }
+    }
+    out[i * hd + h * dh + d0 + d] = value;
+  }
+}
+
+int launch_attention_wide(const float* q, const float* k, const float* v, const float* bias,
+                          const uint8_t* key_masks, const int32_t* nv_q, const int32_t* nv_k,
+                          float* out, int N, int M, int H, int dh, float scale,
+                          cudaStream_t stream) {
+  const size_t dhp = (static_cast<size_t>(dh) + 7) / 8 * 8;
+  const size_t shared =
+      sizeof(float) * (kAttnWarps * kRows * (kWideSlice + 2) + kRows * (dhp + 4)) +
+      sizeof(uint32_t) * ((static_cast<size_t>(M) + 31) / 32);
+  if (shared > kMaxShared) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err =
+      allow_smem(reinterpret_cast<const void*>(attention_wide_kernel), shared);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((N + kRows - 1) / kRows, H, (dh + kWideSlice - 1) / kWideSlice);
+  attention_wide_kernel<<<grid, kAttnThreads, shared, stream>>>(
+      q, k, v, bias, key_masks, nv_q, nv_k, out, N, M, H, dh, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -470,37 +798,68 @@ const char* error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+// vec4: pair_scores_kernel (C a multiple of 4 up to 512, H <= 8, embed and
+// qw 16-byte aligned), else pair_scores_any_kernel (kernels/attention.py:
+// pair_scores_route picks it).
 int rpe_pair_scores_launch(const float* embed, const float* qw, const int32_t* nv_q,
-                           const int32_t* nv_k, float* out, int N, int M, int H, int C,
+                           const int32_t* nv_k, float* out, int N, int M, int H, int C, int vec4,
                            void* stream) {
-  if (H < 1 || H > kMaxHeads || C < 4 || C % 4 != 0 || C > 512) {
+  if (H < 1 || C < 1 || H > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  if (vec4 && (H > kMaxHeads || C % 4 != 0 || C > 512 ||
+               reinterpret_cast<uintptr_t>(embed) % 16 != 0 ||
+               reinterpret_cast<uintptr_t>(qw) % 16 != 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (N == 0 || M == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!vec4) {  // any C, H and alignment
+    const int block_bytes = launch_util::device_limits().block_bytes;
+    const size_t qw_bytes = sizeof(float) * static_cast<size_t>(H) * C;
+    const bool qw_shared = qw_bytes <= static_cast<size_t>(block_bytes);
+    const size_t shared = qw_shared ? qw_bytes : 0;
+    const cudaError_t err =
+        allow_smem(reinterpret_cast<const void*>(pair_scores_any_kernel), shared);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid((M + kColsPerBlock - 1) / kColsPerBlock, N);
+    pair_scores_any_kernel<<<grid, kPairThreads, shared, s>>>(embed, qw, nv_q, nv_k, out, N, M, H,
+                                                             C, qw_shared);
+    return static_cast<int>(cudaGetLastError());
+  }
   switch ((C + 127) / 128) {
     case 1: return launch_pair_scores<1>(embed, qw, nv_q, nv_k, out, N, M, H, C, s);
     case 2: return launch_pair_scores<2>(embed, qw, nv_q, nv_k, out, N, M, H, C, s);
     case 3: return launch_pair_scores<3>(embed, qw, nv_q, nv_k, out, N, M, H, C, s);
-    case 4: return launch_pair_scores<4>(embed, qw, nv_q, nv_k, out, N, M, H, C, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    default: return launch_pair_scores<4>(embed, qw, nv_q, nv_k, out, N, M, H, C, s);
   }
 }
 
+// width, vec16: the instance (kernels/attention.py:attention_route picks
+// it): attention_kernel<width> with 16-byte copies (vec16: DH == width, q,
+// k and v 16-byte aligned) or 4-byte ones (DH <= width, the columns past DH
+// zero), width 8, 16, 32 or 64; width 0: attention_wide_kernel, any DH.
 int fused_attention_launch(const float* q, const float* k, const float* v, const float* bias,
                            const uint8_t* key_masks, const int32_t* nv_q, const int32_t* nv_k,
-                           float* out, int N, int M, int H, int DH, float scale, void* stream) {
-  if (H < 1 || H > 65535 || reinterpret_cast<uintptr_t>(q) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(k) % 16 != 0 || reinterpret_cast<uintptr_t>(v) % 16 != 0) {
+                           float* out, int N, int M, int H, int DH, int width, int vec16,
+                           float scale, void* stream) {
+  const bool aligned = reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(v) % 16 == 0;
+  if (H < 1 || H > 65535 || DH < 1 || (width != 0 && DH > width) ||
+      (vec16 && (DH != width || !aligned))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (N == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (DH) {
-    case 8: return launch_attention<8>(q, k, v, bias, key_masks, nv_q, nv_k, out, N, M, H, scale, s);
-    case 16: return launch_attention<16>(q, k, v, bias, key_masks, nv_q, nv_k, out, N, M, H, scale, s);
-    case 32: return launch_attention<32>(q, k, v, bias, key_masks, nv_q, nv_k, out, N, M, H, scale, s);
-    case 64: return launch_attention<64>(q, k, v, bias, key_masks, nv_q, nv_k, out, N, M, H, scale, s);
+  switch (width * 2 + (vec16 ? 1 : 0)) {
+    case 0: return launch_attention_wide(q, k, v, bias, key_masks, nv_q, nv_k, out, N, M, H, DH, scale, s);
+    case 17: return launch_attention<8, true>(q, k, v, bias, key_masks, nv_q, nv_k, out, N, M, H, DH, scale, s);
+    case 33: return launch_attention<16, true>(q, k, v, bias, key_masks, nv_q, nv_k, out, N, M, H, DH, scale, s);
+    case 65: return launch_attention<32, true>(q, k, v, bias, key_masks, nv_q, nv_k, out, N, M, H, DH, scale, s);
+    case 129: return launch_attention<64, true>(q, k, v, bias, key_masks, nv_q, nv_k, out, N, M, H, DH, scale, s);
+    case 16: return launch_attention<8, false>(q, k, v, bias, key_masks, nv_q, nv_k, out, N, M, H, DH, scale, s);
+    case 32: return launch_attention<16, false>(q, k, v, bias, key_masks, nv_q, nv_k, out, N, M, H, DH, scale, s);
+    case 64: return launch_attention<32, false>(q, k, v, bias, key_masks, nv_q, nv_k, out, N, M, H, DH, scale, s);
+    case 128: return launch_attention<64, false>(q, k, v, bias, key_masks, nv_q, nv_k, out, N, M, H, DH, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

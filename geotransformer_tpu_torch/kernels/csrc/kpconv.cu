@@ -47,7 +47,11 @@
 //     memory into registers and all K influences are taken there, into K
 //     register accumulators (the kernel points in registers), the count in
 //     the same loop; the L partial sums merge by xor shuffles in a fixed
-//     order, so every run gives the same bits;
+//     order, so every run gives the same bits. K = 15 (every shipped
+//     configuration) has its own instances, any other K <= 16 a generic one;
+//     a K > 16 walks the slots once a chunk of 16 kernel points (16
+//     register accumulators, t1 rows of K padded to 16 in shared memory),
+//     so any K computes, each kernel point's sum in the same order;
 //   - a slot whose flag and feature are both 0 adds exactly 0: skipped;
 //   - |off - kp_k| is sqrt.approx, 1 - d / sigma one fma with 1 / sigma
 //     taken once, its clamp a saturate: local intrinsics, not a fast-math
@@ -97,13 +101,14 @@
 #include <cstdint>
 
 #include "kpconv_common.cuh"
+#include "launch_common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxKernelPoints = 16;
-constexpr int kT1Stride = 16;      // t1 rows in shared memory: K padded to 16 (float4 reads)
+constexpr int kChunk = 16;         // kernel points in registers at a time
+constexpr int kT1Stride = kChunk;  // t1 rows in shared memory: K padded to 16 (float4 reads)
 constexpr int kUnionQueries = 64;  // queries a union block (L = 4)
 constexpr float kFarAway = 1e18f;  // kernel points beyond K: influence 0, d^2 still finite
 
@@ -196,14 +201,21 @@ __device__ __forceinline__ void merge_lanes(float (&acc)[KP], float& cnt) {
   }
 }
 
-// A group's first lane puts its query's t1 row and divisor in shared memory.
+// A group's first lane puts its query's t1 row (t1 rows `stride` floats
+// apart) and divisor in shared memory.
 template <int KP, int L>
 __device__ __forceinline__ void keep_query(const float (&acc)[KP], float cnt, int ql, int rows,
-                                           float* t1_s, float* cnt_s) {
+                                           float* t1_s, float* cnt_s, int stride = kT1Stride) {
   if (threadIdx.x % L != 0 || ql >= rows) return;
 #pragma unroll
-  for (int k = 0; k < KP; ++k) t1_s[ql * kT1Stride + k] = acc[k];
+  for (int k = 0; k < KP; ++k) t1_s[ql * stride + k] = acc[k];
   cnt_s[ql] = fmaxf(cnt, 1.0f);
+}
+
+// t1 rows in shared memory: K padded to 16, one chunk of 16 kernel points
+// after another where K > 16
+__host__ __device__ __forceinline__ int t1_stride(int K) {
+  return K <= kChunk ? kT1Stride : (K + kChunk - 1) / kChunk * kChunk;
 }
 
 // out[q0 + r, :] = t1[r, :] W * (1 / count[r]) for the tile's rows (after a
@@ -259,6 +271,42 @@ __device__ __forceinline__ void write_outputs(const float* t1_s, const float* cn
   }
 }
 
+// write_outputs for K > 16 (t1 rows `stride` floats apart): the same sums
+// over k in the same order, W read from shared memory at each k.
+__device__ __forceinline__ void write_outputs_chunked(const float* t1_s, const float* cnt_s,
+                                                      const float* w_s, float* __restrict__ out,
+                                                      float* __restrict__ t1_out,
+                                                      float* __restrict__ count_out, int q0,
+                                                      int rows, int K, int D, int stride) {
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  for (int d0 = lane; d0 < D; d0 += 64) {
+    const int d1 = d0 + 32;
+    for (int r = warp; r < rows; r += kWarps) {
+      const float* t = t1_s + r * stride;
+      float a0 = 0.0f;
+      float a1 = 0.0f;
+      for (int k = 0; k < K; ++k) {
+        a0 = fmaf(t[k], w_s[k * D + d0], a0);
+        if (d1 < D) a1 = fmaf(t[k], w_s[k * D + d1], a1);
+      }
+      const float inv_count = 1.0f / cnt_s[r];
+      float* row = out + static_cast<size_t>(q0 + r) * D;
+      row[d0] = a0 * inv_count;
+      if (d1 < D) row[d1] = a1 * inv_count;
+    }
+  }
+  if (t1_out != nullptr) {
+    for (int i = threadIdx.x; i < rows * K; i += kThreads) {
+      const int r = i / K;
+      t1_out[static_cast<size_t>(q0) * K + i] = t1_s[r * stride + (i - r * K)];
+    }
+  }
+  if (count_out != nullptr) {
+    for (int i = threadIdx.x; i < rows; i += kThreads) count_out[q0 + i] = cnt_s[i];
+  }
+}
+
 __device__ __forceinline__ void stage_weights(const float* __restrict__ w, float* w_s, int K,
                                               int D) {
   for (int i = threadIdx.x; i < K * D; i += kThreads) w_s[i] = __ldg(w + i);
@@ -297,14 +345,18 @@ __device__ __forceinline__ void copy_rows(const T* __restrict__ planes, T* dst, 
 // stages' mbarriers)
 inline size_t stream_smem_floats(int Q, int H, int K, int D) {
   return 2 * 5 * static_cast<size_t>(Q) * H + ((static_cast<size_t>(K) * D + 3) / 4 * 4) +
-         static_cast<size_t>(Q) * kT1Stride + (Q + 3) / 4 * 4 + 4;
+         static_cast<size_t>(Q) * t1_stride(K) + (Q + 3) / 4 * 4 + 4;
 }
 
 // Edge-stream input conv: persistent blocks walk tiles of Q = 256 / L
 // queries; lanes [L ql, L ql + L) own query ql of a tile. `bulk`: the planes
 // and their tiles start at multiples of 16 bytes (M H % 4 == 0), so a
 // tile's plane is one bulk copy; else 4-byte cp.async, an element a thread.
-template <int KP, int L>
+// CHUNKED (K > 16, KP = 16): each tile walks its slots once a chunk of 16
+// kernel points, their accumulators in registers, the next chunk's kernel
+// points loaded in its turn; each kernel point's sum is the same as with
+// all K in registers.
+template <int KP, int L, bool CHUNKED = false>
 __global__ void __launch_bounds__(kThreads, 2) kpconv_stream_kernel(
     const float* __restrict__ stream,  // (5, M, H): off xyz, posflag, feat
     const float* __restrict__ kp,      // (K, 3)
@@ -318,8 +370,9 @@ __global__ void __launch_bounds__(kThreads, 2) kpconv_stream_kernel(
   extern __shared__ __align__(16) float smem[];
   float* ring = smem;                                     // (2, 5, Q, H)
   float* w_s = ring + 2 * stage;                          // (K, D)
-  float* t1_s = w_s + (K * D + 3) / 4 * 4;                // (Q, 16)
-  float* cnt_s = t1_s + Q * kT1Stride;                    // (Q,)
+  const int t1s = CHUNKED ? t1_stride(K) : kT1Stride;
+  float* t1_s = w_s + (K * D + 3) / 4 * 4;                // (Q, t1s)
+  float* cnt_s = t1_s + Q * t1s;                          // (Q,)
   uint64_t* bars = reinterpret_cast<uint64_t*>(cnt_s + (Q + 3) / 4 * 4);  // (2,)
 
   const int tiles = (M + Q - 1) / Q;
@@ -351,9 +404,10 @@ __global__ void __launch_bounds__(kThreads, 2) kpconv_stream_kernel(
   fetch(tile, 0);
   stage_weights(w, w_s, K, D);
   KernelPoints<KP> kpr;
-  kpr.load(kp, K);
+  if constexpr (!CHUNKED) kpr.load(kp, K);
   const float inv_sigma = 1.0f / sigma;
   const int ql = threadIdx.x / L;
+  const int chunks = CHUNKED ? (K + kChunk - 1) / kChunk : 1;
 
   for (int it = 0; tile < tiles; ++it, tile += gridDim.x) {
     const int next = tile + gridDim.x;
@@ -372,20 +426,27 @@ __global__ void __launch_bounds__(kThreads, 2) kpconv_stream_kernel(
     const int q0 = tile * Q;
     const int rows = min(Q, M - q0);
     const float* st = ring + (it & 1) * stage + ql * H;
-    float acc[KP];
+    for (int c = 0; c < chunks; ++c) {
+      if constexpr (CHUNKED) kpr.load(kp + 3 * kChunk * c, K - kChunk * c);
+      float acc[KP];
 #pragma unroll
-    for (int k = 0; k < KP; ++k) acc[k] = 0.0f;
-    float cnt = 0.0f;
-    if (ql < rows) {
-      for (int h = threadIdx.x % L; h < H; h += L) {
-        add_edge(st[h], st[Q * H + h], st[2 * Q * H + h], st[3 * Q * H + h],
-                 st[4 * Q * H + h], kpr, inv_sigma, acc, cnt);
+      for (int k = 0; k < KP; ++k) acc[k] = 0.0f;
+      float cnt = 0.0f;
+      if (ql < rows) {
+        for (int h = threadIdx.x % L; h < H; h += L) {
+          add_edge(st[h], st[Q * H + h], st[2 * Q * H + h], st[3 * Q * H + h],
+                   st[4 * Q * H + h], kpr, inv_sigma, acc, cnt);
+        }
       }
+      merge_lanes<KP, L>(acc, cnt);
+      keep_query<KP, L>(acc, cnt, ql, rows, t1_s + kChunk * c, cnt_s, t1s);
     }
-    merge_lanes<KP, L>(acc, cnt);
-    keep_query<KP, L>(acc, cnt, ql, rows, t1_s, cnt_s);
     __syncthreads();
-    write_outputs<KP>(t1_s, cnt_s, w_s, out, t1_out, count_out, q0, rows, K, D);
+    if constexpr (CHUNKED) {
+      write_outputs_chunked(t1_s, cnt_s, w_s, out, t1_out, count_out, q0, rows, K, D, t1s);
+    } else {
+      write_outputs<KP>(t1_s, cnt_s, w_s, out, t1_out, count_out, q0, rows, K, D);
+    }
   }
   cp_async_wait<0>();
 }
@@ -396,13 +457,13 @@ __global__ void __launch_bounds__(kThreads, 2) kpconv_stream_kernel(
 inline size_t union_smem_floats(int U, int hs, int K, int D) {
   return 4 * (static_cast<size_t>(U) + 1) + static_cast<size_t>(kUnionQueries) * hs +
          ((static_cast<size_t>(K) * D + 3) / 4 * 4) +
-         static_cast<size_t>(kUnionQueries) * kT1Stride + kUnionQueries;
+         static_cast<size_t>(kUnionQueries) * t1_stride(K) + kUnionQueries;
 }
 
 // Union-gather input conv: block b takes queries [q0, q0 + 64) of union
 // tile b / sub (sub = ceil(tile / 64) blocks a tile); lanes [4 ql, 4 ql + 4)
-// own query ql.
-template <int KP>
+// own query ql. CHUNKED: K > 16, as the stream kernel's.
+template <int KP, bool CHUNKED = false>
 __global__ void __launch_bounds__(kThreads, 2) kpconv_union_kernel(
     const float* __restrict__ s_feats,    // (N,) the c_in == 1 features
     const float* __restrict__ s_points,   // (N, 3)
@@ -426,8 +487,9 @@ __global__ void __launch_bounds__(kThreads, 2) kpconv_union_kernel(
   float4* un = reinterpret_cast<float4*>(smem);                       // (U + 1,)
   int32_t* sel_s = reinterpret_cast<int32_t*>(smem + 4 * (U + 1));   // (Q, hs)
   float* w_s = smem + 4 * (U + 1) + kUnionQueries * hs;               // (K, D)
-  float* t1_s = w_s + (K * D + 3) / 4 * 4;                            // (Q, 16)
-  float* cnt_s = t1_s + kUnionQueries * kT1Stride;                    // (Q,)
+  const int t1s = CHUNKED ? t1_stride(K) : kT1Stride;
+  float* t1_s = w_s + (K * D + 3) / 4 * 4;                            // (Q, t1s)
+  float* cnt_s = t1_s + kUnionQueries * t1s;                          // (Q,)
 
   copy_rows<1, kUnionQueries>(sel, sel_s, M, H, hs, q0, rows_here);
   cp_async_commit();
@@ -444,71 +506,55 @@ __global__ void __launch_bounds__(kThreads, 2) kpconv_union_kernel(
   }
   stage_weights(w, w_s, K, D);
   KernelPoints<KP> kpr;
-  kpr.load(kp, K);
+  kpr.load(kp, K);  // (the first chunk of 16 where CHUNKED)
   const float inv_sigma = 1.0f / sigma;
   const int ql = threadIdx.x / L;
   cp_async_wait<0>();
   __syncthreads();
 
-  float acc[KP];
-#pragma unroll
-  for (int k = 0; k < KP; ++k) acc[k] = 0.0f;
-  float cnt = 0.0f;
-  if (ql < rows_here) {
-    const size_t q = static_cast<size_t>(q0 + ql);
-    const float qx = __ldg(q_points + 3 * q + 0);
-    const float qy = __ldg(q_points + 3 * q + 1);
-    const float qz = __ldg(q_points + 3 * q + 2);
-    for (int h = threadIdx.x % L; h < H; h += L) {
-      int u = sel_s[ql * hs + h];
-      u = (u >= 0 && u < U) ? u : U;
-      const float4 e = un[u];
-      // (s - q) - kp_k: the offset first, as every KPConv of the port
-      add_edge(e.x - qx, e.y - qy, e.z - qz, e.w > 0.0f ? 1.0f : 0.0f, e.w, kpr, inv_sigma,
-               acc, cnt);
+  const int chunks = CHUNKED ? (K + kChunk - 1) / kChunk : 1;
+  for (int c = 0; c < chunks; ++c) {
+    if constexpr (CHUNKED) {
+      if (c > 0) kpr.load(kp + 3 * kChunk * c, K - kChunk * c);
     }
+    float acc[KP];
+#pragma unroll
+    for (int k = 0; k < KP; ++k) acc[k] = 0.0f;
+    float cnt = 0.0f;
+    if (ql < rows_here) {
+      const size_t q = static_cast<size_t>(q0 + ql);
+      const float qx = __ldg(q_points + 3 * q + 0);
+      const float qy = __ldg(q_points + 3 * q + 1);
+      const float qz = __ldg(q_points + 3 * q + 2);
+      for (int h = threadIdx.x % L; h < H; h += L) {
+        int u = sel_s[ql * hs + h];
+        u = (u >= 0 && u < U) ? u : U;
+        const float4 e = un[u];
+        // (s - q) - kp_k: the offset first, as every KPConv of the port
+        add_edge(e.x - qx, e.y - qy, e.z - qz, e.w > 0.0f ? 1.0f : 0.0f, e.w, kpr, inv_sigma,
+                 acc, cnt);
+      }
+    }
+    merge_lanes<KP, L>(acc, cnt);
+    keep_query<KP, L>(acc, cnt, ql, rows_here, t1_s + kChunk * c, cnt_s, t1s);
   }
-  merge_lanes<KP, L>(acc, cnt);
-  keep_query<KP, L>(acc, cnt, ql, rows_here, t1_s, cnt_s);
   __syncthreads();
-  write_outputs<KP>(t1_s, cnt_s, w_s, out, t1_out, count_out, q0, rows_here, K, D);
-}
-
-// the current device, its SM count and shared-memory limits, read once
-constexpr int kMaxDevices = 64;
-
-struct Limits {
-  int device = 0;       // its index, below kMaxDevices
-  int sms = 0;
-  int block_bytes = 0;  // a block's shared memory at most (opt-in)
-  int sm_bytes = 0;     // an SM's
-};
-
-const Limits& device_limits() {
-  static Limits cache[kMaxDevices];
-  int device = 0;
-  cudaGetDevice(&device);
-  device = device < kMaxDevices ? device : 0;
-  Limits& d = cache[device];
-  if (d.sms == 0) {
-    d.device = device;
-    cudaDeviceGetAttribute(&d.block_bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-    cudaDeviceGetAttribute(&d.sm_bytes, cudaDevAttrMaxSharedMemoryPerMultiprocessor, device);
-    cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount, device);
+  if constexpr (CHUNKED) {
+    write_outputs_chunked(t1_s, cnt_s, w_s, out, t1_out, count_out, q0, rows_here, K, D, t1s);
+  } else {
+    write_outputs<KP>(t1_s, cnt_s, w_s, out, t1_out, count_out, q0, rows_here, K, D);
   }
-  return d;
 }
 
-// Lets `kernel` take `smem` bytes of dynamic shared memory; `allowed` is what
-// an earlier launch of that instance on this device already set, so that a
-// launch on the host-bound paths makes the driver call only when it grows.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t smem, size_t& allowed) {
-  if (smem <= allowed) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err == cudaSuccess) allowed = smem;
-  return err;
+using launch_util::Limits;
+using launch_util::allow_smem;
+using launch_util::device_limits;
+
+// variant: the instance (kernels/kpconv.py:input_conv_variant): 0 K = 15,
+// 1 another K <= 16, 2 K > 16 in chunks of 16 kernel points.
+bool variant_takes(int variant, int K) {
+  return (variant == 0 && K == 15) || (variant == 1 && K >= 1 && K <= kChunk) ||
+         (variant == 2 && K > kChunk);
 }
 
 }  // namespace
@@ -592,8 +638,8 @@ int kpconv_conv_launch(const float* s_feats, const float* q_points, const float*
 int kpconv_stream_launch(const float* stream_planes, const float* kp,
                          const float* w, float* out, float* t1_out,
                          float* count_out, int M, int H, int K, int D,
-                         float sigma, void* stream) {
-  if (K < 1 || K > kMaxKernelPoints || H < 1 || D < 1) {
+                         int variant, float sigma, void* stream) {
+  if (!variant_takes(variant, K) || H < 1 || D < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (M == 0) return 0;
@@ -614,16 +660,17 @@ int kpconv_stream_launch(const float* stream_planes, const float* kp,
   const int blocks = min(tiles, 2 * limits.sms);
   const bool bulk = reinterpret_cast<uintptr_t>(stream_planes) % 16 == 0 &&
                     static_cast<long long>(M) * H % 4 == 0;
-  // shared memory set so far, per device and instance (K = 15 or not, L)
-  static size_t allowed[kMaxDevices][2][2] = {};
-  const bool k15 = K == 15;  // every configuration's kernel size
   auto run = [&](auto kernel) {
-    const cudaError_t err = allow_smem(kernel, smem, allowed[limits.device][k15][wide]);
+    const cudaError_t err = allow_smem(reinterpret_cast<const void*>(kernel), smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
         stream_planes, kp, w, out, t1_out, count_out, M, H, K, D, sigma, bulk);
     return static_cast<int>(cudaGetLastError());
   };
+  if (variant == 2) {
+    return wide ? run(kpconv_stream_kernel<16, 8, true>) : run(kpconv_stream_kernel<16, 16, true>);
+  }
+  const bool k15 = variant == 0;  // every configuration's kernel size
   if (wide) return k15 ? run(kpconv_stream_kernel<15, 8>) : run(kpconv_stream_kernel<16, 8>);
   return k15 ? run(kpconv_stream_kernel<15, 16>) : run(kpconv_stream_kernel<16, 16>);
 }
@@ -631,9 +678,9 @@ int kpconv_stream_launch(const float* stream_planes, const float* kp,
 int kpconv_union_launch(const float* s_feats, const float* s_points, const float* q_points,
                         const int32_t* rows, const int32_t* sel, const float* kp,
                         const float* w, float* out, float* count_out, float* t1_out, int M,
-                        int N, int U, int H, int K, int D, int tile, float sigma,
+                        int N, int U, int H, int K, int D, int tile, int variant, float sigma,
                         void* stream) {
-  if (K < 1 || K > kMaxKernelPoints || H < 1 || D < 1 || U < 1 || tile < 1) {
+  if (!variant_takes(variant, K) || H < 1 || D < 1 || U < 1 || tile < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (M == 0) return 0;
@@ -644,17 +691,16 @@ int kpconv_union_launch(const float* s_feats, const float* s_points, const float
   }
   const int sub = (tile + kUnionQueries - 1) / kUnionQueries;
   const long long blocks = static_cast<long long>((M + tile - 1) / tile) * sub;
-  static size_t allowed[kMaxDevices][2] = {};  // as the stream launch's
-  const bool k15 = K == 15;
   auto run = [&](auto kernel) {
-    const cudaError_t err = allow_smem(kernel, smem, allowed[limits.device][k15]);
+    const cudaError_t err = allow_smem(reinterpret_cast<const void*>(kernel), smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     kernel<<<static_cast<unsigned>(blocks), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
         s_feats, s_points, q_points, rows, sel, kp, w, out, count_out, t1_out, M, N, U, H, K, D,
         tile, sub, sigma);
     return static_cast<int>(cudaGetLastError());
   };
-  return k15 ? run(kpconv_union_kernel<15>) : run(kpconv_union_kernel<16>);
+  if (variant == 2) return run(kpconv_union_kernel<16, true>);
+  return variant == 0 ? run(kpconv_union_kernel<15>) : run(kpconv_union_kernel<16>);
 }
 
 }  // extern "C"

@@ -6,34 +6,48 @@
 //   covered_ref = #{i : rm[m, i], exists j: sm[c, j], |r[m, i] - s[c, j]|^2 < r^2}
 //   covered_src = #{j : sm[c, j], exists i: rm[m, i], |r[m, i] - s[c, j]|^2 < r^2}
 //   out[m, s]   = 0.5 (covered_ref / max(#rm, 1) + covered_src / max(#sm, 1))
-// and 0 where the candidate's mask is off.
+// and 0 where the candidate's mask is off or its index lies outside [0, N).
 //
-// Design. The TPU kernel was handed the (M, S, K, 3) gather of the candidate
-// patches (25 MB at KITTI's M = 256, S = 64, K = 128) and evaluated the K x K
-// distances as one HIGHEST-precision MXU dot per (node, candidate). Here the
-// candidate patches are read through the candidate indices: a block serves one
-// ref node and kWarps candidates, stages the ref patch and its mask in shared
-// memory once, and gives each warp one candidate, whose patch the warp copies
-// into its own shared slot. Each lane owns ref points i = lane, lane + 32, ...,
-// sweeps all K src points once, keeps its ref cover flags in registers and sets
-// the src cover flags in shared memory (a benign race: every writer stores 1);
-// warp reductions then count both. The distance is taken directly as
-// dx dx + dy dy + dz dz, each product and sum rounded on its own (no FMA
-// contraction), exactly as the plain PyTorch version computes it, so the two
-// agree bit for bit on the cover flags.
+// What bounds it on an H100 (chip_smoke.py's cost_patch_overlaps): the
+// bytes. It reads the masks, the candidate table, the ref patches and the
+// candidate patches once each and writes the (M, S) overlaps (~0.5-2 MB at
+// KITTI's caps: 0.0006 ms at 3.35 TB/s); the work is 9 operations a valid
+// point pair of a valid candidate (17.9 M at KITTI's step, ~0.3 us at the
+// CUDA cores' 67 TFLOP/s). So at these sizes one launch's latency and the
+// chain of dependent loads set the time, not the arithmetic.
 //
-// What bounds it: K^2 = 16,384 distance evaluations a (node, candidate) pair,
-// ~10 operations each: 2.7e9 operations for KITTI's 256 x 64 pairs, about
-// 40 us at the f32 rate; the bytes read are ~0.4 MB of patches.
+// Design: a block takes a ref node's candidates 8 at a time (the grid is
+// M x S / 8), 8 warps. Every warp takes one __ballot_sync of the 8
+// candidates' validity (mask on, index in range); warp 0 writes 0 for the
+// invalid ones, and a block without a valid candidate is done there,
+// before it stages anything (most blocks: a KITTI node has ~3 valid
+// candidates of 64). Warp w takes the w-th valid candidate (the list the
+// ballot compacts) and compacts that patch's valid points into its own
+// shared slot, each lane starting the loads of 128 slots at once; a warp
+// without a candidate compacts the ref patch's; one barrier. The warp then
+// walks valid x valid pairs only: lane l holds ref points l, l + 32, ...
+// (four at a time, their cover flags in registers), and for each src
+// point one ballot over the lanes gives its cover flag, kept as a bit of a
+// 32-bit mask word. The counts are popcounts. The distance is taken
+// directly as dx dx + dy dy + dz dz, each product and sum rounded on its
+// own (no FMA contraction), exactly as the plain PyTorch version computes
+// it, so the two agree bit for bit on the cover flags and so on the
+// overlaps. The candidate indices are read as they come (int64 from
+// torch.topk, or int32), and a launch sets the kernel's shared-memory limit
+// only when it grows.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "launch_common.cuh"
+
 namespace {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
+constexpr int kRefTile = 4;  // ref points a lane holds at a time: 128 a warp
+constexpr int kBatch = 4;    // chunks of 32 slots whose loads a lane starts together
 
 __device__ __forceinline__ float sq_dist(float ax, float ay, float az, float bx, float by,
                                          float bz) {
@@ -49,81 +63,147 @@ __device__ __forceinline__ int warp_sum(int v) {
   return v;
 }
 
+// Compacts the valid points of one (K, 3) patch into pts_s as (x, y, z, 0)
+// (in slot order) with one warp: each lane loads its slots of kBatch chunks
+// of 32 at once (the loads of a batch in flight together, points whether
+// valid or not, so that no load waits on the mask), then a ballot a chunk
+// places them. Returns the count (in every lane).
+__device__ __forceinline__ int compact_patch(const float* __restrict__ pts,
+                                             const uint8_t* __restrict__ mask, int K,
+                                             float4* pts_s, int lane) {
+  int n = 0;
+  for (int k0 = 0; k0 < K; k0 += 32 * kBatch) {
+    bool on[kBatch];
+    float x[kBatch], y[kBatch], z[kBatch];
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      const int k = k0 + 32 * b + lane;
+      const bool in = k < K;
+      on[b] = in && mask[k] != 0;
+      x[b] = in ? pts[3 * k + 0] : 0.0f;
+      y[b] = in ? pts[3 * k + 1] : 0.0f;
+      z[b] = in ? pts[3 * k + 2] : 0.0f;
+    }
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      const uint32_t bits = __ballot_sync(0xffffffffu, on[b]);
+      if (on[b]) pts_s[n + __popc(bits & ((1u << lane) - 1u))] = make_float4(x[b], y[b], z[b], 0.0f);
+      n += __popc(bits);
+    }
+  }
+  return n;
+}
+
+template <typename Index>
 __global__ void __launch_bounds__(kThreads) patch_overlap_kernel(
     const float* __restrict__ ref_pts,     // (M, K, 3)
     const uint8_t* __restrict__ ref_mask,  // (M, K)
     const float* __restrict__ src_pts,     // (N, K, 3), already transformed
     const uint8_t* __restrict__ src_mask,  // (N, K)
-    const int32_t* __restrict__ cand,      // (M, S) src node per candidate
+    const Index* __restrict__ cand,        // (M, S) src node per candidate
     const uint8_t* __restrict__ cand_mask, // (M, S)
     float* __restrict__ out,               // (M, S)
-    int M, int N, int S, int K, float r2) {
-  extern __shared__ float smem[];
-  float* rp = smem;                            // (K, 3) ref patch
-  float* rm = rp + 3 * K;                      // (K,) ref mask as 0/1
-  float* slots = rm + K;                       // kWarps x [sp (K, 3), sm (K,), cov (K,)]
+    int N, int S, int K, float r2) {
+  extern __shared__ float4 smem4[];
+  const int words = (K + 31) / 32;
+  float4* ref_s = smem4;                                  // (K,) the ref patch's valid points
+  float4* slots = ref_s + K;                              // kWarps x (K,) a candidate's
+  uint32_t* cov_all = reinterpret_cast<uint32_t*>(slots + kWarps * K);  // kWarps x (words,)
+  __shared__ int n_ref_s;
   const int m = blockIdx.x;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
+  const size_t row = static_cast<size_t>(m) * S;
 
-  for (int i = threadIdx.x; i < 3 * K; i += kThreads) {
-    rp[i] = ref_pts[static_cast<size_t>(m) * K * 3 + i];
+  // 1. the block's kWarps candidates: every warp takes the same ballot of
+  // the valid ones (mask on, index in range); warp 0 writes 0 for the
+  // rest; a block without a valid candidate is done before it stages
+  // anything
+  const int s0 = kWarps * blockIdx.y;
+  bool on = false;
+  if (lane < kWarps && s0 + lane < S) {
+    const long long c = static_cast<long long>(cand[row + s0 + lane]);
+    on = cand_mask[row + s0 + lane] != 0 && c >= 0 && c < N;
+    if (warp == 0 && !on) out[row + s0 + lane] = 0.0f;
   }
-  for (int i = threadIdx.x; i < K; i += kThreads) {
-    rm[i] = ref_mask[static_cast<size_t>(m) * K + i] ? 1.0f : 0.0f;
+  const uint32_t valid = __ballot_sync(0xffffffffu, on);
+  const int total = __popc(valid);
+  if (total == 0) return;
+
+  // 2. warp w takes the w-th valid candidate (the list compacted by the
+  // ballot) and compacts its patch; a warp without one (or the last)
+  // compacts the ref patch; one barrier
+  float4* src_s = slots + static_cast<size_t>(warp) * K;
+  uint32_t* cov = cov_all + static_cast<size_t>(warp) * words;
+  int s = -1;
+  int n_src = 0;
+  if (warp < total) {
+    uint32_t rest = valid;
+    for (int k = 0; k < warp; ++k) rest &= rest - 1u;  // drop the first `warp` set bits
+    s = s0 + __ffs(rest) - 1;
+    const long long c = static_cast<long long>(cand[row + s]);
+    n_src = compact_patch(src_pts + c * K * 3, src_mask + c * K, K, src_s, lane);
+  }
+  if (warp == (total < kWarps ? total : kWarps - 1)) {
+    const int n_ref = compact_patch(ref_pts + static_cast<size_t>(m) * K * 3,
+                                    ref_mask + static_cast<size_t>(m) * K, K, ref_s, lane);
+    if (lane == 0) n_ref_s = n_ref;
   }
   __syncthreads();
+  if (warp >= total) return;
+  const int n_ref = n_ref_s;
 
-  const int s = blockIdx.y * kWarps + warp;
-  if (s >= S) return;
-  const size_t o = static_cast<size_t>(m) * S + s;
-  const int c = cand[o];
-  if (!cand_mask[o] || c < 0 || c >= N) {
-    if (lane == 0) out[o] = 0.0f;
-    return;
-  }
-  float* sp = slots + static_cast<size_t>(warp) * 5 * K;
-  float* sm = sp + 3 * K;
-  float* cov = sm + K;
-  for (int i = lane; i < 3 * K; i += 32) sp[i] = src_pts[static_cast<size_t>(c) * K * 3 + i];
-  for (int j = lane; j < K; j += 32) {
-    sm[j] = src_mask[static_cast<size_t>(c) * K + j] ? 1.0f : 0.0f;
-    cov[j] = 0.0f;
-  }
+  // 3. valid x valid pairs: lane l holds ref points i0 + l + 32 t (t <
+  // kRefTile) in registers, their cover flags too; one ballot a src point
+  // gives its cover flag, 32 flags a mask word
+  for (int w = lane; w < words; w += 32) cov[w] = 0u;
   __syncwarp();
-
   int ref_cover = 0;
-  int ref_total = 0;
-  for (int i = lane; i < K; i += 32) {
-    if (rm[i] == 0.0f) continue;
-    ++ref_total;
-    const float x = rp[3 * i + 0];
-    const float y = rp[3 * i + 1];
-    const float z = rp[3 * i + 2];
-    int hit = 0;
-    for (int j = 0; j < K; ++j) {
-      if (sm[j] != 0.0f && sq_dist(x, y, z, sp[3 * j + 0], sp[3 * j + 1], sp[3 * j + 2]) < r2) {
-        hit = 1;
-        cov[j] = 1.0f;
-      }
+  for (int i0 = 0; i0 < n_ref; i0 += 32 * kRefTile) {
+    float x[kRefTile], y[kRefTile], z[kRefTile];
+    bool live[kRefTile], hit[kRefTile];
+#pragma unroll
+    for (int t = 0; t < kRefTile; ++t) {
+      const int i = i0 + lane + 32 * t;
+      live[t] = i < n_ref;
+      const float4 p = live[t] ? ref_s[i] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      x[t] = p.x;
+      y[t] = p.y;
+      z[t] = p.z;
+      hit[t] = false;
     }
-    ref_cover += hit;
+    const int tiles = min(kRefTile, (n_ref - i0 + 31) / 32);  // the tile's live rows
+    for (int j0 = 0; j0 < n_src; j0 += 32) {
+      uint32_t word = 0u;
+      const int jn = min(32, n_src - j0);
+      for (int jj = 0; jj < jn; ++jj) {
+        const float4 p = src_s[j0 + jj];
+        bool any = false;
+#pragma unroll
+        for (int t = 0; t < kRefTile; ++t) {
+          if (t < tiles) {
+            const bool close = live[t] && sq_dist(x[t], y[t], z[t], p.x, p.y, p.z) < r2;
+            hit[t] |= close;
+            any |= close;
+          }
+        }
+        word |= static_cast<uint32_t>(__ballot_sync(0xffffffffu, any) != 0u) << jj;
+      }
+      if (lane == 0) cov[j0 / 32] |= word;
+    }
+#pragma unroll
+    for (int t = 0; t < kRefTile; ++t) ref_cover += hit[t];
   }
   __syncwarp();
   int src_cover = 0;
-  int src_total = 0;
-  for (int j = lane; j < K; j += 32) {
-    src_cover += cov[j] != 0.0f;
-    src_total += sm[j] != 0.0f;
-  }
+  for (int w = lane; w < words; w += 32) src_cover += __popc(cov[w]);
   ref_cover = warp_sum(ref_cover);
-  ref_total = warp_sum(ref_total);
   src_cover = warp_sum(src_cover);
-  src_total = warp_sum(src_total);
   if (lane == 0) {
-    const float rt = ref_total > 0 ? static_cast<float>(ref_total) : 1.0f;
-    const float st = src_total > 0 ? static_cast<float>(src_total) : 1.0f;
-    out[o] = 0.5f * (static_cast<float>(ref_cover) / rt + static_cast<float>(src_cover) / st);
+    const float ref_total = n_ref > 0 ? static_cast<float>(n_ref) : 1.0f;
+    const float src_total = n_src > 0 ? static_cast<float>(n_src) : 1.0f;
+    out[row + s] = 0.5f * (static_cast<float>(ref_cover) / ref_total +
+                           static_cast<float>(src_cover) / src_total);
   }
 }
 
@@ -135,19 +215,32 @@ const char* error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+// cand: (M, S) int64 (index_bytes 8) or int32 (4), read as it is.
 int patch_overlaps_launch(const float* ref_pts, const uint8_t* ref_mask, const float* src_pts,
-                          const uint8_t* src_mask, const int32_t* cand, const uint8_t* cand_mask,
-                          float* out, int M, int N, int S, int K, float r2, void* stream) {
-  if (K < 1 || S < 1) return static_cast<int>(cudaErrorInvalidValue);
+                          const uint8_t* src_mask, const void* cand, const uint8_t* cand_mask,
+                          float* out, int M, int N, int S, int K, int index_bytes, float r2,
+                          void* stream) {
+  if (K < 1 || S < 1 || (index_bytes != 4 && index_bytes != 8)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (M == 0) return 0;
-  const size_t smem = sizeof(float) * (4 * static_cast<size_t>(K) + kWarps * 5 * static_cast<size_t>(K));
-  cudaError_t err = cudaFuncSetAttribute(
-      patch_overlap_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(M, (S + kWarps - 1) / kWarps);
-  patch_overlap_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      ref_pts, ref_mask, src_pts, src_mask, cand, cand_mask, out, M, N, S, K, r2);
-  return static_cast<int>(cudaGetLastError());
+  // the ref patch and a patch a warp as float4, a warp's cover words
+  const size_t words = (static_cast<size_t>(K) + 31) / 32;
+  const size_t smem = sizeof(float4) * (kWarps + 1) * static_cast<size_t>(K) +
+                      sizeof(uint32_t) * kWarps * words;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto run = [&](auto kernel, auto index) {
+    using Index = decltype(index);
+    const cudaError_t err = launch_util::allow_smem(reinterpret_cast<const void*>(kernel), smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid(M, (S + kWarps - 1) / kWarps);
+    kernel<<<grid, kThreads, smem, st>>>(ref_pts, ref_mask, src_pts, src_mask,
+                                      static_cast<const Index*>(cand), cand_mask, out, N, S, K,
+                                      r2);
+    return static_cast<int>(cudaGetLastError());
+  };
+  if (index_bytes == 8) return run(patch_overlap_kernel<int64_t>, int64_t{0});
+  return run(patch_overlap_kernel<int32_t>, int32_t{0});
 }
 
 }  // extern "C"

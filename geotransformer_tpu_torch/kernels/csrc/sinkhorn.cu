@@ -37,7 +37,7 @@
 //     lane 0's value; v = log_nu - LSE;
 //   barrier.
 // The partials of all N1 columns take 32 N1 floats. Where S and they do not
-// fit in a block's shared memory (M1 = N1 > 225), the GROUPED kernel reads
+// fit in a block's shared memory (M1 = N1 >= 225), the GROUPED kernel reads
 // log_mu and log_nu from global memory and runs the column partials and the
 // merge a group of gw columns at a time, a barrier pair a group: each
 // column's sums are the same, in the same order, either way. The same
@@ -45,13 +45,28 @@
 // exceeds the SMs and both fit (512 threads, at most 64 registers a
 // thread: P = 256 at inference runs in one wave on 132 SMs), else one (at
 // most 128 registers; P = 128 in training); the arithmetic is the same
-// either way. Capacity: M1, N1 <= 256 (SLOTS <= 8) and M1 N1 + N1 + 512
-// floats of shared memory (every square patch up to 239 x 239 on an H100).
+// either way. These instances take M1, N1 <= 256 (SLOTS <= 8) with
+// M1 N1 + N1 + 512 floats of shared memory (every square patch up to
+// 239 x 239 on an H100). Any other shape takes the GENERAL kernel
+// (sinkhorn_general_kernel): the same sweep and merge, in the same order,
+// with no register arrays: u and v in shared memory, each lane walking its
+// columns n = l + 32 j and each warp its rows w + 16 r for as many as the
+// patch has; S in shared memory where it fits, else read from global memory
+// (L2) every iteration; the column partials of all N1 columns in shared
+// memory where they fit, else in a global scratch the wrapper allocates.
+// Each sum is the one a register instance of that many slots would take,
+// in the same order (tests/test_torch_sinkhorn_fwd_order.py states it).
+// The wrapper alone picks the instance, the register instance's group
+// width and where the general kernel keeps S and the partials
+// (kernels/sinkhorn.py:forward_route, a plain function); the launch only
+// checks that what it is given fits the shape and a block.
 
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstdint>
+
+#include "launch_common.cuh"
 
 namespace {
 
@@ -215,56 +230,156 @@ __global__ void __launch_bounds__(kThreads, BLOCKS) sinkhorn_kernel(
   }
 }
 
-// the SM count and shared-memory limits of the current device, read once
-struct Limits {
-  int sms = 0;
-  int block_bytes = 0;  // a block's shared memory at most (opt-in)
-  int sm_bytes = 0;     // an SM's
-};
+// Any M1, N1: the sweep and merge of sinkhorn_kernel over memory instead of
+// registers. u (M1) and v (N1) in shared memory; S in shared memory where
+// s_shared, else the scores in global memory; the partials in shared memory
+// where part_shared, else the patch's (2, 16, N1) of `scratch`.
+template <bool STORE_HIST>
+__global__ void __launch_bounds__(kThreads, 1) sinkhorn_general_kernel(
+    const float* __restrict__ scores,  // (P, M1, N1)
+    const float* __restrict__ log_mu,  // (P, M1)
+    const float* __restrict__ log_nu,  // (P, N1)
+    float* __restrict__ out,           // (P, M1, N1)
+    float* __restrict__ v_hist,        // (P, T, N1) where STORE_HIST
+    float* __restrict__ scratch,       // (P, 2, 16, N1) where !part_shared
+    int M1, int N1, int iterations, bool s_shared, bool part_shared) {
+  extern __shared__ float smem[];
+  const size_t p = blockIdx.x;
+  float* u = smem;        // (M1,)
+  float* v = u + M1;      // (N1,)
+  float* rest = v + N1;
+  float* part_max = part_shared ? rest : scratch + p * 2 * kWarps * N1;  // (16, N1)
+  float* part_sum = part_max + kWarps * N1;                               // (16, N1)
+  if (part_shared) rest += 2 * kWarps * N1;
+  const float* lnu = log_nu + p * N1;
+  const float* lmu = log_mu + p * M1;
+  const size_t base = p * M1 * N1;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
 
-const Limits& device_limits() {
-  constexpr int kMaxDevices = 64;
-  static Limits cache[kMaxDevices];
-  int device = 0;
-  cudaGetDevice(&device);
-  Limits& d = cache[device < kMaxDevices ? device : 0];
-  if (d.sms == 0) {
-    cudaDeviceGetAttribute(&d.block_bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-    cudaDeviceGetAttribute(&d.sm_bytes, cudaDevAttrMaxSharedMemoryPerMultiprocessor, device);
-    cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount, device);
+  const float* s = scores + base;
+  if (s_shared) {
+    for (int e = tid; e < M1 * N1; e += kThreads) rest[e] = scores[base + e];
+    s = rest;
   }
-  return d;
+  for (int n = tid; n < N1; n += kThreads) v[n] = 0.0f;
+  for (int m = tid; m < M1; m += kThreads) u[m] = 0.0f;
+  __syncthreads();
+
+  for (int it = 0; it < iterations; ++it) {
+    if (STORE_HIST) {
+      float* hist = v_hist + (p * iterations + it) * N1;
+      for (int n = tid; n < N1; n += kThreads) hist[n] = v[n];
+    }
+    // sweep: u of the warp's rows (the row LSE of S + v) ...
+    for (int m = warp; m < M1; m += kWarps) {
+      const float* srow = s + static_cast<size_t>(m) * N1;
+      float mx = -INFINITY;
+      for (int n = lane; n < N1; n += 32) mx = fmaxf(mx, srow[n] + v[n]);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      float sum = 0.0f;
+      for (int n = lane; n < N1; n += 32) sum += exp_le0(srow[n] + v[n] - mx);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      const float lse = __shfl_sync(0xffffffffu, mx + logf(sum), 0);
+      if (lane == 0) u[m] = lmu[m] - lse;
+    }
+    __syncwarp();
+    // ... and the warp's column partials of S + u
+    for (int n = lane; n < N1; n += 32) {
+      float mx = -INFINITY;
+      for (int m = warp; m < M1; m += kWarps) mx = fmaxf(mx, s[static_cast<size_t>(m) * N1 + n] + u[m]);
+      float sum = 0.0f;
+      for (int m = warp; m < M1; m += kWarps) {
+        sum += exp_le0(s[static_cast<size_t>(m) * N1 + n] + u[m] - mx);
+      }
+      part_max[warp * N1 + n] = mx;
+      part_sum[warp * N1 + n] = sum;
+    }
+    __syncthreads();
+    // merge: columns 32 q + 2 warp + lane / 16, lane % 16 reading warp
+    // lane % 16's partials (a warp without rows: max -inf, sum 0)
+    for (int q = 0; 32 * q < N1; ++q) {
+      const int k = 32 * q + 2 * warp + lane / kMergeLanes;
+      const int at = (lane % kMergeLanes) * N1 + min(k, N1 - 1);
+      const float pm = part_max[at];
+      float mx = pm;
+#pragma unroll
+      for (int o = kMergeLanes / 2; o > 0; o >>= 1) {
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      }
+      float sum = __fmul_rn(part_sum[at], exp_le0(pm - mx));
+#pragma unroll
+      for (int o = kMergeLanes / 2; o > 0; o >>= 1) {
+        sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      }
+      if (lane % kMergeLanes == 0 && k < N1) v[k] = lnu[k] - (mx + logf(sum));
+    }
+    __syncthreads();
+  }
+
+  for (int m = warp; m < M1; m += kWarps) {
+    for (int n = lane; n < N1; n += 32) {
+      out[base + static_cast<size_t>(m) * N1 + n] = s[static_cast<size_t>(m) * N1 + n] + u[m] + v[n];
+    }
+  }
 }
 
+using launch_util::Limits;
+using launch_util::allow_smem;
+using launch_util::device_limits;
+
+// Whether a register instance fits (M1, N1) with the column partials of
+// group columns at a time (grouped: S, v and those partials), or of all N1
+// columns (group 0: S, the partials, v, log_nu and log_mu); its bytes.
+bool register_instance_fits(int M1, int N1, int group, size_t& smem) {
+  const int slots = ((M1 > N1 ? M1 : N1) + 31) / 32;
+  const bool grouped = group > 0;
+  if (slots > kMaxSlots || (grouped && (slots != kMaxSlots || group < kMinGroup))) return false;
+  const size_t area = static_cast<size_t>(M1) * N1;
+  smem = sizeof(float) * (area + 2 * kWarps * static_cast<size_t>(grouped ? group : N1) + N1 +
+                          (grouped ? 0 : static_cast<size_t>(N1) + M1));
+  return smem <= static_cast<size_t>(device_limits().block_bytes);
+}
+
+// general: the general kernel, S in shared memory where s_shared, the
+// partials where part_shared (else in scratch); else a register instance,
+// its partials group columns at a time (0: all N1).
 template <bool STORE_HIST>
 int launch(const float* scores, const float* log_mu, const float* log_nu, float* out,
-           float* v_hist, int P, int M1, int N1, int iterations, cudaStream_t stream) {
+           float* v_hist, float* scratch, int P, int M1, int N1, int iterations, bool general,
+           bool s_shared, bool part_shared, int group, cudaStream_t stream) {
   if (M1 < 1 || N1 < 1 || iterations < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int slots = ((M1 > N1 ? M1 : N1) + 31) / 32;
-  if (slots > kMaxSlots) return static_cast<int>(cudaErrorInvalidValue);
   if (P == 0) return 0;
   const Limits& limits = device_limits();
-  // S, the partials of all N1 columns, v, log_nu and log_mu where they fit
-  // (always for M1, N1 <= 224), else S, v and the partials of the most
-  // columns (a multiple of 16) that fit beside them
-  constexpr long long kFloat = sizeof(float);
-  const long long area = static_cast<long long>(M1) * N1;
-  const bool grouped = kFloat * (area + (2 * kWarps + 2) * N1 + M1) > limits.block_bytes;
-  const long long room = (limits.block_bytes - kFloat * (area + N1)) / (kFloat * 2 * kWarps);
-  const int gw = grouped ? static_cast<int>(room / kMinGroup * kMinGroup) : N1;
-  if (grouped && (slots != kMaxSlots || gw < kMinGroup)) {
-    return static_cast<int>(cudaErrorInvalidValue);
+  const int slots = ((M1 > N1 ? M1 : N1) + 31) / 32;
+  if (general) {
+    const size_t smem = sizeof(float) * (static_cast<size_t>(M1) + N1 +
+                                         (s_shared ? static_cast<size_t>(M1) * N1 : 0) +
+                                         (part_shared ? 2 * static_cast<size_t>(kWarps) * N1 : 0));
+    if (smem > static_cast<size_t>(limits.block_bytes) || (!part_shared && scratch == nullptr)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    auto kernel = sinkhorn_general_kernel<STORE_HIST>;
+    const cudaError_t err = allow_smem(reinterpret_cast<const void*>(kernel), smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<P, kThreads, smem, stream>>>(scores, log_mu, log_nu, out, v_hist, scratch, M1, N1,
+                                          iterations, s_shared, part_shared);
+    return static_cast<int>(cudaGetLastError());
   }
-  const size_t smem = static_cast<size_t>(
-      kFloat * (area + 2 * kWarps * gw + N1 + (grouped ? 0 : N1 + M1)));
+  size_t smem = 0;
+  if (!register_instance_fits(M1, N1, group, smem)) return static_cast<int>(cudaErrorInvalidValue);
+  const bool grouped = group > 0;
+  const int gw = grouped ? group : N1;
   // two patches an SM where there are more patches than SMs and both fit
   // (at most 64 registers a thread), else one (at most 128); 1 KB of an
   // SM's shared memory is reserved a block
   const bool two = slots <= kTwoSlots && P > limits.sms &&
                    2 * (smem + 1024) <= static_cast<size_t>(limits.sm_bytes);
   auto run = [&](auto kernel) {
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
+    const cudaError_t err = allow_smem(reinterpret_cast<const void*>(kernel), smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     kernel<<<P, kThreads, smem, stream>>>(scores, log_mu, log_nu, out, v_hist, M1, N1,
                                           iterations, gw);
@@ -291,21 +406,26 @@ const char* error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// M1, N1 <= 256; S, v and the column partials of 16 columns in a block's
-// shared memory (every square patch up to 239 x 239 on an H100)
+// A block's shared memory at most on the current device, in bytes.
+int sinkhorn_block_bytes() { return device_limits().block_bytes; }
+
+// general, s_shared, part_shared, group: the instance (kernels/sinkhorn.py:
+// forward_route); `scratch` (P, 2, 16, N1) where the general kernel's
+// partials do not sit in shared memory, else null.
 int sinkhorn_launch(const float* scores, const float* log_mu, const float* log_nu,
-                    float* out, int P, int M1, int N1, int iterations,
-                    void* stream) {
-  return launch<false>(scores, log_mu, log_nu, out, nullptr, P, M1, N1, iterations,
-                       static_cast<cudaStream_t>(stream));
+                    float* out, float* scratch, int P, int M1, int N1, int iterations,
+                    int general, int s_shared, int part_shared, int group, void* stream) {
+  return launch<false>(scores, log_mu, log_nu, out, nullptr, scratch, P, M1, N1, iterations,
+                       general, s_shared, part_shared, group, static_cast<cudaStream_t>(stream));
 }
 
 // the same, and v before each iteration into v_hist (P, T, N1)
 int sinkhorn_fwd_train_launch(const float* scores, const float* log_mu, const float* log_nu,
-                              float* out, float* v_hist, int P, int M1, int N1, int iterations,
-                              void* stream) {
-  return launch<true>(scores, log_mu, log_nu, out, v_hist, P, M1, N1, iterations,
-                      static_cast<cudaStream_t>(stream));
+                              float* out, float* v_hist, float* scratch, int P, int M1, int N1,
+                              int iterations, int general, int s_shared, int part_shared,
+                              int group, void* stream) {
+  return launch<true>(scores, log_mu, log_nu, out, v_hist, scratch, P, M1, N1, iterations,
+                      general, s_shared, part_shared, group, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

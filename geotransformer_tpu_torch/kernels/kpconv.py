@@ -45,8 +45,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "kpconv_conv_launch": [_P] * 18 + [_I] * 11 + [_F, _P],
     "kpconv_conv_workspace": [_I] * 4,
-    "kpconv_stream_launch": [_P] * 6 + [_I] * 4 + [_F, _P],
-    "kpconv_union_launch": [_P] * 10 + [_I] * 7 + [_F, _P],
+    "kpconv_stream_launch": [_P] * 6 + [_I] * 5 + [_F, _P],
+    "kpconv_union_launch": [_P] * 10 + [_I] * 8 + [_F, _P],
 }
 _BWD_SIGNATURES = {
     "kpconv_bwd_launch": [_P] * 18 + [_I] * 9 + [_F, _P],
@@ -298,6 +298,14 @@ def kpconv_split_fused_plain(*args, **kwargs):
     return kpconv_split_fused(*args, **dict(kwargs, force=False))
 
 
+def input_conv_variant(k):
+    """The instance of the input convs (``csrc/kpconv.cu``, rows 2 and 7) for
+    K kernel points: 0 for K = 15 (every shipped configuration), 1 for
+    another K <= 16, 2 for K > 16 (the kernel points walked in chunks of 16
+    register accumulators)."""
+    return 0 if k == 15 else 1 if k <= 16 else 2
+
+
 def kpconv_stream_fused_plain(stream, kernel_points, weights, sigma, bias=None,
                               residuals=False):
     """Plain PyTorch version of :func:`kpconv_stream_fused`."""
@@ -319,7 +327,7 @@ def kpconv_stream_fused(stream, kernel_points, weights, sigma, bias=None,
     Args:
         stream: (5, M, H) float32 planes [off_x, off_y, off_z, posflag,
             feat], zeros on invalid slots (preprocess.build_input_stream).
-        kernel_points: (K, 3), K <= 16 on the card.
+        kernel_points: (K, 3), any K (K > 16 in chunks of 16 on the card).
         weights: (K, 1, C_out).
         sigma: influence radius.
         bias: optional (C_out,).
@@ -346,7 +354,8 @@ def kpconv_stream_fused(stream, kernel_points, weights, sigma, bias=None,
     lib = cuda.library("kpconv", _SIGNATURES)
     code = lib.kpconv_stream_launch(
         cuda.ptr(stream), cuda.ptr(kernel_points), cuda.ptr(weights), cuda.ptr(out),
-        cuda.ptr(t1), cuda.ptr(count), m, h, k, c_out, float(sigma), cuda.stream_of(stream))
+        cuda.ptr(t1), cuda.ptr(count), m, h, k, c_out, input_conv_variant(k), float(sigma),
+        cuda.stream_of(stream))
     cuda.check(lib, code, "kpconv_stream_fused")
     cuda.launches["kpconv_stream_fused"] += 1
     if bias is not None:
@@ -382,7 +391,7 @@ def kpconv_union_input_fused(s_feats, q_points, s_points, union_rows, union_sel,
             of ``tile`` queries, sentinel N; union_sel: (M, H) int32 each
             edge's position in its tile's union, sentinel U
             (``preprocess.build_union_tables`` with the same tile).
-        kernel_points: (K, 3), K <= 16 on the card; weights: (K, 1, C_out);
+        kernel_points: (K, 3), any K; weights: (K, 1, C_out);
             sigma, bias as :func:`kpconv_fused`.
         residuals: also return the (M,) count divisor and t1 (M, K).
 
@@ -418,8 +427,8 @@ def kpconv_union_input_fused(s_feats, q_points, s_points, union_rows, union_sel,
     code = lib.kpconv_union_launch(
         cuda.ptr(s_feats), cuda.ptr(s_points), cuda.ptr(q_points), cuda.ptr(union_rows),
         cuda.ptr(union_sel), cuda.ptr(kernel_points), cuda.ptr(weights), cuda.ptr(out),
-        cuda.ptr(count), cuda.ptr(t1), m, n, u, h, k, c_out, int(tile), float(sigma),
-        cuda.stream_of(s_feats))
+        cuda.ptr(count), cuda.ptr(t1), m, n, u, h, k, c_out, int(tile), input_conv_variant(k),
+        float(sigma), cuda.stream_of(s_feats))
     cuda.check(lib, code, "kpconv_union_input_fused")
     cuda.launches["kpconv_union_input_fused"] += 1
     if bias is not None:

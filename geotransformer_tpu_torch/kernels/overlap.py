@@ -19,7 +19,8 @@ import torch
 from geotransformer_tpu_torch.kernels import cuda
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURES = {"patch_overlaps_launch": [_P] * 7 + [_I] * 4 + [_F, _P]}
+_SIGNATURES = {"patch_overlaps_launch": [_P] * 7 + [_I] * 5 + [_F, _P]}
+_INDEX_BYTES = {torch.int64: 8, torch.int32: 4}
 
 
 def _sq_dist(a, b):
@@ -34,12 +35,16 @@ def patch_overlaps_plain(ref_knn_points, ref_knn_masks, src_knn_points, src_knn_
                          cand_indices, cand_masks, pos_radius, chunk_size=32):
     """Plain PyTorch version of :func:`patch_overlaps`, ``chunk_size`` ref
     nodes at a time (bounds the (chunk, S, K, K) work set)."""
-    m = ref_knn_points.shape[0]
+    m, n = ref_knn_points.shape[0], src_knn_points.shape[0]
+    if n == 0:
+        return torch.zeros(cand_masks.shape, dtype=torch.float32, device=cand_masks.device)
     r2 = pos_radius ** 2
     overlaps = []
     for c0 in range(0, m, chunk_size):
         r_knn, r_mask = ref_knn_points[c0:c0 + chunk_size], ref_knn_masks[c0:c0 + chunk_size]
         c_idx = cand_indices[c0:c0 + chunk_size].long()
+        in_range = (c_idx >= 0) & (c_idx < n)
+        c_idx = torch.where(in_range, c_idx, 0)
         s_knn, s_mask = src_knn_points[c_idx], src_knn_masks[c_idx]  # (c, S, K, 3), (c, S, K)
         d2 = _sq_dist(r_knn[:, None, :, None, :], s_knn[:, :, None, :, :])  # (c, S, K, K)
         match = (d2 < r2) & r_mask[:, None, :, None] & s_mask[:, :, None, :]
@@ -48,7 +53,8 @@ def patch_overlaps_plain(ref_knn_points, ref_knn_masks, src_knn_points, src_knn_
         ref_total = torch.clamp(r_mask.sum(dim=1).float(), min=1.0)
         src_total = torch.clamp(s_mask.sum(dim=2).float(), min=1.0)
         overlap = 0.5 * (ref_counts / ref_total[:, None] + src_counts / src_total)
-        overlaps.append(torch.where(cand_masks[c0:c0 + chunk_size], overlap, 0.0))
+        keep = cand_masks[c0:c0 + chunk_size] & in_range
+        overlaps.append(torch.where(keep, overlap, 0.0))
     return torch.cat(overlaps, dim=0)
 
 
@@ -60,13 +66,17 @@ def patch_overlaps(ref_knn_points, ref_knn_masks, src_knn_points, src_knn_masks,
         ref_knn_points: (M, K, 3) ref patches; ref_knn_masks: (M, K) bool.
         src_knn_points: (N, K, 3) src patches, already under the GT
             transform; src_knn_masks: (N, K) bool.
-        cand_indices: (M, S) src node per candidate; cand_masks: (M, S) bool.
+        cand_indices: (M, S) int64 or int32 src node per candidate (the
+            kernel reads either as it is); cand_masks: (M, S) bool. A
+            candidate whose index lies outside [0, N) gives 0, masked or
+            not, on both routes.
         pos_radius: matching radius.
         chunk_size: ref nodes per chunk of the plain version.
         force: ``ModelConfig.force_pallas`` (see :func:`cuda.use_kernel`).
 
     Returns:
-        (M, S) float32 overlaps in [0, 1], 0 where ``cand_masks`` is off.
+        (M, S) float32 overlaps in [0, 1], 0 where ``cand_masks`` is off
+        or the index is out of range.
     """
     if not cuda.use_kernel(ref_knn_points, force):
         return patch_overlaps_plain(ref_knn_points, ref_knn_masks, src_knn_points, src_knn_masks,
@@ -80,14 +90,16 @@ def patch_overlaps(ref_knn_points, ref_knn_masks, src_knn_points, src_knn_masks,
     cuda.require(src_knn_points, "src_knn_points", torch.float32, (n, k, 3), dev)
     cuda.require(src_knn_masks, "src_knn_masks", torch.bool, (n, k), dev)
     cuda.require(cand_masks, "cand_masks", torch.bool, (m, s), dev)
-    cand = cand_indices.to(torch.int32).contiguous()
-    cuda.require(cand, "cand_indices", torch.int32, (m, s), dev)
+    if cand_indices.dtype not in _INDEX_BYTES:
+        raise ValueError(f"cand_indices has dtype {cand_indices.dtype}, expected int64 or int32")
+    cuda.require(cand_indices, "cand_indices", cand_indices.dtype, (m, s), dev)
     out = torch.empty((m, s), dtype=torch.float32, device=dev)
     lib = cuda.library("overlap", _SIGNATURES)
     code = lib.patch_overlaps_launch(
         cuda.ptr(ref_knn_points), cuda.ptr(ref_knn_masks), cuda.ptr(src_knn_points),
-        cuda.ptr(src_knn_masks), cuda.ptr(cand), cuda.ptr(cand_masks), cuda.ptr(out),
-        m, n, s, k, float(pos_radius) ** 2, cuda.stream_of(ref_knn_points))
+        cuda.ptr(src_knn_masks), cuda.ptr(cand_indices), cuda.ptr(cand_masks), cuda.ptr(out),
+        m, n, s, k, _INDEX_BYTES[cand_indices.dtype], float(pos_radius) ** 2,
+        cuda.stream_of(ref_knn_points))
     cuda.check(lib, code, "patch_overlaps")
     cuda.launches["patch_overlaps"] += 1
     return out

@@ -9,6 +9,7 @@ training backward) and their plain versions.
 :func:`sinkhorn_log_iterations_train`.
 """
 
+import collections
 import ctypes
 
 import torch
@@ -17,10 +18,81 @@ from geotransformer_tpu_torch.kernels import cuda
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "sinkhorn_launch": [_P] * 4 + [_I] * 4 + [_P],
-    "sinkhorn_fwd_train_launch": [_P] * 5 + [_I] * 4 + [_P],
+    "sinkhorn_launch": [_P] * 5 + [_I] * 8 + [_P],
+    "sinkhorn_fwd_train_launch": [_P] * 6 + [_I] * 8 + [_P],
+    "sinkhorn_block_bytes": [],
 }
-_BWD_SIGNATURES = {"sinkhorn_bwd_train_launch": [_P] * 7 + [_I] * 4 + [_P]}
+_BWD_SIGNATURES = {"sinkhorn_bwd_train_launch": [_P] * 8 + [_I] * 7 + [_P]}
+_WARPS, _BWD_WARPS = 16, 32  # warps a patch of csrc/sinkhorn.cu and csrc/sinkhorn_train.cu
+_FLOAT = 4
+
+# The instance a call runs, picked here alone (the launchers only check that
+# it fits): a register instance (general False) holding the column partials
+# of all N1 columns (group 0) or of `group` columns at a time, or the
+# general kernel with S (s_shared) and the column partials (part_shared) in
+# shared memory or not; scratch: floats of global memory a patch for the
+# partials where they are not.
+Route = collections.namedtuple("Route", "general s_shared part_shared group scratch")
+
+
+def _general_route(m1, n1, block_bytes, vectors, partials):
+    """The general kernel's layout: S in shared memory first (read several
+    times an iteration), then the partials, where they fit beside the
+    ``vectors`` floats."""
+    limit = block_bytes // _FLOAT
+    area = m1 * n1
+    s_shared = vectors + area <= limit
+    part_shared = vectors + partials + (area if s_shared else 0) <= limit
+    return Route(True, s_shared, part_shared, 0, 0 if part_shared else partials)
+
+
+def forward_route(m1, n1, block_bytes):
+    """The instance ``csrc/sinkhorn.cu`` runs for (M1, N1) patches on a card
+    whose block takes ``block_bytes`` of shared memory: a register instance
+    where M1, N1 <= 256 and S fits a block beside the column partials of all
+    N1 columns, or (M1 = N1 = 225-239) of a group of at least 16; else the
+    general kernel."""
+    slots = -(-max(m1, n1) // 32)
+    area = m1 * n1
+    if slots <= 8:
+        if _FLOAT * (area + (2 * _WARPS + 2) * n1 + m1) <= block_bytes:
+            return Route(False, True, True, 0, 0)
+        group = (block_bytes - _FLOAT * (area + n1)) // (_FLOAT * 2 * _WARPS) // 16 * 16
+        if slots == 8 and group >= 16:
+            return Route(False, True, True, group, 0)
+    return _general_route(m1, n1, block_bytes, m1 + n1, 2 * _WARPS * n1)
+
+
+def backward_route(m1, n1, block_bytes):
+    """The instance ``csrc/sinkhorn_train.cu`` runs: a register instance
+    where M1, N1 <= 160, else the general kernel."""
+    if -(-max(m1, n1) // 32) <= 5:
+        return Route(False, True, True, 0, 0)
+    return _general_route(m1, n1, block_bytes, 3 * n1 + 5 * m1, 3 * _BWD_WARPS * n1)
+
+
+_block_bytes = {}
+
+
+def device_block_bytes(device):
+    """A block's shared memory at most on the CUDA ``device``, in bytes (the
+    CUDA runtime's opt-in limit, read once a device)."""
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    if index not in _block_bytes:
+        with torch.cuda.device(index):
+            _block_bytes[index] = cuda.library("sinkhorn", _SIGNATURES).sinkhorn_block_bytes()
+    return _block_bytes[index]
+
+
+def _route(route_of, p, m1, n1, device):
+    """The launch arguments of the call's route (general, s_shared,
+    part_shared and, for the forward, group) and its scratch (None where it
+    needs none)."""
+    route = route_of(m1, n1, device_block_bytes(device))
+    scratch = (torch.empty((p * route.scratch,), dtype=torch.float32, device=device)
+               if route.scratch else None)
+    return tuple(int(x) for x in route[:4]), scratch
 
 
 def sinkhorn_log_iterations_plain(padded_scores, log_mu, log_nu, num_iterations):
@@ -58,9 +130,10 @@ def sinkhorn_log_iterations(padded_scores, log_mu, log_nu, num_iterations, force
     cuda.require(log_nu, "log_nu", f32, (p, n1), dev)
     out = torch.empty_like(padded_scores)
     lib = cuda.library("sinkhorn", _SIGNATURES)
+    route, scratch = _route(forward_route, p, m1, n1, dev)
     code = lib.sinkhorn_launch(
         cuda.ptr(padded_scores), cuda.ptr(log_mu), cuda.ptr(log_nu), cuda.ptr(out),
-        p, m1, n1, int(num_iterations), cuda.stream_of(padded_scores))
+        cuda.ptr(scratch), p, m1, n1, int(num_iterations), *route, cuda.stream_of(padded_scores))
     cuda.check(lib, code, "sinkhorn_log_iterations")
     cuda.launches["sinkhorn_log_iterations"] += 1
     return out
@@ -101,9 +174,10 @@ def sinkhorn_fwd_train(padded_scores, log_mu, log_nu, num_iterations, force=None
     out = torch.empty_like(padded_scores)
     v_hist = torch.empty((p, t, n1), dtype=f32, device=dev)
     lib = cuda.library("sinkhorn", _SIGNATURES)
+    route, scratch = _route(forward_route, p, m1, n1, dev)
     code = lib.sinkhorn_fwd_train_launch(
         cuda.ptr(padded_scores), cuda.ptr(log_mu), cuda.ptr(log_nu), cuda.ptr(out),
-        cuda.ptr(v_hist), p, m1, n1, t, cuda.stream_of(padded_scores))
+        cuda.ptr(v_hist), cuda.ptr(scratch), p, m1, n1, t, *route, cuda.stream_of(padded_scores))
     cuda.check(lib, code, "sinkhorn_fwd_train")
     cuda.launches["sinkhorn_fwd_train"] += 1
     return out, v_hist
@@ -164,10 +238,11 @@ def sinkhorn_bwd_train(padded_scores, log_mu, v_hist, dout, force=None):
     d_mu = torch.empty((p, m1), dtype=f32, device=dev)
     d_nu = torch.empty((p, n1), dtype=f32, device=dev)
     lib = cuda.library("sinkhorn_train", _BWD_SIGNATURES)
+    route, scratch = _route(backward_route, p, m1, n1, dev)
     code = lib.sinkhorn_bwd_train_launch(
         cuda.ptr(padded_scores), cuda.ptr(log_mu), cuda.ptr(v_hist), cuda.ptr(dout),
-        cuda.ptr(d_scores), cuda.ptr(d_mu), cuda.ptr(d_nu), p, m1, n1, t,
-        cuda.stream_of(padded_scores))
+        cuda.ptr(d_scores), cuda.ptr(d_mu), cuda.ptr(d_nu), cuda.ptr(scratch), p, m1, n1, t,
+        *route[:3], cuda.stream_of(padded_scores))
     cuda.check(lib, code, "sinkhorn_bwd_train")
     cuda.launches["sinkhorn_bwd_train"] += 1
     return d_scores, d_mu, d_nu

@@ -22,14 +22,29 @@ def _dense_overlaps(output):
                                         output["gt_cand_masks"], output["src_feats_c"].shape[0])
 
 
+def coarse_labels(cfg, output, overlaps):
+    """(positive, negative) masks of the coarse loss: valid node pairs whose
+    GT overlap exceeds the positive threshold, and those with none."""
+    valid = output["ref_masks_c"][:, None] & output["src_masks_c"][None, :]
+    return (overlaps > cfg.coarse_loss.positive_overlap) & valid, (overlaps == 0.0) & valid
+
+
+def fine_labels(cfg, output, transform):
+    """(P, K, K) GT point matches of the fine loss: valid point pairs of
+    each patch pair within the positive radius under ``transform``."""
+    src_knn_points = apply_transform(output["src_node_corr_knn_points"], transform)
+    dists = pairwise_distance(output["ref_node_corr_knn_points"], src_knn_points)  # (P, K, K)
+    gt_masks = (output["ref_node_corr_knn_masks"][:, :, None]
+                & output["src_node_corr_knn_masks"][:, None, :])
+    return (dists < cfg.fine_loss.positive_radius**2) & gt_masks
+
+
 def coarse_matching_loss(cfg, output):
     """Weighted circle loss on the coarse features (reference loss.py:10-40)."""
     ref_feats, src_feats = output["ref_feats_c"], output["src_feats_c"]
     feat_dists = torch.sqrt(pairwise_distance(ref_feats, src_feats, normalized=True))
     overlaps = _dense_overlaps(output)
-    valid = output["ref_masks_c"][:, None] & output["src_masks_c"][None, :]
-    pos_masks = (overlaps > cfg.coarse_loss.positive_overlap) & valid
-    neg_masks = (overlaps == 0.0) & valid
+    pos_masks, neg_masks = coarse_labels(cfg, output, overlaps)
     pos_scales = torch.sqrt(overlaps * pos_masks.to(overlaps.dtype))
     cl = cfg.coarse_loss
     return weighted_circle_loss(pos_masks, neg_masks, feat_dists, cl.positive_margin,
@@ -42,10 +57,7 @@ def fine_matching_loss(cfg, output, transform):
     ref_knn_masks = output["ref_node_corr_knn_masks"]
     src_knn_masks = output["src_node_corr_knn_masks"]
     matching_scores = output["matching_scores"]  # (P, K+1, K+1)
-    src_knn_points = apply_transform(output["src_node_corr_knn_points"], transform)
-    dists = pairwise_distance(output["ref_node_corr_knn_points"], src_knn_points)  # (P, K, K)
-    gt_masks = ref_knn_masks[:, :, None] & src_knn_masks[:, None, :]
-    gt_corr_map = (dists < cfg.fine_loss.positive_radius**2) & gt_masks
+    gt_corr_map = fine_labels(cfg, output, transform)
     labels = torch.zeros(matching_scores.shape, dtype=torch.bool, device=matching_scores.device)
     labels[:, :-1, :-1] = gt_corr_map
     labels[:, :-1, -1] = ~gt_corr_map.any(dim=2) & ref_knn_masks

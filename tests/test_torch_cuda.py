@@ -36,15 +36,28 @@ and on the diagonal (angle 0) to the cosine rows' sum; the Sinkhorn
 forward (rows 4 and 9, one kernel) at the paths' (P, M1) of (256, 65),
 (256, 129), (128, 129) and odd shapes with a patch masked entirely, within
 1e-4 + 1e-4 |plain|, the training forward's result the inference result
-bit for bit; both repeat bit for bit, replay from a CUDA graph as run
-eagerly, and raise beyond their capacity. The input convs (rows 2 and 7:
+bit for bit; both repeat bit for bit and replay from a CUDA graph as run
+eagerly. The input convs (rows 2 and 7:
 lanes split a query's slots, bulk copies or 4-byte cp.async into the
 stream's ring) are held to their plain versions at the three paths' (H,
 D), ragged M, K = 7 and 15, both copy routes with blocks that walk one to
 six tiles of the ring, features of both signs with flags that differ
 from them, queries without a valid slot, a union at its cap and a tile of
 100 queries, with t1 and the count (bit-equal); both repeat bit for bit
-and replay from a CUDA graph as run eagerly.
+and replay from a CUDA graph as run eagerly. Every shape the JAX kernels
+compute computes here: the input convs at K = 16, 20 and 32 (chunks of 16
+kernel points), the Sinkhorn forwards at 240 to 400 x 300 and the
+backward at 160 to 600 (the general kernels, S and the partials in shared
+memory or not), the pair scores at C = 130, 640, 1024 and 12 or 16 heads,
+the attention at head widths 5, 24, 48, 96 and 128, and misaligned views
+for both: each case launches the kernel (its counter rises) and agrees
+with the plain version within its row's tolerance, and the general routes
+replay from a CUDA graph; the Sinkhorn kernels raise only past their
+vectors' shared memory. The GT patch overlaps are bit-equal to their
+plain version at K = 16, 48, 128 and 129, S = 13, 64 and 300, int64 and
+int32 indices, with non-prefix masks, empty patches, a ref node whose
+candidates are all off, masked candidates with indices out of range, and
+from a CUDA graph.
 """
 
 import numpy as np
@@ -53,6 +66,7 @@ import torch
 
 from geotransformer_tpu_torch.kernels import cuda
 from geotransformer_tpu_torch.kernels import gse as gse_kernels
+from geotransformer_tpu_torch.kernels import sinkhorn as sinkhorn_kernels
 from geotransformer_tpu_torch.kernels.attention import (
     fused_masked_attention,
     fused_masked_attention_diff,
@@ -543,9 +557,15 @@ def test_rpe_pair_scores_matches_plain(device, n, m, c, h, nv_q, nv_k):
 
 
 def test_rpe_pair_scores_rejects_misaligned_embed(device):
+    """A misaligned embed (once refused) takes the kernel's 4-byte route."""
     embed = torch.randn(8 * 8 * 32 + 1, device=device)[1:].view(8, 8, 32)
-    with pytest.raises(ValueError, match="aligned"):
-        rpe_pair_scores(embed, torch.randn(8, 2, 32, device=device))
+    qw = torch.randn(8, 2, 32, device=device)
+    before = cuda.launches["rpe_pair_scores"]
+    got = rpe_pair_scores(embed, qw)
+    assert cuda.launches["rpe_pair_scores"] == before + 1
+    want = rpe_pair_scores_plain(embed, qw)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
 
 
 def attention_case(device, h, n, m, dh, with_bias, holes, seed=8):
@@ -625,10 +645,16 @@ def test_fused_attention_repeats_bit_for_bit(device):
 
 
 def test_fused_attention_rejects_misaligned_kv(device):
+    """A misaligned k (once refused) takes the kernel's 4-byte copies."""
     (q, k, v, _), _ = attention_case(device, 2, 16, 16, 8, False, False)
     shifted = torch.randn(k.numel() + 1, device=device)[1:].view(k.shape)
-    with pytest.raises(ValueError, match="aligned"):
-        fused_masked_attention(q, shifted, v)
+    shifted.copy_(k)
+    before = cuda.launches["fused_masked_attention"]
+    got = fused_masked_attention(q, shifted, v)
+    assert cuda.launches["fused_masked_attention"] == before + 1
+    want = fused_masked_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
 
 
 def captured(fn, kernel):
@@ -990,10 +1016,14 @@ def test_sinkhorn_bwd_repeats_bit_for_bit_and_replays_from_a_graph(device):
 
 
 def test_sinkhorn_bwd_beyond_capacity_raises(device):
-    (scores, log_mu, log_nu, dout), _ = sinkhorn_train_case(device, 2, 161, 3)
-    _, v_hist = sinkhorn_fwd_train_plain(scores, log_mu, log_nu, 3)
+    """The backward's one capacity left: its 3 N1 + 5 M1 floats of vectors
+    in a block's shared memory (232,448 bytes on an H100)."""
+    m1, n1 = 12000, 2
+    scores = torch.zeros(1, m1, n1, device=device)
+    log_mu = torch.zeros(1, m1, device=device)
+    v_hist = torch.zeros(1, 3, n1, device=device)
     with pytest.raises(RuntimeError, match="sinkhorn_bwd_train"):
-        sinkhorn_bwd_train(scores, log_mu, v_hist, dout)
+        sinkhorn_bwd_train(scores, log_mu, v_hist, torch.zeros_like(scores))
 
 
 # ---- gse_embedding_full on the tensor cores, the Sinkhorn forward's sweep and merge ----
@@ -1098,12 +1128,13 @@ def sinkhorn_fwd_case(device, p, m1, n1, seed=14):
 
 @pytest.mark.parametrize("p, m1, n1", [(256, 65, 65), (256, 129, 129), (128, 129, 129),
                                        (5, 17, 30), (3, 160, 97), (2, 1, 1), (3, 200, 200),
-                                       (3, 239, 239), (3, 256, 33)])
+                                       (3, 225, 225), (3, 239, 239), (3, 256, 33)])
 @pytest.mark.parametrize("iterations", [0, 1, 100])
 def test_sinkhorn_sweep_and_merge_match_plain(device, p, m1, n1, iterations):
     """Rows 4 and 9 at the paths' shapes (P = 256 at inference, 128 in
     training) and odd ones (rectangular, 160 and 256 rows, a warp without
-    rows, 239 x 239: the column partials a group of 16 columns at a time), a
+    rows, 225 x 225 and 239 x 239: the column partials a group of 224 and of
+    16 columns at a time), a
     patch masked but for its dustbin and one masked entirely: within
     chip_smoke.py's tol_sinkhorn_scores of the plain version, every output
     finite, the training forward's result the inference result bit for bit."""
@@ -1148,10 +1179,266 @@ def test_sinkhorn_fwd_repeats_bit_for_bit_and_replays_from_a_graph(device):
     assert not torch.equal(eager[0], runs[0][0])
 
 
-@pytest.mark.parametrize("m1, n1", [(257, 65), (65, 257), (240, 240)])
+@pytest.mark.parametrize("m1, n1", [(60000, 2), (2, 60000)])
 def test_sinkhorn_fwd_beyond_capacity_raises(device, m1, n1):
-    (scores, log_mu, log_nu), _ = sinkhorn_fwd_case(device, 2, m1, n1)
+    """The forward's one capacity left: its M1 + N1 floats of u and v in a
+    block's shared memory (232,448 bytes on an H100)."""
+    scores = torch.zeros(1, m1, n1, device=device)
+    log_mu, log_nu = torch.zeros(1, m1, device=device), torch.zeros(1, n1, device=device)
     with pytest.raises(RuntimeError, match="sinkhorn_log_iterations"):
         sinkhorn_log_iterations(scores, log_mu, log_nu, 3)
     with pytest.raises(RuntimeError, match="sinkhorn_fwd_train"):
         sinkhorn_fwd_train(scores, log_mu, log_nu, 3)
+
+
+# ---- every shape the JAX kernels compute: the general instances -------------
+# Each case asserts that the kernel's launch counter rose (no plain route was
+# taken) and holds the kernel to its plain version within its row's
+# tolerance, at the former limit and two shapes beyond it.
+
+def any_kernel_points(k, seed=21):
+    """K kernel points in a ball of radius 0.0625 (the configs' dispositions
+    hold 15)."""
+    g = torch.Generator().manual_seed(seed)
+    return (torch.rand(k, 3, generator=g) - 0.5) * 0.1
+
+
+@pytest.mark.parametrize("k", [16, 20, 32])
+@pytest.mark.parametrize("m, h", [(20004, 65), (1502, 34), (9001, 38)],
+                         ids=["kitti-bulk", "modelnet", "unaligned"])
+def test_kpconv_stream_any_kernel_points(device, m, h, k):
+    stream, _, _ = stream_case(device, m, h)
+    kp = any_kernel_points(k).to(device)
+    w = torch.randn(k, 1, 64, generator=torch.Generator().manual_seed(k)).to(device)
+    before = cuda.launches["kpconv_stream_fused"]
+    got = kpconv_stream_fused(stream, kp, w, 0.05, residuals=True)
+    assert cuda.launches["kpconv_stream_fused"] == before + 1
+    want = kpconv_stream_fused_plain(stream, kp, w, 0.05, residuals=True)
+    torch.cuda.synchronize()
+    assert_kpconv_close(got[0], want[0])
+    assert_kpconv_close(got[1], want[1])  # t1
+    assert torch.equal(got[2], want[2])  # count
+
+
+@pytest.mark.parametrize("k", [16, 20, 32])
+def test_kpconv_union_any_kernel_points(device, k):
+    call, _ = union_case(device, 611, 700, 65, 100)
+    g = torch.Generator().manual_seed(k)
+    call = list(call)
+    call[5] = any_kernel_points(k).to(device)
+    call[6] = torch.randn(k, 1, 64, generator=g).to(device)
+    before = cuda.launches["kpconv_union_input_fused"]
+    got = kpconv_union_input_fused(*call, tile=100, residuals=True)
+    assert cuda.launches["kpconv_union_input_fused"] == before + 1
+    want = kpconv_union_input_fused_plain(*call, tile=100, residuals=True)
+    torch.cuda.synchronize()
+    assert_kpconv_close(got[0], want[0])
+    assert torch.equal(got[1], want[1])  # count
+    assert_kpconv_close(got[2], want[2])  # t1
+
+
+@pytest.mark.parametrize("p, m1, n1", [(3, 240, 240), (3, 256, 256), (3, 257, 257),
+                                       (3, 400, 300), (2, 300, 600)])
+@pytest.mark.parametrize("iterations", [0, 7])
+def test_sinkhorn_fwd_any_shape(device, p, m1, n1, iterations):
+    """Rows 4 and 9 past the register instances: 240 x 240 (S in shared
+    memory, the partials in device memory), the former limit 256 x 256 and
+    beyond (S read from device memory), within tol_sinkhorn_scores; the
+    training forward's result is the inference result bit for bit."""
+    route = sinkhorn_kernels.forward_route(m1, n1, 232448)
+    assert route.general and route.part_shared == (m1 != 240)
+    (scores, log_mu, log_nu), masked = sinkhorn_fwd_case(device, p, m1, n1)
+    before = cuda.launches["sinkhorn_log_iterations"], cuda.launches["sinkhorn_fwd_train"]
+    out = sinkhorn_log_iterations(scores, log_mu, log_nu, iterations)
+    out_t, v_hist = sinkhorn_fwd_train(scores, log_mu, log_nu, iterations)
+    assert (cuda.launches["sinkhorn_log_iterations"], cuda.launches["sinkhorn_fwd_train"]) == (
+        before[0] + 1, before[1] + 1)
+    want, want_hist = sinkhorn_fwd_train_plain(scores, log_mu, log_nu, iterations)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out_t)
+    valid = ~masked
+    for got, ref in ((out[valid], want[valid]), (v_hist, want_hist)):
+        assert bool(torch.isfinite(got).all())
+        assert bool(((got - ref).abs() <= 1e-4 + 1e-4 * ref.abs()).all()), (
+            (got - ref).abs().max().item())
+
+
+@pytest.mark.parametrize("p, m1", [(3, 160), (3, 161), (2, 257), (2, 400), (2, 600)])
+@pytest.mark.parametrize("iterations", [1, 7])
+def test_sinkhorn_bwd_any_shape(device, p, m1, iterations):
+    """Row 10 at the former limit (160) and beyond (the general kernel: dS
+    in device memory, S in shared memory at 161, the partials in device
+    memory at 600)."""
+    route = sinkhorn_kernels.backward_route(m1, m1, 232448)
+    assert route.general == (m1 > 160) and route.part_shared == (m1 < 600)
+    (scores, log_mu, log_nu, dout), _ = sinkhorn_train_case(device, p, m1, iterations)
+    _, v_hist = sinkhorn_fwd_train_plain(scores, log_mu, log_nu, iterations)
+    before = cuda.launches["sinkhorn_bwd_train"]
+    got = sinkhorn_bwd_train(scores, log_mu, v_hist, dout)
+    assert cuda.launches["sinkhorn_bwd_train"] == before + 1
+    want = sinkhorn_bwd_train_plain(scores, log_mu, v_hist, dout)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        assert bool(((g - w).abs() <= 1e-4 + 1e-4 * w.abs()).all()), (g - w).abs().max().item()
+
+
+def test_sinkhorn_general_kernels_repeat_and_replay_from_a_graph(device):
+    (scores, log_mu, log_nu, dout), _ = sinkhorn_train_case(device, 2, 300, 5)
+    fwd = lambda: sinkhorn_fwd_train(scores, log_mu, log_nu, 5)  # noqa: E731
+    first = fwd()
+    graph, out, launches = captured(fwd, "sinkhorn_fwd_train")
+    assert launches == 1
+    bwd = lambda: sinkhorn_bwd_train(scores, log_mu, first[1], dout)  # noqa: E731
+    first_b = bwd()
+    graph_b, out_b, launches_b = captured(bwd, "sinkhorn_bwd_train")
+    assert launches_b == 1
+    graph.replay()
+    graph_b.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(out, first))
+    assert all(torch.equal(a, b) for a, b in zip(out_b, first_b))
+
+
+@pytest.mark.parametrize("c, h", [(130, 4), (640, 4), (1024, 2), (64, 12), (256, 16)],
+                         ids=["c130", "c640", "c1024", "h12", "h16"])
+def test_rpe_pair_scores_any_shape(device, c, h):
+    g = torch.Generator().manual_seed(c + h)
+    n, m = 70, 83
+    embed = torch.randn(n, m, c, generator=g).to(device)
+    qw = torch.randn(n, h, c, generator=g).to(device)
+    nv_q = torch.tensor(61, dtype=torch.int32, device=device)
+    before = cuda.launches["rpe_pair_scores"]
+    got = rpe_pair_scores(embed, qw, nv_q, 77)
+    assert cuda.launches["rpe_pair_scores"] == before + 1
+    want = rpe_pair_scores_plain(embed, qw, nv_q, 77)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+    assert not got[61:].any() and not got[:, :, 77:].any()
+
+
+def test_rpe_pair_scores_misaligned_qw(device):
+    embed = torch.randn(40, 50, 64, device=device)
+    qw = torch.randn(40 * 4 * 64 + 1, device=device)[1:].view(40, 4, 64)
+    before = cuda.launches["rpe_pair_scores"]
+    got = rpe_pair_scores(embed, qw, 33, 45)
+    assert cuda.launches["rpe_pair_scores"] == before + 1
+    want = rpe_pair_scores_plain(embed, qw, 33, 45)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("dh", [24, 48, 96, 128, 5])
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("holes", [False, True], ids=["prefix", "key-holes"])
+def test_fused_attention_any_head_width(device, dh, with_bias, holes):
+    (q, k, v, bias), key_masks = attention_case(device, 4, 130, 257, dh, with_bias, holes)
+    nv_q = torch.tensor(111, dtype=torch.int32, device=device)
+    before = cuda.launches["fused_masked_attention"]
+    got = fused_masked_attention(q, k, v, bias, nv_q, 250, dh ** -0.5, key_masks)
+    assert cuda.launches["fused_masked_attention"] == before + 1
+    want = fused_masked_attention_plain(q, k, v, bias, nv_q, 250, dh ** -0.5, key_masks)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert (got[:111] - want[:111]).abs().max().item() <= 1e-5 * want[:111].abs().max().item()
+    assert not got[111:].any()
+
+
+@pytest.mark.parametrize("dh", [64, 48, 128])
+def test_fused_attention_misaligned_views(device, dh):
+    """q, k and v 4 bytes off a 16-byte boundary (views into a larger
+    buffer), with a bias: the 4-byte copies (or, at dh > 64, the in-place
+    reads)."""
+    (q, k, v, bias), key_masks = attention_case(device, 4, 100, 90, dh, True, True, seed=9)
+    views = []
+    for t in (q, k, v):
+        buf = torch.empty(t.numel() + 1, device=device)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.data_ptr() % 16 != 0
+        views.append(view)
+    before = cuda.launches["fused_masked_attention"]
+    got = fused_masked_attention(*views, bias, 93, 80, dh ** -0.5, key_masks)
+    assert cuda.launches["fused_masked_attention"] == before + 1
+    want = fused_masked_attention_plain(q, k, v, bias, 93, 80, dh ** -0.5, key_masks)
+    torch.cuda.synchronize()
+    assert (got[:93] - want[:93]).abs().max().item() <= 1e-5 * want[:93].abs().max().item()
+
+
+def test_attention_general_routes_repeat_and_replay_from_a_graph(device):
+    (q, k, v, bias), key_masks = attention_case(device, 2, 64, 70, 96, True, True, seed=4)
+    embed = torch.randn(64, 70, 130, device=device)
+    qw = torch.randn(64, 12, 130, device=device)
+    nv = torch.tensor(60, dtype=torch.int32, device=device)
+
+    def forward():
+        return (rpe_pair_scores(embed, qw, nv, nv),
+                fused_masked_attention(q, k, v, bias, nv, nv, 0.1, key_masks))
+
+    first = forward()
+    graph, out, launches = captured(forward, "fused_masked_attention")
+    assert launches == 1
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(out, first))
+
+
+# ---- patch_overlaps (row 11): bit-equal to its plain version ----------------
+
+def overlap_case(device, m, n, k, s, seed=6, index_dtype=torch.int64):
+    """Patches with non-prefix masks (valid slots scattered), an empty ref
+    patch (0) and an empty candidate patch (1), a ref node whose candidates
+    are all off (2), masked candidates whose indices lie outside [0, N)
+    (-1 and N + 5), and unmasked ones (ref node 3: -1 and N)."""
+    g = torch.Generator().manual_seed(seed)
+    ref_nodes, src_nodes = torch.rand(m, 1, 3, generator=g) * 3, torch.rand(n, 1, 3, generator=g) * 3
+    ref = ref_nodes + torch.rand(m, k, 3, generator=g) - 0.5
+    src = src_nodes + torch.rand(n, k, 3, generator=g) - 0.5
+    ref_mask = torch.rand(m, k, generator=g) > 0.3
+    src_mask = torch.rand(n, k, generator=g) > 0.3
+    ref_mask[0] = False
+    src_mask[1] = False
+    cand = torch.randint(0, n, (m, s), generator=g)
+    cand[:, 0] = 1
+    cand_mask = torch.rand(m, s, generator=g) > 0.25
+    cand_mask[2] = False
+    off = ~cand_mask & (torch.rand(m, s, generator=g) < 0.5)
+    cand[off] = torch.where(torch.rand(int(off.sum()), generator=g) < 0.5, -1, n + 5)
+    cand[3, 1:3] = torch.tensor([-1, n])
+    cand_mask[3, 1:3] = True
+    return [x.to(device) for x in (ref, ref_mask, src, src_mask, cand.to(index_dtype), cand_mask)]
+
+
+@pytest.mark.parametrize("k", [16, 48, 128, 129])
+@pytest.mark.parametrize("s", [13, 64, 300])
+@pytest.mark.parametrize("index_dtype", [torch.int64, torch.int32], ids=["int64", "int32"])
+def test_patch_overlaps_bit_equal_to_plain(device, k, s, index_dtype):
+    call = overlap_case(device, 37, 41, k, s, index_dtype=index_dtype)
+    before = cuda.launches["patch_overlaps"]
+    got = patch_overlaps(*call, 0.3)
+    assert cuda.launches["patch_overlaps"] == before + 1
+    want = patch_overlaps_plain(*call, 0.3)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert 0.0 < (got > 0).float().mean().item() < 1.0
+    assert not got[2].any() and not got[0].any() and not got[:, 0].any()
+    assert not got[~call[5]].any() and not got[3, 1:3].any()
+
+
+def test_patch_overlaps_on_every_candidate_off(device):
+    call = overlap_case(device, 9, 12, 64, 8)
+    call[5] = torch.zeros_like(call[5])
+    got = patch_overlaps(*call, 0.3)
+    torch.cuda.synchronize()
+    assert torch.equal(got, torch.zeros_like(got))
+
+
+def test_patch_overlaps_replays_from_a_graph(device):
+    call = overlap_case(device, 64, 70, 128, 64, seed=8)
+    graph, out, launches = captured(lambda: patch_overlaps(*call, 0.3), "patch_overlaps")
+    assert launches == 1
+    call[0].add_(0.0625)  # a replay reads the captured patches anew
+    graph.replay()
+    want = patch_overlaps_plain(*call, 0.3)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)

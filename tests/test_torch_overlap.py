@@ -8,7 +8,7 @@ the overlaps must be equal, not close. Covered:
   * ``patch_overlaps_plain`` vs JAX ``patch_overlaps(..., interpret=True)``
     (the Pallas kernel) on valid candidates, K = 16 and K = 32 > S, with
     empty patches and masked candidates (0 in the port, left to the caller
-    in JAX);
+    in JAX), and out-of-range candidate indices (0, as on the card);
   * ``get_node_correspondences`` vs JAX with ``use_pallas=True`` and
     ``False``: candidate indices equal as masked sets per ref node, overlaps
     equal.
@@ -83,6 +83,21 @@ def test_wrapper_takes_the_plain_version_on_the_cpu():
                                   patch_overlaps_plain(*case, RADIUS).numpy())
     with pytest.raises(RuntimeError, match="CUDA"):
         patch_overlaps(*case, RADIUS, force=True)
+
+
+def test_out_of_range_candidates_give_zero():
+    """A candidate index outside [0, N), masked or not, gives 0 (as on the
+    card); every other candidate keeps its overlap."""
+    case = [t(x) for x in overlap_case(3, 11, 12, 16, 8)]
+    want = patch_overlaps_plain(*case, RADIUS).numpy()
+    wild = np.zeros(want.shape, bool)
+    wild[tuple(np.argwhere(want > 0)[:4].T)] = True  # unmasked, overlapping
+    wild[tuple(np.argwhere(~case[5].numpy())[0])] = True  # masked
+    cand = case[4].clone()
+    cand[t(wild)] = torch.tensor([-1, 12, 40, -7, 12])
+    got = patch_overlaps_plain(*case[:4], cand, case[5], RADIUS, chunk_size=5).numpy()
+    assert not got[wild].any()
+    np.testing.assert_array_equal(got[~wild], want[~wild])
 
 
 def node_case(seed, m=24, n=28, k=16):

@@ -16,7 +16,11 @@ and one merge of the warps' column partials:
     exp(its max - the max), an xor butterfly over the 16 lanes, lane 0's
     value; v = log_nu - LSE. Where S and the partials of every column do
     not fit in shared memory, the partials and the merge run a group of
-    columns at a time: each column's sums are the same either way.
+    columns at a time: each column's sums are the same either way. Past
+    the register instances (M1 or N1 > 256, or S beside its partials too
+    large for a block) the general kernel (``sinkhorn_general_kernel``)
+    takes the same sums in the same order from shared or device memory, so
+    the schedule covers it too (300 x 260 below).
 
 The kernel takes each exponential of x = t - max <= 0 as 2^(x log2(e))
 (ex2.approx), the same function to ~2^-22. The training forward stores v
@@ -122,7 +126,7 @@ def make_case(seed, p, m1, n1):
 
 
 @pytest.mark.parametrize("m1, n1, iterations", [(65, 65, 100), (129, 129, 100), (129, 129, 1),
-                                                (17, 30, 20), (239, 239, 10)])
+                                                (17, 30, 20), (239, 239, 10), (300, 260, 4)])
 def test_schedule_matches_plain(m1, n1, iterations):
     case = [torch.from_numpy(x) for x in make_case(m1 + n1, 4, m1, n1)]
     runs = {}
