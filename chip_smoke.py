@@ -139,6 +139,27 @@ fused_masked_attention twice a block).
                version within its row's tolerance, and is timed alone from
                its own graph with its shape and bound (by_call, path
                "limits"; kept out of the paths' sums).
+ 16. synthetic workflow — scripts/synthetic_benchmark.py at full width:
+               SyntheticSceneBenchmark's 78 training pairs (4 scenes of 8
+               fragments, seed 0) and 20 test pairs (2 of 6, seed 777), the
+               test scenes' gt.log/gt.info, caps calibrated over 32 training
+               pairs and every test pair, one epoch (a cut of the script's
+               2000 steps) through Trainer.run over a PairLoader with 2
+               spawned workers, every step counted (the input conv's
+               training call over the neighbor table, kpconv_fused with t1,
+               counted apart as "kpconv_fused (input residuals)"), finite
+               losses, no skip; the Tester on the 20 test pairs, each
+               forward counted, every R a rotation; scripts.eval in a
+               process of its own (its RR/IR/FMR table printed); the test
+               fragments written in the 3DMatch layout and scripts.test run
+               on them from the training's checkpoint (which also gives the
+               caps and the input route, no edge stream, the model was
+               trained with), its transforms within 1e-5 of the Tester's,
+               then scripts.eval on its dumps; the training kernels vs their
+               plain versions on one step (path "synthetic_train": the input
+               conv's training call, out and t1 as KPConv, the count bit for
+               bit; patch_overlaps at 64-point patches bit for bit) and the
+               forward kernels on one Tester forward ("synthetic_test").
 Then it prints the {"kernels": [...]} line (each kernel's numbers summed over
 the paths it was compared on, with each path's own under "by_path" and the
 calls of the KPConv, GSE, Sinkhorn and overlap rows, and phase 15's, one by
@@ -171,7 +192,7 @@ from geotransformer_tpu_torch.configs import (
     make_modelnet_config,
 )
 from geotransformer_tpu_torch.datasets import ASYMMETRIC_INDICES, ModelNetPairDataset
-from geotransformer_tpu_torch.engine import Trainer
+from geotransformer_tpu_torch.engine import Tester, Trainer
 from geotransformer_tpu_torch.kernels import attention as kernels_attention
 from geotransformer_tpu_torch.kernels import cuda
 from geotransformer_tpu_torch.kernels import gse as kernels_gse
@@ -206,6 +227,7 @@ from geotransformer_tpu_torch.preprocess import (
 )
 from geotransformer_tpu_torch.preprocess.loader import PairLoader, prepare_pair
 from geotransformer_tpu_torch.preprocess.voxel import grid_subsample_single
+from geotransformer_tpu_torch.scripts import synthetic_benchmark as synthetic
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEEDS = (0, 1, 2)
@@ -217,6 +239,10 @@ MODELNET_ITERATIONS, MODELNET_WARMUP, MODELNET_SNAPSHOT = 8, 4, 4
 # config's caps (768, 384, 192): at most 717, 379 and 136 points a stage)
 MODELNET_ENTRIES, MODELNET_POINTS, MODELNET_SEED = 4, 2048, 1
 UNION_CAP, UNION_TILE = 1536, 128
+# the synthetic workflow at full scale (scripts/synthetic_benchmark.py): its
+# training and test pairs; one epoch of training (the script's default is
+# 2000 steps, 26 epochs)
+SYNTHETIC_TRAIN_PAIRS, SYNTHETIC_TEST_PAIRS = 78, 20
 PEAK_F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores
 PEAK_TF32_FLOPS = 495e12  # H100 SXM, TF32 on the tensor cores, dense
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
@@ -241,6 +267,15 @@ def tol_kpconv_residuals(i, got, want, args, plain):
     # out, t1 and count: the count is a sum of 0/1 flags, exact in any order
     if i == 2:
         expect(torch.equal(got, want), "kpconv_stream_fused: count differs from its plain version")
+        return got, want, torch.zeros_like(want)
+    return tol_kpconv(i, got, want, args, plain)
+
+
+def tol_kpconv_input_residuals(i, got, want, args, plain):
+    # out, count and t1 of the input conv's training call over the neighbor
+    # table: the count bit for bit, out and t1 as KPConv
+    if i == 1:
+        expect(torch.equal(got, want), "kpconv_fused: count differs from its plain version")
         return got, want, torch.zeros_like(want)
     return tol_kpconv(i, got, want, args, plain)
 
@@ -290,14 +325,17 @@ def tol_attention(i, got, want, args, plain):
     return got, want, torch.full_like(want, 1e-5 * want.abs().max().item())
 
 
-Kernel = collections.namedtuple("Kernel", "module plain replaces source tolerance wrapper runs",
-                                defaults=(None, None))
+Kernel = collections.namedtuple(
+    "Kernel", "module plain replaces source tolerance wrapper runs select",
+    defaults=(None, None, None))
 # module: the module attribute the caller reaches the wrapper through;
 # wrapper: the wrapper's name (its launch counter) where the entry is not
 # named after it; runs: the suffixes of the counted runs whose launches the
 # entry reports (None: every run). The input conv's two entries share one
 # counter: the forward one reports the forward runs, the residuals one the
-# training runs, where every launch is the residuals call.
+# training runs, where every launch is the residuals call. select: a test on
+# a call's keywords for an entry that takes only some of its wrapper's calls
+# (captured and counted apart: count_input_residuals).
 KERNELS = {
     "kpconv_stream_fused": Kernel(models_kpconv, kernels_kpconv.kpconv_stream_fused_plain,
                                   "geotransformer_tpu/kernels/kpconv.py:1679",
@@ -313,6 +351,14 @@ KERNELS = {
     "kpconv_fused": Kernel(models_kpconv, kernels_kpconv.kpconv_fused_plain,
                            "geotransformer_tpu/kernels/kpconv.py:286",
                            "geotransformer_tpu_torch/kernels/csrc/kpconv.cu", tol_kpconv),
+    # the input conv's training call over the neighbor table (no edge
+    # stream): reached through kpconv_input_diff, with t1 and the count
+    "kpconv_fused (input residuals)": Kernel(
+        kernels_kpconv, kernels_kpconv.kpconv_fused_plain,
+        "geotransformer_tpu/kernels/kpconv.py:286",
+        "geotransformer_tpu_torch/kernels/csrc/kpconv.cu", tol_kpconv_input_residuals,
+        wrapper="kpconv_fused", runs=("_train",),
+        select=lambda kwargs: bool(kwargs.get("return_t1"))),
     "gse_embedding_full": Kernel(models_transformer, kernels_gse.gse_embedding_full_plain,
                                  "geotransformer_tpu/kernels/gse.py:222",
                                  "geotransformer_tpu_torch/kernels/csrc/gse.cu",
@@ -368,6 +414,35 @@ def wrapper_of(name):
     return KERNELS[name].wrapper or name
 
 
+def launch_key(name):
+    """The key of a KERNELS entry's launches in ``cuda.launches``: its
+    wrapper's, or its own for an entry counted apart (``select``)."""
+    return name if KERNELS[name].select else wrapper_of(name)
+
+
+@contextlib.contextmanager
+def count_input_residuals():
+    """Within the block, count the input conv's training calls over the
+    neighbor table (kpconv_fused with t1, reached through
+    kpconv_input_diff) under their own entry too: the kernel's launches in
+    those calls, read off the wrapper's counter, which counts them with
+    every other conv."""
+    wrapper = kernels_kpconv.kpconv_fused
+
+    def counting(*args, **kwargs):
+        before = cuda.launches["kpconv_fused"]
+        out = wrapper(*args, **kwargs)
+        if KERNELS["kpconv_fused (input residuals)"].select(kwargs):
+            cuda.launches["kpconv_fused (input residuals)"] += cuda.launches["kpconv_fused"] - before
+        return out
+
+    kernels_kpconv.kpconv_fused = counting
+    try:
+        yield
+    finally:
+        kernels_kpconv.kpconv_fused = wrapper
+
+
 def expected_launches(batch, mode, blocks):
     """Kernel launches of one forward (``mode`` "inference" or "eval") or one
     training step ("train") on ``batch``, from the tables it carries and the
@@ -387,6 +462,9 @@ def expected_launches(batch, mode, blocks):
         counts["kpconv_union_input_fused"] += 1
     else:
         conv(nb_split[0])
+        if mode == "train" and nb_split[0] is None:
+            # the training call with t1, counted under its own entry too
+            counts["kpconv_fused (input residuals)"] += 1
     # every later conv, and in a training step its backward (one launch over
     # a whole or a split inverse table)
     splits = [nb_split[0]]
@@ -578,7 +656,9 @@ def capture_kernel_calls(names):
         saved.append((module, wrapper, fn))
 
         def recorder(*args, _fn=fn, _name=name, **kwargs):
-            records[_name].append((args, kwargs))
+            select = KERNELS[_name].select
+            if select is None or select(kwargs):
+                records[_name].append((args, kwargs))
             return _fn(*args, **kwargs)
 
         setattr(module, wrapper, recorder)
@@ -987,6 +1067,7 @@ def attention_shape(name, args, kwargs, stage_of):
 
 # the rows whose calls are also timed one by one (by_call), with their shape
 BY_CALL = {"kpconv_fused": call_shape, "kpconv_split_fused": call_shape,
+           "kpconv_fused (input residuals)": call_shape,
            "kpconv_bwd_fused": call_shape, "gse_embedding_full": gse_shape,
            "gse_full_bwd": gse_bwd_shape, "sinkhorn_log_iterations": sinkhorn_shape,
            "sinkhorn_fwd_train": sinkhorn_shape, "sinkhorn_bwd_train": sinkhorn_shape,
@@ -2072,6 +2153,230 @@ def modelnet_phases(device, launches, report, tmp):
     return {"modelnet": results,
             "modelnet_eval": compare_kernels(records, ["patch_overlaps"], reps=5)}
 
+# --- phase 16: the synthetic 3DMatch-protocol workflow -------------------
+SYNTHETIC_TRAIN_KERNELS = ["kpconv_fused (input residuals)", "kpconv_bwd_fused", "gse_full_bwd",
+                           "sinkhorn_fwd_train", "sinkhorn_bwd_train", "patch_overlaps"]
+SYNTHETIC_TEST_KERNELS = ["kpconv_fused", "gse_embedding_full", "rpe_pair_scores",
+                          "fused_masked_attention", "sinkhorn_log_iterations", "patch_overlaps"]
+
+
+def write_threedmatch_layout(root, test_set, benchmark="3DMatch"):
+    """The test set's fragments in the 3DMatch layout ThreeDMatchPairDataset
+    reads: data/<scene>/cloud_<i>.pth (numpy arrays saved with torch.save)
+    and metadata/<benchmark>.pkl, an entry a pair with its GT rotation and
+    translation."""
+    for scene in test_set.scenes:
+        os.makedirs(os.path.join(root, "data", scene["name"]), exist_ok=True)
+        for i, fragment in enumerate(scene["fragments"]):
+            torch.save(fragment, os.path.join(root, "data", scene["name"], f"cloud_{i}.pth"))
+    metadata = []
+    for pair in test_set.pairs:
+        name = test_set.scenes[pair["scene"]]["name"]
+        i, j = pair["ref_frame"], pair["src_frame"]
+        transform = test_set.gt_transform(pair["scene"], i, j)
+        metadata.append(dict(scene_name=name, frag_id0=i, frag_id1=j, overlap=pair["overlap"],
+                             rotation=transform[:3, :3], translation=transform[:3, 3],
+                             pcd0=f"{name}/cloud_{i}.pth", pcd1=f"{name}/cloud_{j}.pth"))
+    os.makedirs(os.path.join(root, "metadata"), exist_ok=True)
+    with open(os.path.join(root, "metadata", f"{benchmark}.pkl"), "wb") as f:
+        pickle.dump(metadata, f)
+
+
+def counting_forward(forward, blocks, counts):
+    """A Tester's ``_forward`` with each pair's launches counted and checked
+    (an eval forward: GT overlaps in the forward, patch_overlaps)."""
+    def run(batch):
+        result, c = counted(lambda: forward(batch))
+        expect_launches(c, [batch], "eval", "synthetic test pair", blocks)
+        counts.update(c)
+        return result
+    return run
+
+
+def run_script(cmd, env, what):
+    """Run one of the port's scripts in a process of its own; its output."""
+    start = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True, env=env, timeout=600)
+    expect(res.returncode == 0, f"{what}: exit {res.returncode}\n{res.stdout[-2000:]}\n"
+                                f"{res.stderr[-4000:]}")
+    return res.stdout, time.perf_counter() - start
+
+
+def dumped_transforms(feature_dir):
+    """{(scene, file): estimated_transform} of a Tester's npz dumps."""
+    out = {}
+    for scene in sorted(os.listdir(feature_dir)):
+        for name in sorted(os.listdir(os.path.join(feature_dir, scene))):
+            with np.load(os.path.join(feature_dir, scene, name)) as data:
+                out[(scene, name)] = data["estimated_transform"]
+    return out
+
+
+def synthetic_phases(device, launches, report, tmp):
+    """Phase 16: the synthetic 3DMatch-protocol workflow of
+    scripts/synthetic_benchmark.py at full scale: the scenes and protocol
+    files, the calibrated caps, one epoch through Trainer.run over a
+    PairLoader (2 spawned workers), the Tester on the test pairs, the
+    evaluator in a process of its own, then scripts.test and scripts.eval
+    on the test fragments in the 3DMatch layout. Returns each kernel's
+    comparison with its plain version on the inputs of one training step
+    ("synthetic_train") and one Tester forward ("synthetic_test")."""
+    phase_start = time.perf_counter()
+    out = os.path.join(tmp, "synthetic")
+    start = time.perf_counter()
+    cfg, train_set, test_set = synthetic.build_sets("full")
+    expect(len(train_set) == SYNTHETIC_TRAIN_PAIRS and len(test_set) == SYNTHETIC_TEST_PAIRS,
+           f"synthetic: {len(train_set)} training and {len(test_set)} test pairs")
+    scenes_s = time.perf_counter() - start
+    benchmark_root = os.path.join(out, "benchmark")
+    test_set.write_benchmark(benchmark_root)
+    start = time.perf_counter()
+    cfg = synthetic.calibrate(cfg, train_set, test_set)
+    calibrate_s = time.perf_counter() - start
+    caps = cfg.caps.stage_caps
+    train_pipeline, test_pipeline = synthetic.pipelines(cfg)
+    # the one cut: one epoch of the 78 pairs
+    cfg = synthetic.training_config(cfg, steps=len(train_set), train_pairs=len(train_set))
+    blocks = cfg.geotransformer.blocks
+    print(f"synthetic: {len(train_set)} training and {len(test_set)} test pairs in "
+          f"{scenes_s:.1f} s; caps {caps} calibrated over "
+          f"{synthetic.CALIBRATION_TRAIN_PAIRS} training pairs and every test pair in "
+          f"{calibrate_s:.1f} s; one epoch of {len(train_set)} steps at lr {cfg.optim.lr}",
+          flush=True)
+
+    model = create_model(cfg, device=device)
+    loader = PairLoader(train_set, train_pipeline, shuffle=True, num_workers=2, seed=cfg.seed)
+    test_loader = PairLoader(test_set, test_pipeline, num_workers=2)
+    feature_dir = os.path.join(out, "features")
+    try:
+        # 2. one epoch through Trainer.run, every step counted
+        trainer = Trainer(cfg, model, loader, output_dir=os.path.join(out, "train"),
+                          log_steps=26, device=DEVICE)
+        counts = collections.Counter()
+        trainer.train_step = counting_step(trainer.train_step, cfg, "synthetic train", counts)
+        trainer.initialize()
+        torch.cuda.reset_peak_memory_stats()
+        start = time.perf_counter()
+        with count_input_residuals():
+            trainer.run()
+        train_wall = time.perf_counter() - start
+        peak = torch.cuda.max_memory_allocated()
+        history = trainer.history
+        expect([h["step"] for h in history] == list(range(1, len(train_set) + 1)),
+               f"synthetic train: steps {[h['step'] for h in history]}")
+        for h in history:
+            expect(h["grad_finite"] == 1.0, f"synthetic train step {h['step']} skipped")
+            expect(np.isfinite(h["loss"]), f"synthetic train step {h['step']}: loss {h['loss']}")
+        expect(trainer.checkpoints.all_steps() == [1],
+               f"synthetic checkpoints {trainer.checkpoints.all_steps()}")
+        launches["synthetic_train"] = dict(counts)
+        step_ms = [1e3 * h["process_s"] for h in history]
+        losses = [h["loss"] for h in history]
+        print(f"synthetic train: {len(history)} steps, loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+              f"(mean of the last 26 {statistics.mean(losses[-26:]):.4f}); "
+              f"{statistics.median(step_ms):.3f} ms per step (median, CUDA events; min "
+              f"{min(step_ms):.3f}, max {max(step_ms):.3f}); {train_wall:.1f} s wall with the "
+              f"loader; peak memory {peak / 2**30:.2f} GiB", flush=True)
+
+        # 3. the Tester on the test pairs with the trained weights
+        tester = Tester(cfg, model, test_loader, output_dir=os.path.join(out, "test"),
+                        feature_dir=feature_dir, device=DEVICE)
+        test_counts = collections.Counter()
+        tester._forward = counting_forward(tester._forward, blocks, test_counts)
+        start = time.perf_counter()
+        summary, results = tester.run()
+        test_wall = time.perf_counter() - start
+        pair_ms = [1e3 * t for t in tester.timer.process_times()]
+    finally:
+        loader.close()
+        test_loader.close()
+    expect(len(results) == len(test_set), f"synthetic test: {len(results)} pairs")
+    expect(all(np.isfinite(v) for v in summary.values()), f"synthetic test: {summary}")
+    launches["synthetic_test"] = dict(test_counts)
+    transforms = dumped_transforms(feature_dir)
+    expect(len(transforms) == len(test_set), f"synthetic test: {len(transforms)} dumps")
+    worst_ortho = 0.0
+    for key, est in transforms.items():
+        rot = est[:3, :3].astype(np.float64)
+        ortho = float(np.abs(rot @ rot.T - np.eye(3)).max())
+        expect(np.isfinite(est).all() and ortho < 1e-3 and abs(np.linalg.det(rot) - 1) < 1e-3,
+               f"synthetic test {key}: the estimated R is not a rotation ({est})")
+        worst_ortho = max(worst_ortho, ortho)
+    print(f"synthetic test: {len(results)} pairs, "
+          f"{ {k: round(v, 4) for k, v in summary.items()} }; "
+          f"{statistics.median(pair_ms):.3f} ms a pair (median, CUDA events; min "
+          f"{min(pair_ms):.3f}, max {max(pair_ms):.3f}); {test_wall:.1f} s wall with the loader; "
+          f"every R a rotation (|R R^T - I| <= {worst_ortho:.1e})", flush=True)
+
+    # 4. the evaluator in a process of its own
+    cmd, env = synthetic.eval_command(feature_dir, benchmark_root,
+                                      os.path.join(out, "registration"), DEVICE)
+    table, eval_s = run_script(cmd, env, "scripts.eval")
+    print(f"synthetic eval (scripts.eval --method lgr, {eval_s:.1f} s; weights after "
+          f"{len(history)} steps: an RR of the pipeline, not of a trained model):\n"
+          f"{table.rstrip()}", flush=True)
+
+    # 5. scripts.test on the fragments in the 3DMatch layout, then scripts.eval
+    data_root = os.path.join(out, "3DMatch")
+    write_threedmatch_layout(data_root, test_set)
+    cli_out = os.path.join(out, "cli")
+    cmd = [sys.executable, "-m", "geotransformer_tpu_torch.scripts.test", "--dataset", "3dmatch",
+           "--data_root", data_root, "--benchmark", "3DMatch",
+           "--checkpoint_dir", os.path.join(out, "train", "checkpoints"),
+           "--output_dir", cli_out, "--num_workers", "2", "--device", DEVICE]
+    printed, test_s = run_script(cmd, env, "scripts.test")
+    cli_transforms = dumped_transforms(os.path.join(cli_out, "features", "3DMatch"))
+    expect(sorted(cli_transforms) == sorted(transforms),
+           f"scripts.test dumped {sorted(cli_transforms)}")
+    cli_diff = max(float(np.abs(cli_transforms[k] - transforms[k]).max()) for k in transforms)
+    expect(cli_diff <= 1e-5, f"scripts.test vs the Tester: estimated transforms differ by "
+                             f"{cli_diff}")
+    cmd, env = synthetic.eval_command(os.path.join(cli_out, "features", "3DMatch"),
+                                      benchmark_root, os.path.join(cli_out, "registration"),
+                                      DEVICE)
+    cli_table, _ = run_script(cmd, env, "scripts.eval on scripts.test's dumps")
+    print(f"scripts.test ({test_s:.1f} s, {printed.strip().splitlines()[-1]}): its estimated "
+          f"transforms vs the Tester's, max |diff| {cli_diff:.3e} over {len(transforms)} pairs; "
+          f"scripts.eval on its dumps prints the same table: {cli_table == table}", flush=True)
+
+    # 6. kernels vs plain on one training step and one Tester forward
+    results = synthetic_kernels(model, cfg, train_set[0], test_set[0], train_pipeline,
+                                test_pipeline, device)
+    wall = time.perf_counter() - phase_start
+    print(f"synthetic workflow: {wall:.1f} s wall", flush=True)
+    report["synthetic"] = dict(
+        pairs=[len(train_set), len(test_set)], caps=caps, scenes_s=scenes_s,
+        calibrate_s=calibrate_s, train_losses=losses, train_step_ms=step_ms,
+        train_wall_s=train_wall, train_peak_bytes=peak, test_summary=summary,
+        test_pair_ms=pair_ms, test_wall_s=test_wall, eval_table=table, cli_table=cli_table,
+        cli_max_abs_diff=cli_diff, wall_s=wall)
+    return results
+
+
+def synthetic_kernels(model, cfg, train_sample, test_sample, train_pipeline, test_pipeline,
+                      device):
+    """Each kernel of the workflow vs its plain version: the training ones
+    on the inputs of one training step ("synthetic_train": the input conv's
+    training call, the backward kernels, the training Sinkhorn and the
+    in-step GT overlaps), the forward ones on one Tester forward
+    ("synthetic_test")."""
+    results = {}
+    for path, sample, pipeline, names in (
+            ("synthetic_train", train_sample, train_pipeline, SYNTHETIC_TRAIN_KERNELS),
+            ("synthetic_test", test_sample, test_pipeline, SYNTHETIC_TEST_KERNELS)):
+        batch = prepare_pair(sample, **pipeline)
+        batch.pop("meta")
+        batch = batch_to_torch(batch, device)
+        with capture_kernel_calls(names) as records:
+            if path == "synthetic_train":
+                step_gradients(model, cfg, batch, 0)
+            else:
+                model.eval()
+                with torch.no_grad():
+                    model(batch, training=False, with_gt=True)
+        results[path] = compare_kernels(records, names, reps=5, stage_of=stages_of(batch))
+    return results
+
 
 def limit_calls(device):
     """Phase 15's calls (inputs from a seed): each kernel at shapes its CUDA
@@ -2203,6 +2508,7 @@ def main():
     by_path.update(kitti_phases(device, launches, report))
     with tempfile.TemporaryDirectory() as tmp:
         by_path.update(modelnet_phases(device, launches, report, tmp))
+        by_path.update(synthetic_phases(device, launches, report, tmp))
     for path, path_results in by_path.items():
         print_results(path, path_results)
     results = merge_paths(by_path)
@@ -2228,7 +2534,7 @@ def main():
     line = []
     for name, kernel in KERNELS.items():
         r = results[name]
-        by_path = {path: counts.get(wrapper_of(name), 0) for path, counts in launches.items()
+        by_path = {path: counts.get(launch_key(name), 0) for path, counts in launches.items()
                    if kernel.runs is None or path.endswith(kernel.runs)}
         expect(sum(by_path.values()) > 0, f"{name}: never launched on a counted path")
         line.append({"name": name, "route": "cuda", "source": kernel.source,

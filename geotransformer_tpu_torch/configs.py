@@ -228,3 +228,15 @@ def make_modelnet_config():
         ),
     )
 
+
+
+CONFIG_FACTORIES = {
+    "3dmatch": make_3dmatch_config,
+    "kitti": make_kitti_config,
+    "modelnet": make_modelnet_config,
+}
+
+
+def make_config(name):
+    """The configuration of dataset ``name`` (3dmatch, kitti or modelnet)."""
+    return CONFIG_FACTORIES[name]()

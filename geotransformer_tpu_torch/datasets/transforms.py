@@ -1,8 +1,13 @@
 r"""Numpy point-cloud augmentations of the dataset samplers: the port's copy
-of the sampling, jitter, shuffle and crop functions of
-``geotransformer_tpu/datasets/transforms.py`` (reference
-`transforms/functional.py`), drawing from ``np.random`` in the same order.
+of ``geotransformer_tpu/datasets/transforms.py`` (reference
+`transforms/functional.py:7-162`): sampling, jitter, shuffle, dropout,
+scale-shift, up-axis rotation, rescale and crops, drawing from
+``np.random`` / ``random`` in the same order, so the same state gives the
+same samples.
 """
+
+import math
+import random
 
 import numpy as np
 
@@ -11,6 +16,13 @@ def normalize_points(points):
     """Center at origin, scale to unit sphere."""
     points = points - points.mean(axis=0)
     return points / np.max(np.linalg.norm(points, axis=1))
+
+
+def sample_points(points, num_samples, normals=None):
+    points = points[:num_samples]
+    if normals is not None:
+        return points, normals[:num_samples]
+    return points
 
 
 def random_sample_points(points, num_samples, normals=None):
@@ -43,6 +55,43 @@ def random_shuffle_points(points, normals=None):
     if normals is not None:
         return points, normals[indices]
     return points
+
+
+def random_dropout_points(points, max_p):
+    num_points = points.shape[0]
+    p = np.random.rand(num_points) * max_p
+    masks = np.random.rand(num_points) < p
+    points = points.copy()
+    points[masks] = points[0]
+    return points
+
+
+def random_scale_shift_points(points, low=2.0 / 3.0, high=3.0 / 2.0, shift=0.2, normals=None):
+    scale = np.random.uniform(low=low, high=high, size=(1, 3))
+    bias = np.random.uniform(low=-shift, high=shift, size=(1, 3))
+    points = points * scale + bias
+    if normals is not None:
+        normals = normals * scale
+        normals = normals / np.linalg.norm(normals, axis=1, keepdims=True)
+        return points, normals
+    return points
+
+
+def random_rotate_points_along_up_axis(points, normals=None):
+    theta = np.random.rand() * 2.0 * math.pi
+    rot_t = np.asarray([
+        [math.cos(theta), math.sin(theta), 0.0],
+        [-math.sin(theta), math.cos(theta), 0.0],
+        [0.0, 0.0, 1.0],
+    ])
+    points = points @ rot_t
+    if normals is not None:
+        return points, normals @ rot_t
+    return points
+
+
+def random_rescale_points(points, low=0.8, high=1.2):
+    return points * random.uniform(low, high)
 
 
 def random_sample_plane():

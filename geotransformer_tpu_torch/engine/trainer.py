@@ -73,9 +73,16 @@ class Trainer:
         self.logger.info(f"initialized model: {n_params / 1e6:.2f}M params")
 
     def state(self):
-        return {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(),
-                "scheduler": self.scheduler.state_dict(),
-                "generator": self.generator.get_state(), "step": self.step, "epoch": self.epoch}
+        state = {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(),
+                 "scheduler": self.scheduler.state_dict(),
+                 "generator": self.generator.get_state(), "step": self.step, "epoch": self.epoch}
+        pipeline = getattr(self.train_loader, "pipeline_cfg", None)
+        if pipeline is not None:
+            # the caps and input route the model was trained with, which the
+            # test script restores with the weights
+            state["pipeline"] = {"stage_caps": pipeline["stage_caps"],
+                                 "input_stream": pipeline.get("input_stream", True)}
+        return state
 
     def save(self, step, metadata=None):
         self.checkpoints.save(step, self.state(), metadata=metadata)

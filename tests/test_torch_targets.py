@@ -186,8 +186,9 @@ def test_disposition_copy_is_byte_identical():
 
 
 def test_port_imports_no_jax():
-    """Every module of the port and chip_smoke.py import with jax, flax and
-    the JAX package blocked, and load none of them."""
+    """Every module of the port, its scripts among them, and chip_smoke.py
+    import with jax, flax and the JAX package blocked, and load none of
+    them."""
     script = (
         "import importlib, pkgutil, sys\n"
         "for name in ('jax', 'jaxlib', 'flax', 'optax', 'geotransformer_tpu'):\n"
@@ -195,6 +196,9 @@ def test_port_imports_no_jax():
         "import geotransformer_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(geotransformer_tpu_torch.__path__,\n"
         "                                                'geotransformer_tpu_torch.')]\n"
+        "scripts = {'geotransformer_tpu_torch.scripts.' + s for s in\n"
+        "           ('common', 'eval', 'synthetic_benchmark', 'test', 'trainval')}\n"
+        "assert scripts <= set(names), sorted(scripts - set(names))\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "importlib.import_module('chip_smoke')\n"
