@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 r"""Drive the PyTorch port's 3DMatch, KITTI and ModelNet inference, training
-and eval paths on one CUDA card.
+and eval paths, and its device pyramid, on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -160,6 +160,40 @@ fused_masked_attention twice a block).
                conv's training call, out and t1 as KPConv, the count bit for
                bit; patch_overlaps at 64-point patches bit for bit) and the
                forward kernels on one Tester forward ("synthetic_test").
+ 17. device pyramid — (a) on the 3DMatch and KITTI cells' three pairs each,
+               at symmetric caps (each stage's largest cloud over the pairs,
+               a multiple of 256) and a candidate capacity calibrated on the
+               host (the largest 27-cell population of the grid searches,
+               rounded up to 64): build_pyramid_device on the card against
+               the host pyramid at the same caps (lengths and masks exact,
+               points within 1e-4, each table row for row but distance ties,
+               at most 5 % of its rows, the inverse tables and the edge
+               stream off the tied rows; a stage whose float32 voxel count
+               differs from the host's float64 one is printed with the point
+               that moved, and only the stages below it compared); every
+               grid_radius_search call bit for bit and every
+               voxel_segment_mean call (the means within 1e-6 x
+               max|coordinate|, the counts bit for bit) against its plain
+               version, pair 0's calls timed (events, graph replay, plain,
+               index_reduce_ "mean" for the segment mean, by_call, paths
+               device_pyramid_3dmatch and device_pyramid_kitti); the whole
+               build's events and graph time per pair against the host
+               pyramid's seconds; (b) the raw mode at full width on the
+               synthetic workflow's configuration with a deliberately small
+               first bucket (stage-1 cap 256) that every pair takes,
+               overflows and escalates from: 16 steps through PairLoader (2
+               spawned workers fetching samples) and Trainer(device_plan=...),
+               each try counted (the pyramid kernels' launches, then the
+               step's), finite losses, no skipped step, an overflowed try a
+               step, no host fallback; the Tester on the 20 test pairs, each
+               pair counted, every R a rotation, the wall time and each
+               pair's card time; scripts.test --device_preprocess from the
+               checkpoint (its buckets; the default candidate capacity,
+               512, as in training) under --overflow_policy escalate, its
+               transforms within 1e-5 of the Tester's; the pyramid kernels'
+               calls of the first training step's two tries against their
+               plain versions and timed (path device_raw_train, the raw
+               mode's caps and candidate capacity).
 Then it prints the {"kernels": [...]} line (each kernel's numbers summed over
 the paths it was compared on, with each path's own under "by_path" and the
 calls of the KPConv, GSE, Sinkhorn and overlap rows, and phase 15's, one by
@@ -198,6 +232,7 @@ from geotransformer_tpu_torch.kernels import cuda
 from geotransformer_tpu_torch.kernels import gse as kernels_gse
 from geotransformer_tpu_torch.kernels import kpconv as kernels_kpconv
 from geotransformer_tpu_torch.kernels import overlap as kernels_overlap
+from geotransformer_tpu_torch.kernels import pyramid as kernels_pyramid
 from geotransformer_tpu_torch.kernels import sinkhorn as kernels_sinkhorn
 from geotransformer_tpu_torch.losses import overall as losses_overall
 from geotransformer_tpu_torch.losses import overall_loss
@@ -225,6 +260,13 @@ from geotransformer_tpu_torch.preprocess import (
     pad_registration_batch,
     round_up,
 )
+from geotransformer_tpu_torch.preprocess import device as preprocess_device
+from geotransformer_tpu_torch.preprocess.calibrate import largest_cell_population
+from geotransformer_tpu_torch.preprocess.device import (
+    DevicePreprocessPlan,
+    build_pyramid_device,
+    pad_stage0,
+)
 from geotransformer_tpu_torch.preprocess.loader import PairLoader, prepare_pair
 from geotransformer_tpu_torch.preprocess.voxel import grid_subsample_single
 from geotransformer_tpu_torch.scripts import synthetic_benchmark as synthetic
@@ -243,6 +285,8 @@ UNION_CAP, UNION_TILE = 1536, 128
 # training and test pairs; one epoch of training (the script's default is
 # 2000 steps, 26 epochs)
 SYNTHETIC_TRAIN_PAIRS, SYNTHETIC_TEST_PAIRS = 78, 20
+# phase 17: raw-mode training steps on the synthetic workflow's configuration
+DEVICE_TRAIN_STEPS = 16
 PEAK_F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores
 PEAK_TF32_FLOPS = 495e12  # H100 SXM, TF32 on the tensor cores, dense
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
@@ -325,6 +369,22 @@ def tol_attention(i, got, want, args, plain):
     return got, want, torch.full_like(want, 1e-5 * want.abs().max().item())
 
 
+def tol_exact(i, got, want, args, plain):
+    # grid_radius_search: the table and the counts bit for bit
+    return got, want, torch.zeros_like(want)
+
+
+def tol_segment_mean(i, got, want, args, plain):
+    # the means within 1e-6 x max|coordinate| of the voxels (the plain
+    # version's float atomics add in another order), PAD_COORD rows and the
+    # counts bit for bit
+    if i == 1:
+        return got, want, torch.zeros_like(want)
+    voxel = plain[1] > 0
+    scale = want[voxel].abs().max().item() if bool(voxel.any()) else 0.0
+    return got, want, torch.where(voxel[..., None], 1e-6 * scale, 0.0).expand_as(want)
+
+
 Kernel = collections.namedtuple(
     "Kernel", "module plain replaces source tolerance wrapper runs select",
     defaults=(None, None, None))
@@ -402,7 +462,17 @@ KERNELS = {
                                      "geotransformer_tpu/kernels/attention.py:291",
                                      "geotransformer_tpu_torch/kernels/csrc/attention.cu",
                                      tol_attention),
+    # the device pyramid's two hot loops: they replace XLA code of the JAX
+    # package's preprocess/device.py, no pallas_call
+    "grid_radius_search": Kernel(preprocess_device, kernels_pyramid.grid_radius_search_plain,
+                                 "geotransformer_tpu/preprocess/device.py:180",
+                                 "geotransformer_tpu_torch/kernels/csrc/pyramid.cu", tol_exact),
+    "voxel_segment_mean": Kernel(preprocess_device, kernels_pyramid.voxel_segment_mean_plain,
+                                 "geotransformer_tpu/preprocess/device.py:98",
+                                 "geotransformer_tpu_torch/kernels/csrc/pyramid.cu",
+                                 tol_segment_mean),
 }
+PYRAMID = ["grid_radius_search", "voxel_segment_mean"]
 INFERENCE = ["kpconv_stream_fused", "kpconv_fused", "gse_embedding_full", "rpe_pair_scores",
              "fused_masked_attention", "sinkhorn_log_iterations"]
 TRAINING = ["kpconv_stream_fused (residuals)", "kpconv_bwd_fused", "gse_full_bwd",
@@ -584,8 +654,14 @@ def stage_sizes(pyramids):
     return [[[int(v) for v in l] for l in p["lengths"]] for p, _, _ in pyramids]
 
 
+# what phase 17 reuses of the earlier phases: each path's host pyramids, and
+# the synthetic workflow's configuration, sets and 3DMatch-layout fragments
+SHARED = {}
+
+
 def build_batches(cfg, seeds):
     pyramids = build_pyramids(cfg, [make_pair(seed) for seed in seeds])
+    SHARED["3dmatch"] = pyramids
     # one capacity per stage and cloud covering every pair, as scripts/demo.py picks them
     per_pair = [caps_for_pyramid(p, multiple=256, per_cloud=True) for p, _, _ in pyramids]
     caps = tuple(tuple(max(c[s][i] for c in per_pair) for i in range(2))
@@ -617,6 +693,7 @@ def build_kitti_batches(cfg, seeds):
     start = time.perf_counter()
     pyramids = build_pyramids(cfg, pairs)
     host["pyramid"] = time.perf_counter() - start
+    SHARED["kitti"] = pyramids
     bb = cfg.backbone
     start = time.perf_counter()
     # capacities and splits over the three pairs the smoke registers (the
@@ -911,6 +988,45 @@ def cost_patch_overlaps(args, kwargs, out):
     return _nbytes(*args[:6], out), 9 * pairs
 
 
+def starts_read(queries, q_lengths, starts, origin, dims, radius):
+    """The entries of the CSR starts that the grid search needs: the distinct
+    first and end entries of the valid query rows' 27-cell runs, over the
+    clouds (the (B, grid_cap + 1) tensor's bins past a cloud's cells are
+    never read)."""
+    edge, _ = kernels_pyramid._search_constants(radius, queries.device)
+    first, end = kernels_pyramid._run_cells(queries, origin, dims, starts.shape[1] - 1, edge)
+    valid = torch.arange(queries.shape[1], device=queries.device)[None, :] < q_lengths[:, None]
+    cloud = torch.arange(queries.shape[0], device=queries.device)[:, None, None]
+    read = torch.zeros(starts.shape, dtype=torch.bool, device=starts.device)
+    for entries in (first, end):
+        read[cloud.expand_as(entries)[valid], entries[valid].long()] = True
+    return int(read.sum())
+
+
+def cost_grid_radius_search(args, kwargs, out):
+    # bytes: the inputs and outputs, but of the CSR starts only the entries
+    # the runs of the valid query rows read (starts_read); operations: per
+    # candidate slot of a valid query row (its first cand_cap; the brute
+    # search: every valid support row): 3 sub, 3 mul, 2 add, 1 compare
+    queries, q_lengths, support, s_lengths, starts, origin, dims, radius = args[:8]
+    cand_cap = args[9]
+    counts = out[1]
+    rows = torch.arange(counts.shape[1], device=counts.device)[None, :] < q_lengths[:, None]
+    slots = counts if starts is None else torch.clamp(counts, max=cand_cap)
+    nbytes = _nbytes(queries, q_lengths, support, s_lengths, origin, dims, out)
+    if starts is not None:
+        nbytes += starts.element_size() * starts_read(queries, q_lengths, starts, origin, dims,
+                                                      radius)
+    return nbytes, 9 * int((slots.long() * rows).sum())
+
+
+def cost_voxel_segment_mean(args, kwargs, out):
+    # an add a coordinate of a valid row, a division a coordinate of a voxel
+    points, seg, voxels, cap_out = args[:4]
+    voxel_rows = int(torch.clamp(voxels, max=cap_out).sum())
+    return _nbytes(points, seg, voxels, out), 3 * int((seg >= 0).sum()) + 3 * voxel_rows
+
+
 def _valid(n_valid, full):
     return full if n_valid is None else int(n_valid)
 
@@ -970,8 +1086,19 @@ def library_fused_masked_attention(args, kwargs):
         q, k, v, attn_mask=mask, scale=scale)
 
 
+def library_voxel_segment_mean(args, kwargs):
+    points, seg, voxels, cap_out = args[:4]
+    bsz, bins = points.shape[0], cap_out + 1
+    flat = (torch.where((seg >= 0) & (seg < cap_out), seg, cap_out).long()
+            + (torch.arange(bsz, device=points.device) * bins)[:, None]).reshape(-1)
+    src = points.reshape(-1, 3)
+    out = torch.zeros((bsz * bins, 3), device=points.device)
+    return lambda: out.index_reduce_(0, flat, src, "mean", include_self=False)
+
+
 LIBRARY = {"rpe_pair_scores": library_rpe_pair_scores,
-           "fused_masked_attention": library_fused_masked_attention}
+           "fused_masked_attention": library_fused_masked_attention,
+           "voxel_segment_mean": library_voxel_segment_mean}
 
 
 def call_shape(name, args, kwargs, stage_of):
@@ -1065,8 +1192,26 @@ def attention_shape(name, args, kwargs, stage_of):
             "route": kernels_attention.attention_route(dh, aligned)}
 
 
+def search_shape(name, args, kwargs, stage_of):
+    """One grid_radius_search call: clouds B, query rows Cq (valid ones),
+    support rows Cs, K, the candidate capacity, brute or grid, and the
+    candidate slots it examined."""
+    queries, q_lengths, support, s_lengths, starts = args[:5]
+    return {"B": queries.shape[0], "Cq": queries.shape[1], "valid_queries": int(q_lengths.sum()),
+            "Cs": support.shape[1], "K": args[8], "cand_cap": args[9],
+            "route": "brute" if starts is None else "grid"}
+
+
+def segment_shape(name, args, kwargs, stage_of):
+    """One voxel_segment_mean call: clouds B, rows C, output rows, voxels."""
+    points, seg, voxels, cap_out = args[:4]
+    return {"B": points.shape[0], "C": points.shape[1], "cap_out": cap_out,
+            "voxels": [int(v) for v in voxels]}
+
+
 # the rows whose calls are also timed one by one (by_call), with their shape
-BY_CALL = {"kpconv_fused": call_shape, "kpconv_split_fused": call_shape,
+BY_CALL = {"grid_radius_search": search_shape, "voxel_segment_mean": segment_shape,
+           "kpconv_fused": call_shape, "kpconv_split_fused": call_shape,
            "kpconv_fused (input residuals)": call_shape,
            "kpconv_bwd_fused": call_shape, "gse_embedding_full": gse_shape,
            "gse_full_bwd": gse_bwd_shape, "sinkhorn_log_iterations": sinkhorn_shape,
@@ -2182,10 +2327,12 @@ def write_threedmatch_layout(root, test_set, benchmark="3DMatch"):
         pickle.dump(metadata, f)
 
 
-def counting_forward(forward, blocks, counts):
+def counting_forward(forward, blocks, counts, stamps):
     """A Tester's ``_forward`` with each pair's launches counted and checked
-    (an eval forward: GT overlaps in the forward, patch_overlaps)."""
+    (an eval forward: GT overlaps in the forward, patch_overlaps), and the
+    wall clock at each call in ``stamps``."""
     def run(batch):
+        stamps.append(time.perf_counter())
         result, c = counted(lambda: forward(batch))
         expect_launches(c, [batch], "eval", "synthetic test pair", blocks)
         counts.update(c)
@@ -2235,6 +2382,8 @@ def synthetic_phases(device, launches, report, tmp):
     calibrate_s = time.perf_counter() - start
     caps = cfg.caps.stage_caps
     train_pipeline, test_pipeline = synthetic.pipelines(cfg)
+    SHARED["synthetic"] = dict(cfg=cfg, train_set=train_set, test_set=test_set,
+                               train_pipeline=train_pipeline, test_pipeline=test_pipeline)
     # the one cut: one epoch of the 78 pairs
     cfg = synthetic.training_config(cfg, steps=len(train_set), train_pairs=len(train_set))
     blocks = cfg.geotransformer.blocks
@@ -2282,7 +2431,8 @@ def synthetic_phases(device, launches, report, tmp):
         tester = Tester(cfg, model, test_loader, output_dir=os.path.join(out, "test"),
                         feature_dir=feature_dir, device=DEVICE)
         test_counts = collections.Counter()
-        tester._forward = counting_forward(tester._forward, blocks, test_counts)
+        stamps = []
+        tester._forward = counting_forward(tester._forward, blocks, test_counts, stamps)
         start = time.perf_counter()
         summary, results = tester.run()
         test_wall = time.perf_counter() - start
@@ -2305,8 +2455,10 @@ def synthetic_phases(device, launches, report, tmp):
     print(f"synthetic test: {len(results)} pairs, "
           f"{ {k: round(v, 4) for k, v in summary.items()} }; "
           f"{statistics.median(pair_ms):.3f} ms a pair (median, CUDA events; min "
-          f"{min(pair_ms):.3f}, max {max(pair_ms):.3f}); {test_wall:.1f} s wall with the loader; "
-          f"every R a rotation (|R R^T - I| <= {worst_ortho:.1e})", flush=True)
+          f"{min(pair_ms):.3f}, max {max(pair_ms):.3f}); {test_wall:.1f} s wall with the loader "
+          f"({stamps[0] - start:.1f} s to the first pair: the 2 workers' start and its pyramid; "
+          f"{test_wall - stamps[0] + start:.1f} s for the {len(test_set)} pairs); every R a "
+          f"rotation (|R R^T - I| <= {worst_ortho:.1e})", flush=True)
 
     # 4. the evaluator in a process of its own
     cmd, env = synthetic.eval_command(feature_dir, benchmark_root,
@@ -2319,6 +2471,7 @@ def synthetic_phases(device, launches, report, tmp):
     # 5. scripts.test on the fragments in the 3DMatch layout, then scripts.eval
     data_root = os.path.join(out, "3DMatch")
     write_threedmatch_layout(data_root, test_set)
+    SHARED["synthetic"].update(data_root=data_root, benchmark_root=benchmark_root)
     cli_out = os.path.join(out, "cli")
     cmd = [sys.executable, "-m", "geotransformer_tpu_torch.scripts.test", "--dataset", "3dmatch",
            "--data_root", data_root, "--benchmark", "3DMatch",
@@ -2375,6 +2528,384 @@ def synthetic_kernels(model, cfg, train_sample, test_sample, train_pipeline, tes
                 with torch.no_grad():
                     model(batch, training=False, with_gt=True)
         results[path] = compare_kernels(records, names, reps=5, stage_of=stages_of(batch))
+    return results
+
+
+# --- phase 17: the device pyramid -----------------------------------------
+
+def pyramid_spec(cfg, caps, knn_cand_cap):
+    """build_pyramid_device's keywords for ``cfg`` at symmetric ``caps``, with
+    the training batches' inverse tables."""
+    bb = cfg.backbone
+    return dict(num_stages=bb.num_stages, voxel_size=bb.init_voxel_size, radius=bb.init_radius,
+                neighbor_limits=tuple(cfg.caps.neighbor_limits), stage_caps=tuple(caps),
+                inverse_limits=tuple(cfg.caps.inverse_limits), knn_cand_cap=knn_cand_cap)
+
+
+def raw_inputs(pyramid, transform, cap0, device):
+    """A host pyramid's stage 0 (the raw pair) laid into the stage-0 frame, on
+    ``device``."""
+    pts, lens, feats = pad_stage0(pyramid["points"][0], pyramid["lengths"][0], cap0)
+    return [torch.from_numpy(a).to(device) for a in (pts, lens, feats, transform)]
+
+
+def pyramid_launches(num_stages, builds=1):
+    """The pyramid kernels' launches of ``builds`` device builds: a subsample a
+    stage past 0, a search for each neighbor, subsampling and upsampling
+    table (both clouds in one launch each)."""
+    return collections.Counter(voxel_segment_mean=builds * (num_stages - 1),
+                               grid_radius_search=builds * (3 * num_stages - 2))
+
+
+def expect_raw_launches(got, cfg, mode, what, builds, ran):
+    """A raw-mode run's launches: ``builds`` device builds, then, when the
+    last was not an overflow (``ran``), one forward ("eval") or training step
+    ("train") on the built batch (an edge stream, no split tables, no
+    precomputed targets)."""
+    want = pyramid_launches(cfg.backbone.num_stages, builds)
+    if ran:
+        stub = {"points": [None] * cfg.backbone.num_stages, "input_stream": True}
+        want.update(expected_launches(stub, mode, cfg.geotransformer.blocks))
+    for name in KERNELS:
+        expect(got.get(name, 0) == want.get(name, 0),
+               f"{what}: {name} launched {got.get(name, 0)} times, expected {want.get(name, 0)}")
+
+
+def table_ties(got, want, q_points, s_points, sentinel, radius, atol):
+    """The rows where two (rows, K) tables differ, each held to be a tie: the
+    sorted distances of its entries (from ``s_points``, in float64) agree
+    within ``atol``, and an entry on one side only lies within ``atol`` of the
+    radius. Returns the rows."""
+    rows = np.nonzero(~np.all(got == want, axis=1))[0]
+    for i in rows:
+        dists = []
+        for table in (got, want):
+            idx = table[i][table[i] != sentinel]
+            dists.append(np.sort(np.linalg.norm(s_points[idx].astype(np.float64)
+                                                - q_points[i].astype(np.float64), axis=1)))
+        n = min(len(dists[0]), len(dists[1]))
+        extra = np.concatenate([dists[0][n:], dists[1][n:]])
+        expect(np.all(np.abs(dists[0][:n] - dists[1][:n]) <= atol)
+               and np.all(np.abs(extra - radius) <= atol),
+               f"row {i}: {got[i].tolist()} vs {want[i].tolist()} is not a distance tie "
+               f"(distances {dists[0].tolist()} vs {dists[1].tolist()}, radius {radius})")
+    return rows
+
+
+def compare_with_host(path, built, host, spec):
+    """The device pyramid against the host's at the same caps: lengths and
+    masks exact; points within 1e-4; each table row for row but distance
+    ties (at most 5 % of a table's rows); the inverse tables row for
+    row but the supports a tied forward row names; the edge stream on the
+    rows whose stage-0 row is not tied. A stage whose float32 voxel count
+    differs from the host's float64 one (a point on a voxel boundary) is
+    printed with the first point that moved, and only the stages below it
+    are compared. Returns (stages compared, tie rows by table)."""
+    stages = spec["num_stages"]
+    caps, radius = spec["stage_caps"], spec["radius"]
+    lengths = [l.cpu().numpy() for l in built["lengths"]]
+    good = stages
+    for i in range(stages):
+        if not np.array_equal(lengths[i], host["lengths"][i]):
+            good = i
+            got, want = built["points"][i].cpu().numpy(), host["points"][i]
+            moved = np.nonzero(np.abs(got - want).max(axis=1) > 1e-4)[0]
+            row = int(moved[0]) if len(moved) else -1
+            print(f"{path}: stage {i} voxel count {lengths[i].tolist()} on the card vs "
+                  f"{host['lengths'][i].tolist()} on the host (float32 vs float64 voxel keys); "
+                  f"first moved point row {row}: {got[row].tolist()} vs {want[row].tolist()}; "
+                  f"stages {i}-{stages - 1} not compared", flush=True)
+            break
+    points = [p.cpu().numpy() for p in built["points"]]
+    scale = max(float(np.abs(p[m]).max()) for p, m in zip(points, host["masks"]) if m.any())
+    ties = {}
+    for i in range(good):
+        expect(np.array_equal(built["masks"][i].cpu().numpy(), host["masks"][i]),
+               f"{path}: stage {i} masks differ")
+        diff = np.abs(points[i] - host["points"][i]).max()
+        expect(diff <= 1e-4, f"{path}: stage {i} points differ by {diff}")
+    for key, q_of, s_of, r_of in (
+            ("neighbors", lambda i: i, lambda i: i, lambda i: radius * 2 ** i),
+            ("subsampling", lambda i: i + 1, lambda i: i, lambda i: radius * 2 ** i),
+            ("upsampling", lambda i: i, lambda i: i + 1, lambda i: radius * 2 ** (i + 1))):
+        for i in range(len(host[key])):
+            if max(q_of(i), s_of(i)) >= good:
+                continue
+            got, want = built[key][i].cpu().numpy(), host[key][i]
+            expect(got.shape == want.shape, f"{path}: {key}[{i}] {got.shape} vs {want.shape}")
+            # distances within twice a coordinate's float32 rounding of the
+            # host's float64 voxel means, and a few ulp of the radius
+            atol = 8 * np.finfo(np.float32).eps * (scale + r_of(i))
+            rows = table_ties(got, want, points[q_of(i)], points[s_of(i)], 2 * caps[s_of(i)],
+                              r_of(i), atol)
+            # at most 5 % of the table's rows, as the JAX package's test
+            # (tests/test_device_preprocess.py:197-205)
+            expect(len(rows) <= 0.05 * got.shape[0],
+                   f"{path}: {key}[{i}] {len(rows)} tie rows of {got.shape[0]}")
+            ties[f"{key}[{i}]"] = len(rows)
+            inv_key = {"neighbors": "neighbors_inv", "subsampling": "subsampling_inv"}.get(key)
+            if inv_key is not None:
+                named = np.unique(np.concatenate([got[rows].ravel(), want[rows].ravel()]))
+                keep = np.ones(host[inv_key][i].shape[0], bool)
+                keep[named[named < keep.shape[0]]] = False
+                expect(np.array_equal(built[inv_key][i].cpu().numpy()[keep],
+                                      host[inv_key][i][keep]),
+                       f"{path}: {inv_key}[{i}] differs off the tied rows")
+            if key == "neighbors" and i == 0:
+                untied = np.ones(got.shape[0], bool)
+                untied[rows] = False
+                expect(np.array_equal(built["input_stream"].cpu().numpy()[:, untied],
+                                      host["input_stream"][:, untied]),
+                       f"{path}: input_stream differs off the tied rows")
+    return good, ties
+
+
+def profile_build(path, raw, spec):
+    """torch.profiler over one device build: its device time by kernel into
+    chiprun_out/<path>_profile.txt (the profiler may drop the ctypes-launched
+    kernels after its first session in a process; the PyTorch operations
+    around them stay). Returns the five largest items, in ms."""
+    build_pyramid_device(*raw, **spec)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        build_pyramid_device(*raw, **spec)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    events.sort(key=lambda e: -e.self_device_time_total)
+    total = sum(e.self_device_time_total for e in events) / 1e3
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", f"{path}_profile.txt"), "w") as f:
+        f.write(f"one device build: {total:.3f} ms of kernel time\n")
+        for e in events:
+            f.write(f"{e.self_device_time_total / 1e3:10.3f} ms {e.count:6d}x  {e.key}\n")
+    return [(e.key[:60], round(e.self_device_time_total / 1e3, 3), e.count) for e in events[:5]]
+
+
+def device_pyramid_path(path, cfg, pyramids, device, report):
+    """Phase 17 (a) on one path's three host pyramids: the device pyramid at
+    symmetric caps (each stage's largest cloud over the pairs, a multiple of
+    256) with the candidate capacity calibrated on the host, against the
+    host pyramid at the same caps; each kernel call against its plain
+    version (bit for bit; the segment means within 1e-6 x max|coordinate|),
+    timed on pair 0's build; the whole build's time against the host's."""
+    caps = tuple(max(c) for c in zip(*(caps_for_pyramid(p, multiple=256) for p, _, _ in
+                                       pyramids)))
+    largest = max(largest_cell_population(p, cfg.backbone.init_radius, caps)
+                  for p, _, _ in pyramids)
+    knn_cand_cap = max(round_up(largest, 64), 64)
+    spec = pyramid_spec(cfg, caps, knn_cand_cap)
+    print(f"{path}: caps {caps}, knn_cand_cap {knn_cand_cap} (the largest 27-cell population "
+          f"{largest}, calibrated on the host over the {len(pyramids)} pairs)", flush=True)
+    records, compared, all_ties = [], [], []
+    for p, n, transform in pyramids:
+        raw = raw_inputs(p, transform, caps[0], device)
+        with capture_kernel_calls(PYRAMID) as calls:
+            built, overflow = build_pyramid_device(*raw, **spec)
+        expect(not bool(overflow.any()), f"{path}: the device build overflowed {overflow}")
+        records.append(calls)
+        host = pad_registration_batch(p, np.ones((n, 1), np.float32), transform, caps,
+                                      inverse_limits=spec["inverse_limits"])
+        good, ties = compare_with_host(path, built, host, spec)
+        compared.append(good)
+        all_ties.append(ties)
+    # pairs 1, 2: every call against its plain version; pair 0's calls also timed
+    worst = collections.defaultdict(float)
+    for calls in records[1:]:
+        for name in PYRAMID:
+            kernel, plain = getattr(preprocess_device, name), KERNELS[name].plain
+            for args, kwargs in calls[name]:
+                worst[name] = max(worst[name], check_call(name, kernel(*args, **kwargs),
+                                                          plain(*args, **kwargs), args))
+    results = compare_kernels(records[0], PYRAMID, reps=5)
+    for name, r in results.items():
+        r["max_abs_err"] = max(r["max_abs_err"], worst[name])
+    raw = raw_inputs(pyramids[0][0], pyramids[0][2], caps[0], device)
+    build_ms = time_ms(lambda: build_pyramid_device(*raw, **spec), 5)
+    build_device_ms = graph_ms(lambda: build_pyramid_device(*raw, **spec))
+    top = profile_build(path, raw, spec)
+    p, n, transform = pyramids[0]
+    start = time.perf_counter()
+    bb = cfg.backbone
+    host_pyramid = build_pyramid(p["points"][0], p["lengths"][0], bb.num_stages,
+                                 bb.init_voxel_size, bb.init_radius, list(cfg.caps.neighbor_limits))
+    pad_registration_batch(host_pyramid, np.ones((n, 1), np.float32), transform, caps,
+                           inverse_limits=spec["inverse_limits"])
+    host_s = time.perf_counter() - start
+    skipped = sum(bb.num_stages - g for g in compared)
+    print(f"{path}: device build {build_ms:.3f} ms a pair (CUDA events, host dispatch "
+          f"included), {build_device_ms:.3f} ms on the device (graph) vs the host pyramid "
+          f"{host_s:.3f} s a pair (pair 0: build_pyramid + pad_registration_batch); the "
+          f"build's largest device items (torch.profiler, ms): {top}; stages "
+          f"compared {compared} of {bb.num_stages} ({skipped} left out on a float32 voxel "
+          f"boundary); tie rows {all_ties}", flush=True)
+    report[path] = dict(caps=caps, knn_cand_cap=knn_cand_cap, largest_population=largest,
+                        build_ms=build_ms, build_device_ms=build_device_ms, host_s=host_s,
+                        stages_compared=compared, ties=all_ties)
+    return results
+
+
+def device_pyramid_phases(device, launches, report, tmp):
+    """Phase 17: the device pyramid. (a) the kernels and the build on the
+    3DMatch and KITTI cells' pairs against the host pyramid and their plain
+    versions; (b) the raw mode at full width on the synthetic workflow's
+    configuration, with a deliberately small first bucket that every pair
+    takes, overflows and escalates from: 16 steps through PairLoader and
+    Trainer(device_plan=...), the Tester on the 20 test pairs, then scripts.test
+    --device_preprocess from the checkpoint (its buckets too). Returns the kernels' comparisons
+    ("device_pyramid_3dmatch", "device_pyramid_kitti")."""
+    phase_start = time.perf_counter()
+    results = {
+        "device_pyramid_3dmatch": device_pyramid_path(
+            "device_pyramid_3dmatch", make_3dmatch_config(), SHARED["3dmatch"], device, report),
+        "device_pyramid_kitti": device_pyramid_path(
+            "device_pyramid_kitti", make_kitti_config(), SHARED["kitti"], device, report),
+    }
+
+    shared = SHARED["synthetic"]
+    cfg, train_set, test_set = shared["cfg"], shared["train_set"], shared["test_set"]
+    caps = tuple(cfg.caps.stage_caps)
+    train_pairs = torch.utils.data.Subset(train_set, range(DEVICE_TRAIN_STEPS))
+    cfg = synthetic.training_config(cfg, steps=DEVICE_TRAIN_STEPS, train_pairs=DEVICE_TRAIN_STEPS)
+    blocks = cfg.geotransformer.blocks
+    # a deliberately small first bucket: every pair takes it (its stage 0
+    # holds the fragments), overflows at stage 1 and escalates to the
+    # calibrated caps (stage 0 a multiple of 256 above)
+    buckets = [(caps[0], 256, 256, 256), (caps[0] + 256,) + caps[1:]]
+    plan = DevicePreprocessPlan(cfg, buckets=buckets, with_inverse=True,
+                                overflow_policy="escalate")
+    print(f"device train: buckets {plan.buckets}", flush=True)
+
+    out = os.path.join(tmp, "device")
+    model = create_model(cfg, device=device)
+    loader = PairLoader(train_pairs, shared["train_pipeline"], shuffle=True, num_workers=2,
+                        seed=cfg.seed, device_plan=plan)
+    test_loader = PairLoader(test_set, shared["test_pipeline"], num_workers=2,
+                             device_plan=plan)
+    feature_dir = os.path.join(out, "features")
+    try:
+        trainer = Trainer(cfg, model, loader, output_dir=os.path.join(out, "train"), log_steps=8,
+                          device=DEVICE, device_plan=plan)
+        counts = collections.Counter()
+        step_for = trainer._train_step_for
+        # the pyramid kernels' calls of the first group's two tries (bucket
+        # 0, which overflows, and bucket 1), held against the plain versions
+        # after the training
+        raw_calls = collections.defaultdict(list)
+        tries = []
+
+        def counting_step_for(bucket):
+            step = step_for(bucket)
+
+            def run(batch, generator=None):
+                if len(tries) < 2:
+                    with capture_kernel_calls(PYRAMID) as calls:
+                        metrics, c = counted(lambda: step(batch, generator))
+                    tries.append(bucket)
+                    for name in PYRAMID:
+                        raw_calls[name] += calls[name]
+                else:
+                    metrics, c = counted(lambda: step(batch, generator))
+                ran = float(metrics["pyramid_overflow"]) == 0.0
+                expect_raw_launches(c, cfg, "train", "device train step", 1, ran)
+                counts.update(c)
+                return metrics
+            return run
+
+        trainer._train_step_for = counting_step_for
+        trainer.initialize()
+        start = time.perf_counter()
+        trainer.run()
+        train_wall = time.perf_counter() - start
+        expect(tries == [0, 1], f"device train: the first group's tries at buckets {tries}")
+        results["device_raw_train"] = compare_kernels(raw_calls, PYRAMID, reps=5)
+        history = trainer.history
+        expect([h["step"] for h in history] == list(range(1, DEVICE_TRAIN_STEPS + 1)),
+               f"device train: steps {[h['step'] for h in history]}")
+        for h in history:
+            expect(h["grad_finite"] == 1.0, f"device train step {h['step']} skipped")
+            expect(np.isfinite(h["loss"]), f"device train step {h['step']}: loss {h['loss']}")
+        expect(trainer.overflows == DEVICE_TRAIN_STEPS and trainer.host_fallbacks == 0,
+               f"device train: {trainer.overflows} overflowed tries, {trainer.host_fallbacks} "
+               f"host fallbacks (every group escalates once)")
+        launches["device_train"] = dict(counts)
+        step_ms = [1e3 * h["process_s"] for h in history]
+        print(f"device train: {len(history)} steps, the pyramid built in each, loss "
+              f"{history[0]['loss']:.4f} -> {history[-1]['loss']:.4f}; "
+              f"{statistics.median(step_ms):.3f} ms a step (median, CUDA events; min "
+              f"{min(step_ms):.3f}, max {max(step_ms):.3f}); {train_wall:.1f} s wall with the "
+              f"loader; {trainer.overflows} overflowed tries, {trainer.host_fallbacks} host "
+              f"fallbacks", flush=True)
+
+        tester = Tester(cfg, model, test_loader, output_dir=os.path.join(out, "test"),
+                        feature_dir=feature_dir, device_plan=plan, device=DEVICE)
+        test_counts = collections.Counter()
+        run_pair = tester._run_pair
+
+        stamps = []
+
+        def counting_run_pair(batch):
+            stamps.append(time.perf_counter())
+            before = tester.overflows + tester.host_fallbacks
+            result, c = counted(lambda: run_pair(batch))
+            builds = 1 + tester.overflows - before
+            expect(tester.host_fallbacks == 0, "device test: a host fallback")
+            expect_raw_launches(c, cfg, "eval", "device test pair", builds, True)
+            test_counts.update(c)
+            return result
+
+        tester._run_pair = counting_run_pair
+        start = time.perf_counter()
+        summary, test_results = tester.run()
+        test_wall = time.perf_counter() - start
+        pair_ms = [1e3 * t for t in tester.timer.process_times()]
+    finally:
+        loader.close()
+        test_loader.close()
+    expect(len(test_results) == len(test_set), f"device test: {len(test_results)} pairs")
+    expect(tester.overflows == len(test_set), f"device test: {tester.overflows} escalations")
+    expect(all(np.isfinite(v) for v in summary.values()), f"device test: {summary}")
+    launches["device_eval"] = dict(test_counts)
+    transforms = dumped_transforms(feature_dir)
+    expect(len(transforms) == len(test_set), f"device test: {len(transforms)} dumps")
+    for key, est in transforms.items():
+        rot = est[:3, :3].astype(np.float64)
+        expect(np.isfinite(est).all() and np.abs(rot @ rot.T - np.eye(3)).max() < 1e-3
+               and abs(np.linalg.det(rot) - 1) < 1e-3,
+               f"device test {key}: the estimated R is not a rotation ({est})")
+    print(f"device test: {len(test_results)} pairs, "
+          f"{ {k: round(v, 4) for k, v in summary.items()} }; "
+          f"{statistics.median(pair_ms):.3f} ms a pair on the card, the build included "
+          f"(median, CUDA events; min {min(pair_ms):.3f}, max {max(pair_ms):.3f}); "
+          f"{test_wall:.1f} s wall with the loader ({stamps[0] - start:.1f} s to the first "
+          f"pair: the 2 workers' start; {test_wall - stamps[0] + start:.1f} s for the "
+          f"{len(test_set)} pairs); every R a rotation; escalations {tester.overflows}, "
+          f"host fallbacks {tester.host_fallbacks}", flush=True)
+
+    cmd, env = synthetic.eval_command(feature_dir, shared["benchmark_root"],
+                                      os.path.join(out, "registration"), DEVICE)
+    cmd = [sys.executable, "-m", "geotransformer_tpu_torch.scripts.test", "--dataset", "3dmatch",
+           "--data_root", shared["data_root"], "--benchmark", "3DMatch",
+           "--checkpoint_dir", os.path.join(out, "train", "checkpoints"),
+           "--output_dir", os.path.join(out, "cli"), "--num_workers", "2", "--device", DEVICE,
+           "--device_preprocess", "--overflow_policy", "escalate"]
+    printed, test_s = run_script(cmd, env, "scripts.test --device_preprocess")
+    cli = dumped_transforms(os.path.join(out, "cli", "features", "3DMatch"))
+    expect(sorted(cli) == sorted(transforms), f"scripts.test dumped {sorted(cli)}")
+    cli_diff = max(float(np.abs(cli[k] - transforms[k]).max()) for k in transforms)
+    expect(cli_diff <= 1e-5, f"scripts.test --device_preprocess vs the Tester: estimated "
+                             f"transforms differ by {cli_diff}")
+    wall = time.perf_counter() - phase_start
+    print(f"scripts.test --device_preprocess ({test_s:.1f} s, "
+          f"{printed.strip().splitlines()[-1]}): its transforms vs the Tester's, max |diff| "
+          f"{cli_diff:.3e} over {len(transforms)} pairs; phase 17 {wall:.1f} s wall", flush=True)
+    report["device"] = dict(
+        caps=caps, train_losses=[h["loss"] for h in history], train_step_ms=step_ms,
+        train_wall_s=train_wall, train_overflows=trainer.overflows,
+        train_host_fallbacks=trainer.host_fallbacks, buckets=plan.buckets,
+        test_summary=summary, test_pair_ms=pair_ms, test_wall_s=test_wall,
+        test_first_pair_s=stamps[0] - start, test_escalations=tester.overflows,
+        test_host_fallbacks=tester.host_fallbacks, cli_max_abs_diff=cli_diff, wall_s=wall)
     return results
 
 
@@ -2509,6 +3040,7 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         by_path.update(modelnet_phases(device, launches, report, tmp))
         by_path.update(synthetic_phases(device, launches, report, tmp))
+        by_path.update(device_pyramid_phases(device, launches, report, tmp))
     for path, path_results in by_path.items():
         print_results(path, path_results)
     results = merge_paths(by_path)

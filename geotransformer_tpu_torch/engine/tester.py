@@ -6,8 +6,12 @@ forward with GT targets (``training=False, with_gt=True``) under
 ``torch.no_grad()``, the device-side metrics of
 :func:`geotransformer_tpu_torch.losses.overall.evaluate`, and one feature
 archive a pair for the offline evaluator (the reference's test.py ->
-``features/<benchmark>/<scene>/<ref>_<src>.npz`` flow). The pyramid comes
-from the host: the JAX Tester's device-preprocess plan is not ported.
+``features/<benchmark>/<scene>/<ref>_<src>.npz`` flow). With a
+``device_plan`` (the loader's raw mode) each pair's pyramid is built on the
+card first, at its capacity bucket, and an overflow is handled by the
+plan's policy (an error, the next bucket, or the host pyramid);
+``overflows`` counts the overflowed tries, ``host_fallbacks`` the pairs
+that went to the host, and the log line with the times reports both.
 """
 
 import os
@@ -20,21 +24,22 @@ from geotransformer_tpu_torch.engine.logger import create_logger
 from geotransformer_tpu_torch.engine.meters import SummaryBoard
 from geotransformer_tpu_torch.engine.timer import Timer
 from geotransformer_tpu_torch.losses.overall import evaluate
+from geotransformer_tpu_torch.parallel.train import build_raw_batch
 from geotransformer_tpu_torch.preprocess.pyramid import batch_to_torch
 
 
 class Tester:
     def __init__(self, cfg, model, loader, output_dir="output", feature_dir=None,
                  device_plan=None, device="cuda"):
-        if device_plan is not None:
-            raise NotImplementedError(
-                "the raw device-preprocess mode (preprocess/device.py) is not ported")
         self.cfg = cfg
         self.model = model
         self.loader = loader
         self.output_dir = output_dir
         self.feature_dir = feature_dir
         self.device = device
+        self.device_plan = device_plan
+        self.overflows = 0
+        self.host_fallbacks = 0
         os.makedirs(output_dir, exist_ok=True)
         if feature_dir is not None:
             os.makedirs(feature_dir, exist_ok=True)
@@ -48,6 +53,30 @@ class Tester:
             output = self.model(batch, training=False, with_gt=True)
             metrics = evaluate(self.cfg, output, batch["transform"])
         return output, metrics
+
+    def _run_pair(self, batch):
+        """One pair through the forward, its pyramid built on the card first
+        in the raw mode, by the plan's overflow policy. Returns (output,
+        metrics, transform)."""
+        plan = self.device_plan
+        if plan is None or "raw_points" not in batch:
+            return self._forward(batch) + (batch["transform"],)
+
+        def run_bucket(bucket, group):
+            spec = plan.spec(bucket, with_inverse=False)
+            built, overflowed = build_raw_batch(batch_to_torch(group[0], self.device), spec)
+            return None if overflowed else self._forward(built), overflowed
+
+        def run_host(host_group):
+            host = {k: v for k, v in host_group[0].items() if k != "meta"}
+            return self._forward(host)
+
+        (output, metrics), tries, host = plan.run(
+            [batch], plan.bucket_for_cap0(batch["raw_points"].shape[0] // 2), run_bucket,
+            run_host, self.logger.warning)
+        self.overflows += tries
+        self.host_fallbacks += host
+        return output, metrics, batch["transform"]
 
     def run(self, save_features=True):
         """Test every pair of the loader. Returns (the metrics' means, one
@@ -64,17 +93,19 @@ class Tester:
                 meta = batch.pop("meta", {})
                 timer.toc_prepare()
                 timer.tic_process()
-                output, metrics = self._forward(batch)
+                output, metrics, transform = self._run_pair(batch)
                 timer.toc_process()
                 metrics = {k: float(v) for k, v in metrics.items()}
                 summary.update_from_dict(metrics)
                 results.append({**meta, **metrics})
                 if save_features and self.feature_dir is not None:
-                    self._dump_features(meta, batch["transform"], output)
+                    self._dump_features(meta, transform, output)
                 timer.tic_prepare()
+        fallbacks = ("" if self.device_plan is None else
+                     f" | overflows {self.overflows} host_fallbacks {self.host_fallbacks}")
         self.logger.info(
             f"test done: {summary.tostring()} | prep {timer.get_prepare_time():.3f}s "
-            f"proc {timer.get_process_time():.3f}s")
+            f"proc {timer.get_process_time():.3f}s{fallbacks}")
         return summary.summary(), results
 
     def _dump_features(self, meta, transform, output):

@@ -11,8 +11,17 @@ the prepare / process time split. One pair a step on one card: no mesh
 Per-step metrics stay on the card until a log boundary, where they are
 read in one go; ``history`` then holds one dict of floats per step (its
 learning rate, losses, ``grad_finite`` and process seconds).
+
+With a ``device_plan`` (the loader's raw mode) each capacity bucket has its
+own train and eval step, built lazily, which build the pyramid on the card;
+a group whose pyramid overflowed its caps is handled by the plan's policy:
+an error (``raise``, the default, and ``escalate`` past the last bucket), a
+retry at the next bucket (``escalate``) or the host pyramid (``host``).
+``overflows`` counts the overflowed tries, ``host_fallbacks`` the groups
+that went to the host; every log line with a time reports both.
 """
 
+import functools
 import os
 import time
 
@@ -42,7 +51,7 @@ class Trainer:
     """Epoch / iteration trainer of one model on one card."""
 
     def __init__(self, cfg, model, train_loader, val_loader=None, output_dir="output",
-                 log_steps=10, max_checkpoints=None, device="cuda"):
+                 log_steps=10, max_checkpoints=None, device="cuda", device_plan=None):
         self.cfg = cfg
         self.model = model
         self.train_loader = train_loader
@@ -54,8 +63,14 @@ class Trainer:
         self.device = device
         steps_per_epoch = max(len(train_loader), 1)
         self.optimizer, self.scheduler = make_optimizer(model, cfg, steps_per_epoch)
+        # the steps of host-built batches (in the raw mode: the host fallback)
         self.train_step = make_train_step(model, cfg, self.optimizer, self.scheduler, device=device)
         self.eval_step = make_eval_step(model, cfg, device=device)
+        self.device_plan = device_plan
+        self._bucket_train_steps = {}
+        self._bucket_eval_steps = {}
+        self.overflows = 0
+        self.host_fallbacks = 0
         self.checkpoints = CheckpointManager(os.path.join(output_dir, "checkpoints"),
                                              max_to_keep=max_checkpoints)
         # the GT target sampling draws from one CPU generator across steps
@@ -82,6 +97,8 @@ class Trainer:
             # test script restores with the weights
             state["pipeline"] = {"stage_caps": pipeline["stage_caps"],
                                  "input_stream": pipeline.get("input_stream", True)}
+        if self.device_plan is not None:
+            state["device_plan"] = {"buckets": self.device_plan.buckets}
         return state
 
     def save(self, step, metadata=None):
@@ -104,10 +121,59 @@ class Trainer:
         self.logger.info(f"resumed from checkpoint {step}: step {self.step}, epoch {self.epoch}")
         return True
 
+    # ---- the raw mode: a step per bucket and the overflow policy ----
+
+    def _bucket_of_group(self, group):
+        return self.device_plan.bucket_for_cap0(group[0]["raw_points"].shape[0] // 2)
+
+    def _train_step_for(self, bucket):
+        step = self._bucket_train_steps.get(bucket)
+        if step is None:
+            step = make_train_step(self.model, self.cfg, self.optimizer, self.scheduler,
+                                   device=self.device, pyramid_spec=self.device_plan.spec(bucket))
+            self._bucket_train_steps[bucket] = step
+        return step
+
+    def _eval_step_for(self, bucket):
+        step = self._bucket_eval_steps.get(bucket)
+        if step is None:
+            step = make_eval_step(self.model, self.cfg, device=self.device,
+                                  pyramid_spec=self.device_plan.spec(bucket, with_inverse=False))
+            self._bucket_eval_steps[bucket] = step
+        return step
+
+    def _run_raw(self, group, step_for, host_step):
+        """A raw group through its bucket's step (``step_for(bucket)``), by
+        the plan's overflow policy, or through ``host_step`` on the host
+        pyramid."""
+        def run_bucket(bucket, group):
+            metrics = step_for(bucket)(_pair_of(group))
+            return metrics, float(metrics["pyramid_overflow"]) != 0.0
+
+        metrics, tries, host = self.device_plan.run(
+            group, self._bucket_of_group(group), run_bucket,
+            lambda host_group: host_step(_pair_of(host_group)), self.logger.warning)
+        self.overflows += tries
+        self.host_fallbacks += host
+        return metrics
+
+    def _fallback_note(self):
+        """The raw mode's overflow counters, for a log line that reports a
+        time (a host fallback times the host pyramid, not the kernels)."""
+        if self.device_plan is None:
+            return ""
+        return f" | overflows {self.overflows} host_fallbacks {self.host_fallbacks}"
+
     def _train_on_group(self, group, timer, pending):
         lr = self.scheduler.get_last_lr()[0]
         timer.tic_process()
-        metrics = self.train_step(_pair_of(group), self.generator)
+        if self.device_plan is None:
+            metrics = self.train_step(_pair_of(group), self.generator)
+        else:
+            metrics = self._run_raw(
+                group, lambda bucket: functools.partial(self._train_step_for(bucket),
+                                                        generator=self.generator),
+                functools.partial(self.train_step, generator=self.generator))
         timer.toc_process()
         self.step += 1
         pending.append((self.step, lr, metrics))
@@ -137,7 +203,7 @@ class Trainer:
                 self.logger.info(
                     f"epoch {self.epoch} it {it + 1}/{len(self.train_loader)}: "
                     f"{summary.tostring()} | prep {timer.get_prepare_time():.3f}s "
-                    f"proc {timer.get_process_time():.3f}s")
+                    f"proc {timer.get_process_time():.3f}s{self._fallback_note()}")
             timer.tic_prepare()
         self._flush(summary, pending, timer)
         self.last_metrics = summary.summary()
@@ -148,8 +214,9 @@ class Trainer:
             return {}
         summary = SummaryBoard()
         for group in self.val_loader:
-            summary.update_from_dict(
-                {k: float(v) for k, v in self.eval_step(_pair_of(group)).items()})
+            metrics = (self.eval_step(_pair_of(group)) if self.device_plan is None
+                       else self._run_raw(group, self._eval_step_for, self.eval_step))
+            summary.update_from_dict({k: float(v) for k, v in metrics.items()})
         result = summary.summary()
         self.logger.info(f"validation at step {self.step}: {summary.tostring()}")
         return result
@@ -163,7 +230,8 @@ class Trainer:
             start = time.time()
             metrics = self.train_epoch()
             self.logger.info(f"epoch {self.epoch} done in {time.time() - start:.1f}s: "
-                             + ", ".join(f"{k}={v:.4f}" for k, v in metrics.items()))
+                             + ", ".join(f"{k}={v:.4f}" for k, v in metrics.items())
+                             + self._fallback_note())
             self.save(self.epoch, metadata={"epoch": self.epoch})
             self.validate()
         return self.last_metrics

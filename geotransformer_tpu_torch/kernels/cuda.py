@@ -29,7 +29,7 @@ import torch
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
 SOURCES = ("kpconv", "kpconv_bwd", "gse", "gse_bwd", "sinkhorn", "sinkhorn_train", "overlap",
-           "attention")
+           "attention", "pyramid")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",

@@ -19,3 +19,9 @@ from geotransformer_tpu_torch.preprocess.pyramid import (  # noqa: F401
     pad_registration_batch,
     round_up,
 )
+from geotransformer_tpu_torch.preprocess.device import (  # noqa: F401
+    DevicePreprocessPlan,
+    build_pyramid_device,
+    pad_stage0,
+    prepare_raw_pair,
+)

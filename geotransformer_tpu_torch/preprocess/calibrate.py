@@ -4,12 +4,14 @@ The port's copy of ``geotransformer_tpu/preprocess/calibrate.py``, which
 cannot be imported without JAX: neighbor limits from the neighbor-count
 histogram (reference `utils/data.py:192-217`), per-stage cloud capacities
 and capacity buckets, split specs of the neighbor and subsampling tables,
-and inverse-table capacities. Each function iterates over samples, dicts
-with ``ref_points`` / ``src_points`` (numpy (N, 3)).
+inverse-table capacities, and the 27-cell populations that bound the
+device search's candidate capacity. Each calibration iterates over samples,
+dicts with ``ref_points`` / ``src_points`` (numpy (N, 3)).
 """
 
 import numpy as np
 
+from geotransformer_tpu_torch.preprocess.device import _GRID_MIN_SUPPORT
 from geotransformer_tpu_torch.preprocess.pyramid import TABLE_ALIGN, build_pyramid, round_up
 
 
@@ -140,3 +142,52 @@ def calibrate_inverse_limits(sample_iter, num_stages, voxel_size, search_radius,
                 maxima[i] = max(maxima[i], int(deg.max(initial=0)))
     return ([round_up(int(m) + margin, multiple) for m in nb_max],
             [round_up(int(m) + margin, multiple) for m in sub_max])
+
+
+def cell_populations(q_points, s_points, radius):
+    """Each query's 27-cell population: the support points in the 3 x 3 x 3
+    cells of edge ``radius`` around its cell, on the device search's grid
+    (``preprocess.device._radius_search_cloud_grid``; float32 cell keys)."""
+    q = np.asarray(q_points, np.float32)
+    s = np.asarray(s_points, np.float32)
+    if len(s) == 0 or len(q) == 0:
+        return np.zeros(len(q), np.int64)
+    edge = np.float32(radius)
+    origin = np.floor(s.min(axis=0) / edge) * edge
+    nx, ny, nz = (np.floor((s.max(axis=0) - origin) / edge).astype(np.int64) + 1).tolist()
+    cell = np.floor((s - origin) / edge).astype(np.int64)
+    flat = np.sort(cell[:, 0] + nx * (cell[:, 1] + ny * cell[:, 2]))
+    cq = np.floor((q - origin) / edge).astype(np.int64)
+    total = np.zeros(len(q), np.int64)
+    for dz in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            cy, cz = cq[:, 1] + dy, cq[:, 2] + dz
+            row_ok = (cy >= 0) & (cy < ny) & (cz >= 0) & (cz < nz)
+            x0 = np.clip(cq[:, 0] - 1, 0, nx)
+            x1 = np.clip(cq[:, 0] + 2, x0, nx)
+            base = nx * (cy + ny * cz)
+            run = np.searchsorted(flat, base + x1) - np.searchsorted(flat, base + x0)
+            total += np.where(row_ok, run, 0)
+    return total
+
+
+def largest_cell_population(pyramid, search_radius, stage_caps=None):
+    """The largest 27-cell population of any query of a host pyramid's
+    searches (neighbors, subsampling, upsampling; each cloud on its own);
+    with ``stage_caps``, of the searches the device runs on its grid only
+    (a support capacity of at least ``_GRID_MIN_SUPPORT`` rows)."""
+    clouds = [np.split(p, np.cumsum(l)[:-1]) for p, l in
+              zip(pyramid["points"], pyramid["lengths"])]
+    largest, radius = 0, search_radius
+    for i in range(len(clouds)):
+        searches = [(i, i, radius)]
+        if i < len(clouds) - 1:
+            searches += [(i + 1, i, radius), (i, i + 1, 2 * radius)]
+        for q_stage, s_stage, r in searches:
+            if stage_caps is not None and int(stage_caps[s_stage]) < _GRID_MIN_SUPPORT:
+                continue
+            for q, s in zip(clouds[q_stage], clouds[s_stage]):
+                largest = max(largest, int(cell_populations(q, s, r).max(initial=0)))
+        radius *= 2
+    return largest
+

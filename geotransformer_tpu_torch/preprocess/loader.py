@@ -4,8 +4,11 @@ r"""Input pipeline: dataset sample -> host pyramid -> padded PairBatch
 A process pool runs the host pyramid (voxel subsampling and radius search,
 the CPU-expensive part) and, optionally, the GT targets of training
 (:func:`geotransformer_tpu_torch.models.precompute_gt_targets` on the CPU)
-while the card consumes earlier batches. One process group: host sharding
-and the raw device-preprocess mode of the JAX loader are not ported.
+while the card consumes earlier batches. In the raw mode (a
+``device_plan``) the workers only fetch samples, the main process pads each
+group's raw points into its capacity bucket, and the step builds the
+pyramid on the card (:mod:`geotransformer_tpu_torch.preprocess.device`).
+One process group: host sharding is not ported.
 """
 
 import dataclasses
@@ -15,6 +18,7 @@ from concurrent.futures import ProcessPoolExecutor
 import numpy as np
 import torch
 
+from geotransformer_tpu_torch.preprocess.device import prepare_raw_pair
 from geotransformer_tpu_torch.preprocess.pyramid import build_pyramid, pad_registration_batch
 
 _WORKER_STATE = {}
@@ -29,6 +33,10 @@ def _init_worker(dataset, pipeline_cfg):
 
 def _process_index(index):
     return prepare_pair(_WORKER_STATE["dataset"][int(index)], **_WORKER_STATE["cfg"])
+
+
+def _fetch_index(index):
+    return _WORKER_STATE["dataset"][int(index)]
 
 
 def _is_bucketed(stage_caps, num_stages):
@@ -119,19 +127,25 @@ class PairLoader:
         seed: base shuffle seed.
         num_shards, shard_index: host sharding (not ported: 1 and 0).
         drop_last: drop the trailing incomplete group.
-        device_plan: the JAX loader's raw device-preprocess mode (not
-            ported: must be None).
+        device_plan: a ``preprocess.device.DevicePreprocessPlan``: the raw
+            mode. Workers only read (and augment) samples; the main process
+            pads each group into the smallest bucket whose stage-0 capacity
+            holds every member (a copy), and the step builds the pyramid on
+            the card. GT targets need a pyramid, so a pipeline that asks for
+            them (``precompute_targets``) raises here: the step computes
+            them.
     """
 
     def __init__(self, dataset, pipeline_cfg, batch_size=1, shuffle=False, num_workers=0, seed=0,
                  num_shards=1, shard_index=0, drop_last=True, device_plan=None):
         if num_shards != 1 or shard_index != 0:
             raise NotImplementedError("host sharding is not ported: one process group")
-        if device_plan is not None:
-            raise NotImplementedError(
-                "the raw device-preprocess mode (preprocess/device.py) is not ported")
+        if device_plan is not None and pipeline_cfg.get("precompute_targets"):
+            raise ValueError("precompute_targets needs the host pyramid: in the raw "
+                             "device-preprocess mode the step computes the GT targets")
         self.dataset = dataset
         self.pipeline_cfg = dict(pipeline_cfg)
+        self.device_plan = device_plan
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.num_workers = num_workers
@@ -162,22 +176,36 @@ class PairLoader:
                 mp_context=multiprocessing.get_context("spawn"))
         return self._pool
 
+    def _pad_raw_group(self, samples):
+        """The group's samples padded into the smallest bucket whose stage-0
+        capacity holds every member (members share one shape)."""
+        plan = self.device_plan
+        bucket = max(plan.bucket_for_lengths(len(s["ref_points"]), len(s["src_points"]))
+                     for s in samples)
+        cap0 = plan.buckets[bucket][0]
+        input_dim = self.pipeline_cfg.get("input_dim", 1)
+        return [prepare_raw_pair(s, cap0, input_dim) for s in samples]
+
     def __iter__(self):
         indices = self._indices()
         if self.drop_last:
             indices = indices[:len(indices) - len(indices) % self.batch_size]
+        raw = self.device_plan is not None
         if self.num_workers > 0:
-            results = self._ensure_pool().map(_process_index, indices, chunksize=1)
+            worker = _fetch_index if raw else _process_index
+            results = self._ensure_pool().map(worker, indices, chunksize=1)
+        elif raw:
+            results = (self.dataset[int(i)] for i in indices)
         else:
             results = (prepare_pair(self.dataset[int(i)], **self.pipeline_cfg) for i in indices)
         group = []
         for item in results:
             group.append(item)
             if len(group) == self.batch_size:
-                yield group
+                yield self._pad_raw_group(group) if raw else group
                 group = []
         if group and not self.drop_last:
-            yield group
+            yield self._pad_raw_group(group) if raw else group
 
     def close(self):
         if self._pool is not None:

@@ -13,7 +13,10 @@ checkpoint of the port's trainer (``--checkpoint_dir``, ``--test_epoch``),
 from a reference ``state_dict`` (``--torch_snapshot``: the port's parameter
 names are the reference's keys), or else are the seeded initial ones. A
 checkpoint also gives the caps and the input route (edge stream or neighbor
-table) the model was trained with, unless ``--cap_buckets`` is asked for.
+table) the model was trained with, unless ``--cap_buckets`` is asked for,
+and the buckets of its device plan. With
+``--device_preprocess`` each pair's pyramid is built on the card, an
+overflow handled by ``--overflow_policy``.
 """
 
 import argparse
@@ -29,7 +32,7 @@ from geotransformer_tpu_torch.datasets import (
 )
 from geotransformer_tpu_torch.engine import CheckpointManager, Tester
 from geotransformer_tpu_torch.models import create_model
-from geotransformer_tpu_torch.preprocess import calibrate_stage_cap_buckets
+from geotransformer_tpu_torch.preprocess import DevicePreprocessPlan, calibrate_stage_cap_buckets
 from geotransformer_tpu_torch.preprocess.loader import PairLoader, _is_bucketed
 from geotransformer_tpu_torch.scripts.common import (
     add_device_argument,
@@ -83,13 +86,14 @@ def main(argv=None):
                         help="calibrate N capacity buckets over the dataset "
                              "(pairs pad to the smallest fitting bucket). 0 = config caps.")
     parser.add_argument("--device_preprocess", action="store_true",
-                        help="build the point pyramid on the device (not ported)")
+                        help="build the point pyramid on the device before each forward "
+                             "(the loader only pads raw points)")
+    parser.add_argument("--overflow_policy", choices=("raise", "escalate", "host"),
+                        default="raise",
+                        help="device-preprocess stage-capacity overflow policy")
     add_device_argument(parser)
     args = parser.parse_args(argv)
     device = resolve_device(args.device)
-    if args.device_preprocess:
-        raise NotImplementedError(
-            "--device_preprocess: the device pyramid (preprocess/device.py) is not ported")
 
     cfg = make_config(args.dataset)
     output_dir = args.output_dir or f"output/{args.dataset}"
@@ -115,13 +119,20 @@ def main(argv=None):
         if not _is_bucketed(stage_caps, cfg.backbone.num_stages):
             cfg = cfg.with_caps(stage_caps=tuple(stage_caps))
 
+    plan = None
+    if args.device_preprocess:
+        trained_plan = {} if checkpoint is None else checkpoint[0].get("device_plan", {})
+        buckets = (stage_caps if args.cap_buckets > 0
+                   else trained_plan.get("buckets", [tuple(cfg.caps.stage_caps)]))
+        plan = DevicePreprocessPlan(cfg, buckets=buckets, overflow_policy=args.overflow_policy)
     pipeline = pipeline_config(cfg, stage_caps, input_stream=input_stream)
-    loader = PairLoader(dataset, pipeline, batch_size=1, num_workers=args.num_workers)
+    loader = PairLoader(dataset, pipeline, batch_size=1, num_workers=args.num_workers,
+                        device_plan=plan)
     model = create_model(cfg, device=device)
     load_weights(model, args, checkpoint)
     feature_dir = osp.join(output_dir, "features", benchmark)
     tester = Tester(cfg, model, loader, output_dir=output_dir, feature_dir=feature_dir,
-                    device=device)
+                    device_plan=plan, device=device)
     try:
         summary, _ = tester.run()
     finally:

@@ -9,7 +9,10 @@ r"""Training CLI (the port's ``scripts/trainval.py``; reference
 One pair a step on one card. The training batches carry the inverse
 neighbor tables of the KPConv backward and, unless
 ``--no_precompute_targets``, the partition and GT-overlap targets computed
-in the loader's workers. Checkpoints go to ``<output_dir>/checkpoints``.
+in the loader's workers. With ``--device_preprocess`` the loader only pads
+raw points and every step builds its pyramid on the card (the GT targets
+then in the step too), an overflow handled by ``--overflow_policy``.
+Checkpoints go to ``<output_dir>/checkpoints``.
 """
 
 import argparse
@@ -22,6 +25,7 @@ from geotransformer_tpu_torch.datasets import (
 )
 from geotransformer_tpu_torch.engine import Trainer
 from geotransformer_tpu_torch.models import create_model
+from geotransformer_tpu_torch.preprocess import DevicePreprocessPlan
 from geotransformer_tpu_torch.preprocess.loader import PairLoader
 from geotransformer_tpu_torch.scripts.common import (
     add_device_argument,
@@ -58,7 +62,11 @@ def main(argv=None):
         help="compute partition/GT-overlap targets inside the train step "
              "instead of in the loader workers")
     parser.add_argument("--device_preprocess", action="store_true",
-                        help="build the point pyramid on the device (not ported)")
+                        help="build the point pyramid on the device inside the train/eval step "
+                             "(the loaders only pad raw points)")
+    parser.add_argument("--overflow_policy", choices=("raise", "escalate", "host"),
+                        default="raise",
+                        help="device-preprocess stage-capacity overflow policy")
     add_device_argument(parser)
     args = parser.parse_args(argv)
     device = resolve_device(args.device)
@@ -66,9 +74,6 @@ def main(argv=None):
         raise NotImplementedError(
             f"--batch_size {args.batch_size}: one card takes one pair a step (data "
             "parallelism is not ported)")
-    if args.device_preprocess:
-        raise NotImplementedError(
-            "--device_preprocess: the device pyramid (preprocess/device.py) is not ported")
 
     cfg = make_config(args.dataset)
     output_dir = args.output_dir or f"output/{args.dataset}"
@@ -78,17 +83,21 @@ def main(argv=None):
         inverse_limits=cfg.caps.inverse_limits,
         inverse_splits=cfg.caps.inverse_splits,
         sub_inverse_splits=cfg.caps.sub_inverse_splits,
-        precompute_targets=not args.no_precompute_targets,
+        # the raw mode has no host pyramid to take targets from
+        precompute_targets=not (args.no_precompute_targets or args.device_preprocess),
         model_cfg=cfg,
     )
+    plan = None
+    if args.device_preprocess:
+        plan = DevicePreprocessPlan(cfg, with_inverse=True, overflow_policy=args.overflow_policy)
     train_loader = PairLoader(build_dataset(cfg, args.data_root, "train", True),
                               train_pipeline_cfg, shuffle=True, num_workers=args.num_workers,
-                              seed=cfg.seed)
+                              seed=cfg.seed, device_plan=plan)
     val_loader = PairLoader(build_dataset(cfg, args.data_root, "val", False), pipeline_cfg,
-                            shuffle=False, num_workers=args.num_workers)
+                            shuffle=False, num_workers=args.num_workers, device_plan=plan)
     try:
         trainer = Trainer(cfg, create_model(cfg, device=device), train_loader, val_loader,
-                          output_dir=output_dir, device=device)
+                          output_dir=output_dir, device=device, device_plan=plan)
         trainer.initialize()
         metrics = trainer.run_iterations() if args.iters else trainer.run()
     finally:

@@ -1442,3 +1442,146 @@ def test_patch_overlaps_replays_from_a_graph(device):
     want = patch_overlaps_plain(*call, 0.3)
     torch.cuda.synchronize()
     assert torch.equal(out, want)
+
+
+# --- the device pyramid's kernels (kernels/pyramid.py) -----------------------
+
+def search_case(device, n_q=3000, n_s=4000, cap=4096, radius=0.08, seed=0, empty_second=True):
+    """Two clouds' queries and cell-sorted supports: cloud 0 a wavy sheet,
+    cloud 1 empty (or a second sheet); query rows past n_q are padding."""
+    from geotransformer_tpu_torch.preprocess.device import _search_support
+
+    g = torch.Generator().manual_seed(seed)
+
+    def sheet(n):
+        xy = torch.rand(n, 2, generator=g)
+        z = 0.1 * torch.sin(8 * xy[:, :1]) + 0.01 * torch.randn(n, 1, generator=g)
+        return torch.cat([xy, z], dim=1)
+
+    q = torch.full((2, cap, 3), 1e6)
+    s = torch.full((2, cap, 3), 1e6)
+    q[0, :n_q], s[0, :n_s] = sheet(n_q), sheet(n_s)
+    q[1, :n_q], s[1, :n_s] = sheet(n_q), sheet(n_s)
+    q_len = torch.tensor([n_q, n_q], dtype=torch.int32)
+    s_len = torch.tensor([n_s, 0 if empty_second else n_s], dtype=torch.int32)
+    q, s, q_len, s_len = (t.to(device) for t in (q, s, q_len, s_len))
+    return (q, q_len, s_len) + _search_support(s, s_len, radius, 1 << 20)
+
+
+@pytest.mark.parametrize("k", [16, 38, 65])
+@pytest.mark.parametrize("brute", [False, True], ids=["grid", "brute"])
+def test_grid_radius_search_matches_plain(device, k, brute):
+    from geotransformer_tpu_torch.kernels.pyramid import (
+        grid_radius_search,
+        grid_radius_search_plain,
+    )
+
+    radius = 0.08 if k < 40 else 0.12
+    q, q_len, s_len, support, starts, origin, dims, _ = search_case(device, radius=radius)
+    if brute:  # every valid support row a candidate, its index its row
+        q, q_len, s_len = q[:, :1500].contiguous(), torch.full_like(q_len, 1400), torch.full_like(
+            s_len, 1800)
+        support, starts, origin, dims = support[:, :1800].clone(), None, None, None
+        support[..., 3] = torch.arange(1800, device=device, dtype=torch.float32)
+    before = cuda.launches["grid_radius_search"]
+    got = grid_radius_search(q, q_len, support, s_len, starts, origin, dims, radius, k, 1024)
+    assert cuda.launches["grid_radius_search"] == before + 1
+    want = grid_radius_search_plain(q, q_len, support, s_len, starts, origin, dims, radius, k,
+                                    1024)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    full = (got[0][0, :int(q_len[0])] < support.shape[1]).sum(dim=1)
+    assert int(full.max()) == k  # some rows full
+    assert bool((got[0][:, int(q_len[0]):] == support.shape[1]).all())  # padding rows
+    if not brute:
+        assert bool((got[0][1] == support.shape[1]).all())  # the empty cloud
+        assert int(got[1].max()) <= 1024
+
+
+def test_voxel_segment_mean_matches_plain(device):
+    from geotransformer_tpu_torch.kernels.pyramid import (
+        voxel_segment_mean,
+        voxel_segment_mean_plain,
+    )
+
+    g = torch.Generator().manual_seed(3)
+    points = (torch.rand(2, 5000, 3, generator=g) * 60 - 30).to(device)
+    seg = torch.sort(torch.randint(0, 1500, (2, 5000), generator=g), dim=1).values
+    seg = torch.unique_consecutive(seg[0], return_inverse=True)[1].expand(2, -1).clone()
+    seg[:, 4700:] = -1
+    seg[1] = -1  # an empty cloud
+    seg = seg.to(torch.int32).to(device)
+    voxels = torch.stack([seg[0].max() + 1, torch.zeros((), dtype=torch.int32, device=device)])
+    voxels = voxels.to(torch.int32)
+    before = cuda.launches["voxel_segment_mean"]
+    means, counts = voxel_segment_mean(points, seg, voxels, 1400)  # voxels past 1400 dropped
+    assert cuda.launches["voxel_segment_mean"] == before + 1
+    want_means, want_counts = voxel_segment_mean_plain(points, seg, voxels, 1400)
+    torch.cuda.synchronize()
+    assert torch.equal(counts, want_counts)
+    assert float((means - want_means).abs().max()) <= 1e-6 * 30
+    assert bool((means[1] == 1e6).all()) and not counts[1].any()
+
+
+def pyramid_inputs(device, seed=0, n_ref=19000, n_src=15000, cap0=19200):
+    from geotransformer_tpu_torch.preprocess.device import pad_stage0
+
+    g = np.random.default_rng(seed)
+    xy = g.uniform(0, 1.3, (n_ref + n_src, 2))
+    z = 0.5 * np.sin(25 * xy[:, 0]) * np.cos(20 * xy[:, 1])
+    points = np.column_stack([xy, z]).astype(np.float32)
+    pts, lens, feats = pad_stage0(points, [n_ref, n_src], cap0)
+    return [torch.from_numpy(a).to(device) for a in (pts, lens, feats)] + [
+        torch.eye(4, device=device)]
+
+
+PYRAMID_SPEC = dict(num_stages=4, voxel_size=0.025, radius=0.0625,
+                    neighbor_limits=(38, 36, 36, 38), stage_caps=(19200, 5632, 1536, 512),
+                    inverse_limits=(80, 80, 80, 80), knn_cand_cap=512)
+
+
+def flat_batch(batch):
+    return {f"{k}{i}": v for k, vs in batch.items()
+            for i, v in enumerate(vs if isinstance(vs, list) else [vs])}
+
+
+def test_build_pyramid_device_equals_its_cpu_build(device):
+    """The build on the card (both kernels) equals the CPU build (their plain
+    versions) bit for bit: the same float32 voxel keys and d^2 arithmetic,
+    each voxel's points added in sorted order."""
+    from geotransformer_tpu_torch.preprocess.device import build_pyramid_device
+
+    cuda.launches.clear()
+    got, overflow = build_pyramid_device(*pyramid_inputs(device), **PYRAMID_SPEC)
+    assert cuda.launches["voxel_segment_mean"] == 3 and cuda.launches["grid_radius_search"] == 10
+    want, want_overflow = build_pyramid_device(*pyramid_inputs("cpu"), **PYRAMID_SPEC)
+    assert not bool(overflow.any()) and torch.equal(overflow.cpu(), want_overflow)
+    got, want = flat_batch(got), flat_batch(want)
+    assert set(got) == set(want)
+    for key in want:
+        assert torch.equal(got[key].cpu(), want[key]), key
+
+
+def test_build_pyramid_device_makes_no_host_sync_and_replays_from_a_graph(device):
+    from geotransformer_tpu_torch.preprocess.device import build_pyramid_device
+
+    inputs = pyramid_inputs(device, seed=1)
+    build_pyramid_device(*inputs, **PYRAMID_SPEC)  # builds the library first
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        build_pyramid_device(*inputs, **PYRAMID_SPEC)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    graph = torch.cuda.CUDAGraph()
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph):
+        out, overflow = build_pyramid_device(*inputs, **PYRAMID_SPEC)
+    inputs[0].copy_(pyramid_inputs(device, seed=2)[0])  # a replay reads the new points
+    graph.replay()
+    want, want_overflow = build_pyramid_device(*pyramid_inputs(device, seed=2), **PYRAMID_SPEC)
+    torch.cuda.synchronize()
+    assert torch.equal(overflow, want_overflow)
+    out, want = flat_batch(out), flat_batch(want)
+    for key in want:
+        assert torch.equal(out[key], want[key]), key

@@ -32,7 +32,7 @@ from geotransformer_tpu_torch.engine import (
 )
 from geotransformer_tpu_torch.models import create_model
 from geotransformer_tpu_torch.parallel import make_lr_schedule
-from geotransformer_tpu_torch.preprocess import calibrate_stage_caps
+from geotransformer_tpu_torch.preprocess import DevicePreprocessPlan, calibrate_stage_caps
 from geotransformer_tpu_torch.preprocess.loader import PairLoader, prepare_pair
 from test_modelnet_schedule import tiny_modelnet_config
 from test_torch_modelnet import REFERENCE_SETTINGS, write_modelnet_pickle
@@ -157,11 +157,14 @@ def test_epoch_run_with_validation(setup, tmp_path):
 
 
 def test_loader_rejects_what_is_not_ported(setup):
-    _, dataset, pipeline = setup
+    """Host sharding is not ported; the raw mode has no host pyramid to
+    precompute GT targets on."""
+    cfg, dataset, pipeline = setup
     with pytest.raises(NotImplementedError):
         PairLoader(dataset, pipeline, num_shards=2, shard_index=1)
-    with pytest.raises(NotImplementedError):
-        PairLoader(dataset, pipeline, device_plan=object())
+    with pytest.raises(ValueError, match="precompute_targets"):
+        PairLoader(dataset, dict(pipeline, precompute_targets=True, model_cfg=cfg),
+                   device_plan=DevicePreprocessPlan(cfg))
 
 
 def make_trainer(cfg, dataset, pipeline, output_dir, seed):

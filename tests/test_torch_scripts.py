@@ -11,8 +11,10 @@
     a checkpoint records the caps and input route it was trained with, and
     ``test`` restores them with the weights (caps doubled and no edge stream
     in an edited checkpoint);
-  * the refusals: ``--device cuda`` without a card, ``--batch_size 2``,
-    ``--device_preprocess``, a Tester given a device-preprocess plan;
+  * the refusals: ``--device cuda`` without a card, ``--batch_size 2``, a
+    Tester's device-preprocess plan under the ``raise`` policy on a pair
+    that overflows; ``--device_preprocess`` is taken (the runs themselves:
+    tests/test_torch_device_pipeline.py);
   * ``make_config`` equal to the JAX package's field by field;
   * the port's scripts import with jax blocked (tests/test_torch_targets.py
     walks them with the rest of the package).
@@ -41,7 +43,12 @@ from geotransformer_tpu_torch.datasets import (
 )
 from geotransformer_tpu_torch.engine import CheckpointManager
 from geotransformer_tpu_torch.engine import tester as port_tester
-from geotransformer_tpu_torch.preprocess import calibrate_stage_caps, round_up
+from geotransformer_tpu_torch.preprocess import (
+    DevicePreprocessPlan,
+    calibrate_stage_caps,
+    prepare_raw_pair,
+    round_up,
+)
 from geotransformer_tpu_torch.scripts import eval as eval_script
 from geotransformer_tpu_torch.scripts import synthetic_benchmark
 from geotransformer_tpu_torch.scripts import test as test_script
@@ -233,19 +240,28 @@ def test_device_cuda_without_a_card_raises(monkeypatch, name):
         module.main(args + ["--device", "cuda:0"])
 
 
-@pytest.mark.parametrize("extra, match", [
-    (["--batch_size", "2"], "one pair a step"),
-    (["--device_preprocess"], "not ported"),
+@pytest.mark.parametrize("extra, error, match", [
+    (["--batch_size", "2"], NotImplementedError, "one pair a step"),
+    # taken now: the run goes on to read the (absent) data
+    (["--device_preprocess"], FileNotFoundError, "none/metadata/train.pkl"),
 ], ids=["batch-size", "device-preprocess"])
-def test_trainval_refusals(extra, match):
-    with pytest.raises(NotImplementedError, match=match):
+def test_trainval_refusals(extra, error, match):
+    with pytest.raises(error, match=match):
         trainval.main(["--dataset", "3dmatch", "--data_root", "none", "--device", "cpu"] + extra)
 
 
 def test_tester_refuses_a_device_plan(tmp_path):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        port_tester.Tester(port_configs.make_config("3dmatch"), None, [], output_dir=str(tmp_path),
-               device_plan=object(), device="cpu")
+    """A device plan under the ``raise`` policy refuses a pair whose pyramid
+    overflows its caps (before any forward: the model is None)."""
+    cfg = port_configs.make_config("3dmatch")
+    plan = DevicePreprocessPlan(cfg, buckets=[(256, 8, 8, 8)], overflow_policy="raise")
+    tester = port_tester.Tester(cfg, None, [], output_dir=str(tmp_path), device_plan=plan,
+                                device="cpu")
+    ref, src, transform = make_pair(3, n=200)
+    raw = prepare_raw_pair({"ref_points": ref, "src_points": src, "transform": transform}, 256)
+    raw.pop("meta")
+    with pytest.raises(RuntimeError, match="overflow"):
+        tester._run_pair(raw)
 
 
 @pytest.mark.parametrize("name", ["3dmatch", "kitti", "modelnet"])
@@ -256,6 +272,8 @@ def test_make_config_matches_jax(name):
 
 
 def test_test_refuses_device_preprocess():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        test_script.main(["--dataset", "3dmatch", "--data_root", "none", "--device", "cpu",
-                          "--device_preprocess"])
+    """``--device_preprocess`` is taken now: the run goes on to read the
+    (absent) data."""
+    with pytest.raises(FileNotFoundError, match="none/metadata/3DMatch.pkl"):
+        test_script.main(["--dataset", "3dmatch", "--data_root", "none", "--benchmark",
+                          "3DMatch", "--device", "cpu", "--device_preprocess"])

@@ -197,7 +197,7 @@ def test_port_imports_no_jax():
         "names = [m.name for m in pkgutil.walk_packages(geotransformer_tpu_torch.__path__,\n"
         "                                                'geotransformer_tpu_torch.')]\n"
         "scripts = {'geotransformer_tpu_torch.scripts.' + s for s in\n"
-        "           ('common', 'eval', 'synthetic_benchmark', 'test', 'trainval')}\n"
+        "           ('common', 'demo', 'eval', 'synthetic_benchmark', 'test', 'trainval')}\n"
         "assert scripts <= set(names), sorted(scripts - set(names))\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
