@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 r"""Drive the PyTorch port's 3DMatch, KITTI and ModelNet inference, training
-and eval paths, and its device pyramid, on one CUDA card.
+and eval paths, its device pyramid and its training engine, on one CUDA
+card.
 
     python3 chip_smoke.py
 
@@ -194,6 +195,33 @@ fused_masked_attention twice a block).
                calls of the first training step's two tries against their
                plain versions and timed (path device_raw_train, the raw
                mode's caps and candidate capacity).
+ 18. training engine (runs after phase 11, on its pairs and models) —
+               (a) 4 mini-steps of an accumulation of 2 (grad_acc_steps,
+               MultiSteps) through make_train_step on the 3DMatch pairs at
+               the phase-6 weights and a NaN-hooked mini-step between them:
+               2 updates, a scheduler count of 2, the accumulated mean
+               within 1e-6 (relative norm) of the two mini-steps' gradients
+               taken one by one, the NaN-hooked one leaving the accumulator
+               as it was; its mini-step median beside the k = 1 step's;
+               (b) one 3DMatch and one KITTI step without inverse tables
+               (the scatter backward; no kpconv_bwd_fused launch): each
+               tensor within 1e-3 plus twice the float32 plain step's
+               distance of the inverse-table route (row 6) and of the
+               float64 witness along the kernel step's choices, as phase 7,
+               bit-equal on a repeat, timed against the inverse-table step;
+               (c) two ranks on this card over Gloo (``chip_smoke.py
+               --rank-worker`` subprocesses, killed past 300 s), 3 steps
+               each through the Trainer on their shards of six pairs:
+               parameters bit-equal between the ranks, the lr twice the
+               config's, the first step's gradients within 1e-5 of one
+               process accumulating the same pairs (k = 2, each pair with
+               its rank's generator) and the parameters within the updates'
+               reach of it; rank 0's profile_steps trace holding a device
+               kernel of every KERNELS entry the step launches; one rank over
+               NCCL bit-equal to the step without a process group;
+               debug_nans raising on a NaN injected into a backward; the
+               TensorBoard writer on or off; the medians and the phase's
+               seconds beside the card's name and power limit.
 Then it prints the {"kernels": [...]} line (each kernel's numbers summed over
 the paths it was compared on, with each path's own under "by_path" and the
 calls of the KPConv, GSE, Sinkhorn and overlap rows, and phase 15's, one by
@@ -201,16 +229,25 @@ one under "by_call"),
 the card's name and power limit, and, last,
 {"ok": true, "device": {...}}.
 Details go to chiprun_out/chip_smoke.json.
+
+    python3 chip_smoke.py --ranks-across-cards N
+
+runs instead, on a host with N cards, N NCCL ranks a card each, 6 Trainer
+steps on the phase-2 pairs with seeded weights, held as phase 18c holds its
+two ranks (chiprun_out/across_cards.json), and ends with the same last line.
 """
 
 import collections
 import contextlib
 import copy
 import dataclasses
+import datetime
 import functools
 import json
 import os
 import pickle
+import re
+import socket
 import statistics
 import subprocess
 import sys
@@ -244,11 +281,17 @@ from geotransformer_tpu_torch.models import sinkhorn as models_sinkhorn
 from geotransformer_tpu_torch.models import transformer as models_transformer
 from geotransformer_tpu_torch.ops.gather import gather_with_shadow
 from geotransformer_tpu_torch.parallel import (
+    MultiSteps,
+    barrier,
+    destroy_process_group,
+    init_process_group,
     make_eval_step,
     make_lr_schedule,
     make_optimizer,
     make_train_step,
+    world_size,
 )
+from geotransformer_tpu_torch.parallel import rank as mesh_rank
 from geotransformer_tpu_torch.preprocess import (
     batch_to_torch,
     build_pyramid,
@@ -535,14 +578,15 @@ def expected_launches(batch, mode, blocks):
         if mode == "train" and nb_split[0] is None:
             # the training call with t1, counted under its own entry too
             counts["kpconv_fused (input residuals)"] += 1
-    # every later conv, and in a training step its backward (one launch over
-    # a whole or a split inverse table)
+    # every later conv, and in a training step on a batch with inverse tables
+    # its backward (one launch over a whole or a split inverse table; without
+    # them the scatter backward is PyTorch's)
     splits = [nb_split[0]]
     for s in range(1, n):
         splits += [sub_split[s - 1], nb_split[s], nb_split[s]]
     for split in splits:
         conv(split)
-    if mode == "train":
+    if mode == "train" and "neighbors_inv" in batch:
         counts["kpconv_bwd_fused"] += len(splits)
     counts["gse_embedding_full"] += 2
     counts["rpe_pair_scores"] += 2 * sum(block == "self" for block in blocks)
@@ -2014,6 +2058,7 @@ def threedmatch_phases(device, launches, report):
 
     # 8. profile two more training steps
     profile_train(cfg, model, batches, "3dmatch", "train_profile.txt", report)
+    SHARED["3dmatch_train"] = (cfg, model, batches)
     return results
 
 
@@ -2083,6 +2128,7 @@ def kitti_phases(device, launches, report):
         evaluate(batches[0])
     eval_results = compare_kernels(records, ["patch_overlaps"], reps=5)
     profile_train(cfg, model, batches, "kitti", "kitti_train_profile.txt", report)
+    SHARED["kitti_train"] = (cfg, model, batches)
     return {"kitti": results, "kitti_eval": eval_results}
 
 
@@ -2560,11 +2606,12 @@ def pyramid_launches(num_stages, builds=1):
 def expect_raw_launches(got, cfg, mode, what, builds, ran):
     """A raw-mode run's launches: ``builds`` device builds, then, when the
     last was not an overflow (``ran``), one forward ("eval") or training step
-    ("train") on the built batch (an edge stream, no split tables, no
-    precomputed targets)."""
+    ("train") on the built batch (an edge stream, inverse tables, no split
+    tables, no precomputed targets)."""
     want = pyramid_launches(cfg.backbone.num_stages, builds)
     if ran:
-        stub = {"points": [None] * cfg.backbone.num_stages, "input_stream": True}
+        stub = {"points": [None] * cfg.backbone.num_stages, "input_stream": True,
+                "neighbors_inv": True}
         want.update(expected_launches(stub, mode, cfg.geotransformer.blocks))
     for name in KERNELS:
         expect(got.get(name, 0) == want.get(name, 0),
@@ -2909,6 +2956,461 @@ def device_pyramid_phases(device, launches, report, tmp):
     return results
 
 
+# --- phase 18: the training engine --------------------------------------
+# the device kernels each KERNELS entry launches (a demangled name in a
+# torch.profiler trace matches its pattern)
+KERNEL_SYMBOLS = {
+    "kpconv_stream_fused": r"kpconv_stream_kernel",
+    "kpconv_union_input_fused": r"kpconv_union_kernel",
+    "kpconv_fused": r"edge_kernel<\d+, (false|\(bool\)0)",
+    "kpconv_split_fused": r"edge_kernel<\d+, (false|\(bool\)0)",
+    "kpconv_bwd_fused": r"edge_kernel<\d+, (true|\(bool\)1)",
+    "gse_embedding_full": r"\bgse_kernel",
+    "gse_full_bwd": r"gse_bwd_kernel",
+    "sinkhorn_log_iterations": r"sinkhorn_(general_)?kernel",
+    "sinkhorn_fwd_train": r"sinkhorn_(general_)?kernel",
+    "sinkhorn_bwd_train": r"sinkhorn_bwd_(train|general)_kernel",
+    "patch_overlaps": r"patch_overlap_kernel",
+    "rpe_pair_scores": r"pair_scores_(any_)?kernel",
+    "fused_masked_attention": r"attention_(wide_)?kernel",
+    "grid_radius_search": r"grid_search_kernel",
+    "voxel_segment_mean": r"segment_mean_kernel",
+}
+# the pairs phase 18c's two ranks take, 3 steps each, in the order one
+# process would (rank r takes order[r::2], as PairLoader shards)
+ENGINE_ORDER = (0, 1, 2, 1, 2, 0)
+ENGINE_RANK_LIMIT_S = 300
+# --ranks-across-cards: steps a rank takes (rank 0 profiles step 1, so the
+# steady steps are 2 on)
+ACROSS_CARDS_STEPS = 6
+
+
+class BatchLoader:
+    """The Trainer's loader over batches already built: one pair a group,
+    the shard order[shard_index::num_shards], the same every epoch."""
+
+    def __init__(self, batches, num_shards=1, shard_index=0):
+        self.batches = batches[shard_index::num_shards]
+
+    def __len__(self):
+        return len(self.batches)
+
+    def set_epoch(self, epoch):
+        pass
+
+    def __iter__(self):
+        return ([batch] for batch in self.batches)
+
+
+def fresh_model(cfg, weights, device=None):
+    model = create_model(cfg, device=device or DEVICE)
+    model.load_state_dict(weights)
+    return model
+
+
+def without_inverse(batch):
+    return {k: v for k, v in batch.items() if k not in ("neighbors_inv", "subsampling_inv")}
+
+
+def timed_step(step, batch, seed):
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    metrics = step(batch, target_generator(seed))
+    end.record()
+    torch.cuda.synchronize()
+    return metrics, start.elapsed_time(end)
+
+
+def accumulation_phase(cfg, weights, batches, launches, report):
+    """18a: 4 mini-steps of an accumulation of 2 through make_train_step, a
+    NaN-hooked one between them, against the mini-steps' gradients taken
+    one by one at the same parameters; the k = 1 step beside it."""
+    model = fresh_model(cfg, weights)
+    one_by_one = [step_gradients(model, cfg, batches[i], SEEDS[i])[1] for i in (0, 1)]
+    acc_cfg = dataclasses.replace(cfg, optim=dataclasses.replace(cfg.optim, grad_acc_steps=2))
+    optimizer, scheduler = make_optimizer(model, acc_cfg, steps_per_epoch=len(batches))
+    expect(isinstance(optimizer, MultiSteps), "grad_acc_steps 2 gave no MultiSteps")
+    step = make_train_step(model, acc_cfg, optimizer, scheduler, device=DEVICE)
+    total, times, mean_rel = collections.Counter(), [], None
+    for i, (pair, nan) in enumerate([(0, False), (1, False), (2, False), (0, True), (0, False)]):
+        handle = (model.transformer.in_proj.weight.register_hook(lambda g: g * float("nan"))
+                  if nan else None)
+        acc = [a.clone() for a in optimizer.acc_grads]
+        mini = optimizer.mini_step
+        (metrics, ms), counts = counted(lambda: timed_step(step, batches[pair], SEEDS[pair]))
+        if handle is not None:
+            handle.remove()
+        total.update(counts)
+        expect_launches(counts, [batches[pair]], "train", f"engine accumulation call {i}",
+                        cfg.geotransformer.blocks)
+        expect(metrics["grad_finite"].item() == (0.0 if nan else 1.0),
+               f"engine accumulation call {i}: grad_finite {metrics['grad_finite'].item()}")
+        if nan:
+            expect(optimizer.mini_step == mini and all(
+                torch.equal(a, b) for a, b in zip(acc, optimizer.acc_grads)),
+                "the NaN-hooked mini-step moved the accumulator")
+            continue
+        times.append(ms)
+        if i == 0:
+            expect(all(torch.equal(p, weights[name]) for name, p in model.named_parameters()),
+                   "the first mini-step of an accumulation changed the parameters")
+        if i == 1:
+            # the update applied the accumulated mean, left in .grad
+            mean = {name: (one_by_one[0][name] + one_by_one[1][name]) / 2
+                    for name in one_by_one[0]}
+            mean_rel = relative_errors({name: p.grad.double() for name, p in
+                                        model.named_parameters()}, mean)[0]
+            expect(mean_rel <= 1e-6, f"accumulated mean {mean_rel:.2e} from the mini-steps' "
+                                     f"gradients taken one by one")
+    expect(scheduler.last_epoch == 2, f"{scheduler.last_epoch} updates, expected 2")
+    launches["engine_accumulation_train"] = dict(total)
+    # the k = 1 step on the same weights and pairs
+    model = fresh_model(cfg, weights)
+    step = make_train_step(model, cfg, *make_optimizer(model, cfg, len(batches)), device=DEVICE)
+    plain_times = [timed_step(step, batches[i], SEEDS[i])[1] for i in (0, 1, 2, 0)]
+    report["engine_accumulation"] = dict(mean_rel=mean_rel, step_ms=times,
+                                         no_accumulation_step_ms=plain_times)
+    return statistics.median(times), statistics.median(plain_times), mean_rel
+
+
+def witness_gradients(model, plain_model, cfg, batch):
+    """The kernel step's and the float32 plain step's gradients, and the
+    float64 plain step along each one's discrete choices (``witness``)."""
+    kernel_rec, plain_rec = {}, {}
+    with witness(kernel_rec):
+        grads_kernel = step_gradients(model, cfg, batch, 0)[1]
+    plain_model.load_state_dict(model.state_dict())
+    with witness(plain_rec):
+        grads_plain = step_gradients(plain_model, cfg, batch, 0)[1]
+    exact_model = copy.deepcopy(plain_model).double()
+    batch64 = {k: float64(v) for k, v in batch.items()}
+    exact = []
+    for rec in (kernel_rec, plain_rec):
+        with witness(rec, replay=CHOICES):
+            exact.append(step_gradients(exact_model, cfg, batch64, 0)[1])
+    return grads_kernel, grads_plain, exact[0], exact[1]
+
+
+def no_inverse_phase(path, cfg, weights, batch, launches, report):
+    """18b: one training step without inverse tables (the scatter backward)
+    against the inverse-table route (row 6) on the same batch, per tensor,
+    and against the float64 witness; bit-equal on a repeat."""
+    if "gt_cand_indices" not in batch:
+        batch = dict(batch, **precompute_gt_targets(cfg, batch, device=DEVICE))
+    model = fresh_model(cfg, weights)
+    plain_model = create_model(cfg.with_model(force_pallas=False), device=DEVICE)
+    grads_inv, grads_plain, exact_kernel, exact_plain = witness_gradients(
+        model, plain_model, cfg, batch)
+    del plain_model
+    bare = without_inverse(batch)
+    (_, grads), counts = counted(lambda: step_gradients(model, cfg, bare, 0))
+    expect_launches(counts, [bare], "train", f"{path} step without inverse tables",
+                    cfg.geotransformer.blocks)
+    launches[f"engine_noinv_{path}_train"] = counts
+    again = step_gradients(model, cfg, bare, 0)[1]
+    expect(all(torch.equal(grads[k], again[k]) for k in grads),
+           f"{path}: the step without inverse tables is not bit-equal on a repeat")
+    ms = {}
+    for route, b in (("inverse", batch), ("scatter", bare)):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(3):
+            step_gradients(model, cfg, b, 0)
+        end.record()
+        torch.cuda.synchronize()
+        ms[route] = start.elapsed_time(end) / 3
+    r = compare_step_gradients(grads, grads_plain, exact_kernel, exact_plain)
+    _, per_inv = relative_errors(grads, grads_inv)
+    _, per_plain = relative_errors(grads_plain, exact_plain)
+    worst = max(((per_inv[k], k) for k in per_inv if k not in r["vanishing"]))
+    for name in per_inv:
+        if name not in r["vanishing"] and per_inv[name] > 1e-3 + 2 * per_plain[name]:
+            r["violations"].append(f"{name}: {per_inv[name]:.2e} from the inverse-table route")
+    print(f"{path} step without inverse tables: gradient rel diff from the float64 step along "
+          f"the kernel step's choices {r['whole_kernel']:.2e} (float32 plain "
+          f"{r['whole_plain']:.2e}), from the inverse-table route "
+          f"{relative_errors(grads, grads_inv)[0]:.2e} (worst tensor {worst[0]:.2e}, "
+          f"{worst[1]}); bit-equal on a repeat; forward and backward {ms['scatter']:.3f} ms "
+          f"against {ms['inverse']:.3f} ms with inverse tables (CUDA events, mean of 3); "
+          f"violations {r['violations']}", flush=True)
+    report[f"engine_noinv_{path}"] = dict(whole_kernel=r["whole_kernel"],
+                                          whole_plain=r["whole_plain"], step_ms=ms,
+                                          worst_vs_inverse=worst, violations=r["violations"])
+    report.setdefault("violations", []).extend(f"{path} no inverse: {v}" for v in r["violations"])
+
+
+def run_ranks(setup, tmp, what, world):
+    """``world`` ranks of ``chip_smoke.py --rank-worker`` as subprocesses, on
+    the setup's device or (``device`` None) each on card LOCAL_RANK = rank;
+    every rank is killed when one fails or ENGINE_RANK_LIMIT_S passes, and
+    the run fails with their output. Returns each rank's result."""
+    out = os.path.join(tmp, what)
+    os.makedirs(out, exist_ok=True)
+    setup_path = os.path.join(out, "setup.pt")
+    torch.save(setup, setup_path)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    logs = [open(os.path.join(out, f"rank{r}.log"), "w+") for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--rank-worker", setup_path, out],
+        stdout=log, stderr=subprocess.STDOUT, cwd=ROOT,
+        env=dict(os.environ, RANK=str(r), WORLD_SIZE=str(world),
+                 LOCAL_RANK=str(r) if setup["device"] is None else "0",
+                 MASTER_ADDR="localhost", MASTER_PORT=str(port)))
+        for r, log in enumerate(logs)]
+    deadline, failure = time.monotonic() + ENGINE_RANK_LIMIT_S, None
+    while any(p.poll() is None for p in procs):
+        if any(p.poll() not in (None, 0) for p in procs):
+            failure = "a rank failed"
+            break
+        if time.monotonic() > deadline:
+            failure = f"the ranks ran past {ENGINE_RANK_LIMIT_S} s"
+            break
+        time.sleep(0.5)
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+    tails = []
+    for log in logs:
+        log.seek(0)
+        tails.append(log.read()[-3000:])
+        log.close()
+    if failure is None and any(p.returncode != 0 for p in procs):
+        failure = "a rank failed"
+    expect(failure is None, f"{what}: {failure}, exit codes {[p.returncode for p in procs]}\n"
+           + "\n".join(f"--- rank {r}\n{t}" for r, t in enumerate(tails)))
+    return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def rank_worker(setup_path, out):
+    """One rank of phase 18c (``chip_smoke.py --rank-worker``): joins the
+    group the environment describes on this card, over the setup's backend,
+    and takes its steps: through the Trainer (mode "trainer": the first
+    step's averaged gradients kept, rank 0 profiling step 1) or one
+    make_train_step step (mode "step")."""
+    setup = torch.load(setup_path, weights_only=False)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = init_process_group(device=setup["device"], backend=setup["backend"],
+                                timeout=datetime.timedelta(seconds=120))
+    rank, world = mesh_rank(), world_size()
+    cfg = setup["cfg"]
+    batches = [batch_to_torch(setup["batches"][i], device) for i in setup["order"]]
+    model = fresh_model(cfg, setup["weights"], device)
+    result = {}
+    if setup["mode"] == "step":
+        step = make_train_step(model, cfg, *make_optimizer(model, cfg, 1, world_size=world),
+                               device=device)
+        result["metrics"] = {k: float(v) for k, v in step(batches[0],
+                                                          target_generator(0)).items()}
+    else:
+        trainer = Trainer(cfg, model, BatchLoader(batches, world, rank),
+                          output_dir=os.path.join(out, "run"),
+                          log_steps=cfg.optim.max_iteration,
+                          profile_steps=(1, 2) if rank == 0 else None, device=device)
+        grads, train_step = [], trainer.train_step
+
+        def recording(batch, generator=None):
+            metrics = train_step(batch, generator)
+            grads.append({n: p.grad.detach().cpu() for n, p in model.named_parameters()})
+            return metrics
+
+        trainer.train_step = recording
+        trainer.run_iterations()
+        result.update(grads=grads[0], history=trainer.history, writer=trainer.writer is not None,
+                      lr=[h["lr"] for h in trainer.history])
+        if rank == 0:
+            with open(os.path.join(out, "run", "profile", "trace_rank0.json")) as f:
+                result["trace_kernels"] = sorted({e.get("name", "") for e in
+                                                  json.load(f)["traceEvents"]
+                                                  if e.get("cat") == "kernel"})
+    result["params"] = {k: v.cpu() for k, v in model.state_dict().items()}
+    barrier()
+    torch.save(result, os.path.join(out, f"rank{rank}.pt"))
+    destroy_process_group()
+
+
+def ranks_against_one_process(cfg, weights, batches, world, backend, device, order, smi, tmp):
+    """``world`` ranks (``backend``; all on ``device``, or None: a card each)
+    taking len(order) / world steps through the Trainer on their shards of
+    ``order``: their parameters bit-equal to each other and the lr ``world``
+    x the config's; against one process over the same pairs in the same
+    order, each pair with its rank's generator (seeded cfg.seed + rank),
+    accumulating ``world`` a step at the ``world``-rank lr: the first step's
+    gradients within 1e-5 and the parameters within the updates' reach; rank
+    0's profile_steps trace holding a device kernel of every KERNELS entry
+    the step launches. Rank 0 profiles step 1 and the others wait for it in
+    the step's collective, so the steady step is rank 0's from step 2 on.
+    Returns the readings."""
+    what = f"{world} {backend} ranks ({'one card' if device else 'a card each'})"
+    steps = len(order) // world
+    rank_cfg = dataclasses.replace(cfg, optim=dataclasses.replace(
+        cfg.optim, max_iteration=steps, snapshot_steps=10 ** 9))
+    setup = dict(cfg=rank_cfg, weights={k: v.cpu() for k, v in weights.items()},
+                 batches=[batch_to_torch(b, "cpu") for b in batches], order=order,
+                 device=device, backend=backend, mode="trainer")
+    start = time.perf_counter()
+    ranks = run_ranks(setup, tmp, f"{backend}{world}", world)
+    ranks_s = time.perf_counter() - start
+    r0 = ranks[0]
+    for r in ranks[1:]:
+        for name, value in r0["params"].items():
+            expect(torch.equal(value, r["params"][name]), f"{what}: {name} differs between ranks")
+    schedule = make_lr_schedule(cfg, steps, world_size=world)
+    expect(all(r["lr"] == [schedule(i) for i in range(steps)] for r in ranks)
+           and r0["lr"][0] == world * cfg.optim.lr,
+           f"{what}: lr {r0['lr']}, expected {world} x the config's {cfg.optim.lr}")
+    single_cfg = dataclasses.replace(cfg, optim=dataclasses.replace(
+        cfg.optim, lr=world * cfg.optim.lr, grad_acc_steps=world))
+    model = fresh_model(single_cfg, weights)
+    optimizer, scheduler = make_optimizer(model, single_cfg, steps)
+    step = make_train_step(model, single_cfg, optimizer, scheduler, device=DEVICE)
+    generators = [target_generator(cfg.seed + r) for r in range(world)]
+    for i, pair in enumerate(order):
+        step(batches[pair], generators[i % world])
+        if i == world - 1:
+            first = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+    floor = 1e-6 * max(g.norm().item() for g in first.values())
+    grad_worst = max((r0["grads"][n] - g).norm().item() / max(g.norm().item(), floor)
+                     for n, g in first.items())
+    expect(grad_worst <= 1e-5, f"{what}: first step's gradients {grad_worst:.2e} from one "
+                               f"process accumulating the same pairs")
+    # each update moves a parameter by at most ~lr; opposite directions at worst
+    reach = steps * 2 * (world * cfg.optim.lr)
+    param_worst = max((r0["params"][n] - v.cpu()).abs().max().item()
+                      for n, v in model.state_dict().items())
+    expect(param_worst <= reach, f"{what}: parameters {param_worst:.2e} from one process "
+                                 f"accumulating, beyond the updates' reach {reach:.2e}")
+    launched = [name for name, n in expected_launches(batches[0], "train",
+                                                      cfg.geotransformer.blocks).items() if n]
+    missing = [name for name in launched if not any(
+        re.search(KERNEL_SYMBOLS[wrapper_of(name)], k) for k in r0["trace_kernels"])]
+    expect(not missing, f"profile_steps trace lacks the kernels of {missing}; its kernels: "
+                        f"{r0['trace_kernels']}")
+    rank_ms = [[1e3 * h["process_s"] for h in r["history"]] for r in ranks]
+    steady = statistics.median(rank_ms[0][2:])
+    print(f"engine {what}: {steps} steps each through the Trainer, parameters "
+          f"bit-equal between the ranks, lr {r0['lr'][0]:.2e} ({world}x), first step's gradients "
+          f"{grad_worst:.2e} and parameters {param_worst:.2e} from one process accumulating the "
+          f"same pairs; the profile trace holds {launched}; TensorBoard writer "
+          f"{'on' if r0['writer'] else 'off'}; rank 0 step median "
+          f"{statistics.median(rank_ms[0]):.3f} ms, {steady:.3f} ms from step 2 on (each "
+          f"rank's steps "
+          f"{[[round(t, 2) for t in ms] for ms in rank_ms]}, CUDA events), {ranks_s:.1f} s for "
+          f"the {world} processes; {smi}", flush=True)
+    return dict(grad_worst=grad_worst, param_worst=param_worst, reach=reach, rank_step_ms=rank_ms,
+                ranks_s=ranks_s, writer=r0["writer"], trace_kernels=r0["trace_kernels"],
+                median_ms=statistics.median(rank_ms[0]), steady_ms=steady)
+
+
+def ranks_phase(cfg, weights, batches, smi, report, tmp):
+    """18c: two ranks on this card over Gloo, 3 steps each through the
+    Trainer, against each other and against one process accumulating the
+    same pairs (k = 2, the 2-rank lr); the profile hook's trace; one rank
+    over NCCL against a step without a process group; debug_nans."""
+    readings = ranks_against_one_process(cfg, weights, batches, 2, "gloo", "cuda:0",
+                                         ENGINE_ORDER, smi, tmp)
+    setup = dict(cfg=cfg, weights={k: v.cpu() for k, v in weights.items()},
+                 batches=[batch_to_torch(batches[0], "cpu")], order=(0,), device="cuda:0",
+                 backend="nccl", mode="step")
+    # one rank over NCCL against the same step without a process group
+    nccl = run_ranks(setup, tmp, "nccl", 1)[0]
+    model = fresh_model(cfg, weights)
+    step = make_train_step(model, cfg, *make_optimizer(model, cfg, 1), device=DEVICE)
+    metrics = step(batches[0], target_generator(0))
+    for name, value in model.state_dict().items():
+        expect(torch.equal(value.cpu(), nccl["params"][name]),
+               f"one NCCL rank: {name} differs from the step without a process group")
+    expect(nccl["metrics"]["loss"] == metrics["loss"].item(), "one NCCL rank: loss differs")
+    # debug_nans: anomaly detection raises where a NaN enters a backward
+    trainer = Trainer(dataclasses.replace(cfg, optim=dataclasses.replace(
+        cfg.optim, max_iteration=1, snapshot_steps=10 ** 9)), fresh_model(cfg, weights),
+        BatchLoader(batches[:1]), output_dir=os.path.join(tmp, "debug_nans"),
+        tensorboard=False, debug_nans=True, device=DEVICE)
+
+    def inject(module, args, output):
+        output.register_hook(lambda g: g * float("nan"))
+
+    handle = trainer.model.transformer.in_proj.register_forward_hook(inject)
+    try:
+        trainer.run_iterations()
+        raised = None
+    except RuntimeError as error:
+        raised = str(error)
+    finally:
+        handle.remove()
+        torch.autograd.set_detect_anomaly(False)
+    expect(raised is not None and "nan" in raised, f"debug_nans did not raise: {raised}")
+    print(f"engine: one NCCL rank's step bit-equal to the step without a process group; "
+          f"debug_nans raised: {raised.splitlines()[0]}", flush=True)
+    report["engine_ranks"] = dict(readings, debug_nans=raised)
+    return readings["median_ms"]
+
+
+def engine_phase(launches, report):
+    """Phase 18: the training engine on the phase-6 3DMatch pairs and
+    weights (full width) and one KITTI pair."""
+    start = time.perf_counter()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    cfg, model, batches = SHARED.pop("3dmatch_train")
+    weights = copy.deepcopy(model.state_dict())
+    acc_ms, plain_ms, mean_rel = accumulation_phase(cfg, weights, batches, launches, report)
+    print(f"engine accumulation (grad_acc_steps 2): 4 mini-steps and a NaN-hooked one dropped, "
+          f"2 updates, the accumulated mean {mean_rel:.2e} from the mini-steps' gradients one by "
+          f"one; mini-step median {acc_ms:.3f} ms against {plain_ms:.3f} ms a step without "
+          f"accumulation (CUDA events); {smi}", flush=True)
+    no_inverse_phase("3dmatch", cfg, weights, batches[0], launches, report)
+    kitti_cfg, kitti_model, kitti_batches = SHARED.pop("kitti_train")
+    no_inverse_phase("kitti", kitti_cfg, kitti_model.state_dict(), kitti_batches[0], launches,
+                     report)
+    del kitti_model, kitti_batches
+    with tempfile.TemporaryDirectory() as tmp:
+        rank_ms = ranks_phase(cfg, weights, batches, smi, report, tmp)
+    seconds = time.perf_counter() - start
+    print(f"engine: phase 18 {seconds:.1f} s; steps {acc_ms:.3f} ms with accumulation, "
+          f"{plain_ms:.3f} ms without, {rank_ms:.3f} ms on each of two ranks; {smi}",
+          flush=True)
+    report["engine"] = dict(seconds=seconds, accumulation_ms=acc_ms, step_ms=plain_ms,
+                            two_rank_ms=rank_ms, smi=smi)
+
+
+def across_cards(world):
+    """``chip_smoke.py --ranks-across-cards N``: the data-parallel path on N
+    cards of one host, NCCL, a rank a card (what phase 18c cannot show on one
+    card), held as phase 18c holds its two ranks: against each other and
+    against one process accumulating the same pairs. Seeded random weights,
+    the phase-2 3DMatch pairs. The run without arguments needs one card."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < world:
+        raise SystemExit(f"--ranks-across-cards {world} needs {world} CUDA devices")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"build: {cuda.build():.1f} s", flush=True)
+    cfg = make_3dmatch_config()
+    caps, _, batches_np, _ = build_batches(cfg, SEEDS)
+    cfg = cfg.with_caps(stage_caps=caps)
+    batches = [batch_to_torch(b, DEVICE) for b in batches_np]
+    for batch in batches:
+        batch.update(precompute_gt_targets(cfg, batch, device=DEVICE))
+    weights = create_model(cfg, device=DEVICE).state_dict()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    order = tuple(i % len(batches) for i in range(world * ACROSS_CARDS_STEPS))
+    with tempfile.TemporaryDirectory() as tmp:
+        readings = ranks_against_one_process(cfg, weights, batches, world, "nccl", None, order,
+                                             smi.replace("\n", "; "), tmp)
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "across_cards.json"), "w") as f:
+        json.dump(dict(readings, nvidia_smi=smi), f, indent=1)
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+
+
 def limit_calls(device):
     """Phase 15's calls (inputs from a seed): each kernel at shapes its CUDA
     kernel once refused, at the former limit and past it, under its KERNELS
@@ -3021,6 +3523,12 @@ def limits_phase(device, report):
 
 
 def main():
+    if sys.argv[1:2] == ["--rank-worker"]:
+        rank_worker(*sys.argv[2:4])
+        return
+    if sys.argv[1:2] == ["--ranks-across-cards"]:
+        across_cards(int(sys.argv[2]))
+        return
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device (torch.cuda.is_available() is False)")
     device = torch.device(DEVICE)
@@ -3037,6 +3545,8 @@ def main():
     launches = {}
     by_path = {"3dmatch": threedmatch_phases(device, launches, report)}
     by_path.update(kitti_phases(device, launches, report))
+    # 18. the training engine on the phases' pairs and weights
+    engine_phase(launches, report)
     with tempfile.TemporaryDirectory() as tmp:
         by_path.update(modelnet_phases(device, launches, report, tmp))
         by_path.update(synthetic_phases(device, launches, report, tmp))

@@ -5,13 +5,17 @@ One directory per saved step under ``directory`` (``<step>/state.pt``),
 written to a temporary name and renamed, so a checkpoint is whole or
 absent. As the JAX package's orbax manager: ``max_to_keep`` most recent
 steps are kept (None keeps all), the latest step is the largest, and
-restoring a missing step raises ``FileNotFoundError``.
+restoring a missing step raises ``FileNotFoundError``. In a process group
+rank 0 writes (and prunes), then every rank passes a barrier, so no rank
+reads a checkpoint before it is whole; every rank restores.
 """
 
 import os
 import shutil
 
 import torch
+
+from geotransformer_tpu_torch.parallel import mesh
 
 _FILE = "state.pt"
 
@@ -32,7 +36,12 @@ class CheckpointManager:
 
     def save(self, step, state, metadata=None):
         """Save ``state`` (a dict of state_dicts, tensors and numbers) and
-        optional metadata at ``step``."""
+        optional metadata at ``step`` (rank 0 writes; every rank waits)."""
+        if mesh.rank() == 0:
+            self._write(step, state, metadata)
+        mesh.barrier()
+
+    def _write(self, step, state, metadata):
         final = os.path.join(self.directory, str(int(step)))
         tmp = f"{final}.tmp-{os.getpid()}"
         os.makedirs(tmp, exist_ok=True)

@@ -61,3 +61,28 @@ class Timer:
         times = self.process_times()
         return sum(times) / max(len(times), 1)
 
+
+class TimerDict:
+    """Keyed host-clock timers (``geotransformer_tpu/engine/timer.py``;
+    reference `utils/timer.py:48-79`): the mean seconds between each key's
+    ``tic`` and ``toc``."""
+
+    def __init__(self):
+        self._starts = {}
+        self._totals = {}
+        self._counts = {}
+
+    def tic(self, key):
+        self._starts[key] = time.time()
+
+    def toc(self, key):
+        elapsed = time.time() - self._starts[key]
+        self._totals[key] = self._totals.get(key, 0.0) + elapsed
+        self._counts[key] = self._counts.get(key, 0) + 1
+
+    def get_time(self, key):
+        return self._totals.get(key, 0.0) / max(self._counts.get(key, 0), 1)
+
+    def summary(self, keys=None):
+        keys = keys if keys is not None else list(self._totals)
+        return {k: self.get_time(k) for k in keys}

@@ -22,8 +22,13 @@ and a sliced tensor-core product for dW, added in a fixed order.
 
 Training goes through :func:`kpconv_inv_fused_diff`,
 :func:`kpconv_pool_inv_fused_diff`, :func:`kpconv_split_diff`,
-:func:`kpconv_split_pool_diff` (the inverse-table backward) and the input
-convs' weight-only backward (:func:`kpconv_stream_input_diff`,
+:func:`kpconv_split_pool_diff` (the inverse-table backward), where a batch
+has no inverse tables through :func:`kpconv_fused_diff`,
+:func:`kpconv_pool_fused_diff`, :func:`kpconv_split_scatter_diff` and
+:func:`kpconv_split_pool_scatter_diff` (the JAX XLA scatter backward, in
+PyTorch operations: ``index_put_`` with accumulation, which on CUDA sorts,
+so the same sums in the same order every run), and the input convs'
+weight-only backward (:func:`kpconv_stream_input_diff`,
 :func:`kpconv_union_input_fused_diff`, :func:`kpconv_split_input_diff`,
 :func:`kpconv_input_diff`), the counterparts of the JAX custom_vjps of the
 same names: the forward is the inference kernel, which also returns the
@@ -54,6 +59,9 @@ _BWD_SIGNATURES = {
     "kpconv_dw_slices": [_I] * 4,
 }
 
+
+# rows the scatter backward spreads its sentinel edges over (_scatter_rows)
+_SPARE_ROWS = 1024
 
 # entry points that return something else than an int error code
 _RESTYPES = {"kpconv_conv_workspace": ctypes.c_longlong,
@@ -665,6 +673,171 @@ def kpconv_split_pool_diff(s_feats, pool_feats, q_points, s_points, head_table, 
 
     return _with_bias(_KPConvInv.apply(s_feats, weights, pool_feats, conv, q_points, s_points,
                                        inverse_table, kernel_points, sigma, force), bias)
+
+
+def _scatter_rows(rows, index, n):
+    """(n, C): the (..., C) ``rows`` summed into the support rows ``index``
+    (sentinel n dropped). On CUDA ``index_put_`` with accumulation sorts by
+    index, so the sums run in one order every run (``index_add_`` there
+    adds with atomics, in any order); it sums each run of equal indices in
+    one warp, so the sentinel edges (padding slots, queries that are off:
+    often most of a table) are spread over ``_SPARE_ROWS`` rows dropped
+    with it rather than left as one long run."""
+    index = index.reshape(-1)
+    spare = torch.arange(index.numel(), device=index.device) % _SPARE_ROWS
+    index = torch.where(index < n, index, n + spare)
+    out = rows.new_zeros((n + _SPARE_ROWS, rows.shape[-1]))
+    out.index_put_((index,), rows.reshape(-1, rows.shape[-1]), accumulate=True)
+    return out[:n]
+
+
+def _scatter_pass(s_feats, s_points, q_points, table, kernel_points, weights, sigma, gdiv):
+    """One neighbor table's part of the scatter backward (JAX
+    ``_kpconv_diff_bwd``): the influences recomputed from the points, d_weights
+    = sum_m t[m] (x) gdiv[m] with t = sum_h infl x feat, and each edge's
+    feature gradient infl . (W gdiv) scattered onto its support row."""
+    n = s_points.shape[0]
+    valid = table < n
+    offsets = gather_with_shadow(s_points, table, 0.0) - q_points[:, None, :]
+    influence = _influence(offsets, kernel_points, sigma) * valid[..., None]  # (M, H, K)
+    t = torch.einsum("mhk,mhc->mkc", influence, gather_with_shadow(s_feats, table, 0.0))
+    d_weights = torch.einsum("mkc,md->kcd", t, gdiv)
+    d_edges = torch.einsum("mhk,mkc->mhc", influence, torch.einsum("kcd,md->mkc", weights, gdiv))
+    return _scatter_rows(d_edges, table, n), d_weights
+
+
+def _pool_scatter(pool_feats, pooled, dpool_over_ties, cols):
+    """The max-pool's gradient over the (M', cols) table ``cols``: each pooled
+    value's gradient over its ties (``dpool_over_ties``), onto every column
+    that attains the max (JAX ``_kpconv_pool_diff_bwd``; shadows read 0 and
+    their share is dropped)."""
+    block = gather_with_shadow(pool_feats, cols, 0.0)  # (M', cols, P)
+    rows = (block == pooled[:, None, :]).to(dpool_over_ties.dtype) * dpool_over_ties[:, None, :]
+    return _scatter_rows(rows, cols, pool_feats.shape[0])
+
+
+class _KPConvScatter(torch.autograd.Function):
+    """KPConv [+ shortcut max-pool] without an inverse table: the JAX XLA
+    scatter backward (``_kpconv_diff_bwd``, ``_kpconv_pool_diff_bwd``,
+    ``_split_blocks_bwd``) in PyTorch operations. ``conv`` (s_feats, weights,
+    pool_feats) -> (out [, pooled], count [, ties]) is the forward with its
+    residuals, as :class:`_KPConvInv`'s; ``passes`` lists the tables the
+    forward walked, each (table (M', H) long with the query mask applied,
+    its query rows (None: all M), its pool columns): one for a whole table,
+    the head and the tail of a split one. The backward recomputes the
+    influences from the points (no gathered block is kept)."""
+
+    @staticmethod
+    def forward(ctx, s_feats, weights, pool_feats, conv, q_points, s_points, passes,
+                kernel_points, sigma):
+        res = conv(s_feats, weights, pool_feats)
+        out, pooled, count, ties = res if pool_feats is not None else (res[0], None, res[1], None)
+        ctx.save_for_backward(s_feats, weights, pool_feats, q_points, s_points, kernel_points,
+                              count, pooled, ties)
+        ctx.passes, ctx.sigma = passes, sigma
+        return out if pool_feats is None else (out, pooled)
+
+    @staticmethod
+    def backward(ctx, dout, dpool=None):
+        (s_feats, weights, pool_feats, q_points, s_points, kernel_points, count, pooled,
+         ties) = ctx.saved_tensors
+        gdiv = dout / count[:, None]
+        dpool_over_ties = None if pool_feats is None else dpool / ties
+        d_s_feats = d_weights = d_pool = None
+        for table, rows, cols in ctx.passes:
+            def of_rows(x):
+                return x if rows is None else x[rows]
+            d_s, d_w = _scatter_pass(s_feats, s_points, of_rows(q_points), table, kernel_points,
+                                     weights, ctx.sigma, of_rows(gdiv))
+            d_s_feats = d_s if d_s_feats is None else d_s_feats + d_s
+            d_weights = d_w if d_weights is None else d_weights + d_w
+            if pool_feats is not None:
+                d_p = _pool_scatter(pool_feats, of_rows(pooled), of_rows(dpool_over_ties),
+                                    table[:, :cols])
+                d_pool = d_p if d_pool is None else d_pool + d_p
+        return (d_s_feats, d_weights, d_pool) + (None,) * 6
+
+
+def _masked(table, n, q_mask):
+    """``table`` as long, every column of a query that is off the sentinel."""
+    table = table.long()
+    return table if q_mask is None else torch.where(q_mask[:, None], table, n)
+
+
+def kpconv_fused_diff(s_feats, q_points, s_points, neighbor_indices, kernel_points, weights,
+                      sigma, bias=None, q_mask=None, force=None):
+    """Differentiable KPConv without an inverse table (JAX
+    ``kpconv_fused_diff``): the fused forward, the scatter backward over
+    ``neighbor_indices`` for d_s_feats and d_weights."""
+    def conv(sf, w, _):
+        return kpconv_fused(sf, q_points, s_points, neighbor_indices, kernel_points, w, sigma,
+                            q_mask=q_mask, force=force, residuals=True)
+
+    passes = [(_masked(neighbor_indices, s_points.shape[0], q_mask), None, None)]
+    return _with_bias(_KPConvScatter.apply(s_feats, weights, None, conv, q_points, s_points,
+                                           passes, kernel_points, sigma), bias)
+
+
+def kpconv_pool_fused_diff(s_feats, pool_feats, q_points, s_points, neighbor_indices,
+                           kernel_points, weights, sigma, bias=None, pool_cols=None, q_mask=None,
+                           force=None):
+    """:func:`kpconv_fused_diff` with the fused strided-shortcut max-pool
+    (JAX ``kpconv_pool_fused_diff``); the pool's gradient is split evenly
+    over tied maxima. Returns (out, pooled)."""
+    def conv(sf, w, pf):
+        return kpconv_fused(sf, q_points, s_points, neighbor_indices, kernel_points, w, sigma,
+                            pool_feats=pf, pool_cols=pool_cols, q_mask=q_mask, force=force,
+                            residuals=True)
+
+    cols = neighbor_indices.shape[1] if pool_cols is None else pool_cols
+    passes = [(_masked(neighbor_indices, s_points.shape[0], q_mask), None, cols)]
+    return _with_bias(_KPConvScatter.apply(s_feats, weights, pool_feats, conv, q_points,
+                                           s_points, passes, kernel_points, sigma), bias)
+
+
+def _split_passes(n, head_table, split_tables, pool_cols, q_mask):
+    """The head and tail passes of a split table, as the forward walks them
+    (the tail's queries through ``tail_q``, masked by their queries' mask;
+    its padding rows hold only sentinels)."""
+    tail, tail_q, _ = split_tables
+    h1 = head_table.shape[1]
+    rows = tail_q.long()
+    cols = (None, None) if pool_cols is None else (min(pool_cols, h1), max(pool_cols - h1, 1))
+    return [(_masked(head_table, n, q_mask), None, cols[0] or h1),
+            (_masked(tail, n, None if q_mask is None else q_mask[rows]), rows,
+             cols[1] or tail.shape[1])]
+
+
+def kpconv_split_scatter_diff(s_feats, q_points, s_points, head_table, split_tables,
+                              kernel_points, weights, sigma, bias=None, q_mask=None, force=None):
+    """Differentiable split-table KPConv without an inverse table (JAX
+    ``kpconv_split_diff`` with ``inverse_table=None``: the two-block scatter
+    backward, ``_split_blocks_bwd``). ``split_tables`` is (tail, tail_q,
+    tail_rank)."""
+    def conv(sf, w, _):
+        return kpconv_split_fused(sf, q_points, s_points, head_table, *split_tables,
+                                  kernel_points, w, sigma, q_mask=q_mask, force=force,
+                                  residuals=True)
+
+    passes = _split_passes(s_points.shape[0], head_table, split_tables, None, q_mask)
+    return _with_bias(_KPConvScatter.apply(s_feats, weights, None, conv, q_points, s_points,
+                                           passes, kernel_points, sigma), bias)
+
+
+def kpconv_split_pool_scatter_diff(s_feats, pool_feats, q_points, s_points, head_table,
+                                   split_tables, kernel_points, weights, sigma, bias=None,
+                                   pool_cols=None, q_mask=None, force=None):
+    """:func:`kpconv_split_scatter_diff` with the fused strided-shortcut
+    max-pool (JAX ``kpconv_split_pool_diff`` with ``inverse_table=None``;
+    the tie counts are the combined max's). Returns (out, pooled)."""
+    def conv(sf, w, pf):
+        return kpconv_split_fused(sf, q_points, s_points, head_table, *split_tables,
+                                  kernel_points, w, sigma, pool_feats=pf, pool_cols=pool_cols,
+                                  q_mask=q_mask, force=force, residuals=True)
+
+    passes = _split_passes(s_points.shape[0], head_table, split_tables, pool_cols, q_mask)
+    return _with_bias(_KPConvScatter.apply(s_feats, weights, pool_feats, conv, q_points,
+                                           s_points, passes, kernel_points, sigma), bias)
 
 
 class _KPConvInputT1(torch.autograd.Function):

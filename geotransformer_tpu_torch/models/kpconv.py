@@ -11,8 +11,9 @@ dispatch (``models/kpconv.py:127-196``): the input conv takes the edge
 stream, else the per-tile unions, else the split table, else the neighbor
 table; every other conv takes its split table where the batch has one. With
 gradients enabled the convs take the autograd Functions of the training
-path: the inverse-table backward where the batch has inverse tables, the
-weight-only backward for the input conv.
+path: the inverse-table backward where the batch has inverse tables, else
+the scatter backward of the JAX XLA rules, and the weight-only backward for
+the input conv.
 Parameter names are the reference torch ones (``KPConv.weights`` (K, C_in,
 C_out), ``KPConv.bias``, the ``kernel_points`` buffer).
 """
@@ -21,16 +22,19 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
-from geotransformer_tpu_torch.kernels import cuda
 from geotransformer_tpu_torch.kernels.kpconv import (
     kpconv_fused,
+    kpconv_fused_diff,
     kpconv_input_diff,
     kpconv_inv_fused_diff,
+    kpconv_pool_fused_diff,
     kpconv_pool_inv_fused_diff,
     kpconv_split_diff,
     kpconv_split_fused,
     kpconv_split_input_diff,
     kpconv_split_pool_diff,
+    kpconv_split_pool_scatter_diff,
+    kpconv_split_scatter_diff,
     kpconv_stream_fused,
     kpconv_stream_input_diff,
     kpconv_union_input_fused,
@@ -72,7 +76,8 @@ class KPConv(nn.Module):
             q_mask: optional (M,) bool query validity.
             inverse_table: optional inverse of ``neighbor_indices`` (N, J)
                 sentinel M, or its split 4-tuple (training batches): with
-                gradients enabled, the backward runs over it.
+                gradients enabled, the backward runs over it; without it,
+                the backward scatters over the neighbor table.
             union_tables: optional (union_rows, union_sel) of the input conv
                 (c_in == 1), built with tile ``UNION_TILE``.
             split_tables: optional (tail, tail_q, tail_rank) of
@@ -108,7 +113,14 @@ class KPConv(nn.Module):
                 return kpconv_split_diff(s_feats, q_points, s_points, head, split_tables,
                                          inverse_table, kp, w, sigma, bias, q_mask=q_mask,
                                          force=force)
-            self._check_backward(grad, s_feats)
+            if grad:
+                if pool_feats is not None:
+                    return kpconv_split_pool_scatter_diff(
+                        s_feats, pool_feats, q_points, s_points, head, split_tables, kp, w,
+                        sigma, bias, pool_cols=pool_cols, q_mask=q_mask, force=force)
+                return kpconv_split_scatter_diff(s_feats, q_points, s_points, head,
+                                                 split_tables, kp, w, sigma, bias,
+                                                 q_mask=q_mask, force=force)
             return kpconv_split_fused(s_feats, q_points, s_points, head, *split_tables, kp, w,
                                       sigma, bias, q_mask=q_mask, force=force, **pool)
         if input_layer and grad:
@@ -122,16 +134,15 @@ class KPConv(nn.Module):
             return kpconv_inv_fused_diff(s_feats, q_points, s_points, neighbor_indices,
                                          inverse_table, kp, w, sigma, bias, q_mask=q_mask,
                                          force=force)
-        self._check_backward(grad, s_feats)
-        # inference, or the plain version (differentiable by autograd)
+        if grad:
+            if pool_feats is not None:
+                return kpconv_pool_fused_diff(s_feats, pool_feats, q_points, s_points,
+                                              neighbor_indices, kp, w, sigma, bias,
+                                              pool_cols=pool_cols, q_mask=q_mask, force=force)
+            return kpconv_fused_diff(s_feats, q_points, s_points, neighbor_indices, kp, w, sigma,
+                                     bias, q_mask=q_mask, force=force)
         return kpconv_fused(s_feats, q_points, s_points, neighbor_indices, kp, w, sigma, bias,
                             q_mask=q_mask, force=force, **pool)
-
-    def _check_backward(self, grad, s_feats):
-        if grad and cuda.use_kernel(s_feats, self.force):
-            raise ValueError(
-                "KPConv with gradients on the CUDA kernels needs the batch's inverse "
-                "tables: pad_registration_batch(..., inverse_limits=cfg.caps.inverse_limits)")
 
 
 def leaky_relu(x):

@@ -8,7 +8,8 @@ while the card consumes earlier batches. In the raw mode (a
 ``device_plan``) the workers only fetch samples, the main process pads each
 group's raw points into its capacity bucket, and the step builds the
 pyramid on the card (:mod:`geotransformer_tpu_torch.preprocess.device`).
-One process group: host sharding is not ported.
+Under data parallelism each process iterates its shard of the epoch's
+order (``num_shards`` = the world size, ``shard_index`` = its rank).
 """
 
 import dataclasses
@@ -125,7 +126,9 @@ class PairLoader:
         shuffle: reshuffle the order each epoch (seeded with seed + epoch).
         num_workers: pool size (0: in this process).
         seed: base shuffle seed.
-        num_shards, shard_index: host sharding (not ported: 1 and 0).
+        num_shards, shard_index: host sharding: this loader takes every
+            ``num_shards``-th index of the epoch's (shuffled) order from
+            ``shard_index`` (the JAX loader's ``order[shard_index::num_shards]``).
         drop_last: drop the trailing incomplete group.
         device_plan: a ``preprocess.device.DevicePreprocessPlan``: the raw
             mode. Workers only read (and augment) samples; the main process
@@ -138,8 +141,8 @@ class PairLoader:
 
     def __init__(self, dataset, pipeline_cfg, batch_size=1, shuffle=False, num_workers=0, seed=0,
                  num_shards=1, shard_index=0, drop_last=True, device_plan=None):
-        if num_shards != 1 or shard_index != 0:
-            raise NotImplementedError("host sharding is not ported: one process group")
+        if not 0 <= shard_index < num_shards:
+            raise ValueError(f"shard {shard_index} of {num_shards}")
         if device_plan is not None and pipeline_cfg.get("precompute_targets"):
             raise ValueError("precompute_targets needs the host pyramid: in the raw "
                              "device-preprocess mode the step computes the GT targets")
@@ -150,6 +153,8 @@ class PairLoader:
         self.shuffle = shuffle
         self.num_workers = num_workers
         self.seed = seed
+        self.num_shards = num_shards
+        self.shard_index = shard_index
         self.drop_last = drop_last
         self.epoch = 0
         self._pool = None
@@ -159,9 +164,9 @@ class PairLoader:
 
     def _indices(self):
         n = len(self.dataset)
-        if self.shuffle:
-            return np.random.default_rng(self.seed + self.epoch).permutation(n)
-        return np.arange(n)
+        order = (np.random.default_rng(self.seed + self.epoch).permutation(n) if self.shuffle
+                 else np.arange(n))
+        return order[self.shard_index::self.num_shards]
 
     def __len__(self):
         n = len(self._indices())

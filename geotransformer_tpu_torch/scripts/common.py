@@ -1,6 +1,8 @@
 r"""What the port's scripts share: the ``--device`` option and the loader's
 pipeline keywords of a configuration."""
 
+import os
+
 import torch
 
 
@@ -11,10 +13,15 @@ def add_device_argument(parser):
 
 def resolve_device(name):
     """``name``, after checking that a CUDA device exists where one is asked
-    for: a script never falls back to the CPU on its own."""
-    if torch.device(name).type == "cuda" and not torch.cuda.is_available():
+    for: a script never falls back to the CPU on its own. Under a launcher
+    (``LOCAL_RANK`` set), ``cuda`` is this process's card,
+    ``cuda:LOCAL_RANK``."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {name} needs a CUDA device, and torch sees none; "
                            "pass --device cpu to run on the CPU")
+    if device.type == "cuda" and device.index is None and "LOCAL_RANK" in os.environ:
+        return f"cuda:{int(os.environ['LOCAL_RANK'])}"
     return name
 
 

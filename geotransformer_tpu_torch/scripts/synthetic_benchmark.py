@@ -171,7 +171,8 @@ def main(argv=None):
                              num_workers=args.num_workers)
     try:
         trainer = Trainer(cfg, model, train_loader, val_loader=None,
-                          output_dir=osp.join(out, "train"), log_steps=50, device=device)
+                          output_dir=osp.join(out, "train"), log_steps=50, tensorboard=False,
+                          device=device)
         trainer.initialize()
         t0 = time.time()
         trainer.run()

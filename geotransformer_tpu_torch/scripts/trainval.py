@@ -6,7 +6,17 @@ r"""Training CLI (the port's ``scripts/trainval.py``; reference
     python -m geotransformer_tpu_torch.scripts.trainval --dataset modelnet \
         --data_root data/ModelNet --iters
 
-One pair a step on one card. The training batches carry the inverse
+One pair a step a card. On N cards, one process each (the launcher sets
+RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT; the process takes
+``cuda:LOCAL_RANK`` and joins an NCCL group, or Gloo with ``--device cpu``):
+
+    python -m torch.distributed.run --nproc_per_node N \
+        -m geotransformer_tpu_torch.scripts.trainval --dataset 3dmatch --data_root data/3DMatch
+
+Each rank trains on its shard of every epoch's order; the gradients and
+metrics are averaged over the ranks and the lr is the config's x N. The
+config's ``optim.grad_acc_steps`` accumulates that many steps' gradients
+into one update. The training batches carry the inverse
 neighbor tables of the KPConv backward and, unless
 ``--no_precompute_targets``, the partition and GT-overlap targets computed
 in the loader's workers. With ``--device_preprocess`` the loader only pads
@@ -16,6 +26,7 @@ Checkpoints go to ``<output_dir>/checkpoints``.
 """
 
 import argparse
+import os
 
 from geotransformer_tpu_torch.configs import make_config
 from geotransformer_tpu_torch.datasets import (
@@ -25,6 +36,7 @@ from geotransformer_tpu_torch.datasets import (
 )
 from geotransformer_tpu_torch.engine import Trainer
 from geotransformer_tpu_torch.models import create_model
+from geotransformer_tpu_torch.parallel import mesh
 from geotransformer_tpu_torch.preprocess import DevicePreprocessPlan
 from geotransformer_tpu_torch.preprocess.loader import PairLoader
 from geotransformer_tpu_torch.scripts.common import (
@@ -54,7 +66,8 @@ def main(argv=None):
     parser.add_argument("--data_root", required=True)
     parser.add_argument("--output_dir", default=None)
     parser.add_argument("--batch_size", type=int, default=None,
-                        help="pairs per step: one card takes 1 (the default)")
+                        help="pairs per step and process: a process owns one card, which "
+                             "takes 1 (the default)")
     parser.add_argument("--num_workers", type=int, default=8)
     parser.add_argument("--iters", action="store_true", help="iteration-based training")
     parser.add_argument(
@@ -69,11 +82,11 @@ def main(argv=None):
                         help="device-preprocess stage-capacity overflow policy")
     add_device_argument(parser)
     args = parser.parse_args(argv)
+    mesh.check_pairs_per_process(args.batch_size or 1)
     device = resolve_device(args.device)
-    if args.batch_size not in (None, 1):
-        raise NotImplementedError(
-            f"--batch_size {args.batch_size}: one card takes one pair a step (data "
-            "parallelism is not ported)")
+    group = int(os.environ.get("WORLD_SIZE", "1")) > 1
+    if group:
+        device = mesh.init_process_group(device)
 
     cfg = make_config(args.dataset)
     output_dir = args.output_dir or f"output/{args.dataset}"
@@ -92,7 +105,8 @@ def main(argv=None):
         plan = DevicePreprocessPlan(cfg, with_inverse=True, overflow_policy=args.overflow_policy)
     train_loader = PairLoader(build_dataset(cfg, args.data_root, "train", True),
                               train_pipeline_cfg, shuffle=True, num_workers=args.num_workers,
-                              seed=cfg.seed, device_plan=plan)
+                              seed=cfg.seed, num_shards=mesh.world_size(),
+                              shard_index=mesh.rank(), device_plan=plan)
     val_loader = PairLoader(build_dataset(cfg, args.data_root, "val", False), pipeline_cfg,
                             shuffle=False, num_workers=args.num_workers, device_plan=plan)
     try:
@@ -103,6 +117,8 @@ def main(argv=None):
     finally:
         train_loader.close()
         val_loader.close()
+        if group:
+            mesh.destroy_process_group()
     return trainer, metrics
 
 

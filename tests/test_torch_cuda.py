@@ -84,9 +84,13 @@ from geotransformer_tpu_torch.kernels.kpconv import (
     kpconv_bwd_fused,
     kpconv_bwd_fused_plain,
     kpconv_fused,
+    kpconv_fused_diff,
     kpconv_fused_plain,
+    kpconv_pool_fused_diff,
     kpconv_split_fused,
     kpconv_split_fused_plain,
+    kpconv_split_pool_scatter_diff,
+    kpconv_split_scatter_diff,
     kpconv_stream_fused,
     kpconv_stream_fused_plain,
     kpconv_union_input_fused,
@@ -338,6 +342,53 @@ def test_kpconv_bwd_split_matches_plain_and_unsplit(device, c_in, c_out, n, m, j
     for g, w, u in zip(got, want, whole):
         assert_kpconv_close(g, w)
         assert_kpconv_close(g, u)
+
+
+@pytest.mark.parametrize("split", [False, True], ids=["whole", "split"])
+@pytest.mark.parametrize("with_pool", [False, True])
+def test_kpconv_scatter_backward_matches_plain_and_repeats(device, split, with_pool):
+    """The backward without inverse tables (PyTorch operations around the
+    forward kernel) on the card against the same Function on the CPU
+    (the plain forward), the KPConv tolerance; bit-equal on a repeat."""
+    args, bias, pool, q_mask = kpconv_case(device, 64, c_pool=128 if with_pool else 0)
+    feats, q_points, s_points, nbrs, kp, w = args
+    n = s_points.shape[0]
+    tables = None
+    if split:
+        table = nbrs.cpu().numpy()
+        m2 = int((table[:, 16:] < n).any(axis=1).sum())
+        tables = tuple(torch.from_numpy(x).to(device)
+                       for x in build_split_tables(table, n, 16, m2 + 3))
+    g = torch.Generator().manual_seed(5)
+    dout = torch.randn(q_points.shape[0], 64, generator=g).to(device)
+    dpool = torch.randn(q_points.shape[0], 128, generator=g).to(device)
+
+    def grads(dev):
+        to = lambda t: t.to(dev)  # noqa: E731
+        sf, w_, b = (to(t).clone().requires_grad_() for t in (feats, w, bias))
+        pf = to(pool).clone().requires_grad_() if with_pool else None
+        common = (to(q_points), to(s_points))
+        kw = dict(q_mask=to(q_mask))
+        if split:
+            head = to(nbrs[:, :16].contiguous())
+            split_tables = tuple(to(t) for t in tables)
+            out = (kpconv_split_pool_scatter_diff(sf, pf, *common, head, split_tables, to(kp), w_,
+                                                  0.05, b, pool_cols=38, **kw) if with_pool
+                   else kpconv_split_scatter_diff(sf, *common, head, split_tables, to(kp), w_,
+                                                  0.05, b, **kw))
+        else:
+            out = (kpconv_pool_fused_diff(sf, pf, *common, to(nbrs), to(kp), w_, 0.05, b,
+                                          pool_cols=38, **kw) if with_pool
+                   else kpconv_fused_diff(sf, *common, to(nbrs), to(kp), w_, 0.05, b, **kw))
+        if with_pool:
+            loss = (out[0] * to(dout)).sum() + (out[1] * to(dpool)).sum()
+            return torch.autograd.grad(loss, (sf, pf, w_, b))
+        return torch.autograd.grad((out * to(dout)).sum(), (sf, w_, b))
+
+    got, again, want = grads(device), grads(device), grads("cpu")
+    for g_, a_, w_ in zip(got, again, want):
+        assert torch.equal(g_, a_)
+        assert_kpconv_close(g_.cpu(), w_)
 
 
 @pytest.mark.parametrize("c", [32, 256])

@@ -175,8 +175,8 @@ def raw_trainer(tmp_path, cfg, plan, dataset, val=None):
     loader = PairLoader(dataset, pipeline(cfg), device_plan=plan)
     val_loader = None if val is None else PairLoader(val, pipeline(cfg), device_plan=plan)
     trainer = Trainer(cfg, create_model(cfg, device="cpu"), loader, val_loader,
-                      output_dir=str(tmp_path / "out"), log_steps=1, device="cpu",
-                      device_plan=plan)
+                      output_dir=str(tmp_path / "out"), log_steps=1, tensorboard=False,
+                      device="cpu", device_plan=plan)
     trainer.initialize()
     return trainer
 

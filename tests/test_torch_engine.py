@@ -146,7 +146,7 @@ def test_epoch_run_with_validation(setup, tmp_path):
     train = PairLoader(dataset, pipeline, shuffle=True, seed=3)
     val = PairLoader(dataset, pipeline)
     trainer = Trainer(cfg, model, train, val_loader=val, output_dir=str(tmp_path), log_steps=2,
-                      device="cpu")
+                      tensorboard=False, device="cpu")
     metrics = trainer.run()
     assert trainer.epoch == 1 and trainer.step == len(dataset)
     assert math.isfinite(metrics["loss"]) and metrics["grad_finite"] == 1.0
@@ -157,11 +157,10 @@ def test_epoch_run_with_validation(setup, tmp_path):
 
 
 def test_loader_rejects_what_is_not_ported(setup):
-    """Host sharding is not ported; the raw mode has no host pyramid to
-    precompute GT targets on."""
+    """The raw mode has no host pyramid to precompute GT targets on (host
+    sharding, refused here before, is held against the JAX loader by
+    tests/test_torch_parallel.py)."""
     cfg, dataset, pipeline = setup
-    with pytest.raises(NotImplementedError):
-        PairLoader(dataset, pipeline, num_shards=2, shard_index=1)
     with pytest.raises(ValueError, match="precompute_targets"):
         PairLoader(dataset, dict(pipeline, precompute_targets=True, model_cfg=cfg),
                    device_plan=DevicePreprocessPlan(cfg))
@@ -170,7 +169,8 @@ def test_loader_rejects_what_is_not_ported(setup):
 def make_trainer(cfg, dataset, pipeline, output_dir, seed):
     model = create_model(cfg, seed=seed, device="cpu")
     loader = PairLoader(dataset, pipeline, batch_size=1, shuffle=True, seed=1)
-    return Trainer(cfg, model, loader, output_dir=str(output_dir), log_steps=2, device="cpu")
+    return Trainer(cfg, model, loader, output_dir=str(output_dir), log_steps=2, tensorboard=False,
+                   device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -288,3 +288,23 @@ def test_timer_on_the_host():
         timer.toc_process()
     assert len(timer.process_times()) == 2
     assert 0.01 <= timer.get_prepare_time() < timer.get_process_time()
+
+
+def test_timer_dict_matches_jax(monkeypatch):
+    """The port's keyed timers against the JAX package's on one scripted
+    clock."""
+    from geotransformer_tpu.engine import timer as jax_timer
+
+    from geotransformer_tpu_torch.engine import TimerDict
+    from geotransformer_tpu_torch.engine import timer as port_timer
+
+    results = []
+    for module, cls in ((jax_timer, jax_timer.TimerDict), (port_timer, TimerDict)):
+        clock = iter([0.0, 0.5, 1.0, 1.25, 2.0, 2.75, 3.0, 4.5])
+        monkeypatch.setattr(module.time, "time", lambda: next(clock))
+        timers = cls()
+        for key in ("a", "b", "a", "b"):
+            timers.tic(key)
+            timers.toc(key)
+        results.append((timers.summary(), timers.get_time("missing")))
+    assert results[0] == results[1] == ({"a": 0.625, "b": 0.875}, 0.0)

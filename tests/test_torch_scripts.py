@@ -241,7 +241,7 @@ def test_device_cuda_without_a_card_raises(monkeypatch, name):
 
 
 @pytest.mark.parametrize("extra, error, match", [
-    (["--batch_size", "2"], NotImplementedError, "one pair a step"),
+    (["--batch_size", "2"], ValueError, "one pair a step"),
     # taken now: the run goes on to read the (absent) data
     (["--device_preprocess"], FileNotFoundError, "none/metadata/train.pkl"),
 ], ids=["batch-size", "device-preprocess"])

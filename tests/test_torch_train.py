@@ -12,7 +12,13 @@ carried into the port. On the CPU:
   * one Adam update with the schedule against optax's ``make_optimizer``
     (1e-6);
   * the finite-gradient guard: a NaN gradient leaves the parameters, the
-    Adam moments and the schedule's count as they were.
+    Adam moments and the schedule's count as they were;
+  * gradient accumulation (``optim.grad_acc_steps``): ``MultiSteps``
+    against ``optax.MultiSteps`` (1e-6), and the tiny model's accumulated
+    mean gradient against the JAX ``MultiStepsState.acc_grads`` (the
+    gradient tolerance above);
+  * a batch without inverse tables (the scatter backward) against
+    ``jax.grad`` (the gradient tolerance above).
 """
 
 import dataclasses
@@ -32,11 +38,14 @@ from geotransformer_tpu.parallel.train import make_optimizer as jax_make_optimiz
 from geotransformer_tpu_torch.losses import overall_loss
 from geotransformer_tpu_torch.models import create_model, precompute_gt_targets
 from geotransformer_tpu_torch.parallel import (
+    MultiSteps,
+    apply_gradients,
     make_eval_step,
     make_lr_schedule,
     make_optimizer,
     make_train_step,
 )
+from geotransformer_tpu_torch.parallel.train import grads_finite
 from geotransformer_tpu_torch.preprocess import (
     batch_to_torch,
     build_pyramid,
@@ -82,8 +91,9 @@ def step_pair():
         loss, aux = jax_overall_loss(cfg, output, b["transform"])
         return loss, (aux, jnp.sum(output["ref_node_corr_knn_masks"].any(axis=1)))
 
-    grads_j, (aux_j, patches_j) = jax.jit(jax.grad(loss_fn, has_aux=True))(
-        variables["params"], variables["constants"], batch_j, jax.random.PRNGKey(5))
+    grad_fn = jax.jit(jax.grad(loss_fn, has_aux=True))
+    grads_j, (aux_j, patches_j) = grad_fn(variables["params"], variables["constants"], batch_j,
+                                          jax.random.PRNGKey(5))
 
     port = create_model(cfg, device="cpu")
     port.load_state_dict(variables_to_state_dict(jax.tree.map(np.asarray, variables)))
@@ -97,7 +107,8 @@ def step_pair():
                     > cfg.coarse_matching.overlap_threshold).sum())
     return dict(cfg=cfg, batch=batch, port=port, aux_t=aux, aux_j=aux_j, output=output,
                 grads_j=gradients_to_state_dict(jax.tree.map(np.asarray, grads_j)),
-                eligible=eligible, patches_j=int(patches_j), variables=variables)
+                eligible=eligible, patches_j=int(patches_j), variables=variables,
+                grad_fn=grad_fn)
 
 
 def test_every_eligible_target_is_trained_on_both_sides(step_pair):
@@ -113,19 +124,18 @@ def test_loss_matches_jax(step_pair):
                                    rtol=1e-4, err_msg=key)
 
 
-def test_parameter_gradients_match_jax_grad(step_pair):
-    grads_j = step_pair["grads_j"]
-    named = dict(step_pair["port"].named_parameters())
-    assert sorted(named) == sorted(grads_j)
-    # Some gradients vanish in exact arithmetic: biases that shift every
-    # score of a softmax row alike (attention proj_k / proj_p, the GSE
-    # projections) or feed a one-channel GroupNorm group. Both sides leave
-    # f32 rounding noise there, which is held to the noise floor instead.
+def assert_gradients_match(got_by_name, grads_j):
+    """Every gradient within 1e-3 of the JAX one (relative norm), by name.
+    Some gradients vanish in exact arithmetic: biases that shift every
+    score of a softmax row alike (attention proj_k / proj_p, the GSE
+    projections) or feed a one-channel GroupNorm group. Both sides leave f32
+    rounding noise there, which is held to the noise floor instead."""
+    assert sorted(got_by_name) == sorted(grads_j)
     floor = 1e-6 * max(np.linalg.norm(g.numpy()) for g in grads_j.values())
     vanishing = []
-    for name, param in named.items():
+    for name, got in got_by_name.items():
         want = grads_j[name].numpy()
-        got = param.grad.numpy()
+        got = got.numpy()
         assert got.shape == want.shape, name
         norm = np.linalg.norm(want)
         if norm <= floor:
@@ -136,6 +146,11 @@ def test_parameter_gradients_match_jax_grad(step_pair):
             f"{name}: |diff| {np.linalg.norm(got - want):.3e} vs |g| {norm:.3e}")
     assert all(n.endswith(".bias") for n in vanishing), vanishing
     assert len(vanishing) <= 12, vanishing
+
+
+def test_parameter_gradients_match_jax_grad(step_pair):
+    assert_gradients_match({name: p.grad for name, p in step_pair["port"].named_parameters()},
+                           step_pair["grads_j"])
 
 
 @pytest.mark.parametrize("schedule", ["step", "warmup_cosine"])
@@ -167,6 +182,113 @@ def test_adam_updates_match_optax(schedule):
                                        atol=1e-6, err_msg=f"{k} after step {step}")
     lr_schedule = make_lr_schedule(cfg, steps_per_epoch=2)
     assert optimizer.param_groups[0]["lr"] == pytest.approx(lr_schedule(5))
+
+
+@pytest.mark.parametrize("k", [2, 3])
+@pytest.mark.parametrize("schedule", ["step", "warmup_cosine"])
+def test_accumulated_updates_match_optax_multisteps(schedule, k):
+    """``grad_acc_steps`` k: 7 mini-steps through ``MultiSteps``, against
+    optax's ``make_optimizer`` (``optax.MultiSteps``); the fourth is not
+    finite, and the guard leaves it out on both sides (the JAX step keeps
+    the old state). Parameters, accumulator and its count after every
+    mini-step (1e-6), the schedule counting updates."""
+    optim = OptimConfig(lr=1e-2, lr_decay=0.5, weight_decay=1e-2, grad_acc_steps=k)
+    if schedule == "warmup_cosine":
+        optim = dataclasses.replace(optim, warmup_steps=2, max_iteration=6, eta_init=0.1,
+                                    eta_min=0.1)
+    cfg = dataclasses.replace(train_config(), optim=optim)
+    rng = np.random.default_rng(1)
+    params = {"a": rng.normal(size=(3, 4)).astype(np.float32),
+              "b": rng.normal(size=(5,)).astype(np.float32)}
+    tx = jax_make_optimizer(cfg, steps_per_epoch=2)
+    state = tx.init(params)
+    p_j = params
+    module = torch.nn.ParameterDict({name: torch.nn.Parameter(torch.from_numpy(v.copy()))
+                                     for name, v in params.items()})
+    optimizer, scheduler = make_optimizer(module, cfg, steps_per_epoch=2)
+    assert isinstance(optimizer, MultiSteps)
+    updates = 0
+    for step in range(7):
+        grads = {name: rng.normal(size=v.shape).astype(np.float32)
+                 for name, v in params.items()}
+        if step == 3:
+            grads["b"][1] = np.nan
+        else:
+            u, state = tx.update(grads, state, p_j)
+            p_j = optax.apply_updates(p_j, u)
+        for name, p in module.items():
+            p.grad = torch.from_numpy(grads[name].copy())
+        if grads_finite(list(module.parameters())):
+            updates += apply_gradients(optimizer, scheduler)
+        assert optimizer.mini_step == int(state.mini_step), step
+        for (name, p), acc in zip(module.items(), optimizer.acc_grads):
+            np.testing.assert_allclose(p.detach().numpy(), np.asarray(p_j[name]), rtol=1e-6,
+                                       atol=1e-6, err_msg=f"{name} after mini-step {step}")
+            np.testing.assert_allclose(acc.numpy(), np.asarray(state.acc_grads[name]),
+                                       rtol=1e-6, atol=1e-6,
+                                       err_msg=f"acc {name} after mini-step {step}")
+    assert updates == 6 // k == int(state.gradient_step) == scheduler.last_epoch
+    lr_schedule = make_lr_schedule(cfg, steps_per_epoch=2)
+    assert optimizer.param_groups[0]["lr"] == pytest.approx(lr_schedule(updates))
+
+
+def without_inverse(batch):
+    return {k: v for k, v in batch.items() if k not in ("neighbors_inv", "subsampling_inv")}
+
+
+def test_training_without_inverse_tables_matches_jax_grad(step_pair):
+    """A batch without inverse tables trains every conv through the scatter
+    backward (``kernels/kpconv.py``, the JAX XLA rules): the same gradients
+    as ``jax.grad``, to the tolerance of the inverse-table step."""
+    cfg = step_pair["cfg"]
+    port = create_model(cfg, device="cpu")
+    port.load_state_dict(variables_to_state_dict(
+        jax.tree.map(np.asarray, step_pair["variables"])))
+    batch = batch_to_torch(without_inverse(step_pair["batch"]), "cpu")
+    batch.update(precompute_gt_targets(cfg, batch, device="cpu"))
+    output = port(batch, training=True, with_gt=True, generator=torch.Generator().manual_seed(5))
+    overall_loss(cfg, output, batch["transform"])[0].backward()
+    assert_gradients_match({name: p.grad for name, p in port.named_parameters()},
+                           step_pair["grads_j"])
+
+
+def test_accumulated_gradient_matches_jax_multisteps_state(step_pair):
+    """Two mini-steps of an accumulation of 3 (the fixture's pair, then the
+    same pair with its input features halved) through the port's train
+    step: the accumulated mean against the JAX ``MultiStepsState.acc_grads``
+    after the same mini-steps, to the tolerance of one step's gradients; no
+    update yet, so the parameters and the schedule are as they were."""
+    cfg = step_pair["cfg"]
+    cfg = dataclasses.replace(cfg, optim=dataclasses.replace(cfg.optim, grad_acc_steps=3))
+    first = step_pair["batch"]
+    stream = first["input_stream"].copy()
+    stream[4] *= 0.5
+    second = dict(first, features=first["features"] * 0.5, input_stream=stream)
+    variables = step_pair["variables"]
+    tx = jax_make_optimizer(cfg, steps_per_epoch=1)
+    state = tx.init(variables["params"])
+    update = jax.jit(tx.update)
+    for batch in (first, second):
+        grads, _ = step_pair["grad_fn"](variables["params"], variables["constants"],
+                                        jax.tree.map(jnp.asarray, batch), jax.random.PRNGKey(5))
+        _, state = update(grads, state, variables["params"])
+    assert int(state.mini_step) == 2
+    want = gradients_to_state_dict(jax.tree.map(np.asarray, state.acc_grads))
+
+    port = create_model(cfg, device="cpu")
+    port.load_state_dict(variables_to_state_dict(jax.tree.map(np.asarray, variables)))
+    before = {k: v.clone() for k, v in port.state_dict().items()}
+    optimizer, scheduler = make_optimizer(port, cfg, steps_per_epoch=1)
+    step = make_train_step(port, cfg, optimizer, scheduler, device="cpu")
+    for batch in (first, second):
+        batch = dict(batch_to_torch(batch, "cpu"))
+        batch.update(precompute_gt_targets(cfg, batch, device="cpu"))
+        assert step(batch, torch.Generator().manual_seed(5))["grad_finite"].item() == 1.0
+    assert optimizer.mini_step == 2 and scheduler.last_epoch == 0
+    for k, v in port.state_dict().items():
+        assert torch.equal(v, before[k]), k
+    names = [name for name, _ in port.named_parameters()]
+    assert_gradients_match(dict(zip(names, optimizer.acc_grads)), want)
 
 
 def test_guard_skips_a_non_finite_step():
