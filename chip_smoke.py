@@ -222,6 +222,33 @@ fused_masked_attention twice a block).
                debug_nans raising on a NaN injected into a backward; the
                TensorBoard writer on or off; the medians and the phase's
                seconds beside the card's name and power limit.
+ 19. native library and model extras (runs after phase 17, on the earlier
+               phases' pairs, model and files) — (a) every host pyramid of
+               phases 2-18 came from the native library (its calls
+               counted); on the 3DMatch and KITTI cells' three pairs each
+               the native pyramid equals the phases' and the numpy route's
+               in lengths and points bit for bit and in each table but for
+               rows that differ by distance ties within float32 rounding
+               (counted and printed), both routes' build_pyramid seconds a
+               pair on the card's host; (b) the vanilla, PE and LRPE
+               conditional transformers at the 3DMatch config's width on
+               the default forward's superpoints and masks (seeded weights,
+               PE embeddings, LRPE distance bins), each kernel-route
+               forward counted (fused_masked_attention twice a block,
+               path "variants") and within 1e-4 of its einsum route, row
+               13's calls against its plain version; (c) full-width 3DMatch
+               forwards with reduction_a="mean" (no GSE launch) and with
+               the Sinkhorn dustbin in LGR, counted and checked as phase 3,
+               against their force_pallas=False models; the quaternion
+               Kabsch against SVD on the default forward's LGR covariances
+               (proper, card against CPU within 1e-4; the rotation
+               difference and the objective short of SVD's printed beside
+               Horn's eigengap; both timed) and LGR with each; (d) point_matching on the default forward's
+               Sinkhorn output, with and without the dustbin, the card's
+               correspondences equal to the CPU's; (e) scripts.calibrate on
+               phase 12's ModelNet pickle by both routes (the same caps)
+               and scripts.eval_dgr on phase 16's Tester dumps with lgr,
+               ransac and svd (on the card).
 Then it prints the {"kernels": [...]} line (each kernel's numbers summed over
 the paths it was compared on, with each path's own under "by_path" and the
 calls of the KPConv, GSE, Sinkhorn and overlap rows, and phase 15's, one by
@@ -262,6 +289,7 @@ from geotransformer_tpu_torch.configs import (
     make_kitti_config,
     make_modelnet_config,
 )
+from geotransformer_tpu_torch import native
 from geotransformer_tpu_torch.datasets import ASYMMETRIC_INDICES, ModelNetPairDataset
 from geotransformer_tpu_torch.engine import Tester, Trainer
 from geotransformer_tpu_torch.kernels import attention as kernels_attention
@@ -277,8 +305,12 @@ from geotransformer_tpu_torch.models import create_model, precompute_gt_targets
 from geotransformer_tpu_torch.models import geotransformer as models_geotransformer
 from geotransformer_tpu_torch.models import kpconv as models_kpconv
 from geotransformer_tpu_torch.models import matching as models_matching
+from geotransformer_tpu_torch.models import procrustes as models_procrustes
 from geotransformer_tpu_torch.models import sinkhorn as models_sinkhorn
 from geotransformer_tpu_torch.models import transformer as models_transformer
+from geotransformer_tpu_torch.models import transformer_variants as models_variants
+from geotransformer_tpu_torch.models.lgr import local_to_global_registration
+from geotransformer_tpu_torch.models.point_matching import point_matching
 from geotransformer_tpu_torch.ops.gather import gather_with_shadow
 from geotransformer_tpu_torch.parallel import (
     MultiSteps,
@@ -312,6 +344,8 @@ from geotransformer_tpu_torch.preprocess.device import (
 )
 from geotransformer_tpu_torch.preprocess.loader import PairLoader, prepare_pair
 from geotransformer_tpu_torch.preprocess.voxel import grid_subsample_single
+from geotransformer_tpu_torch.scripts import calibrate as calibrate_script
+from geotransformer_tpu_torch.scripts import eval_dgr
 from geotransformer_tpu_torch.scripts import synthetic_benchmark as synthetic
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -330,6 +364,9 @@ UNION_CAP, UNION_TILE = 1536, 128
 SYNTHETIC_TRAIN_PAIRS, SYNTHETIC_TEST_PAIRS = 78, 20
 # phase 17: raw-mode training steps on the synthetic workflow's configuration
 DEVICE_TRAIN_STEPS = 16
+# phase 19: the LRPE bank's rows (relative distance bins of sigma_d) and the
+# seed of the variants' weights and PE embeddings
+VARIANT_EMBEDDINGS, VARIANT_SEED = 64, 19
 PEAK_F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores
 PEAK_TF32_FLOPS = 495e12  # H100 SXM, TF32 on the tensor cores, dense
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
@@ -556,11 +593,12 @@ def count_input_residuals():
         kernels_kpconv.kpconv_fused = wrapper
 
 
-def expected_launches(batch, mode, blocks):
+def expected_launches(batch, mode, blocks, gse=True):
     """Kernel launches of one forward (``mode`` "inference" or "eval") or one
     training step ("train") on ``batch``, from the tables it carries and the
     transformer's ``blocks`` (each layer attends for both clouds; the
-    attention backward is the plain version's)."""
+    attention backward is the plain version's); ``gse=False``: the mean
+    angle reduction, which has no GSE kernel."""
     n = len(batch["points"])
     nb_split = batch.get("neighbors_split", [None] * n)
     sub_split = batch.get("subsampling_split", [None] * n)
@@ -588,7 +626,7 @@ def expected_launches(batch, mode, blocks):
         conv(split)
     if mode == "train" and "neighbors_inv" in batch:
         counts["kpconv_bwd_fused"] += len(splits)
-    counts["gse_embedding_full"] += 2
+    counts["gse_embedding_full"] += 2 if gse else 0
     counts["rpe_pair_scores"] += 2 * sum(block == "self" for block in blocks)
     counts["fused_masked_attention"] += 2 * len(blocks)
     if mode == "train":
@@ -600,10 +638,10 @@ def expected_launches(batch, mode, blocks):
     return counts
 
 
-def expect_launches(got, batches, mode, what, blocks):
+def expect_launches(got, batches, mode, what, blocks, gse=True):
     want = collections.Counter()
     for batch in batches:
-        want.update(expected_launches(batch, mode, blocks))
+        want.update(expected_launches(batch, mode, blocks, gse))
     for name in KERNELS:
         expect(got.get(name, 0) == want.get(name, 0),
                f"{what}: {name} launched {got.get(name, 0)} times, expected {want.get(name, 0)}")
@@ -1508,7 +1546,8 @@ def compare_coarse_features(got, want, what):
 
 
 def register_pairs(model, cfg, caps, batches, batches_np, seeds, what):
-    """One counted, timed forward per pair; the outputs checked."""
+    """One counted, timed forward per pair; the outputs checked (no GSE
+    launch for the mean angle reduction)."""
     forward_ms(model, batches[0])  # warm-up (cuBLAS, caching allocator)
     times, outs, counts = [], [], collections.Counter()
     for batch in batches:
@@ -1516,7 +1555,8 @@ def register_pairs(model, cfg, caps, batches, batches_np, seeds, what):
         times.append(ms)
         outs.append(out)
         counts.update(c)
-    expect_launches(counts, batches, "inference", f"{what} forward", cfg.geotransformer.blocks)
+    expect_launches(counts, batches, "inference", f"{what} forward", cfg.geotransformer.blocks,
+                    gse=cfg.geotransformer.reduction_a == "max")
     for out, batch_np, seed in zip(outs, batches_np, seeds):
         ortho = check_output(out, cfg, caps)
         rre, rte = registration_error(out["estimated_transform"], batch_np["transform"])
@@ -2178,6 +2218,7 @@ def modelnet_dataset_and_caps(cfg, tmp):
     capacities calibrated over the pairs."""
     root = os.path.join(tmp, "ModelNet")
     write_modelnet_pickle(root)
+    SHARED["modelnet_root"] = root
     dataset = ModelNetPairDataset(root, "train", num_points=717, rotation_magnitude=45.0,
                                   translation_magnitude=0.5, noise_magnitude=0.05,
                                   keep_ratio=0.7, twice_sample=True, deterministic=True)
@@ -2517,7 +2558,8 @@ def synthetic_phases(device, launches, report, tmp):
     # 5. scripts.test on the fragments in the 3DMatch layout, then scripts.eval
     data_root = os.path.join(out, "3DMatch")
     write_threedmatch_layout(data_root, test_set)
-    SHARED["synthetic"].update(data_root=data_root, benchmark_root=benchmark_root)
+    SHARED["synthetic"].update(data_root=data_root, benchmark_root=benchmark_root,
+                               feature_dir=feature_dir)
     cli_out = os.path.join(out, "cli")
     cmd = [sys.executable, "-m", "geotransformer_tpu_torch.scripts.test", "--dataset", "3dmatch",
            "--data_root", data_root, "--benchmark", "3DMatch",
@@ -3001,6 +3043,368 @@ class BatchLoader:
     def __iter__(self):
         return ([batch] for batch in self.batches)
 
+# --- phase 19: the native host library and the model extras --------------
+
+@contextlib.contextmanager
+def pyramid_route(flag):
+    """The host pyramid's route inside the block: "1" the native library,
+    "0" numpy (``GEOTRANSFORMER_TPU_NATIVE``)."""
+    saved = os.environ.get("GEOTRANSFORMER_TPU_NATIVE")
+    os.environ["GEOTRANSFORMER_TPU_NATIVE"] = flag
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("GEOTRANSFORMER_TPU_NATIVE")
+        else:
+            os.environ["GEOTRANSFORMER_TPU_NATIVE"] = saved
+
+
+def nvidia_smi():
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+
+
+def native_route_phase(report):
+    """19a: the native library took the earlier phases' host pyramids; on the
+    3DMatch and KITTI cells' pairs its pyramids against the numpy route's
+    (lengths and points bit for bit, each table row for row but distance
+    ties within float32 rounding: the library sorts float32 squared
+    distances, cKDTree float64 ones) and both routes' seconds a pair."""
+    so_far = dict(native.calls)
+    expect(so_far.get("grid_subsample", 0) > 0 and so_far.get("radius_search", 0) > 0,
+           f"the earlier phases' host pyramids did not go through the native library: {so_far}")
+    summary = {"calls_before": so_far, "library": native.lib_path()}
+    for path, cfg in (("3dmatch", make_3dmatch_config()), ("kitti", make_kitti_config())):
+        bb = cfg.backbone
+        per_build = {"grid_subsample": bb.num_stages - 1, "radius_search": 3 * bb.num_stages - 2}
+        seconds, ties = {"native": [], "numpy": []}, []
+        for pyramid, _, _ in SHARED[path]:
+            args = (pyramid["points"][0], pyramid["lengths"][0], bb.num_stages,
+                    bb.init_voxel_size, bb.init_radius, list(cfg.caps.neighbor_limits))
+            built = {}
+            for route, flag in (("native", "1"), ("numpy", "0")):
+                native.calls.clear()
+                with pyramid_route(flag):
+                    start = time.perf_counter()
+                    built[route] = build_pyramid(*args)
+                    seconds[route].append(time.perf_counter() - start)
+                want = per_build if route == "native" else {}
+                expect(dict(native.calls) == want,
+                       f"{path} {route} route: native calls {dict(native.calls)}, expected {want}")
+            got, want = built["native"], built["numpy"]
+            for key in ("points", "lengths", "neighbors", "subsampling", "upsampling"):
+                for a, b in zip(pyramid[key], got[key]):  # the earlier phases' route
+                    expect(np.array_equal(a, b), f"{path}: the phases' {key} are not the native ones")
+            for key in ("points", "lengths"):
+                for i, (a, b) in enumerate(zip(got[key], want[key])):
+                    expect(a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes(),
+                           f"{path}: {key}[{i}] differ between the native and numpy routes")
+            points = got["points"]
+            scale = max(float(np.abs(p).max()) for p in points)
+            pair_ties = {}
+            radius = bb.init_radius
+            for key, q_of, s_of, r_of in (
+                    ("neighbors", lambda i: i, lambda i: i, lambda i: radius * 2 ** i),
+                    ("subsampling", lambda i: i + 1, lambda i: i, lambda i: radius * 2 ** i),
+                    ("upsampling", lambda i: i, lambda i: i + 1, lambda i: radius * 2 ** (i + 1))):
+                for i, (a, b) in enumerate(zip(got[key], want[key])):
+                    expect(a.shape == b.shape, f"{path}: {key}[{i}] {a.shape} vs {b.shape}")
+                    atol = 8 * np.finfo(np.float32).eps * (scale + r_of(i))
+                    rows = table_ties(a, b, points[q_of(i)], points[s_of(i)],
+                                      points[s_of(i)].shape[0], r_of(i), atol)
+                    pair_ties[f"{key}[{i}]"] = [int(len(rows)), int(a.shape[0])]
+            ties.append(pair_ties)
+        share = max(t / n for pair in ties for t, n in pair.values())
+        print(f"19a {path}: build_pyramid {statistics.mean(seconds['native']):.3f} s a pair native "
+              f"({[round(x, 3) for x in seconds['native']]}) vs "
+              f"{statistics.mean(seconds['numpy']):.3f} s numpy "
+              f"({[round(x, 3) for x in seconds['numpy']]}), host of {nvidia_smi()}; points "
+              f"bit-equal; tie rows (rows) by table {ties}; largest tie share {share:.2e}",
+              flush=True)
+        summary[path] = dict(native_s=seconds["native"], numpy_s=seconds["numpy"], ties=ties,
+                             largest_tie_share=share)
+    report["native"] = summary
+
+
+def relative_difference(got, want):
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def variants_phase(device, cfg, out, launches, report):
+    """19b: the vanilla, PE and LRPE conditional transformers at the
+    3DMatch config's width on the default forward's superpoint features and
+    masks (PE: seeded embeddings; LRPE: relative distance bins of sigma_d),
+    seeded weights; the kernel route counted (fused_masked_attention twice a
+    block, nothing else) and against the einsum route (1e-4 of the largest
+    magnitude on every row); row 13's calls against its plain version (path
+    "variants")."""
+    gt = cfg.geotransformer
+    generator = torch.Generator().manual_seed(VARIANT_SEED)
+    feats = [out[f"{side}_feats_c"][None] for side in ("ref", "src")]
+    masks = [out[f"{side}_masks_c"][None] for side in ("ref", "src")]
+    embeddings = [torch.randn((1, f.shape[1], gt.hidden_dim), generator=generator).to(device)
+                  for f in feats]
+    bins = [torch.clamp((torch.cdist(out[f"{side}_points_c"], out[f"{side}_points_c"])
+                         / gt.sigma_d).long(), max=VARIANT_EMBEDDINGS - 1)[None]
+            for side in ("ref", "src")]
+    specs = {
+        "vanilla": (models_variants.VanillaConditionalTransformer, {}, (*feats, *masks)),
+        "pe": (models_variants.PEConditionalTransformer, {}, (*feats, *embeddings, *masks)),
+        "lrpe": (models_variants.LRPEConditionalTransformer,
+                 {"num_embeddings": VARIANT_EMBEDDINGS}, (*feats, *bins, *masks)),
+    }
+    counts, summary, records = collections.Counter(), {}, collections.defaultdict(list)
+    for name, (cls, extra, inputs) in specs.items():
+        model = cls(gt.blocks, gt.hidden_dim, gt.num_heads, **extra)
+        models_geotransformer.init_parameters(model, generator)
+        for module in model.modules():
+            if isinstance(module, models_variants.LearnablePositionalEmbedding):
+                with torch.no_grad():
+                    module.embeddings.normal_(generator=generator)
+        plain = cls(gt.blocks, gt.hidden_dim, gt.num_heads, force=False, **extra)
+        plain.load_state_dict(model.state_dict())
+        model, plain = model.to(device).eval(), plain.to(device).eval()
+        with torch.no_grad():
+            with capture_kernel_calls(["fused_masked_attention"]) as calls:
+                got, c = counted(lambda: model(*inputs))
+            records["fused_masked_attention"] += calls["fused_masked_attention"]
+            want = plain(*inputs)
+            want_launches = {"fused_masked_attention": 2 * len(gt.blocks)}
+            expect(c == want_launches, f"variants {name}: launches {c}, expected {want_launches}")
+            counts.update(c)
+            rel = max(relative_difference(g, w) for g, w in zip(got, want))
+            expect(rel <= 1e-4, f"variants {name}: kernel vs einsum route {rel:.2e} > 1e-4")
+            kernel_ms = time_ms(lambda: model(*inputs), 5)
+            plain_ms = time_ms(lambda: plain(*inputs), 5)
+        summary[name] = dict(rel=rel, kernel_ms=kernel_ms, plain_ms=plain_ms)
+        print(f"19b {name}: kernel vs einsum route max rel diff {rel:.2e}; forward "
+              f"{kernel_ms:.3f} ms (row 13) vs {plain_ms:.3f} ms (einsum), CUDA events",
+              flush=True)
+    launches["variants"] = dict(counts)
+    report["variants"] = summary
+    return compare_kernels(records, ["fused_masked_attention"], reps=5)
+
+
+def rotation_check(rot):
+    """|R R^T - I| and |det R - 1| of (B, 3, 3) rotations, in float64."""
+    rot = rot.double()
+    eye = torch.eye(3, dtype=torch.float64, device=rot.device)
+    return ((rot @ rot.transpose(1, 2) - eye).abs().max().item(),
+            (torch.linalg.det(rot) - 1.0).abs().max().item())
+
+
+def kabsch_phase(cfg, model, batch, report):
+    """19c (Kabsch): the covariances of one default forward's LGR hypotheses,
+    solved by the quaternion Kabsch and by SVD, both timed; the quaternion
+    rotations proper and on the card within 1e-4 of the same solver's on
+    the CPU. Measured, not held: the rotations' difference from SVD's and
+    the Kabsch objective tr(R H) the quaternion leaves short of SVD's,
+    relative to the sum of H's singular values s, beside the gap between
+    the top two eigenvalues of Horn's matrix, 2 (s2 + sign(det H) s3), on
+    the same scale. JAX's algorithm (30 power iterations on the shifted,
+    squared matrix) converges at the squared ratio of the shifted top
+    eigenvalues an iteration, so it stops short where that gap is small.
+    LGR with each solver on the forward's scores. Returns the forward's
+    outputs."""
+    captured = []
+    solve_svd = models_procrustes.ROTATION_SOLVERS["svd"]
+    models_procrustes.ROTATION_SOLVERS["svd"] = lambda h: (captured.append(h.clone()),
+                                                           solve_svd(h))[1]
+    try:
+        out = model(batch)
+    finally:
+        models_procrustes.ROTATION_SOLVERS["svd"] = solve_svd
+    h = captured[0]  # (P, 3, 3): one hypothesis a patch
+    expect(h.shape == (cfg.coarse_matching.num_correspondences, 3, 3),
+           f"LGR hypotheses' covariances {tuple(h.shape)}")
+    quat = models_procrustes.rotation_from_covariance_quat
+    r_quat, r_svd = quat(h), solve_svd(h)
+    ortho, det = rotation_check(r_quat)
+    expect(ortho < 1e-4 and det < 1e-4, f"quaternion Kabsch: |R R^T - I| {ortho}, |det - 1| {det}")
+    card_vs_cpu = (r_quat.cpu() - quat(h.cpu())).abs().max().item()
+    expect(card_vs_cpu <= 1e-4, f"quaternion Kabsch: card vs CPU {card_vs_cpu:.2e} > 1e-4")
+    sv = torch.linalg.svdvals(h.double())
+    ranked = sv[:, 1] > 1e-6 * sv[:, 0].clamp(min=1e-300)
+    diff = (r_quat - r_svd).abs().amax(dim=(1, 2))[ranked]
+    scale = sv.sum(dim=1).clamp(min=1e-300)
+    gap = 2 * (sv[:, 1] + torch.sign(torch.linalg.det(h.double())) * sv[:, 2]) / scale
+    conditioned = ranked & (gap >= 0.2)
+    diff_conditioned = (r_quat - r_svd).abs().amax(dim=(1, 2))[conditioned]
+
+    def objective(rot):
+        return torch.einsum("bij,bji->b", rot.double(), h.double())
+
+    shortfall = (objective(r_svd) - objective(r_quat)) / scale
+
+    def worst(values):
+        return values.max().item() if values.numel() else 0.0
+
+    worst_shortfall, worst_conditioned = worst(shortfall[ranked]), worst(shortfall[conditioned])
+    gap_of_worst = gap[ranked][shortfall[ranked].argmax()].item() if ranked.any() else 0.0
+    quat_ms, svd_ms = time_ms(lambda: quat(h), 20), time_ms(lambda: solve_svd(h), 20)
+    quat_device_ms = graph_ms(lambda: quat(h))
+    fm = cfg.fine_matching
+    lgr_args = (out["ref_node_corr_knn_points"], out["src_node_corr_knn_points"],
+                out["ref_node_corr_knn_masks"], out["src_node_corr_knn_masks"],
+                out["matching_scores"][:, :-1, :-1])
+    lgr_kw = dict(k=fm.topk, acceptance_radius=fm.acceptance_radius,
+                  confidence_threshold=fm.confidence_threshold, mutual=fm.mutual,
+                  correspondence_threshold=fm.correspondence_threshold,
+                  correspondence_limit=cfg.caps.correspondence_capacity,
+                  num_refinement_steps=fm.num_refinement_steps, patch_masks=out["node_corr_masks"])
+    expect(not fm.use_global_score, "the 3DMatch config uses no global score")
+    lgr, lgr_ms = {}, {}
+    with torch.no_grad():
+        for method in ("svd", "quat"):
+            run = functools.partial(local_to_global_registration, *lgr_args,
+                                    procrustes_method=method, **lgr_kw)
+            lgr[method] = run()["estimated_transform"]
+            lgr_ms[method] = time_ms(run, 5)
+    expect(torch.equal(lgr["svd"], out["estimated_transform"]), "LGR repeat differs")
+    ortho, det = rotation_check(lgr["quat"][None, :3, :3])
+    expect(bool(torch.isfinite(lgr["quat"]).all()) and ortho < 1e-3 and det < 1e-3,
+           f"LGR with the quaternion Kabsch: |R R^T - I| {ortho}, |det - 1| {det}")
+    lgr_diff = (lgr["quat"] - lgr["svd"]).abs().max().item()
+    result = dict(hypotheses=int(h.shape[0]), ranked=int(ranked.sum()),
+                  max_rotation_diff=diff.max().item() if diff.numel() else 0.0,
+                  median_rotation_diff=diff.median().item() if diff.numel() else 0.0,
+                  objective_shortfall=worst_shortfall, conditioned=int(conditioned.sum()),
+                  objective_shortfall_conditioned=worst_conditioned, card_vs_cpu=card_vs_cpu,
+                  gap_of_worst=gap_of_worst,
+                  max_rotation_diff_conditioned=(diff_conditioned.max().item()
+                                                 if diff_conditioned.numel() else 0.0),
+                  quat_ms=quat_ms, quat_device_ms=quat_device_ms, svd_ms=svd_ms,
+                  lgr_ms=lgr_ms, lgr_transform_diff=lgr_diff)
+    print(f"19c Kabsch on the {h.shape[0]} LGR hypotheses of a 3DMatch forward "
+          f"({result['ranked']} of rank >= 2): quaternion vs SVD rotations max |diff| "
+          f"{result['max_rotation_diff']:.2e} (median {result['median_rotation_diff']:.2e}; "
+          f"{result['max_rotation_diff_conditioned']:.2e} on the {result['conditioned']} whose "
+          f"Horn eigengap is at least 0.2 sum(sv)), objective at most {worst_shortfall:.2e} of "
+          f"sum(sv) short of SVD's (eigengap {gap_of_worst:.2e} there; {worst_conditioned:.2e} "
+          f"on the gapped ones); card vs CPU {card_vs_cpu:.1e}; "
+          f"quaternion {quat_ms:.4f} ms (CUDA events) / {quat_device_ms:.4f} ms (graph), SVD "
+          f"{svd_ms:.4f} ms (CUDA events); LGR {lgr_ms['svd']:.3f} ms (svd) vs "
+          f"{lgr_ms['quat']:.3f} ms (quat), transforms max |diff| {lgr_diff:.2e}; "
+          f"{nvidia_smi()}", flush=True)
+    report["kabsch"] = result
+    return out
+
+
+def extras_forward_phase(cfg, weights, batches, launches, report):
+    """19c (forwards): full-width 3DMatch forwards with reduction_a="mean" (no
+    GSE launch: the JAX package has no kernel for it either) and with the
+    dustbin, counted, checked as phase 3 checks its forward, each against its
+    force_pallas=False model."""
+    truths = [{"transform": b["transform"].cpu().numpy()} for b in batches]
+    for what, variant in (
+            ("3dmatch_mean", dataclasses.replace(cfg, geotransformer=dataclasses.replace(
+                cfg.geotransformer, reduction_a="mean"))),
+            ("3dmatch_dustbin", dataclasses.replace(cfg, fine_matching=dataclasses.replace(
+                cfg.fine_matching, use_dustbin=True)))):
+        model = fresh_model(variant, weights)
+        outs, times, launches[f"{what}_inference"] = register_pairs(
+            model, variant, variant.caps.stage_caps, batches, truths, SEEDS, what)
+        plain = fresh_model(variant.with_model(force_pallas=False), weights)
+        compare_coarse_features(outs[-1], plain(batches[-1]),
+                                f"{what} whole model vs force_pallas=False")
+        report[f"{what}_forward_ms"] = times
+
+
+def point_matching_phase(cfg, out, batch, report):
+    """19d: point_matching on the default forward's Sinkhorn output, with and
+    without the dustbin, on the card against the CPU: the same
+    correspondences, scores within 1e-6 of their largest."""
+    fm = cfg.fine_matching
+    inputs = dict(
+        ref_knn_points=out["ref_node_corr_knn_points"],
+        src_knn_points=out["src_node_corr_knn_points"],
+        ref_knn_masks=out["ref_node_corr_knn_masks"],
+        src_knn_masks=out["src_node_corr_knn_masks"],
+        ref_knn_indices=batch["ref_node_knn_indices"][out["ref_node_corr_indices"]],
+        src_knn_indices=batch["src_node_knn_indices"][out["src_node_corr_indices"]],
+        patch_masks=out["node_corr_masks"])
+    kw = dict(k=fm.topk, mutual=fm.mutual, confidence_threshold=fm.confidence_threshold,
+              correspondence_limit=cfg.caps.correspondence_capacity)
+    summary = {}
+    for dustbin in (False, True):
+        scores = out["matching_scores"] if dustbin else out["matching_scores"][:, :-1, :-1]
+        run = functools.partial(point_matching, log_score_mat=scores, use_dustbin=dustbin,
+                                **inputs, **kw)
+        got = run()
+        want = point_matching(log_score_mat=scores.cpu(), use_dustbin=dustbin,
+                              **{k: v.cpu() for k, v in inputs.items()}, **kw)
+        entries = []
+        for result in (got, want):
+            m = result["corr_masks"].cpu()
+            entries.append(dict(zip(zip(result["ref_corr_indices"].cpu()[m].tolist(),
+                                        result["src_corr_indices"].cpu()[m].tolist()),
+                                    result["corr_scores"].cpu()[m].tolist())))
+        expect(entries[0] and sorted(entries[0]) == sorted(entries[1]),
+               f"point_matching (dustbin {dustbin}): card and CPU correspondences differ "
+               f"({len(entries[0])} vs {len(entries[1])})")
+        top = max(entries[1].values())
+        worst = max(abs(entries[0][k] - entries[1][k]) for k in entries[1])
+        expect(worst <= 1e-6 * top, f"point_matching scores differ by {worst}")
+        ms = time_ms(run, 10)
+        summary[f"dustbin={dustbin}"] = dict(correspondences=len(entries[0]), ms=ms,
+                                             max_score_diff=worst)
+        print(f"19d point_matching (dustbin {dustbin}): {len(entries[0])} correspondences, "
+              f"card = CPU (scores within {worst:.1e}); {ms:.3f} ms on the card (CUDA events)",
+              flush=True)
+    report["point_matching"] = summary
+
+
+def scripts_phase(report):
+    """19e: scripts.calibrate on phase 12's ModelNet pickle by both pyramid
+    routes (the same caps; the native library's calls counted), and
+    scripts.eval_dgr on phase 16's Tester dumps with its three methods
+    (svd on the card)."""
+    root = SHARED["modelnet_root"]
+    caps = {}
+    for route, flag in (("native", "1"), ("numpy", "0")):
+        native.calls.clear()
+        np.random.seed(0)  # the dataset's augmentation draws from np.random
+        with pyramid_route(flag):
+            start = time.perf_counter()
+            caps[route] = calibrate_script.main(["--dataset", "modelnet", "--data_root", root,
+                                                 "--num_samples", str(MODELNET_ENTRIES)])
+            seconds = time.perf_counter() - start
+        expect((native.calls["radius_search"] > 0) == (route == "native"),
+               f"scripts.calibrate, {route} route: native calls {dict(native.calls)}")
+        print(f"19e scripts.calibrate (modelnet, {route} route): {seconds:.2f} s", flush=True)
+    expect(caps["native"] == caps["numpy"],
+           f"scripts.calibrate: the routes' caps differ: {caps}")
+    expect(len(caps["native"]["neighbor_limits"]) == make_modelnet_config().backbone.num_stages,
+           "scripts.calibrate: neighbor limits a stage")
+    tables = {}
+    for method in ("lgr", "ransac", "svd"):
+        start = time.perf_counter()
+        table = eval_dgr.main(["--feature_dir", SHARED["synthetic"]["feature_dir"],
+                               "--method", method, "--device", DEVICE])
+        expect(all(np.isfinite(v) for k, v in table.items() if k not in ("RRE", "RTE")),
+               f"scripts.eval_dgr {method}: {table}")
+        tables[method] = dict(table, seconds=time.perf_counter() - start)
+    report["scripts"] = dict(calibrate=caps["native"], eval_dgr=tables)
+
+
+def extras_phases(device, launches, report):
+    """Phase 19: (a) the native host library against the numpy route; (b)
+    the transformer variants through row 13; (c) the mean-reduction and
+    dustbin forwards, the quaternion Kabsch against SVD; (d) point_matching
+    on the card; (e) scripts.calibrate and scripts.eval_dgr."""
+    start = time.perf_counter()
+    native_route_phase(report)
+    cfg, model, batches = SHARED["3dmatch_train"]
+    out = kabsch_phase(cfg, model, batches[0], report)
+    results = variants_phase(device, cfg, out, launches, report)
+    extras_forward_phase(cfg, model.state_dict(), batches, launches, report)
+    point_matching_phase(cfg, out, batches[0], report)
+    scripts_phase(report)
+    report["phase19_s"] = time.perf_counter() - start
+    print(f"phase 19: {report['phase19_s']:.1f} s; {nvidia_smi()}", flush=True)
+    return {"variants": results}
+
 
 def fresh_model(cfg, weights, device=None):
     model = create_model(cfg, device=device or DEVICE)
@@ -3354,9 +3758,8 @@ def engine_phase(launches, report):
     """Phase 18: the training engine on the phase-6 3DMatch pairs and
     weights (full width) and one KITTI pair."""
     start = time.perf_counter()
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
-    cfg, model, batches = SHARED.pop("3dmatch_train")
+    smi = nvidia_smi()
+    cfg, model, batches = SHARED["3dmatch_train"]  # phase 19 reads them too
     weights = copy.deepcopy(model.state_dict())
     acc_ms, plain_ms, mean_rel = accumulation_phase(cfg, weights, batches, launches, report)
     print(f"engine accumulation (grad_acc_steps 2): 4 mini-steps and a NaN-hooked one dropped, "
@@ -3396,8 +3799,7 @@ def across_cards(world):
     for batch in batches:
         batch.update(precompute_gt_targets(cfg, batch, device=DEVICE))
     weights = create_model(cfg, device=DEVICE).state_dict()
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
+    smi = nvidia_smi()
     order = tuple(i % len(batches) for i in range(world * ACROSS_CARDS_STEPS))
     with tempfile.TemporaryDirectory() as tmp:
         readings = ranks_against_one_process(cfg, weights, batches, world, "nccl", None, order,
@@ -3551,6 +3953,8 @@ def main():
         by_path.update(modelnet_phases(device, launches, report, tmp))
         by_path.update(synthetic_phases(device, launches, report, tmp))
         by_path.update(device_pyramid_phases(device, launches, report, tmp))
+        # 19. the native host library and the model extras
+        by_path.update(extras_phases(device, launches, report))
     for path, path_results in by_path.items():
         print_results(path, path_results)
     results = merge_paths(by_path)
@@ -3562,9 +3966,7 @@ def main():
                                                            "device_ms", "bound_ms")}
     report["kernels"] = results
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip()
+    smi = nvidia_smi()
     report["nvidia_smi"] = smi
     report["launches"] = launches
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)

@@ -153,8 +153,6 @@ class GeoTransformer(nn.Module):
         """
         if training and not with_gt:
             raise ValueError("training=True requires with_gt=True")
-        if self.cfg.fine_matching.use_dustbin:
-            raise NotImplementedError("fine_matching.use_dustbin is not ported")
         if training:
             return self._run(batch, training, with_gt, generator)
         with torch.no_grad():
@@ -257,16 +255,21 @@ class GeoTransformer(nn.Module):
             matching_scores, ref_corr_knn_masks, src_corr_knn_masks, training=training)
         out["matching_scores"] = matching_scores
 
-        # 7. local-to-global registration (no gradient)
+        # 7. local-to-global registration (no gradient); with the dustbin
+        # LGR takes the whole (P, K+1, K+1) scores and strips it after top-k
         fm = cfg.fine_matching
         corr_capacity = (fm.correspondence_limit if fm.correspondence_limit is not None
                          else cfg.caps.correspondence_capacity)
+        lgr_scores = matching_scores.detach()
+        if not fm.use_dustbin:
+            lgr_scores = lgr_scores[:, :-1, :-1]
         with torch.no_grad():
             out.update(local_to_global_registration(
                 ref_corr_knn_points, src_corr_knn_points, ref_corr_knn_masks,
-                src_corr_knn_masks, matching_scores.detach()[:, :-1, :-1],
+                src_corr_knn_masks, lgr_scores,
                 k=fm.topk, acceptance_radius=fm.acceptance_radius,
                 confidence_threshold=fm.confidence_threshold, mutual=fm.mutual,
+                use_dustbin=fm.use_dustbin,
                 use_global_score=fm.use_global_score, global_scores=node_corr_scores,
                 correspondence_threshold=fm.correspondence_threshold,
                 correspondence_limit=corr_capacity,

@@ -11,10 +11,7 @@ and iterative global refinement.
 
 import torch
 
-from geotransformer_tpu_torch.models.procrustes import (
-    rotation_from_covariance,
-    weighted_procrustes,
-)
+from geotransformer_tpu_torch.models.procrustes import ROTATION_SOLVERS, weighted_procrustes
 from geotransformer_tpu_torch.ops.se3 import (
     apply_transform,
     get_transform_from_rotation_translation,
@@ -28,17 +25,24 @@ def _row_topk_mask(score_mat, k, threshold):
 
 
 def compute_correspondence_matrix(score_mat, k, confidence_threshold, ref_knn_masks,
-                                  src_knn_masks, mutual=True):
-    """(P, K, K) bool mutual (or union) top-k correspondence matrix."""
+                                  src_knn_masks, mutual=True, use_dustbin=False):
+    """(P, K, K) bool mutual (or union) top-k correspondence matrix.
+
+    ``score_mat`` is (P, K, K), or (P, K+1, K+1) with ``use_dustbin``: the
+    top-k runs over the whole matrix, then the dustbin row and column go.
+    """
     mask_mat = ref_knn_masks[:, :, None] & src_knn_masks[:, None, :]
     ref_corr_mat = _row_topk_mask(score_mat, k, confidence_threshold)
     src_corr_mat = _row_topk_mask(score_mat.transpose(1, 2), k,
                                   confidence_threshold).transpose(1, 2)
     corr_mat = ref_corr_mat & src_corr_mat if mutual else ref_corr_mat | src_corr_mat
+    if use_dustbin:
+        corr_mat = corr_mat[:, :-1, :-1]
     return corr_mat & mask_mat
 
 
-def procrustes_from_pair_weights(ref_knn_points, src_knn_points, weights, eps=1e-5):
+def procrustes_from_pair_weights(ref_knn_points, src_knn_points, weights, eps=1e-5,
+                                 method="svd"):
     """(P, 4, 4) src -> ref transforms from (P, K, K) pair weights
     (weights[p, i, j] weighs ref point i against src point j)."""
     w_sum = weights.sum(dim=(1, 2), keepdim=True) + eps
@@ -50,29 +54,33 @@ def procrustes_from_pair_weights(ref_knn_points, src_knn_points, weights, eps=1e
     ref_centered = ref_knn_points - ref_centroid[:, None, :]
     src_centered = src_knn_points - src_centroid[:, None, :]
     H = torch.einsum("pjc,pij,pid->pcd", src_centered, wn, ref_centered)
-    R = rotation_from_covariance(H)
+    R = ROTATION_SOLVERS[method](H)
     t = ref_centroid - torch.einsum("pcd,pd->pc", R, src_centroid)
     return get_transform_from_rotation_translation(R, t)
 
 
-def _weighted_fit(ref_points, src_points, weights):
-    return weighted_procrustes(src_points, ref_points, weights=weights, return_transform=True)
+def _weighted_fit(ref_points, src_points, weights, method="svd"):
+    return weighted_procrustes(src_points, ref_points, weights=weights, return_transform=True,
+                               method=method)
 
 
 def local_to_global_registration(ref_knn_points, src_knn_points, ref_knn_masks,
                                  src_knn_masks, log_score_mat, *, k, acceptance_radius,
-                                 confidence_threshold=0.05, mutual=True,
+                                 confidence_threshold=0.05, mutual=True, use_dustbin=False,
                                  use_global_score=False, global_scores=None,
                                  correspondence_threshold=3, correspondence_limit=2048,
-                                 num_refinement_steps=5, patch_masks=None):
+                                 num_refinement_steps=5, patch_masks=None,
+                                 procrustes_method="svd"):
     """Dense matching -> per-patch hypotheses -> global refinement.
 
     Args:
         ref_knn_points / src_knn_points: (P, K, 3) patch points.
         ref_knn_masks / src_knn_masks: (P, K) validity.
-        log_score_mat: (P, K, K) log matching scores (dustbin stripped).
+        log_score_mat: (P, K, K) log matching scores, or (P, K+1, K+1) with
+            ``use_dustbin`` (the dustbin is stripped after the top-k).
         correspondence_limit: capacity C of the verification set.
         patch_masks: (P,) validity of each patch correspondence.
+        procrustes_method: ``"svd"`` or ``"quat"`` for every Procrustes fit.
 
     Returns:
         dict: ref_corr_points (C, 3), src_corr_points (C, 3), corr_scores
@@ -80,7 +88,10 @@ def local_to_global_registration(ref_knn_points, src_knn_points, ref_knn_masks,
     """
     score_mat = torch.exp(log_score_mat)
     corr_mat = compute_correspondence_matrix(score_mat, k, confidence_threshold,
-                                             ref_knn_masks, src_knn_masks, mutual=mutual)
+                                             ref_knn_masks, src_knn_masks, mutual=mutual,
+                                             use_dustbin=use_dustbin)
+    if use_dustbin:
+        score_mat = score_mat[:, :-1, :-1]
     if use_global_score:
         score_mat = score_mat * global_scores[:, None, None]
     if patch_masks is not None:
@@ -108,7 +119,8 @@ def local_to_global_registration(ref_knn_points, src_knn_points, ref_knn_masks,
 
     # per-patch hypotheses, scored by inliers over the verification set
     hypo_valid = corr_mat.sum(dim=(1, 2)) >= correspondence_threshold
-    hypo_transforms = procrustes_from_pair_weights(ref_knn_points, src_knn_points, score_mat)
+    hypo_transforms = procrustes_from_pair_weights(ref_knn_points, src_knn_points, score_mat,
+                                                   method=procrustes_method)
     aligned = apply_transform(src_corr_points[None].expand(num_patches, -1, -1), hypo_transforms)
     residuals = torch.linalg.vector_norm(ref_corr_points[None] - aligned, dim=-1)
     inliers = (residuals < acceptance_radius) & corr_masks[None]
@@ -117,19 +129,22 @@ def local_to_global_registration(ref_knn_points, src_knn_points, ref_knn_masks,
     best_scores = corr_scores * inliers[best_idx].to(corr_scores.dtype)
 
     # degenerate fallback: no valid patch -> fit all correspondences
-    fallback_transform = _weighted_fit(ref_corr_points, src_corr_points, corr_scores)
+    fallback_transform = _weighted_fit(ref_corr_points, src_corr_points, corr_scores,
+                                       procrustes_method)
     fallback_res = torch.linalg.vector_norm(
         ref_corr_points - apply_transform(src_corr_points, fallback_transform), dim=-1)
     fallback_scores = corr_scores * ((fallback_res < acceptance_radius) & corr_masks).to(
         corr_scores.dtype)
     cur_scores = torch.where(hypo_valid.any(), best_scores, fallback_scores)
 
-    estimated_transform = _weighted_fit(ref_corr_points, src_corr_points, cur_scores)
+    estimated_transform = _weighted_fit(ref_corr_points, src_corr_points, cur_scores,
+                                        procrustes_method)
     for _ in range(num_refinement_steps - 1):
         res = torch.linalg.vector_norm(
             ref_corr_points - apply_transform(src_corr_points, estimated_transform), dim=-1)
         cur_scores = corr_scores * ((res < acceptance_radius) & corr_masks).to(corr_scores.dtype)
-        estimated_transform = _weighted_fit(ref_corr_points, src_corr_points, cur_scores)
+        estimated_transform = _weighted_fit(ref_corr_points, src_corr_points, cur_scores,
+                                            procrustes_method)
 
     return {
         "ref_corr_points": ref_corr_points,

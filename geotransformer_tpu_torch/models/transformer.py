@@ -33,7 +33,12 @@ from geotransformer_tpu_torch.kernels.attention import (
     rpe_pair_scores,
     rpe_pair_scores_diff,
 )
-from geotransformer_tpu_torch.kernels.gse import gse_embedding_full, gse_embedding_full_diff
+from geotransformer_tpu_torch.kernels.gse import (
+    _pair_indices,
+    gse_embedding_full,
+    gse_embedding_full_diff,
+)
+from geotransformer_tpu_torch.ops.embedding import sinusoidal_embedding
 from geotransformer_tpu_torch.ops.pairwise_distance import pairwise_distance
 
 
@@ -46,14 +51,28 @@ def prefix_valid_count(masks, num_point):
 
 
 class GeometricStructureEmbedding(nn.Module):
-    """Pairwise distance + k-NN triplet angle embedding for superpoints
-    (reduction 'max')."""
+    """Pairwise distance + k-NN triplet angle embedding for superpoints.
+
+    ``reduction_a="max"`` (every shipped configuration) runs the fused GSE
+    kernel. ``"mean"`` takes the einsum route on every device, the card
+    included: the JAX package runs its Pallas GSE kernel only for "max" and
+    computes the mean in XLA (``geotransformer_tpu/models/transformer.py:87,
+    150-155``), so the mean has no kernel to port. ``force=True`` with
+    "mean" raises rather than quietly taking the einsum route. Unlike the
+    kernel, the mean route leaves pairs outside the valid rectangle as they
+    come, as the XLA path does.
+    """
 
     def __init__(self, hidden_dim, sigma_d, sigma_a, angle_k, reduction_a="max",
                  force=None):
         super().__init__()
-        if reduction_a != "max":
-            raise NotImplementedError(f"angle reduction {reduction_a!r}: only 'max' is ported")
+        if reduction_a not in ("max", "mean"):
+            raise ValueError(f"Unsupported reduction mode: {reduction_a}")
+        if reduction_a == "mean" and force:
+            raise NotImplementedError(
+                "reduction_a='mean' has no GSE kernel (neither has the JAX package); "
+                "leave force_pallas unset")
+        self.reduction_a = reduction_a
         self.sigma_d = sigma_d
         self.sigma_a = sigma_a
         self.angle_k = angle_k
@@ -76,6 +95,9 @@ class GeometricStructureEmbedding(nn.Module):
         """(B, N, 3) points [, (B, N) masks] -> (B, N, N, hidden) embedding."""
         batch_size, num_point, _ = points.shape
         ref_vectors = self.reference_vectors(points, masks)
+        if self.reduction_a == "mean":
+            return torch.stack([self._mean_embedding(points[b].detach(), ref_vectors[b].detach())
+                                for b in range(batch_size)])
         if masks is None:
             n_valid = torch.full((batch_size,), num_point, dtype=torch.int32, device=points.device)
         else:
@@ -89,6 +111,15 @@ class GeometricStructureEmbedding(nn.Module):
                   force=self.force)
             for b in range(batch_size)
         ])
+
+    def _mean_embedding(self, points, ref_vectors):
+        """(N, N, C) embedding of one cloud with the angle terms averaged
+        over the k reference vectors."""
+        hidden = self.proj_d.out_features
+        d_idx, a_idx = _pair_indices(points, ref_vectors, self.sigma_d, self.sigma_a)
+        e_d = self.proj_d(sinusoidal_embedding(d_idx, hidden))
+        e_a = self.proj_a(sinusoidal_embedding(a_idx, hidden)).mean(dim=2)
+        return e_d + e_a
 
 
 def _split_heads(x, num_heads):
@@ -181,10 +212,11 @@ class RPEMultiHeadAttention(nn.Module):
         return _merge_heads(torch.einsum("bhnm,bhmc->bhnc", scores, v))
 
 
-def _fused_attention(q, k, v, pair, input_masks, key_masks, d_head, force):
+def _fused_attention(q, k, v, pair, input_masks, key_masks, d_head, force, bias=None):
     """(B, N, H * dh) attention of (B, H, N, dh) heads, one batch element at
     a time through the kernels: ``pair`` is None or (embed (B, N, M, C),
-    qw (B, N, H, C)) for the RPE bias. Valid counts come from the masks
+    qw (B, N, H, C)) for the RPE bias; ``bias`` is None or a (B, N, H, M)
+    additive score bias taken as it is. Valid counts come from the masks
     (:func:`prefix_valid_count`); the kernel also takes the whole key mask,
     so a non-prefix mask is honoured."""
     grad = torch.is_grad_enabled()
@@ -201,11 +233,11 @@ def _fused_attention(q, k, v, pair, input_masks, key_masks, d_head, force):
     for b in range(batch_size):
         nq = None if nv_q is None else nv_q[b]
         nk = None if nv_k is None else nv_k[b]
-        bias = None
+        bias_b = None if bias is None else bias[b].contiguous()
         if pair is not None:
             embed, qw = pair
-            bias = pair_scores(embed[b].contiguous(), qw[b].contiguous(), nq, nk, force=force)
-        hidden.append(attend(q[b].contiguous(), k[b].contiguous(), v[b].contiguous(), bias, nq,
+            bias_b = pair_scores(embed[b].contiguous(), qw[b].contiguous(), nq, nk, force=force)
+        hidden.append(attend(q[b].contiguous(), k[b].contiguous(), v[b].contiguous(), bias_b, nq,
                              nk, float(d_head) ** -0.5,
                              None if key_masks is None else key_masks[b].contiguous(),
                              force=force))

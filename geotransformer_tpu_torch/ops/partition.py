@@ -73,3 +73,25 @@ def point_to_node_partition(points, nodes, point_limit, point_masks=None,
     node_knn_indices = table.reshape(num_nodes + 1, point_limit)[:num_nodes]
     node_knn_masks = node_knn_indices != num_points
     return point_to_node, node_masks, node_knn_indices, node_knn_masks
+
+
+def get_point_to_node_indices(points, nodes, point_masks=None, return_counts=False):
+    """Nearest-node index per point (``geotransformer_tpu/ops/partition.py:111-134``;
+    reference `pointcloud_partition.py:9-31`): first index on ties.
+
+    Args:
+        points: (N, 3).
+        nodes: (M, 3).
+        point_masks: optional (N,) bool; masked points are left out of the
+            counts (their index is still their nearest node).
+        return_counts: also return the number of points each node owns.
+
+    Returns:
+        indices (N,) int32 [, node_sizes (M,) int32].
+    """
+    indices = torch.argmin(pairwise_distance(points, nodes), dim=1).to(torch.int32)
+    if not return_counts:
+        return indices
+    weights = None if point_masks is None else point_masks.to(torch.int64)
+    node_sizes = torch.bincount(indices.long(), weights=weights, minlength=nodes.shape[0])
+    return indices, node_sizes.to(torch.int32)

@@ -14,20 +14,50 @@ neighbor tables of the KPConv backward (``inverse_limits``, optionally split
 into head and compacted tail), the split forward tables
 (``neighbor_splits``, ``subsampling_splits``: deep-column compaction) and
 the stage-0 per-tile neighbor unions of the union-gather input conv
-(``union_cap``). Not ported: the native ``geolib.cpp`` binding (this numpy
-path is the JAX package's own fallback).
+(``union_cap``).
+
+The subsample and the radius search take the native library
+(:mod:`geotransformer_tpu_torch.native`, the port's copy of ``geolib.cpp``)
+by default, as the JAX pyramid does whenever its library builds;
+``GEOTRANSFORMER_TPU_NATIVE=0``, the variable the JAX package reads, selects
+the numpy / cKDTree route of ``voxel.py`` and ``neighbors.py`` in both
+packages at once. The two routes give the same points bit for bit and the
+same neighbor tables save rows whose order differs on exact distance ties.
 """
+
+import os
 
 import numpy as np
 import torch
 
-from geotransformer_tpu_torch.preprocess.neighbors import radius_search
-from geotransformer_tpu_torch.preprocess.voxel import grid_subsample
+from geotransformer_tpu_torch import native
+from geotransformer_tpu_torch.preprocess import neighbors, voxel
 
 PAD_COORD = 1.0e6
 # Neighbor-column alignment of the forward tables: what f32 tables give in
 # the JAX package (kernels/kpconv.py:table_align), kept so batches match.
 TABLE_ALIGN = 8
+
+
+def use_native():
+    """The native route unless ``GEOTRANSFORMER_TPU_NATIVE=0``."""
+    return os.environ.get("GEOTRANSFORMER_TPU_NATIVE", "1") != "0"
+
+
+def grid_subsample(points, lengths, voxel_size):
+    """Stack-mode voxel subsampling: the native library, or numpy by name."""
+    if use_native():
+        return native.grid_subsample(points, lengths, voxel_size)
+    return voxel.grid_subsample(points, lengths, voxel_size)
+
+
+def radius_search(q_points, s_points, q_lengths, s_lengths, radius, neighbor_limit):
+    """Stack-mode fixed-K radius search: the native library, or cKDTree by name."""
+    if use_native():
+        return native.radius_search(q_points, s_points, q_lengths, s_lengths, radius,
+                                    neighbor_limit)
+    return neighbors.radius_search(q_points, s_points, q_lengths, s_lengths, radius,
+                                   neighbor_limit)
 
 
 def build_pyramid(points, lengths, num_stages, voxel_size, radius, neighbor_limits):

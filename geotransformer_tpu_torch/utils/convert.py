@@ -9,8 +9,13 @@ across both ways:
     ``norm.`` for the backbone's GroupNorm wrapper (reference
     `modules/kpconv/modules.py`), directly for the transformer LayerNorms;
   * ``layers_<i>`` becomes ``layers.<i>``;
-  * KPConv ``weights``, ``kernel_points`` (the ``constants`` collection) and
-    the Sinkhorn ``alpha`` keep their names.
+  * KPConv ``weights``, ``kernel_points`` (the ``constants`` collection),
+    the Sinkhorn ``alpha`` and the LRPE bank ``embeddings`` keep their
+    names.
+
+The same rules carry the transformer variants
+(``models/transformer_variants.py``): PE's ``proj_p`` as a Dense, the LRPE
+``embedding.embeddings`` bank and its LayerNorm ``embedding.norm``.
 
 Takes plain nested dicts of arrays (``params`` and ``constants``); imports
 neither JAX nor flax. A gradient pytree (``jax.grad`` with respect to

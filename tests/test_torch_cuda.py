@@ -57,7 +57,10 @@ vectors' shared memory. The GT patch overlaps are bit-equal to their
 plain version at K = 16, 48, 128 and 129, S = 13, 64 and 300, int64 and
 int32 indices, with non-prefix masks, empty patches, a ref node whose
 candidates are all off, masked candidates with indices out of range, and
-from a CUDA graph.
+from a CUDA graph. The vanilla, PE and LRPE transformers launch the
+attention kernel twice a block and agree with their einsum route within
+1e-4; the quaternion Kabsch agrees with its CPU run within 1e-5 and
+replays from a CUDA graph.
 """
 
 import numpy as np
@@ -1636,3 +1639,54 @@ def test_build_pyramid_device_makes_no_host_sync_and_replays_from_a_graph(device
     out, want = flat_batch(out), flat_batch(want)
     for key in want:
         assert torch.equal(out[key], want[key]), key
+
+
+@pytest.mark.parametrize("variant", ["vanilla", "pe", "lrpe"])
+def test_transformer_variants_route_through_the_attention_kernel(device, variant):
+    """The variants' kernel route launches fused_masked_attention twice a
+    block and nothing else, within 1e-4 of the einsum route on every row."""
+    from geotransformer_tpu_torch.models import transformer_variants as variants
+
+    gen = torch.Generator().manual_seed(5)
+    d_model, heads, blocks, n0, n1 = 64, 4, ("self", "cross"), 40, 33
+    feats = [torch.randn((1, n, d_model), generator=gen) for n in (n0, n1)]
+    masks = [(torch.arange(n) < n - 5)[None] for n in (n0, n1)]
+    extra = {"lrpe": {"num_embeddings": 12}}.get(variant, {})
+    cls = {"vanilla": variants.VanillaConditionalTransformer,
+           "pe": variants.PEConditionalTransformer,
+           "lrpe": variants.LRPEConditionalTransformer}[variant]
+    middle = {"vanilla": [],
+              "pe": [torch.randn((1, n, d_model), generator=gen) for n in (n0, n1)],
+              "lrpe": [torch.randint(0, 16, (1, n, n), generator=gen) for n in (n0, n1)]}[variant]
+    model = cls(blocks, d_model, heads, **extra)
+    plain = cls(blocks, d_model, heads, force=False, **extra)
+    plain.load_state_dict(model.state_dict())
+    inputs = [t.to(device) for t in (*feats, *middle, *masks)]
+    with torch.no_grad():
+        cuda.launches.clear()
+        got = model.to(device)(*inputs)
+        torch.cuda.synchronize()
+        assert dict(cuda.launches) == {"fused_masked_attention": 2 * len(blocks)}
+        want = plain.to(device)(*inputs)
+    for g, w in zip(got, want):
+        assert ((g - w).abs().max() / w.abs().max()).item() <= 1e-4
+
+
+def test_quaternion_kabsch_on_the_card(device):
+    """The quaternion Kabsch on the card within 1e-5 of its CPU run, proper,
+    and replayed from a CUDA graph as run eagerly."""
+    from geotransformer_tpu_torch.models.procrustes import rotation_from_covariance_quat
+
+    h = torch.randn((128, 3, 3), generator=torch.Generator().manual_seed(6))
+    got = rotation_from_covariance_quat(h.to(device))
+    assert (got.cpu() - rotation_from_covariance_quat(h)).abs().max().item() <= 1e-5
+    eye = torch.eye(3, device=device)
+    assert (got @ got.transpose(1, 2) - eye).abs().max().item() <= 1e-5
+    static = h.to(device)
+    graph = torch.cuda.CUDAGraph()
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph):
+        replayed = rotation_from_covariance_quat(static)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(replayed, got)

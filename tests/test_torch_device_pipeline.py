@@ -49,6 +49,7 @@ from test_torch_device_preprocess import tie_rows
 from test_torch_model import make_pair
 from test_torch_scripts import narrow_config as script_config
 from test_torch_scripts import write_threedmatch
+from torch_routes import numpy_pyramids  # noqa: F401  (both packages on numpy)
 
 CAPS = (512, 128, 64, 32)
 

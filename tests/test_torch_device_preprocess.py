@@ -42,6 +42,7 @@ from geotransformer_tpu_torch.preprocess import device as port_device
 from geotransformer_tpu_torch.preprocess.calibrate import cell_populations
 from geotransformer_tpu_torch.preprocess.neighbors import radius_search
 from geotransformer_tpu_torch.preprocess.voxel import grid_subsample_single
+from torch_routes import numpy_pyramids  # noqa: F401  (both packages on numpy)
 
 I32 = torch.int32
 

@@ -28,6 +28,7 @@ from geotransformer_tpu_torch.eval import threedmatch_benchmark as port_bench
 from geotransformer_tpu_torch.preprocess import calibrate_stage_caps
 from geotransformer_tpu_torch.utils import ransac as port_ransac
 from geotransformer_tpu_torch.utils import registration as port_reg
+from torch_routes import numpy_pyramids  # noqa: F401  (both packages on numpy)
 
 RTOL = 1e-6
 

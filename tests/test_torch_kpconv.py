@@ -25,6 +25,7 @@ from geotransformer_tpu.preprocess.pyramid import build_input_stream
 
 from geotransformer_tpu_torch.kernels.kpconv import kpconv_fused, kpconv_stream_fused
 from geotransformer_tpu_torch.models.kpconv import KPConv
+from torch_routes import numpy_pyramids  # noqa: F401  (both packages on numpy)
 
 SIGMA = 0.08
 

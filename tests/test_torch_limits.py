@@ -49,6 +49,7 @@ from geotransformer_tpu_torch.kernels.sinkhorn import (
     sinkhorn_fwd_train,
     sinkhorn_log_iterations,
 )
+from torch_routes import numpy_pyramids  # noqa: F401  (both packages on numpy)
 
 H100_BLOCK_BYTES = 232448  # a block's opt-in shared memory on an H100
 ITERATIONS = 4

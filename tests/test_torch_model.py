@@ -211,10 +211,15 @@ def test_inference_only_and_kernel_dispatch():
         model(batch_t, training=True)
     # the inference forward keeps no autograd graph
     assert not model(batch_t)["ref_feats_c"].requires_grad
-    with pytest.raises(NotImplementedError, match="dustbin"):
-        dustbin = dataclasses.replace(cfg, fine_matching=dataclasses.replace(
-            cfg.fine_matching, use_dustbin=True))
-        create_torch_model(dustbin, device="cpu")(batch_t)
+    # the dustbin configuration runs (held against JAX in test_torch_corr_utils.py)
+    dustbin = dataclasses.replace(cfg, fine_matching=dataclasses.replace(
+        cfg.fine_matching, use_dustbin=True))
+    assert torch.isfinite(create_torch_model(dustbin, device="cpu")(batch_t)[
+        "estimated_transform"]).all()
+    # the mean angle reduction has no kernel: forcing one raises
+    with pytest.raises(NotImplementedError, match="mean"):
+        create_torch_model(dataclasses.replace(cfg.with_model(force_pallas=True), geotransformer=(
+            dataclasses.replace(cfg.geotransformer, reduction_a="mean"))), device="cpu")
     # force_pallas=True demands the CUDA kernels, which have no CPU mode
     with pytest.raises(RuntimeError, match="CUDA"):
         create_torch_model(cfg.with_model(force_pallas=True), device="cpu")(batch_t)

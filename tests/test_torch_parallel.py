@@ -56,6 +56,7 @@ from geotransformer_tpu_torch.parallel import make_lr_schedule
 from geotransformer_tpu_torch.preprocess import calibrate_stage_caps
 from geotransformer_tpu_torch.preprocess.loader import PairLoader
 from test_torch_modelnet import REFERENCE_SETTINGS, write_modelnet_pickle
+from torch_routes import numpy_pyramids  # noqa: F401  (both packages on numpy)
 
 WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_parallel_worker.py")
 RANK_LIMIT_S = 240

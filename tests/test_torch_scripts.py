@@ -16,11 +16,16 @@
     that overflows; ``--device_preprocess`` is taken (the runs themselves:
     tests/test_torch_device_pipeline.py);
   * ``make_config`` equal to the JAX package's field by field;
+  * ``calibrate`` prints the caps the JAX calibration functions give on
+    the same 3DMatch files, and ``eval_dgr`` prints the JAX script's tables
+    on the same dumps, for its three methods;
   * the port's scripts import with jax blocked (tests/test_torch_targets.py
     walks them with the rest of the package).
 """
 
 import dataclasses
+import json
+import os
 import pickle
 
 import numpy as np
@@ -49,13 +54,17 @@ from geotransformer_tpu_torch.preprocess import (
     prepare_raw_pair,
     round_up,
 )
+from geotransformer_tpu_torch.scripts import calibrate as calibrate_script
 from geotransformer_tpu_torch.scripts import eval as eval_script
+from geotransformer_tpu_torch.scripts import eval_dgr
 from geotransformer_tpu_torch.scripts import synthetic_benchmark
 from geotransformer_tpu_torch.scripts import test as test_script
 from geotransformer_tpu_torch.scripts import trainval
 from test_torch_kitti import lattice_pair
 from test_torch_model import make_pair
 from test_torch_modelnet import write_modelnet_pickle
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -226,6 +235,7 @@ SCRIPT_ARGS = {
     "trainval": (trainval, ["--dataset", "3dmatch", "--data_root", "none"]),
     "test": (test_script, ["--dataset", "kitti", "--data_root", "none"]),
     "eval": (eval_script, ["--dataset", "modelnet", "--feature_dir", "none"]),
+    "eval_dgr": (eval_dgr, ["--feature_dir", "none"]),
     "synthetic_benchmark": (synthetic_benchmark, ["--scale", "small"]),
 }
 
@@ -277,3 +287,96 @@ def test_test_refuses_device_preprocess():
     with pytest.raises(FileNotFoundError, match="none/metadata/3DMatch.pkl"):
         test_script.main(["--dataset", "3dmatch", "--data_root", "none", "--benchmark",
                           "3DMatch", "--device", "cpu", "--device_preprocess"])
+
+
+def test_calibrate_matches_jax(tmp_path, capsys):
+    from geotransformer_tpu import preprocess as jax_preprocess
+    from geotransformer_tpu.datasets import ThreeDMatchPairDataset as JaxThreeDMatch
+
+    write_threedmatch(tmp_path, pairs=3)
+    got = calibrate_script.main(["--dataset", "3dmatch", "--data_root", str(tmp_path),
+                                 "--num_samples", "3"])
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == json.loads(
+        json.dumps(got))
+
+    # the body of scripts/calibrate.py on the JAX functions and dataset
+    cfg, bb = jax_configs.make_config("3dmatch"), jax_configs.make_config("3dmatch").backbone
+    dataset = JaxThreeDMatch(str(tmp_path), "train", point_limit=30000)
+
+    def sample_iter():
+        for i in range(len(dataset)):
+            yield dataset[i]
+
+    geometry = (bb.num_stages, bb.init_voxel_size, bb.init_radius)
+    limits = jax_preprocess.calibrate_neighbor_limits(sample_iter(), *geometry)
+    inverse, sub_inverse = jax_preprocess.calibrate_inverse_limits(
+        sample_iter(), *geometry, limits, num_samples=3)
+    splits, sub_splits = jax_preprocess.calibrate_split_specs(sample_iter(), *geometry, limits,
+                                                              num_samples=3)
+    want = {
+        "neighbor_limits": limits,
+        "stage_caps": jax_preprocess.calibrate_stage_caps(sample_iter(), *geometry, limits,
+                                                          num_samples=3, quantile=1.0),
+        "inverse_limits": inverse, "sub_inverse_limits": sub_inverse,
+        "neighbor_splits": splits, "subsampling_splits": sub_splits,
+    }
+    assert json.loads(json.dumps(got)) == json.loads(json.dumps(want))
+
+
+def write_dgr_dumps(root, seed=0):
+    """Feature dumps in the layout of scripts.test (a directory a scene, one
+    npz a pair): correspondences of a known transform with outliers."""
+    rng = np.random.default_rng(seed)
+    for scene in ("scene_a", "scene_b"):
+        (root / scene).mkdir(parents=True)
+        for pair in range(2):
+            ref, src, transform = make_pair(40 + 3 * pair + (scene == "scene_b"), n=300)
+            src_corr = src[rng.integers(0, len(src), 60)]
+            ref_corr = src_corr @ transform[:3, :3].T + transform[:3, 3]
+            failing = scene == "scene_b" and pair == 1  # no method registers this pair
+            outliers = 55 if failing else 20
+            ref_corr[:outliers] += rng.normal(scale=1.0 if failing else 0.2,
+                                              size=(outliers, 3)).astype(np.float32)
+            estimated = transform.copy()
+            estimated[:3, 3] += 1.0 if failing else 0.05
+            nodes = rng.integers(0, 16, (12, 2))
+            np.savez(root / scene / f"{pair}_{pair + 1}.npz",
+                     ref_points_c=ref[:16], src_points_c=src[:16],
+                     ref_node_corr_indices=nodes[:, 0], src_node_corr_indices=nodes[:, 1],
+                     gt_node_corr_indices=nodes[rng.uniform(size=12) < 0.5 + 0.2 * pair],
+                     ref_corr_points=ref_corr.astype(np.float32), src_corr_points=src_corr,
+                     corr_scores=rng.uniform(0.1, 1.0, 60).astype(np.float32),
+                     transform=transform, estimated_transform=estimated)
+
+
+def _overall(text):
+    section = text.split("== overall (DGR protocol) ==")[1]
+    return {line.split(":")[0].strip(): float(line.split(":")[1])
+            for line in section.strip().splitlines()}
+
+
+@pytest.mark.parametrize("method", ["lgr", "ransac", "svd"])
+def test_eval_dgr_matches_jax(tmp_path, monkeypatch, capsys, method):
+    import importlib.util
+    import sys
+
+    write_dgr_dumps(tmp_path)
+    spec = importlib.util.spec_from_file_location(
+        "jax_eval_dgr", os.path.join(REPO, "scripts", "eval_dgr.py"))
+    jax_eval_dgr = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jax_eval_dgr)
+    args = ["--feature_dir", str(tmp_path), "--method", method, "--num_corr", "50",
+            "--ransac_iterations", "200"]
+    monkeypatch.setattr(sys, "argv", ["eval_dgr.py"] + args)
+    jax_eval_dgr.main()
+    want = capsys.readouterr().out
+    got = eval_dgr.main(args + ["--device", "cpu"])
+    text = capsys.readouterr().out
+    assert 0 < got["RR"] < 1  # some pairs registered, some not
+    if method == "svd":  # SVD of two libraries: the rotation errors agree to rounding
+        w, g = _overall(want), _overall(text)
+        assert sorted(w) == sorted(g)
+        for key in w:
+            assert abs(g[key] - w[key]) <= 2e-4, key
+    else:
+        assert text == want

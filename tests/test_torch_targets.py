@@ -12,7 +12,8 @@ hygiene.
   * configs equal field by field (``dataclasses.asdict``, the JAX-only
     ``precision`` left out), the disposition file byte-identical;
   * no module of the port, and not ``chip_smoke.py``, imports jax, flax or
-    the JAX package.
+    the JAX package (the walk names the native binding, the model extras,
+    the visualization helpers and every script).
 """
 
 import dataclasses
@@ -197,8 +198,12 @@ def test_port_imports_no_jax():
         "names = [m.name for m in pkgutil.walk_packages(geotransformer_tpu_torch.__path__,\n"
         "                                                'geotransformer_tpu_torch.')]\n"
         "scripts = {'geotransformer_tpu_torch.scripts.' + s for s in\n"
-        "           ('common', 'demo', 'eval', 'synthetic_benchmark', 'test', 'trainval')}\n"
-        "assert scripts <= set(names), sorted(scripts - set(names))\n"
+        "           ('calibrate', 'common', 'demo', 'eval', 'eval_dgr', 'synthetic_benchmark',\n"
+        "            'test', 'trainval')}\n"
+        "extras = {'geotransformer_tpu_torch.' + s for s in\n"
+        "          ('native', 'models.corr_utils', 'models.point_matching',\n"
+        "           'models.transformer_variants', 'utils.visualization')}\n"
+        "assert scripts | extras <= set(names), sorted(scripts | extras - set(names))\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "importlib.import_module('chip_smoke')\n"
