@@ -249,6 +249,28 @@ fused_masked_attention twice a block).
                phase 12's ModelNet pickle by both routes (the same caps)
                and scripts.eval_dgr on phase 16's Tester dumps with lgr,
                ransac and svd (on the card).
+ 20. tools (runs after phase 19) — (a) two torch.profiler sessions
+               (utils.timing.top_device_ops) around the same 3DMatch
+               forward count the hand-written kernels' events by name, in
+               a fresh process (chip_smoke.py --profiler-sessions: one event
+               a launch in both, nothing reported lost) and in this one
+               (each kernel's events equal to its launches or reported lost
+               by top_device_ops; what a long process's sessions lose
+               recorded); (b)
+               TransformerEncoder and TransformerDecoder (3 layers each) at
+               the 3DMatch width on a forward's superpoints, seeded
+               weights, counted (path "encoder_decoder") and within 1e-4 of
+               their einsum route, row 13's calls against its plain
+               version; (c) each in a process of its own under a timeout:
+               profile_stages, profile_forward, profile_train (3DMatch and
+               --kitti), profile_ops, profile_kpconv, profile_device,
+               profile_batch, train_smoke, one after another; then
+               probe_kernels all, drift (40 training steps, then
+               drift_attrib on its weights), eval.sh on phase 16's layout
+               (its dumps equal to the Tester's within 1e-5) and the
+               convergence suite (small scale, 4 steps) at once. A tool that
+               fails or times out fails the run; each tool's key numbers
+               are printed and go to chip_smoke.json ("tools").
 Then it prints the {"kernels": [...]} line (each kernel's numbers summed over
 the paths it was compared on, with each path's own under "by_path" and the
 calls of the KPConv, GSE, Sinkhorn and overlap rows, and phase 15's, one by
@@ -274,6 +296,8 @@ import json
 import os
 import pickle
 import re
+import shlex
+import shutil
 import socket
 import statistics
 import subprocess
@@ -325,13 +349,13 @@ from geotransformer_tpu_torch.parallel import (
 )
 from geotransformer_tpu_torch.parallel import rank as mesh_rank
 from geotransformer_tpu_torch.preprocess import (
+    batch_to_float64,
     batch_to_torch,
     build_pyramid,
     build_union_tables,
     calibrate_split_specs,
     calibrate_stage_caps,
     caps_for_pyramid,
-    fit_split_for_table,
     pad_registration_batch,
     round_up,
 )
@@ -343,9 +367,17 @@ from geotransformer_tpu_torch.preprocess.device import (
     pad_stage0,
 )
 from geotransformer_tpu_torch.preprocess.loader import PairLoader, prepare_pair
-from geotransformer_tpu_torch.preprocess.voxel import grid_subsample_single
 from geotransformer_tpu_torch.scripts import calibrate as calibrate_script
 from geotransformer_tpu_torch.scripts import eval_dgr
+from geotransformer_tpu_torch.scripts.pairs import inverse_splits as fitted_inverse_splits
+from geotransformer_tpu_torch.scripts.pairs import make_3dmatch_pair, make_kitti_pair
+from geotransformer_tpu_torch.utils.timing import (
+    KERNEL_SYMBOLS,
+    card,
+    graph_ms,
+    time_ms,
+    top_device_ops,
+)
 from geotransformer_tpu_torch.scripts import synthetic_benchmark as synthetic
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -647,84 +679,6 @@ def expect_launches(got, batches, mode, what, blocks, gse=True):
                f"{what}: {name} launched {got.get(name, 0)} times, expected {want.get(name, 0)}")
 
 
-def make_pair(seed, n_ref=19000, extent=1.3):
-    """Wavy surface (z = 0.5 sin(25 x) cos(20 y)) over extent x extent m;
-    src is the part with x < 0.8 extent, 4 mm noise, in its own frame."""
-    rng = np.random.default_rng(seed)
-    xy = rng.uniform(0.0, extent, (n_ref, 2))
-    z = 0.5 * np.sin(25.0 * xy[:, 0]) * np.cos(20.0 * xy[:, 1])
-    ref = np.column_stack([xy, z]).astype(np.float32)
-    keep = ref[:, 0] < 0.8 * extent
-    world = ref[keep] + 0.004 * rng.normal(size=(int(keep.sum()), 3))
-    axis = rng.normal(size=3)
-    axis /= np.linalg.norm(axis)
-    angle = rng.uniform(0.2, 0.8)
-    skew = np.array([[0.0, -axis[2], axis[1]], [axis[2], 0.0, -axis[0]],
-                     [-axis[1], axis[0], 0.0]])
-    rot = np.eye(3) + np.sin(angle) * skew + (1.0 - np.cos(angle)) * skew @ skew
-    trans = rng.uniform(-0.3, 0.3, 3)
-    src = ((world - trans) @ rot).astype(np.float32)  # world = rot src + trans
-    transform = np.eye(4, dtype=np.float32)
-    transform[:3, :3], transform[:3, 3] = rot, trans
-    return ref, src, transform
-
-
-def make_kitti_pair(seed, n_rays=180000):
-    """Synthetic LiDAR scan pair at KITTI scale (the JAX package's bench
-    generator, bench.py:97-154): returns on the ground plane and on 40
-    vertical facade planes, ray-cast from two sensor poses 1.7 m above the
-    ground, 2 cm noise, each scan in its own sensor frame through a 0.3 m
-    voxel grid (at most 30,000 points). The src sensor sits at (6, 2) with
-    yaw 0.12, so ref = R_z(0.12) src + (6, 2, 0)."""
-    rng = np.random.default_rng(seed)
-    n_planes = 40
-    c = rng.uniform(-50, 50, (n_planes, 2))
-    theta = rng.uniform(0, np.pi, n_planes)
-    nvec = np.stack([np.cos(theta), np.sin(theta)], 1)
-    tvec = np.stack([-np.sin(theta), np.cos(theta)], 1)
-    halfw = rng.uniform(3.0, 15.0, n_planes)
-    height = rng.uniform(2.5, 10.0, n_planes)
-
-    def scan(pos, yaw):
-        az = rng.uniform(0, 2 * np.pi, n_rays)
-        elev = np.deg2rad(rng.uniform(-24.0, 2.0, n_rays))
-        ce, se = np.cos(elev), np.sin(elev)
-        ca, sa = np.cos(az + yaw), np.sin(az + yaw)
-        dirs = np.stack([ce * ca, ce * sa, se], 1)  # world-frame rays
-        p = np.array([pos[0], pos[1], 1.7])
-        d = np.where(dirs[:, 2] < -1e-4, -p[2] / np.minimum(dirs[:, 2], -1e-4), np.inf)
-        for i in range(n_planes):
-            denom = dirs[:, 0] * nvec[i, 0] + dirs[:, 1] * nvec[i, 1]
-            denom = np.where(np.abs(denom) < 1e-6, 1e-6, denom)
-            t = ((c[i, 0] - p[0]) * nvec[i, 0] + (c[i, 1] - p[1]) * nvec[i, 1]) / denom
-            hz = p[2] + t * dirs[:, 2]
-            u = ((p[0] + t * dirs[:, 0] - c[i, 0]) * tvec[i, 0]
-                 + (p[1] + t * dirs[:, 1] - c[i, 1]) * tvec[i, 1])
-            ok = (t > 1.0) & (t < d) & (np.abs(u) < halfw[i]) & (hz > 0.0) & (hz < height[i])
-            d = np.where(ok, t, d)
-        keep = d < 75.0
-        d = d[keep]
-        # sensor-frame coordinates (rotation about z: the local azimuth drops yaw)
-        ca_l, sa_l = np.cos(az[keep]), np.sin(az[keep])
-        pts = np.stack([d * ce[keep] * ca_l, d * ce[keep] * sa_l, d * se[keep]],
-                       1).astype(np.float32)
-        pts += rng.normal(0, 0.02, pts.shape).astype(np.float32)
-        return grid_subsample_single(pts, 0.3)
-
-    ref = scan((0.0, 0.0), 0.0)
-    src = scan((6.0, 2.0), 0.12)
-    limit = 30000
-    if len(ref) > limit:
-        ref = ref[rng.permutation(len(ref))[:limit]]
-    if len(src) > limit:
-        src = src[rng.permutation(len(src))[:limit]]
-    transform = np.eye(4, dtype=np.float32)
-    cos, sin = np.cos(0.12), np.sin(0.12)
-    transform[:3, :3] = [[cos, -sin, 0.0], [sin, cos, 0.0], [0.0, 0.0, 1.0]]
-    transform[:3, 3] = (6.0, 2.0, 0.0)
-    return ref.astype(np.float32), src.astype(np.float32), transform
-
-
 def build_pyramids(cfg, pairs):
     bb = cfg.backbone
     return [(build_pyramid(np.concatenate([ref, src], 0), [len(ref), len(src)], bb.num_stages,
@@ -742,7 +696,7 @@ SHARED = {}
 
 
 def build_batches(cfg, seeds):
-    pyramids = build_pyramids(cfg, [make_pair(seed) for seed in seeds])
+    pyramids = build_pyramids(cfg, [make_3dmatch_pair(seed) for seed in seeds])
     SHARED["3dmatch"] = pyramids
     # one capacity per stage and cloud covering every pair, as scripts/demo.py picks them
     per_pair = [caps_for_pyramid(p, multiple=256, per_cloud=True) for p, _, _ in pyramids]
@@ -791,13 +745,7 @@ def build_kitti_batches(cfg, seeds):
         args = (p, np.ones((n, 1), np.float32), t, caps)
         kw = dict(inverse_limits=cfg.caps.inverse_limits, neighbor_splits=nb_splits,
                   subsampling_splits=sub_splits)
-        whole = pad_registration_batch(*args, **kw)
-        rows = [nb.shape[0] for nb in whole["neighbors"]]
-        # the subsampling inverse's sentinel is the next stage's row count
-        kw["inverse_splits"] = [fit_split_for_table(inv, rows[i], align=8)
-                                for i, inv in enumerate(whole["neighbors_inv"])]
-        kw["sub_inverse_splits"] = [fit_split_for_table(inv, rows[i + 1], align=8)
-                                    for i, inv in enumerate(whole["subsampling_inv"])]
+        kw.update(fitted_inverse_splits(pad_registration_batch(*args, **kw)))
         inverse_splits.append((kw["inverse_splits"], kw["sub_inverse_splits"]))
         batches.append(pad_registration_batch(*args, **kw))
     host["tables"] = time.perf_counter() - start
@@ -826,48 +774,6 @@ def capture_kernel_calls(names):
     finally:
         for module, name, fn in saved:
             setattr(module, name, fn)
-
-
-def graph_ms(fn, name=None, launches=0, reps=20):
-    """Device milliseconds of one fn(), replayed from a CUDA graph: fn()'s
-    launches are captured once, after a warm-up run, and the graph is
-    replayed ``reps`` times between two CUDA events, so the host puts
-    nothing between the launches. ``name``: the kernel fn() launches, whose
-    launch counter the capture must raise by ``launches`` (the counters
-    count wrapper calls, not replays); None for a library call. A capture
-    error is raised, never caught."""
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    before = cuda.launches[name] if name else 0
-    with torch.cuda.graph(graph):
-        fn()
-    if name:
-        captured = cuda.launches[name] - before
-        expect(captured == launches,
-               f"{name}: the graph captured {captured} launches, expected {launches}")
-    graph.replay()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def time_ms(fn, reps):
-    """Mean milliseconds of fn() over reps runs, from CUDA events."""
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def expect(ok, message):
@@ -1305,7 +1211,8 @@ LIMIT_SHAPES = {"kpconv_stream_fused (residuals)": input_conv_shape,
                 "sinkhorn_log_iterations": limit_sinkhorn_shape,
                 "sinkhorn_fwd_train": limit_sinkhorn_shape,
                 "sinkhorn_bwd_train": limit_sinkhorn_shape,
-                "rpe_pair_scores": pair_shape, "fused_masked_attention": attention_shape}
+                "rpe_pair_scores": pair_shape, "fused_masked_attention": attention_shape,
+                "gse_embedding_full": gse_shape, "gse_full_bwd": gse_bwd_shape}
 
 
 def call_cost(name, args, kwargs, out):
@@ -1581,15 +1488,6 @@ def step_gradients(model, cfg, batch, seed):
     loss, _ = overall_loss(cfg, out, batch["transform"])
     loss.backward()
     return loss.item(), {k: p.grad.detach().double() for k, p in model.named_parameters()}
-
-
-def float64(value):
-    """A batch entry with its floating tensors (in lists too) in float64."""
-    if isinstance(value, torch.Tensor):
-        return value.double() if value.is_floating_point() else value
-    if isinstance(value, (list, tuple)):
-        return type(value)(float64(v) for v in value)
-    return value
 
 
 def relative_errors(got, exact):
@@ -1892,7 +1790,7 @@ def whole_step_vs_plain(model, plain_model, cfg, batch, what, report):
     with witness(plain_rec, inputs=True):
         loss_plain, grads_plain = step_gradients(plain_model, cfg, batch, 0)
     exact_model = copy.deepcopy(plain_model).double()
-    batch64 = {k: float64(v) for k, v in batch.items()}
+    batch64 = batch_to_float64(batch)
     with witness(exact_rec, inputs=True):
         loss_exact, grads_exact = step_gradients(exact_model, cfg, batch64, 0)
     exact = {}
@@ -1989,32 +1887,38 @@ def train_phase(cfg, model, batches, steps, what, report):
     return dict(total)
 
 
-def profile_train(cfg, model, batches, what, filename, report):
-    """torch.profiler over two training steps: device time by kernel
-    (chiprun_out/<filename>) and the device's busy share of an unprofiled
-    step (the train phase's median), the profiler's own host cost left out."""
-    optimizer, scheduler = make_optimizer(model, cfg, steps_per_epoch=len(batches))
-    step = make_train_step(model, cfg, optimizer, scheduler, device=DEVICE)
-    step(batches[0], target_generator(0))
-    torch.cuda.synchronize()
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        for seed in (0, 1):
-            step(batches[seed], target_generator(seed))
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    # kernel events only, as the table's "Self CUDA time total": an
-    # operator's self device time repeats its kernels' time, and a user
-    # annotation's (Adam's step) spans kernels counted on their own
-    device_ms = sum(e.self_device_time_total for e in events
-                    if e.device_type == torch.autograd.DeviceType.CUDA
-                    and not getattr(e, "is_user_annotation", False)) / 1e3 / 2
-    step_ms = report[what]["train_step_median_ms"]
-    table = events.table(sort_by="self_cuda_time_total", row_limit=40)
+def write_profile(filename, header, ops):
+    """``ops`` (DeviceOp lists, largest first) into chiprun_out/<filename>."""
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", filename), "w") as f:
-        f.write(f"two training steps; device time {device_ms:.3f} ms per step against a "
-                f"{step_ms:.3f} ms unprofiled step\n{table}\n")
+        f.write(header + "\n")
+        for what, items in ops.items():
+            f.write(f"{what}:\n")
+            for op in items:
+                f.write(f"{op.ms:10.3f} ms {op.count:7.1f}x  {op.name}\n")
+
+
+def profile_train(cfg, model, batches, what, filename, report):
+    """torch.profiler over two training steps: device time by kernel and by
+    operator (chiprun_out/<filename>) and the device's busy share of an
+    unprofiled step (the train phase's median), the profiler's own host
+    cost left out."""
+    optimizer, scheduler = make_optimizer(model, cfg, steps_per_epoch=len(batches))
+    step = make_train_step(model, cfg, optimizer, scheduler, device=DEVICE)
+    seeds = iter((0, 0, 1))  # a warm-up step, then the two profiled ones
+
+    def run():
+        seed = next(seeds)
+        return step(batches[seed], target_generator(seed))
+
+    kernels, operators = top_device_ops(run, runs=2)
+    # kernel events only, as the table's "Self CUDA time total": an
+    # operator's self device time repeats its kernels' time
+    device_ms = sum(op.ms for op in kernels)
+    step_ms = report[what]["train_step_median_ms"]
+    write_profile(filename, f"a training step (two profiled); device time {device_ms:.3f} ms per "
+                            f"step against a {step_ms:.3f} ms unprofiled step",
+                  {"kernels": kernels[:40], "operators": operators[:40]})
     busy = device_ms / step_ms
     print(f"{what} profile: device time {device_ms:.3f} ms per training step against a "
           f"{step_ms:.3f} ms step: busy {100 * busy:.1f} %, idle {100 * (1 - busy):.1f} %",
@@ -2751,24 +2655,12 @@ def compare_with_host(path, built, host, spec):
 
 def profile_build(path, raw, spec):
     """torch.profiler over one device build: its device time by kernel into
-    chiprun_out/<path>_profile.txt (the profiler may drop the ctypes-launched
-    kernels after its first session in a process; the PyTorch operations
-    around them stay). Returns the five largest items, in ms."""
-    build_pyramid_device(*raw, **spec)
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        build_pyramid_device(*raw, **spec)
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
-    events.sort(key=lambda e: -e.self_device_time_total)
-    total = sum(e.self_device_time_total for e in events) / 1e3
-    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(ROOT, "chiprun_out", f"{path}_profile.txt"), "w") as f:
-        f.write(f"one device build: {total:.3f} ms of kernel time\n")
-        for e in events:
-            f.write(f"{e.self_device_time_total / 1e3:10.3f} ms {e.count:6d}x  {e.key}\n")
-    return [(e.key[:60], round(e.self_device_time_total / 1e3, 3), e.count) for e in events[:5]]
+    chiprun_out/<path>_profile.txt. Returns the five largest items, in ms."""
+    kernels, _ = top_device_ops(lambda: build_pyramid_device(*raw, **spec))
+    total = sum(op.ms for op in kernels)
+    write_profile(f"{path}_profile.txt", f"one device build: {total:.3f} ms of kernel time",
+                  {"kernels": kernels})
+    return [(op.name[:60], round(op.ms, 3), op.count) for op in kernels[:5]]
 
 
 def device_pyramid_path(path, cfg, pyramids, device, report):
@@ -2999,25 +2891,6 @@ def device_pyramid_phases(device, launches, report, tmp):
 
 
 # --- phase 18: the training engine --------------------------------------
-# the device kernels each KERNELS entry launches (a demangled name in a
-# torch.profiler trace matches its pattern)
-KERNEL_SYMBOLS = {
-    "kpconv_stream_fused": r"kpconv_stream_kernel",
-    "kpconv_union_input_fused": r"kpconv_union_kernel",
-    "kpconv_fused": r"edge_kernel<\d+, (false|\(bool\)0)",
-    "kpconv_split_fused": r"edge_kernel<\d+, (false|\(bool\)0)",
-    "kpconv_bwd_fused": r"edge_kernel<\d+, (true|\(bool\)1)",
-    "gse_embedding_full": r"\bgse_kernel",
-    "gse_full_bwd": r"gse_bwd_kernel",
-    "sinkhorn_log_iterations": r"sinkhorn_(general_)?kernel",
-    "sinkhorn_fwd_train": r"sinkhorn_(general_)?kernel",
-    "sinkhorn_bwd_train": r"sinkhorn_bwd_(train|general)_kernel",
-    "patch_overlaps": r"patch_overlap_kernel",
-    "rpe_pair_scores": r"pair_scores_(any_)?kernel",
-    "fused_masked_attention": r"attention_(wide_)?kernel",
-    "grid_radius_search": r"grid_search_kernel",
-    "voxel_segment_mean": r"segment_mean_kernel",
-}
 # the pairs phase 18c's two ranks take, 3 steps each, in the order one
 # process would (rank r takes order[r::2], as PairLoader shards)
 ENGINE_ORDER = (0, 1, 2, 1, 2, 0)
@@ -3058,11 +2931,6 @@ def pyramid_route(flag):
             os.environ.pop("GEOTRANSFORMER_TPU_NATIVE")
         else:
             os.environ["GEOTRANSFORMER_TPU_NATIVE"] = saved
-
-
-def nvidia_smi():
-    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip()
 
 
 def native_route_phase(report):
@@ -3119,7 +2987,7 @@ def native_route_phase(report):
         print(f"19a {path}: build_pyramid {statistics.mean(seconds['native']):.3f} s a pair native "
               f"({[round(x, 3) for x in seconds['native']]}) vs "
               f"{statistics.mean(seconds['numpy']):.3f} s numpy "
-              f"({[round(x, 3) for x in seconds['numpy']]}), host of {nvidia_smi()}; points "
+              f"({[round(x, 3) for x in seconds['numpy']]}), host of {card(DEVICE)}; points "
               f"bit-equal; tie rows (rows) by table {ties}; largest tie share {share:.2e}",
               flush=True)
         summary[path] = dict(native_s=seconds["native"], numpy_s=seconds["numpy"], ties=ties,
@@ -3286,7 +3154,7 @@ def kabsch_phase(cfg, model, batch, report):
           f"quaternion {quat_ms:.4f} ms (CUDA events) / {quat_device_ms:.4f} ms (graph), SVD "
           f"{svd_ms:.4f} ms (CUDA events); LGR {lgr_ms['svd']:.3f} ms (svd) vs "
           f"{lgr_ms['quat']:.3f} ms (quat), transforms max |diff| {lgr_diff:.2e}; "
-          f"{nvidia_smi()}", flush=True)
+          f"{card(DEVICE)}", flush=True)
     report["kabsch"] = result
     return out
 
@@ -3402,8 +3270,307 @@ def extras_phases(device, launches, report):
     point_matching_phase(cfg, out, batches[0], report)
     scripts_phase(report)
     report["phase19_s"] = time.perf_counter() - start
-    print(f"phase 19: {report['phase19_s']:.1f} s; {nvidia_smi()}", flush=True)
+    print(f"phase 19: {report['phase19_s']:.1f} s; {card(DEVICE)}", flush=True)
     return {"variants": results}
+
+
+# --- phase 20: the profiling and timing tools, the shell drivers ---------
+
+# the wrappers a 3DMatch forward launches, whose events phase 20a counts
+# (KERNEL_SYMBOLS)
+SESSION_KERNELS = ("kpconv_stream_fused", "kpconv_fused", "gse_embedding_full", "rpe_pair_scores",
+                   "fused_masked_attention", "sinkhorn_log_iterations")
+# 20b: the layers of each stack
+ENCODER_LAYERS = DECODER_LAYERS = 3
+# 20c: the training steps drift takes (its default is 600), the steps of
+# the convergence suite (whole epochs of the small workflow's 12 pairs)
+DRIFT_STEPS, SUITE_STEPS = 40, 4
+TOOL_TIMEOUT_S = 300
+
+
+def profiler_sessions(model, batch):
+    """Two torch.profiler sessions (utils.timing.top_device_ops), each around
+    one model(batch) after its warm-up one: the hand-written kernel launches
+    of one forward by wrapper, each session's kernel events by wrapper
+    (KERNEL_SYMBOLS), and the events each session lost as top_device_ops
+    reports them (its ``lost``)."""
+    patterns = {name: re.compile(KERNEL_SYMBOLS[name]) for name in SESSION_KERNELS}
+    cuda.launches.clear()
+    model(batch)
+    launched = {name: cuda.launches[name] for name in SESSION_KERNELS}
+    counts, lost = [], []
+    for _ in range(2):
+        lost.append({})
+        kernels, _ = top_device_ops(lambda: model(batch), lost=lost[-1])
+        counts.append({name: sum(op.count for op in kernels if p.search(op.name))
+                       for name, p in patterns.items()})
+    cuda.launches.clear()
+    return launched, counts, lost
+
+
+def profiler_sessions_worker(out):
+    """``chip_smoke.py --profiler-sessions OUT``: :func:`profiler_sessions`
+    in a fresh process, on one full-width 3DMatch pair (seed 0) and seeded
+    weights; the result into the JSON file OUT."""
+    cfg = make_3dmatch_config()
+    caps, _, batches_np, _ = build_batches(cfg, (0,))
+    cfg = cfg.with_caps(stage_caps=caps)
+    model = create_model(cfg, device=DEVICE)
+    launched, counts, lost = profiler_sessions(model, batch_to_torch(batches_np[0], DEVICE))
+    with open(out, "w") as f:
+        json.dump(dict(launched=launched, counts=counts, lost=lost), f)
+
+
+def profiler_sessions_phase(model, batch, report, tmp):
+    """20a: two torch.profiler sessions around the same 3DMatch forward count
+    the hand-written kernels' events by name, in a fresh process (the first
+    and second sessions of ``--profiler-sessions``) and in this one (its
+    later sessions). In the fresh process each session must hold one event
+    a launch, and top_device_ops must report nothing lost. A long process
+    may lose events of every session (the stream input conv's from phase
+    18 on, PyTorch kernels too; PERF.md §7): there each wrapper's events
+    must equal its launches or top_device_ops must report its shortfall,
+    and what the sessions lost is recorded."""
+    out = os.path.join(tmp, "profiler_sessions.json")
+    run_script([sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--profiler-sessions", out],
+               dict(os.environ), "chip_smoke.py --profiler-sessions")
+    with open(out) as f:
+        fresh = json.load(f)
+    launched, counts, lost = fresh["launched"], fresh["counts"], fresh["lost"]
+    expect(all(c == launched for c in counts) and not any(lost),
+           f"a fresh process's profiler sessions lost events: launches {launched}, events "
+           f"{counts}, reported lost {lost}")
+    late_launched, late, late_lost = profiler_sessions(model, batch)
+    for session, reported in zip(late, late_lost):
+        short = [name for name in SESSION_KERNELS if session[name] < late_launched[name]]
+        unreported = [name for name in short if not any(
+            name in key.split("+") for key in reported)]
+        expect(not unreported, f"top_device_ops did not report the lost events of "
+                               f"{unreported}: launches {late_launched}, events {session}, "
+                               f"reported {reported}")
+    print(f"20a profiler: a fresh process's first and second sessions hold one event a launch "
+          f"of the hand-written kernels of a forward, {launched}; this process's later sessions "
+          f"{late[1]}, reported lost {late_lost}", flush=True)
+    report["profiler_sessions"] = dict(launched=launched, fresh=counts, late=late,
+                                       late_lost=late_lost)
+
+
+def encoder_decoder_phase(device, out, launches, report):
+    """20b: TransformerEncoder and TransformerDecoder at the 3DMatch width
+    (256, 4 heads, 3 layers each) on a forward's superpoint features and
+    masks, seeded weights: the kernel route counted (fused_masked_attention
+    once a self-attention layer, twice a decoder layer, path
+    "encoder_decoder") and within 1e-4 of the einsum route
+    (force_pallas=False); row 13's calls against its plain version."""
+    width, heads = out["ref_feats_c"].shape[1], make_3dmatch_config().geotransformer.num_heads
+    ref, src = out["ref_feats_c"][None], out["src_feats_c"][None]
+    ref_masks, src_masks = out["ref_masks_c"][None], out["src_masks_c"][None]
+    generator = torch.Generator().manual_seed(VARIANT_SEED)
+    specs = {"encoder": (models_transformer.TransformerEncoder, ENCODER_LAYERS,
+                         (ref, ref_masks), ENCODER_LAYERS),
+             "decoder": (models_transformer.TransformerDecoder, DECODER_LAYERS,
+                         (ref, src, ref_masks, src_masks), 2 * DECODER_LAYERS)}
+    counts, summary, records = collections.Counter(), {}, collections.defaultdict(list)
+    for name, (cls, layers, inputs, calls) in specs.items():
+        model = cls(width, heads, layers)
+        models_geotransformer.init_parameters(model, generator)
+        plain = cls(width, heads, layers, force=False)
+        plain.load_state_dict(model.state_dict())
+        model, plain = model.to(device).eval(), plain.to(device).eval()
+        with torch.no_grad():
+            with capture_kernel_calls(["fused_masked_attention"]) as captured:
+                got, c = counted(lambda: model(*inputs))
+            records["fused_masked_attention"] += captured["fused_masked_attention"]
+            want = plain(*inputs)
+            expect(c == {"fused_masked_attention": calls},
+                   f"{name}: launches {c}, expected {calls} of fused_masked_attention")
+            counts.update(c)
+            rel = relative_difference(got, want)
+            expect(rel <= 1e-4, f"{name}: kernel vs einsum route {rel:.2e} > 1e-4")
+            kernel_ms, plain_ms = time_ms(lambda: model(*inputs), 5), time_ms(lambda: plain(*inputs), 5)
+        summary[name] = dict(rel=rel, kernel_ms=kernel_ms, plain_ms=plain_ms)
+        print(f"20b {name}: kernel vs einsum route max rel diff {rel:.2e}; forward "
+              f"{kernel_ms:.3f} ms (row 13) vs {plain_ms:.3f} ms (einsum), CUDA events",
+              flush=True)
+    launches["encoder_decoder"] = dict(counts)
+    report["encoder_decoder"] = summary
+    return compare_kernels(records, ["fused_masked_attention"], reps=5)
+
+
+def tool_command(name, *args):
+    return [sys.executable, "-m", f"geotransformer_tpu_torch.scripts.{name}", *args]
+
+
+def last_json(stdout, tool):
+    """The last result line of ``tool`` in a tool's output."""
+    results = [json.loads(line) for line in stdout.strip().splitlines()
+               if line.startswith('{"tool": ')]
+    results = [r for r in results if r["tool"] == tool]
+    expect(results, f"{tool}: no result line in its output:\n{stdout[-2000:]}")
+    return results[-1]
+
+
+def run_tools(tools, cwd, env, parallel=False):
+    """Each (label, command, timeout) of ``tools`` in a process of its own
+    (all at once with ``parallel``); a failure or a timeout fails the run.
+    Returns {label: (stdout, seconds)}."""
+    procs = {}
+    start = time.perf_counter()
+    results = {}
+    try:
+        for label, cmd, timeout in tools:
+            log = open(os.path.join(cwd, f"{label}.log"), "w+")
+            procs[label] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT, cwd=cwd,
+                                             env=env, text=True), log, timeout, time.perf_counter())
+            if not parallel:
+                results[label] = finish_tool(label, *procs.pop(label))
+        for label, entry in list(procs.items()):
+            results[label] = finish_tool(label, *entry)
+            procs.pop(label)
+    finally:
+        for proc, log, _, _ in procs.values():
+            proc.kill()
+            proc.wait()
+            log.close()
+    report_s = time.perf_counter() - start
+    return results, report_s
+
+
+def finish_tool(label, proc, log, timeout, started):
+    try:
+        proc.wait(timeout=max(1.0, timeout - (time.perf_counter() - started)))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        log.seek(0)
+        raise RuntimeError(f"{label}: timed out after {timeout} s\n{log.read()[-3000:]}")
+    seconds = time.perf_counter() - started
+    log.seek(0)
+    stdout = log.read()
+    log.close()
+    expect(proc.returncode == 0, f"{label}: exit {proc.returncode}\n{stdout[-4000:]}")
+    return stdout, seconds
+
+
+def brief(label, result):
+    """A tool's key numbers, for its printed line."""
+    r = {k: v for k, v in result.items() if k != "tool"}
+    if label == "profile_stages":
+        return {k: [None if v[t] is None else round(v[t], 3) for t in
+                    ("graph_ms", "events_ms", "profiler_ms")] for k, v in r["stages"].items()}
+    if label.startswith(("profile_forward", "profile_train")):
+        keep = {k: v for k, v in r.items() if k not in ("top", "losses")}
+        return dict(keep, top=[(t["name"][:48], round(t["ms"], 3), t["count"])
+                               for t in r["top"][:5]])
+    if label == "profile_ops":
+        return {k: round(v["ms"], 3) for k, v in r["families"].items()}
+    if label == "profile_device":
+        top = sorted(r["phases"].items(), key=lambda kv: -(kv[1]["graph_ms"] or 0))[:4]
+        return dict(build=r["build"], top_phases=top, stage0=r["stage0"])
+    if label == "train_smoke":
+        return {k: r[k] for k in ("steps", "first", "last", "step_ms")}
+    if label == "drift":
+        return dict(ok=r["ok"], **{route: {k: r["routes"][route][k] for k in
+                                           ("feats_c", "feats_f", "excess_rre", "excess_rte",
+                                            "rre_gt", "rte_gt")}
+                                   for route in r["routes"]})
+    if label == "drift_attrib":
+        return {k: (v["feats_c"], v["feats_f"], v["share"]) for k, v in r["rows"].items()}
+    return r
+
+
+def tools_phase(tmp, report):
+    """20c: every profiling tool, the training smoke, the drift tools, the
+    shell drivers and the convergence suite, each in a process of its own
+    under a timeout; a failure fails the run. The tools that time (the
+    profiling tools and the training smoke's step time) run one after
+    another, nothing else on the card; then the rest at once."""
+    shared = SHARED["synthetic"]
+    cwd = os.path.join(tmp, "tools")
+    os.makedirs(cwd, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [ROOT] + ([os.environ["PYTHONPATH"]] if os.environ.get("PYTHONPATH") else [])))
+    timed_tools = [("profile_stages", tool_command("profile_stages"), TOOL_TIMEOUT_S),
+                   ("profile_forward", tool_command("profile_forward"), TOOL_TIMEOUT_S),
+                   ("profile_train", tool_command("profile_train"), TOOL_TIMEOUT_S),
+                   ("profile_train --kitti", tool_command("profile_train", "--kitti"),
+                    TOOL_TIMEOUT_S),
+                   ("profile_ops", tool_command("profile_ops"), TOOL_TIMEOUT_S),
+                   ("profile_kpconv", tool_command("profile_kpconv"), TOOL_TIMEOUT_S),
+                   ("profile_device", tool_command("profile_device"), TOOL_TIMEOUT_S),
+                   ("profile_batch", tool_command("profile_batch"), TOOL_TIMEOUT_S),
+                   ("train_smoke", tool_command("train_smoke"), TOOL_TIMEOUT_S)]
+    # eval.sh reads the protocol files at <data_root>/metadata/benchmarks/<benchmark>
+    shutil.copytree(shared["benchmark_root"],
+                    os.path.join(shared["data_root"], "metadata", "benchmarks", "3DMatch"))
+    scripts_dir = os.path.join(ROOT, "geotransformer_tpu_torch", "scripts")
+    weights = os.path.join(cwd, "drift", "weights.pt")
+    other_tools = [
+        ("probe_kernels", tool_command("probe_kernels", "all"), TOOL_TIMEOUT_S),
+        # drift_attrib reads the weights drift saves
+        ("drift", ["bash", "-c", " && ".join(shlex.join(cmd) for cmd in (
+            tool_command("drift", "--steps", str(DRIFT_STEPS), "--weights", weights),
+            tool_command("drift_attrib", "--weights", weights)))], 2 * TOOL_TIMEOUT_S),
+        ("eval.sh", ["bash", os.path.join(scripts_dir, "eval.sh"), "3dmatch",
+                     shared["data_root"], "3DMatch", "--checkpoint_dir",
+                     os.path.join(tmp, "synthetic", "train", "checkpoints"), "--num_workers", "2",
+                     "--device", DEVICE], TOOL_TIMEOUT_S),
+        ("convergence suite", ["bash", os.path.join(scripts_dir, "run_convergence_suite.sh"),
+                               os.path.join(cwd, "suite"), str(SUITE_STEPS), "0.90", "small",
+                               "--num_workers", "0", "--device", DEVICE], 2 * TOOL_TIMEOUT_S)]
+    start = time.perf_counter()
+    outputs, timed_s = run_tools(timed_tools, cwd, env)
+    more, other_s = run_tools(other_tools, cwd, env, parallel=True)
+    outputs.update(more)
+    outputs["drift_attrib"] = outputs["drift"]
+    results = {}
+    for label, (stdout, seconds) in outputs.items():
+        if label == "probe_kernels":
+            passed = [line.split()[1] for line in stdout.splitlines() if line.startswith("PASS ")]
+            expect(sorted(passed) == sorted({wrapper_of(name) for name in KERNELS}),
+                   f"probe_kernels: PASS for {passed}\n{stdout[-2000:]}")
+            results[label] = dict(seconds=seconds, passed=passed)
+        elif label == "eval.sh":
+            dumps = dumped_transforms(os.path.join(cwd, "output", "3dmatch", "features",
+                                                   "3DMatch"))
+            tester = dumped_transforms(shared["feature_dir"])
+            expect(sorted(dumps) == sorted(tester), f"eval.sh dumped {sorted(dumps)}")
+            diff = max(float(np.abs(dumps[k] - tester[k]).max()) for k in tester)
+            expect(diff <= 1e-5, f"eval.sh: its transforms differ from the Tester's by {diff}")
+            expect("Overall (lgr):" in stdout, f"eval.sh printed no table:\n{stdout[-2000:]}")
+            results[label] = dict(seconds=seconds, max_abs_diff=diff, table=stdout[
+                stdout.index("Overall (lgr):"):].strip())
+        elif label == "convergence suite":
+            logs = {}
+            for run in ("kernels_s0", "plain_s0", "kernels_s1", "plain_s1"):
+                with open(os.path.join(cwd, "suite", f"{run}.log")) as f:
+                    text = f.read()
+                expect("Overall (lgr):" in text, f"suite run {run}: no table\n{text[-2000:]}")
+                logs[run] = [line.strip() for line in text.splitlines() if "RR" in line][:1]
+            results[label] = dict(seconds=seconds, runs=logs)
+        else:
+            results[label] = dict(seconds=seconds, **last_json(stdout, label.split()[0]))
+        print(f"20c {label} ({seconds:.1f} s): "
+              f"{json.dumps(brief(label, results[label]), default=str)}", flush=True)
+    expect(results["drift"]["ok"], f"drift failed its gate: {results['drift']}")
+    seconds = time.perf_counter() - start
+    print(f"20c tools: {seconds:.1f} s (timing tools one by one {timed_s:.1f} s, the others at "
+          f"once {other_s:.1f} s)", flush=True)
+    report["tools"] = dict(results, seconds=seconds)
+
+
+def tools_phases(device, launches, report, tmp):
+    """Phase 20: (a) the profiler in later sessions, (b) the transformer
+    encoder and decoder through row 13, (c) the tools."""
+    start = time.perf_counter()
+    cfg, model, batches = SHARED["3dmatch_train"]
+    profiler_sessions_phase(model, batches[0], report, tmp)
+    results = encoder_decoder_phase(device, model(batches[0]), launches, report)
+    torch.cuda.empty_cache()
+    tools_phase(tmp, report)
+    report["phase20_s"] = time.perf_counter() - start
+    print(f"phase 20: {report['phase20_s']:.1f} s; {card(DEVICE)}", flush=True)
+    return {"encoder_decoder": results}
 
 
 def fresh_model(cfg, weights, device=None):
@@ -3487,7 +3654,7 @@ def witness_gradients(model, plain_model, cfg, batch):
     with witness(plain_rec):
         grads_plain = step_gradients(plain_model, cfg, batch, 0)[1]
     exact_model = copy.deepcopy(plain_model).double()
-    batch64 = {k: float64(v) for k, v in batch.items()}
+    batch64 = batch_to_float64(batch)
     exact = []
     for rec in (kernel_rec, plain_rec):
         with witness(rec, replay=CHOICES):
@@ -3758,7 +3925,7 @@ def engine_phase(launches, report):
     """Phase 18: the training engine on the phase-6 3DMatch pairs and
     weights (full width) and one KITTI pair."""
     start = time.perf_counter()
-    smi = nvidia_smi()
+    smi = card(DEVICE)
     cfg, model, batches = SHARED["3dmatch_train"]  # phase 19 reads them too
     weights = copy.deepcopy(model.state_dict())
     acc_ms, plain_ms, mean_rel = accumulation_phase(cfg, weights, batches, launches, report)
@@ -3799,7 +3966,7 @@ def across_cards(world):
     for batch in batches:
         batch.update(precompute_gt_targets(cfg, batch, device=DEVICE))
     weights = create_model(cfg, device=DEVICE).state_dict()
-    smi = nvidia_smi()
+    smi = card(DEVICE)
     order = tuple(i % len(batches) for i in range(world * ACROSS_CARDS_STEPS))
     with tempfile.TemporaryDirectory() as tmp:
         readings = ranks_against_one_process(cfg, weights, batches, world, "nccl", None, order,
@@ -3822,7 +3989,11 @@ def limit_calls(device):
     backward at 160, 161 and 257 (16 patches, 100 iterations), the RPE pair
     scores at C = 130, 640 and 1024 and H = 12 and 16, the attention at head
     widths 24, 48, 96 and 128 (300 superpoints, 280 valid, a bias, holes in
-    the key mask), and both with operands 4 bytes off a 16-byte boundary."""
+    the key mask), and both with operands 4 bytes off a 16-byte boundary;
+    the GSE embedding and its backward at C = 96 (the small synthetic
+    workflow's width: the forward's channels across 4 warps, the backward
+    in 32-channel blocks), 300 superpoints with 280 valid, the backward
+    also with two reference vectors tied (its float64 settling)."""
     g = torch.Generator().manual_seed(15)
     to = lambda *ts: [t.to(device) for t in ts]  # noqa: E731
     calls = collections.defaultdict(list)
@@ -3895,6 +4066,19 @@ def limit_calls(device):
             q, k, v = shifted(q), shifted(k), shifted(v)
         calls["fused_masked_attention"].append(
             ((q, k, v, bias, nv, nv, dh ** -0.5, key_masks), {}))
+
+    c = 96
+    points, ref_vectors = torch.rand(n, 3, generator=g), torch.randn(n, 3, 3, generator=g) * 0.1
+    w_d, w_a = (torch.randn(c, c, generator=g) / c**0.5 for _ in range(2))
+    b_d, b_a = torch.randn(c, generator=g), torch.randn(c, generator=g)
+    calls["gse_embedding_full"].append(
+        ((*to(points, ref_vectors, w_d, b_d, w_a, b_a), 0.2, 15.0, nv), {}))
+    tied = ref_vectors.clone()
+    tied[:, 2] = tied[:, 0]  # their projections tie exactly everywhere
+    for vectors in (ref_vectors, tied):
+        de = torch.randn(n, n, c, generator=g)
+        calls["gse_full_bwd"].append(
+            ((*to(points, vectors, w_a), 0.2, 15.0, de.to(device), nv), {}))
     return calls
 
 
@@ -3931,8 +4115,12 @@ def main():
     if sys.argv[1:2] == ["--ranks-across-cards"]:
         across_cards(int(sys.argv[2]))
         return
+    if sys.argv[1:2] == ["--profiler-sessions"]:
+        profiler_sessions_worker(sys.argv[2])
+        return
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device (torch.cuda.is_available() is False)")
+    script_start = time.perf_counter()
     device = torch.device(DEVICE)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3955,6 +4143,8 @@ def main():
         by_path.update(device_pyramid_phases(device, launches, report, tmp))
         # 19. the native host library and the model extras
         by_path.update(extras_phases(device, launches, report))
+        # 20. the profiler's later sessions, the encoder and decoder, the tools
+        by_path.update(tools_phases(device, launches, report, tmp))
     for path, path_results in by_path.items():
         print_results(path, path_results)
     results = merge_paths(by_path)
@@ -3966,9 +4156,11 @@ def main():
                                                            "device_ms", "bound_ms")}
     report["kernels"] = results
 
-    smi = nvidia_smi()
+    smi = card(DEVICE)
     report["nvidia_smi"] = smi
     report["launches"] = launches
+    report["script_s"] = time.perf_counter() - script_start
+    print(f"chip_smoke.py: {report['script_s']:.1f} s to this point", flush=True)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1, default=str)

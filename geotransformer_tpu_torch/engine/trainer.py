@@ -21,7 +21,9 @@ val scalars (``train/<key>``, ``val/<key>``) with a
 ``torch.utils.tensorboard.SummaryWriter`` on rank 0 under
 ``<output_dir>/events`` (off, and logged so, where the ``tensorboard``
 package is missing); ``profile_steps=(a, b)`` records steps [a, b) with
-``torch.profiler`` into ``<output_dir>/profile/trace_rank<r>.json``;
+``torch.profiler`` into ``<output_dir>/profile/trace_rank<r>.json`` and
+logs a warning where the trace lost events of a hand-written kernel
+(``utils.timing.lost_kernel_events``: fewer than its wrapper launched);
 ``debug_nans`` turns on autograd's anomaly detection for the process (the
 reference's tool for it), so a backward that makes a NaN raises where it
 does.
@@ -35,6 +37,7 @@ retry at the next bucket (``escalate``) or the host pyramid (``host``).
 that went to the host; every log line with a time reports both.
 """
 
+import collections
 import contextlib
 import functools
 import itertools
@@ -47,12 +50,14 @@ from geotransformer_tpu_torch.engine.checkpoint import CheckpointManager
 from geotransformer_tpu_torch.engine.logger import create_logger
 from geotransformer_tpu_torch.engine.meters import SummaryBoard
 from geotransformer_tpu_torch.engine.timer import Timer
+from geotransformer_tpu_torch.kernels import cuda
 from geotransformer_tpu_torch.parallel import mesh
 from geotransformer_tpu_torch.parallel.train import (
     make_eval_step,
     make_optimizer,
     make_train_step,
 )
+from geotransformer_tpu_torch.utils.timing import lost_kernel_events
 
 
 def _pair_of(group):
@@ -136,6 +141,7 @@ class Trainer:
             if torch.device(self.device).type == "cuda":
                 activities.append(torch.profiler.ProfilerActivity.CUDA)
             self._profiler = torch.profiler.profile(activities=activities)
+            self._profile_launches = collections.Counter(cuda.launches)
             self._profiler.__enter__()
         elif self.step >= stop:
             self._stop_profile()
@@ -150,8 +156,17 @@ class Trainer:
         os.makedirs(directory, exist_ok=True)
         path = os.path.join(directory, f"trace_rank{self.rank}.json")
         self._profiler.export_chrome_trace(path)
+        launched = collections.Counter(cuda.launches)
+        launched.subtract(self._profile_launches)
+        events = [(e.key, e.count) for e in self._profiler.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
         self._profiler = None
         self.logger.info(f"profile of steps {self.profile_steps}: {path}")
+        lost = lost_kernel_events(events, launched)
+        if lost:
+            self.logger.warning(f"the profile lost hand-written kernel events, "
+                                f"{{wrapper: (launches, events)}} {lost}: profile the steps "
+                                f"in a process of their own")
 
     def _finish(self):
         self._stop_profile()

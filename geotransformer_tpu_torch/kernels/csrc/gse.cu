@@ -20,7 +20,7 @@
 // one 8-byte load. gse_kernel: a block takes P valid pairs (64 at C = 256,
 // 128 below; the n_valid x n_valid square enumerated row-major from the
 // device-side n_valid, no host sync) and all C channels, 16 warps as 2 x 8
-// (pairs x channels; 4 x 4 at C = 32). It walks the A angle projections,
+// (pairs x channels; 4 x 4 at C = 32 and 96). It walks the A angle projections,
 // then the distance projection, each in chunks of 32 basis rows:
 //   - the chunk's W halves come through a two-stage cp.async ring, one
 //     chunk ahead;
@@ -124,7 +124,7 @@ __global__ void __launch_bounds__(kThreads, 1) gse_kernel(
   using L = Layout<C>;
   constexpr int kPairs = L::kPairs;
   constexpr int NT = C / 8;                        // n-tiles of C
-  constexpr int WARPS_N = NT < 8 ? NT : 8;         // warps across the channels
+  constexpr int WARPS_N = NT % 8 == 0 ? 8 : 4;     // warps across the channels (4 at C = 32, 96)
   constexpr int MT = kPairs / 16 / (kWarps / WARPS_N);  // m-tiles a warp
   constexpr int WN = NT / WARPS_N;                 // n-tiles a warp
   constexpr int CHUNKS = C / kChunk;
@@ -138,6 +138,7 @@ __global__ void __launch_bounds__(kThreads, 1) gse_kernel(
   constexpr int PIECES = 2 * 8 * C / kThreads;     // 16-byte W pieces a thread a chunk
   constexpr int ITEMS = kPairs * kChunk / 2 / kThreads;  // basis items a thread a chunk
   static_assert(PIECES >= 1 && kSteps % ITEMS == 0, "the block shape");
+  static_assert(NT % WARPS_N == 0 && MT >= 1 && MT % MG == 0, "the warp tiling");
   extern __shared__ uint32_t smem[];
   float* idx_s = reinterpret_cast<float*>(smem + L::idx);
   int* row_s = reinterpret_cast<int*>(smem + L::rows);
@@ -375,7 +376,7 @@ const char* error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// A (angles) in 1..4, C in {32, 64, 128, 256}; w_frag holds 4 C^2 words.
+// A (angles) in 1..4, C in {32, 64, 96, 128, 256}; w_frag holds 4 C^2 words.
 int gse_embedding_launch(const float* points, const float* ref_vectors, const float* w_d,
                          const float* w_a, const float* bias, const float* div_term,
                          const int32_t* n_valid, uint32_t* w_frag, float* out, int N, int A,
@@ -386,6 +387,7 @@ int gse_embedding_launch(const float* points, const float* ref_vectors, const fl
   switch (C) {
     case 32: return launch<32>(points, ref_vectors, w_d, w_a, bias, div_term, n_valid, w_frag, out, N, A, sigma_d, factor_a, s);
     case 64: return launch<64>(points, ref_vectors, w_d, w_a, bias, div_term, n_valid, w_frag, out, N, A, sigma_d, factor_a, s);
+    case 96: return launch<96>(points, ref_vectors, w_d, w_a, bias, div_term, n_valid, w_frag, out, N, A, sigma_d, factor_a, s);
     case 128: return launch<128>(points, ref_vectors, w_d, w_a, bias, div_term, n_valid, w_frag, out, N, A, sigma_d, factor_a, s);
     case 256: return launch<256>(points, ref_vectors, w_d, w_a, bias, div_term, n_valid, w_frag, out, N, A, sigma_d, factor_a, s);
     default: return static_cast<int>(cudaErrorInvalidValue);

@@ -14,7 +14,7 @@
 //
 // Design, three launches. gse_indices_kernel writes the A + 1 indices of
 // every valid pair once. gse_bwd_kernel: a block owns 64 channels (a
-// c-block; all C where C < 64) and one slice of the valid pairs
+// c-block; all C where C < 64, 32 at C = 96) and one slice of the valid pairs
 // (enumerated row-major over the n_valid x n_valid square), walked in tiles
 // of 16 pairs, each tile's indices and de fetched into registers while the
 // tile before it runs. For each tile:
@@ -67,8 +67,10 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 16;          // pairs a tile: the m16 of a projection
 constexpr int kMaxAngles = 3;  // A <= 3: the bases of 16 pairs fill shared memory at C = 256
 constexpr uint8_t kUndecided = 0xFF;
-// channels a block (a c-block)
-__host__ __device__ constexpr int block_channels(int C) { return C < 64 ? C : 64; }
+// channels a block (a c-block): 64, or 32 where C is not a multiple of 64
+__host__ __device__ constexpr int block_channels(int C) {
+  return C < 64 ? C : C % 64 == 0 ? 64 : 32;
+}
 // A projection sum_f B[f] W_a[f, c] of C terms (|B| <= 1) as 3xTF32 products
 // added in f32 stands within 2^-23 of sum_f |W_a[f, c]| (wabs) of float64
 // in the CPU emulation at C = 256 (tests/test_torch_gse_bwd_tc.py holds it
@@ -131,6 +133,8 @@ __global__ void __launch_bounds__(kThreads, 1) gse_bwd_kernel(
   constexpr int NT = BC / 8;          // 8-channel tiles of the c-block
   constexpr int MT = C / 16;          // 16-row tiles of dW
   constexpr int MW = (MT + kWarps - 1) / kWarps;  // of them a warp
+  static_assert(MT % kWarps == 0 || MW == 1, "every warp's row tiles within C");
+  static_assert(C % BC == 0 && NT % 4 == 0, "whole c-blocks of 4-tile groups");
   constexpr int STEPS = C / 8;        // k8 steps of a projection
   extern __shared__ uint32_t smem[];
   float* w_s = reinterpret_cast<float*>(smem + L::w);
@@ -523,7 +527,7 @@ int gse_bwd_slices(int N, int C) {
   return slices < 1 ? 1 : slices;
 }
 
-// A (angles) in 1..3, C in {32, 64, 128, 256}; pair_idx holds N^2 (A + 1)
+// A (angles) in 1..3, C in {32, 64, 96, 128, 256}; pair_idx holds N^2 (A + 1)
 // floats.
 int gse_bwd_launch(const float* points, const float* ref_vectors, const float* w_a,
                    const float* div_term, const int32_t* n_valid, const float* de,
@@ -541,6 +545,7 @@ int gse_bwd_launch(const float* points, const float* ref_vectors, const float* w
   switch (C) {
     case 32: return launch_angles<32>(A, points, ref_vectors, w_a, div_term, n_valid, de, pair_idx, part_d, part_a, part_b, part_ties, dw_d, dw_a, db, settled, N, S, sigma_d, factor_a, s);
     case 64: return launch_angles<64>(A, points, ref_vectors, w_a, div_term, n_valid, de, pair_idx, part_d, part_a, part_b, part_ties, dw_d, dw_a, db, settled, N, S, sigma_d, factor_a, s);
+    case 96: return launch_angles<96>(A, points, ref_vectors, w_a, div_term, n_valid, de, pair_idx, part_d, part_a, part_b, part_ties, dw_d, dw_a, db, settled, N, S, sigma_d, factor_a, s);
     case 128: return launch_angles<128>(A, points, ref_vectors, w_a, div_term, n_valid, de, pair_idx, part_d, part_a, part_b, part_ties, dw_d, dw_a, db, settled, N, S, sigma_d, factor_a, s);
     case 256: return launch_angles<256>(A, points, ref_vectors, w_a, div_term, n_valid, de, pair_idx, part_d, part_a, part_b, part_ties, dw_d, dw_a, db, settled, N, S, sigma_d, factor_a, s);
     default: return static_cast<int>(cudaErrorInvalidValue);

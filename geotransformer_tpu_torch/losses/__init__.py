@@ -2,6 +2,7 @@ from geotransformer_tpu_torch.losses.circle_loss import circle_loss, weighted_ci
 from geotransformer_tpu_torch.losses.metrics import (  # noqa: F401
     inlier_ratio,
     isotropic_transform_error,
+    modified_chamfer_distance,
     registration_rmse,
     relative_rotation_error,
     relative_translation_error,

@@ -5,6 +5,7 @@ import math
 
 import torch
 
+from geotransformer_tpu_torch.ops.pairwise_distance import pairwise_distance
 from geotransformer_tpu_torch.ops.se3 import (
     apply_transform,
     get_rotation_translation_from_transform,
@@ -50,3 +51,26 @@ def inlier_ratio(ref_corr_points, src_corr_points, gt_transform, radius, masks=N
     dists = torch.linalg.vector_norm(
         ref_corr_points - apply_transform(src_corr_points, gt_transform), dim=-1)
     return _masked_mean((dists < radius).float(), masks)
+
+
+def modified_chamfer_distance(raw_points, ref_points, src_points, gt_transform, transform,
+                              raw_masks=None, ref_masks=None, src_masks=None):
+    """Modified Chamfer distance (reference metrics.py:8-44), masked: masked
+    raw points sit at the squared distance 1e12, masked ref and src points
+    leave their means. The numpy form for one unpadded pair is
+    ``utils.registration.compute_modified_chamfer_distance``."""
+
+    def masked_min(d2, col_masks):
+        if col_masks is not None:
+            d2 = torch.where(col_masks[None, :], d2, 1e12)
+        return torch.min(d2, dim=-1).values
+
+    aligned_src = apply_transform(src_points, transform)
+    d2_pq = pairwise_distance(aligned_src, raw_points)
+    chamfer_pq = _masked_mean(torch.sqrt(masked_min(d2_pq, raw_masks)), src_masks)
+
+    composed = transform @ inverse_transform(gt_transform)
+    aligned_raw = apply_transform(raw_points, composed)
+    d2_qp = pairwise_distance(ref_points, aligned_raw)
+    chamfer_qp = _masked_mean(torch.sqrt(masked_min(d2_qp, raw_masks)), ref_masks)
+    return chamfer_pq + chamfer_qp

@@ -10,12 +10,18 @@ from geotransformer_tpu_torch.models.kpconv import (  # noqa: F401
     LastUnaryBlock,
     ResidualBlock,
     UnaryBlock,
+    global_avgpool,
+    knn_interpolate,
+    maxpool,
     nearest_upsample,
 )
 from geotransformer_tpu_torch.models.transformer import (  # noqa: F401
     GeometricStructureEmbedding,
     GeometricTransformer,
     RPEConditionalTransformer,
+    TransformerDecoder,
+    TransformerDecoderLayer,
+    TransformerEncoder,
 )
 from geotransformer_tpu_torch.models.transformer_variants import (  # noqa: F401
     LearnablePositionalEmbedding,

@@ -5,8 +5,9 @@ r"""Kernel Point Convolution and the backbone blocks
 Every convolution goes through :mod:`geotransformer_tpu_torch.kernels.kpconv`:
 the CUDA kernel on the card, its plain PyTorch version on the CPU. The
 strided residual block's shortcut max-pool (reference functional.py:54-67,
-zero shadow row, first ``pool_cols`` columns) happens inside the same call,
-so there is no separate ``maxpool``. The table a conv reads goes by the JAX
+zero shadow row, first ``pool_cols`` columns) happens inside the same call;
+:func:`maxpool` is the same pool on its own, for callers outside the
+backbone. The table a conv reads goes by the JAX
 dispatch (``models/kpconv.py:127-196``): the input conv takes the edge
 stream, else the per-tile unions, else the split table, else the neighbor
 table; every other conv takes its split table where the batch has one. With
@@ -149,9 +150,40 @@ def leaky_relu(x):
     return F.leaky_relu(x, negative_slope=0.1)
 
 
+def maxpool(s_feats, neighbor_indices, valid_cols=None):
+    """Max over neighbor features with a zero shadow row (reference
+    functional.py:54-67: the shadow clamps the max at 0).
+
+    ``valid_cols`` restricts the pool to the first columns: a neighbor table
+    may carry alignment sentinel columns past its neighbor limit, and the
+    clamp at 0 must apply only to rows underfull within that limit.
+    """
+    if valid_cols is not None:
+        neighbor_indices = neighbor_indices[:, :valid_cols]
+    return gather_with_shadow(s_feats, neighbor_indices, 0.0).max(dim=1).values
+
+
 def nearest_upsample(s_feats, upsample_indices):
     """Copy features of the nearest (first-column) coarse neighbor."""
     return gather_with_shadow(s_feats, upsample_indices[:, 0], 0.0)
+
+
+def knn_interpolate(s_feats, q_points, s_points, neighbor_indices, k, eps=1e-8):
+    """Inverse-distance weighted interpolation over the first k neighbors."""
+    knn_indices = neighbor_indices[:, :k]
+    knn_points = gather_with_shadow(s_points, knn_indices, 0.0)
+    knn_feats = gather_with_shadow(s_feats, knn_indices, 0.0)
+    sq_dists = torch.sum((q_points[:, None, :] - knn_points) ** 2, dim=-1)
+    valid = (knn_indices < s_points.shape[0]).to(s_feats.dtype)
+    weights = valid / (sq_dists + eps)
+    weights = weights / (torch.sum(weights, dim=1, keepdim=True) + eps)
+    return torch.sum(knn_feats * weights[:, :, None], dim=1)
+
+
+def global_avgpool(feats, masks):
+    """Masked mean over the point axis -> (C,) per cloud mask."""
+    m = masks.to(feats.dtype)[:, None]
+    return torch.sum(feats * m, dim=0) / torch.clamp(torch.sum(m), min=1.0)
 
 
 class UnaryBlock(nn.Module):

@@ -4,7 +4,8 @@ The reference applies ``nn.GroupNorm`` over the whole stacked point axis
 (`modules/kpconv/modules.py:33-50`). With fixed-capacity padding the
 statistics must exclude padded rows, so the norm takes a validity mask and
 zeroes padded rows. Transformer LayerNorms are plain ``nn.LayerNorm``
-(per-row, padding-safe, eps 1e-5).
+(per-row, padding-safe, eps 1e-5); :class:`LayerNorm` is that layer under
+the JAX package's name.
 """
 
 import torch
@@ -51,3 +52,12 @@ class GroupNorm(nn.Module):
 
     def forward(self, x, mask=None):
         return masked_group_norm(x, mask, self.num_groups, self.norm.weight, self.norm.bias)
+
+
+class LayerNorm(nn.LayerNorm):
+    """The JAX package's ``LayerNorm(num_channels)``: ``nn.LayerNorm`` over
+    the last dim at eps 1e-5 (the JAX ``scale`` is ``weight`` here). A row
+    is normalised on its own, so padded rows cannot reach valid ones."""
+
+    def __init__(self, num_channels):
+        super().__init__(num_channels, eps=1e-5)

@@ -306,6 +306,55 @@ class RPETransformerLayer(nn.Module):
                                           memory_masks))
 
 
+class TransformerDecoderLayer(nn.Module):
+    """Self-attention, cross-attention, feed-forward (reference
+    vanilla_transformer.py:132-143). Keys are masked; no query row is
+    zeroed, as in the JAX layer."""
+
+    def __init__(self, d_model, num_heads, force=None):
+        super().__init__()
+        self.self_attention = AttentionLayer(d_model, num_heads, force=force)
+        self.cross_attention = AttentionLayer(d_model, num_heads, force=force)
+        self.output = AttentionOutput(d_model)
+
+    def forward(self, input_states, memory_states, input_masks=None, memory_masks=None):
+        hidden = self.self_attention(input_states, input_states, memory_masks=input_masks)
+        hidden = self.cross_attention(hidden, memory_states, memory_masks=memory_masks)
+        return self.output(hidden)
+
+
+class TransformerEncoder(nn.Module):
+    """A stack of self-attention layers (reference
+    vanilla_transformer.py:146-177); ``masks`` masks the keys. The
+    feed-forward activation is ReLU, the JAX default (``activation_fn``)."""
+
+    def __init__(self, d_model, num_heads, num_layers, force=None):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            [TransformerLayer(d_model, num_heads, force=force) for _ in range(num_layers)])
+
+    def forward(self, feats, masks=None):
+        for layer in self.layers:
+            feats = layer(feats, feats, memory_masks=masks)
+        return feats
+
+
+class TransformerDecoder(nn.Module):
+    """A stack of decoder layers (reference vanilla_transformer.py:180-201):
+    ``q_feats`` attend to themselves, then to ``s_feats``."""
+
+    def __init__(self, d_model, num_heads, num_layers, force=None):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            [TransformerDecoderLayer(d_model, num_heads, force=force)
+             for _ in range(num_layers)])
+
+    def forward(self, q_feats, s_feats, q_masks=None, s_masks=None):
+        for layer in self.layers:
+            q_feats = layer(q_feats, s_feats, input_masks=q_masks, memory_masks=s_masks)
+        return q_feats
+
+
 class RPEConditionalTransformer(nn.Module):
     """Interleaved geometric self-attention / vanilla cross-attention stack
     (sequential cross updates: src attends to the updated ref)."""

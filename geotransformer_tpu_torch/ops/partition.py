@@ -1,6 +1,6 @@
 r"""Point-to-node partition with static shapes
-(``geotransformer_tpu/ops/partition.py:21-96``; reference
-`modules/ops/pointcloud_partition.py:61-107`).
+(``geotransformer_tpu/ops/partition.py``; reference
+`modules/ops/pointcloud_partition.py:61-175`).
 
 Each fine point goes to its nearest node; each node keeps its
 ``point_limit`` nearest owned points. Padded points and nodes are excluded
@@ -75,6 +75,20 @@ def point_to_node_partition(points, nodes, point_limit, point_masks=None,
     return point_to_node, node_masks, node_knn_indices, node_knn_masks
 
 
+def knn_partition(points, nodes, k, point_masks=None):
+    """Top-k nearest points for each node (masked points excluded: they sit
+    at the squared distance 1e12).
+
+    Returns (knn_distances (M, k), knn_indices (M, k)); ``torch.topk`` has no
+    tie order, so equal distances may come in either order.
+    """
+    sq_dist_mat = pairwise_distance(nodes, points)
+    if point_masks is not None:
+        sq_dist_mat = torch.where(point_masks[None, :], sq_dist_mat, _BIG)
+    top, knn_indices = torch.topk(sq_dist_mat, k, dim=1, largest=False)
+    return torch.sqrt(torch.clamp(top, min=0.0)), knn_indices
+
+
 def get_point_to_node_indices(points, nodes, point_masks=None, return_counts=False):
     """Nearest-node index per point (``geotransformer_tpu/ops/partition.py:111-134``;
     reference `pointcloud_partition.py:9-31`): first index on ties.
@@ -95,3 +109,21 @@ def get_point_to_node_indices(points, nodes, point_masks=None, return_counts=Fal
     weights = None if point_masks is None else point_masks.to(torch.int64)
     node_sizes = torch.bincount(indices.long(), weights=weights, minlength=nodes.shape[0])
     return indices, node_sizes.to(torch.int32)
+
+
+def ball_query_partition(points, nodes, radius, point_limit, point_masks=None,
+                         return_count=False):
+    """Fixed-capacity ball query per node (reference
+    `pointcloud_partition.py:159-175`): the ``point_limit`` nearest points,
+    truncated to those within ``radius``; empty slots hold the sentinel
+    index ``num_points``.
+
+    Returns (knn_indices (M, K), knn_masks (M, K) [, node_sizes (M,)]).
+    """
+    knn_distances, knn_indices = knn_partition(points, nodes, point_limit,
+                                               point_masks=point_masks)
+    knn_masks = knn_distances < radius
+    knn_indices = torch.where(knn_masks, knn_indices, points.shape[0])
+    if return_count:
+        return knn_indices, knn_masks, knn_masks.sum(dim=1)
+    return knn_indices, knn_masks

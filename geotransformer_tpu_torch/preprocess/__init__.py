@@ -1,3 +1,8 @@
+from geotransformer_tpu_torch.preprocess.voxel import (  # noqa: F401
+    grid_subsample,
+    grid_subsample_single,
+)
+from geotransformer_tpu_torch.preprocess.neighbors import radius_search  # noqa: F401
 from geotransformer_tpu_torch.preprocess.calibrate import (  # noqa: F401
     calibrate_inverse_limits,
     calibrate_neighbor_limits,
@@ -8,6 +13,7 @@ from geotransformer_tpu_torch.preprocess.calibrate import (  # noqa: F401
 from geotransformer_tpu_torch.preprocess.pyramid import (  # noqa: F401
     PAD_COORD,
     TABLE_ALIGN,
+    batch_to_float64,
     batch_to_torch,
     build_input_stream,
     build_inverse_table,

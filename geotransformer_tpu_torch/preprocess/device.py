@@ -237,6 +237,19 @@ def build_inverse_table_device(table, num_support, j_cap):
     return inv, (deg > j_cap).any()
 
 
+def input_stream_device(table, points, feats):
+    """The input conv's (5, M, H) edge stream of stage 0's neighbor table
+    (:func:`..pyramid.build_input_stream`): offsets xyz, the flag of a
+    neighbor whose features sum above 0, its feature."""
+    tvalid = table < points.shape[0]
+    idx = torch.where(tvalid, table, 0).long()
+    off = torch.where(tvalid[..., None], points[idx] - points[:, None, :], 0.0)
+    fsum = feats.sum(dim=1)
+    flag = (tvalid & (fsum[idx] > 0.0)).to(torch.float32)
+    featv = torch.where(tvalid, feats[idx, 0], 0.0)
+    return torch.stack([off[..., 0], off[..., 1], off[..., 2], flag, featv], dim=0)
+
+
 def build_pyramid_device(points, lengths, feats, transform, num_stages, voxel_size, radius,
                          neighbor_limits, stage_caps, inverse_limits=None,
                          sub_inverse_limits=None, knn_cand_cap=512):
@@ -341,16 +354,8 @@ def build_pyramid_device(points, lengths, feats, transform, num_stages, voxel_si
     out["features"] = torch.where(valid0.reshape(2 * cap0)[:, None],
                                   feats.to(device=dev, dtype=torch.float32), 0.0)
     if out["features"].shape[1] == 1:
-        # the input conv's edge stream (:func:`..pyramid.build_input_stream`)
-        table, pts0 = out["neighbors"][0], out["points"][0]
-        tvalid = table < pts0.shape[0]
-        idx = torch.where(tvalid, table, 0).long()
-        off = torch.where(tvalid[..., None], pts0[idx] - pts0[:, None, :], 0.0)
-        fsum = out["features"].sum(dim=1)
-        flag = (tvalid & (fsum[idx] > 0.0)).to(torch.float32)
-        featv = torch.where(tvalid, out["features"][idx, 0], 0.0)
-        out["input_stream"] = torch.stack(
-            [off[..., 0], off[..., 1], off[..., 2], flag, featv], dim=0)
+        out["input_stream"] = input_stream_device(out["neighbors"][0], out["points"][0],
+                                                  out["features"])
     out["transform"] = transform.to(device=dev, dtype=torch.float32)
     return out, torch.stack(overflow)
 

@@ -478,3 +478,16 @@ def batch_to_torch(batch, device):
         return torch.from_numpy(np.ascontiguousarray(value)).to(device)
 
     return {key: convert(value) for key, value in batch.items()}
+
+
+def batch_to_float64(batch):
+    """A torch batch with its floating tensors (in lists and tuples too) in
+    float64, the others as they are: the input of a float64 model."""
+    def convert(value):
+        if isinstance(value, torch.Tensor):
+            return value.double() if value.is_floating_point() else value
+        if isinstance(value, (list, tuple)):
+            return type(value)(convert(v) for v in value)
+        return value
+
+    return {key: convert(value) for key, value in batch.items()}

@@ -1,6 +1,8 @@
-r"""What the port's scripts share: the ``--device`` option and the loader's
-pipeline keywords of a configuration."""
+r"""What the port's scripts share: the ``--device`` option, the loader's
+pipeline keywords of a configuration, and the profiling tools' result
+line."""
 
+import json
 import os
 
 import torch
@@ -40,3 +42,9 @@ def pipeline_config(cfg, stage_caps=None, **extra):
         subsampling_splits=caps.subsampling_splits,
         **extra,
     )
+
+
+def print_result(tool, result):
+    """A tool's key numbers as the last line of its output, one JSON object
+    (None where a time was not measured)."""
+    print(json.dumps({"tool": tool, **result}, default=float), flush=True)

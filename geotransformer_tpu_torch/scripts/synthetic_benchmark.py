@@ -71,24 +71,26 @@ def small_config():
     )
 
 
-def build_sets(scale):
-    """(config, train set, test set) of ``scale`` ("full" or "small")."""
+def build_sets(scale, seed=0, test_fragments=6):
+    """(config, train set, test set) of ``scale`` ("full" or "small"): the
+    training scenes from the data ``seed``, the test scenes from seed + 777;
+    at full scale ``test_fragments`` fragments a test scene."""
     if scale == "full":
         cfg = make_3dmatch_config()
         train_set = SyntheticSceneBenchmark(
             num_scenes=4, fragments_per_scene=8, num_points=60000,
-            point_limit=12000, seed=0, scene_prefix="synth-train-")
+            point_limit=12000, seed=seed, scene_prefix="synth-train-")
         test_set = SyntheticSceneBenchmark(
-            num_scenes=2, fragments_per_scene=6, num_points=60000,
-            point_limit=12000, seed=777, scene_prefix="synth-test-")
+            num_scenes=2, fragments_per_scene=test_fragments, num_points=60000,
+            point_limit=12000, seed=seed + 777, scene_prefix="synth-test-")
     else:
         cfg = small_config()
         train_set = SyntheticSceneBenchmark(
             num_scenes=2, fragments_per_scene=5, num_points=16000,
-            point_limit=2500, seed=0, scene_prefix="synth-train-")
+            point_limit=2500, seed=seed, scene_prefix="synth-train-")
         test_set = SyntheticSceneBenchmark(
             num_scenes=1, fragments_per_scene=5, num_points=16000,
-            point_limit=2500, seed=777, scene_prefix="synth-test-")
+            point_limit=2500, seed=seed + 777, scene_prefix="synth-test-")
     return cfg, train_set, test_set
 
 
@@ -115,13 +117,21 @@ def pipelines(cfg):
     return dict(test, inverse_limits=cfg.caps.inverse_limits), test
 
 
-def training_config(cfg, steps, train_pairs):
-    """``cfg`` trained for whole epochs covering ``steps`` steps, at 3e-4 for
-    a short run (at most 4000 steps) else the config's lr."""
+def training_config(cfg, steps, train_pairs, lr=None, lr_decay=None, model_seed=None,
+                    force_pallas=None):
+    """``cfg`` trained for whole epochs covering ``steps`` steps: at ``lr``,
+    by default 3e-4 for a short run (at most 4000 steps) else the config's;
+    at ``lr_decay`` an epoch, by default the config's; ``model_seed`` (the
+    weights' and the shuffle's seed), by default the config's;
+    ``force_pallas`` as ``ModelConfig.force_pallas``."""
     max_epoch = -(-steps // max(train_pairs, 1))
-    lr = 3e-4 if steps <= 4000 else cfg.optim.lr
-    return dataclasses.replace(
-        cfg, optim=dataclasses.replace(cfg.optim, max_epoch=max_epoch, lr=lr))
+    if lr is None:
+        lr = 3e-4 if steps <= 4000 else cfg.optim.lr
+    optim = dataclasses.replace(cfg.optim, max_epoch=max_epoch, lr=lr,
+                                lr_decay=cfg.optim.lr_decay if lr_decay is None else lr_decay)
+    cfg = dataclasses.replace(cfg, optim=optim,
+                              model=dataclasses.replace(cfg.model, force_pallas=force_pallas))
+    return cfg if model_seed is None else dataclasses.replace(cfg, seed=model_seed)
 
 
 def eval_command(feature_dir, benchmark_root, registration_dir, device):
@@ -143,13 +153,31 @@ def main(argv=None):
     parser.add_argument("--steps", type=int, default=2000)
     parser.add_argument("--scale", choices=("full", "small"), default="full")
     parser.add_argument("--num_workers", type=int, default=8)
+    parser.add_argument("--seed", type=int, default=0,
+                        help="the data seed (scenes); keep it fixed when comparing kernel routes "
+                             "so RR is measured on the same pairs")
+    parser.add_argument("--model_seed", type=int, default=None,
+                        help="the weights' and the shuffle's seed (default: the config's); "
+                             "vary it for repeats on fixed data")
+    parser.add_argument("--test_fragments", type=int, default=6,
+                        help="fragments a test scene at full scale; 10 gives ~90 pairs")
+    parser.add_argument("--lr", type=float, default=None,
+                        help="the base learning rate (default: 3e-4 up to 4000 steps, else the "
+                             "config's)")
+    parser.add_argument("--lr_decay", type=float, default=None,
+                        help="the learning rate's decay an epoch (default: the config's)")
+    parser.add_argument("--skip_eval_script", action="store_true",
+                        help="stop after the Tester's feature dump")
+    parser.add_argument("--force_pallas", choices=("auto", "true", "false"), default="auto",
+                        help="the kernel route: auto (the kernels on the card), true (the "
+                             "kernels, else an error), false (the plain PyTorch modules)")
     add_device_argument(parser)
     args = parser.parse_args(argv)
     device = resolve_device(args.device)
     out = osp.abspath(args.out)
 
     t0 = time.time()
-    cfg, train_set, test_set = build_sets(args.scale)
+    cfg, train_set, test_set = build_sets(args.scale, args.seed, args.test_fragments)
     print(f"train pairs: {len(train_set)}  test pairs: {len(test_set)} "
           f"({time.time() - t0:.1f}s)", flush=True)
     if len(train_set) < 4 or len(test_set) < 3:
@@ -163,7 +191,9 @@ def main(argv=None):
     train_pipeline, test_pipeline = pipelines(cfg)
 
     # ---- train (whole epochs covering --steps) ----
-    cfg = training_config(cfg, args.steps, len(train_set))
+    force = {"auto": None, "true": True, "false": False}[args.force_pallas]
+    cfg = training_config(cfg, args.steps, len(train_set), args.lr, args.lr_decay,
+                          args.model_seed, force)
     model = create_model(cfg, device=device)
     train_loader = PairLoader(train_set, train_pipeline, batch_size=1, shuffle=True,
                               num_workers=args.num_workers, seed=cfg.seed)
@@ -187,6 +217,8 @@ def main(argv=None):
         train_loader.close()
         test_loader.close()
     print("tester metrics:", {k: round(v, 4) for k, v in summary.items()}, flush=True)
+    if args.skip_eval_script:
+        return summary
 
     # ---- eval.py protocol (a process of its own, like the reference) ----
     cmd, env = eval_command(feature_dir, benchmark_root, osp.join(out, "registration"), device)

@@ -13,9 +13,7 @@ replayed alone from its own CUDA graph (chip_smoke.graph_ms) and its bound
 ms (chip_smoke's cost functions), each gse_full_bwd call also the entries
 it settled in float64, and for each kernel the GSE backward's calls launch
 (by name) its device ms summed over the calls, from torch.profiler's CUPTI
-durations of ``reps`` eager runs (one profiler session a process: the
-profiler loses the events of ctypes-launched kernels after its first).
-Written to chiprun_out/launch_profile_<path>.json too."""
+durations of ``reps`` eager runs. Written to chiprun_out/launch_profile_<path>.json too."""
 
 import argparse
 import collections

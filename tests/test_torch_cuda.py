@@ -60,7 +60,11 @@ candidates are all off, masked candidates with indices out of range, and
 from a CUDA graph. The vanilla, PE and LRPE transformers launch the
 attention kernel twice a block and agree with their einsum route within
 1e-4; the quaternion Kabsch agrees with its CPU run within 1e-5 and
-replays from a CUDA graph.
+replays from a CUDA graph. Two torch.profiler sessions in one process count
+the same hand-written kernel events around a full-width 3DMatch forward;
+TransformerEncoder and TransformerDecoder launch the attention kernel once
+a self-attention layer and twice a decoder layer, within 1e-4 of their
+einsum route; rows 3 and 8 agree with their plain versions at C = 96.
 """
 
 import numpy as np
@@ -1690,3 +1694,84 @@ def test_quaternion_kabsch_on_the_card(device):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(replayed, got)
+
+
+def test_profiler_sessions_count_the_same_kernels(device):
+    """Two torch.profiler sessions in one process, each around the same
+    full-width 3DMatch forward (utils.timing.top_device_ops), count the same
+    hand-written kernel events by name, and the second holds every kernel
+    the forward launched: sessions after the first keep the kernels
+    launched through ctypes (top_device_ops raises where a session holds
+    fewer events of a hand-written kernel than its wrapper launched)."""
+    import re
+
+    from geotransformer_tpu_torch.models import create_model
+    from geotransformer_tpu_torch.scripts import pairs
+    from geotransformer_tpu_torch.scripts.profile_ops import hand_written
+    from geotransformer_tpu_torch.utils.timing import top_device_ops
+
+    cfg, batch = pairs.tool_batch(pairs.tool_config(False), pairs.make_3dmatch_pair(0, n_ref=4000),
+                                  False, device)
+    model = create_model(cfg, device=device)
+    counts = []
+    for _ in range(2):
+        kernels, _ = top_device_ops(lambda: model(batch))
+        counts.append({op.name: op.count for op in kernels if re.search(hand_written(), op.name)})
+    assert counts[0] == counts[1]
+    launched = {"edge_kernel", "gse_kernel", "pair_scores_kernel", "attention_kernel",
+                "sinkhorn_kernel", "kpconv_stream_kernel"}
+    found = {name for name in launched if any(re.search(rf"\b{name}\b", k) for k in counts[1])}
+    assert found == launched, counts[1]
+
+
+@pytest.mark.parametrize("stack", ["encoder", "decoder"])
+def test_encoder_and_decoder_route_through_the_attention_kernel(device, stack):
+    """TransformerEncoder and TransformerDecoder at the 3DMatch width (256,
+    4 heads, 2 layers) launch fused_masked_attention once a self-attention
+    layer and twice a decoder layer, and agree with their einsum route
+    (force=False) within 1e-4 of the largest magnitude."""
+    from geotransformer_tpu_torch.models import TransformerDecoder, TransformerEncoder
+
+    gen = torch.Generator().manual_seed(9)
+    layers, n0, n1 = 2, 300, 261
+    q = torch.randn((1, n0, 256), generator=gen).to(device)
+    s = torch.randn((1, n1, 256), generator=gen).to(device)
+    q_masks, s_masks = (torch.arange(n0) < 281)[None].to(device), (torch.arange(n1) < 250)[None].to(device)
+    cls, inputs, calls = {"encoder": (TransformerEncoder, (q, q_masks), layers),
+                          "decoder": (TransformerDecoder, (q, s, q_masks, s_masks), 2 * layers)}[stack]
+    model = cls(256, 4, layers)
+    plain = cls(256, 4, layers, force=False)
+    plain.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        cuda.launches.clear()
+        got = model.to(device)(*inputs)
+        torch.cuda.synchronize()
+        assert dict(cuda.launches) == {"fused_masked_attention": calls}
+        want = plain.to(device)(*inputs)
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-4
+
+
+@pytest.mark.parametrize("n, n_valid, tied", [(77, 77, False), (77, 45, False), (45, 40, True)])
+def test_gse_at_c96_matches_plain(device, n, n_valid, tied):
+    """Rows 3 and 8 at C = 96, the small synthetic workflow's hidden width
+    (the forward's channels across 4 warps, the backward in three 32-channel
+    blocks), against their plain versions: the forward within 1e-3 and zero
+    outside the valid square, the backward as at the other widths (exact
+    ties of two angle projections settled in float64)."""
+    args = gse_case(device, 96, n, 3)
+    nv = torch.tensor(n_valid, dtype=torch.int32, device=device)
+    got = gse_embedding_full(*args, 0.2, 15.0, nv)
+    want = gse_embedding_full_plain(*args, 0.2, 15.0, nv)
+    torch.cuda.synchronize()
+    assert (got[:n_valid, :n_valid] - want[:n_valid, :n_valid]).abs().max().item() <= 1e-3
+    assert not got[n_valid:].any() and not got[:, n_valid:].any()
+    bwd_args, de, bwd_nv = gse_bwd_case(device, 96, n, n_valid, tied)
+    before = cuda.launches["gse_full_bwd"]
+    got = gse_full_bwd(*bwd_args, 0.2, 15.0, de, bwd_nv)
+    assert cuda.launches["gse_full_bwd"] == before + 1
+    settled = int(gse_kernels.last_settled)
+    want = gse_full_bwd_plain(*bwd_args, 0.2, 15.0, de, bwd_nv)
+    torch.cuda.synchronize()
+    assert_gse_bwd_close(got, want)
+    if tied:
+        assert settled > 0
