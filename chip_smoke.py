@@ -135,11 +135,23 @@ fused_masked_attention twice a block).
                K = 16, 20, 32; the Sinkhorn forwards at 256 x 256, 257 x 257,
                400 x 300 and the backward at 160, 161, 257; the RPE pair
                scores at C = 130, 640, 1024 and H = 12, 16; the attention at
-               head widths 24, 48, 96, 128; both with misaligned operands):
-               each call launches its kernel once, agrees with its plain
-               version within its row's tolerance, and is timed alone from
-               its own graph with its shape and bound (by_call, path
-               "limits"; kept out of the paths' sums).
+               head widths 24, 48, 96, 128; both with misaligned operands;
+               the GSE forward and backward at C = 48, 96, 160, 192, 224,
+               512 with A = 3 and C = 256 with A = 4 and 5, the backward
+               also at C = 96 and 160 with tied reference vectors; KPConv
+               rows 1 and 6 at K = 16, 20, 32, row 5 at K = 20, row 1 at
+               C_in = 1,028): each call launches its kernel once, agrees
+               with its plain version within its row's tolerance, and is
+               timed alone from its own graph with its shape and bound
+               (by_call, path "limits"; kept out of the paths' sums).
+               The widths path (runs after phase 20): the 3DMatch cell's
+               pair 0 at full width with geotransformer.hidden_dim = 192
+               and angle_k = 4, seeded weights: one forward counted and
+               checked as phase 3, within 1e-3 of the force_pallas=False
+               model's coarse features; one make_train_step step counted,
+               finite and not skipped, its loss within 1e-3 of the plain
+               route's; the forward's and a step's kernel calls against
+               their plain versions (path "widths").
  16. synthetic workflow — scripts/synthetic_benchmark.py at full width:
                SyntheticSceneBenchmark's 78 training pairs (4 scenes of 8
                fragments, seed 0) and 20 test pairs (2 of 6, seed 777), the
@@ -351,7 +363,9 @@ from geotransformer_tpu_torch.parallel import rank as mesh_rank
 from geotransformer_tpu_torch.preprocess import (
     batch_to_float64,
     batch_to_torch,
+    build_inverse_table,
     build_pyramid,
+    build_split_tables,
     build_union_tables,
     calibrate_split_specs,
     calibrate_stage_caps,
@@ -399,6 +413,9 @@ DEVICE_TRAIN_STEPS = 16
 # phase 19: the LRPE bank's rows (relative distance bins of sigma_d) and the
 # seed of the variants' weights and PE embeddings
 VARIANT_EMBEDDINGS, VARIANT_SEED = 64, 19
+# phase 15's widths path: the 3DMatch cell's GeoTransformer at a width and
+# an angle count the shipped configurations do not use, and its weights' seed
+WIDTHS_HIDDEN, WIDTHS_ANGLES, WIDTHS_SEED = 192, 4, 15
 PEAK_F32_FLOPS = 67e12  # H100 SXM, f32 outside the tensor cores
 PEAK_TF32_FLOPS = 495e12  # H100 SXM, TF32 on the tensor cores, dense
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
@@ -1206,7 +1223,9 @@ BY_CALL = {"grid_radius_search": search_shape, "voxel_segment_mean": segment_sha
            "sinkhorn_fwd_train": sinkhorn_shape, "sinkhorn_bwd_train": sinkhorn_shape,
            "patch_overlaps": overlap_shape}
 # phase 15 times every call alone, with these shapes
-LIMIT_SHAPES = {"kpconv_stream_fused (residuals)": input_conv_shape,
+LIMIT_SHAPES = {"kpconv_fused": call_shape, "kpconv_split_fused": call_shape,
+                "kpconv_bwd_fused": call_shape,
+                "kpconv_stream_fused (residuals)": input_conv_shape,
                 "kpconv_union_input_fused": input_conv_shape,
                 "sinkhorn_log_iterations": limit_sinkhorn_shape,
                 "sinkhorn_fwd_train": limit_sinkhorn_shape,
@@ -3993,7 +4012,14 @@ def limit_calls(device):
     the GSE embedding and its backward at C = 96 (the small synthetic
     workflow's width: the forward's channels across 4 warps, the backward
     in 32-channel blocks), 300 superpoints with 280 valid, the backward
-    also with two reference vectors tied (its float64 settling)."""
+    also with two reference vectors tied (its float64 settling); both at
+    C = 48 (padded to 64), 160, 192 and 224 (the new instances; the
+    backward's ragged row tiles), 512 (two channel blocks, two row chunks)
+    with A = 3 and at C = 256 with A = 4 and 5 (two angle groups), the
+    backward also at C = 160 tied; KPConv rows 1 and 6 at K = 16, 20 and 32
+    kernel points and C = 64 on the union case's table and its inverse,
+    row 5 at K = 20 on its split tables, row 1 at C_in = 1,028 (two passes
+    of 256 channel groups)."""
     g = torch.Generator().manual_seed(15)
     to = lambda *ts: [t.to(device) for t in ts]  # noqa: E731
     calls = collections.defaultdict(list)
@@ -4079,7 +4105,100 @@ def limit_calls(device):
         de = torch.randn(n, n, c, generator=g)
         calls["gse_full_bwd"].append(
             ((*to(points, vectors, w_a), 0.2, 15.0, de.to(device), nv), {}))
+
+    # the GSE rows at every kind of shape their JAX kernels take
+    for c, angles in ((48, 3), (160, 3), (192, 3), (224, 3), (512, 3), (256, 4), (256, 5)):
+        points = torch.rand(n, 3, generator=g)
+        ref_vectors = torch.randn(n, angles, 3, generator=g) * 0.1
+        w_d, w_a = (torch.randn(c, c, generator=g) / c**0.5 for _ in range(2))
+        b_d, b_a = torch.randn(c, generator=g), torch.randn(c, generator=g)
+        calls["gse_embedding_full"].append(
+            ((*to(points, ref_vectors, w_d, b_d, w_a, b_a), 0.2, 15.0, nv), {}))
+        vectors = [ref_vectors]
+        if c == 160:
+            tied = ref_vectors.clone()
+            tied[:, 2] = tied[:, 0]
+            vectors.append(tied)
+        for v in vectors:
+            de = torch.randn(n, n, c, generator=g)
+            calls["gse_full_bwd"].append(((*to(points, v, w_a), 0.2, 15.0, de.to(device), nv), {}))
+
+    # KPConv rows 1, 5 and 6 past 16 kernel points and row 1 past 256
+    # channel groups a row, on the union case's table (2,000 queries of
+    # 3,000 supports, 38 columns, 30 % sentinels) and its inverse
+    m, n = q_points.shape[0], s_points.shape[0]
+    table_t = torch.from_numpy(table).to(device)
+    degree = int(np.bincount(table[table < n], minlength=n).max())
+    inverse = torch.from_numpy(build_inverse_table(table, n, round_up(degree, 8))).to(device)
+    s_feats = torch.randn(n, 64, generator=g)
+    gdiv = torch.randn(m, 64, generator=g).to(device)
+    for k in (16, 20, 32):
+        kp, w = to(kernel_points(k), torch.randn(k, 64, 64, generator=g) / 64)
+        calls["kpconv_fused"].append(((*to(s_feats, q_points, s_points), table_t, kp, w, 0.05), {}))
+        calls["kpconv_bwd_fused"].append(
+            ((*to(s_feats, s_points, q_points), gdiv, inverse, kp, w, 0.05), {}))
+        if k == 20:
+            m2 = int((table[:, 16:] < n).any(axis=1).sum())
+            split = [torch.from_numpy(x).to(device)
+                     for x in build_split_tables(table, n, 16, round_up(m2, 8))]
+            calls["kpconv_split_fused"].append(
+                ((*to(s_feats, q_points, s_points), table_t[:, :16].contiguous(), *split, kp, w,
+                  0.05), {}))
+    kp, w = to(kernel_points(15), torch.randn(15, 1028, 64, generator=g) / 1028)
+    calls["kpconv_fused"].append(
+        ((*to(torch.randn(n, 1028, generator=g), q_points, s_points), table_t, kp, w, 0.05), {}))
     return calls
+
+
+def widths_phase(device, launches, report):
+    """Phase 15's widths path: the 3DMatch cell's pair 0 at full width with
+    geotransformer.hidden_dim = 192 and angle_k = 4 (the GSE forward's 192
+    instance with two angle groups; the backward's ragged row tiles and two
+    groups), seeded weights. One forward counted against what the batch
+    implies (expected_launches), checked as phase 3 checks its pairs and
+    against the force_pallas=False model on the same weights; one training
+    step through make_train_step counted, finite and not skipped, its loss
+    (before the step, from step_gradients) within 1e-3 of the plain
+    route's; the forward's and a step's kernel calls against their plain
+    versions. Returns them as path "widths"."""
+    cfg, _, batches = SHARED["3dmatch_train"]
+    cfg = dataclasses.replace(cfg, geotransformer=dataclasses.replace(
+        cfg.geotransformer, hidden_dim=WIDTHS_HIDDEN, angle_k=WIDTHS_ANGLES))
+    batch, blocks, start = batches[0], cfg.geotransformer.blocks, time.perf_counter()
+    model = create_model(cfg, seed=WIDTHS_SEED, device=device)
+    plain_model = create_model(cfg.with_model(force_pallas=False), device=device)
+    plain_model.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        forward_ms(model, batch)  # warm-up
+        (ms, out), counts = counted(lambda: forward_ms(model, batch))
+        expect_launches(counts, [batch], "inference", "widths forward", blocks)
+        launches["widths_inference"] = counts
+        check_output(out, cfg, cfg.caps.stage_caps)
+        compare_coarse_features(out, plain_model(batch), "widths whole model vs force_pallas=False")
+        with capture_kernel_calls(INFERENCE) as records:
+            model(batch)
+    results = compare_kernels(records, INFERENCE, reps=3, stage_of=stages_of(batch))
+    with capture_kernel_calls(TRAINING) as records:
+        loss_kernel, _ = step_gradients(model, cfg, batch, 0)
+    results.update(compare_kernels(records, TRAINING, reps=3, stage_of=stages_of(batch)))
+    loss_plain, _ = step_gradients(plain_model, cfg, batch, 0)
+    rel = abs(loss_kernel - loss_plain) / abs(loss_plain)
+    expect(rel <= 1e-3, f"widths step: loss {loss_kernel} vs plain route {loss_plain}")
+    optimizer, scheduler = make_optimizer(model, cfg, steps_per_epoch=1)
+    step = make_train_step(model, cfg, optimizer, scheduler, device=DEVICE)
+    metrics, counts = counted(lambda: step(batch, target_generator(0)))
+    expect_launches(counts, [batch], "train", "widths train step", blocks)
+    launches["widths_train"] = counts
+    expect(metrics["grad_finite"].item() == 1.0, "widths train step skipped by the guard")
+    expect(np.isfinite(metrics["loss"].item()), f"widths train step: loss {metrics['loss']}")
+    seconds = time.perf_counter() - start
+    print(f"15 widths (hidden_dim {WIDTHS_HIDDEN}, angle_k {WIDTHS_ANGLES}): forward {ms:.3f} ms "
+          f"(CUDA events); step loss kernel {loss_kernel:.6f}, plain {loss_plain:.6f} (rel "
+          f"{rel:.2e}); trained step loss {metrics['loss'].item():.6f}; {seconds:.1f} s",
+          flush=True)
+    report["widths"] = dict(forward_ms=ms, loss_kernel=loss_kernel, loss_plain=loss_plain,
+                            seconds=seconds)
+    return {"widths": results}
 
 
 def limits_phase(device, report):
@@ -4087,6 +4206,7 @@ def limits_phase(device, report):
     launching the kernel once (its counter rises: no plain route), held to
     its plain version within its row's tolerance and timed alone from its
     own graph with its shape and bound (by_call)."""
+    start = time.perf_counter()
     calls = limit_calls(device)
     for name, entries in calls.items():
         kernel, counter = getattr(KERNELS[name].module, wrapper_of(name)), wrapper_of(name)
@@ -4104,7 +4224,10 @@ def limits_phase(device, report):
             print(f"limits {name} {shape}: {entry['device_ms']:.4f} ms on the device (graph), "
                   f"bound {entry['bound_ms']:.4f} ms, max|kernel - plain| "
                   f"{entry['max_abs_err']:.3e}", flush=True)
+    seconds = time.perf_counter() - start
+    print(f"15 limits: {sum(len(e) for e in calls.values())} calls in {seconds:.1f} s", flush=True)
     report["limits"] = results
+    report["limits_s"] = seconds
     return results
 
 
@@ -4145,6 +4268,8 @@ def main():
         by_path.update(extras_phases(device, launches, report))
         # 20. the profiler's later sessions, the encoder and decoder, the tools
         by_path.update(tools_phases(device, launches, report, tmp))
+    # 15. the widths path: the 3DMatch cell at hidden_dim 192, angle_k 4
+    by_path.update(widths_phase(device, launches, report))
     for path, path_results in by_path.items():
         print_results(path, path_results)
     results = merge_paths(by_path)

@@ -1,0 +1,178 @@
+"""Device time of every call of the KPConv and GSE rows (kpconv_fused,
+kpconv_split_fused, kpconv_bwd_fused, gse_embedding_full, gse_full_bwd) on
+the shipped paths, run by the kernels of two checkouts of the port in
+turns, on one CUDA card:
+
+    python3 compare_checkouts.py capture CALLS.pt
+    python3 compare_checkouts.py time CALLS.pt OUT.json --root CHECKOUT [--reps 20]
+    python3 compare_checkouts.py report A1.json B1.json B2.json A2.json
+    python3 compare_checkouts.py capture CALLS.pt --paths kitti --kernels gse_embedding_full
+
+``capture`` (this checkout) builds chip_smoke.py's 3DMatch, KITTI and
+ModelNet pair 0 at their full-width configs (launch_profile.path_batch),
+records the five wrappers' calls in one inference forward and one training
+step (seed-0 weights), and the GSE rows' calls again with the 3DMatch pair
+at hidden_dim 96 (the small synthetic workflow's width), and saves them on
+the CPU. ``time`` imports the port from CHECKOUT (built there with its own
+sources), replays each saved call alone from its own CUDA graph
+(utils.timing.graph_ms) and writes its device ms. ``report`` reads the runs
+in the order given (the first checkout's, then the second's, then the
+second's and the first's again, so a drift of the card shows in both) and
+prints, for each path and row, each checkout's device ms summed over the
+calls (the mean of its runs) and each later checkout's over the first's,
+and one JSON line of them (more than two checkouts compare to the first).
+``--paths`` and ``--kernels`` restrict what ``capture`` records. Every run
+also records the card's name and power limit.
+"""
+
+import argparse
+import collections
+import json
+import os
+import subprocess
+import sys
+import tempfile
+
+import torch
+
+ROWS = ("kpconv_fused", "kpconv_split_fused", "kpconv_bwd_fused", "gse_embedding_full",
+        "gse_full_bwd")
+GSE = ("gse_embedding_full", "gse_full_bwd")
+PATHS = ("3dmatch", "3dmatch_c96", "kitti", "modelnet")
+MODULES = {"kpconv_fused": "kpconv", "kpconv_split_fused": "kpconv",
+           "kpconv_bwd_fused": "kpconv", "gse_embedding_full": "gse", "gse_full_bwd": "gse"}
+
+
+def card():
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+
+
+def moved(x, device):
+    """x with every tensor in it (tuples and lists too) on ``device``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    if isinstance(x, (tuple, list)):
+        return type(x)(moved(v, device) for v in x)
+    if isinstance(x, dict):
+        return {k: moved(v, device) for k, v in x.items()}
+    return x
+
+
+def capture(out_path, paths, kernels):
+    import dataclasses
+
+    import chip_smoke as cs
+    import launch_profile
+    from geotransformer_tpu_torch.models import create_model
+
+    cs.cuda.build()
+    calls = []
+
+    def record(path, cfg, batch, names):
+        names = [n for n in names if n in kernels]
+        if path not in paths or not names:
+            return
+        model = create_model(cfg, device=cs.DEVICE)
+        with cs.capture_kernel_calls(names) as records:
+            model(batch)
+            cs.step_gradients(model, cfg, batch, 0)
+        for name in names:
+            calls.extend((path, name, moved(args, "cpu"), moved(kwargs, "cpu"))
+                         for args, kwargs in records[name])
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for path in ("3dmatch", "kitti", "modelnet"):
+            if path not in paths and not (path == "3dmatch" and "3dmatch_c96" in paths):
+                continue
+            cfg, batch = launch_profile.path_batch(path, tmp)
+            record(path, cfg, batch, ROWS)
+            if path == "3dmatch":
+                narrow = dataclasses.replace(cfg, geotransformer=dataclasses.replace(
+                    cfg.geotransformer, hidden_dim=96))
+                record("3dmatch_c96", narrow, batch, GSE)
+    torch.save(calls, out_path)
+    print(json.dumps({n: sum(1 for c in calls if c[1] == n) for n in ROWS}))
+
+
+def time_calls(calls_path, out_path, root, reps):
+    sys.path.insert(0, os.path.abspath(root))
+    import importlib
+
+    cuda = importlib.import_module("geotransformer_tpu_torch.kernels.cuda")
+    timing = importlib.import_module("geotransformer_tpu_torch.utils.timing")
+    modules = {m: importlib.import_module(f"geotransformer_tpu_torch.kernels.{m}")
+               for m in set(MODULES.values())}
+    package = os.path.dirname(os.path.dirname(cuda.__file__))
+    if os.path.dirname(package) != os.path.abspath(root):
+        raise RuntimeError(f"imported the port from {package}, not from {root}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build_s = cuda.build()
+    result = []
+    for path, name, args, kwargs in torch.load(calls_path, weights_only=False):
+        args, kwargs = moved(args, "cuda"), moved(kwargs, "cuda")
+        fn = getattr(modules[MODULES[name]], name)
+        before = cuda.launches[name]
+        fn(*args, **kwargs)
+        launches = cuda.launches[name] - before
+        if launches != 1:
+            raise RuntimeError(f"{name}: {launches} launches, expected 1")
+        ms = timing.graph_ms(lambda: fn(*args, **kwargs), name, 1, reps=reps)
+        result.append({"path": path, "kernel": name, "device_ms": ms})
+    with open(out_path, "w") as f:
+        json.dump({"root": os.path.abspath(root), "card": card(), "build_s": build_s,
+                   "calls": result}, f)
+    print(f"{root}: {len(result)} calls timed, build {build_s:.1f} s", flush=True)
+
+
+def report(paths):
+    runs = []
+    for path in paths:
+        with open(path) as f:
+            runs.append(json.load(f))
+    roots = list(dict.fromkeys(r["root"] for r in runs))
+    if len(roots) < 2:
+        raise SystemExit(f"report needs runs of two checkouts or more, got {roots}")
+    sums = {root: collections.defaultdict(list) for root in roots}
+    for run in runs:
+        total = collections.defaultdict(float)
+        for call in run["calls"]:
+            total[call["path"], call["kernel"]] += call["device_ms"]
+        for key, ms in total.items():
+            sums[run["root"]][key].append(ms)
+    first = roots[0]
+    rows = []
+    for key in sums[first]:
+        runs_ms = [sums[root][key] for root in roots]
+        means = [sum(r) / len(r) for r in runs_ms]
+        rows.append({"path": key[0], "kernel": key[1], "ms": runs_ms,
+                     "ratios": [m / means[0] for m in means[1:]]})
+        print(f"{key[0]:12s} {key[1]:20s} {means[0]:9.4f} ms -> "
+              + ", ".join(f"{m:9.4f} ms x{m / means[0]:.4f}" for m in means[1:])
+              + f"  (runs {[[round(x, 4) for x in r] for r in runs_ms]})")
+    print(json.dumps({"roots": roots, "cards": sorted({r["card"] for r in runs}), "rows": rows}))
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("mode", choices=("capture", "time", "report"))
+    parser.add_argument("files", nargs="+")
+    parser.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
+    parser.add_argument("--reps", type=int, default=20)
+    parser.add_argument("--paths", nargs="+", default=PATHS, choices=PATHS)
+    parser.add_argument("--kernels", nargs="+", default=ROWS, choices=ROWS)
+    opts = parser.parse_args()
+    if opts.mode == "report":
+        report(opts.files)
+        return
+    if not torch.cuda.is_available():
+        raise SystemExit("compare_checkouts.py needs a CUDA device")
+    if opts.mode == "capture":
+        capture(opts.files[0], opts.paths, opts.kernels)
+    else:
+        time_calls(opts.files[0], opts.files[1], opts.root, opts.reps)
+
+
+if __name__ == "__main__":
+    main()

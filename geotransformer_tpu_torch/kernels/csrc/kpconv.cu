@@ -576,15 +576,17 @@ long long kpconv_conv_workspace(int M, int K, int C, int D) {
 // partial sums, where kpconv_conv_workspace asks for them). head (M, H1)
 // sentinel N; tail (M2, H2) and tail_rank (M,) (sentinel M2) or null for a
 // whole table; pool_head and pool_tail the pooled columns of the head and
-// of a tail row.
+// of a tail row; edge_*: the edge pass's route (kernels/kpconv.py:
+// edge_route(K, C)). Any K and C.
 int kpconv_conv_launch(const float* s_feats, const float* q_points, const float* s_points,
                        const int32_t* head, const int32_t* tail, const int32_t* tail_rank,
                        const float* posflag, const float* kp, const float* w,
                        const uint8_t* q_mask, const float* pool_feats, float* t_ws,
                        float* div_ws, float* part_ws, float* out, float* pooled,
                        float* count_out, float* ties_out, int M, int N, int H1, int H2, int M2,
-                       int K, int C, int D, int P, int pool_head, int pool_tail, float sigma,
-                       void* stream) {
+                       int K, int C, int D, int P, int pool_head, int pool_tail, int edge_v,
+                       int edge_tpr, int edge_tr, int edge_kp_chunks, int edge_passes,
+                       float sigma, void* stream) {
   if (D < 1 || H1 < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (M == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -618,7 +620,8 @@ int kpconv_conv_launch(const float* s_feats, const float* q_points, const float*
   x.pool_tail = pool_tail;
   const int pool_width = pool_feats == nullptr ? 0
                          : min(pool_head, H1) + (tail != nullptr ? min(pool_tail, H2) : 0);
-  int err = kpconv::launch_edges<false>(e, x, pool_width, st);
+  const kpconv::EdgeRoute route{edge_v, edge_tpr, edge_tr, edge_kp_chunks, edge_passes};
+  int err = kpconv::launch_edges<false>(e, x, pool_width, route, st);
   if (err != 0) return err;
   kpconv::GemmArgs g{};
   g.a = t_ws;

@@ -15,7 +15,11 @@
 //    accumulators; the block stages a chunk of each row's edges at a time
 //    (indices and the 16 influences of each edge, K padded to 16 with
 //    zeros) in shared memory, so the tile does not depend on the table
-//    width. Feature rows are read as float4 through the index, coalesced
+//    width. Any K and C (kernels/kpconv.py:edge_route, which the launcher
+//    checks): K > 16 walks the edges once a chunk of 16 kernel points, and a
+//    row of more than 256 channel groups once a pass of 256 groups, each
+//    pass with its own accumulators; each kernel point's sum is the same as
+//    in one pass. Feature rows are read as float4 through the index, coalesced
 //    across a row's threads, four edges' loads in flight at once. T goes to
 //    a workspace (R, K * C) that the wrapper allocates.
 //    The forward also writes each query's divisor (the count of neighbours
@@ -394,7 +398,8 @@ struct EdgeArgs {
   const float* kp;         // (K, 3)
   float* t_out;            // (R, K * C)
   int R, n_other, C, K, h1, h2, r2;
-  int tr, chunk;           // rows a block, edges a chunk (a multiple of 4)
+  int tpr, tr, chunk;      // threads a row, rows a block, edges a chunk (a multiple of 4)
+  int kp_chunks, passes;   // chunks of 16 kernel points, passes over a row's channel groups
   int pool_width;          // columns of a row the pool phase stages (0: no pool)
   float sigma;
 };
@@ -579,12 +584,13 @@ __global__ void __launch_bounds__(kThreads) edge_kernel(EdgeArgs p, Extras x) {
   int32_t* tails_s = reinterpret_cast<int32_t*>(smem + L.tails);    // (TR,) tail row or -1
 
   const int tid = threadIdx.x;
-  const int tpr = p.C / V;
-  const int rl = tid / tpr, cg = tid % tpr;
+  const int tpr = p.tpr, groups = p.C / V;
+  const int rl = tid / tpr, cl = tid % tpr;
   const int r0 = blockIdx.x * TR;
   const int row = r0 + rl;
   const bool owner = rl < TR && row < p.R;
 
+  // the first chunk's kernel points (16, zeros past K)
   for (int i = tid; i < 3 * kMaxKernelPoints; i += kThreads) kp_s[i] = i < 3 * p.K ? p.kp[i] : 0.0f;
   // each row's tail row, read once; the tail columns are walked only where
   // a row of the block has one
@@ -597,122 +603,139 @@ __global__ void __launch_bounds__(kThreads) edge_kernel(EdgeArgs p, Extras x) {
   }
   const int cols = p.h1 + (__syncthreads_or(has_tail) ? p.h2 : 0);
 
-  float acc[kMaxKernelPoints][V];
-#pragma unroll
-  for (int k = 0; k < kMaxKernelPoints; ++k) {
-#pragma unroll
-    for (int v = 0; v < V; ++v) acc[k][v] = 0.0f;
-  }
-
-  for (int c0 = 0; c0 < cols; c0 += E) {
-    // indices and influences of edges [c0, c0 + E) of every row of the
-    // block (at most two a thread: their loads are issued together); the
-    // forward also counts each row's edges here
-    int any = 0;
-    int slot[2], nn[2];
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const int i = tid + u * kThreads;
-      slot[u] = i;
-      nn[u] = p.n_other;
-      if (i < TR * E) {
-        const int ql = i / E, h = c0 + i % E;
-        const int r = r0 + ql;
-        if (r < p.R && h < cols && (p.mask == nullptr || p.mask[r])) {
-          nn[u] = edge_at(p, r, tails_s[ql], h);
-        }
+  // pass: kernel points k0 .. k0 + 15 (K past 16: a chunk a pass) of the
+  // thread's channel group cg (past 256 groups a row: 256 a pass)
+  for (int pass = 0; pass < p.kp_chunks * p.passes; ++pass) {
+    const int k0 = (pass / p.passes) * kMaxKernelPoints;
+    const int cg = (pass % p.passes) * tpr + cl;
+    const bool mine = owner && cg < groups;
+    if (pass > 0 && pass % p.passes == 0) {  // the next chunk's kernel points
+      __syncthreads();  // the last pass's are read
+      for (int i = tid; i < 3 * kMaxKernelPoints; i += kThreads) {
+        kp_s[i] = 3 * k0 + i < 3 * p.K ? p.kp[3 * k0 + i] : 0.0f;
       }
+      __syncthreads();
     }
+
+    float acc[kMaxKernelPoints][V];
 #pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const int i = slot[u];
-      if (i >= TR * E) continue;
-      const int ql = i / E, e = i % E;
-      const int r = r0 + ql, n = nn[u];
-      idx_s[i] = n;
-      float4* dst = reinterpret_cast<float4*>(infl_s + ql * L.row_stride + e * kMaxKernelPoints);
-      if (n < p.n_other) {
-        any = 1;
-        if constexpr (!BWD) {
-          atomicAdd(cnt_s + ql, x.posflag[n]);  // 0s and 1s: exact in any order
-          live_s[ql] = 1;
-        }
-        const float sx = BWD ? p.self_pts[3 * r + 0] : p.other_pts[3 * n + 0];
-        const float sy = BWD ? p.self_pts[3 * r + 1] : p.other_pts[3 * n + 1];
-        const float sz = BWD ? p.self_pts[3 * r + 2] : p.other_pts[3 * n + 2];
-        const float qx = BWD ? p.other_pts[3 * n + 0] : p.self_pts[3 * r + 0];
-        const float qy = BWD ? p.other_pts[3 * n + 1] : p.self_pts[3 * r + 1];
-        const float qz = BWD ? p.other_pts[3 * n + 2] : p.self_pts[3 * r + 2];
-        const float ox = sx - qx, oy = sy - qy, oz = sz - qz;  // support - query
-        float w[kMaxKernelPoints];
+    for (int k = 0; k < kMaxKernelPoints; ++k) {
 #pragma unroll
-        for (int k = 0; k < kMaxKernelPoints; ++k) {
-          w[k] = 0.0f;
-          if (k < p.K) {
-            const float dx = ox - kp_s[3 * k + 0];
-            const float dy = oy - kp_s[3 * k + 1];
-            const float dz = oz - kp_s[3 * k + 2];
-            const float d = sqrtf(dx * dx + dy * dy + dz * dz);
-            w[k] = fmaxf(1.0f - d / p.sigma, 0.0f);
+      for (int v = 0; v < V; ++v) acc[k][v] = 0.0f;
+    }
+
+    for (int c0 = 0; c0 < cols; c0 += E) {
+      // indices and influences of edges [c0, c0 + E) of every row of the
+      // block (at most two a thread: their loads are issued together); the
+      // forward also counts each row's edges here, in the first pass
+      int any = 0;
+      int slot[2], nn[2];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int i = tid + u * kThreads;
+        slot[u] = i;
+        nn[u] = p.n_other;
+        if (i < TR * E) {
+          const int ql = i / E, h = c0 + i % E;
+          const int r = r0 + ql;
+          if (r < p.R && h < cols && (p.mask == nullptr || p.mask[r])) {
+            nn[u] = edge_at(p, r, tails_s[ql], h);
           }
         }
-#pragma unroll
-        for (int q = 0; q < kMaxKernelPoints / 4; ++q) {
-          dst[q] = make_float4(w[4 * q], w[4 * q + 1], w[4 * q + 2], w[4 * q + 3]);
-        }
-      } else {
-#pragma unroll
-        for (int q = 0; q < kMaxKernelPoints / 4; ++q) dst[q] = make_float4(0.f, 0.f, 0.f, 0.f);
       }
-    }
-    if (!__syncthreads_or(any)) continue;  // no edge of the block in this chunk
-
-    if (owner) {
-      const int32_t* iv = idx_s + rl * E;
-      const float4* inf = reinterpret_cast<const float4*>(infl_s + rl * L.row_stride);
-      for (int e = 0; e < E; e += 4) {
-        int n[4];
 #pragma unroll
-        for (int u = 0; u < 4; ++u) n[u] = iv[e + u];
-        if (n[0] >= p.n_other && n[1] >= p.n_other && n[2] >= p.n_other &&
-            n[3] >= p.n_other) {
-          continue;
-        }
-        float f[4][V];
+      for (int u = 0; u < 2; ++u) {
+        const int i = slot[u];
+        if (i >= TR * E) continue;
+        const int ql = i / E, e = i % E;
+        const int r = r0 + ql, n = nn[u];
+        idx_s[i] = n;
+        float4* dst = reinterpret_cast<float4*>(infl_s + ql * L.row_stride + e * kMaxKernelPoints);
+        if (n < p.n_other) {
+          any = 1;
+          if constexpr (!BWD) {
+            if (pass == 0) {
+              atomicAdd(cnt_s + ql, x.posflag[n]);  // 0s and 1s: exact in any order
+              live_s[ql] = 1;
+            }
+          }
+          const float sx = BWD ? p.self_pts[3 * r + 0] : p.other_pts[3 * n + 0];
+          const float sy = BWD ? p.self_pts[3 * r + 1] : p.other_pts[3 * n + 1];
+          const float sz = BWD ? p.self_pts[3 * r + 2] : p.other_pts[3 * n + 2];
+          const float qx = BWD ? p.other_pts[3 * n + 0] : p.self_pts[3 * r + 0];
+          const float qy = BWD ? p.other_pts[3 * n + 1] : p.self_pts[3 * r + 1];
+          const float qz = BWD ? p.other_pts[3 * n + 2] : p.self_pts[3 * r + 2];
+          const float ox = sx - qx, oy = sy - qy, oz = sz - qz;  // support - query
+          float w[kMaxKernelPoints];
 #pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const bool ok = n[u] < p.n_other;
-          load_row<V>(p.feats + static_cast<size_t>(ok ? n[u] : 0) * p.C + cg * V, ok, f[u]);
-        }
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
+          for (int k = 0; k < kMaxKernelPoints; ++k) {
+            w[k] = 0.0f;
+            if (k0 + k < p.K) {
+              const float dx = ox - kp_s[3 * k + 0];
+              const float dy = oy - kp_s[3 * k + 1];
+              const float dz = oz - kp_s[3 * k + 2];
+              const float d = sqrtf(dx * dx + dy * dy + dz * dz);
+              w[k] = fmaxf(1.0f - d / p.sigma, 0.0f);
+            }
+          }
 #pragma unroll
           for (int q = 0; q < kMaxKernelPoints / 4; ++q) {
-            const float4 w = inf[(e + u) * (kMaxKernelPoints / 4) + q];
+            dst[q] = make_float4(w[4 * q], w[4 * q + 1], w[4 * q + 2], w[4 * q + 3]);
+          }
+        } else {
 #pragma unroll
-            for (int v = 0; v < V; ++v) {
-              acc[4 * q + 0][v] = fmaf(w.x, f[u][v], acc[4 * q + 0][v]);
-              acc[4 * q + 1][v] = fmaf(w.y, f[u][v], acc[4 * q + 1][v]);
-              acc[4 * q + 2][v] = fmaf(w.z, f[u][v], acc[4 * q + 2][v]);
-              acc[4 * q + 3][v] = fmaf(w.w, f[u][v], acc[4 * q + 3][v]);
+          for (int q = 0; q < kMaxKernelPoints / 4; ++q) dst[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+      }
+      if (!__syncthreads_or(any)) continue;  // no edge of the block in this chunk
+
+      if (mine) {
+        const int32_t* iv = idx_s + rl * E;
+        const float4* inf = reinterpret_cast<const float4*>(infl_s + rl * L.row_stride);
+        for (int e = 0; e < E; e += 4) {
+          int n[4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) n[u] = iv[e + u];
+          if (n[0] >= p.n_other && n[1] >= p.n_other && n[2] >= p.n_other &&
+              n[3] >= p.n_other) {
+            continue;
+          }
+          float f[4][V];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const bool ok = n[u] < p.n_other;
+            load_row<V>(p.feats + static_cast<size_t>(ok ? n[u] : 0) * p.C + cg * V, ok, f[u]);
+          }
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+#pragma unroll
+            for (int q = 0; q < kMaxKernelPoints / 4; ++q) {
+              const float4 w = inf[(e + u) * (kMaxKernelPoints / 4) + q];
+#pragma unroll
+              for (int v = 0; v < V; ++v) {
+                acc[4 * q + 0][v] = fmaf(w.x, f[u][v], acc[4 * q + 0][v]);
+                acc[4 * q + 1][v] = fmaf(w.y, f[u][v], acc[4 * q + 1][v]);
+                acc[4 * q + 2][v] = fmaf(w.z, f[u][v], acc[4 * q + 2][v]);
+                acc[4 * q + 3][v] = fmaf(w.w, f[u][v], acc[4 * q + 3][v]);
+              }
             }
           }
         }
       }
+      __syncthreads();  // the chunk is read before the next one is staged
     }
-    __syncthreads();  // the chunk is read before the next one is staged
-  }
 
-  if (owner) {
-    float* dst = p.t_out + static_cast<size_t>(row) * p.K * p.C + cg * V;
+    if (mine) {
+      float* dst = p.t_out + static_cast<size_t>(row) * p.K * p.C + cg * V;
 #pragma unroll
-    for (int k = 0; k < kMaxKernelPoints; ++k) {
-      if (k >= p.K) break;
-      if constexpr (V == 4) {
-        *reinterpret_cast<float4*>(dst + k * p.C) =
-            make_float4(acc[k][0], acc[k][1], acc[k][2], acc[k][3]);
-      } else {
-        dst[k * p.C] = acc[k][0];
+      for (int k = 0; k < kMaxKernelPoints; ++k) {
+        if (k0 + k >= p.K) break;
+        if constexpr (V == 4) {
+          *reinterpret_cast<float4*>(dst + (k0 + k) * p.C) =
+              make_float4(acc[k][0], acc[k][1], acc[k][2], acc[k][3]);
+        } else {
+          dst[(k0 + k) * p.C] = acc[k][0];
+        }
       }
     }
   }
@@ -775,19 +798,47 @@ __global__ void __launch_bounds__(kThreads) edge_kernel(EdgeArgs p, Extras x) {
   }
 }
 
-// Rows a block (256 threads / threads a row, at most 64) and edges a chunk
-// (the staged influences at most 32 KB, 4 to 64 edges, no more than the
-// table is wide); the pool phase stages pool_width columns a row.
+// The edge pass's shape for K kernel points and C channels
+// (kernels/kpconv.py:edge_route, which the wrapper passes and the launcher
+// checks): V channels a thread (4 where C % 4 == 0), threads a row (the
+// row's C / V channel groups, at most 256), rows a block (256 / threads a
+// row, at most 64), chunks of 16 kernel points, passes over the channel
+// groups.
+struct EdgeRoute {
+  int v, tpr, tr, kp_chunks, passes;
+};
+
+inline EdgeRoute edge_route(int K, int C) {
+  EdgeRoute r;
+  r.v = C % 4 == 0 ? 4 : 1;
+  const int groups = C / r.v;
+  r.tpr = groups < kThreads ? groups : kThreads;
+  r.tr = min(kThreads / r.tpr, 64);
+  r.kp_chunks = (K + kMaxKernelPoints - 1) / kMaxKernelPoints;
+  r.passes = (groups + r.tpr - 1) / r.tpr;
+  return r;
+}
+
+// Edges a chunk (the staged influences at most 32 KB, 4 to 64 edges, no
+// more than the table is wide); the pool phase stages pool_width columns a
+// row. `route` must be edge_route(K, C)'s.
 template <bool BWD, typename Extras>
-int launch_edges(EdgeArgs p, const Extras& x, int pool_width, cudaStream_t stream) {
-  const int v = p.C % 4 == 0 ? 4 : 1;
-  const int tpr = p.C / v;
-  if (p.K < 1 || p.K > kMaxKernelPoints || p.C < 1 || tpr > kThreads || p.h1 < 0 ||
-      (p.tail != nullptr && p.h2 < 1)) {
+int launch_edges(EdgeArgs p, const Extras& x, int pool_width, const EdgeRoute& route,
+                 cudaStream_t stream) {
+  if (p.K < 1 || p.C < 1 || p.h1 < 0 || (p.tail != nullptr && p.h2 < 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const EdgeRoute want = edge_route(p.K, p.C);
+  if (route.v != want.v || route.tpr != want.tpr || route.tr != want.tr ||
+      route.kp_chunks != want.kp_chunks || route.passes != want.passes) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (p.R == 0) return 0;
-  p.tr = min(kThreads / tpr, 64);
+  const int v = route.v;
+  p.tpr = route.tpr;
+  p.tr = route.tr;
+  p.kp_chunks = route.kp_chunks;
+  p.passes = route.passes;
   const int width = ((p.h1 + (p.tail != nullptr ? p.h2 : 0)) + 3) & ~3;
   int e = (8192 / (kMaxKernelPoints * p.tr)) & ~3;
   e = max(4, min(e, 64));

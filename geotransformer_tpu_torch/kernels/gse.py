@@ -8,8 +8,14 @@ differentiable :func:`gse_embedding_full_diff` (projection parameters only).
 The output is float32; the JAX kernel stores bfloat16 (``EMBED_DTYPE``).
 Pairs outside the valid rectangle ``[0, n_valid)^2`` are zero, so they get
 no gradient either.
+
+Both kernels take every shape the JAX kernels take: any even width C and
+any number of angles A (:func:`gse_route` picks the instance, the launchers
+check it). An odd C raises ``ValueError`` on the card, as the JAX kernels'
+interleaved sin/cos bases cannot hold it either.
 """
 
+import collections
 import ctypes
 import functools
 import math
@@ -20,11 +26,70 @@ from geotransformer_tpu_torch.kernels import cuda
 from geotransformer_tpu_torch.ops.embedding import div_term, sinusoidal_embedding
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURES = {"gse_embedding_launch": [_P] * 9 + [_I] * 3 + [_F, _F, _P]}
+_SIGNATURES = {"gse_embedding_launch": [_P] * 9 + [_I] * 8 + [_F, _F, _P]}
 _BWD_SIGNATURES = {
-    "gse_bwd_launch": [_P] * 15 + [_I] * 4 + [_F, _F, _P],
+    "gse_bwd_launch": [_P] * 15 + [_I] * 9 + [_F, _F, _P],
     "gse_bwd_slices": [_I] * 2,
 }
+
+_CHUNK = 32       # basis rows: the kernels' granule
+_WIDEST = 256     # the widest instance (channel block, row chunk)
+_TILE = 16        # the backward's pairs a tile
+_FWD_GROUP = 4    # the forward's angles a group
+_EXACT_WIDTHS = (32, 64, 96, 128, 256)  # gse_kernel's instances
+_BWD_GROUP = 3    # the backward's angles a group
+_UNDECIDED = 255  # the backward's k* is a byte; 255 marks an undecided entry
+
+# The forward's instance (``csrc/gse.cu``): ``exact``, gse_kernel<C> (C in
+# {32, 64, 96, 128, 256}, A <= 4: every shipped width), else
+# gse_general_kernel; channel blocks of ``width`` channels (a multiple of 32
+# up to 256), ``channel_blocks`` of them across the grid, over
+# ``basis_rows`` basis rows (C rounded up to 32) in ``chunks`` of 32, the
+# angles in ``angle_groups`` groups of up to 4; ``words`` of shared memory a
+# block.
+GSEForwardRoute = collections.namedtuple(
+    "GSEForwardRoute", "exact width channel_blocks basis_rows chunks angle_groups words")
+# The backward's (``csrc/gse_bwd.cu``): ``chunks`` chunks of ``rows`` basis
+# rows (a multiple of 32 up to 256), the angles in ``angle_groups`` groups
+# of 3, ``channel_blocks`` c-blocks of ``channels``; ``resident``: C the
+# width of one chunk and A = 3, W_a's c-block and a tile's bases kept in
+# shared memory throughout; ``words`` of shared memory a block.
+GSEBackwardRoute = collections.namedtuple(
+    "GSEBackwardRoute", "rows chunks angle_groups channels channel_blocks resident words")
+GSERoute = collections.namedtuple("GSERoute", "forward backward")
+
+
+def _round_up(x, m):
+    return -(-x // m) * m
+
+
+def gse_route(c, a):
+    """The instances the GSE kernels run for width ``c`` and ``a`` angles, as
+    the launchers check them. Raises ``ValueError`` for an odd or
+    non-positive width or no angle."""
+    if c < 2 or c % 2:
+        raise ValueError(f"GSE width C = {c}: the interleaved sin/cos bases need an even "
+                         "width of at least 2")
+    if a < 1:
+        raise ValueError(f"GSE angle count A = {a}: the kernels take A >= 1")
+    rows = _round_up(c, _CHUNK)
+    blocks = -(-rows // _WIDEST)
+    width = _round_up(-(-rows // blocks), _CHUNK)
+    pairs = 64 if width > 128 else 128
+    exact = c in _EXACT_WIDTHS and a <= _FWD_GROUP
+    forward = GSEForwardRoute(
+        exact, width, blocks, rows, rows // _CHUNK, -(-a // _FWD_GROUP),
+        2 * (2 * _CHUNK * width) + 2 * (2 * pairs * _CHUNK) + pairs * width
+        + (_FWD_GROUP + 1) * pairs + 2 * pairs + (width // 2 if exact else 0))
+    group = _BWD_GROUP
+    channels = 64 if width % 64 == 0 else 32
+    rs, bs = channels + 8, width + 4
+    backward = GSEBackwardRoute(
+        width, blocks, -(-a // group), channels, -(-c // channels),
+        blocks == 1 and a == group and c == width,
+        width * rs + 2 * (group + 1) * _TILE * bs + 2 * _TILE * rs + (group + 1) * _TILE
+        + _TILE + width // 2 + channels + _TILE * channels // 2 + 1 + _TILE * channels // 4)
+    return GSERoute(forward, backward)
 
 
 # the count of (pair, channel) entries whose angle argmax the last kernel
@@ -48,8 +113,8 @@ def _pair_indices(points, ref_vectors, sigma_d, sigma_a):
     """Distance indices (N, N) and angle indices (N, N, k) of every pair,
     taken directly (the XLA path of ``models/transformer.py:55-83``). The
     angle's cross and dot products, norm and sum are written out one
-    rounded operation at a time, in the order of ``pair_indices`` in
-    ``csrc/gse_bwd.cu``: the kernel's angle indices are these, bit for bit,
+    rounded operation at a time, in the order of ``angle_index`` in
+    ``csrc/gse_common.cuh``: the kernels' angle indices are these, bit for bit,
     so the two never route a projection tie differently for want of an ulp."""
     anchor = points[None, :, :] - points[:, None, :]  # [i, j] = p_j - p_i
     d_idx = torch.linalg.vector_norm(anchor, dim=-1) / sigma_d
@@ -119,16 +184,20 @@ def gse_embedding_full(points, ref_vectors, w_d, b_d, w_a, b_a, sigma_d,
     if n_valid is None:
         n_valid = torch.full((), n, dtype=torch.int32, device=dev)
     cuda.require(n_valid, "n_valid", torch.int32, (), dev)
+    route = gse_route(hidden, angle_k).forward
     bias = (b_d + b_a).contiguous()
     freqs = _frequencies(hidden, dev)
-    # W_a and W_d as TF32 halves in the kernel's fragment order
-    w_frag = torch.empty((4 * hidden * hidden,), dtype=torch.int32, device=dev)
+    # W_a and W_d as TF32 halves in the kernel's fragment order, zero-padded
+    # to the route's basis rows and channel blocks
+    w_frag = torch.empty((4 * route.basis_rows * route.channel_blocks * route.width,),
+                         dtype=torch.int32, device=dev)
     out = torch.empty((n, n, hidden), dtype=f32, device=dev)
     lib = cuda.library("gse", _SIGNATURES)
     code = lib.gse_embedding_launch(
         cuda.ptr(points), cuda.ptr(ref_vectors), cuda.ptr(w_d), cuda.ptr(w_a),
         cuda.ptr(bias), cuda.ptr(freqs), cuda.ptr(n_valid), cuda.ptr(w_frag), cuda.ptr(out),
-        n, angle_k, hidden, float(sigma_d), float(_angle_factor(sigma_a)),
+        n, angle_k, hidden, int(route.exact), route.basis_rows, route.width,
+        route.channel_blocks, route.words, float(sigma_d), float(_angle_factor(sigma_a)),
         cuda.stream_of(points))
     cuda.check(lib, code, "gse_embedding_full")
     cuda.launches["gse_embedding_full"] += 1
@@ -202,13 +271,16 @@ def gse_full_bwd(points, ref_vectors, w_a, sigma_d, sigma_a, de, n_valid=None, f
     if n_valid is None:
         n_valid = torch.full((), n, dtype=torch.int32, device=dev)
     cuda.require(n_valid, "n_valid", torch.int32, (), dev)
+    route = gse_route(hidden, angle_k).backward
+    if angle_k >= _UNDECIDED:
+        raise ValueError(f"gse_full_bwd: A = {angle_k} angles; its k* is a byte, so A <= 254")
     lib = cuda.library("gse_bwd", _BWD_SIGNATURES)
-    slices = lib.gse_bwd_slices(n, hidden)
+    slices = lib.gse_bwd_slices(n, route.channel_blocks * route.chunks)
     pair_idx = torch.empty((n * n, angle_k + 1), dtype=f32, device=dev)
     part_d = torch.empty((slices, hidden, hidden), dtype=f32, device=dev)
     part_a = torch.empty((slices, hidden, hidden), dtype=f32, device=dev)
     part_b = torch.empty((slices, hidden), dtype=f32, device=dev)
-    part_ties = torch.empty((slices, max(hidden // 32, 1)), dtype=torch.int32, device=dev)
+    part_ties = torch.empty((slices, route.channel_blocks), dtype=torch.int32, device=dev)
     dw_d = torch.empty((hidden, hidden), dtype=f32, device=dev)
     dw_a = torch.empty((hidden, hidden), dtype=f32, device=dev)
     db = torch.empty((hidden,), dtype=f32, device=dev)
@@ -219,7 +291,8 @@ def gse_full_bwd(points, ref_vectors, w_a, sigma_d, sigma_a, de, n_valid=None, f
         cuda.ptr(n_valid), cuda.ptr(de), cuda.ptr(pair_idx), cuda.ptr(part_d), cuda.ptr(part_a),
         cuda.ptr(part_b), cuda.ptr(part_ties), cuda.ptr(dw_d), cuda.ptr(dw_a), cuda.ptr(db),
         cuda.ptr(settled),
-        n, angle_k, hidden, slices, float(sigma_d), float(_angle_factor(sigma_a)),
+        n, angle_k, hidden, route.rows, route.chunks, route.channel_blocks, int(route.resident),
+        slices, route.words, float(sigma_d), float(_angle_factor(sigma_a)),
         cuda.stream_of(points))
     cuda.check(lib, code, "gse_full_bwd")
     cuda.launches["gse_full_bwd"] += 1

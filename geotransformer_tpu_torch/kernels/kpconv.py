@@ -39,6 +39,7 @@ Layouts are the JAX package's: stacked ``[ref | src]`` rows, sentinel
 neighbor index = number of support rows, weights (K, C_in, C_out).
 """
 
+import collections
 import ctypes
 
 import torch
@@ -48,16 +49,42 @@ from geotransformer_tpu_torch.ops.gather import gather_with_shadow
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "kpconv_conv_launch": [_P] * 18 + [_I] * 11 + [_F, _P],
+    "kpconv_conv_launch": [_P] * 18 + [_I] * 16 + [_F, _P],
     "kpconv_conv_workspace": [_I] * 4,
     "kpconv_stream_launch": [_P] * 6 + [_I] * 5 + [_F, _P],
     "kpconv_union_launch": [_P] * 10 + [_I] * 8 + [_F, _P],
 }
 _BWD_SIGNATURES = {
-    "kpconv_bwd_launch": [_P] * 18 + [_I] * 9 + [_F, _P],
+    "kpconv_bwd_launch": [_P] * 18 + [_I] * 14 + [_F, _P],
     "kpconv_ds_workspace": [_I] * 4,
     "kpconv_dw_slices": [_I] * 4,
 }
+
+
+# The edge pass's shape (``csrc/kpconv_common.cuh``) for K kernel points
+# and C channels: ``vector`` channels a thread (4 where C % 4 == 0),
+# ``threads_per_row`` (the row's C / vector channel groups, at most 256),
+# ``rows_per_block`` (256 / threads_per_row, at most 64),
+# ``kernel_point_chunks`` chunks of 16 kernel points and ``channel_passes``
+# passes over a row's channel groups, each walking the row's edges once.
+EdgeRoute = collections.namedtuple(
+    "EdgeRoute", "vector threads_per_row rows_per_block kernel_point_chunks channel_passes")
+
+_THREADS = 256           # the edge pass's block
+_KERNEL_POINT_CHUNK = 16  # its register accumulators a channel
+
+
+def edge_route(k, c):
+    """The edge pass's route for ``k`` kernel points over ``c`` channels, as
+    ``kpconv_conv_launch`` and ``kpconv_bwd_launch`` check it: any K >= 1
+    and C >= 1."""
+    if k < 1 or c < 1:
+        raise ValueError(f"KPConv edge pass: K = {k} kernel points, C = {c} channels")
+    vector = 4 if c % 4 == 0 else 1
+    groups = c // vector
+    threads = min(groups, _THREADS)
+    return EdgeRoute(vector, threads, min(_THREADS // threads, 64),
+                     -(-k // _KERNEL_POINT_CHUNK), -(-groups // threads))
 
 
 # rows the scatter backward spreads its sentinel edges over (_scatter_rows)
@@ -216,7 +243,7 @@ def _conv_launch(name, s_feats, q_points, s_points, head, tail, tail_rank, kerne
         cuda.ptr(weights), cuda.ptr(q_mask), cuda.ptr(pool_feats), cuda.ptr(t), cuda.ptr(div),
         cuda.ptr(part), cuda.ptr(out), cuda.ptr(pooled), cuda.ptr(count), cuda.ptr(ties),
         m, n, h1, h2, m2, k, c_in, c_out, c_pool, int(pool_head), int(pool_tail),
-        float(sigma), cuda.stream_of(s_feats))
+        *edge_route(k, c_in), float(sigma), cuda.stream_of(s_feats))
     cuda.check(lib, code, name)
     cuda.launches[name] += 1
     return out, pooled, count, ties, t
@@ -310,7 +337,10 @@ def input_conv_variant(k):
     """The instance of the input convs (``csrc/kpconv.cu``, rows 2 and 7) for
     K kernel points: 0 for K = 15 (every shipped configuration), 1 for
     another K <= 16, 2 for K > 16 (the kernel points walked in chunks of 16
-    register accumulators)."""
+    register accumulators). Rows 1, 5 and 6 take any K through their edge
+    pass's route (:func:`edge_route`: chunks of 16 kernel points, and passes
+    of 256 channel groups past C = 1,024); ``chip_smoke.py`` phase 15 runs
+    every row at K = 16, 20 and 32 and row 1 at C_in = 1,028."""
     return 0 if k == 15 else 1 if k <= 16 else 2
 
 
@@ -514,8 +544,8 @@ def _bwd_launch(s_feats, s_points, q_points, gdiv, inverse_table, kernel_points,
         cuda.ptr(head), cuda.ptr(tail), cuda.ptr(rank), cuda.ptr(kernel_points), cuda.ptr(wt),
         cuda.ptr(pool_feats), cuda.ptr(pooled), cuda.ptr(dpool_over_ties),
         cuda.ptr(u), cuda.ptr(part_ds), cuda.ptr(part), cuda.ptr(d_s_feats), cuda.ptr(d_weights),
-        cuda.ptr(d_pool), n, m, j1, j2, n2, k, c_in, c_out, c_pool, float(sigma),
-        cuda.stream_of(s_feats))
+        cuda.ptr(d_pool), n, m, j1, j2, n2, k, c_in, c_out, c_pool, *edge_route(k, c_out),
+        float(sigma), cuda.stream_of(s_feats))
     cuda.check(lib, code, "kpconv_bwd_fused")
     cuda.launches["kpconv_bwd_fused"] += 1
     if pool_feats is None:

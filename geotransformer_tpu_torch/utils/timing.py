@@ -47,7 +47,7 @@ KERNEL_SYMBOLS = {
     "kpconv_fused": r"edge_kernel<\d+, (false|\(bool\)0)",
     "kpconv_split_fused": r"edge_kernel<\d+, (false|\(bool\)0)",
     "kpconv_bwd_fused": r"edge_kernel<\d+, (true|\(bool\)1)",
-    "gse_embedding_full": r"\bgse_kernel",
+    "gse_embedding_full": r"\bgse_(general_)?kernel",
     "gse_full_bwd": r"gse_bwd_kernel",
     "sinkhorn_log_iterations": r"sinkhorn_(general_)?kernel",
     "sinkhorn_fwd_train": r"sinkhorn_(general_)?kernel",

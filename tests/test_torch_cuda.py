@@ -26,7 +26,14 @@ zero shadow; they repeat bit for bit (dW over several row slices included)
 and a split conv and its backward replay from a CUDA graph as run eagerly.
 The GSE backward (3xTF32 tensor-core products, ties settled in float64 in
 the kernel) is held to its plain version at C = 32 to 256, ragged N,
-n_valid N, below N and 1, and exact ties of two angle projections; the
+n_valid N, below N and 1, and exact ties of two angle projections; both GSE
+rows also at every even width and angle count their JAX kernels take (C =
+6, 48, 160 to 224, 288 and 512, A = 1 to 5: padded widths, the new
+instances, two channel blocks or row chunks, two angle groups), one launch
+each, repeating bit for bit and replaying from a CUDA graph, and an odd C
+raises ValueError before any launch; the KPConv rows 1, 5 and 6 at K = 16,
+20 and 32 kernel points and rows past 256 channel groups (C = 1,028 and
+1,030), repeating and replaying at K = 20; the
 Sinkhorn backward (one sweep and one merge an iteration) at (P, M1) from
 (1, 17) to (200, 129) and 0, 1 and 100 iterations; both repeat bit for bit,
 replay from a CUDA graph as run eagerly, and raise beyond their capacity.
@@ -1032,14 +1039,21 @@ def test_gse_bwd_repeats_bit_for_bit_and_replays_from_a_graph(device):
 
 @pytest.mark.parametrize("c, angles", [(512, 3), (256, 4)])
 def test_gse_bwd_beyond_capacity_raises(device, c, angles):
+    """The shapes the backward once refused (C past 256: two chunks of 256
+    basis rows; A past 3: two angle groups) now launch its kernel once and
+    agree with the plain version as the shipped widths do."""
     g = torch.Generator().manual_seed(0)
     n = 20
     points = torch.rand(n, 3, generator=g).to(device)
     ref_vectors = torch.randn(n, angles, 3, generator=g).to(device)
     w_a = torch.randn(c, c, generator=g).to(device)
     de = torch.randn(n, n, c, generator=g).to(device)
-    with pytest.raises(RuntimeError, match="gse_full_bwd"):
-        gse_full_bwd(points, ref_vectors, w_a, 0.2, 15.0, de)
+    before = cuda.launches["gse_full_bwd"]
+    got = gse_full_bwd(points, ref_vectors, w_a, 0.2, 15.0, de)
+    assert cuda.launches["gse_full_bwd"] == before + 1
+    want = gse_full_bwd_plain(points, ref_vectors, w_a, 0.2, 15.0, de)
+    torch.cuda.synchronize()
+    assert_gse_bwd_close(got, want)
 
 
 @pytest.mark.parametrize("p, m1", [(1, 17), (128, 65), (128, 129), (200, 129)])
@@ -1161,9 +1175,17 @@ def test_gse_stands_within_bound_of_float64(device, c):
 
 @pytest.mark.parametrize("c, angles", [(512, 3), (256, 5), (48, 3)])
 def test_gse_beyond_capacity_raises(device, c, angles):
+    """The shapes the forward once refused (two channel blocks of 256, two
+    angle groups, a width padded to 64) now launch its kernel once and
+    agree with the plain version within 1e-3."""
     args = gse_case(device, c, 20, angles)
-    with pytest.raises(RuntimeError, match="gse_embedding_full"):
-        gse_embedding_full(*args, 0.2, 15.0)
+    before = cuda.launches["gse_embedding_full"]
+    got = gse_embedding_full(*args, 0.2, 15.0)
+    assert cuda.launches["gse_embedding_full"] == before + 1
+    want = gse_embedding_full_plain(*args, 0.2, 15.0)
+    torch.cuda.synchronize()
+    assert got.shape == (20, 20, c)
+    assert (got - want).abs().max().item() <= 1e-3
 
 
 def sinkhorn_fwd_case(device, p, m1, n1, seed=14):
@@ -1775,3 +1797,225 @@ def test_gse_at_c96_matches_plain(device, n, n_valid, tied):
     assert_gse_bwd_close(got, want)
     if tied:
         assert settled > 0
+
+
+# ---- every shape of rows 1, 3, 5, 6 and 8 --------------------------------------
+
+@pytest.mark.parametrize("c", [47, 161])
+def test_gse_odd_width_raises_before_any_launch(device, c):
+    """An odd width (the interleaved bases cannot hold it, in JAX either)
+    raises ValueError naming it, before either kernel launches."""
+    args = gse_case(device, c, 20, 3)
+    de = torch.randn(20, 20, c, device=device)
+    before = dict(cuda.launches)
+    with pytest.raises(ValueError, match=f"C = {c}"):
+        gse_embedding_full(*args, 0.2, 15.0)
+    with pytest.raises(ValueError, match=f"C = {c}"):
+        gse_full_bwd(args[0], args[1], args[4], 0.2, 15.0, de)
+    assert dict(cuda.launches) == before
+
+
+ANY_WIDTH = [(6, 1), (48, 3), (160, 3), (192, 4), (224, 3), (288, 5), (512, 3), (256, 5)]
+
+
+@pytest.mark.parametrize("c, angles", ANY_WIDTH, ids=[f"C{c}-A{a}" for c, a in ANY_WIDTH])
+@pytest.mark.parametrize("n, n_valid", [(77, 60), (21, 1)])
+def test_gse_any_width_and_angles_match_plain(device, c, angles, n, n_valid):
+    """Rows 3 and 8 at widths that pad (6, 48, 288), the new instances (160,
+    192, 224: ragged row tiles in the backward), two channel blocks and two
+    row chunks (512, 288) and two angle groups (A = 4, 5): one launch each,
+    the forward within 1e-3 of its plain version and zero outside the valid
+    square, the diagonal the cosine rows' sum, the backward as at the
+    shipped widths."""
+    args = gse_case(device, c, n, angles)
+    nv = torch.tensor(n_valid, dtype=torch.int32, device=device)
+    before = cuda.launches["gse_embedding_full"]
+    got = gse_embedding_full(*args, 0.2, 15.0, nv)
+    assert cuda.launches["gse_embedding_full"] == before + 1
+    want = gse_embedding_full_plain(*args, 0.2, 15.0, nv)
+    torch.cuda.synchronize()
+    assert got.shape == (n, n, c)
+    assert (got[:n_valid, :n_valid] - want[:n_valid, :n_valid]).abs().max().item() <= 1e-3
+    assert not got[n_valid:].any() and not got[:, n_valid:].any()
+    _, _, w_d, b_d, w_a, b_a = args
+    diagonal = w_d[1::2].sum(dim=0) + w_a[1::2].sum(dim=0) + b_d + b_a
+    rows = torch.arange(n_valid, device=device)
+    assert (got[rows, rows] - diagonal).abs().max().item() <= 1e-3
+    de = torch.randn(n, n, c, generator=torch.Generator().manual_seed(c)).to(device)
+    before = cuda.launches["gse_full_bwd"]
+    grads = gse_full_bwd(args[0], args[1], w_a, 0.2, 15.0, de, nv)
+    assert cuda.launches["gse_full_bwd"] == before + 1
+    want = gse_full_bwd_plain(args[0], args[1], w_a, 0.2, 15.0, de, nv)
+    torch.cuda.synchronize()
+    assert all(g.shape == w.shape for g, w in zip(grads, want))
+    assert_gse_bwd_close(grads, want)
+
+
+@pytest.mark.parametrize("c", [160, 512])
+def test_gse_bwd_ties_at_new_widths_settle_in_float64(device, c):
+    """Two equal reference vectors (exact projection ties everywhere off the
+    diagonal) at a new instance and across two row chunks: every tie goes
+    to float64 and the gradients match the plain version."""
+    args, de, nv = gse_bwd_case(device, c, 45, 40, tied=True)
+    got = gse_full_bwd(*args, 0.2, 15.0, de, nv)
+    settled = int(gse_kernels.last_settled)
+    want = gse_full_bwd_plain(*args, 0.2, 15.0, de, nv)
+    torch.cuda.synchronize()
+    assert_gse_bwd_close(got, want)
+    assert settled > 0
+
+
+@pytest.mark.parametrize("c, angles", [(160, 5), (512, 4)])
+def test_gse_any_width_repeats_bit_for_bit_and_replays_from_a_graph(device, c, angles):
+    args = gse_case(device, c, 150, angles)
+    nv = torch.tensor(131, dtype=torch.int32, device=device)
+    de = torch.randn(150, 150, c, device=device)
+
+    def both():
+        return (gse_embedding_full(*args, 0.2, 15.0, nv),
+                gse_full_bwd(args[0], args[1], args[4], 0.2, 15.0, de, nv))
+
+    runs = [both() for _ in range(3)]
+    before = cuda.launches["gse_full_bwd"]
+    graph, out, launches = captured(both, "gse_embedding_full")
+    assert launches == 1 and cuda.launches["gse_full_bwd"] == before + 2  # warm-up, capture
+    de.mul_(0.5)  # a replay reads the captured inputs anew
+    graph.replay()
+    eager = both()
+    torch.cuda.synchronize()
+    for run in runs[1:]:
+        assert torch.equal(run[0], runs[0][0])
+        assert all(torch.equal(a, b) for a, b in zip(run[1], runs[0][1]))
+    assert torch.equal(out[0], eager[0])
+    assert all(torch.equal(a, b) for a, b in zip(out[1], eager[1]))
+    assert all(torch.equal(a, 0.5 * b) for a, b in zip(eager[1], runs[0][1]))
+
+
+def kernel_points_case(device, k, c_in, c_out, m=301, n=517, h=40, c_pool=16, seed=21):
+    """A conv with ``k`` kernel points (random, within the influence radius
+    of the offsets) over the nearest supports, a third of its slots
+    sentinels, tied pool maxima, a ragged query mask."""
+    g = torch.Generator().manual_seed(seed + k)
+    s_points = torch.rand(n, 3, generator=g) * 0.3
+    q_points = torch.rand(m, 3, generator=g) * 0.3
+    nbrs = torch.argsort(torch.cdist(q_points, s_points), dim=1)[:, :h].to(torch.int32)
+    nbrs[torch.rand(m, h, generator=g) < 0.3] = n
+    nbrs = torch.sort(nbrs, dim=1).values
+    kp = (torch.rand(k, 3, generator=g) - 0.5) * 0.1
+    feats = torch.randn(n, c_in, generator=g)
+    w = torch.randn(k, c_in, c_out, generator=g) / c_in
+    pool = torch.randint(-2, 2, (n, c_pool), generator=g).float()
+    q_mask = torch.rand(m, generator=g) < 0.9
+    to = lambda t: t.to(device)  # noqa: E731
+    return [to(t) for t in (feats, q_points, s_points, nbrs, kp, w)], to(pool), to(q_mask)
+
+
+@pytest.mark.parametrize("k", [16, 20, 32])
+@pytest.mark.parametrize("split", [False, True])
+def test_kpconv_any_kernel_points_match_plain(device, k, split):
+    """Rows 1 and 5 at K = 16, 20 and 32 (one and two chunks of 16 kernel
+    points), with the shortcut pool and a query mask: one launch, the
+    output within the KPConv tolerance, count, pooled and ties exact."""
+    args, pool, q_mask = kernel_points_case(device, k, 64, 64)
+    kw = dict(q_mask=q_mask, residuals=True, pool_feats=pool, pool_cols=40)
+    name = "kpconv_split_fused" if split else "kpconv_fused"
+    before = cuda.launches[name]
+    if split:
+        tables = split_of(args[3], args[0].shape[0], 16)
+        got = kpconv_split_fused(*args[:3], *tables, args[4], args[5], 0.05, **kw)
+        want = kpconv_split_fused_plain(*args[:3], *tables, args[4], args[5], 0.05, **kw)
+    else:
+        got = kpconv_fused(*args, 0.05, **kw)
+        want = kpconv_fused_plain(*args, 0.05, **kw)
+    assert cuda.launches[name] == before + 1
+    torch.cuda.synchronize()
+    assert_kpconv_close(got[0], want[0])
+    for g, w in zip(got[1:], want[1:]):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("k", [16, 20, 32])
+@pytest.mark.parametrize("split", [False, True])
+def test_kpconv_bwd_any_kernel_points_match_plain(device, k, split):
+    """Row 6 at K = 16, 20 and 32 over a whole and a split inverse table,
+    with the pool's gradient: one launch, within the KPConv tolerance."""
+    args, pool, _ = kernel_points_case(device, k, 64, 64, seed=22)
+    feats, q_points, s_points, nbrs, kp, w = args
+    n, m = feats.shape[0], q_points.shape[0]
+    _, pooled, _, ties = kpconv_fused_plain(*args, 0.05, pool_feats=pool, pool_cols=40,
+                                            residuals=True)
+    inv = build_inverse_table(nbrs.cpu().numpy(), n, 80)
+    if split:
+        tail, tail_s, rank = build_split_tables(inv, m, 16, int((inv[:, 16:] < m).any(1).sum()))
+        inv = (inv[:, :16].copy(), tail, tail_s, rank)
+        table = tuple(torch.from_numpy(x).to(device) for x in inv)
+    else:
+        table = torch.from_numpy(inv).to(device)
+    gdiv = torch.randn(m, 64, generator=torch.Generator().manual_seed(k)).to(device)
+    call = (feats, s_points, q_points, gdiv, table, kp, w, 0.05)
+    kw = dict(pool_feats=pool, pooled=pooled, dpool_over_ties=torch.ones_like(pooled) / ties)
+    before = cuda.launches["kpconv_bwd_fused"]
+    got = kpconv_bwd_fused(*call, **kw)
+    assert cuda.launches["kpconv_bwd_fused"] == before + 1
+    want = kpconv_bwd_fused_plain(*call, **kw)
+    torch.cuda.synchronize()
+    assert got[1].shape == (k, 64, 64)
+    for g, w_ in zip(got, want):
+        assert_kpconv_close(g, w_)
+
+
+@pytest.mark.parametrize("c_in, c_out", [(1028, 32), (1030, 32), (32, 1028)])
+def test_kpconv_rows_past_256_channel_groups_match_plain(device, c_in, c_out):
+    """Rows wider than a block's 256 threads: C_in = 1,028 (257 four-channel
+    groups: two passes), 1,030 (no multiple of 4: five passes of single
+    channels) in the forward, C_out = 1,028 in the backward's u pass."""
+    args, pool, q_mask = kernel_points_case(device, 15, c_in, c_out, m=133, n=211)
+    before = cuda.launches["kpconv_fused"]
+    got = kpconv_fused(*args, 0.05, q_mask=q_mask, residuals=True)
+    assert cuda.launches["kpconv_fused"] == before + 1
+    want = kpconv_fused_plain(*args, 0.05, q_mask=q_mask, residuals=True)
+    feats, q_points, s_points, nbrs, kp, w = args
+    inv = torch.from_numpy(build_inverse_table(nbrs.cpu().numpy(), feats.shape[0], 80)).to(device)
+    gdiv = torch.randn(q_points.shape[0], c_out, device=device)
+    call = (feats, s_points, q_points, gdiv, inv, kp, w, 0.05)
+    grads = kpconv_bwd_fused(*call)
+    want_grads = kpconv_bwd_fused_plain(*call)
+    torch.cuda.synchronize()
+    assert_kpconv_close(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+    for g, w_ in zip(grads, want_grads):
+        assert_kpconv_close(g, w_)
+
+
+def test_kpconv_any_kernel_points_repeat_bit_for_bit_and_replay_from_a_graph(device):
+    """K = 20: a split conv and its split backward repeat bit for bit and
+    replay from a CUDA graph as run eagerly."""
+    args, pool, q_mask = kernel_points_case(device, 20, 32, 32)
+    feats, q_points, s_points, nbrs, kp, w = args
+    n, m = feats.shape[0], q_points.shape[0]
+    tables = split_of(nbrs, n, 16)
+    kw = dict(q_mask=q_mask, residuals=True, pool_feats=pool, pool_cols=40)
+    inv = build_inverse_table(nbrs.cpu().numpy(), n, 80)
+    tail, tail_s, rank = build_split_tables(inv, m, 16, int((inv[:, 16:] < m).any(1).sum()))
+    inv_split = tuple(torch.from_numpy(x).to(device) for x in (inv[:, :16].copy(), tail, tail_s,
+                                                               rank))
+    gdiv = torch.randn(m, 32, device=device)
+
+    def both():
+        return (kpconv_split_fused(*args[:3], *tables, kp, w, 0.05, **kw),
+                kpconv_bwd_fused(feats, s_points, q_points, gdiv, inv_split, kp, w, 0.05))
+
+    runs = [both() for _ in range(3)]
+    before = cuda.launches["kpconv_bwd_fused"]
+    graph, out, launches = captured(both, "kpconv_split_fused")
+    assert launches == 1 and cuda.launches["kpconv_bwd_fused"] == before + 2  # warm-up, capture
+    feats.mul_(0.5)
+    gdiv.mul_(2.0)
+    graph.replay()
+    eager = both()
+    torch.cuda.synchronize()
+    for run in runs[1:]:
+        for a, b in zip(run, runs[0]):
+            assert all(torch.equal(x, y) for x, y in zip(a, b))
+    for a, b in zip(out, eager):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))

@@ -6,8 +6,11 @@ card: ``-m cuda``, chip_smoke.py).
     P_k = B_k W_a on the tensor cores as 3xTF32 products (big . small terms
     of TF32 halves), each k8 step's three products into a fresh tile that
     one f32 add brings into the sum, steps in order. Emulated here at
-    C = 256, with weights at the model's init scale (nn.Linear: U(+-1/16))
-    and the indices of a few hundred pairs, they stand within 2^-19 of
+    C = 256 and at C = 512 (the widest width the kernels are run at: two
+    chunks of 256 basis rows, the projection's k8 steps summed across them
+    in order), with weights at the model's init scale (nn.Linear:
+    U(+-1/sqrt(C))) and the indices of a few hundred pairs, they stand
+    within 2^-19 of
     sum_f |W_a[f, c]| (half the kernel's tie band) of the float64
     projections in every channel, where one TF32 product does not; so every
     entry whose best two projections differ by more than the band
@@ -94,7 +97,14 @@ def kernel_argmax(a_idx, w_a, hidden):
 
 
 def test_projections_stand_within_half_the_tie_band():
-    hidden = 256
+    projections_within_half_the_band(256)
+
+
+def test_projections_stand_within_half_the_tie_band_at_the_widest_width():
+    projections_within_half_the_band(512)
+
+
+def projections_within_half_the_band(hidden):
     points, ref_vectors, w_a, _ = make_case(0, 24, hidden)
     _, a_idx = port_gse._pair_indices(points, ref_vectors, SIGMA_D, SIGMA_A)
     off = ~torch.eye(24, dtype=torch.bool)
@@ -113,9 +123,11 @@ def test_projections_stand_within_half_the_tie_band():
 
 
 def slices_of(n, hidden):
-    """The pair slices of ``gse_bwd_slices`` (csrc/gse_bwd.cu)."""
-    c_blocks = hidden // min(hidden, 64)
-    return max(1, min(-(-SMS // c_blocks), -(-n * n // TILE)))
+    """The pair slices of ``gse_bwd_slices`` (csrc/gse_bwd.cu) over the
+    route's blocks a slice (c-blocks times row chunks)."""
+    route = port_gse.gse_route(hidden, ANGLE_K).backward
+    blocks = route.channel_blocks * route.chunks
+    return max(1, min(-(-SMS // blocks), -(-n * n // TILE)))
 
 
 def emulated_bwd(points, ref_vectors, w_a, de, n_valid):
