@@ -140,7 +140,14 @@ fused_masked_attention twice a block).
                512 with A = 3 and C = 256 with A = 4 and 5, the backward
                also at C = 96 and 160 with tied reference vectors; KPConv
                rows 1 and 6 at K = 16, 20, 32, row 5 at K = 20, row 1 at
-               C_in = 1,028): each call launches its kernel once, agrees
+               C_in = 1,028; launch_limit_calls, each on its general route:
+               the stream input conv at H = 512 and K D = 61,440, the union
+               input conv at a ~14,000-row union and K D = 61,440, rows 1,
+               5 and 6 with the pool over 1,024 columns at C = 4 (pooled,
+               count and ties bit for bit), row 11 at K = 2,048, row 13 at
+               dh = 4,096, row 8 at A = 255 and 300, the search at cand_cap
+               32,768 and brute over 40,000 rows, the last two bit for bit):
+               each call launches its kernel once, agrees
                with its plain version within its row's tolerance, and is
                timed alone from its own graph with its shape and bound
                (by_call, path "limits"; kept out of the paths' sums).
@@ -194,7 +201,7 @@ fused_masked_attention twice a block).
                pyramid's seconds; (b) the raw mode at full width on the
                synthetic workflow's configuration with a deliberately small
                first bucket (stage-1 cap 256) that every pair takes,
-               overflows and escalates from: 16 steps through PairLoader (2
+               overflows and escalates from: 8 steps through PairLoader (2
                spawned workers fetching samples) and Trainer(device_plan=...),
                each try counted (the pyramid kernels' launches, then the
                step's), finite losses, no skipped step, an overflowed try a
@@ -277,7 +284,7 @@ fused_masked_attention twice a block).
                profile_stages, profile_forward, profile_train (3DMatch and
                --kitti), profile_ops, profile_kpconv, profile_device,
                profile_batch, train_smoke, one after another; then
-               probe_kernels all, drift (40 training steps, then
+               probe_kernels all, drift (20 training steps, then
                drift_attrib on its weights), eval.sh on phase 16's layout
                (its dumps equal to the Tester's within 1e-5) and the
                convergence suite (small scale, 4 steps) at once. A tool that
@@ -409,7 +416,7 @@ UNION_CAP, UNION_TILE = 1536, 128
 # 2000 steps, 26 epochs)
 SYNTHETIC_TRAIN_PAIRS, SYNTHETIC_TEST_PAIRS = 78, 20
 # phase 17: raw-mode training steps on the synthetic workflow's configuration
-DEVICE_TRAIN_STEPS = 16
+DEVICE_TRAIN_STEPS = 8
 # phase 19: the LRPE bank's rows (relative distance bins of sigma_d) and the
 # seed of the variants' weights and PE embeddings
 VARIANT_EMBEDDINGS, VARIANT_SEED = 64, 19
@@ -433,6 +440,11 @@ DEVICE = "cuda"
 # the entries the rule covers.
 
 def tol_kpconv(i, got, want, args, plain):
+    # a conv with the pool and its residuals (out, pooled, count, ties): the
+    # pooled max, the count and the tie counts bit for bit
+    if len(plain) == 4 and i > 0:
+        expect(torch.equal(got, want), f"KPConv output {i} differs from its plain version")
+        return got, want, torch.zeros_like(want)
     return got, want, 1e-4 * want.abs() + 1e-5 * want.abs().max()
 
 
@@ -1155,19 +1167,26 @@ def sinkhorn_shape(name, args, kwargs, stage_of):
 
 def overlap_shape(name, args, kwargs, stage_of):
     """One patch_overlaps call: ref nodes M, candidates S, patch points K,
-    valid candidates and their valid point pairs."""
+    valid candidates and their valid point pairs, the route."""
     ref_pts, ref_mask, _, src_mask, cand, cand_mask = args[:6]
     pairs = (ref_mask.sum(dim=1)[:, None] * src_mask.sum(dim=1)[cand.long()])[cand_mask]
+    budget = kernels_sinkhorn.device_block_bytes(ref_pts.device)
     return {"M": ref_pts.shape[0], "S": cand.shape[1], "K": ref_pts.shape[1],
-            "valid_candidates": int(cand_mask.sum()), "valid_pairs": int(pairs.sum())}
+            "valid_candidates": int(cand_mask.sum()), "valid_pairs": int(pairs.sum()),
+            "route": kernels_overlap.overlap_route(ref_pts.shape[1], budget)}
 
 
 def input_conv_shape(name, args, kwargs, stage_of):
-    """One input conv call: rows M, table width H, K, D, its instance."""
-    k, _, d = (args[2] if name.startswith("kpconv_stream") else args[6]).shape
-    m, h = (args[0].shape[1:] if name.startswith("kpconv_stream") else args[4].shape)
-    return {"M": m, "H": h, "K": k, "D": d,
-            "instance": kernels_kpconv.input_conv_variant(k)}
+    """One input conv call: rows M, table width H (the union conv: its
+    union's rows U too), K, D, its instance and route."""
+    budget = kernels_sinkhorn.device_block_bytes(args[0].device)
+    if name.startswith("kpconv_stream"):
+        (m, h), (k, _, d) = args[0].shape[1:], args[2].shape
+        shape = {"M": m, "H": h, "route": kernels_kpconv.stream_route(h, k, d, budget)}
+    else:
+        (m, h), u, (k, _, d) = args[4].shape, args[3].shape[1], args[6].shape
+        shape = {"M": m, "H": h, "U": u, "route": kernels_kpconv.union_route(u, h, k, d, budget)}
+    return dict(shape, K=k, D=d, instance=kernels_kpconv.input_conv_variant(k))
 
 
 def limit_sinkhorn_shape(name, args, kwargs, stage_of):
@@ -1194,17 +1213,19 @@ def attention_shape(name, args, kwargs, stage_of):
     h, n, dh = q.shape
     aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v))
     return {"H": h, "N": n, "M": k.shape[1], "dh": dh, "aligned": aligned,
-            "route": kernels_attention.attention_route(dh, aligned)}
+            "route": kernels_attention.attention_route(dh, aligned, k.shape[1])}
 
 
 def search_shape(name, args, kwargs, stage_of):
     """One grid_radius_search call: clouds B, query rows Cq (valid ones),
-    support rows Cs, K, the candidate capacity, brute or grid, and the
-    candidate slots it examined."""
+    support rows Cs, K, the candidate capacity, brute or grid, and the keys
+    a warp's list holds at a time (0: all of them, search_route)."""
     queries, q_lengths, support, s_lengths, starts = args[:5]
+    chunk = kernels_pyramid.search_route(args[9], support.shape[1], starts is None,
+                                         kernels_sinkhorn.device_block_bytes(queries.device)).chunk
     return {"B": queries.shape[0], "Cq": queries.shape[1], "valid_queries": int(q_lengths.sum()),
             "Cs": support.shape[1], "K": args[8], "cand_cap": args[9],
-            "route": "brute" if starts is None else "grid"}
+            "route": "brute" if starts is None else "grid", "chunk": chunk}
 
 
 def segment_shape(name, args, kwargs, stage_of):
@@ -1231,7 +1252,8 @@ LIMIT_SHAPES = {"kpconv_fused": call_shape, "kpconv_split_fused": call_shape,
                 "sinkhorn_fwd_train": limit_sinkhorn_shape,
                 "sinkhorn_bwd_train": limit_sinkhorn_shape,
                 "rpe_pair_scores": pair_shape, "fused_masked_attention": attention_shape,
-                "gse_embedding_full": gse_shape, "gse_full_bwd": gse_bwd_shape}
+                "gse_embedding_full": gse_shape, "gse_full_bwd": gse_bwd_shape,
+                "patch_overlaps": overlap_shape, "grid_radius_search": search_shape}
 
 
 def call_cost(name, args, kwargs, out):
@@ -2682,6 +2704,19 @@ def profile_build(path, raw, spec):
     return [(op.name[:60], round(op.ms, 3), op.count) for op in kernels[:5]]
 
 
+def device_build(cfg, pyramids):
+    """The device build of a path's host pyramids: symmetric caps (each
+    stage's largest cloud over the pairs, a multiple of 256), the largest
+    27-cell population on the host, the candidate capacity it calibrates
+    and build_pyramid_device's keywords."""
+    caps = tuple(max(c) for c in zip(*(caps_for_pyramid(p, multiple=256) for p, _, _ in
+                                       pyramids)))
+    largest = max(largest_cell_population(p, cfg.backbone.init_radius, caps)
+                  for p, _, _ in pyramids)
+    knn_cand_cap = max(round_up(largest, 64), 64)
+    return caps, largest, knn_cand_cap, pyramid_spec(cfg, caps, knn_cand_cap)
+
+
 def device_pyramid_path(path, cfg, pyramids, device, report):
     """Phase 17 (a) on one path's three host pyramids: the device pyramid at
     symmetric caps (each stage's largest cloud over the pairs, a multiple of
@@ -2689,12 +2724,7 @@ def device_pyramid_path(path, cfg, pyramids, device, report):
     host pyramid at the same caps; each kernel call against its plain
     version (bit for bit; the segment means within 1e-6 x max|coordinate|),
     timed on pair 0's build; the whole build's time against the host's."""
-    caps = tuple(max(c) for c in zip(*(caps_for_pyramid(p, multiple=256) for p, _, _ in
-                                       pyramids)))
-    largest = max(largest_cell_population(p, cfg.backbone.init_radius, caps)
-                  for p, _, _ in pyramids)
-    knn_cand_cap = max(round_up(largest, 64), 64)
-    spec = pyramid_spec(cfg, caps, knn_cand_cap)
+    caps, largest, knn_cand_cap, spec = device_build(cfg, pyramids)
     print(f"{path}: caps {caps}, knn_cand_cap {knn_cand_cap} (the largest 27-cell population "
           f"{largest}, calibrated on the host over the {len(pyramids)} pairs)", flush=True)
     records, compared, all_ties = [], [], []
@@ -2750,7 +2780,7 @@ def device_pyramid_phases(device, launches, report, tmp):
     3DMatch and KITTI cells' pairs against the host pyramid and their plain
     versions; (b) the raw mode at full width on the synthetic workflow's
     configuration, with a deliberately small first bucket that every pair
-    takes, overflows and escalates from: 16 steps through PairLoader and
+    takes, overflows and escalates from: 8 steps through PairLoader and
     Trainer(device_plan=...), the Tester on the 20 test pairs, then scripts.test
     --device_preprocess from the checkpoint (its buckets too). Returns the kernels' comparisons
     ("device_pyramid_3dmatch", "device_pyramid_kitti")."""
@@ -3303,7 +3333,7 @@ SESSION_KERNELS = ("kpconv_stream_fused", "kpconv_fused", "gse_embedding_full", 
 ENCODER_LAYERS = DECODER_LAYERS = 3
 # 20c: the training steps drift takes (its default is 600), the steps of
 # the convergence suite (whole epochs of the small workflow's 12 pairs)
-DRIFT_STEPS, SUITE_STEPS = 40, 4
+DRIFT_STEPS, SUITE_STEPS = 20, 4
 TOOL_TIMEOUT_S = 300
 
 
@@ -4147,7 +4177,135 @@ def limit_calls(device):
     kp, w = to(kernel_points(15), torch.randn(15, 1028, 64, generator=g) / 1028)
     calls["kpconv_fused"].append(
         ((*to(torch.randn(n, 1028, generator=g), q_points, s_points), table_t, kp, w, 0.05), {}))
+    launch_limit_calls(calls, g, to, device)
     return calls
+
+
+def launch_limit_calls(calls, g, to, device):
+    """Phase 15's calls past the launcher limits the JAX kernels do not
+    share, each on its general route: the stream input conv at H = 512
+    columns and at K D = 61,440 (K 15, D 4,096); the union input conv at a
+    ~14,000-row union and at K D = 61,440; rows 1, 5 and 6 with the pool over
+    1,024 columns at C = 4 (the pool phase in 128-column chunks); row 11 at
+    K = 2,048, S = 8; row 13 at dh = 4,096, 4 heads, 256 keys; row 8 at A =
+    255 and 300, C = 8; the search at cand_cap 32,768 and brute over 40,000
+    support rows."""
+    m, h = 4000, 512
+    valid = torch.rand(m, h, generator=g) < 0.8
+    feat = torch.randn(m, h, generator=g)
+    stream = torch.randn(5, m, h, generator=g) * 0.03
+    stream[3], stream[4] = (feat > 0).float(), feat
+    kp15 = (torch.rand(15, 3, generator=g) - 0.5) * 0.1
+    kp, w = to(kp15, torch.randn(15, 1, 64, generator=g))
+    calls["kpconv_stream_fused (residuals)"].append(
+        (((stream * valid).to(device), kp, w, 0.3), {"residuals": True}))
+    kitti_stream = calls["kpconv_stream_fused (residuals)"][0][0][0]  # KITTI's (5, 20004, 65)
+    calls["kpconv_stream_fused (residuals)"].append(
+        ((kitti_stream, kp, torch.randn(15, 1, 4096, generator=g).to(device), 0.3),
+         {"residuals": True}))
+
+    # a union of ~14,000 support rows a 512-query tile: random neighbors
+    m, n, h, tile = 2048, 60000, 34, 512
+    q_points, s_points = torch.rand(m, 3, generator=g), torch.rand(n, 3, generator=g)
+    table = torch.randint(0, n, (m, h), generator=g).to(torch.int32)
+    table[torch.rand(m, h, generator=g) < 0.1] = n
+    table = table.numpy()
+    cap = max(np.unique(table[t:t + tile][table[t:t + tile] < n]).size for t in range(0, m, tile))
+    rows, sel = build_union_tables(table, n, tile=tile, union_cap=cap)
+    feats = (torch.rand(n, 1, generator=g) > 0.2).float()
+    union = to(feats, q_points, s_points, torch.from_numpy(rows), torch.from_numpy(sel))
+    w, bias = to(torch.randn(15, 1, 64, generator=g), torch.randn(64, generator=g))
+    calls["kpconv_union_input_fused"].append(
+        ((*union, kp, w, 0.05, bias), {"tile": tile, "residuals": True}))
+    m, n, h, tile = 2000, 3000, 38, 128
+    q_points, s_points = torch.rand(m, 3, generator=g), torch.rand(n, 3, generator=g)
+    table = torch.argsort(torch.cdist(q_points, s_points), dim=1)[:, :h].to(torch.int32).numpy()
+    cap = max(np.unique(table[t:t + tile]).size for t in range(0, m, tile))
+    rows, sel = build_union_tables(table, n, tile=tile, union_cap=cap)
+    union = to((torch.rand(n, 1, generator=g) > 0.2).float(), q_points, s_points,
+               torch.from_numpy(rows), torch.from_numpy(sel))
+    w, bias = to(torch.randn(15, 1, 4096, generator=g), torch.randn(4096, generator=g))
+    calls["kpconv_union_input_fused"].append(
+        ((*union, kp, w, 0.05, bias), {"tile": tile, "residuals": True}))
+
+    # the pool over 1,024 columns at C = 4: rows 1 and 5, then row 6 over a
+    # 1,024-column inverse table at C_out = 4
+    m, n, h, c = 2000, 3000, 1024, 4
+    q_points, s_points = torch.rand(m, 3, generator=g) * 0.3, torch.rand(n, 3, generator=g) * 0.3
+    table = torch.argsort(torch.cdist(q_points, s_points), dim=1)[:, :h].to(torch.int32)
+    table[torch.rand(m, h, generator=g) < 0.3] = n
+    pool = torch.randint(-2, 2, (n, c), generator=g).float()
+    conv = to(torch.randn(n, c, generator=g), q_points, s_points)
+    w = to(torch.randn(15, c, 8, generator=g) / c)[0]
+    kw = {"pool_feats": pool.to(device), "residuals": True}
+    calls["kpconv_fused"].append(((*conv, table.to(device), kp, w, 0.05), kw))
+    m2 = int((table[:, 16:] < n).any(dim=1).sum())
+    split = [torch.from_numpy(x).to(device)
+             for x in build_split_tables(table.numpy(), n, 16, round_up(m2, 8))]
+    calls["kpconv_split_fused"].append(
+        ((*conv, table[:, :16].contiguous().to(device), *split, kp, w, 0.05), kw))
+    n, m, h, j = 160, 1300, 160, 1024
+    s_points, q_points = torch.rand(n, 3, generator=g) * 0.1, torch.rand(m, 3, generator=g) * 0.1
+    nbrs = torch.argsort(torch.cdist(q_points, s_points), dim=1)[:, :h].to(torch.int32)
+    nbrs[torch.rand(m, h, generator=g) < 0.3] = n
+    pool = torch.randint(-2, 2, (n, c), generator=g).float()
+    _, pooled, _, ties = kernels_kpconv.kpconv_fused_plain(
+        torch.ones(n, 1), q_points, s_points, nbrs, kp15, torch.zeros(15, 1, 1), 0.05,
+        pool_feats=pool, residuals=True)
+    inverse = torch.from_numpy(build_inverse_table(nbrs.numpy(), n, j))
+    calls["kpconv_bwd_fused"].append(
+        (tuple(to(torch.randn(n, 8, generator=g), s_points, q_points,
+                  torch.randn(m, c, generator=g), inverse, kp15,
+                  torch.randn(15, 8, c, generator=g) / 8)) + (0.05,),
+         {"pool_feats": pool.to(device), "pooled": pooled.to(device),
+          "dpool_over_ties": (torch.randn(m, c, generator=g) / ties).to(device)}))
+
+    # row 11: 2,048-point patches, 8 candidates a node
+    m, n, k, s = 8, 12, 2048, 8
+    ref = torch.rand(m, 1, 3, generator=g) + torch.rand(m, k, 3, generator=g) - 0.5
+    src = torch.rand(n, 1, 3, generator=g) + torch.rand(n, k, 3, generator=g) - 0.5
+    calls["patch_overlaps"].append(
+        (tuple(to(ref, torch.rand(m, k, generator=g) > 0.3, src,
+                  torch.rand(n, k, generator=g) > 0.3, torch.randint(0, n, (m, s), generator=g),
+                  torch.rand(m, s, generator=g) > 0.25)) + (0.1,), {}))
+
+    # row 13: head width 4,096 (its q tile read in place), 4 heads, 256 keys
+    n, heads, dh = 256, 4, 4096
+    nv = torch.tensor(250, dtype=torch.int32, device=device)
+    q, k, v, bias = to(*(torch.randn(sh, generator=g) for sh in
+                         ((heads, n, dh), (heads, n, dh), (heads, n, dh), (n, heads, n))))
+    calls["fused_masked_attention"].append(
+        ((q, k, v, bias, nv, nv, dh ** -0.5, (torch.rand(n, generator=g) > 0.2).to(device)), {}))
+
+    # row 8: A = 255 and 300 angles (k* past a byte), C = 8, 300 rows (280 valid)
+    n, c = 300, 8
+    nv = torch.tensor(280, dtype=torch.int32, device=device)
+    for angles in (255, 300):
+        points = torch.rand(n, 3, generator=g)
+        ref_vectors = torch.randn(n, angles, 3, generator=g) * 0.1
+        w_a = torch.randn(c, c, generator=g) / c**0.5
+        de = torch.randn(n, n, c, generator=g)
+        calls["gse_full_bwd"].append(((*to(points, ref_vectors, w_a), 0.2, 15.0, de.to(device),
+                                       nv), {}))
+
+    # the search: cand_cap 32,768 on a dense cloud (thousands of keys in
+    # radius a query) and brute over 40,000 support rows
+    cs, n_s, n_q, radius = 40960, 40000, 1200, 0.25
+    queries = torch.full((1, 1280, 3), 1e6)
+    queries[0, :n_q] = 0.25 + 0.5 * torch.rand(n_q, 3, generator=g)
+    points = torch.full((1, cs, 3), 1e6)
+    points[0, :n_s] = torch.rand(n_s, 3, generator=g)
+    q_len, s_len = to(torch.tensor([n_q], dtype=torch.int32), torch.tensor([n_s],
+                                                                         dtype=torch.int32))
+    queries, points = to(queries, points)
+    support, starts, origin, dims, _ = preprocess_device._search_support(points, s_len, radius,
+                                                                        1 << 20)
+    calls["grid_radius_search"].append(
+        ((queries, q_len, support, s_len, starts, origin, dims, radius, 40, 32768), {}))
+    index = torch.arange(cs, device=device, dtype=torch.float32)
+    brute = torch.cat([points, index[None, :, None]], dim=2)
+    calls["grid_radius_search"].append(
+        ((queries, q_len, brute, s_len, None, None, None, radius, 40, 0), {}))
 
 
 def widths_phase(device, launches, report):

@@ -1,7 +1,9 @@
 """Device time of every call of the KPConv and GSE rows (kpconv_fused,
-kpconv_split_fused, kpconv_bwd_fused, gse_embedding_full, gse_full_bwd) on
-the shipped paths, run by the kernels of two checkouts of the port in
-turns, on one CUDA card:
+kpconv_split_fused, kpconv_bwd_fused, gse_embedding_full, gse_full_bwd),
+the input convs (kpconv_stream_fused, kpconv_union_input_fused), the
+attention (fused_masked_attention), the GT overlaps (patch_overlaps) and the
+device pyramid's search (grid_radius_search) on the shipped paths, run by
+the kernels of two checkouts of the port in turns, on one CUDA card:
 
     python3 compare_checkouts.py capture CALLS.pt
     python3 compare_checkouts.py time CALLS.pt OUT.json --root CHECKOUT [--reps 20]
@@ -10,10 +12,12 @@ turns, on one CUDA card:
 
 ``capture`` (this checkout) builds chip_smoke.py's 3DMatch, KITTI and
 ModelNet pair 0 at their full-width configs (launch_profile.path_batch),
-records the five wrappers' calls in one inference forward and one training
-step (seed-0 weights), and the GSE rows' calls again with the 3DMatch pair
-at hidden_dim 96 (the small synthetic workflow's width), and saves them on
-the CPU. ``time`` imports the port from CHECKOUT (built there with its own
+records the wrappers' calls in one inference forward and one training step
+(seed-0 weights), the GSE rows' calls again with the 3DMatch pair at
+hidden_dim 96 (the small synthetic workflow's width), the union input
+conv's in a 3DMatch forward over the union tables (chip_smoke.py phase 5)
+and the search's in the device build of the 3DMatch and KITTI pair 0
+(phase 17's caps), and saves them on the CPU. ``time`` imports the port from CHECKOUT (built there with its own
 sources), replays each saved call alone from its own CUDA graph
 (utils.timing.graph_ms) and writes its device ms. ``report`` reads the runs
 in the order given (the first checkout's, then the second's, then the
@@ -36,11 +40,16 @@ import tempfile
 import torch
 
 ROWS = ("kpconv_fused", "kpconv_split_fused", "kpconv_bwd_fused", "gse_embedding_full",
-        "gse_full_bwd")
+        "gse_full_bwd", "kpconv_stream_fused", "kpconv_union_input_fused",
+        "fused_masked_attention", "patch_overlaps", "grid_radius_search")
 GSE = ("gse_embedding_full", "gse_full_bwd")
+UNION, SEARCH = "kpconv_union_input_fused", "grid_radius_search"
 PATHS = ("3dmatch", "3dmatch_c96", "kitti", "modelnet")
 MODULES = {"kpconv_fused": "kpconv", "kpconv_split_fused": "kpconv",
-           "kpconv_bwd_fused": "kpconv", "gse_embedding_full": "gse", "gse_full_bwd": "gse"}
+           "kpconv_bwd_fused": "kpconv", "gse_embedding_full": "gse", "gse_full_bwd": "gse",
+           "kpconv_stream_fused": "kpconv", "kpconv_union_input_fused": "kpconv",
+           "fused_masked_attention": "attention", "patch_overlaps": "overlap",
+           "grid_radius_search": "pyramid"}
 
 
 def card():
@@ -62,24 +71,53 @@ def moved(x, device):
 def capture(out_path, paths, kernels):
     import dataclasses
 
+    import numpy as np
+
     import chip_smoke as cs
     import launch_profile
     from geotransformer_tpu_torch.models import create_model
+    from geotransformer_tpu_torch.preprocess import batch_to_torch, pad_registration_batch
 
     cs.cuda.build()
     calls = []
 
+    def keep(path, records, names):
+        for name in names:
+            calls.extend((path, name, moved(args, "cpu"), moved(kwargs, "cpu"))
+                         for args, kwargs in records[name])
+
     def record(path, cfg, batch, names):
-        names = [n for n in names if n in kernels]
+        names = [n for n in names if n in kernels and n not in (UNION, SEARCH)]
         if path not in paths or not names:
             return
         model = create_model(cfg, device=cs.DEVICE)
         with cs.capture_kernel_calls(names) as records:
             model(batch)
             cs.step_gradients(model, cfg, batch, 0)
-        for name in names:
-            calls.extend((path, name, moved(args, "cpu"), moved(kwargs, "cpu"))
-                         for args, kwargs in records[name])
+        keep(path, records, names)
+
+    def record_union(cfg):
+        """A 3DMatch forward over pair 0's union tables (phase 5's batch)."""
+        pyramid, n, transform = cs.SHARED["3dmatch"][0]
+        feats, caps = np.ones((n, 1), np.float32), cfg.caps.stage_caps
+        union_cap, _ = cs.union_capacity(
+            [pad_registration_batch(pyramid, feats, transform, caps)], cs.UNION_TILE)
+        batch = batch_to_torch(pad_registration_batch(
+            pyramid, feats, transform, caps, input_stream=False, union_cap=union_cap,
+            union_tile=cs.UNION_TILE), cs.DEVICE)
+        model = create_model(cfg, device=cs.DEVICE)
+        with cs.capture_kernel_calls([UNION]) as records, torch.no_grad():
+            model(batch)
+        keep("3dmatch", records, [UNION])
+
+    def record_search(path, cfg):
+        """The device build of pair 0 at phase 17's caps and candidate cap."""
+        pyramids = cs.SHARED[path]
+        caps, _, _, spec = cs.device_build(cfg, pyramids)
+        pyramid, _, transform = pyramids[0]
+        with cs.capture_kernel_calls([SEARCH]) as records:
+            cs.build_pyramid_device(*cs.raw_inputs(pyramid, transform, caps[0], cs.DEVICE), **spec)
+        keep(path, records, [SEARCH])
 
     with tempfile.TemporaryDirectory() as tmp:
         for path in ("3dmatch", "kitti", "modelnet"):
@@ -87,6 +125,10 @@ def capture(out_path, paths, kernels):
                 continue
             cfg, batch = launch_profile.path_batch(path, tmp)
             record(path, cfg, batch, ROWS)
+            if path == "3dmatch" and path in paths and UNION in kernels:
+                record_union(cfg)
+            if path in ("3dmatch", "kitti") and path in paths and SEARCH in kernels:
+                record_search(path, cfg)
             if path == "3dmatch":
                 narrow = dataclasses.replace(cfg, geotransformer=dataclasses.replace(
                     cfg.geotransformer, hidden_dim=96))

@@ -21,6 +21,7 @@ version (the pair scores' two einsums; the attention's softmax rows
 recomputed, its gradient written out), as the JAX ``custom_vjp`` rules do.
 """
 
+import collections
 import ctypes
 
 import torch
@@ -30,34 +31,50 @@ from geotransformer_tpu_torch.kernels import cuda
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "rpe_pair_scores_launch": [_P] * 5 + [_I] * 5 + [_P],
-    "fused_attention_launch": [_P] * 8 + [_I] * 6 + [_F, _P],
+    "fused_attention_launch": [_P] * 9 + [_I] * 7 + [_F, _P],
 }
 _WIDTHS = (8, 16, 32, 64)  # head widths of attention_kernel's instances
+_MAX_SHARED = 232448  # csrc/attention.cu's kMaxShared: a block's shared memory on sm_90
+_MAX_GRID_Y = 65535  # csrc/attention.cu's kMaxGridY: rows or heads a launch
+_WIDE_PARTS = 8 * 16 * (64 + 2)  # attention_wide_kernel's partials and (m, l), in floats
+
+# The instance of fused_masked_attention: attention_kernel of head width
+# ``width`` (0: attention_wide_kernel), with 16-byte copies where ``vec16``,
+# the q tile in shared memory where ``q_tile``.
+AttentionRoute = collections.namedtuple("AttentionRoute", "width vec16 q_tile")
 
 
 def _aligned(*tensors):
     return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
-def pair_scores_route(c, h, aligned):
-    """The instance ``csrc/attention.cu`` runs for rpe_pair_scores:
-    "float4" (pair_scores_kernel: C a multiple of 4 up to 512, H <= 8, embed
-    and qw 16-byte aligned, every shipped configuration) or "scalar"
-    (pair_scores_any_kernel: any C, H and alignment)."""
-    return "float4" if c % 4 == 0 and c <= 512 and h <= 8 and aligned else "scalar"
+def pair_scores_route(c, h, aligned, n=1):
+    """The instance ``csrc/attention.cu`` runs for rpe_pair_scores over ``n``
+    query rows: "float4" (pair_scores_kernel: C a multiple of 4 up to 512,
+    H <= 8, embed and qw 16-byte aligned, at most 65,535 rows: every shipped
+    configuration) or "scalar" (pair_scores_any_kernel: any N, C, H and
+    alignment, rows past 65,535 in further launches)."""
+    float4 = c % 4 == 0 and c <= 512 and h <= 8 and aligned and n <= _MAX_GRID_Y
+    return "float4" if float4 else "scalar"
 
 
-def attention_route(dh, aligned):
-    """(width, vec16) of the instance ``csrc/attention.cu`` runs for
-    fused_masked_attention: attention_kernel of head width ``width`` with
-    16-byte copies where dh is that width and q, k, v are 16-byte aligned
-    (every shipped configuration); else the next width up to 64 with
-    4-byte copies, the columns past dh zero in shared memory; dh > 64
-    width 0, attention_wide_kernel."""
+def attention_route(dh, aligned, m):
+    """The instance ``csrc/attention.cu`` runs for fused_masked_attention
+    over ``m`` keys, as ``fused_attention_launch`` checks it:
+    attention_kernel of head width ``width`` with 16-byte copies where dh is
+    that width and q, k, v are 16-byte aligned (every shipped
+    configuration); else the next width up to 64 with 4-byte copies, the
+    columns past dh zero in shared memory; dh > 64 width 0,
+    attention_wide_kernel, its block's 16 query rows staged in shared memory
+    where they fit beside the partials and the key bitmap (dh up to ~3,090),
+    else (``q_tile`` False) a first kernel takes q . k^T once into an
+    (H, N, M) workspace that the wide kernel reads."""
     if dh > _WIDTHS[-1]:
-        return 0, False
+        dhp = -(-dh // 8) * 8
+        shared = 4 * (_WIDE_PARTS + 16 * (dhp + 4)) + 4 * -(-m // 32)
+        return AttentionRoute(0, False, shared <= _MAX_SHARED)
     width = next(w for w in _WIDTHS if w >= dh)
-    return width, width == dh and aligned
+    return AttentionRoute(width, width == dh and aligned, True)
 
 
 def _count(n_valid, full, device):
@@ -119,7 +136,7 @@ def rpe_pair_scores(embed, qw, n_valid_q=None, n_valid_k=None, force=None):
     cuda.require(qw, "qw", f32, (n, h, c), dev)
     nv_q, nv_k = _kernel_count(n_valid_q, dev), _kernel_count(n_valid_k, dev)
     out = torch.empty((n, h, m), dtype=f32, device=dev)
-    vec4 = pair_scores_route(c, h, _aligned(embed, qw)) == "float4"
+    vec4 = pair_scores_route(c, h, _aligned(embed, qw), n) == "float4"
     lib = cuda.library("attention", _SIGNATURES)
     code = lib.rpe_pair_scores_launch(cuda.ptr(embed), cuda.ptr(qw), cuda.ptr(nv_q),
                                       cuda.ptr(nv_k), cuda.ptr(out), n, m, h, c, int(vec4),
@@ -218,12 +235,14 @@ def fused_masked_attention(q, k, v, bias=None, n_valid_q=None, n_valid_k=None, s
         cuda.require(key_masks, "key_masks", torch.bool, (m,), dev)
     nv_q, nv_k = _kernel_count(n_valid_q, dev), _kernel_count(n_valid_k, dev)
     out = torch.empty((n, h * dh), dtype=f32, device=dev)
-    width, vec16 = attention_route(dh, _aligned(q, k, v))
+    width, vec16, q_tile = attention_route(dh, _aligned(q, k, v), m)
+    # the two-pass route's q . k^T
+    scores = None if q_tile else torch.empty((h, n, m), dtype=f32, device=dev)
     lib = cuda.library("attention", _SIGNATURES)
     code = lib.fused_attention_launch(
         cuda.ptr(q), cuda.ptr(k), cuda.ptr(v), cuda.ptr(bias), cuda.ptr(key_masks),
-        cuda.ptr(nv_q), cuda.ptr(nv_k), cuda.ptr(out), n, m, h, dh, width, int(vec16),
-        float(scale), cuda.stream_of(q))
+        cuda.ptr(nv_q), cuda.ptr(nv_k), cuda.ptr(scores), cuda.ptr(out), n, m, h, dh, width,
+        int(vec16), int(q_tile), float(scale), cuda.stream_of(q))
     cuda.check(lib, code, "fused_masked_attention")
     cuda.launches["fused_masked_attention"] += 1
     return out

@@ -75,6 +75,7 @@ using launch_util::allow_smem;
 // ---- RPE pair scores -------------------------------------------------------
 
 constexpr int kMaxHeads = 8;
+constexpr int kMaxGridY = 65535;  // a grid's y dimension at most: rows or heads a launch
 constexpr int kPairThreads = 256;  // 8 warps
 constexpr int kColsPerWarp = 4;
 constexpr int kColsPerBlock = (kPairThreads / 32) * kColsPerWarp;  // 32
@@ -160,20 +161,20 @@ __global__ void __launch_bounds__(kPairThreads) pair_scores_kernel(
   }
 }
 
-// Any C, any H and any alignment: pair_scores_kernel's blocks and warps
-// with 4-byte loads (lane l takes channels l, l + 32, ...), the heads a
-// group of kMaxHeads at a time (the embedding row re-read from L1 for each
-// group), qw[i] in shared memory where it fits a block, else read from
-// global memory.
+// Any N, C, H and alignment: pair_scores_kernel's blocks and warps with
+// 4-byte loads (lane l takes channels l, l + 32, ...), the heads a group of
+// kMaxHeads at a time (the embedding row re-read from L1 for each group),
+// qw[i] in shared memory where it fits a block, else read from global
+// memory; rows past the grid's 65,535 in further launches from row0.
 __global__ void __launch_bounds__(kPairThreads) pair_scores_any_kernel(
     const float* __restrict__ embed,       // (N, M, C)
     const float* __restrict__ qw,          // (N, H, C)
     const int32_t* __restrict__ nv_q_ptr,  // or null: N
     const int32_t* __restrict__ nv_k_ptr,  // or null: M
     float* __restrict__ out,               // (N, H, M)
-    int N, int M, int H, int C, bool qw_shared) {
+    int N, int M, int H, int C, bool qw_shared, int row0) {
   extern __shared__ float4 qw4_s[];
-  const int i = blockIdx.y;
+  const int i = row0 + blockIdx.y;  // rows in grids of at most 65,535
   const int j0 = blockIdx.x * kColsPerBlock;
   const int nv_q = nv_q_ptr != nullptr ? min(*nv_q_ptr, N) : N;
   const int nv_k = nv_k_ptr != nullptr ? min(*nv_k_ptr, M) : M;
@@ -557,10 +558,13 @@ __global__ void __launch_bounds__(kAttnThreads, 1) attention_kernel(
   }
 }
 
+// `heads` heads from those q, k, v, bias and out point at (H of them in
+// the strides)
 template <int DH, bool VEC16>
 int launch_attention(const float* q, const float* k, const float* v, const float* bias,
                      const uint8_t* key_masks, const int32_t* nv_q, const int32_t* nv_k,
-                     float* out, int N, int M, int H, int dh, float scale, cudaStream_t stream) {
+                     float* out, int N, int M, int H, int heads, int dh, float scale,
+                     cudaStream_t stream) {
   const size_t shared =
       sizeof(float) * AttnLayout<DH>::kFloats + sizeof(uint32_t) * ((M + 31) / 32);
   if (shared > kMaxShared) return static_cast<int>(cudaErrorInvalidValue);
@@ -569,7 +573,7 @@ int launch_attention(const float* q, const float* k, const float* v, const float
   if (err != cudaSuccess) return static_cast<int>(err);
   const bool bias16 =
       bias != nullptr && M % 4 == 0 && reinterpret_cast<uintptr_t>(bias) % 16 == 0;
-  const dim3 grid((N + kRows - 1) / kRows, H);
+  const dim3 grid((N + kRows - 1) / kRows, heads);
   attention_kernel<DH, VEC16><<<grid, kAttnThreads, shared, stream>>>(
       q, k, v, bias, key_masks, nv_q, nv_k, out, N, M, H, dh, scale, bias16);
   return static_cast<int>(cudaGetLastError());
@@ -582,9 +586,90 @@ int launch_attention(const float* q, const float* k, const float* v, const float
 // sits in shared memory zero-padded to a multiple of 8 columns (exact under
 // the products); K, V and the bias are read in place through L1 by 4-byte
 // loads, zeros past nv_k and dh: the rings of attention_kernel would not
-// fit a block's shared memory at these widths.
+// fit a block's shared memory at these widths. TWO_PASS
+// (kernels/attention.py:attention_route, q_tile False): head widths whose q
+// tile does not fit a block's shared memory either (dh past ~3,090; the JAX
+// kernel holds (H, M, dh) K and V and takes such widths at small key
+// counts) take q . k^T from a first pass, attention_scores_kernel, which
+// computes each score once (with q read in place, the same products) where
+// the slices would each recompute them over all of dh.
 constexpr int kWideSlice = 64;
 
+// q . k^T of a block's 16 query rows and keys [c0, c0 + 16) (two n8 tiles)
+// as 3xTF32 mma.sync in k8 steps over dh (padded to dhp with zeros): q_at(r,
+// d) and k_at(key, d) give the operands. Fragment e of tile nt: query row
+// g + 8 (e / 2), key c0 + 8 nt + 2 t4 + e % 2.
+template <typename QAt, typename KAt>
+__device__ __forceinline__ void chunk_scores(QAt q_at, KAt k_at, int c0, int dhp, int g, int t4,
+                                             float (&s_acc)[2][4]) {
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s_acc[nt][e] = 0.0f;
+  }
+  for (int s = 0; s < dhp / 8; ++s) {
+    uint32_t a_big[4], a_small[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      split_tf32(q_at(g + 8 * (e % 2), 8 * s + t4 + 4 * (e / 2)), a_big[e], a_small[e]);
+    }
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      const int key = c0 + 8 * nt + g;
+      uint32_t b_big[2], b_small[2];
+      split_tf32(k_at(key, 8 * s + t4), b_big[0], b_small[0]);
+      split_tf32(k_at(key, 8 * s + t4 + 4), b_big[1], b_small[1]);
+      mma_3xtf32(s_acc[nt], a_big, a_small, b_big, b_small);
+    }
+  }
+}
+
+// The two-pass route's first pass: scores[h, i, j] = q_i . k_j for the
+// block's 16 query rows and every key below nv_k, the warps splitting the
+// keys into 16-key chunks, q and K read in place through L1. Tiles of
+// padded rows write nothing: the second pass zeros them without a read.
+__global__ void __launch_bounds__(kAttnThreads) attention_scores_kernel(
+    const float* __restrict__ q,            // (H, N, dh)
+    const float* __restrict__ k,            // (H, M, dh)
+    const int32_t* __restrict__ nv_q_ptr,   // or null: N
+    const int32_t* __restrict__ nv_k_ptr,   // or null: M
+    float* __restrict__ scores,             // (H, N, M)
+    int N, int M, int dh) {
+  const int h = blockIdx.y;
+  const int row0 = blockIdx.x * kRows;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int nv_q = nv_q_ptr != nullptr ? max(0, min(*nv_q_ptr, N)) : N;
+  const int nv_k = nv_k_ptr != nullptr ? max(0, min(*nv_k_ptr, M)) : M;
+  if (row0 >= nv_q) return;
+  const float* kh = k + static_cast<size_t>(h) * M * dh;
+  auto q_at = [&](int r, int d) {
+    return row0 + r < N && d < dh ? __ldg(q + (static_cast<size_t>(h) * N + row0 + r) * dh + d)
+                                  : 0.0f;
+  };
+  auto k_at = [&](int key, int d) {
+    return key < nv_k && d < dh ? __ldg(kh + static_cast<size_t>(key) * dh + d) : 0.0f;
+  };
+  const int dhp = (dh + 7) / 8 * 8;
+  const int chunks = (nv_k + kKeys - 1) / kKeys;
+  for (int c = warp; c < chunks; c += kAttnWarps) {
+    const int c0 = c * kKeys;
+    float s_acc[2][4];
+    chunk_scores(q_at, k_at, c0, dhp, g, t4, s_acc);
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = row0 + g + 8 * (e / 2), key = c0 + 8 * nt + 2 * t4 + e % 2;
+        if (i < N && key < nv_k) {
+          scores[(static_cast<size_t>(h) * N + i) * M + key] = s_acc[nt][e];
+        }
+      }
+    }
+  }
+}
+
+template <bool TWO_PASS>
 __global__ void __launch_bounds__(kAttnThreads, 1) attention_wide_kernel(
     const float* __restrict__ q,            // (H, N, dh)
     const float* __restrict__ k,            // (H, M, dh)
@@ -593,6 +678,7 @@ __global__ void __launch_bounds__(kAttnThreads, 1) attention_wide_kernel(
     const uint8_t* __restrict__ key_masks,  // (M,) or null
     const int32_t* __restrict__ nv_q_ptr,   // or null: N
     const int32_t* __restrict__ nv_k_ptr,   // or null: M
+    const float* __restrict__ scores,       // (H, N, M) q . k^T where TWO_PASS, else null
     float* __restrict__ out,                // (N, H * dh)
     int N, int M, int H, int dh, float scale) {
   constexpr int kSlice = kWideSlice / 8;  // n8 tiles of p v in the slice
@@ -602,8 +688,8 @@ __global__ void __launch_bounds__(kAttnThreads, 1) attention_wide_kernel(
   const int qs = dhp + 4;                                  // q tile row stride
   float* part = shared;                                    // (warps, 16, 64)
   float* stats = part + kAttnWarps * kRows * kWideSlice;   // (warps, 16, 2): m, l
-  float* q_s = stats + kAttnWarps * kRows * 2;             // (16, qs)
-  uint32_t* kept = reinterpret_cast<uint32_t*>(q_s + kRows * qs);
+  float* q_s = stats + kAttnWarps * kRows * 2;             // (16, qs) but where TWO_PASS
+  uint32_t* kept = reinterpret_cast<uint32_t*>(q_s + (TWO_PASS ? 0 : kRows * qs));
 
   const int h = blockIdx.y;
   const int row0 = blockIdx.x * kRows;
@@ -623,10 +709,12 @@ __global__ void __launch_bounds__(kAttnThreads, 1) attention_wide_kernel(
     }
     return;
   }
-  for (int e = tid; e < kRows * dhp; e += kAttnThreads) {
-    const int r = e / dhp, d = e % dhp;
-    const bool ok = row0 + r < N && d < dh;
-    q_s[r * qs + d] = ok ? q[(static_cast<size_t>(h) * N + row0 + r) * dh + d] : 0.0f;
+  if constexpr (!TWO_PASS) {
+    for (int e = tid; e < kRows * dhp; e += kAttnThreads) {
+      const int r = e / dhp, d = e % dhp;
+      const bool ok = row0 + r < N && d < dh;
+      q_s[r * qs + d] = ok ? q[(static_cast<size_t>(h) * N + row0 + r) * dh + d] : 0.0f;
+    }
   }
   for (int w = warp; w * 32 < nv_k; w += kAttnWarps) {
     const int j = w * 32 + lane;
@@ -642,6 +730,7 @@ __global__ void __launch_bounds__(kAttnThreads, 1) attention_wide_kernel(
   auto v_at = [&](int key, int d) {
     return key < nv_k && d < dh ? __ldg(vh + static_cast<size_t>(key) * dh + d) : 0.0f;
   };
+  auto q_at = [&](int r, int d) { return q_s[r * qs + d]; };
 
   float o[kSlice][4];
 #pragma unroll
@@ -654,25 +743,19 @@ __global__ void __launch_bounds__(kAttnThreads, 1) attention_wide_kernel(
   for (int c = warp; c < chunks; c += kAttnWarps) {
     const int c0 = c * kKeys;
     float s_acc[2][4];
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s_acc[nt][e] = 0.0f;
-    }
-    for (int s = 0; s < dhp / 8; ++s) {
-      uint32_t a_big[4], a_small[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        split_tf32(q_s[(g + 8 * (e % 2)) * qs + 8 * s + t4 + 4 * (e / 2)], a_big[e], a_small[e]);
-      }
+    if constexpr (TWO_PASS) {  // the first pass's q . k^T, zeros past nv_k (masked below)
 #pragma unroll
       for (int nt = 0; nt < 2; ++nt) {
-        const int key = c0 + 8 * nt + g;
-        uint32_t b_big[2], b_small[2];
-        split_tf32(k_at(key, 8 * s + t4), b_big[0], b_small[0]);
-        split_tf32(k_at(key, 8 * s + t4 + 4), b_big[1], b_small[1]);
-        mma_3xtf32(s_acc[nt], a_big, a_small, b_big, b_small);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = row0 + g + 8 * (e / 2), key = c0 + 8 * nt + 2 * t4 + e % 2;
+          s_acc[nt][e] = i < N && key < nv_k
+                             ? __ldg(scores + (static_cast<size_t>(h) * N + i) * M + key)
+                             : 0.0f;
+        }
       }
+    } else {
+      chunk_scores(q_at, k_at, c0, dhp, g, t4, s_acc);
     }
     const uint32_t bits = kept[c0 / 32] >> (c0 % 32);
     float row_max[2] = {-INFINITY, -INFINITY};
@@ -772,21 +855,43 @@ __global__ void __launch_bounds__(kAttnThreads, 1) attention_wide_kernel(
   }
 }
 
+// Shared memory of attention_wide_kernel: the warps' partial outputs and
+// (m, l), the q tile where q_tile, the key bitmap.
+size_t wide_shared(int M, int dh, bool q_tile) {
+  const size_t dhp = (static_cast<size_t>(dh) + 7) / 8 * 8;
+  const size_t floats = kAttnWarps * kRows * (kWideSlice + 2) + (q_tile ? kRows * (dhp + 4) : 0);
+  return sizeof(float) * floats + sizeof(uint32_t) * ((static_cast<size_t>(M) + 31) / 32);
+}
+
+// q_tile: attention_wide_kernel with its q tile staged; else the two-pass
+// route, q . k^T into `scores` (H of N x M: a workspace from the wrapper)
 int launch_attention_wide(const float* q, const float* k, const float* v, const float* bias,
                           const uint8_t* key_masks, const int32_t* nv_q, const int32_t* nv_k,
-                          float* out, int N, int M, int H, int dh, float scale,
-                          cudaStream_t stream) {
-  const size_t dhp = (static_cast<size_t>(dh) + 7) / 8 * 8;
-  const size_t shared =
-      sizeof(float) * (kAttnWarps * kRows * (kWideSlice + 2) + kRows * (dhp + 4)) +
-      sizeof(uint32_t) * ((static_cast<size_t>(M) + 31) / 32);
-  if (shared > kMaxShared) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err =
-      allow_smem(reinterpret_cast<const void*>(attention_wide_kernel), shared);
+                          float* scores, float* out, int N, int M, int H, int heads, int dh,
+                          bool q_tile, float scale, cudaStream_t stream) {
+  // the route: the q tile staged exactly where it fits
+  if (q_tile != (wide_shared(M, dh, true) <= kMaxShared) || (!q_tile && scores == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t shared = wide_shared(M, dh, q_tile);
+  if (shared > kMaxShared) return static_cast<int>(cudaErrorInvalidValue);  // the key bitmap
+  const dim3 grid((N + kRows - 1) / kRows, heads, (dh + kWideSlice - 1) / kWideSlice);
+  if (q_tile) {
+    const cudaError_t err =
+        allow_smem(reinterpret_cast<const void*>(attention_wide_kernel<false>), shared);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attention_wide_kernel<false><<<grid, kAttnThreads, shared, stream>>>(
+        q, k, v, bias, key_masks, nv_q, nv_k, nullptr, out, N, M, H, dh, scale);
+    return static_cast<int>(cudaGetLastError());
+  }
+  attention_scores_kernel<<<dim3(grid.x, heads), kAttnThreads, 0, stream>>>(q, k, nv_q, nv_k,
+                                                                           scores, N, M, dh);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((N + kRows - 1) / kRows, H, (dh + kWideSlice - 1) / kWideSlice);
-  attention_wide_kernel<<<grid, kAttnThreads, shared, stream>>>(
-      q, k, v, bias, key_masks, nv_q, nv_k, out, N, M, H, dh, scale);
+  err = allow_smem(reinterpret_cast<const void*>(attention_wide_kernel<true>), shared);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  attention_wide_kernel<true><<<grid, kAttnThreads, shared, stream>>>(
+      q, k, v, bias, key_masks, nv_q, nv_k, scores, out, N, M, H, dh, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -804,8 +909,8 @@ const char* error_string(int code) {
 int rpe_pair_scores_launch(const float* embed, const float* qw, const int32_t* nv_q,
                            const int32_t* nv_k, float* out, int N, int M, int H, int C, int vec4,
                            void* stream) {
-  if (H < 1 || C < 1 || H > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  if (vec4 && (H > kMaxHeads || C % 4 != 0 || C > 512 ||
+  if (H < 1 || C < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (vec4 && (H > kMaxHeads || C % 4 != 0 || C > 512 || N > kMaxGridY ||
                reinterpret_cast<uintptr_t>(embed) % 16 != 0 ||
                reinterpret_cast<uintptr_t>(qw) % 16 != 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -820,10 +925,14 @@ int rpe_pair_scores_launch(const float* embed, const float* qw, const int32_t* n
     const cudaError_t err =
         allow_smem(reinterpret_cast<const void*>(pair_scores_any_kernel), shared);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((M + kColsPerBlock - 1) / kColsPerBlock, N);
-    pair_scores_any_kernel<<<grid, kPairThreads, shared, s>>>(embed, qw, nv_q, nv_k, out, N, M, H,
-                                                             C, qw_shared);
-    return static_cast<int>(cudaGetLastError());
+    for (int row0 = 0; row0 < N; row0 += kMaxGridY) {
+      const dim3 grid((M + kColsPerBlock - 1) / kColsPerBlock, min(kMaxGridY, N - row0));
+      pair_scores_any_kernel<<<grid, kPairThreads, shared, s>>>(embed, qw, nv_q, nv_k, out, N, M,
+                                                               H, C, qw_shared, row0);
+      const cudaError_t launched = cudaGetLastError();
+      if (launched != cudaSuccess) return static_cast<int>(launched);
+    }
+    return 0;
   }
   switch ((C + 127) / 128) {
     case 1: return launch_pair_scores<1>(embed, qw, nv_q, nv_k, out, N, M, H, C, s);
@@ -836,32 +945,55 @@ int rpe_pair_scores_launch(const float* embed, const float* qw, const int32_t* n
 // width, vec16: the instance (kernels/attention.py:attention_route picks
 // it): attention_kernel<width> with 16-byte copies (vec16: DH == width, q,
 // k and v 16-byte aligned) or 4-byte ones (DH <= width, the columns past DH
-// zero), width 8, 16, 32 or 64; width 0: attention_wide_kernel, any DH.
+// zero), width 8, 16, 32 or 64; width 0: attention_wide_kernel, any DH,
+// the q tile in shared memory where q_tile (where it fits), else the
+// two-pass route through `scores`, an (H, N, M) workspace.
 int fused_attention_launch(const float* q, const float* k, const float* v, const float* bias,
                            const uint8_t* key_masks, const int32_t* nv_q, const int32_t* nv_k,
-                           float* out, int N, int M, int H, int DH, int width, int vec16,
-                           float scale, void* stream) {
+                           float* scores, float* out, int N, int M, int H, int DH, int width,
+                           int vec16, int q_tile, float scale, void* stream) {
   const bool aligned = reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(v) % 16 == 0;
-  if (H < 1 || H > 65535 || DH < 1 || (width != 0 && DH > width) ||
-      (vec16 && (DH != width || !aligned))) {
+  if (H < 1 || DH < 1 || (width != 0 && DH > width) ||
+      (vec16 && (DH != width || !aligned)) || (width != 0 && !q_tile)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (N == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (width * 2 + (vec16 ? 1 : 0)) {
-    case 0: return launch_attention_wide(q, k, v, bias, key_masks, nv_q, nv_k, out, N, M, H, DH, scale, s);
-    case 17: return launch_attention<8, true>(q, k, v, bias, key_masks, nv_q, nv_k, out, N, M, H, DH, scale, s);
-    case 33: return launch_attention<16, true>(q, k, v, bias, key_masks, nv_q, nv_k, out, N, M, H, DH, scale, s);
-    case 65: return launch_attention<32, true>(q, k, v, bias, key_masks, nv_q, nv_k, out, N, M, H, DH, scale, s);
-    case 129: return launch_attention<64, true>(q, k, v, bias, key_masks, nv_q, nv_k, out, N, M, H, DH, scale, s);
-    case 16: return launch_attention<8, false>(q, k, v, bias, key_masks, nv_q, nv_k, out, N, M, H, DH, scale, s);
-    case 32: return launch_attention<16, false>(q, k, v, bias, key_masks, nv_q, nv_k, out, N, M, H, DH, scale, s);
-    case 64: return launch_attention<32, false>(q, k, v, bias, key_masks, nv_q, nv_k, out, N, M, H, DH, scale, s);
-    case 128: return launch_attention<64, false>(q, k, v, bias, key_masks, nv_q, nv_k, out, N, M, H, DH, scale, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  // heads in launches of at most 65,535 (the grid's y dimension; one launch
+  // at every shipped shape): a launch's q, k, v, bias and out start at its
+  // first head, the strides stay H's
+  for (int h0 = 0; h0 < H; h0 += kMaxGridY) {
+    const int heads = min(kMaxGridY, H - h0);
+    const float* qh = q + static_cast<size_t>(h0) * N * DH;
+    const float* kh = k + static_cast<size_t>(h0) * M * DH;
+    const float* vh = v + static_cast<size_t>(h0) * M * DH;
+    const float* bh = bias != nullptr ? bias + static_cast<size_t>(h0) * M : nullptr;
+    float* oh = out + static_cast<size_t>(h0) * DH;
+    float* sh = scores != nullptr ? scores + static_cast<size_t>(h0) * N * M : nullptr;
+    auto narrow = [&](auto launch) {
+      return launch(qh, kh, vh, bh, key_masks, nv_q, nv_k, oh, N, M, H, heads, DH, scale, s);
+    };
+    int err = 0;
+    switch (width * 2 + (vec16 ? 1 : 0)) {
+      case 0:
+        err = launch_attention_wide(qh, kh, vh, bh, key_masks, nv_q, nv_k, sh, oh, N, M, H, heads,
+                                    DH, q_tile != 0, scale, s);
+        break;
+      case 17: err = narrow(launch_attention<8, true>); break;
+      case 33: err = narrow(launch_attention<16, true>); break;
+      case 65: err = narrow(launch_attention<32, true>); break;
+      case 129: err = narrow(launch_attention<64, true>); break;
+      case 16: err = narrow(launch_attention<8, false>); break;
+      case 32: err = narrow(launch_attention<16, false>); break;
+      case 64: err = narrow(launch_attention<32, false>); break;
+      case 128: err = narrow(launch_attention<64, false>); break;
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+    if (err != 0) return err;
   }
+  return 0;
 }
 
 }  // extern "C"

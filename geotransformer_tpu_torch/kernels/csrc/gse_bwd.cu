@@ -75,6 +75,7 @@
 
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 #include "gse_common.cuh"
 
@@ -86,7 +87,12 @@ constexpr int kTile = 16;          // pairs a tile: the m16 of a projection
 constexpr int kGroup = 3;          // angles a group: 16 pairs' bases fill shared memory at FC = 256
 constexpr int kChunk = 32;         // the basis rows' granule
 constexpr int kMaxRows = 256;      // the widest row chunk
-constexpr uint8_t kUndecided = 0xFF;
+// k* of an entry: a byte in the resident instance (A = 3), 16 bits in the
+// general one (any A below 0xFFFF); the largest value marks an undecided
+// entry (a tie to settle in float64)
+template <bool RESIDENT>
+using KStar = typename std::conditional<RESIDENT, uint8_t, uint16_t>::type;
+__host__ __device__ constexpr int undecided(bool resident) { return resident ? 0xFF : 0xFFFF; }
 // channels a block (a c-block): 64, or 32 where the chunk's rows are not a
 // multiple of 64
 __host__ __device__ constexpr int block_channels(int FC) { return FC % 64 == 0 ? 64 : 32; }
@@ -117,8 +123,9 @@ __global__ void __launch_bounds__(kThreads) gse_indices_kernel(
 // Shared memory of a block, in 32-bit words: W_a's c-block (f32) over the
 // chunk's rows, the bases of a group (and the distance) and de's tile as
 // TF32 halves, the pairs' indices and state, the chunk's frequencies, the
-// channels' sum |W_a|, the tile's undecided entries (16-bit) and k* (bytes).
-template <int FC>
+// channels' sum |W_a|, the tile's undecided entries (16-bit) and k* (bytes
+// where RESIDENT, else 16-bit).
+template <int FC, bool RESIDENT>
 struct Layout {
   static constexpr int G = kGroup;
   static constexpr int BC = block_channels(FC);
@@ -134,7 +141,7 @@ struct Layout {
   static constexpr int ties = wabs + BC;
   static constexpr int tie_count = ties + kTile * BC / 2;
   static constexpr int kstar = tie_count + 1;
-  static constexpr int words = kstar + kTile * BC / 4;
+  static constexpr int words = kstar + kTile * BC * static_cast<int>(sizeof(KStar<RESIDENT>)) / 4;
 };
 
 template <int FC, bool RESIDENT>
@@ -149,7 +156,7 @@ __global__ void __launch_bounds__(kThreads, 1) gse_bwd_kernel(
     float* __restrict__ part_b,             // (S, C)
     int32_t* __restrict__ part_ties,        // (S, CB)
     int N, int C_in, int A_in, int CH_in) {
-  using L = Layout<FC>;
+  using L = Layout<FC, RESIDENT>;
   constexpr int G = kGroup;
   // RESIDENT: C = FC in one chunk and A = G (one group), every width and
   // trip count a constant; W_a's c-block and each tile's bases stay in
@@ -177,7 +184,8 @@ __global__ void __launch_bounds__(kThreads, 1) gse_bwd_kernel(
   float* wabs_s = reinterpret_cast<float*>(smem + L::wabs);
   uint16_t* ties_s = reinterpret_cast<uint16_t*>(smem + L::ties);
   int* tie_count = reinterpret_cast<int*>(smem + L::tie_count);
-  uint8_t* kstar_s = reinterpret_cast<uint8_t*>(smem + L::kstar);  // (16, BC)
+  using KS = KStar<RESIDENT>;
+  KS* kstar_s = reinterpret_cast<KS*>(smem + L::kstar);  // (16, BC)
 
   const int tid = threadIdx.x;
   const int warp = tid / 32;
@@ -400,7 +408,8 @@ __global__ void __launch_bounds__(kThreads, 1) gse_bwd_kernel(
         // (channels past C have no weights: no choice to settle)
         const bool tie = info_s[p] == 1 && c0 + c < C &&
                          best[e] - second[e] <= kTieTolerance * wabs_s[c];
-        kstar_s[p * BC + c] = tie ? kUndecided : static_cast<uint8_t>(arg[e]);
+        kstar_s[p * BC + c] =
+            tie ? static_cast<KS>(undecided(RESIDENT)) : static_cast<KS>(arg[e]);
         if (tie) ties_s[atomicAdd(tie_count, 1)] = static_cast<uint16_t>(p * BC + c);
       }
     }
@@ -437,7 +446,7 @@ __global__ void __launch_bounds__(kThreads, 1) gse_bwd_kernel(
             arg64 = k;
           }
         }
-        if (lane == 0) kstar_s[p * BC + c] = static_cast<uint8_t>(arg64);
+        if (lane == 0) kstar_s[p * BC + c] = static_cast<KS>(arg64);
       }
       settled += ties;
       __syncthreads();
@@ -622,13 +631,13 @@ int launch(const float* points, const float* ref_vectors, const float* w_a, cons
            float* part_b, int32_t* part_ties, float* dw_d, float* dw_a, float* db,
            int32_t* settled, int N, int C, int A, int CH, int CB, int S, int words, float sigma_d,
            float factor_a, cudaStream_t stream) {
-  if (words != Layout<FC>::words) return static_cast<int>(cudaErrorInvalidValue);
+  if (words != Layout<FC, RESIDENT>::words) return static_cast<int>(cudaErrorInvalidValue);
   const long long pairs = static_cast<long long>(N) * N;  // covers the valid square
   gse_indices_kernel<<<static_cast<unsigned>((pairs + kThreads - 1) / kThreads), kThreads, 0,
                        stream>>>(points, ref_vectors, n_valid, pair_idx, N, A, sigma_d, factor_a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = sizeof(uint32_t) * Layout<FC>::words;
+  const size_t smem = sizeof(uint32_t) * Layout<FC, RESIDENT>::words;
   err = cudaFuncSetAttribute(gse_bwd_kernel<FC, RESIDENT>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -663,9 +672,10 @@ int gse_bwd_slices(int N, int blocks) {
 
 // The route (FC basis rows a chunk, CH chunks, CB c-blocks, resident, a
 // block's shared memory in words) must be route_of(C, A)'s:
-// kernels/gse.py:gse_route computes it. C even, 1 <= A <= 254 (k* is a
-// byte, 0xFF undecided); pair_idx holds N^2 (A + 1) floats, the partials S
-// slices of (C, C), (C,) and (CB,).
+// kernels/gse.py:gse_route computes it. C even, 1 <= A < 0xFFFF (k* is a
+// byte in the resident instance, whose A is 3, 16 bits in the general one,
+// the largest value undecided); pair_idx holds N^2 (A + 1) floats, the
+// partials S slices of (C, C), (C,) and (CB,).
 int gse_bwd_launch(const float* points, const float* ref_vectors, const float* w_a,
                    const float* div_term, const int32_t* n_valid, const float* de,
                    float* pair_idx, float* part_d, float* part_a, float* part_b,
@@ -673,8 +683,8 @@ int gse_bwd_launch(const float* points, const float* ref_vectors, const float* w
                    int N, int A, int C, int FC, int CH, int CB, int resident, int S, int words,
                    float sigma_d, float factor_a, void* stream) {
   const Route r = route_of(C, A);
-  if (A < 1 || A >= kUndecided || C < 2 || C % 2 != 0 || S < 1 || FC != r.FC || CH != r.CH ||
-      CB != r.CB || (resident != 0) != r.resident) {
+  if (A < 1 || A >= undecided(r.resident) || C < 2 || C % 2 != 0 || S < 1 || FC != r.FC ||
+      CH != r.CH || CB != r.CB || (resident != 0) != r.resident) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

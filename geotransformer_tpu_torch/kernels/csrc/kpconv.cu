@@ -546,6 +546,139 @@ __global__ void __launch_bounds__(kThreads, 2) kpconv_union_kernel(
   }
 }
 
+// The general route of both input convs (kernels/kpconv.py:stream_route,
+// union_route): where a stream block's ring of (5, Q, H) planes and W, or a
+// union block's staged union, sel rows and W, would not fit a block's
+// shared memory (tables of hundreds of columns, unions of ~13,000 rows,
+// K D past ~56,000: shapes no shipped configuration has, which the JAX
+// kernels take), nothing is staged but t1 and the divisors: each slot's
+// values are read from device memory through L1 as they are needed, W in
+// the epilogue too. A block takes one tile of Q = 256 / L queries (the
+// stream L = 16, the union 4, 64 queries of a union tile); the edge body,
+// the lane split of the slots, the merge and the epilogue are the staged
+// kernels', so each kernel point's sum runs over the same slots in the same
+// order. Simple and correct, not tuned.
+constexpr int kGlobalStreamLanes = 16;
+
+inline size_t global_smem_floats(int Q, int K) {
+  return static_cast<size_t>(Q) * t1_stride(K) + Q;
+}
+
+template <int KP, bool CHUNKED = false>
+__global__ void __launch_bounds__(kThreads) kpconv_stream_global_kernel(
+    const float* __restrict__ stream,  // (5, M, H): off xyz, posflag, feat
+    const float* __restrict__ kp,      // (K, 3)
+    const float* __restrict__ w,       // (K, 1, D)
+    float* __restrict__ out,           // (M, D)
+    float* __restrict__ t1_out,        // (M, K) or null
+    float* __restrict__ count_out,     // (M,) or null
+    int M, int H, int K, int D, float sigma) {
+  constexpr int L = kGlobalStreamLanes;
+  constexpr int Q = kThreads / L;
+  extern __shared__ __align__(16) float smem[];
+  const int t1s = CHUNKED ? t1_stride(K) : kT1Stride;
+  float* t1_s = smem;            // (Q, t1s)
+  float* cnt_s = t1_s + Q * t1s;  // (Q,)
+  const int q0 = blockIdx.x * Q;
+  const int rows = min(Q, M - q0);
+  const int ql = threadIdx.x / L;
+  const size_t plane = static_cast<size_t>(M) * H;
+  const float* st = stream + static_cast<size_t>(q0 + ql) * H;  // read where ql < rows
+  KernelPoints<KP> kpr;
+  if constexpr (!CHUNKED) kpr.load(kp, K);
+  const float inv_sigma = 1.0f / sigma;
+  const int chunks = CHUNKED ? (K + kChunk - 1) / kChunk : 1;
+  for (int c = 0; c < chunks; ++c) {
+    if constexpr (CHUNKED) kpr.load(kp + 3 * kChunk * c, K - kChunk * c);
+    float acc[KP];
+#pragma unroll
+    for (int k = 0; k < KP; ++k) acc[k] = 0.0f;
+    float cnt = 0.0f;
+    if (ql < rows) {
+      for (int h = threadIdx.x % L; h < H; h += L) {
+        add_edge(__ldg(st + h), __ldg(st + plane + h), __ldg(st + 2 * plane + h),
+                 __ldg(st + 3 * plane + h), __ldg(st + 4 * plane + h), kpr, inv_sigma, acc, cnt);
+      }
+    }
+    merge_lanes<KP, L>(acc, cnt);
+    keep_query<KP, L>(acc, cnt, ql, rows, t1_s + kChunk * c, cnt_s, t1s);
+  }
+  __syncthreads();
+  if constexpr (CHUNKED) {
+    write_outputs_chunked(t1_s, cnt_s, w, out, t1_out, count_out, q0, rows, K, D, t1s);
+  } else {
+    write_outputs<KP>(t1_s, cnt_s, w, out, t1_out, count_out, q0, rows, K, D);
+  }
+}
+
+template <int KP, bool CHUNKED = false>
+__global__ void __launch_bounds__(kThreads) kpconv_union_global_kernel(
+    const float* __restrict__ s_feats,    // (N,) the c_in == 1 features
+    const float* __restrict__ s_points,   // (N, 3)
+    const float* __restrict__ q_points,   // (M, 3)
+    const int32_t* __restrict__ rows,     // (T, U), sentinel N
+    const int32_t* __restrict__ sel,      // (M, H), sentinel U
+    const float* __restrict__ kp,         // (K, 3)
+    const float* __restrict__ w,          // (K, 1, D)
+    float* __restrict__ out,              // (M, D)
+    float* __restrict__ count_out,        // (M,) or null
+    float* __restrict__ t1_out,           // (M, K) or null
+    int M, int N, int U, int H, int K, int D, int tile, int sub, float sigma) {
+  constexpr int L = kThreads / kUnionQueries;
+  const int t = blockIdx.x / sub;
+  const int q0 = t * tile + (blockIdx.x - t * sub) * kUnionQueries;
+  const int rows_here = min(min(kUnionQueries, (t + 1) * tile - q0), M - q0);
+  if (rows_here <= 0) return;
+  extern __shared__ __align__(16) float smem[];
+  const int t1s = CHUNKED ? t1_stride(K) : kT1Stride;
+  float* t1_s = smem;                         // (Q, t1s)
+  float* cnt_s = t1_s + kUnionQueries * t1s;  // (Q,)
+  const int32_t* union_row = rows + static_cast<size_t>(t) * U;
+  KernelPoints<KP> kpr;
+  kpr.load(kp, K);  // (the first chunk of 16 where CHUNKED)
+  const float inv_sigma = 1.0f / sigma;
+  const int ql = threadIdx.x / L;
+  const int chunks = CHUNKED ? (K + kChunk - 1) / kChunk : 1;
+  for (int c = 0; c < chunks; ++c) {
+    if constexpr (CHUNKED) {
+      if (c > 0) kpr.load(kp + 3 * kChunk * c, K - kChunk * c);
+    }
+    float acc[KP];
+#pragma unroll
+    for (int k = 0; k < KP; ++k) acc[k] = 0.0f;
+    float cnt = 0.0f;
+    if (ql < rows_here) {
+      const size_t q = static_cast<size_t>(q0 + ql);
+      const float qx = __ldg(q_points + 3 * q + 0);
+      const float qy = __ldg(q_points + 3 * q + 1);
+      const float qz = __ldg(q_points + 3 * q + 2);
+      for (int h = threadIdx.x % L; h < H; h += L) {
+        // the union entry sel names, as the staged kernel's un[u]: zeros
+        // for the sentinel and for a row outside [0, N)
+        const int u = __ldg(sel + q * H + h);
+        const int n = (u >= 0 && u < U) ? __ldg(union_row + u) : N;
+        float4 e = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (n >= 0 && n < N) {
+          e.x = __ldg(s_points + 3 * static_cast<size_t>(n) + 0);
+          e.y = __ldg(s_points + 3 * static_cast<size_t>(n) + 1);
+          e.z = __ldg(s_points + 3 * static_cast<size_t>(n) + 2);
+          e.w = __ldg(s_feats + n);
+        }
+        add_edge(e.x - qx, e.y - qy, e.z - qz, e.w > 0.0f ? 1.0f : 0.0f, e.w, kpr, inv_sigma,
+                 acc, cnt);
+      }
+    }
+    merge_lanes<KP, L>(acc, cnt);
+    keep_query<KP, L>(acc, cnt, ql, rows_here, t1_s + kChunk * c, cnt_s, t1s);
+  }
+  __syncthreads();
+  if constexpr (CHUNKED) {
+    write_outputs_chunked(t1_s, cnt_s, w, out, t1_out, count_out, q0, rows_here, K, D, t1s);
+  } else {
+    write_outputs<KP>(t1_s, cnt_s, w, out, t1_out, count_out, q0, rows_here, K, D);
+  }
+}
+
 using launch_util::Limits;
 using launch_util::allow_smem;
 using launch_util::device_limits;
@@ -576,16 +709,17 @@ long long kpconv_conv_workspace(int M, int K, int C, int D) {
 // partial sums, where kpconv_conv_workspace asks for them). head (M, H1)
 // sentinel N; tail (M2, H2) and tail_rank (M,) (sentinel M2) or null for a
 // whole table; pool_head and pool_tail the pooled columns of the head and
-// of a tail row; edge_*: the edge pass's route (kernels/kpconv.py:
-// edge_route(K, C)). Any K and C.
+// of a tail row; pool_chunk: the pooled columns the pool phase stages at a
+// time (kernels/kpconv.py:pool_route); edge_*: the edge pass's route
+// (kernels/kpconv.py:edge_route(K, C)). Any K and C, any pool width.
 int kpconv_conv_launch(const float* s_feats, const float* q_points, const float* s_points,
                        const int32_t* head, const int32_t* tail, const int32_t* tail_rank,
                        const float* posflag, const float* kp, const float* w,
                        const uint8_t* q_mask, const float* pool_feats, float* t_ws,
                        float* div_ws, float* part_ws, float* out, float* pooled,
                        float* count_out, float* ties_out, int M, int N, int H1, int H2, int M2,
-                       int K, int C, int D, int P, int pool_head, int pool_tail, int edge_v,
-                       int edge_tpr, int edge_tr, int edge_kp_chunks, int edge_passes,
+                       int K, int C, int D, int P, int pool_head, int pool_tail, int pool_chunk,
+                       int edge_v, int edge_tpr, int edge_tr, int edge_kp_chunks, int edge_passes,
                        float sigma, void* stream) {
   if (D < 1 || H1 < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (M == 0) return 0;
@@ -621,7 +755,7 @@ int kpconv_conv_launch(const float* s_feats, const float* q_points, const float*
   const int pool_width = pool_feats == nullptr ? 0
                          : min(pool_head, H1) + (tail != nullptr ? min(pool_tail, H2) : 0);
   const kpconv::EdgeRoute route{edge_v, edge_tpr, edge_tr, edge_kp_chunks, edge_passes};
-  int err = kpconv::launch_edges<false>(e, x, pool_width, route, st);
+  int err = kpconv::launch_edges<false>(e, x, pool_width, pool_chunk, route, st);
   if (err != 0) return err;
   kpconv::GemmArgs g{};
   g.a = t_ws;
@@ -638,26 +772,43 @@ int kpconv_conv_launch(const float* s_feats, const float* q_points, const float*
   return kpconv::launch_contraction(g, kpconv::tensor_core_widths(C, D), part_ws, st);
 }
 
+// staged: the route (kernels/kpconv.py:stream_route): 1 where a block of
+// 16 queries stages its ring and W (every shipped configuration), 0 the
+// general route, nothing staged.
 int kpconv_stream_launch(const float* stream_planes, const float* kp,
                          const float* w, float* out, float* t1_out,
                          float* count_out, int M, int H, int K, int D,
-                         int variant, float sigma, void* stream) {
+                         int variant, int staged, float sigma, void* stream) {
   if (!variant_takes(variant, K) || H < 1 || D < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (M == 0) return 0;
   const Limits& limits = device_limits();
   // 8 lanes a query (32-query tiles), or 16 (16-query tiles) where the
   // 32-query tiles do not cover the SMs or two such blocks do not fit an SM
   // (1 KB of an SM's shared memory is reserved a block)
   auto smem_of = [&](int L) { return sizeof(float) * stream_smem_floats(kThreads / L, H, K, D); };
+  if ((staged != 0) != (smem_of(16) <= static_cast<size_t>(limits.block_bytes))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (M == 0) return 0;
+  if (!staged) {
+    constexpr int Q = kThreads / kGlobalStreamLanes;
+    const size_t smem = sizeof(float) * global_smem_floats(Q, K);
+    auto run = [&](auto kernel) {
+      const cudaError_t err = allow_smem(reinterpret_cast<const void*>(kernel), smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      kernel<<<(M + Q - 1) / Q, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+          stream_planes, kp, w, out, t1_out, count_out, M, H, K, D, sigma);
+      return static_cast<int>(cudaGetLastError());
+    };
+    if (variant == 2) return run(kpconv_stream_global_kernel<16, true>);
+    return variant == 0 ? run(kpconv_stream_global_kernel<15>)
+                        : run(kpconv_stream_global_kernel<16>);
+  }
   const bool wide = 2 * (smem_of(8) + 1024) <= static_cast<size_t>(limits.sm_bytes) &&
                     (M + kThreads / 8 - 1) / (kThreads / 8) >= limits.sms;
   const int L = wide ? 8 : 16;
   const size_t smem = smem_of(L);
-  if (smem > static_cast<size_t>(limits.block_bytes)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
   // persistent blocks, two an SM (__launch_bounds__(kThreads, 2))
   const int tiles = (M + kThreads / L - 1) / (kThreads / L);
   const int blocks = min(tiles, 2 * limits.sms);
@@ -678,20 +829,24 @@ int kpconv_stream_launch(const float* stream_planes, const float* kp,
   return k15 ? run(kpconv_stream_kernel<15, 16>) : run(kpconv_stream_kernel<16, 16>);
 }
 
+// staged: the route (kernels/kpconv.py:union_route): 1 where a block stages
+// the tile's union, its sel rows and W (every shipped configuration), 0
+// the general route, nothing staged.
 int kpconv_union_launch(const float* s_feats, const float* s_points, const float* q_points,
                         const int32_t* rows, const int32_t* sel, const float* kp,
                         const float* w, float* out, float* count_out, float* t1_out, int M,
-                        int N, int U, int H, int K, int D, int tile, int variant, float sigma,
-                        void* stream) {
+                        int N, int U, int H, int K, int D, int tile, int variant, int staged,
+                        float sigma, void* stream) {
   if (!variant_takes(variant, K) || H < 1 || D < 1 || U < 1 || tile < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (M == 0) return 0;
   const Limits& limits = device_limits();
-  const size_t smem = sizeof(float) * union_smem_floats(U, H | 1, K, D);
-  if (smem > static_cast<size_t>(limits.block_bytes)) {
+  const size_t staged_smem = sizeof(float) * union_smem_floats(U, H | 1, K, D);
+  if ((staged != 0) != (staged_smem <= static_cast<size_t>(limits.block_bytes))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (M == 0) return 0;
+  const size_t smem = staged ? staged_smem : sizeof(float) * global_smem_floats(kUnionQueries, K);
   const int sub = (tile + kUnionQueries - 1) / kUnionQueries;
   const long long blocks = static_cast<long long>((M + tile - 1) / tile) * sub;
   auto run = [&](auto kernel) {
@@ -702,6 +857,10 @@ int kpconv_union_launch(const float* s_feats, const float* s_points, const float
         tile, sub, sigma);
     return static_cast<int>(cudaGetLastError());
   };
+  if (!staged) {
+    if (variant == 2) return run(kpconv_union_global_kernel<16, true>);
+    return variant == 0 ? run(kpconv_union_global_kernel<15>) : run(kpconv_union_global_kernel<16>);
+  }
   if (variant == 2) return run(kpconv_union_kernel<16, true>);
   return variant == 0 ? run(kpconv_union_kernel<15>) : run(kpconv_union_kernel<16>);
 }

@@ -101,15 +101,16 @@ long long kpconv_ds_workspace(int N, int K, int C, int D) {
 // (N,) (sentinel N2) or null for a whole inverse table. Writes u (N, K, D),
 // d_s (N, C) (through part_ds, kpconv_ds_workspace floats), dw (K, C, D)
 // (through part (slices, K, C, D) when there is more than one slice) and,
-// with the pool, d_pool (N, P); edge_*: the u pass's route
-// (kernels/kpconv.py:edge_route(K, D)). Any K, C and D.
+// with the pool, d_pool (N, P), the inverse table's columns pool_chunk at a
+// time (kernels/kpconv.py:pool_route); edge_*: the u pass's route
+// (kernels/kpconv.py:edge_route(K, D)). Any K, C and D, any table width.
 int kpconv_bwd_launch(const float* s_feats, const float* s_points, const float* q_points,
                       const float* gdiv, const int32_t* head, const int32_t* tail,
                       const int32_t* rank, const float* kp, const float* wt,
                       const float* pool_feats, const float* pooled, const float* dpt, float* u,
                       float* part_ds, float* part, float* d_s, float* dw, float* d_pool,
                       int N, int M, int J1, int J2, int N2, int K, int C, int D, int P,
-                      int edge_v, int edge_tpr, int edge_tr, int edge_kp_chunks,
+                      int pool_chunk, int edge_v, int edge_tpr, int edge_tr, int edge_kp_chunks,
                       int edge_passes, float sigma, void* stream) {
   if (K < 1 || J1 < 1 || C < 1 || D < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -144,7 +145,7 @@ int kpconv_bwd_launch(const float* s_feats, const float* s_points, const float* 
   x.P = P;
   const int pool_width = pool_feats == nullptr ? 0 : J1 + (tail != nullptr ? J2 : 0);
   const kpconv::EdgeRoute route{edge_v, edge_tpr, edge_tr, edge_kp_chunks, edge_passes};
-  int err = kpconv::launch_edges<true>(e, x, pool_width, route, st);
+  int err = kpconv::launch_edges<true>(e, x, pool_width, pool_chunk, route, st);
   if (err != 0) return err;
 
   // d_s = u (N, K D) Wt (K D, C)

@@ -57,6 +57,7 @@
 #include <cmath>
 #include <cstdint>
 
+#include "launch_common.cuh"
 #include "tf32_mma.cuh"
 
 namespace kpconv {
@@ -400,7 +401,8 @@ struct EdgeArgs {
   int R, n_other, C, K, h1, h2, r2;
   int tpr, tr, chunk;      // threads a row, rows a block, edges a chunk (a multiple of 4)
   int kp_chunks, passes;   // chunks of 16 kernel points, passes over a row's channel groups
-  int pool_width;          // columns of a row the pool phase stages (0: no pool)
+  int pool_width;          // pooled columns of a row (0: no pool)
+  int pool_chunk;          // of them the pool phase stages at a time (pool_route)
   float sigma;
 };
 
@@ -458,7 +460,7 @@ __device__ __forceinline__ void load_row(const float* src, bool ok, float (&f)[V
 // Shared memory of the edge pass, in 4-byte words: the chunk's influences
 // (TR rows of E x 16, each row padded by 4 floats so the rows a warp reads
 // fall in distinct banks), reused after the chunk loop for the pool phase's
-// staged indices (TR x pool_width), then the chunk's indices, the kernel
+// staged indices (TR x pool_chunk), then the chunk's indices, the kernel
 // points, and each row's count, edge flag and tail row.
 struct EdgeSmem {
   int row_stride, big, idx, kp, cnt, live, tails, words;
@@ -478,10 +480,15 @@ struct EdgeSmem {
 // columns (-1: absent; the sentinel: a shadow reading 0): max and tie count
 // in one pass (a larger value restarts the count); a split row without a
 // tail row is the zero shadow row, which enters the max but adds no tie.
+// The columns come W a chunk (pool_route): a chunk after the first resumes
+// the running max and tie count that the last one left in pooled and ties
+// (each (row, channel) has one thread throughout), and only the last
+// settles them, so the max is the same bits and the count the same number
+// as in one pass.
 template <int VP>
 __device__ void pool_rows(const EdgeArgs& p, const FwdExtras& x, const int32_t* cols_s,
-                          const int32_t* tails_s, int r0) {
-  const int W = p.pool_width, groups = x.P / VP;
+                          const int32_t* tails_s, int r0, int W, bool first, bool last) {
+  const int groups = x.P / VP;
   for (int i = threadIdx.x; i < p.tr * groups; i += kThreads) {
     const int ql = i / groups, ch = (i % groups) * VP;
     const int r = r0 + ql;
@@ -490,8 +497,9 @@ __device__ void pool_rows(const EdgeArgs& p, const FwdExtras& x, const int32_t* 
     float m[VP], ties[VP];
 #pragma unroll
     for (int v = 0; v < VP; ++v) {
-      m[v] = -INFINITY;
-      ties[v] = 0.0f;
+      const size_t at = static_cast<size_t>(r) * x.P + ch + v;
+      m[v] = first ? -INFINITY : x.pooled[at];
+      ties[v] = first || x.ties == nullptr ? 0.0f : x.ties[at];
     }
     for (int h = 0; h < W; h += 4) {
       float val[4][VP];
@@ -517,6 +525,15 @@ __device__ void pool_rows(const EdgeArgs& p, const FwdExtras& x, const int32_t* 
         }
       }
     }
+    if (!last) {  // the running max and count, for the next chunk
+#pragma unroll
+      for (int v = 0; v < VP; ++v) {
+        const size_t at = static_cast<size_t>(r) * x.P + ch + v;
+        x.pooled[at] = m[v];
+        if (x.ties != nullptr) x.ties[at] = ties[v];
+      }
+      continue;
+    }
     const bool zero_shadow = p.tail != nullptr && tails_s[ql] < 0;
 #pragma unroll
     for (int v = 0; v < VP; ++v) {
@@ -533,11 +550,13 @@ __device__ void pool_rows(const EdgeArgs& p, const FwdExtras& x, const int32_t* 
 
 // The backward's pool gradient of a block's rows: each gets dpool / ties
 // from every query whose pooled value equals its own feature (equality is
-// exact: the pooled values are f32 copies of the pool features).
+// exact: the pooled values are f32 copies of the pool features). A chunk
+// of W columns after the first resumes the sum the last one left in d_pool:
+// the same sum in the same order as in one pass.
 template <int VP>
 __device__ void pool_grad_rows(const EdgeArgs& p, const BwdExtras& x, const int32_t* cols_s,
-                               int r0) {
-  const int W = p.pool_width, groups = x.P / VP;
+                               int r0, int W, bool first) {
+  const int groups = x.P / VP;
   for (int i = threadIdx.x; i < p.tr * groups; i += kThreads) {
     const int ql = i / groups, ch = (i % groups) * VP;
     const int r = r0 + ql;
@@ -546,7 +565,9 @@ __device__ void pool_grad_rows(const EdgeArgs& p, const BwdExtras& x, const int3
     float own[VP], sum[VP];
     load_row<VP>(x.pool_feats + static_cast<size_t>(r) * x.P + ch, true, own);
 #pragma unroll
-    for (int v = 0; v < VP; ++v) sum[v] = 0.0f;
+    for (int v = 0; v < VP; ++v) {
+      sum[v] = first ? 0.0f : x.d_pool[static_cast<size_t>(r) * x.P + ch + v];
+    }
     for (int h = 0; h < W; h += 4) {
       float pv[4][VP], dv[4][VP];
       bool ok[4];
@@ -575,7 +596,7 @@ template <int V, bool BWD, typename Extras>
 __global__ void __launch_bounds__(kThreads) edge_kernel(EdgeArgs p, Extras x) {
   extern __shared__ __align__(16) float smem[];
   const int E = p.chunk, TR = p.tr;
-  const EdgeSmem L(TR, E, p.pool_width);
+  const EdgeSmem L(TR, E, p.pool_chunk);
   float* infl_s = smem;                                             // (TR, row_stride)
   int32_t* idx_s = reinterpret_cast<int32_t*>(smem + L.idx);        // (TR, E)
   float* kp_s = smem + L.kp;                                        // (16, 3)
@@ -755,45 +776,51 @@ __global__ void __launch_bounds__(kThreads) edge_kernel(EdgeArgs p, Extras x) {
   if (p.pool_width == 0) return;
 
   // The pool phase: each row's pooled columns staged as indices (-1: a
-  // column the row does not have), then one thread a (row, group of VP
-  // channels) walks them, four columns' loads in flight at once.
-  int32_t* cols_s = reinterpret_cast<int32_t*>(smem);  // (TR, pool_width)
-  const int W = p.pool_width;
-  if constexpr (!BWD) {
-    const int cols1 = min(x.pool_head, p.h1);
-    for (int i = tid; i < TR * W; i += kThreads) {
-      const int ql = i / W, h = i % W;
-      const int r = r0 + ql;
-      int n = -1;
-      if (r < p.R) {
-        const int tr_ = tails_s[ql];
-        const int cols2 = tr_ >= 0 ? min(x.pool_tail, p.h2) : 0;
-        const bool on = p.mask == nullptr || p.mask[r];
-        if (h < cols1) {
-          n = on ? edge_at(p, r, tr_, h) : p.n_other;
-        } else if (h - cols1 < cols2) {
-          n = on ? edge_at(p, r, tr_, p.h1 + h - cols1) : p.n_other;
+  // column the row does not have), pool_chunk columns at a time (all of
+  // them where they fit: every shipped configuration), then one thread a
+  // (row, group of VP channels) walks them, four columns' loads in flight
+  // at once.
+  int32_t* cols_s = reinterpret_cast<int32_t*>(smem);  // (TR, W)
+  for (int w0 = 0; w0 < p.pool_width; w0 += p.pool_chunk) {
+    const int W = min(p.pool_chunk, p.pool_width - w0);
+    const bool first = w0 == 0, last = w0 + W >= p.pool_width;
+    if (!first) __syncthreads();  // the last chunk's columns are read
+    if constexpr (!BWD) {
+      const int cols1 = min(x.pool_head, p.h1);
+      for (int i = tid; i < TR * W; i += kThreads) {
+        const int ql = i / W, h = w0 + i % W;
+        const int r = r0 + ql;
+        int n = -1;
+        if (r < p.R) {
+          const int tr_ = tails_s[ql];
+          const int cols2 = tr_ >= 0 ? min(x.pool_tail, p.h2) : 0;
+          const bool on = p.mask == nullptr || p.mask[r];
+          if (h < cols1) {
+            n = on ? edge_at(p, r, tr_, h) : p.n_other;
+          } else if (h - cols1 < cols2) {
+            n = on ? edge_at(p, r, tr_, p.h1 + h - cols1) : p.n_other;
+          }
         }
+        cols_s[i] = n;
       }
-      cols_s[i] = n;
-    }
-    __syncthreads();
-    if (x.P % 4 == 0) {
-      pool_rows<4>(p, x, cols_s, tails_s, r0);
+      __syncthreads();
+      if (x.P % 4 == 0) {
+        pool_rows<4>(p, x, cols_s, tails_s, r0, W, first, last);
+      } else {
+        pool_rows<1>(p, x, cols_s, tails_s, r0, W, first, last);
+      }
     } else {
-      pool_rows<1>(p, x, cols_s, tails_s, r0);
-    }
-  } else {
-    for (int i = tid; i < TR * W; i += kThreads) {
-      const int ql = i / W, h = i % W;
-      const int r = r0 + ql;
-      cols_s[i] = r < p.R ? edge_at(p, r, tails_s[ql], h) : p.n_other;
-    }
-    __syncthreads();
-    if (x.P % 4 == 0) {
-      pool_grad_rows<4>(p, x, cols_s, r0);
-    } else {
-      pool_grad_rows<1>(p, x, cols_s, r0);
+      for (int i = tid; i < TR * W; i += kThreads) {
+        const int ql = i / W, h = w0 + i % W;
+        const int r = r0 + ql;
+        cols_s[i] = r < p.R ? edge_at(p, r, tails_s[ql], h) : p.n_other;
+      }
+      __syncthreads();
+      if (x.P % 4 == 0) {
+        pool_grad_rows<4>(p, x, cols_s, r0, W, first);
+      } else {
+        pool_grad_rows<1>(p, x, cols_s, r0, W, first);
+      }
     }
   }
 }
@@ -820,11 +847,31 @@ inline EdgeRoute edge_route(int K, int C) {
 }
 
 // Edges a chunk (the staged influences at most 32 KB, 4 to 64 edges, no
-// more than the table is wide); the pool phase stages pool_width columns a
-// row. `route` must be edge_route(K, C)'s.
+// more than the table is wide) for tr rows a block over `width` columns.
+inline int edge_chunk(int tr, int width) {
+  int e = (8192 / (kMaxKernelPoints * tr)) & ~3;
+  e = max(4, min(e, 64));
+  return max(4, min(e, (width + 3) & ~3));  // tr * chunk <= 512: two staged edges a thread at most
+}
+
+// The pool phase's columns a chunk (kernels/kpconv.py:pool_route): all
+// pool_width where they fit a block's `block_bytes` of shared memory beside
+// the rest of the layout, else 8192 / tr words of indices a chunk (at most
+// the 32 KB of the influences they reuse).
+inline int pool_chunk_of(int tr, int width, int pool_width, int block_bytes) {
+  if (pool_width == 0) return 0;
+  const EdgeSmem whole(tr, edge_chunk(tr, width), pool_width);
+  if (sizeof(float) * static_cast<size_t>(whole.words) <= static_cast<size_t>(block_bytes)) {
+    return pool_width;
+  }
+  return max(4, (8192 / tr) & ~3);
+}
+
+// The pool phase stages pool_chunk of a row's pool_width columns at a time.
+// `route` must be edge_route(K, C)'s and pool_chunk pool_chunk_of's.
 template <bool BWD, typename Extras>
-int launch_edges(EdgeArgs p, const Extras& x, int pool_width, const EdgeRoute& route,
-                 cudaStream_t stream) {
+int launch_edges(EdgeArgs p, const Extras& x, int pool_width, int pool_chunk,
+                 const EdgeRoute& route, cudaStream_t stream) {
   if (p.K < 1 || p.C < 1 || p.h1 < 0 || (p.tail != nullptr && p.h2 < 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -833,18 +880,21 @@ int launch_edges(EdgeArgs p, const Extras& x, int pool_width, const EdgeRoute& r
       route.kp_chunks != want.kp_chunks || route.passes != want.passes) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const int width = p.h1 + (p.tail != nullptr ? p.h2 : 0);
+  if (pool_chunk != pool_chunk_of(route.tr, width, pool_width,
+                                  launch_util::device_limits().block_bytes)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (p.R == 0) return 0;
   const int v = route.v;
   p.tpr = route.tpr;
   p.tr = route.tr;
   p.kp_chunks = route.kp_chunks;
   p.passes = route.passes;
-  const int width = ((p.h1 + (p.tail != nullptr ? p.h2 : 0)) + 3) & ~3;
-  int e = (8192 / (kMaxKernelPoints * p.tr)) & ~3;
-  e = max(4, min(e, 64));
-  p.chunk = max(4, min(e, width));  // tr * chunk <= 512: two staged edges a thread at most
+  p.chunk = edge_chunk(p.tr, width);
   p.pool_width = pool_width;
-  const EdgeSmem L(p.tr, p.chunk, pool_width);
+  p.pool_chunk = pool_chunk;
+  const EdgeSmem L(p.tr, p.chunk, pool_chunk);
   const size_t smem = sizeof(float) * static_cast<size_t>(L.words);
   const int blocks = (p.R + p.tr - 1) / p.tr;
   cudaError_t err = cudaSuccess;

@@ -207,6 +207,95 @@ __global__ void __launch_bounds__(kThreads) patch_overlap_kernel(
   }
 }
 
+// The general route (kernels/overlap.py:overlap_route): patches too large
+// for a block's shared memory to hold the ref patch and a patch a warp
+// (past ~1,600 points; the JAX kernel takes thousands at small S). Nothing
+// is staged: a block takes one candidate (the grid is M x S), and its warps
+// split the 32-point chunks of each count: both patches' valid points, the
+// ref points with a partner (lanes over the ref points, each walking the
+// candidate's points through L1 until it is covered, the warp stopping once
+// every lane is), then the candidate's points with one (the roles swapped);
+// the warps' counts add in warp order. Every distance is sq_dist(ref point,
+// src point), as the staged kernel and the plain version take it, so the
+// counts and the overlaps are the same bits.
+__device__ __forceinline__ int count_valid(const uint8_t* __restrict__ mask, int K) {
+  int n = 0;
+  for (int k = threadIdx.x; k < K; k += kThreads) n += mask[k] != 0;
+  return warp_sum(n);
+}
+
+// This warp's share of the points of `mine` (valid by mine_mask) with a
+// partner among the valid points of `other`: its 32-point chunks, lanes
+// over `mine`; REF_MINE: `mine` is the ref patch.
+template <bool REF_MINE>
+__device__ int covered(const float* __restrict__ mine, const uint8_t* __restrict__ mine_mask,
+                       const float* __restrict__ other, const uint8_t* __restrict__ other_mask,
+                       int K, float r2, int warp, int lane) {
+  int cover = 0;
+  for (int i0 = 32 * warp; i0 < K; i0 += 32 * kWarps) {
+    const int i = i0 + lane;
+    const bool live = i < K && mine_mask[i] != 0;
+    const float x = live ? mine[3 * i + 0] : 0.0f;
+    const float y = live ? mine[3 * i + 1] : 0.0f;
+    const float z = live ? mine[3 * i + 2] : 0.0f;
+    bool hit = false;
+    for (int j = 0; j < K && __any_sync(0xffffffffu, live && !hit); ++j) {
+      if (other_mask[j] == 0) continue;  // the same j in every lane
+      const float ox = other[3 * j + 0], oy = other[3 * j + 1], oz = other[3 * j + 2];
+      const float d2 = REF_MINE ? sq_dist(x, y, z, ox, oy, oz) : sq_dist(ox, oy, oz, x, y, z);
+      hit |= live && d2 < r2;
+    }
+    cover += hit;
+  }
+  return warp_sum(cover);
+}
+
+template <typename Index>
+__global__ void __launch_bounds__(kThreads) patch_overlap_general_kernel(
+    const float* __restrict__ ref_pts,     // (M, K, 3)
+    const uint8_t* __restrict__ ref_mask,  // (M, K)
+    const float* __restrict__ src_pts,     // (N, K, 3), already transformed
+    const uint8_t* __restrict__ src_mask,  // (N, K)
+    const Index* __restrict__ cand,        // (M, S) src node per candidate
+    const uint8_t* __restrict__ cand_mask, // (M, S)
+    float* __restrict__ out,               // (M, S)
+    int N, int S, int K, float r2) {
+  __shared__ int counts_s[kWarps][4];  // n_ref, n_src, ref cover, src cover
+  const int m = blockIdx.x, s = blockIdx.y;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const size_t at = static_cast<size_t>(m) * S + s;
+  const long long c = static_cast<long long>(cand[at]);
+  if (cand_mask[at] == 0 || c < 0 || c >= N) {
+    if (threadIdx.x == 0) out[at] = 0.0f;
+    return;
+  }
+  const float* rp = ref_pts + static_cast<size_t>(m) * K * 3;
+  const uint8_t* rm = ref_mask + static_cast<size_t>(m) * K;
+  const float* sp = src_pts + c * K * 3;
+  const uint8_t* sm = src_mask + c * K;
+  const int n_ref = count_valid(rm, K);
+  const int n_src = count_valid(sm, K);
+  const int ref_cover = covered<true>(rp, rm, sp, sm, K, r2, warp, lane);
+  const int src_cover = covered<false>(sp, sm, rp, rm, K, r2, warp, lane);
+  if (lane == 0) {
+    counts_s[warp][0] = n_ref;
+    counts_s[warp][1] = n_src;
+    counts_s[warp][2] = ref_cover;
+    counts_s[warp][3] = src_cover;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int total[4] = {0, 0, 0, 0};
+    for (int w = 0; w < kWarps; ++w) {
+      for (int t = 0; t < 4; ++t) total[t] += counts_s[w][t];
+    }
+    const float ref_total = total[0] > 0 ? static_cast<float>(total[0]) : 1.0f;
+    const float src_total = total[1] > 0 ? static_cast<float>(total[1]) : 1.0f;
+    out[at] = 0.5f * (static_cast<float>(total[2]) / ref_total +
+                      static_cast<float>(total[3]) / src_total);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -215,30 +304,42 @@ const char* error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// cand: (M, S) int64 (index_bytes 8) or int32 (4), read as it is.
+// cand: (M, S) int64 (index_bytes 8) or int32 (4), read as it is. staged:
+// the route (kernels/overlap.py:overlap_route), 1 where a block stages the
+// ref patch and a patch a warp (every shipped configuration), 0 the general
+// route.
 int patch_overlaps_launch(const float* ref_pts, const uint8_t* ref_mask, const float* src_pts,
                           const uint8_t* src_mask, const void* cand, const uint8_t* cand_mask,
-                          float* out, int M, int N, int S, int K, int index_bytes, float r2,
-                          void* stream) {
+                          float* out, int M, int N, int S, int K, int index_bytes, int staged,
+                          float r2, void* stream) {
   if (K < 1 || S < 1 || (index_bytes != 4 && index_bytes != 8)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (M == 0) return 0;
   // the ref patch and a patch a warp as float4, a warp's cover words
   const size_t words = (static_cast<size_t>(K) + 31) / 32;
-  const size_t smem = sizeof(float4) * (kWarps + 1) * static_cast<size_t>(K) +
-                      sizeof(uint32_t) * kWarps * words;
+  const size_t staged_smem = sizeof(float4) * (kWarps + 1) * static_cast<size_t>(K) +
+                             sizeof(uint32_t) * kWarps * words;
+  const size_t block_bytes = static_cast<size_t>(launch_util::device_limits().block_bytes);
+  if ((staged != 0) != (staged_smem <= block_bytes)) return static_cast<int>(cudaErrorInvalidValue);
+  if (M == 0) return 0;
+  const size_t smem = staged ? staged_smem : 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto run = [&](auto kernel, auto index) {
     using Index = decltype(index);
     const cudaError_t err = launch_util::allow_smem(reinterpret_cast<const void*>(kernel), smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid(M, (S + kWarps - 1) / kWarps);
+    // the staged kernel: a block a node's 8 candidates; the general one: a
+    // block a candidate
+    const dim3 grid(M, staged ? (S + kWarps - 1) / kWarps : S);
     kernel<<<grid, kThreads, smem, st>>>(ref_pts, ref_mask, src_pts, src_mask,
                                       static_cast<const Index*>(cand), cand_mask, out, N, S, K,
                                       r2);
     return static_cast<int>(cudaGetLastError());
   };
+  if (!staged) {
+    if (index_bytes == 8) return run(patch_overlap_general_kernel<int64_t>, int64_t{0});
+    return run(patch_overlap_general_kernel<int32_t>, int32_t{0});
+  }
   if (index_bytes == 8) return run(patch_overlap_kernel<int64_t>, int64_t{0});
   return run(patch_overlap_kernel<int32_t>, int32_t{0});
 }

@@ -28,7 +28,16 @@
 // slots past the list take the sentinel Cs, and so does every slot of a
 // query row at or past the cloud's valid count. Each query's 27-cell
 // population (the runs' total before the cand_cap cut) goes to counts, from
-// which the caller raises the candidate-overflow flag.
+// which the caller raises the candidate-overflow flag. Past the key list a
+// block's shared memory holds (more than ~29,000 candidates a query; the
+// JAX XLA search has no such limit), the general route
+// (kernels/pyramid.py:search_route, CHUNKED) fills the list a chunk of
+// kSearchChunk keys at a time and merges each full chunk into the query's
+// K best so far (merge_best: in a workspace in device memory, two buffers
+// of K keys a query row); once K are held, a slot whose key is not below
+// the K-th best cannot enter and is dropped at once. The keys are distinct,
+// so the K best are the same keys in the same order as with one list: the
+// same table, bit for bit.
 //
 // voxel_segment_mean (device.py:_subsample_cloud :98-107). Over points
 // already sorted by voxel key, the thread of a voxel's first row sums the
@@ -80,6 +89,41 @@ __device__ __forceinline__ int wrap_add(int a, int b) {
   return static_cast<int>(static_cast<unsigned>(a) + static_cast<unsigned>(b));
 }
 
+constexpr int kSearchChunk = 1024;  // keys a warp's list holds on the general route
+
+// The K smallest of the nb carried keys `best` (sorted) and the list's n
+// keys, sorted into `next`; returns their count. The keys are distinct, so
+// a key's rank is the number of keys below it: its carried rank (a binary
+// search, or its position) plus the list's keys below it.
+__device__ int merge_best(const unsigned long long* best, int nb, const unsigned long long* keys,
+                          int n, unsigned long long* next, int K, int lane) {
+  __syncwarp();  // the list is written
+  for (int i = lane; i < n; i += 32) {
+    const unsigned long long key = keys[i];
+    int lo = 0, hi = nb;
+    while (lo < hi) {
+      const int mid = (lo + hi) / 2;
+      if (best[mid] < key) {
+        lo = mid + 1;
+      } else {
+        hi = mid;
+      }
+    }
+    int rank = lo;
+    for (int j = 0; j < n && rank < K; ++j) rank += keys[j] < key;
+    if (rank < K) next[rank] = key;
+  }
+  for (int i = lane; i < nb; i += 32) {
+    const unsigned long long key = best[i];
+    int rank = i;
+    for (int j = 0; j < n && rank < K; ++j) rank += keys[j] < key;
+    if (rank < K) next[rank] = key;
+  }
+  __syncwarp();  // next is written and the list read
+  return min(K, nb + n);
+}
+
+template <bool CHUNKED>
 __global__ void grid_search_kernel(
     const float* __restrict__ queries,   // (B, Cq, 3)
     const int* __restrict__ q_lengths,   // (B,)
@@ -90,6 +134,7 @@ __global__ void grid_search_kernel(
     const int* __restrict__ dims,        // (B, 3)
     int* __restrict__ out,               // (B, Cq, K)
     int* __restrict__ counts,            // (B, Cq)
+    unsigned long long* __restrict__ best,  // (B Cq, 2, K) where CHUNKED, else null
     int B, int Cq, int Cs, int G, int K, int cand_cap, int buf, float edge, float r2,
     int brute) {
   extern __shared__ unsigned long long keys_all[];
@@ -145,6 +190,11 @@ __global__ void grid_search_kernel(
   const int limit = brute ? total : min(total, cand_cap);
   const float4* sup = support + static_cast<size_t>(b) * Cs;
   int n = 0;
+  // CHUNKED: the K best so far, nb of them in best_q[cur]; keys not below
+  // the K-th best (`worst`, once K are held) are dropped
+  unsigned long long* best_q = CHUNKED ? best + row * 2 * K : nullptr;
+  int cur = 0, nb = 0;
+  unsigned long long worst = ~0ull;
   for (int j = 0; j < (brute ? 1 : 9); ++j) {
     const int lo_j = __shfl_sync(kFull, lo, j);
     const int len_j = __shfl_sync(kFull, len, j);
@@ -158,17 +208,35 @@ __global__ void grid_search_kernel(
         const float4 c = sup[clip(lo_j + t, 0, Cs - 1)];
         const float d2 = sq_dist(c.x, c.y, c.z, qx, qy, qz);
         if (d2 <= r2) {
-          keep = true;
           key = (static_cast<unsigned long long>(__float_as_uint(d2)) << 32) |
                 static_cast<unsigned>(static_cast<int>(c.w));
+          keep = !CHUNKED || key < worst;
         }
       }
       const unsigned ballot = __ballot_sync(kFull, keep);
+      if constexpr (CHUNKED) {
+        if (n + __popc(ballot) > buf) {  // a full list: into the K best
+          nb = merge_best(best_q + cur * K, nb, keys, n, best_q + (1 - cur) * K, K, lane);
+          cur = 1 - cur;
+          n = 0;
+          worst = nb == K ? best_q[cur * K + K - 1] : ~0ull;
+        }
+      }
       if (keep) keys[n + __popc(ballot & ((1u << lane) - 1u))] = key;
       n += __popc(ballot);
     }
   }
   __syncwarp();
+  if constexpr (CHUNKED) {
+    if (n > 0) {
+      nb = merge_best(best_q + cur * K, nb, keys, n, best_q + (1 - cur) * K, K, lane);
+      cur = 1 - cur;
+    }
+    for (int r = lane; r < K; r += 32) {
+      orow[r] = r < nb ? static_cast<int>(best_q[cur * K + r] & 0xffffffffull) : sentinel;
+    }
+    return;
+  }
 
   // 3. each key's rank in the list; ranks below K name the row's slots
   for (int i0 = 0; i0 < n; i0 += 32 * kRankTile) {
@@ -243,32 +311,44 @@ const char* error_string(int code) {
 
 // brute = 1: every valid support row is a candidate (starts, origin and dims
 // unused, may be null); the warp's key list then holds Cs keys, else
-// cand_cap.
+// cand_cap. warps, chunk: the route (kernels/pyramid.py:search_route): chunk
+// 0 where `warps` warps' whole lists fit a block (every shipped bucket),
+// else kSearchChunk keys a warp's list and `best`, a workspace of
+// B Cq 2 K keys.
 int grid_radius_search_launch(const float* queries, const int* q_lengths, const float* support,
                               const int* s_lengths, const int* starts, const float* origin,
-                              const int* dims, int* out, int* counts, int B, int Cq, int Cs,
-                              int G, int K, int cand_cap, int brute, float edge, float r2,
-                              void* stream) {
+                              const int* dims, int* out, int* counts, void* best, int B, int Cq,
+                              int Cs, int G, int K, int cand_cap, int brute, int warps, int chunk,
+                              float edge, float r2, void* stream) {
   if (B < 0 || Cq < 0 || Cs < 1 || K < 1 || (!brute && (cand_cap < 1 || G < 0))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (B == 0 || Cq == 0) return 0;
-  const int buf = brute ? Cs : cand_cap;
-  const size_t per_warp = sizeof(unsigned long long) * static_cast<size_t>(buf);
+  const int list = brute ? Cs : cand_cap;
   const size_t block_bytes = static_cast<size_t>(launch_util::device_limits().block_bytes);
-  int warps = 4;
-  while (warps > 1 && per_warp * warps > block_bytes) --warps;
-  if (per_warp * warps > block_bytes) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = per_warp * warps;
-  const cudaError_t err =
-      launch_util::allow_smem(reinterpret_cast<const void*>(grid_search_kernel), smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  int want_warps = 4;
+  while (want_warps > 1 && sizeof(unsigned long long) * list * want_warps > block_bytes) {
+    --want_warps;
+  }
+  const bool staged = sizeof(unsigned long long) * list * want_warps <= block_bytes;
+  if (warps != (staged ? want_warps : 4) || chunk != (staged ? 0 : kSearchChunk) ||
+      (!staged && best == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (B == 0 || Cq == 0) return 0;
+  const int buf = staged ? list : kSearchChunk;
+  const size_t smem = sizeof(unsigned long long) * static_cast<size_t>(buf) * warps;
   const long long rows = static_cast<long long>(B) * Cq;
   const unsigned grid = static_cast<unsigned>((rows + warps - 1) / warps);
-  grid_search_kernel<<<grid, 32 * warps, smem, static_cast<cudaStream_t>(stream)>>>(
-      queries, q_lengths, reinterpret_cast<const float4*>(support), s_lengths, starts, origin,
-      dims, out, counts, B, Cq, Cs, G, K, cand_cap, buf, edge, r2, brute);
-  return static_cast<int>(cudaGetLastError());
+  auto run = [&](auto kernel) {
+    const cudaError_t err = launch_util::allow_smem(reinterpret_cast<const void*>(kernel), smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<grid, 32 * warps, smem, static_cast<cudaStream_t>(stream)>>>(
+        queries, q_lengths, reinterpret_cast<const float4*>(support), s_lengths, starts, origin,
+        dims, out, counts, static_cast<unsigned long long*>(best), B, Cq, Cs, G, K, cand_cap, buf,
+        edge, r2, brute);
+    return static_cast<int>(cudaGetLastError());
+  };
+  return staged ? run(grid_search_kernel<false>) : run(grid_search_kernel<true>);
 }
 
 int voxel_segment_mean_launch(const float* points, const int* seg, const int* voxels, float* out,

@@ -38,7 +38,6 @@ _TILE = 16        # the backward's pairs a tile
 _FWD_GROUP = 4    # the forward's angles a group
 _EXACT_WIDTHS = (32, 64, 96, 128, 256)  # gse_kernel's instances
 _BWD_GROUP = 3    # the backward's angles a group
-_UNDECIDED = 255  # the backward's k* is a byte; 255 marks an undecided entry
 
 # The forward's instance (``csrc/gse.cu``): ``exact``, gse_kernel<C> (C in
 # {32, 64, 96, 128, 256}, A <= 4: every shipped width), else
@@ -53,7 +52,8 @@ GSEForwardRoute = collections.namedtuple(
 # rows (a multiple of 32 up to 256), the angles in ``angle_groups`` groups
 # of 3, ``channel_blocks`` c-blocks of ``channels``; ``resident``: C the
 # width of one chunk and A = 3, W_a's c-block and a tile's bases kept in
-# shared memory throughout; ``words`` of shared memory a block.
+# shared memory throughout, each entry's chosen angle k* a byte (16 bits
+# elsewhere, so any A below 65,535); ``words`` of shared memory a block.
 GSEBackwardRoute = collections.namedtuple(
     "GSEBackwardRoute", "rows chunks angle_groups channels channel_blocks resident words")
 GSERoute = collections.namedtuple("GSERoute", "forward backward")
@@ -84,11 +84,12 @@ def gse_route(c, a):
     group = _BWD_GROUP
     channels = 64 if width % 64 == 0 else 32
     rs, bs = channels + 8, width + 4
+    resident = blocks == 1 and a == group and c == width
     backward = GSEBackwardRoute(
-        width, blocks, -(-a // group), channels, -(-c // channels),
-        blocks == 1 and a == group and c == width,
+        width, blocks, -(-a // group), channels, -(-c // channels), resident,
         width * rs + 2 * (group + 1) * _TILE * bs + 2 * _TILE * rs + (group + 1) * _TILE
-        + _TILE + width // 2 + channels + _TILE * channels // 2 + 1 + _TILE * channels // 4)
+        + _TILE + width // 2 + channels + _TILE * channels // 2 + 1
+        + _TILE * channels // (4 if resident else 2))
     return GSERoute(forward, backward)
 
 
@@ -272,8 +273,6 @@ def gse_full_bwd(points, ref_vectors, w_a, sigma_d, sigma_a, de, n_valid=None, f
         n_valid = torch.full((), n, dtype=torch.int32, device=dev)
     cuda.require(n_valid, "n_valid", torch.int32, (), dev)
     route = gse_route(hidden, angle_k).backward
-    if angle_k >= _UNDECIDED:
-        raise ValueError(f"gse_full_bwd: A = {angle_k} angles; its k* is a byte, so A <= 254")
     lib = cuda.library("gse_bwd", _BWD_SIGNATURES)
     slices = lib.gse_bwd_slices(n, route.channel_blocks * route.chunks)
     pair_idx = torch.empty((n * n, angle_k + 1), dtype=f32, device=dev)

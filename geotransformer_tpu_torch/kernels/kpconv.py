@@ -45,17 +45,18 @@ import ctypes
 import torch
 
 from geotransformer_tpu_torch.kernels import cuda
+from geotransformer_tpu_torch.kernels.sinkhorn import device_block_bytes
 from geotransformer_tpu_torch.ops.gather import gather_with_shadow
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "kpconv_conv_launch": [_P] * 18 + [_I] * 16 + [_F, _P],
+    "kpconv_conv_launch": [_P] * 18 + [_I] * 17 + [_F, _P],
     "kpconv_conv_workspace": [_I] * 4,
-    "kpconv_stream_launch": [_P] * 6 + [_I] * 5 + [_F, _P],
-    "kpconv_union_launch": [_P] * 10 + [_I] * 8 + [_F, _P],
+    "kpconv_stream_launch": [_P] * 6 + [_I] * 6 + [_F, _P],
+    "kpconv_union_launch": [_P] * 10 + [_I] * 9 + [_F, _P],
 }
 _BWD_SIGNATURES = {
-    "kpconv_bwd_launch": [_P] * 18 + [_I] * 14 + [_F, _P],
+    "kpconv_bwd_launch": [_P] * 18 + [_I] * 15 + [_F, _P],
     "kpconv_ds_workspace": [_I] * 4,
     "kpconv_dw_slices": [_I] * 4,
 }
@@ -85,6 +86,71 @@ def edge_route(k, c):
     threads = min(groups, _THREADS)
     return EdgeRoute(vector, threads, min(_THREADS // threads, 64),
                      -(-k // _KERNEL_POINT_CHUNK), -(-groups // threads))
+
+
+_FLOAT = 4
+
+
+def _edge_chunk(rows, width):
+    """Edges a chunk of the edge pass (``csrc/kpconv_common.cuh:edge_chunk``)
+    for ``rows`` rows a block over a table ``width`` columns wide."""
+    e = max(4, min((8192 // (_KERNEL_POINT_CHUNK * rows)) & ~3, 64))
+    return max(4, min(e, (width + 3) & ~3))
+
+
+def _edge_words(rows, chunk, staged_columns):
+    """4-byte words of the edge pass's shared memory
+    (``csrc/kpconv_common.cuh:EdgeSmem``)."""
+    big = rows * max(chunk * _KERNEL_POINT_CHUNK + 4, staged_columns)
+    return big + rows * chunk + 3 * _KERNEL_POINT_CHUNK + 3 * rows
+
+
+def pool_route(k, c, width, pool_width, block_bytes):
+    """The pooled columns the edge pass's pool phase stages at a time, as
+    ``kpconv_conv_launch`` and ``kpconv_bwd_launch`` check it: all
+    ``pool_width`` of them where they fit a block's ``block_bytes`` of shared
+    memory beside the rest of its layout (every shipped configuration), else
+    8192 / rows-a-block of them, the running max and tie count (the
+    backward: the running sum) carried from one chunk to the next. ``k``
+    kernel points over ``c`` channels, a table ``width`` columns wide
+    (head and tail); 0 without a pool."""
+    if pool_width == 0:
+        return 0
+    rows = edge_route(k, c).rows_per_block
+    words = _edge_words(rows, _edge_chunk(rows, width), pool_width)
+    if _FLOAT * words <= block_bytes:
+        return pool_width
+    return max(4, (8192 // rows) & ~3)
+
+
+def _t1_stride(k):
+    """The input convs' t1 rows in shared memory: K padded to 16."""
+    return -(-k // _KERNEL_POINT_CHUNK) * _KERNEL_POINT_CHUNK
+
+
+def stream_route(h, k, d, block_bytes):
+    """The stream input conv's route (``csrc/kpconv.cu``, row 2) for a table
+    ``h`` columns wide, ``k`` kernel points and ``d`` output channels, as
+    ``kpconv_stream_launch`` checks it: "shared" where a block of 16 queries
+    stages its two-stage ring of (5, 16, h) planes and W in ``block_bytes``
+    of shared memory (every shipped configuration), else "global" (past
+    ~350 columns at K D = 960, or K D past ~56,000: the planes and W read
+    in place through L1)."""
+    # csrc/kpconv.cu:stream_smem_floats at 16 queries a block
+    words = 2 * 5 * 16 * h + -(-k * d // 4) * 4 + 16 * _t1_stride(k) + 16 + 4
+    return "shared" if _FLOAT * words <= block_bytes else "global"
+
+
+def union_route(u, h, k, d, block_bytes):
+    """The union input conv's route (``csrc/kpconv.cu``, row 7) for unions
+    of ``u`` rows a tile, ``h`` sel columns, ``k`` kernel points and ``d``
+    output channels, as ``kpconv_union_launch`` checks it: "shared" where a
+    block of 64 queries stages the union as float4, its sel rows and W in
+    ``block_bytes`` of shared memory (every shipped configuration), else
+    "global" (the union rows, sel and W read in place through L1)."""
+    # csrc/kpconv.cu:union_smem_floats
+    words = 4 * (u + 1) + 64 * (h | 1) + -(-k * d // 4) * 4 + 64 * _t1_stride(k) + 64
+    return "shared" if _FLOAT * words <= block_bytes else "global"
 
 
 # rows the scatter backward spreads its sentinel edges over (_scatter_rows)
@@ -235,6 +301,9 @@ def _conv_launch(name, s_feats, q_points, s_points, head, tail, tail_rank, kerne
     count = torch.empty((m,), dtype=f32, device=dev) if with_count else None
     ties = (torch.empty((m, c_pool), dtype=f32, device=dev)
             if with_count and pool_feats is not None else None)
+    pool_width = (min(pool_head, h1) + (min(pool_tail, h2) if tail is not None else 0)
+                  if pool_feats is not None else 0)
+    pool_chunk = pool_route(k, c_in, h1 + h2, pool_width, device_block_bytes(dev))
     lib = cuda.library("kpconv", _SIGNATURES, _RESTYPES)
     part = _workspace(lib.kpconv_conv_workspace(m, k, c_in, c_out), dev)
     code = lib.kpconv_conv_launch(
@@ -242,7 +311,7 @@ def _conv_launch(name, s_feats, q_points, s_points, head, tail, tail_rank, kerne
         cuda.ptr(tail), cuda.ptr(tail_rank), cuda.ptr(posflag), cuda.ptr(kernel_points),
         cuda.ptr(weights), cuda.ptr(q_mask), cuda.ptr(pool_feats), cuda.ptr(t), cuda.ptr(div),
         cuda.ptr(part), cuda.ptr(out), cuda.ptr(pooled), cuda.ptr(count), cuda.ptr(ties),
-        m, n, h1, h2, m2, k, c_in, c_out, c_pool, int(pool_head), int(pool_tail),
+        m, n, h1, h2, m2, k, c_in, c_out, c_pool, int(pool_head), int(pool_tail), pool_chunk,
         *edge_route(k, c_in), float(sigma), cuda.stream_of(s_feats))
     cuda.check(lib, code, name)
     cuda.launches[name] += 1
@@ -365,7 +434,8 @@ def kpconv_stream_fused(stream, kernel_points, weights, sigma, bias=None,
     Args:
         stream: (5, M, H) float32 planes [off_x, off_y, off_z, posflag,
             feat], zeros on invalid slots (preprocess.build_input_stream).
-        kernel_points: (K, 3), any K (K > 16 in chunks of 16 on the card).
+        kernel_points: (K, 3), any K (K > 16 in chunks of 16 on the card;
+            any table width and any K D, :func:`stream_route`).
         weights: (K, 1, C_out).
         sigma: influence radius.
         bias: optional (C_out,).
@@ -392,7 +462,8 @@ def kpconv_stream_fused(stream, kernel_points, weights, sigma, bias=None,
     lib = cuda.library("kpconv", _SIGNATURES)
     code = lib.kpconv_stream_launch(
         cuda.ptr(stream), cuda.ptr(kernel_points), cuda.ptr(weights), cuda.ptr(out),
-        cuda.ptr(t1), cuda.ptr(count), m, h, k, c_out, input_conv_variant(k), float(sigma),
+        cuda.ptr(t1), cuda.ptr(count), m, h, k, c_out, input_conv_variant(k),
+        int(stream_route(h, k, c_out, device_block_bytes(dev)) == "shared"), float(sigma),
         cuda.stream_of(stream))
     cuda.check(lib, code, "kpconv_stream_fused")
     cuda.launches["kpconv_stream_fused"] += 1
@@ -430,7 +501,8 @@ def kpconv_union_input_fused(s_feats, q_points, s_points, union_rows, union_sel,
             edge's position in its tile's union, sentinel U
             (``preprocess.build_union_tables`` with the same tile).
         kernel_points: (K, 3), any K; weights: (K, 1, C_out);
-            sigma, bias as :func:`kpconv_fused`.
+            sigma, bias as :func:`kpconv_fused` (any union, sel width and
+            K D: :func:`union_route`).
         residuals: also return the (M,) count divisor and t1 (M, K).
 
     Returns:
@@ -466,7 +538,8 @@ def kpconv_union_input_fused(s_feats, q_points, s_points, union_rows, union_sel,
         cuda.ptr(s_feats), cuda.ptr(s_points), cuda.ptr(q_points), cuda.ptr(union_rows),
         cuda.ptr(union_sel), cuda.ptr(kernel_points), cuda.ptr(weights), cuda.ptr(out),
         cuda.ptr(count), cuda.ptr(t1), m, n, u, h, k, c_out, int(tile), input_conv_variant(k),
-        float(sigma), cuda.stream_of(s_feats))
+        int(union_route(u, h, k, c_out, device_block_bytes(dev)) == "shared"), float(sigma),
+        cuda.stream_of(s_feats))
     cuda.check(lib, code, "kpconv_union_input_fused")
     cuda.launches["kpconv_union_input_fused"] += 1
     if bias is not None:
@@ -544,8 +617,10 @@ def _bwd_launch(s_feats, s_points, q_points, gdiv, inverse_table, kernel_points,
         cuda.ptr(head), cuda.ptr(tail), cuda.ptr(rank), cuda.ptr(kernel_points), cuda.ptr(wt),
         cuda.ptr(pool_feats), cuda.ptr(pooled), cuda.ptr(dpool_over_ties),
         cuda.ptr(u), cuda.ptr(part_ds), cuda.ptr(part), cuda.ptr(d_s_feats), cuda.ptr(d_weights),
-        cuda.ptr(d_pool), n, m, j1, j2, n2, k, c_in, c_out, c_pool, *edge_route(k, c_out),
-        float(sigma), cuda.stream_of(s_feats))
+        cuda.ptr(d_pool), n, m, j1, j2, n2, k, c_in, c_out, c_pool,
+        pool_route(k, c_out, j1 + j2, j1 + j2 if pool_feats is not None else 0,
+                   device_block_bytes(dev)),
+        *edge_route(k, c_out), float(sigma), cuda.stream_of(s_feats))
     cuda.check(lib, code, "kpconv_bwd_fused")
     cuda.launches["kpconv_bwd_fused"] += 1
     if pool_feats is None:

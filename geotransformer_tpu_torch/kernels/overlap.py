@@ -17,10 +17,25 @@ import ctypes
 import torch
 
 from geotransformer_tpu_torch.kernels import cuda
+from geotransformer_tpu_torch.kernels.sinkhorn import device_block_bytes
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURES = {"patch_overlaps_launch": [_P] * 7 + [_I] * 5 + [_F, _P]}
+_SIGNATURES = {"patch_overlaps_launch": [_P] * 7 + [_I] * 6 + [_F, _P]}
 _INDEX_BYTES = {torch.int64: 8, torch.int32: 4}
+_WARPS = 8  # candidates a block of csrc/overlap.cu
+
+
+def overlap_route(k, block_bytes):
+    """The route ``csrc/overlap.cu`` takes for patches of ``k`` points, as
+    ``patch_overlaps_launch`` checks it: "shared" where a block's
+    ``block_bytes`` of shared memory hold the ref patch and a patch a warp
+    as float4 and each warp's cover words (every shipped configuration; up
+    to ~1,600 points), else "global" (a block a candidate, its warps
+    walking both patches in place through L1, each point's walk ending once
+    it is covered)."""
+    words = -(-k // 32)
+    staged = 16 * (_WARPS + 1) * k + 4 * _WARPS * words
+    return "shared" if staged <= block_bytes else "global"
 
 
 def _sq_dist(a, b):
@@ -98,7 +113,8 @@ def patch_overlaps(ref_knn_points, ref_knn_masks, src_knn_points, src_knn_masks,
     code = lib.patch_overlaps_launch(
         cuda.ptr(ref_knn_points), cuda.ptr(ref_knn_masks), cuda.ptr(src_knn_points),
         cuda.ptr(src_knn_masks), cuda.ptr(cand_indices), cuda.ptr(cand_masks), cuda.ptr(out),
-        m, n, s, k, _INDEX_BYTES[cand_indices.dtype], float(pos_radius) ** 2,
+        m, n, s, k, _INDEX_BYTES[cand_indices.dtype],
+        int(overlap_route(k, device_block_bytes(dev)) == "shared"), float(pos_radius) ** 2,
         cuda.stream_of(ref_knn_points))
     cuda.check(lib, code, "patch_overlaps")
     cuda.launches["patch_overlaps"] += 1

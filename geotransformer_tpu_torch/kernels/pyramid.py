@@ -19,20 +19,45 @@ voxel's rows in sorted order (the plain version's ``index_add_`` does so on
 the CPU, with atomics on the card).
 """
 
+import collections
 import ctypes
 
 import numpy as np
 import torch
 
 from geotransformer_tpu_torch.kernels import cuda
+from geotransformer_tpu_torch.kernels.sinkhorn import device_block_bytes
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "grid_radius_search_launch": [_P] * 9 + [_I] * 7 + [_F, _F, _P],
+    "grid_radius_search_launch": [_P] * 10 + [_I] * 9 + [_F, _F, _P],
     "voxel_segment_mean_launch": [_P] * 5 + [_I] * 3 + [_F, _P],
 }
 PAD_COORD = 1.0e6
 _KEY_NONE = torch.iinfo(torch.int64).max
+_KEY_BYTES = 8
+_SEARCH_CHUNK = 1024  # csrc/pyramid.cu's kSearchChunk
+
+# The search's instance: ``warps`` warps a block, each holding its query's
+# whole key list in shared memory (``chunk`` 0), or ``chunk`` keys of it at
+# a time, merged into the K best in a device-memory workspace.
+SearchRoute = collections.namedtuple("SearchRoute", "warps chunk")
+
+
+def search_route(cand_cap, cs, brute, block_bytes):
+    """The route ``csrc/pyramid.cu`` takes for a candidate capacity
+    ``cand_cap`` (the brute search: ``cs`` support rows), as
+    ``grid_radius_search_launch`` checks it: the most warps up to 4 whose
+    whole key lists of 8-byte keys fit a block's ``block_bytes`` (every
+    shipped bucket; up to ~29,000 candidates), else 4 warps of 1,024-key
+    chunks."""
+    keys = cs if brute else cand_cap
+    warps = 4
+    while warps > 1 and _KEY_BYTES * keys * warps > block_bytes:
+        warps -= 1
+    if _KEY_BYTES * keys * warps <= block_bytes:
+        return SearchRoute(warps, 0)
+    return SearchRoute(4, _SEARCH_CHUNK)
 
 
 def _search_constants(radius, device):
@@ -147,7 +172,9 @@ def grid_radius_search(queries, q_lengths, support, s_lengths, starts, origin, d
         radius: search radius, the cell edge.
         k: neighbors a row.
         cand_cap: a query's candidate capacity (the grid search takes the
-            first ``cand_cap`` slots of its runs).
+            first ``cand_cap`` slots of its runs). Any capacity: past a
+            block's key lists the kernel keeps a running K best
+            (:func:`search_route`).
         force: ``ModelConfig.force_pallas`` (see :func:`cuda.use_kernel`).
 
     Returns:
@@ -175,12 +202,15 @@ def grid_radius_search(queries, q_lengths, support, s_lengths, starts, origin, d
     edge = np.float32(radius)
     out = torch.empty((bsz, cq_rows, k), dtype=torch.int32, device=dev)
     counts = torch.empty((bsz, cq_rows), dtype=torch.int32, device=dev)
+    route = search_route(cand_cap, cs, brute, device_block_bytes(dev))
+    best = (torch.empty((bsz * cq_rows * 2 * k,), dtype=torch.int64, device=dev)
+            if route.chunk else None)
     lib = cuda.library("pyramid", _SIGNATURES)
     code = lib.grid_radius_search_launch(
         cuda.ptr(queries), cuda.ptr(q_lengths), cuda.ptr(support), cuda.ptr(s_lengths),
         cuda.ptr(starts), cuda.ptr(origin), cuda.ptr(dims), cuda.ptr(out), cuda.ptr(counts),
-        bsz, cq_rows, cs, grid, k, cand_cap, int(brute), float(edge), float(edge * edge),
-        cuda.stream_of(queries))
+        cuda.ptr(best), bsz, cq_rows, cs, grid, k, cand_cap, int(brute), route.warps, route.chunk,
+        float(edge), float(edge * edge), cuda.stream_of(queries))
     cuda.check(lib, code, "grid_radius_search")
     cuda.launches["grid_radius_search"] += 1
     return out, counts

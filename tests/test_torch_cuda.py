@@ -72,6 +72,17 @@ the same hand-written kernel events around a full-width 3DMatch forward;
 TransformerEncoder and TransformerDecoder launch the attention kernel once
 a self-attention layer and twice a decoder layer, within 1e-4 of their
 einsum route; rows 3 and 8 agree with their plain versions at C = 96.
+Past the launchers' former limits (the general routes, each chosen by the
+route function beside its wrapper): the stream input conv at H = 360 and
+512 and K D = 61,440, the union input conv at a ~14,000-row union and
+K D = 61,440, rows 1, 5 and 6 with the pool over 1,024 columns (the pooled
+max and tie counts bit for bit), patch_overlaps at K = 2,048 (bit-equal),
+the attention at dh = 3,100 and 4,096, the GSE backward at A = 255 and 300,
+the search at cand_cap 32,768 and brute over 40,000 rows with K = 40 and
+1,500 (bit-equal), the pair scores at 65,540 rows and the attention at
+65,540 heads: each launches once, agrees with its plain version, repeats
+bit for bit and replays from a CUDA graph; the shipped shapes keep their
+instances.
 """
 
 import numpy as np
@@ -2019,3 +2030,309 @@ def test_kpconv_any_kernel_points_repeat_bit_for_bit_and_replay_from_a_graph(dev
             assert all(torch.equal(x, y) for x, y in zip(a, b))
     for a, b in zip(out, eager):
         assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+# ---- the launcher limits the JAX kernels do not share: the general routes ---
+# Each site at a shape its CUDA kernel refused before and its JAX kernel (or
+# the JAX XLA search) takes: its route function picks the general route, the
+# kernel launches once, agrees with its plain version within its row's
+# tolerance, repeats bit for bit and replays from a CUDA graph; a shipped
+# shape still takes its old instance (the route function on this card).
+
+def as_tuple(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+def launches_once_repeats_and_replays(fn, kernel):
+    """fn() launches ``kernel`` once; a second call repeats the first bit for
+    bit; captured in a CUDA graph it counts one launch, and a replay gives
+    the eager result. Returns the first result."""
+    before = cuda.launches[kernel]
+    first = fn()
+    assert cuda.launches[kernel] == before + 1
+    again = fn()
+    graph, out, launches = captured(fn, kernel)
+    assert launches == 1
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b, c in zip(as_tuple(first), as_tuple(again), as_tuple(out)):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    return first
+
+
+def test_shipped_shapes_keep_their_instances(device):
+    """The shipped configurations' shapes (3DMatch, KITTI, ModelNet, the
+    synthetic workflow, the device pyramid's buckets) take the instances
+    they took before, on this card's block budget."""
+    from geotransformer_tpu_torch.kernels.attention import attention_route
+    from geotransformer_tpu_torch.kernels.kpconv import pool_route, stream_route, union_route
+    from geotransformer_tpu_torch.kernels.overlap import overlap_route
+    from geotransformer_tpu_torch.kernels.pyramid import search_route
+
+    budget = sinkhorn_kernels.device_block_bytes(device)
+    for h in (34, 38, 40, 65):
+        assert stream_route(h, 15, 64, budget) == "shared"
+    assert union_route(4096, 38, 15, 64, budget) == "shared"
+    for c in (1, 64, 128, 256, 512, 1024):
+        for width in (38, 40, 65):
+            assert pool_route(15, c, width, width, budget) == width
+    assert overlap_route(64, budget) == overlap_route(128, budget) == "shared"
+    for dh in (32, 64):
+        assert attention_route(dh, True, 768) == (dh, True, True)
+    for cap in (256, 640, 1024, 2048, 4096):
+        assert search_route(cap, 0, False, budget).chunk == 0
+    for c in (96, 128, 256):
+        assert gse_kernels.gse_route(c, 3).backward.resident
+
+
+@pytest.mark.parametrize("m, h, k, d", [(3001, 512, 15, 64), (2001, 360, 20, 64),
+                                        (2003, 40, 15, 4096)],
+                         ids=["H512", "H360-K20", "KD61440"])
+def test_kpconv_stream_general_route(device, m, h, k, d):
+    from geotransformer_tpu_torch.kernels.kpconv import stream_route
+
+    assert stream_route(h, k, d, sinkhorn_kernels.device_block_bytes(device)) == "global"
+    stream, kp, w = stream_case(device, m, h, k=min(k, 15), d=d)
+    if k > 15:
+        kp = any_kernel_points(k).to(device)
+        w = torch.randn(k, 1, d, generator=torch.Generator().manual_seed(k)).to(device)
+    got = launches_once_repeats_and_replays(
+        lambda: kpconv_stream_fused(stream, kp, w, 0.05, residuals=True), "kpconv_stream_fused")
+    want = kpconv_stream_fused_plain(stream, kp, w, 0.05, residuals=True)
+    assert_kpconv_close(got[0], want[0])
+    assert_kpconv_close(got[1], want[1])  # t1
+    assert torch.equal(got[2], want[2])  # count
+
+
+def wide_union_case(device, m, n, h, tile, d=64, seed=3):
+    """Random neighbors over many supports, so a tile of 512 queries
+    unions ~15,000 rows (past the ~13,400 a block once staged); every
+    eleventh query without an edge."""
+    g = torch.Generator().manual_seed(seed)
+    s_points, q_points = torch.rand(n, 3, generator=g), torch.rand(m, 3, generator=g)
+    table = torch.randint(0, n, (m, h), generator=g).to(torch.int32)
+    table[torch.rand(m, h, generator=g) < 0.1] = n
+    table[5::11] = n
+    table = table.numpy()
+    cap = max(np.unique(table[t:t + tile][table[t:t + tile] < n]).size for t in range(0, m, tile))
+    rows, sel = build_union_tables(table, n, tile=tile, union_cap=cap)
+    feats = (torch.rand(n, 1, generator=g) > 0.2).float() * torch.randn(n, 1, generator=g)
+    kp = torch.from_numpy(load_kernel_points(0.3, 15))
+    w, bias = torch.randn(15, 1, d, generator=g), torch.randn(d, generator=g)
+    call = [t.to(device) for t in (feats, q_points, s_points, torch.from_numpy(rows),
+                                   torch.from_numpy(sel), kp, w)]
+    return call + [0.3, bias.to(device)], cap
+
+
+@pytest.mark.parametrize("m, n, h, tile, d", [(1100, 60000, 38, 512, 64),
+                                              (611, 700, 65, 100, 4096)],
+                         ids=["U15000", "KD61440"])
+def test_kpconv_union_general_route(device, m, n, h, tile, d):
+    from geotransformer_tpu_torch.kernels.kpconv import union_route
+
+    call, cap = wide_union_case(device, m, n, h, tile, d)
+    assert union_route(cap, h, 15, d, sinkhorn_kernels.device_block_bytes(device)) == "global"
+    got = launches_once_repeats_and_replays(
+        lambda: kpconv_union_input_fused(*call, tile=tile, residuals=True),
+        "kpconv_union_input_fused")
+    want = kpconv_union_input_fused_plain(*call, tile=tile, residuals=True)
+    assert_kpconv_close(got[0], want[0])
+    assert torch.equal(got[1], want[1])  # count
+    assert_kpconv_close(got[2], want[2])  # t1
+
+
+def wide_pool_case(device, m=300, n=1500, h=1024, c=4, seed=4):
+    """A conv over a 1,024-column table at C = 4 (64 rows a block: the pool
+    phase in 128-column chunks), pool features in {-2, -1, 0, 1} (ties, and
+    maxima at the zero shadow)."""
+    g = torch.Generator().manual_seed(seed)
+    s_points, q_points = torch.rand(n, 3, generator=g) * 0.3, torch.rand(m, 3, generator=g) * 0.3
+    table = torch.argsort(torch.cdist(q_points, s_points), dim=1)[:, :h].to(torch.int32)
+    table[torch.rand(m, h, generator=g) < 0.3] = n
+    table[7::13] = n
+    feats = torch.randn(n, c, generator=g)
+    pool = torch.randint(-2, 2, (n, c), generator=g).float()
+    kp = torch.from_numpy(load_kernel_points(0.0625, 15))
+    w = torch.randn(15, c, 8, generator=g) / c
+    return [t.to(device) for t in (feats, q_points, s_points, table, kp, w)], pool.to(device)
+
+
+@pytest.mark.parametrize("split", [False, True])
+def test_kpconv_pool_phase_in_chunks(device, split):
+    """Rows 1 and 5: the pooled max bit-equal and the tie counts exact over
+    1,024 columns staged 128 at a time."""
+    from geotransformer_tpu_torch.kernels.kpconv import pool_route
+
+    args, pool = wide_pool_case(device)
+    n, h = args[2].shape[0], args[3].shape[1]
+    assert pool_route(15, 4, h, h, sinkhorn_kernels.device_block_bytes(device)) == 128
+    kw = dict(pool_feats=pool, residuals=True)
+    if split:
+        head, tail, tail_q, rank = split_of(args[3], n, 16)
+        call = (*args[:3], head, tail, tail_q, rank, args[4], args[5], 0.05)
+        kernel, plain, name = kpconv_split_fused, kpconv_split_fused_plain, "kpconv_split_fused"
+    else:
+        call = (*args, 0.05)
+        kernel, plain, name = kpconv_fused, kpconv_fused_plain, "kpconv_fused"
+    got = launches_once_repeats_and_replays(lambda: kernel(*call, **kw), name)
+    want = plain(*call, **kw)
+    assert torch.equal(got[1], want[1])  # pooled: the max is exact
+    assert torch.equal(got[3], want[3])  # ties
+    assert int((want[3] > 1).sum()) > 100
+    assert_kpconv_close(got[0], want[0])
+
+
+def test_kpconv_bwd_pool_phase_in_chunks(device):
+    """Row 6: the pool gradient over a 1,024-column inverse table at C_out =
+    4, its columns staged 128 at a time."""
+    from geotransformer_tpu_torch.kernels.kpconv import pool_route
+
+    g = torch.Generator().manual_seed(6)
+    n, m, h, j, c_in, c_out, c_pool = 160, 1300, 160, 1024, 8, 4, 4
+    s_points, q_points = torch.rand(n, 3, generator=g) * 0.1, torch.rand(m, 3, generator=g) * 0.1
+    nbrs = torch.argsort(torch.cdist(q_points, s_points), dim=1)[:, :h].to(torch.int32)
+    nbrs[torch.rand(m, h, generator=g) < 0.3] = n
+    inv = torch.from_numpy(build_inverse_table(nbrs.numpy(), n, j))
+    assert int((inv < m).sum(1).max()) > 850
+    kp = torch.from_numpy(load_kernel_points(0.0625, 15))
+    pool = torch.randint(-2, 2, (n, c_pool), generator=g).float()
+    _, pooled, _, ties = kpconv_fused_plain(
+        torch.ones(n, 1), q_points, s_points, nbrs, kp, torch.zeros(15, 1, 1), 0.05,
+        pool_feats=pool, residuals=True)
+    dpt = torch.randn(m, c_pool, generator=g) / ties
+    args = [t.to(device) for t in (torch.randn(n, c_in, generator=g), s_points, q_points,
+                                   torch.randn(m, c_out, generator=g), inv, kp,
+                                   torch.randn(15, c_in, c_out, generator=g) / c_in)]
+    kw = {k: v.to(device) for k, v in dict(pool_feats=pool, pooled=pooled,
+                                           dpool_over_ties=dpt).items()}
+    assert pool_route(15, c_out, j, j, sinkhorn_kernels.device_block_bytes(device)) == 128
+    got = launches_once_repeats_and_replays(lambda: kpconv_bwd_fused(*args, 0.05, **kw),
+                                            "kpconv_bwd_fused")
+    want = kpconv_bwd_fused_plain(*args, 0.05, **kw)
+    for gv, wv in zip(got, want):
+        assert_kpconv_close(gv, wv)
+
+
+@pytest.mark.parametrize("index_dtype", [torch.int64, torch.int32], ids=["int64", "int32"])
+def test_patch_overlaps_general_route(device, index_dtype):
+    """Row 11 at K = 2,048 points a patch (past ~1,600): bit-equal."""
+    from geotransformer_tpu_torch.kernels.overlap import overlap_route
+
+    assert overlap_route(2048, sinkhorn_kernels.device_block_bytes(device)) == "global"
+    call = overlap_case(device, 12, 16, 2048, 8, index_dtype=index_dtype)
+    got = launches_once_repeats_and_replays(lambda: patch_overlaps(*call, 0.1),
+                                            "patch_overlaps")
+    want = patch_overlaps_plain(*call, 0.1)
+    assert torch.equal(got, want)
+    assert 0.0 < (got > 0).float().mean().item() < 1.0
+    assert not got[2].any() and not got[0].any() and not got[:, 0].any()
+
+
+@pytest.mark.parametrize("dh", [3100, 4096])
+def test_fused_attention_past_the_q_tile(device, dh):
+    """Row 13 at head widths whose q tile does not fit a block (4 heads,
+    256 keys): within 1e-5 x max|plain|, padded rows zero."""
+    from geotransformer_tpu_torch.kernels.attention import attention_route
+
+    assert not attention_route(dh, True, 256).q_tile
+    (q, k, v, bias), key_masks = attention_case(device, 4, 40, 256, dh, True, True)
+    nv_q = torch.tensor(33, dtype=torch.int32, device=device)
+    nv_k = torch.tensor(250, dtype=torch.int32, device=device)
+    scale = dh ** -0.5
+    got = launches_once_repeats_and_replays(
+        lambda: fused_masked_attention(q, k, v, bias, nv_q, nv_k, scale, key_masks),
+        "fused_masked_attention")
+    want = fused_masked_attention_plain(q, k, v, bias, nv_q, nv_k, scale, key_masks)
+    assert (got[:33] - want[:33]).abs().max().item() <= 1e-5 * want[:33].abs().max().item()
+    assert not got[33:].any()
+
+
+@pytest.mark.parametrize("angles", [255, 300])
+def test_gse_bwd_past_a_byte_of_angles(device, angles):
+    """Row 8 at A = 255 and 300, C = 8 (the general instance, k* 16-bit),
+    with two reference vectors tied (every entry of those settled in
+    float64)."""
+    assert not gse_kernels.gse_route(8, angles).backward.resident
+    g = torch.Generator().manual_seed(angles)
+    n = 24
+    points = torch.rand(n, 3, generator=g)
+    ref_vectors = torch.randn(n, angles, 3, generator=g) * 0.1
+    ref_vectors[:, angles - 1] = ref_vectors[:, 7]
+    w_a = torch.randn(8, 8, generator=g) / 8**0.5
+    de = torch.randn(n, n, 8, generator=g)
+    nv = torch.tensor(21, dtype=torch.int32)
+    points, ref_vectors, w_a, de, nv = (t.to(device) for t in (points, ref_vectors, w_a, de, nv))
+    got = launches_once_repeats_and_replays(
+        lambda: gse_full_bwd(points, ref_vectors, w_a, 0.2, 15.0, de, nv), "gse_full_bwd")
+    want = gse_full_bwd_plain(points, ref_vectors, w_a, 0.2, 15.0, de, nv)
+    assert_gse_bwd_close(got, want)
+
+
+@pytest.mark.parametrize("k", [40, 1500])
+@pytest.mark.parametrize("brute", [False, True], ids=["grid", "brute"])
+def test_grid_radius_search_general_route(device, k, brute):
+    """The search at cand_cap 32,768 and brute over 40,000 support rows
+    (past the 29,056 keys a block holds): the table and the counts bit for
+    bit. A dense cloud gives each query thousands of keys in radius, so
+    the 1,024-key chunks merge many times (K = 1,500: more than a chunk)."""
+    from geotransformer_tpu_torch.kernels.pyramid import (
+        grid_radius_search,
+        grid_radius_search_plain,
+        search_route,
+    )
+    from geotransformer_tpu_torch.preprocess.device import _search_support
+
+    g = torch.Generator().manual_seed(k)
+    cs, n_s, n_q, radius = 40960, 40000, 1200, 0.25
+    q = torch.full((1, 1280, 3), 1e6)
+    s = torch.full((1, cs, 3), 1e6)
+    # queries inside [0.25, 0.75]^3: their whole radius ball lies in the cloud
+    q[0, :n_q] = 0.25 + 0.5 * torch.rand(n_q, 3, generator=g)
+    s[0, :n_s] = torch.rand(n_s, 3, generator=g)
+    q_len, s_len = torch.tensor([n_q], dtype=torch.int32), torch.tensor([n_s], dtype=torch.int32)
+    q, s, q_len, s_len = (t.to(device) for t in (q, s, q_len, s_len))
+    if brute:
+        index = torch.arange(cs, device=device, dtype=torch.float32)
+        support = torch.cat([s, index[None, :, None]], dim=2)
+        starts = origin = dims = None
+        cap = 0
+    else:
+        support, starts, origin, dims, _ = _search_support(s, s_len, radius, 1 << 20)
+        cap = 32768
+    budget = sinkhorn_kernels.device_block_bytes(device)
+    assert search_route(cap, cs, brute, budget).chunk == 1024
+    call = (q, q_len, support, s_len, starts, origin, dims, radius, k, cap)
+    got = launches_once_repeats_and_replays(lambda: grid_radius_search(*call),
+                                            "grid_radius_search")
+    want = grid_radius_search_plain(*call)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert int((got[0][0, :n_q] < cs).sum(dim=1).min()) == k  # every row full
+    assert bool((got[0][0, n_q:] == cs).all())
+
+
+def test_rows_and_heads_past_the_launch_grid(device):
+    """Row 12 at N = 65,540 query rows and row 13 at H = 65,540 heads (the
+    grid's y dimension holds 65,535: a second launch takes the rest, within
+    one wrapper call): each agrees with its plain version within 1e-5 x
+    max|plain|, repeats bit for bit and replays from a CUDA graph."""
+    from geotransformer_tpu_torch.kernels.attention import pair_scores_route
+
+    g = torch.Generator().manual_seed(65540)
+    n, m, c, h = 65540, 5, 8, 2
+    embed, qw = (torch.randn(s, generator=g).to(device) for s in ((n, m, c), (n, h, c)))
+    nv_q = torch.tensor(65537, dtype=torch.int32, device=device)
+    assert pair_scores_route(c, h, True, n) == "scalar"
+    got = launches_once_repeats_and_replays(lambda: rpe_pair_scores(embed, qw, nv_q, None),
+                                            "rpe_pair_scores")
+    want = rpe_pair_scores_plain(embed, qw, nv_q, None)
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+    assert not got[65537:].any()
+    heads = 65540
+    q, k, v = (torch.randn(s, generator=g).to(device)
+               for s in ((heads, 20, 8), (heads, 24, 8), (heads, 24, 8)))
+    bias = torch.randn(20, heads, 24, generator=g).to(device)
+    nv_k = torch.tensor(21, dtype=torch.int32, device=device)
+    got = launches_once_repeats_and_replays(
+        lambda: fused_masked_attention(q, k, v, bias, None, nv_k, 0.3), "fused_masked_attention")
+    want = fused_masked_attention_plain(q, k, v, bias, None, nv_k, 0.3)
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()

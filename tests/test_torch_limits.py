@@ -200,11 +200,13 @@ def test_pair_scores_route(c, h, aligned, want):
 
 
 @pytest.mark.parametrize("dh, aligned, want", [
-    (64, True, (64, True)), (32, True, (32, True)), (8, True, (8, True)),
-    (64, False, (64, False)), (24, True, (32, False)), (48, True, (64, False)),
-    (5, True, (8, False)), (96, True, (0, False)), (128, True, (0, False))])
+    (64, True, (64, True, True)), (32, True, (32, True, True)), (8, True, (8, True, True)),
+    (64, False, (64, False, True)), (24, True, (32, False, True)),
+    (48, True, (64, False, True)), (5, True, (8, False, True)), (96, True, (0, False, True)),
+    (128, True, (0, False, True)), (3088, True, (0, False, True)),
+    (3100, True, (0, False, False)), (4096, True, (0, False, False))])
 def test_attention_route(dh, aligned, want):
-    assert attention_route(dh, aligned) == want
+    assert attention_route(dh, aligned, 300) == want
 
 
 @pytest.mark.parametrize("k, want", [(15, 0), (7, 1), (16, 1), (17, 2), (20, 2), (32, 2)])
