@@ -25,8 +25,11 @@ second's and the first's again, so a drift of the card shows in both) and
 prints, for each path and row, each checkout's device ms summed over the
 calls (the mean of its runs) and each later checkout's over the first's,
 and one JSON line of them (more than two checkouts compare to the first).
-``--paths`` and ``--kernels`` restrict what ``capture`` records. Every run
-also records the card's name and power limit.
+``--paths`` and ``--kernels`` restrict what ``capture`` records; the paths
+3dmatch_jax and kitti_jax, which it records only when asked, are the
+3DMatch and KITTI forwards at the JAX package's default point
+(configs.JAX_PRECISION: the bfloat16 instances). Every run also records the
+card's name and power limit.
 """
 
 import argparse
@@ -45,6 +48,7 @@ ROWS = ("kpconv_fused", "kpconv_split_fused", "kpconv_bwd_fused", "gse_embedding
 GSE = ("gse_embedding_full", "gse_full_bwd")
 UNION, SEARCH = "kpconv_union_input_fused", "grid_radius_search"
 PATHS = ("3dmatch", "3dmatch_c96", "kitti", "modelnet")
+JAX_POINT = ("3dmatch_jax", "kitti_jax")  # inference only
 MODULES = {"kpconv_fused": "kpconv", "kpconv_split_fused": "kpconv",
            "kpconv_bwd_fused": "kpconv", "gse_embedding_full": "gse", "gse_full_bwd": "gse",
            "kpconv_stream_fused": "kpconv", "kpconv_union_input_fused": "kpconv",
@@ -75,6 +79,7 @@ def capture(out_path, paths, kernels):
 
     import chip_smoke as cs
     import launch_profile
+    from geotransformer_tpu_torch.configs import JAX_PRECISION
     from geotransformer_tpu_torch.models import create_model
     from geotransformer_tpu_torch.preprocess import batch_to_torch, pad_registration_batch
 
@@ -82,18 +87,24 @@ def capture(out_path, paths, kernels):
     calls = []
 
     def keep(path, records, names):
+        # the precision keywords at float32, every checkout's default, left
+        # out: a checkout from before them takes the calls too
         for name in names:
-            calls.extend((path, name, moved(args, "cpu"), moved(kwargs, "cpu"))
-                         for args, kwargs in records[name])
+            calls.extend((path, name, moved(args, "cpu"), moved(
+                {k: v for k, v in kwargs.items()
+                 if not (k in cs.DTYPE_KEYS and v == torch.float32)}, "cpu"))
+                for args, kwargs in records[name])
 
-    def record(path, cfg, batch, names):
+    def record(path, cfg, batch, names, train=True):
         names = [n for n in names if n in kernels and n not in (UNION, SEARCH)]
         if path not in paths or not names:
             return
         model = create_model(cfg, device=cs.DEVICE)
         with cs.capture_kernel_calls(names) as records:
-            model(batch)
-            cs.step_gradients(model, cfg, batch, 0)
+            with torch.set_grad_enabled(train):
+                model(batch)
+            if train:
+                cs.step_gradients(model, cfg, batch, 0)
         keep(path, records, names)
 
     def record_union(cfg):
@@ -121,10 +132,13 @@ def capture(out_path, paths, kernels):
 
     with tempfile.TemporaryDirectory() as tmp:
         for path in ("3dmatch", "kitti", "modelnet"):
-            if path not in paths and not (path == "3dmatch" and "3dmatch_c96" in paths):
+            if not {path, f"{path}_jax"} & set(paths) and not (
+                    path == "3dmatch" and "3dmatch_c96" in paths):
                 continue
             cfg, batch = launch_profile.path_batch(path, tmp)
             record(path, cfg, batch, ROWS)
+            record(f"{path}_jax", dataclasses.replace(cfg, precision=JAX_PRECISION), batch, ROWS,
+                   train=False)
             if path == "3dmatch" and path in paths and UNION in kernels:
                 record_union(cfg)
             if path in ("3dmatch", "kitti") and path in paths and SEARCH in kernels:
@@ -202,7 +216,7 @@ def main():
     parser.add_argument("files", nargs="+")
     parser.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
     parser.add_argument("--reps", type=int, default=20)
-    parser.add_argument("--paths", nargs="+", default=PATHS, choices=PATHS)
+    parser.add_argument("--paths", nargs="+", default=PATHS, choices=PATHS + JAX_POINT)
     parser.add_argument("--kernels", nargs="+", default=ROWS, choices=ROWS)
     opts = parser.parse_args()
     if opts.mode == "report":

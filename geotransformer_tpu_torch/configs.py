@@ -2,15 +2,20 @@ r"""Experiment configuration (frozen dataclasses).
 
 The port's own copy of ``geotransformer_tpu/configs.py``: the same classes,
 field names, defaults and factories, so a config built here and one built
-there compare equal field by field (``dataclasses.asdict``). Left out is
-the JAX package's ``PrecisionConfig`` / ``apply_precision``, which install
-Pallas-kernel dtype globals: the port's kernels run in f32.
+there compare equal field by field (``dataclasses.asdict``), with one
+difference: :class:`PrecisionConfig` defaults to float32 everywhere, where
+the JAX package defaults three of its four knobs to bfloat16.
 ``ModelConfig.force_pallas`` selects the port's kernels the way it selects
 the Pallas kernels there (see
 :func:`geotransformer_tpu_torch.kernels.cuda.use_kernel`).
+
+The JAX package installs its precision point process-wide
+(``apply_precision`` sets the kernel modules' dtype globals); the port has
+no counterpart: :class:`GeoTransformer` hands ``cfg.precision`` down its
+module tree, and each kernel wrapper takes its dtypes as arguments.
 """
 
-from dataclasses import dataclass, field, replace
+from dataclasses import dataclass, field, fields, replace
 from typing import Optional, Tuple
 
 
@@ -148,6 +153,67 @@ class CapsConfig:
     sub_inverse_splits: Optional[Tuple[Optional[Tuple[int, int]], ...]] = None
 
 
+DTYPE_NAMES = ("float32", "bfloat16")
+
+
+@dataclass(frozen=True)
+class PrecisionConfig:
+    """The kernels' numeric point (JAX ``configs.PrecisionConfig``: the same
+    fields and value names, each a dtype name, "float32" or "bfloat16").
+
+    kpconv_table: storage of the gathered KPConv neighbor tables.
+    kpconv_mxu: the KPConv contraction operands: at C_in > 1 the influences
+        and the neighbor features before the neighbor sum, at C_in = 1 the
+        influence sums t1 and the weights before t1 W.
+    gse_basis: the GSE sin/cos bases and projection weights.
+    gse_embed: the stored (N, N, C) GSE embedding, which every RPE layer
+        reads.
+
+    The port defaults to float32 throughout: the accuracy of its kernels
+    (3xTF32), at which every card check is set. The JAX package's defaults
+    (:data:`JAX_PRECISION`) round the last three to bfloat16 (round to
+    nearest even). Both the kernels and their plain versions honour the
+    point, on the card and on the CPU. ``kpconv_table="bfloat16"`` and any
+    bfloat16 point with gradients enabled raise ``NotImplementedError``
+    (ROADMAP.md queue 1: training at the JAX precision point).
+    """
+
+    kpconv_table: str = "float32"
+    kpconv_mxu: str = "float32"
+    gse_basis: str = "float32"
+    gse_embed: str = "float32"
+
+    def __post_init__(self):
+        for name in PRECISION_KNOBS:
+            knob_dtype(self, name)
+
+
+PRECISION_KNOBS = tuple(f.name for f in fields(PrecisionConfig))
+
+
+def knob_dtype(precision, name):
+    """The torch dtype of knob ``name`` of ``precision`` (read by field name,
+    so a configuration of the same shape from the JAX package is read the
+    same way); raises ``ValueError`` on a dtype name other than "float32"
+    or "bfloat16"."""
+    import torch
+
+    value = getattr(precision, name)
+    if value not in DTYPE_NAMES:
+        raise ValueError(f"precision.{name} = {value!r}: one of {DTYPE_NAMES}")
+    return torch.float32 if value == "float32" else torch.bfloat16
+
+
+def is_float32_point(precision):
+    """Every knob of ``precision`` at float32 (the only point training takes)."""
+    return all(getattr(precision, name) == "float32" for name in PRECISION_KNOBS)
+
+
+# the JAX package's default point (geotransformer_tpu/configs.py:181-184)
+JAX_PRECISION = PrecisionConfig(kpconv_mxu="bfloat16", gse_basis="bfloat16",
+                                gse_embed="bfloat16")
+
+
 @dataclass(frozen=True)
 class GeoTransformerConfig:
     seed: int = 7351
@@ -163,6 +229,7 @@ class GeoTransformerConfig:
     eval: EvalConfig = field(default_factory=EvalConfig)
     optim: OptimConfig = field(default_factory=OptimConfig)
     caps: CapsConfig = field(default_factory=CapsConfig)
+    precision: PrecisionConfig = field(default_factory=PrecisionConfig)
 
     @property
     def first_fine_stage(self):

@@ -15,6 +15,12 @@ unzeroed). The attention kernel takes an (M,) key mask, so any mask is
 honoured; ``n_valid_k`` only cuts the keys it reads (the JAX fused path
 has no mask and treats a non-prefix one as all valid).
 
+The pair scores read the embedding in its own dtype, float32 or, at the
+bfloat16 embedding point (``PrecisionConfig.gse_embed``), bfloat16, widened
+exactly to float32; ``qw`` and the scores stay float32, as the JAX model's
+XLA einsum promotes its bfloat16 embedding. Their differentiable form takes
+a float32 embedding only (the gradient of a bfloat16 one is not ported).
+
 Neither JAX kernel has a Pallas backward, and neither has a CUDA one here:
 the ``*_diff`` forms run the kernel forward and differentiate the plain
 version (the pair scores' two einsums; the attention's softmax rows
@@ -30,7 +36,7 @@ from geotransformer_tpu_torch.kernels import cuda
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "rpe_pair_scores_launch": [_P] * 5 + [_I] * 5 + [_P],
+    "rpe_pair_scores_launch": [_P] * 5 + [_I] * 6 + [_P],
     "fused_attention_launch": [_P] * 9 + [_I] * 7 + [_F, _P],
 }
 _WIDTHS = (8, 16, 32, 64)  # head widths of attention_kernel's instances
@@ -105,9 +111,9 @@ def _rectangle(n, m, n_valid_q, n_valid_k, device):
 def rpe_pair_scores_plain(embed, qw, n_valid_q=None, n_valid_k=None):
     """Plain PyTorch version of :func:`rpe_pair_scores` (the einsum of the
     JAX XLA path, ``models/transformer.py:272-273``, zeroed outside the
-    valid rectangle)."""
+    valid rectangle; a bfloat16 embedding widened to ``qw``'s dtype)."""
     n, m, _ = embed.shape
-    scores = torch.einsum("nmc,nhc->nhm", embed, qw)
+    scores = torch.einsum("nmc,nhc->nhm", embed.to(qw.dtype), qw)
     return torch.where(_rectangle(n, m, n_valid_q, n_valid_k, embed.device), scores, 0.0)
 
 
@@ -115,7 +121,7 @@ def rpe_pair_scores(embed, qw, n_valid_q=None, n_valid_k=None, force=None):
     """Pair-bias attention scores with the valid-rectangle skip.
 
     Args:
-        embed: (N, M, C) float32 pair embedding.
+        embed: (N, M, C) float32 or bfloat16 pair embedding.
         qw: (N, H, C) float32 query-side projected queries
             (``einsum('hnc,dhc->nhd', q, W_p)``).
         n_valid_q, n_valid_k: int32 scalars (0-d tensors or ints) or None;
@@ -132,7 +138,8 @@ def rpe_pair_scores(embed, qw, n_valid_q=None, n_valid_k=None, force=None):
     n, m, c = embed.shape
     h = qw.shape[1]
     f32 = torch.float32
-    cuda.require(embed, "embed", f32, (n, m, c), dev)
+    embed_bf16 = cuda.operand_dtype(embed.dtype, "the embedding")
+    cuda.require(embed, "embed", embed.dtype, (n, m, c), dev)
     cuda.require(qw, "qw", f32, (n, h, c), dev)
     nv_q, nv_k = _kernel_count(n_valid_q, dev), _kernel_count(n_valid_k, dev)
     out = torch.empty((n, h, m), dtype=f32, device=dev)
@@ -140,7 +147,7 @@ def rpe_pair_scores(embed, qw, n_valid_q=None, n_valid_k=None, force=None):
     lib = cuda.library("attention", _SIGNATURES)
     code = lib.rpe_pair_scores_launch(cuda.ptr(embed), cuda.ptr(qw), cuda.ptr(nv_q),
                                       cuda.ptr(nv_k), cuda.ptr(out), n, m, h, c, int(vec4),
-                                      cuda.stream_of(embed))
+                                      embed_bf16, cuda.stream_of(embed))
     cuda.check(lib, code, "rpe_pair_scores")
     cuda.launches["rpe_pair_scores"] += 1
     return out
@@ -165,7 +172,12 @@ class _PairScores(torch.autograd.Function):
 def rpe_pair_scores_diff(embed, qw, n_valid_q=None, n_valid_k=None, force=None):
     """Differentiable :func:`rpe_pair_scores` (JAX ``rpe_pair_scores_diff``):
     the kernel forward, the plain einsums' gradients (zero outside the
-    valid rectangle, where the forward is zero)."""
+    valid rectangle, where the forward is zero). A bfloat16 embedding
+    raises ``NotImplementedError``."""
+    if embed.dtype == torch.bfloat16:
+        raise NotImplementedError(
+            "pair-score gradients of a bfloat16 embedding are not ported (ROADMAP.md queue 1: "
+            "training at the JAX precision point)")
     n, m, _ = embed.shape
     return _PairScores.apply(embed, qw, _count(n_valid_q, n, embed.device),
                              _count(n_valid_k, m, embed.device), force)

@@ -13,7 +13,11 @@
 // pairs' loads in flight before the arithmetic), then folds its H partial
 // sums with shuffles. Blocks entirely outside the valid rectangle read
 // nothing and write zeros (the valid-rectangle skip of the TPU kernel).
-// f32 on the CUDA cores.
+// f32 on the CUDA cores. The embedding is f32 or, at the bfloat16
+// embedding point (PrecisionConfig.gse_embed), bfloat16 (half the bytes:
+// four channels an 8-byte load), widened exactly to f32 as it is read; qw
+// and the scores stay f32 (the JAX model's XLA einsum promotes the bfloat16
+// embedding the same way, geotransformer_tpu/models/transformer.py:272-273).
 //
 // attention_kernel replaces geotransformer_tpu/kernels/attention.py:
 // fused_masked_attention (pallas_call at :355):
@@ -59,6 +63,7 @@
 // memory (exact under 3xTF32); dh > 64 attention_wide_kernel (64 output
 // columns a block, K and V read in place).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -80,9 +85,25 @@ constexpr int kPairThreads = 256;  // 8 warps
 constexpr int kColsPerWarp = 4;
 constexpr int kColsPerBlock = (kPairThreads / 32) * kColsPerWarp;  // 32
 
-template <int CPL>  // float4 loads per lane and pair: C <= 128 * CPL
+// Four channels 4 i .. 4 i + 3 of an f32 or bfloat16 embedding row, as f32
+// (a bfloat16 value widens exactly).
+__device__ __forceinline__ float4 load4(const float* row, size_t i) {
+  return reinterpret_cast<const float4*>(row)[i];
+}
+
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* row, size_t i) {
+  const uint2 raw = reinterpret_cast<const uint2*>(row)[i];
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <int CPL, typename E>  // float4 loads per lane and pair: C <= 128 * CPL
 __global__ void __launch_bounds__(kPairThreads) pair_scores_kernel(
-    const float* __restrict__ embed,     // (N, M, C)
+    const E* __restrict__ embed,         // (N, M, C) f32 or bfloat16
     const float* __restrict__ qw,        // (N, H, C)
     const int32_t* __restrict__ nv_q_ptr,  // or null: N
     const int32_t* __restrict__ nv_k_ptr,  // or null: M
@@ -110,7 +131,7 @@ __global__ void __launch_bounds__(kPairThreads) pair_scores_kernel(
   for (int e = tid; e < H * c4s; e += kPairThreads) qw_s[e] = qw_row[e];
   __syncthreads();
 
-  const float4* e_row = reinterpret_cast<const float4*>(embed + static_cast<size_t>(i) * M * C);
+  const E* e_row = embed + static_cast<size_t>(i) * M * C;
   const int jw = j0 + warp * kColsPerWarp;
   float4 ev[kColsPerWarp][CPL];
 #pragma unroll
@@ -119,7 +140,7 @@ __global__ void __launch_bounds__(kPairThreads) pair_scores_kernel(
 #pragma unroll
     for (int t = 0; t < CPL; ++t) {
       const int c4 = lane + 32 * t;
-      ev[cc][t] = (j < nv_k && c4 < c4s) ? e_row[static_cast<size_t>(j) * c4s + c4]
+      ev[cc][t] = (j < nv_k && c4 < c4s) ? load4(e_row, static_cast<size_t>(j) * c4s + c4)
                                          : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     }
   }
@@ -166,8 +187,9 @@ __global__ void __launch_bounds__(kPairThreads) pair_scores_kernel(
 // kMaxHeads at a time (the embedding row re-read from L1 for each group),
 // qw[i] in shared memory where it fits a block, else read from global
 // memory; rows past the grid's 65,535 in further launches from row0.
+template <typename E>
 __global__ void __launch_bounds__(kPairThreads) pair_scores_any_kernel(
-    const float* __restrict__ embed,       // (N, M, C)
+    const E* __restrict__ embed,           // (N, M, C) f32 or bfloat16
     const float* __restrict__ qw,          // (N, H, C)
     const int32_t* __restrict__ nv_q_ptr,  // or null: N
     const int32_t* __restrict__ nv_k_ptr,  // or null: M
@@ -196,7 +218,7 @@ __global__ void __launch_bounds__(kPairThreads) pair_scores_any_kernel(
     __syncthreads();
     qrow = qw_s;
   }
-  const float* e_row = embed + static_cast<size_t>(i) * M * C;
+  const E* e_row = embed + static_cast<size_t>(i) * M * C;
   for (int cc = 0; cc < kColsPerWarp; ++cc) {
     const int j = j0 + warp * kColsPerWarp + cc;
     if (j >= M) break;
@@ -204,13 +226,13 @@ __global__ void __launch_bounds__(kPairThreads) pair_scores_any_kernel(
       for (int h = lane; h < H; h += 32) out_row[static_cast<size_t>(h) * M + j] = 0.0f;
       continue;
     }
-    const float* e_pair = e_row + static_cast<size_t>(j) * C;
+    const E* e_pair = e_row + static_cast<size_t>(j) * C;
     for (int h0 = 0; h0 < H; h0 += kMaxHeads) {
       float acc[kMaxHeads];
 #pragma unroll
       for (int hh = 0; hh < kMaxHeads; ++hh) acc[hh] = 0.0f;
       for (int c = lane; c < C; c += 32) {
-        const float e = e_pair[c];
+        const float e = widen(e_pair[c]);
 #pragma unroll
         for (int hh = 0; hh < kMaxHeads; ++hh) {
           if (h0 + hh < H) acc[hh] = fmaf(e, qrow[static_cast<size_t>(h0 + hh) * C + c], acc[hh]);
@@ -232,15 +254,44 @@ __global__ void __launch_bounds__(kPairThreads) pair_scores_any_kernel(
   }
 }
 
-template <int CPL>
-int launch_pair_scores(const float* embed, const float* qw, const int32_t* nv_q,
+template <int CPL, typename E>
+int launch_pair_scores(const E* embed, const float* qw, const int32_t* nv_q,
                        const int32_t* nv_k, float* out, int N, int M, int H, int C,
                        cudaStream_t stream) {
   const dim3 grid((M + kColsPerBlock - 1) / kColsPerBlock, N);
   const size_t shared = static_cast<size_t>(H) * C * sizeof(float);
-  pair_scores_kernel<CPL><<<grid, kPairThreads, shared, stream>>>(
+  pair_scores_kernel<CPL, E><<<grid, kPairThreads, shared, stream>>>(
       embed, qw, nv_q, nv_k, out, N, M, H, C);
   return static_cast<int>(cudaGetLastError());
+}
+
+// rpe_pair_scores over an f32 or a bfloat16 (E) embedding.
+template <typename E>
+int pair_scores(const E* embed, const float* qw, const int32_t* nv_q, const int32_t* nv_k,
+                float* out, int N, int M, int H, int C, int vec4, cudaStream_t s) {
+  if (!vec4) {  // any C, H and alignment
+    const int block_bytes = launch_util::device_limits().block_bytes;
+    const size_t qw_bytes = sizeof(float) * static_cast<size_t>(H) * C;
+    const bool qw_shared = qw_bytes <= static_cast<size_t>(block_bytes);
+    const size_t shared = qw_shared ? qw_bytes : 0;
+    const cudaError_t err =
+        allow_smem(reinterpret_cast<const void*>(pair_scores_any_kernel<E>), shared);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    for (int row0 = 0; row0 < N; row0 += kMaxGridY) {
+      const dim3 grid((M + kColsPerBlock - 1) / kColsPerBlock, min(kMaxGridY, N - row0));
+      pair_scores_any_kernel<E><<<grid, kPairThreads, shared, s>>>(embed, qw, nv_q, nv_k, out, N,
+                                                                  M, H, C, qw_shared, row0);
+      const cudaError_t launched = cudaGetLastError();
+      if (launched != cudaSuccess) return static_cast<int>(launched);
+    }
+    return 0;
+  }
+  switch ((C + 127) / 128) {
+    case 1: return launch_pair_scores<1>(embed, qw, nv_q, nv_k, out, N, M, H, C, s);
+    case 2: return launch_pair_scores<2>(embed, qw, nv_q, nv_k, out, N, M, H, C, s);
+    case 3: return launch_pair_scores<3>(embed, qw, nv_q, nv_k, out, N, M, H, C, s);
+    default: return launch_pair_scores<4>(embed, qw, nv_q, nv_k, out, N, M, H, C, s);
+  }
 }
 
 // ---- fused masked attention ------------------------------------------------
@@ -905,10 +956,11 @@ const char* error_string(int code) {
 
 // vec4: pair_scores_kernel (C a multiple of 4 up to 512, H <= 8, embed and
 // qw 16-byte aligned), else pair_scores_any_kernel (kernels/attention.py:
-// pair_scores_route picks it).
-int rpe_pair_scores_launch(const float* embed, const float* qw, const int32_t* nv_q,
+// pair_scores_route picks it). embed_bf16: the embedding is bfloat16, else
+// f32.
+int rpe_pair_scores_launch(const void* embed, const float* qw, const int32_t* nv_q,
                            const int32_t* nv_k, float* out, int N, int M, int H, int C, int vec4,
-                           void* stream) {
+                           int embed_bf16, void* stream) {
   if (H < 1 || C < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (vec4 && (H > kMaxHeads || C % 4 != 0 || C > 512 || N > kMaxGridY ||
                reinterpret_cast<uintptr_t>(embed) % 16 != 0 ||
@@ -917,29 +969,11 @@ int rpe_pair_scores_launch(const float* embed, const float* qw, const int32_t* n
   }
   if (N == 0 || M == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!vec4) {  // any C, H and alignment
-    const int block_bytes = launch_util::device_limits().block_bytes;
-    const size_t qw_bytes = sizeof(float) * static_cast<size_t>(H) * C;
-    const bool qw_shared = qw_bytes <= static_cast<size_t>(block_bytes);
-    const size_t shared = qw_shared ? qw_bytes : 0;
-    const cudaError_t err =
-        allow_smem(reinterpret_cast<const void*>(pair_scores_any_kernel), shared);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    for (int row0 = 0; row0 < N; row0 += kMaxGridY) {
-      const dim3 grid((M + kColsPerBlock - 1) / kColsPerBlock, min(kMaxGridY, N - row0));
-      pair_scores_any_kernel<<<grid, kPairThreads, shared, s>>>(embed, qw, nv_q, nv_k, out, N, M,
-                                                               H, C, qw_shared, row0);
-      const cudaError_t launched = cudaGetLastError();
-      if (launched != cudaSuccess) return static_cast<int>(launched);
-    }
-    return 0;
+  if (embed_bf16) {
+    return pair_scores(static_cast<const __nv_bfloat16*>(embed), qw, nv_q, nv_k, out, N, M, H, C,
+                       vec4, s);
   }
-  switch ((C + 127) / 128) {
-    case 1: return launch_pair_scores<1>(embed, qw, nv_q, nv_k, out, N, M, H, C, s);
-    case 2: return launch_pair_scores<2>(embed, qw, nv_q, nv_k, out, N, M, H, C, s);
-    case 3: return launch_pair_scores<3>(embed, qw, nv_q, nv_k, out, N, M, H, C, s);
-    default: return launch_pair_scores<4>(embed, qw, nv_q, nv_k, out, N, M, H, C, s);
-  }
+  return pair_scores(static_cast<const float*>(embed), qw, nv_q, nv_k, out, N, M, H, C, vec4, s);
 }
 
 // width, vec16: the instance (kernels/attention.py:attention_route picks

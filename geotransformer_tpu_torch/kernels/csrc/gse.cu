@@ -70,14 +70,30 @@
 // the plain version's angle indices; the diagonal (v = 0) gives angle 0
 // exactly as the XLA path does; sincosf/atan2f replace the TPU kernel's
 // polynomial sin/cos/atan2 (Mosaic had no inverse trig). The interleaved
-// basis indexes W's rows directly, with no sin-row / cos-row split. The
-// output is f32 (the JAX kernel stores bf16, EMBED_DTYPE at
-// kernels/gse.py:36).
+// basis indexes W's rows directly, with no sin-row / cos-row split.
+//
+// Precision (PrecisionConfig; the JAX kernel's BASIS_DTYPE and EMBED_DTYPE,
+// geotransformer_tpu/kernels/gse.py:35-36, :171-172, :201-219, :283). The
+// float32 point runs the 3xTF32 products above and stores f32. The
+// bfloat16 basis point (the BF16 instances): gse_weights_kernel rounds W_d
+// and W_a to bfloat16 once a call, and each basis sin / cos is rounded as
+// it is built (once a pair); a bfloat16 value is a TF32 value, so its small
+// half is 0 and one mma.sync TF32 pass gives every product exactly
+// (mma_tf32_grid: a third of the 3xTF32 products); the max over the angles
+// and the bias stay f32. The bfloat16 embedding point (OutT, the output
+// type: float or __nv_bfloat16): the f32 sum is stored rounded to bfloat16
+// (round to nearest even), half the bytes, exact zeros outside the valid
+// rectangle as at f32. The four points are four instances of each kernel,
+// so the float32 instance's code is the one it was before: with the output
+// type a run-time flag of the stores instead (two instances a width), the
+// float32 forward read 6.5-10 % slower on an H100 (compare_checkouts.py on
+// the 3DMatch and KITTI forwards).
 
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 #include "gse_common.cuh"
 
@@ -103,10 +119,11 @@ constexpr int kMaxBlock = 256;  // the widest channel block
 // big halves first, then the small halves (2 K NB BC words each). A chunk of
 // a matrix's channel block (32 basis rows) is 32 BC contiguous words of each
 // half.
+// rb: the weights rounded to bfloat16 first (the bfloat16 basis point).
 __global__ void __launch_bounds__(256) gse_weights_kernel(const float* __restrict__ w_a,
                                                           const float* __restrict__ w_d,
                                                           uint32_t* __restrict__ frag, int C,
-                                                          int K, int BC, int NB) {
+                                                          int K, int BC, int NB, bool rb) {
   const int e = blockIdx.x * 256 + threadIdx.x;
   const int words = 2 * K * NB * BC;
   if (e >= words) return;
@@ -118,9 +135,19 @@ __global__ void __launch_bounds__(256) gse_weights_kernel(const float* __restric
   rest /= K / 8;
   const int b = rest % NB, m = rest / NB;
   const int row = 8 * s + l % 4 + 4 * h, col = BC * b + 8 * n + l / 4;
-  const float x =
-      row < C && col < C ? (m == 0 ? w_a : w_d)[static_cast<size_t>(row) * C + col] : 0.0f;
+  float x = row < C && col < C ? (m == 0 ? w_a : w_d)[static_cast<size_t>(row) * C + col] : 0.0f;
+  if (rb) x = round_bf16(x);
   store_split(frag, frag + words, e, x);
+}
+
+// Channels ch and ch + 1 of a pair at dst: f32, or bfloat16 rounded to
+// nearest even (the bfloat16 embedding point).
+__device__ __forceinline__ void store_pair(float* dst, float x, float y) {
+  *reinterpret_cast<float2*>(dst) = make_float2(x, y);
+}
+
+__device__ __forceinline__ void store_pair(__nv_bfloat16* dst, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(x, y);
 }
 
 // Shared memory of a block of gse_kernel, in 32-bit words.
@@ -139,7 +166,10 @@ struct ExactLayout {
   static constexpr int words = freqs + C / 2;
 };
 
-template <int C>
+// BF16: the bfloat16 basis point (bases rounded as built, one TF32 pass);
+// OutT: the embedding's type, float or (the bfloat16 embedding point)
+// __nv_bfloat16.
+template <int C, bool BF16, typename OutT>
 __global__ void __launch_bounds__(kThreads, 1) gse_kernel(
     const float* __restrict__ points,       // (N, 3)
     const float* __restrict__ ref_vectors,  // (N, A, 3)
@@ -147,7 +177,7 @@ __global__ void __launch_bounds__(kThreads, 1) gse_kernel(
     const float* __restrict__ bias,         // (C,) = b_d + b_a
     const float* __restrict__ div_term,     // (C / 2,)
     const int32_t* __restrict__ n_valid,    // scalar
-    float* __restrict__ out,                // (N, N, C)
+    OutT* __restrict__ out,                 // (N, N, C)
     int N, int A, float sigma_d, float factor_a) {
   using L = ExactLayout<C>;
   constexpr int kPairs = L::kPairs;
@@ -187,9 +217,11 @@ __global__ void __launch_bounds__(kThreads, 1) gse_kernel(
     if (z0 >= zeros) return;
     const int count = static_cast<int>(min(static_cast<long long>(kPairs), zeros - z0));
     const long long side = static_cast<long long>(nv) * (N - nv);
-    const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    for (int e = tid; e < count * (C / 4); e += kThreads) {
-      const long long r = z0 + e / (C / 4);
+    // 16 bytes a store: 4 f32 or 8 bfloat16 channels (C is a multiple of 32)
+    constexpr int kPer = C * static_cast<int>(sizeof(OutT)) / 16;
+    const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+    for (int e = tid; e < count * kPer; e += kThreads) {
+      const long long r = z0 + e / kPer;
       long long i, j;
       if (r < side) {
         i = r / (N - nv);
@@ -198,7 +230,7 @@ __global__ void __launch_bounds__(kThreads, 1) gse_kernel(
         i = nv + (r - side) / N;
         j = (r - side) % N;
       }
-      reinterpret_cast<float4*>(out + (i * N + j) * C)[e % (C / 4)] = zero;
+      reinterpret_cast<uint4*>(out + (i * N + j) * C)[e % kPer] = zero;
     }
     return;
   }
@@ -258,6 +290,10 @@ __global__ void __launch_bounds__(kThreads, 1) gse_kernel(
     const int fl = e % (kChunk / 2), pr = e / (kChunk / 2);
     float sn, cs;
     sincosf(idx_s[p * kPairs + pr] * freq_s[f0 + fl], &sn, &cs);
+    if constexpr (BF16) {
+      sn = round_bf16(sn);
+      cs = round_bf16(cs);
+    }
     const int row = pr % 16, col = 2 * (fl % 4);
     const int at = (((pr / 16) * 4 + fl / 4) * 32 + 4 * (row % 8) + col % 4) * 4 + row / 8 +
                    2 * (col / 4);
@@ -325,7 +361,11 @@ __global__ void __launch_bounds__(kThreads, 1) gse_kernel(
 #pragma unroll
             for (int e = 0; e < 4; ++e) gb[mi][e] = ab[MG * mg + mi][e], gs[mi][e] = as[MG * mg + mi][e];
           }
-          mma_3xtf32_grid<MG, GN>(cur[ng * MGS + mg], gb, gs, fb, fs);
+          if constexpr (BF16) {
+            mma_tf32_grid<MG, GN>(cur[ng * MGS + mg], gb, fb);
+          } else {
+            mma_3xtf32_grid<MG, GN>(cur[ng * MGS + mg], gb, gs, fb, fs);
+          }
         }
       }
       if (c + 1 < chunks && step % (kSteps / ITEMS) == 0) build(c + 1, step / (kSteps / ITEMS));
@@ -360,15 +400,14 @@ __global__ void __launch_bounds__(kThreads, 1) gse_kernel(
       for (int h = 0; h < 2; ++h) {
         const int pr = 16 * (MT * wm + mi) + g + 8 * h;
         if (pr >= pairs) continue;
-        float* dst = out + (static_cast<size_t>(row_s[pr]) * N + col_s[pr]) * C;
+        OutT* dst = out + (static_cast<size_t>(row_s[pr]) * N + col_s[pr]) * C;
 #pragma unroll
         for (int ni = 0; ni < WN; ++ni) {
           const int ch = 8 * (WN * wn + ni) + 2 * t;
           const int grp = (ni / GN) * MGS + mi / MG, i = grp * T + (mi % MG) * GN + ni % GN;
           const float* v = cur[grp][(mi % MG) * GN + ni % GN];
           const float a0 = amax_s[(i * 4 + 2 * h) * 32], a1 = amax_s[(i * 4 + 2 * h + 1) * 32];
-          *reinterpret_cast<float2*>(dst + ch) =
-              make_float2(v[2 * h] + a0 + bias[ch], v[2 * h + 1] + a1 + bias[ch + 1]);
+          store_pair(dst + ch, v[2 * h] + a0 + bias[ch], v[2 * h + 1] + a1 + bias[ch + 1]);
         }
       }
     }
@@ -391,7 +430,8 @@ struct GeneralLayout {
   static constexpr int words = cols + kPairs;
 };
 
-template <int BC>
+// BF16, OutT: as gse_kernel's.
+template <int BC, bool BF16, typename OutT>
 __global__ void __launch_bounds__(kThreads, 1) gse_general_kernel(
     const float* __restrict__ points,       // (N, 3)
     const float* __restrict__ ref_vectors,  // (N, A, 3)
@@ -399,7 +439,7 @@ __global__ void __launch_bounds__(kThreads, 1) gse_general_kernel(
     const float* __restrict__ bias,         // (C,) = b_d + b_a
     const float* __restrict__ div_term,     // (C / 2,)
     const int32_t* __restrict__ n_valid,    // scalar
-    float* __restrict__ out,                // (N, N, C)
+    OutT* __restrict__ out,                 // (N, N, C)
     int N, int A, int C, int K, int NB, float sigma_d, float factor_a) {
   using L = GeneralLayout<BC>;
   constexpr int kPairs = L::kPairs;
@@ -448,15 +488,18 @@ __global__ void __launch_bounds__(kThreads, 1) gse_general_kernel(
       }
       return out + (i * N + j) * C;
     };
-    if (C % 4 == 0) {
-      const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      for (int e = tid; e < count * (C / 4); e += kThreads) {
-        reinterpret_cast<float4*>(pair_row(z0 + e / (C / 4)))[e % (C / 4)] = zero;
+    // 16-byte stores where a pair's row takes them, else a store of two
+    // channels (8 bytes of f32, 4 of bfloat16)
+    using Two = typename std::conditional<sizeof(OutT) == 4, uint2, uint32_t>::type;
+    const int bytes = C * static_cast<int>(sizeof(OutT));
+    if (bytes % 16 == 0) {
+      const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+      for (int e = tid; e < count * (bytes / 16); e += kThreads) {
+        reinterpret_cast<uint4*>(pair_row(z0 + e / (bytes / 16)))[e % (bytes / 16)] = zero;
       }
     } else {
-      const float2 zero = make_float2(0.0f, 0.0f);
       for (int e = tid; e < count * (C / 2); e += kThreads) {
-        reinterpret_cast<float2*>(pair_row(z0 + e / (C / 2)))[e % (C / 2)] = zero;
+        reinterpret_cast<Two*>(pair_row(z0 + e / (C / 2)))[e % (C / 2)] = Two{};
       }
     }
     return;
@@ -552,6 +595,10 @@ __global__ void __launch_bounds__(kThreads, 1) gse_general_kernel(
       const float freq = f0 + fl < half ? __ldg(div_term + f0 + fl) : 0.0f;
       float sn, cs;
       sincosf(idx_s[p * kPairs + pr] * freq, &sn, &cs);
+      if constexpr (BF16) {
+        sn = round_bf16(sn);
+        cs = round_bf16(cs);
+      }
       const int row = pr % 16, col = 2 * (fl % 4);
       const int at = (((pr / 16) * 4 + fl / 4) * 32 + 4 * (row % 8) + col % 4) * 4 + row / 8 +
                      2 * (col / 4);
@@ -604,7 +651,11 @@ __global__ void __launch_bounds__(kThreads, 1) gse_general_kernel(
 #pragma unroll
               for (int e = 0; e < 4; ++e) gb[mi][e] = ab[MG * mg + mi][e], gs[mi][e] = as[MG * mg + mi][e];
             }
-            mma_3xtf32_grid<MG, GN>(cur[ng * MGS + mg], gb, gs, fb, fs);
+            if constexpr (BF16) {
+              mma_tf32_grid<MG, GN>(cur[ng * MGS + mg], gb, fb);
+            } else {
+              mma_3xtf32_grid<MG, GN>(cur[ng * MGS + mg], gb, gs, fb, fs);
+            }
           }
         }
         if (c + 1 < chunks && step % (kSteps / ITEMS) == 0) {
@@ -641,7 +692,7 @@ __global__ void __launch_bounds__(kThreads, 1) gse_general_kernel(
         for (int h = 0; h < 2; ++h) {
           const int pr = 16 * (MT * wm + mi) + g + 8 * h;
           if (pr >= pairs) continue;
-          float* dst = out + (static_cast<size_t>(row_s[pr]) * N + col_s[pr]) * C;
+          OutT* dst = out + (static_cast<size_t>(row_s[pr]) * N + col_s[pr]) * C;
 #pragma unroll
           for (int ni = 0; ni < WN; ++ni) {
             const int ch = BC * cb + 8 * (WN * wn + ni) + 2 * t;
@@ -649,8 +700,7 @@ __global__ void __launch_bounds__(kThreads, 1) gse_general_kernel(
             const int grp = (ni / GN) * MGS + mi / MG, i = grp * T + (mi % MG) * GN + ni % GN;
             const float* v = cur[grp][(mi % MG) * GN + ni % GN];
             const float a0 = amax_s[(i * 4 + 2 * h) * 32], a1 = amax_s[(i * 4 + 2 * h + 1) * 32];
-            *reinterpret_cast<float2*>(dst + ch) =
-                make_float2(v[2 * h] + a0 + bias[ch], v[2 * h + 1] + a1 + bias[ch + 1]);
+            store_pair(dst + ch, v[2 * h] + a0 + bias[ch], v[2 * h + 1] + a1 + bias[ch + 1]);
           }
         }
       }
@@ -658,53 +708,55 @@ __global__ void __launch_bounds__(kThreads, 1) gse_general_kernel(
   }
 }
 
-template <int C>
+template <int C, bool BF16, typename OutT>
 int launch_exact(const float* points, const float* ref_vectors, const float* w_d,
                  const float* w_a, const float* bias, const float* div_term,
-                 const int32_t* n_valid, uint32_t* w_frag, float* out, int N, int A, int words,
+                 const int32_t* n_valid, uint32_t* w_frag, void* out, int N, int A, int words,
                  float sigma_d, float factor_a, cudaStream_t stream) {
   if (words != ExactLayout<C>::words || A > kMaxAngles) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  gse_weights_kernel<<<(2 * C * C + 255) / 256, 256, 0, stream>>>(w_a, w_d, w_frag, C, C, C, 1);
+  gse_weights_kernel<<<(2 * C * C + 255) / 256, 256, 0, stream>>>(w_a, w_d, w_frag, C, C, C, 1,
+                                                                  BF16);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t smem = sizeof(uint32_t) * ExactLayout<C>::words;
-  err = cudaFuncSetAttribute(gse_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
+  err = cudaFuncSetAttribute(gse_kernel<C, BF16, OutT>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   // the valid tiles, then the zero blocks: ceil(nv^2 / P) + ceil((N^2 -
   // nv^2) / P) <= ceil(N^2 / P) + 1 for every n_valid
   constexpr int kPairs = block_pairs(C);
   const long long blocks = (static_cast<long long>(N) * N + kPairs - 1) / kPairs + 1;
-  gse_kernel<C><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
-      points, ref_vectors, w_frag, bias, div_term, n_valid, out, N, A, sigma_d, factor_a);
+  gse_kernel<C, BF16, OutT><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
+      points, ref_vectors, w_frag, bias, div_term, n_valid, static_cast<OutT*>(out), N, A,
+      sigma_d, factor_a);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int BC>
+template <int BC, bool BF16, typename OutT>
 int launch_general(const float* points, const float* ref_vectors, const float* w_d,
                    const float* w_a, const float* bias, const float* div_term,
-                   const int32_t* n_valid, uint32_t* w_frag, float* out, int N, int A, int C,
+                   const int32_t* n_valid, uint32_t* w_frag, void* out, int N, int A, int C,
                    int K, int NB, int words, float sigma_d, float factor_a, cudaStream_t stream) {
   using L = GeneralLayout<BC>;
   if (words != L::words) return static_cast<int>(cudaErrorInvalidValue);
   const int frag_words = 2 * K * NB * BC;
   gse_weights_kernel<<<(frag_words + 255) / 256, 256, 0, stream>>>(w_a, w_d, w_frag, C, K, BC,
-                                                                   NB);
+                                                                   NB, BF16);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t smem = sizeof(uint32_t) * L::words;
-  err = cudaFuncSetAttribute(gse_general_kernel<BC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
+  err = cudaFuncSetAttribute(gse_general_kernel<BC, BF16, OutT>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   // the valid tiles (NB blocks each), then the zero blocks: NB ceil(nv^2 /
   // P) + ceil((N^2 - nv^2) / P) <= NB ceil(N^2 / P) + 1 for every n_valid
   constexpr int kPairs = block_pairs(BC);
   const long long blocks = NB * ((static_cast<long long>(N) * N + kPairs - 1) / kPairs) + 1;
-  gse_general_kernel<BC><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
-      points, ref_vectors, w_frag, bias, div_term, n_valid, out, N, A, C, K, NB, sigma_d,
-      factor_a);
+  gse_general_kernel<BC, BF16, OutT><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
+      points, ref_vectors, w_frag, bias, div_term, n_valid, static_cast<OutT*>(out), N, A, C, K,
+      NB, sigma_d, factor_a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -725,6 +777,48 @@ inline Route route_of(int C, int A) {
   return r;
 }
 
+// One gse_embedding_launch call's operands.
+struct Call {
+  const float* points;
+  const float* ref_vectors;
+  const float* w_d;
+  const float* w_a;
+  const float* bias;
+  const float* div_term;
+  const int32_t* n_valid;
+  uint32_t* w_frag;
+  void* out;
+  int N, A, C, K, NB, words;
+  float sigma_d, factor_a;
+  cudaStream_t stream;
+};
+
+// The instance of width W (gse_kernel<W> where EXACT, else
+// gse_general_kernel<W>) at the precision point: BF16 the bfloat16 basis
+// point, OutT the embedding's type.
+template <int W, bool EXACT, bool BF16, typename OutT>
+int launch_instance(const Call& c) {
+  if constexpr (EXACT) {
+    return launch_exact<W, BF16, OutT>(c.points, c.ref_vectors, c.w_d, c.w_a, c.bias,
+                                       c.div_term, c.n_valid, c.w_frag, c.out, c.N, c.A, c.words,
+                                       c.sigma_d, c.factor_a, c.stream);
+  } else {
+    return launch_general<W, BF16, OutT>(c.points, c.ref_vectors, c.w_d, c.w_a, c.bias,
+                                         c.div_term, c.n_valid, c.w_frag, c.out, c.N, c.A, c.C,
+                                         c.K, c.NB, c.words, c.sigma_d, c.factor_a, c.stream);
+  }
+}
+
+template <int W, bool EXACT>
+int launch_point(const Call& c, bool basis_bf16, bool embed_bf16) {
+  if (basis_bf16) {
+    return embed_bf16 ? launch_instance<W, EXACT, true, __nv_bfloat16>(c)
+                      : launch_instance<W, EXACT, true, float>(c);
+  }
+  return embed_bf16 ? launch_instance<W, EXACT, false, __nv_bfloat16>(c)
+                    : launch_instance<W, EXACT, false, float>(c);
+}
+
 }  // namespace
 
 extern "C" {
@@ -735,23 +829,27 @@ const char* error_string(int code) {
 
 // The route (exact, K basis rows, BC channels a block, NB blocks, a block's
 // shared memory in words) must be route_of(C, A)'s: kernels/gse.py:gse_route
-// computes it. C even, A >= 1; w_frag holds 4 K NB BC words.
+// computes it. C even, A >= 1; w_frag holds 4 K NB BC words. basis_bf16:
+// the bfloat16 basis point (the BF16 instances); embed_bf16: out holds
+// bfloat16, else f32.
 int gse_embedding_launch(const float* points, const float* ref_vectors, const float* w_d,
                          const float* w_a, const float* bias, const float* div_term,
-                         const int32_t* n_valid, uint32_t* w_frag, float* out, int N, int A,
-                         int C, int exact, int K, int BC, int NB, int words, float sigma_d,
-                         float factor_a, void* stream) {
+                         const int32_t* n_valid, uint32_t* w_frag, void* out, int N, int A,
+                         int C, int exact, int K, int BC, int NB, int words, int basis_bf16,
+                         int embed_bf16, float sigma_d, float factor_a, void* stream) {
   const Route r = route_of(C, A);
   if (A < 1 || C < 2 || C % 2 != 0 || (exact != 0) != r.exact || K != r.K || BC != r.BC ||
       NB != r.NB) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (N == 0) return 0;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Call call{points, ref_vectors, w_d, w_a, bias, div_term, n_valid, w_frag, out, N, A, C,
+                  K, NB, words, sigma_d, factor_a, static_cast<cudaStream_t>(stream)};
+  const bool basis = basis_bf16 != 0, embed = embed_bf16 != 0;
 #define GSE_EXACT(W) \
-  case W: return launch_exact<W>(points, ref_vectors, w_d, w_a, bias, div_term, n_valid, w_frag, out, N, A, words, sigma_d, factor_a, s)
+  case W: return launch_point<W, true>(call, basis, embed)
 #define GSE_GENERAL(W) \
-  case W: return launch_general<W>(points, ref_vectors, w_d, w_a, bias, div_term, n_valid, w_frag, out, N, A, C, K, NB, words, sigma_d, factor_a, s)
+  case W: return launch_point<W, false>(call, basis, embed)
   if (r.exact) {
     switch (C) {
       GSE_EXACT(32);

@@ -1,6 +1,7 @@
 // What the geometric structure embedding's forward (gse.cu) and backward
 // (gse_bwd.cu) share: the pair indices, bit for bit, and the 3xTF32
-// tensor-core helpers over TF32 halves stored once.
+// tensor-core helpers over TF32 halves stored once (and the one-pass
+// helper of the forward's bfloat16 instances).
 
 #pragma once
 
@@ -86,6 +87,28 @@ __device__ __forceinline__ void mma_3xtf32_grid(float (&acc)[M * N][4],
   for (int i = 0; i < M * N; ++i) mma_tf32(t[i], a_big[i / N], b_small[i % N]);
 #pragma unroll
   for (int i = 0; i < M * N; ++i) mma_tf32(t[i], a_big[i / N], b_big[i % N]);
+#pragma unroll
+  for (int i = 0; i < M * N; ++i) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] += t[i][e];
+  }
+}
+
+// acc[m N + n] += a[m] b[n] in one TF32 pass, for operands that are TF32
+// values already (the bfloat16 point's bases and weights: each product is
+// then exact), into a fresh tile as mma_3xtf32_grid, so the tensor cores'
+// truncating sums run over a step's terms only
+template <int M, int N>
+__device__ __forceinline__ void mma_tf32_grid(float (&acc)[M * N][4], const uint32_t (&a)[M][4],
+                                              const uint32_t (&b)[N][2]) {
+  float t[M * N][4];
+#pragma unroll
+  for (int i = 0; i < M * N; ++i) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) t[i][e] = 0.0f;
+  }
+#pragma unroll
+  for (int i = 0; i < M * N; ++i) mma_tf32(t[i], a[i / N], b[i % N]);
 #pragma unroll
   for (int i = 0; i < M * N; ++i) {
 #pragma unroll

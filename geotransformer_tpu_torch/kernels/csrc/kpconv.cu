@@ -86,6 +86,17 @@
 // residual. The stream conv writes its t1 and count, all its weight gradient
 // needs.
 //
+// The bfloat16 point (PrecisionConfig.kpconv_mxu; the JAX kernels round
+// t1 and W at geotransformer_tpu/kernels/kpconv.py:1123-1127 and
+// :1667-1671, and at C_in > 1 the influences and features, :269-273):
+// kpconv_conv_launch takes the edge pass's and the C_in = 1 product's
+// rounding instances (kpconv_common.cuh); the input convs' edge body is
+// unchanged (t1 stays f32, as the JAX t1 does), and the epilogue of their
+// RB instances writes the unrounded t1 residual first, then rounds t1 in
+// shared memory and each W value as it loads it, and sums the exact
+// products in the same order. An instance of its own (a flag read at run
+// time measured 2-4 % slower on the float32 point's 3DMatch calls).
+//
 // Geometry is exact f32 but for the input convs' sqrt.approx (above):
 // offsets by direct subtraction, |off - kp_k| by a direct sqrt (the
 // expanded |off|^2 - 2 off.kp + |kp|^2 form of the TPU kernel was a
@@ -99,6 +110,7 @@
 
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 #include "kpconv_common.cuh"
 #include "launch_common.cuh"
@@ -218,16 +230,52 @@ __host__ __device__ __forceinline__ int t1_stride(int K) {
   return K <= kChunk ? kT1Stride : (K + kChunk - 1) / kChunk * kChunk;
 }
 
+// t1 and the count of the tile's rows, coalesced, where asked.
+__device__ __forceinline__ void write_residuals(const float* t1_s, const float* cnt_s,
+                                                float* __restrict__ t1_out,
+                                                float* __restrict__ count_out, int q0, int rows,
+                                                int K, int stride) {
+  if (t1_out != nullptr) {
+    for (int i = threadIdx.x; i < rows * K; i += kThreads) {
+      const int r = i / K;
+      t1_out[static_cast<size_t>(q0) * K + i] = t1_s[r * stride + (i - r * K)];
+    }
+  }
+  if (count_out != nullptr) {
+    for (int i = threadIdx.x; i < rows; i += kThreads) count_out[q0 + i] = cnt_s[i];
+  }
+}
+
+// The bfloat16 point's epilogue prologue (after a barrier): the unrounded
+// t1 and the count out, then t1 rounded in shared memory for the product.
+__device__ __forceinline__ void round_t1(float* t1_s, const float* cnt_s,
+                                         float* __restrict__ t1_out,
+                                         float* __restrict__ count_out, int q0, int rows, int K,
+                                         int stride) {
+  write_residuals(t1_s, cnt_s, t1_out, count_out, q0, rows, K, stride);
+  __syncthreads();  // t1 read out before it is rounded
+  for (int i = threadIdx.x; i < rows * stride; i += kThreads) t1_s[i] = round_bf16(t1_s[i]);
+  __syncthreads();
+}
+
+template <bool RB>
+__device__ __forceinline__ float maybe_round(float x) {
+  if constexpr (RB) return round_bf16(x);
+  return x;
+}
+
 // out[q0 + r, :] = t1[r, :] W * (1 / count[r]) for the tile's rows (after a
 // barrier): each warp takes rows, its lanes columns d and d + 32 with their
 // W columns in registers (one warp-wide store of whole rows at D = 64);
-// then t1 and the count when asked, coalesced.
-template <int KP>
-__device__ __forceinline__ void write_outputs(const float* t1_s, const float* cnt_s,
+// then t1 and the count when asked, coalesced. RB: t1 and W rounded to
+// bfloat16 first (round_t1; t1 and the count go out unrounded before it).
+template <int KP, bool RB>
+__device__ __forceinline__ void write_outputs(float* t1_s, const float* cnt_s,
                                               const float* w_s, float* __restrict__ out,
                                               float* __restrict__ t1_out,
                                               float* __restrict__ count_out, int q0, int rows,
                                               int K, int D) {
+  if constexpr (RB) round_t1(t1_s, cnt_s, t1_out, count_out, q0, rows, K, kT1Stride);
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   for (int d0 = lane; d0 < D; d0 += 64) {
@@ -235,8 +283,8 @@ __device__ __forceinline__ void write_outputs(const float* t1_s, const float* cn
     float w0[KP], w1[KP];
 #pragma unroll
     for (int k = 0; k < KP; ++k) {
-      w0[k] = k < K ? w_s[k * D + d0] : 0.0f;
-      w1[k] = k < K && d1 < D ? w_s[k * D + d1] : 0.0f;
+      w0[k] = k < K ? maybe_round<RB>(w_s[k * D + d0]) : 0.0f;
+      w1[k] = k < K && d1 < D ? maybe_round<RB>(w_s[k * D + d1]) : 0.0f;
     }
     for (int r = warp; r < rows; r += kWarps) {
       const float4* t4 = reinterpret_cast<const float4*>(t1_s + r * kT1Stride);
@@ -260,24 +308,18 @@ __device__ __forceinline__ void write_outputs(const float* t1_s, const float* cn
       if (d1 < D) row[d1] = a1 * inv_count;
     }
   }
-  if (t1_out != nullptr) {
-    for (int i = threadIdx.x; i < rows * K; i += kThreads) {
-      const int r = i / K;
-      t1_out[static_cast<size_t>(q0) * K + i] = t1_s[r * kT1Stride + (i - r * K)];
-    }
-  }
-  if (count_out != nullptr) {
-    for (int i = threadIdx.x; i < rows; i += kThreads) count_out[q0 + i] = cnt_s[i];
-  }
+  if constexpr (!RB) write_residuals(t1_s, cnt_s, t1_out, count_out, q0, rows, K, kT1Stride);
 }
 
 // write_outputs for K > 16 (t1 rows `stride` floats apart): the same sums
 // over k in the same order, W read from shared memory at each k.
-__device__ __forceinline__ void write_outputs_chunked(const float* t1_s, const float* cnt_s,
+template <bool RB>
+__device__ __forceinline__ void write_outputs_chunked(float* t1_s, const float* cnt_s,
                                                       const float* w_s, float* __restrict__ out,
                                                       float* __restrict__ t1_out,
                                                       float* __restrict__ count_out, int q0,
                                                       int rows, int K, int D, int stride) {
+  if constexpr (RB) round_t1(t1_s, cnt_s, t1_out, count_out, q0, rows, K, stride);
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   for (int d0 = lane; d0 < D; d0 += 64) {
@@ -287,8 +329,8 @@ __device__ __forceinline__ void write_outputs_chunked(const float* t1_s, const f
       float a0 = 0.0f;
       float a1 = 0.0f;
       for (int k = 0; k < K; ++k) {
-        a0 = fmaf(t[k], w_s[k * D + d0], a0);
-        if (d1 < D) a1 = fmaf(t[k], w_s[k * D + d1], a1);
+        a0 = fmaf(t[k], maybe_round<RB>(w_s[k * D + d0]), a0);
+        if (d1 < D) a1 = fmaf(t[k], maybe_round<RB>(w_s[k * D + d1]), a1);
       }
       const float inv_count = 1.0f / cnt_s[r];
       float* row = out + static_cast<size_t>(q0 + r) * D;
@@ -296,15 +338,7 @@ __device__ __forceinline__ void write_outputs_chunked(const float* t1_s, const f
       if (d1 < D) row[d1] = a1 * inv_count;
     }
   }
-  if (t1_out != nullptr) {
-    for (int i = threadIdx.x; i < rows * K; i += kThreads) {
-      const int r = i / K;
-      t1_out[static_cast<size_t>(q0) * K + i] = t1_s[r * stride + (i - r * K)];
-    }
-  }
-  if (count_out != nullptr) {
-    for (int i = threadIdx.x; i < rows; i += kThreads) count_out[q0 + i] = cnt_s[i];
-  }
+  if constexpr (!RB) write_residuals(t1_s, cnt_s, t1_out, count_out, q0, rows, K, stride);
 }
 
 __device__ __forceinline__ void stage_weights(const float* __restrict__ w, float* w_s, int K,
@@ -356,7 +390,7 @@ inline size_t stream_smem_floats(int Q, int H, int K, int D) {
 // kernel points, their accumulators in registers, the next chunk's kernel
 // points loaded in its turn; each kernel point's sum is the same as with
 // all K in registers.
-template <int KP, int L, bool CHUNKED = false>
+template <int KP, int L, bool CHUNKED, bool RB>
 __global__ void __launch_bounds__(kThreads, 2) kpconv_stream_kernel(
     const float* __restrict__ stream,  // (5, M, H): off xyz, posflag, feat
     const float* __restrict__ kp,      // (K, 3)
@@ -443,9 +477,9 @@ __global__ void __launch_bounds__(kThreads, 2) kpconv_stream_kernel(
     }
     __syncthreads();
     if constexpr (CHUNKED) {
-      write_outputs_chunked(t1_s, cnt_s, w_s, out, t1_out, count_out, q0, rows, K, D, t1s);
+      write_outputs_chunked<RB>(t1_s, cnt_s, w_s, out, t1_out, count_out, q0, rows, K, D, t1s);
     } else {
-      write_outputs<KP>(t1_s, cnt_s, w_s, out, t1_out, count_out, q0, rows, K, D);
+      write_outputs<KP, RB>(t1_s, cnt_s, w_s, out, t1_out, count_out, q0, rows, K, D);
     }
   }
   cp_async_wait<0>();
@@ -463,7 +497,7 @@ inline size_t union_smem_floats(int U, int hs, int K, int D) {
 // Union-gather input conv: block b takes queries [q0, q0 + 64) of union
 // tile b / sub (sub = ceil(tile / 64) blocks a tile); lanes [4 ql, 4 ql + 4)
 // own query ql. CHUNKED: K > 16, as the stream kernel's.
-template <int KP, bool CHUNKED = false>
+template <int KP, bool CHUNKED, bool RB>
 __global__ void __launch_bounds__(kThreads, 2) kpconv_union_kernel(
     const float* __restrict__ s_feats,    // (N,) the c_in == 1 features
     const float* __restrict__ s_points,   // (N, 3)
@@ -540,9 +574,10 @@ __global__ void __launch_bounds__(kThreads, 2) kpconv_union_kernel(
   }
   __syncthreads();
   if constexpr (CHUNKED) {
-    write_outputs_chunked(t1_s, cnt_s, w_s, out, t1_out, count_out, q0, rows_here, K, D, t1s);
+    write_outputs_chunked<RB>(t1_s, cnt_s, w_s, out, t1_out, count_out, q0, rows_here, K, D,
+                              t1s);
   } else {
-    write_outputs<KP>(t1_s, cnt_s, w_s, out, t1_out, count_out, q0, rows_here, K, D);
+    write_outputs<KP, RB>(t1_s, cnt_s, w_s, out, t1_out, count_out, q0, rows_here, K, D);
   }
 }
 
@@ -564,7 +599,7 @@ inline size_t global_smem_floats(int Q, int K) {
   return static_cast<size_t>(Q) * t1_stride(K) + Q;
 }
 
-template <int KP, bool CHUNKED = false>
+template <int KP, bool CHUNKED, bool RB>
 __global__ void __launch_bounds__(kThreads) kpconv_stream_global_kernel(
     const float* __restrict__ stream,  // (5, M, H): off xyz, posflag, feat
     const float* __restrict__ kp,      // (K, 3)
@@ -605,13 +640,13 @@ __global__ void __launch_bounds__(kThreads) kpconv_stream_global_kernel(
   }
   __syncthreads();
   if constexpr (CHUNKED) {
-    write_outputs_chunked(t1_s, cnt_s, w, out, t1_out, count_out, q0, rows, K, D, t1s);
+    write_outputs_chunked<RB>(t1_s, cnt_s, w, out, t1_out, count_out, q0, rows, K, D, t1s);
   } else {
-    write_outputs<KP>(t1_s, cnt_s, w, out, t1_out, count_out, q0, rows, K, D);
+    write_outputs<KP, RB>(t1_s, cnt_s, w, out, t1_out, count_out, q0, rows, K, D);
   }
 }
 
-template <int KP, bool CHUNKED = false>
+template <int KP, bool CHUNKED, bool RB>
 __global__ void __launch_bounds__(kThreads) kpconv_union_global_kernel(
     const float* __restrict__ s_feats,    // (N,) the c_in == 1 features
     const float* __restrict__ s_points,   // (N, 3)
@@ -673,9 +708,10 @@ __global__ void __launch_bounds__(kThreads) kpconv_union_global_kernel(
   }
   __syncthreads();
   if constexpr (CHUNKED) {
-    write_outputs_chunked(t1_s, cnt_s, w, out, t1_out, count_out, q0, rows_here, K, D, t1s);
+    write_outputs_chunked<RB>(t1_s, cnt_s, w, out, t1_out, count_out, q0, rows_here, K, D,
+                              t1s);
   } else {
-    write_outputs<KP>(t1_s, cnt_s, w, out, t1_out, count_out, q0, rows_here, K, D);
+    write_outputs<KP, RB>(t1_s, cnt_s, w, out, t1_out, count_out, q0, rows_here, K, D);
   }
 }
 
@@ -710,8 +746,10 @@ long long kpconv_conv_workspace(int M, int K, int C, int D) {
 // sentinel N; tail (M2, H2) and tail_rank (M,) (sentinel M2) or null for a
 // whole table; pool_head and pool_tail the pooled columns of the head and
 // of a tail row; pool_chunk: the pooled columns the pool phase stages at a
-// time (kernels/kpconv.py:pool_route); edge_*: the edge pass's route
-// (kernels/kpconv.py:edge_route(K, C)). Any K and C, any pool width.
+// time (kernels/kpconv.py:pool_route); mxu_bf16: the bfloat16 point (the
+// edge pass's rounding instance at C > 1, the rounding t1 W at C = 1);
+// edge_*: the edge pass's route (kernels/kpconv.py:edge_route(K, C)). Any K
+// and C, any pool width.
 int kpconv_conv_launch(const float* s_feats, const float* q_points, const float* s_points,
                        const int32_t* head, const int32_t* tail, const int32_t* tail_rank,
                        const float* posflag, const float* kp, const float* w,
@@ -719,8 +757,8 @@ int kpconv_conv_launch(const float* s_feats, const float* q_points, const float*
                        float* div_ws, float* part_ws, float* out, float* pooled,
                        float* count_out, float* ties_out, int M, int N, int H1, int H2, int M2,
                        int K, int C, int D, int P, int pool_head, int pool_tail, int pool_chunk,
-                       int edge_v, int edge_tpr, int edge_tr, int edge_kp_chunks, int edge_passes,
-                       float sigma, void* stream) {
+                       int mxu_bf16, int edge_v, int edge_tpr, int edge_tr, int edge_kp_chunks,
+                       int edge_passes, float sigma, void* stream) {
   if (D < 1 || H1 < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (M == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -755,7 +793,8 @@ int kpconv_conv_launch(const float* s_feats, const float* q_points, const float*
   const int pool_width = pool_feats == nullptr ? 0
                          : min(pool_head, H1) + (tail != nullptr ? min(pool_tail, H2) : 0);
   const kpconv::EdgeRoute route{edge_v, edge_tpr, edge_tr, edge_kp_chunks, edge_passes};
-  int err = kpconv::launch_edges<false>(e, x, pool_width, pool_chunk, route, st);
+  int err = kpconv::launch_edges<false>(e, x, pool_width, pool_chunk, route, st,
+                                        mxu_bf16 != 0 && C > 1);
   if (err != 0) return err;
   kpconv::GemmArgs g{};
   g.a = t_ws;
@@ -769,16 +808,18 @@ int kpconv_conv_launch(const float* s_feats, const float* q_points, const float*
   g.N = D;
   g.Kdim = K * C;
   g.k_per_z = K * C;
-  return kpconv::launch_contraction(g, kpconv::tensor_core_widths(C, D), part_ws, st);
+  return kpconv::launch_contraction(g, kpconv::tensor_core_widths(C, D), part_ws, st,
+                                    mxu_bf16 != 0 && C == 1);
 }
 
 // staged: the route (kernels/kpconv.py:stream_route): 1 where a block of
 // 16 queries stages its ring and W (every shipped configuration), 0 the
-// general route, nothing staged.
+// general route, nothing staged; mxu_bf16: t1 and W rounded to bfloat16
+// before t1 W.
 int kpconv_stream_launch(const float* stream_planes, const float* kp,
                          const float* w, float* out, float* t1_out,
                          float* count_out, int M, int H, int K, int D,
-                         int variant, int staged, float sigma, void* stream) {
+                         int variant, int staged, int mxu_bf16, float sigma, void* stream) {
   if (!variant_takes(variant, K) || H < 1 || D < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -801,9 +842,13 @@ int kpconv_stream_launch(const float* stream_planes, const float* kp,
           stream_planes, kp, w, out, t1_out, count_out, M, H, K, D, sigma);
       return static_cast<int>(cudaGetLastError());
     };
-    if (variant == 2) return run(kpconv_stream_global_kernel<16, true>);
-    return variant == 0 ? run(kpconv_stream_global_kernel<15>)
-                        : run(kpconv_stream_global_kernel<16>);
+    auto pick = [&](auto rb) {
+      constexpr bool RB = decltype(rb)::value;
+      if (variant == 2) return run(kpconv_stream_global_kernel<16, true, RB>);
+      return variant == 0 ? run(kpconv_stream_global_kernel<15, false, RB>)
+                          : run(kpconv_stream_global_kernel<16, false, RB>);
+    };
+    return mxu_bf16 ? pick(std::true_type{}) : pick(std::false_type{});
   }
   const bool wide = 2 * (smem_of(8) + 1024) <= static_cast<size_t>(limits.sm_bytes) &&
                     (M + kThreads / 8 - 1) / (kThreads / 8) >= limits.sms;
@@ -821,22 +866,33 @@ int kpconv_stream_launch(const float* stream_planes, const float* kp,
         stream_planes, kp, w, out, t1_out, count_out, M, H, K, D, sigma, bulk);
     return static_cast<int>(cudaGetLastError());
   };
-  if (variant == 2) {
-    return wide ? run(kpconv_stream_kernel<16, 8, true>) : run(kpconv_stream_kernel<16, 16, true>);
-  }
-  const bool k15 = variant == 0;  // every configuration's kernel size
-  if (wide) return k15 ? run(kpconv_stream_kernel<15, 8>) : run(kpconv_stream_kernel<16, 8>);
-  return k15 ? run(kpconv_stream_kernel<15, 16>) : run(kpconv_stream_kernel<16, 16>);
+  // the instance: RB where mxu_bf16 (the bfloat16 point's epilogue)
+  auto pick = [&](auto rb) {
+    constexpr bool RB = decltype(rb)::value;
+    if (variant == 2) {
+      return wide ? run(kpconv_stream_kernel<16, 8, true, RB>)
+                  : run(kpconv_stream_kernel<16, 16, true, RB>);
+    }
+    const bool k15 = variant == 0;  // every configuration's kernel size
+    if (wide) {
+      return k15 ? run(kpconv_stream_kernel<15, 8, false, RB>)
+                 : run(kpconv_stream_kernel<16, 8, false, RB>);
+    }
+    return k15 ? run(kpconv_stream_kernel<15, 16, false, RB>)
+               : run(kpconv_stream_kernel<16, 16, false, RB>);
+  };
+  return mxu_bf16 ? pick(std::true_type{}) : pick(std::false_type{});
 }
 
 // staged: the route (kernels/kpconv.py:union_route): 1 where a block stages
 // the tile's union, its sel rows and W (every shipped configuration), 0
-// the general route, nothing staged.
+// the general route, nothing staged; mxu_bf16: t1 and W rounded to bfloat16
+// before t1 W.
 int kpconv_union_launch(const float* s_feats, const float* s_points, const float* q_points,
                         const int32_t* rows, const int32_t* sel, const float* kp,
                         const float* w, float* out, float* count_out, float* t1_out, int M,
                         int N, int U, int H, int K, int D, int tile, int variant, int staged,
-                        float sigma, void* stream) {
+                        int mxu_bf16, float sigma, void* stream) {
   if (!variant_takes(variant, K) || H < 1 || D < 1 || U < 1 || tile < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -857,12 +913,19 @@ int kpconv_union_launch(const float* s_feats, const float* s_points, const float
         tile, sub, sigma);
     return static_cast<int>(cudaGetLastError());
   };
-  if (!staged) {
-    if (variant == 2) return run(kpconv_union_global_kernel<16, true>);
-    return variant == 0 ? run(kpconv_union_global_kernel<15>) : run(kpconv_union_global_kernel<16>);
-  }
-  if (variant == 2) return run(kpconv_union_kernel<16, true>);
-  return variant == 0 ? run(kpconv_union_kernel<15>) : run(kpconv_union_kernel<16>);
+  // the instance: RB where mxu_bf16 (the bfloat16 point's epilogue)
+  auto pick = [&](auto rb) {
+    constexpr bool RB = decltype(rb)::value;
+    if (!staged) {
+      if (variant == 2) return run(kpconv_union_global_kernel<16, true, RB>);
+      return variant == 0 ? run(kpconv_union_global_kernel<15, false, RB>)
+                          : run(kpconv_union_global_kernel<16, false, RB>);
+    }
+    if (variant == 2) return run(kpconv_union_kernel<16, true, RB>);
+    return variant == 0 ? run(kpconv_union_kernel<15, false, RB>)
+                        : run(kpconv_union_kernel<16, false, RB>);
+  };
+  return mxu_bf16 ? pick(std::true_type{}) : pick(std::false_type{});
 }
 
 }  // extern "C"

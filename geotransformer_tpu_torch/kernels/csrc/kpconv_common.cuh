@@ -49,6 +49,15 @@
 // Geometry is exact f32: offsets by direct subtraction, a direct sqrt (as
 // the plain versions). Sentinel indices (>= the gathered row count) and
 // masked queries contribute nothing.
+//
+// The bfloat16 point (PrecisionConfig.kpconv_mxu, the JAX kernel's
+// MXU_DTYPE at geotransformer_tpu/kernels/kpconv.py:249-256, :269-273):
+// edge_kernel<.., RB = true> rounds each staged influence and each loaded
+// feature to bfloat16 (round to nearest even) before the neighbour sum, the
+// forward at C_in > 1; gemm_f32_kernel<true> rounds both operands as it
+// reads them, the C_in = 1 product t1 W. A product of two bfloat16 values
+// is exact in f32, so the FMAs sum exact products as before; the 3xTF32
+// contraction T W is f32 at either point, as the JAX kernel's t @ W[k].
 
 #pragma once
 
@@ -262,7 +271,9 @@ __global__ void __launch_bounds__(kThreads) gemm_3xtf32_kernel(GemmArgs p) {
   }
 }
 
-// The CUDA-core form: one thread an output, the k range summed in order.
+// The CUDA-core form: one thread an output, the k range summed in order;
+// RB: both operands rounded to bfloat16 as they are read.
+template <bool RB>
 __global__ void __launch_bounds__(kThreads) gemm_f32_kernel(GemmArgs p, int kmajor) {
   const long long idx = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   if (idx >= static_cast<long long>(p.M) * p.N) return;
@@ -273,9 +284,14 @@ __global__ void __launch_bounds__(kThreads) gemm_f32_kernel(GemmArgs p, int kmaj
   const int k_end = min(p.Kdim, k_begin + p.k_per_z);
   float acc = 0.0f;
   for (int k = k_begin; k < k_end; ++k) {
-    const float a = kmajor ? p.a[static_cast<size_t>(k) * p.lda + m]
-                           : p.a[static_cast<size_t>(m) * p.lda + k];
-    acc = fmaf(a, b[static_cast<size_t>(k) * p.ldb + n], acc);
+    float a = kmajor ? p.a[static_cast<size_t>(k) * p.lda + m]
+                     : p.a[static_cast<size_t>(m) * p.lda + k];
+    float w = b[static_cast<size_t>(k) * p.ldb + n];
+    if constexpr (RB) {
+      a = round_bf16(a);
+      w = round_bf16(w);
+    }
+    acc = fmaf(a, w, acc);
   }
   if (p.div != nullptr) {
     const float d = p.div[m];
@@ -302,10 +318,14 @@ int launch_gemm_tc(const GemmArgs& p, int grid_y, int grid_z, cudaStream_t strea
 }
 
 inline int launch_gemm_f32(const GemmArgs& p, int kmajor, int grid_y, int grid_z,
-                           cudaStream_t stream) {
+                           cudaStream_t stream, bool round_operands = false) {
   const long long outputs = static_cast<long long>(p.M) * p.N;
   const dim3 grid(static_cast<unsigned>((outputs + kThreads - 1) / kThreads), grid_y, grid_z);
-  gemm_f32_kernel<<<grid, kThreads, 0, stream>>>(p, kmajor);
+  if (round_operands) {
+    gemm_f32_kernel<true><<<grid, kThreads, 0, stream>>>(p, kmajor);
+  } else {
+    gemm_f32_kernel<false><<<grid, kThreads, 0, stream>>>(p, kmajor);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -356,10 +376,13 @@ inline long long contraction_workspace(int M, int N, int Kdim, bool tensor_cores
 
 // C (M x N) = A (M x Kdim, m-major) B [/ div]: the forward's out = T W /
 // count and the backward's d_s = u Wt. ``part`` holds the split-K partial
-// sums (contraction_workspace floats).
-inline int launch_contraction(GemmArgs p, bool tensor_cores, float* part, cudaStream_t stream) {
+// sums (contraction_workspace floats). round_operands: A and B rounded to
+// bfloat16 (the C_in = 1 product at the bfloat16 point; CUDA cores only).
+inline int launch_contraction(GemmArgs p, bool tensor_cores, float* part, cudaStream_t stream,
+                              bool round_operands = false) {
   if (p.M == 0 || p.N == 0) return 0;
-  if (!tensor_cores) return launch_gemm_f32(p, 0, 1, 1, stream);
+  if (!tensor_cores) return launch_gemm_f32(p, 0, 1, 1, stream, round_operands);
+  if (round_operands) return static_cast<int>(cudaErrorInvalidValue);
   const ContractionPlan plan = plan_contraction(p.M, p.N, p.Kdim);
   float* out = p.c;
   const float* div = p.div;
@@ -592,7 +615,9 @@ __device__ void pool_grad_rows(const EdgeArgs& p, const BwdExtras& x, const int3
   }
 }
 
-template <int V, bool BWD, typename Extras>
+// RB: the influences and the features rounded to bfloat16 (the forward's
+// bfloat16 point at C_in > 1).
+template <int V, bool BWD, typename Extras, bool RB = false>
 __global__ void __launch_bounds__(kThreads) edge_kernel(EdgeArgs p, Extras x) {
   extern __shared__ __align__(16) float smem[];
   const int E = p.chunk, TR = p.tr;
@@ -697,6 +722,7 @@ __global__ void __launch_bounds__(kThreads) edge_kernel(EdgeArgs p, Extras x) {
               const float dz = oz - kp_s[3 * k + 2];
               const float d = sqrtf(dx * dx + dy * dy + dz * dz);
               w[k] = fmaxf(1.0f - d / p.sigma, 0.0f);
+              if constexpr (RB) w[k] = round_bf16(w[k]);
             }
           }
 #pragma unroll
@@ -726,6 +752,10 @@ __global__ void __launch_bounds__(kThreads) edge_kernel(EdgeArgs p, Extras x) {
           for (int u = 0; u < 4; ++u) {
             const bool ok = n[u] < p.n_other;
             load_row<V>(p.feats + static_cast<size_t>(ok ? n[u] : 0) * p.C + cg * V, ok, f[u]);
+            if constexpr (RB) {
+#pragma unroll
+              for (int v = 0; v < V; ++v) f[u][v] = round_bf16(f[u][v]);
+            }
           }
 #pragma unroll
           for (int u = 0; u < 4; ++u) {
@@ -869,9 +899,11 @@ inline int pool_chunk_of(int tr, int width, int pool_width, int block_bytes) {
 
 // The pool phase stages pool_chunk of a row's pool_width columns at a time.
 // `route` must be edge_route(K, C)'s and pool_chunk pool_chunk_of's.
+// round_operands: the instance that rounds influences and features to
+// bfloat16 (the forward only).
 template <bool BWD, typename Extras>
 int launch_edges(EdgeArgs p, const Extras& x, int pool_width, int pool_chunk,
-                 const EdgeRoute& route, cudaStream_t stream) {
+                 const EdgeRoute& route, cudaStream_t stream, bool round_operands = false) {
   if (p.K < 1 || p.C < 1 || p.h1 < 0 || (p.tail != nullptr && p.h2 < 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -897,23 +929,24 @@ int launch_edges(EdgeArgs p, const Extras& x, int pool_width, int pool_chunk,
   const EdgeSmem L(p.tr, p.chunk, pool_chunk);
   const size_t smem = sizeof(float) * static_cast<size_t>(L.words);
   const int blocks = (p.R + p.tr - 1) / p.tr;
-  cudaError_t err = cudaSuccess;
-  if (v == 4) {
+  auto run = [&](auto kernel) {
+    cudaError_t err = cudaSuccess;
     if (smem > 48 * 1024) {
-      err = cudaFuncSetAttribute(edge_kernel<4, BWD, Extras>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  static_cast<int>(smem));
     }
-    if (err == cudaSuccess) edge_kernel<4, BWD, Extras><<<blocks, kThreads, smem, stream>>>(p, x);
+    if (err == cudaSuccess) kernel<<<blocks, kThreads, smem, stream>>>(p, x);
+    return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+  };
+  if constexpr (!BWD) {
+    if (round_operands) {
+      return v == 4 ? run(edge_kernel<4, false, Extras, true>)
+                    : run(edge_kernel<1, false, Extras, true>);
+    }
   } else {
-    if (smem > 48 * 1024) {
-      err = cudaFuncSetAttribute(edge_kernel<1, BWD, Extras>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 static_cast<int>(smem));
-    }
-    if (err == cudaSuccess) edge_kernel<1, BWD, Extras><<<blocks, kThreads, smem, stream>>>(p, x);
+    if (round_operands) return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+  return v == 4 ? run(edge_kernel<4, BWD, Extras>) : run(edge_kernel<1, BWD, Extras>);
 }
 
 }  // namespace kpconv

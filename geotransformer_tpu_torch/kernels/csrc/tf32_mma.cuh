@@ -1,6 +1,7 @@
-// f32 products on Hopper's tensor cores (3xTF32) and cp.async staging: the
-// helpers that attention.cu, the KPConv kernels (kpconv_common.cuh) and
-// gse_bwd.cu share.
+// f32 products on Hopper's tensor cores (3xTF32), cp.async staging and the
+// bfloat16 rounding of the kernels' bfloat16 instances: the helpers that
+// attention.cu, the KPConv kernels (kpconv_common.cuh) and the GSE kernels
+// (gse_common.cuh) share.
 //
 // mma.sync m16n8k8 TF32 keeps 10 mantissa bits of each operand. Splitting an
 // f32 value x into big = tf32(x) and small = tf32(x - big) and summing the
@@ -15,6 +16,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -43,6 +45,14 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int PENDING>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
+}
+
+// x rounded to bfloat16 (round to nearest, ties to even: the JAX kernels'
+// astype(bfloat16)) and widened back, exactly; a bfloat16 value is a TF32
+// value too, so split_tf32 leaves it whole in big and 0 in small, and a
+// product of two is exact in f32.
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
 }
 
 // x = big + small + O(2^-22 |x|), both halves TF32 (cvt.rna: round to

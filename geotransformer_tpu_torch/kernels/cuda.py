@@ -151,6 +151,22 @@ def ptr(tensor):
     return ctypes.c_void_p(tensor.data_ptr()) if tensor is not None else ctypes.c_void_p(0)
 
 
+def round_to(x, dtype):
+    """``x`` rounded to ``dtype`` (round to nearest even, as the JAX
+    kernels' ``astype`` and the CUDA kernels' ``__float2bfloat16_rn``) and
+    back to its own dtype; ``x`` itself at float32, so a float32 point
+    computes what it computed before the precision knobs existed."""
+    return x if dtype == torch.float32 else x.to(dtype).to(x.dtype)
+
+
+def operand_dtype(dtype, knob):
+    """1 for a bfloat16 ``dtype``, 0 for float32: the launchers' flag of
+    precision knob ``knob``; raises on any other dtype."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{knob}: {dtype}, expected torch.float32 or torch.bfloat16")
+    return int(dtype == torch.bfloat16)
+
+
 def require(tensor, name, dtype, shape, device):
     """Raise unless ``tensor`` is a contiguous ``dtype`` tensor of ``shape``
     on ``device``."""

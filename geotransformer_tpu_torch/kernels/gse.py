@@ -5,9 +5,16 @@ r"""Geometric structure embedding: CUDA kernels (``csrc/gse.cu``,
 ``gse_full_bwd`` replaces ``_gse_full_bwd``, the backward of the
 differentiable :func:`gse_embedding_full_diff` (projection parameters only).
 
-The output is float32; the JAX kernel stores bfloat16 (``EMBED_DTYPE``).
-Pairs outside the valid rectangle ``[0, n_valid)^2`` are zero, so they get
-no gradient either.
+The forward takes its precision point as two dtypes (float32 or
+bfloat16), the JAX kernel's ``BASIS_DTYPE`` and ``EMBED_DTYPE``
+(``PrecisionConfig.gse_basis`` and ``gse_embed``): ``basis_dtype`` rounds
+the sin/cos bases and the projection weights (the products and their sums,
+the max over the angles and the bias stay float32), ``embed_dtype`` is the
+stored embedding's dtype. The kernel and its plain version honour both;
+at float32 the plain version computes what it always did. The backward is
+float32 only: the differentiable form raises ``NotImplementedError`` at a
+bfloat16 point. Pairs outside the valid rectangle ``[0, n_valid)^2`` are
+zero, so they get no gradient either.
 
 Both kernels take every shape the JAX kernels take: any even width C and
 any number of angles A (:func:`gse_route` picks the instance, the launchers
@@ -26,7 +33,7 @@ from geotransformer_tpu_torch.kernels import cuda
 from geotransformer_tpu_torch.ops.embedding import div_term, sinusoidal_embedding
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURES = {"gse_embedding_launch": [_P] * 9 + [_I] * 8 + [_F, _F, _P]}
+_SIGNATURES = {"gse_embedding_launch": [_P] * 9 + [_I] * 10 + [_F, _F, _P]}
 _BWD_SIGNATURES = {
     "gse_bwd_launch": [_P] * 15 + [_I] * 9 + [_F, _F, _P],
     "gse_bwd_slices": [_I] * 2,
@@ -138,22 +145,36 @@ def _valid_pairs(n, n_valid, device):
 
 
 def gse_embedding_full_plain(points, ref_vectors, w_d, b_d, w_a, b_a, sigma_d,
-                             sigma_a, n_valid=None):
+                             sigma_a, n_valid=None, basis_dtype=torch.float32,
+                             embed_dtype=torch.float32):
     """Plain PyTorch version of :func:`gse_embedding_full` (the XLA path of
     ``models/transformer.py:55-83,141-157`` from given reference vectors,
-    with the pair distance taken directly)."""
+    with the pair distance taken directly). At a bfloat16 point, the JAX
+    kernel's arithmetic (``kernels/gse.py:171-186``): the bases and weights
+    rounded to ``basis_dtype``, the distance projection plus the max of the
+    angle projections plus b_d + b_a in float32, stored at
+    ``embed_dtype``."""
     hidden = w_d.shape[0]
     d_idx, a_idx = _pair_indices(points, ref_vectors, sigma_d, sigma_a)
-    e_d = sinusoidal_embedding(d_idx, hidden) @ w_d + b_d
-    e_a = torch.amax(sinusoidal_embedding(a_idx, hidden) @ w_a + b_a, dim=2)
-    out = e_d + e_a
+    if basis_dtype == torch.float32 and embed_dtype == torch.float32:
+        e_d = sinusoidal_embedding(d_idx, hidden) @ w_d + b_d
+        e_a = torch.amax(sinusoidal_embedding(a_idx, hidden) @ w_a + b_a, dim=2)
+        out = e_d + e_a
+    else:
+        def rounded(x):
+            return cuda.round_to(x, basis_dtype)
+
+        e_d = rounded(sinusoidal_embedding(d_idx, hidden)) @ rounded(w_d)
+        e_a = torch.amax(rounded(sinusoidal_embedding(a_idx, hidden)) @ rounded(w_a), dim=2)
+        out = (e_d + e_a + (b_d + b_a)).to(embed_dtype)
     if n_valid is not None:
         out = out * _valid_pairs(points.shape[0], n_valid, points.device).to(out.dtype)
     return out
 
 
 def gse_embedding_full(points, ref_vectors, w_d, b_d, w_a, b_a, sigma_d,
-                       sigma_a, n_valid=None, force=None):
+                       sigma_a, n_valid=None, force=None, basis_dtype=torch.float32,
+                       embed_dtype=torch.float32):
     """Fused GSE of one cloud (reduction 'max').
 
     Args:
@@ -166,13 +187,16 @@ def gse_embedding_full(points, ref_vectors, w_d, b_d, w_a, b_a, sigma_d,
         n_valid: optional int32 scalar tensor; pairs outside
             [0, n_valid)^2 are zero.
         force: ``ModelConfig.force_pallas``.
+        basis_dtype: the bases' and weights' point (float32: 3xTF32
+            products; bfloat16: rounded operands, one TF32 pass, exact).
+        embed_dtype: the embedding's dtype (float32 or bfloat16).
 
     Returns:
-        (N, N, C) float32 embedding.
+        (N, N, C) embedding of ``embed_dtype``.
     """
     if not cuda.use_kernel(points, force):
         return gse_embedding_full_plain(points, ref_vectors, w_d, b_d, w_a, b_a,
-                                        sigma_d, sigma_a, n_valid)
+                                        sigma_d, sigma_a, n_valid, basis_dtype, embed_dtype)
 
     dev = points.device
     n, angle_k, _ = ref_vectors.shape
@@ -192,14 +216,16 @@ def gse_embedding_full(points, ref_vectors, w_d, b_d, w_a, b_a, sigma_d,
     # to the route's basis rows and channel blocks
     w_frag = torch.empty((4 * route.basis_rows * route.channel_blocks * route.width,),
                          dtype=torch.int32, device=dev)
-    out = torch.empty((n, n, hidden), dtype=f32, device=dev)
+    basis_bf16 = cuda.operand_dtype(basis_dtype, "gse_basis")
+    embed_bf16 = cuda.operand_dtype(embed_dtype, "gse_embed")
+    out = torch.empty((n, n, hidden), dtype=embed_dtype, device=dev)
     lib = cuda.library("gse", _SIGNATURES)
     code = lib.gse_embedding_launch(
         cuda.ptr(points), cuda.ptr(ref_vectors), cuda.ptr(w_d), cuda.ptr(w_a),
         cuda.ptr(bias), cuda.ptr(freqs), cuda.ptr(n_valid), cuda.ptr(w_frag), cuda.ptr(out),
         n, angle_k, hidden, int(route.exact), route.basis_rows, route.width,
-        route.channel_blocks, route.words, float(sigma_d), float(_angle_factor(sigma_a)),
-        cuda.stream_of(points))
+        route.channel_blocks, route.words, basis_bf16, embed_bf16, float(sigma_d),
+        float(_angle_factor(sigma_a)), cuda.stream_of(points))
     cuda.check(lib, code, "gse_embedding_full")
     cuda.launches["gse_embedding_full"] += 1
     return out
@@ -320,10 +346,16 @@ class _GSEFull(torch.autograd.Function):
 
 
 def gse_embedding_full_diff(points, ref_vectors, w_d, b_d, w_a, b_a, sigma_d, sigma_a,
-                            n_valid=None, force=None):
+                            n_valid=None, force=None, basis_dtype=torch.float32,
+                            embed_dtype=torch.float32):
     """Differentiable :func:`gse_embedding_full` (JAX
     ``gse_embedding_full_diff``): gradients reach the projections only;
     points and reference vectors are constants (the reference computes the
-    embedding indices under no_grad)."""
+    embedding indices under no_grad). Float32 only: the JAX backward at a
+    bfloat16 point is another function (``kernels/gse.py:327, 344``)."""
+    if basis_dtype != torch.float32 or embed_dtype != torch.float32:
+        raise NotImplementedError(
+            f"GSE gradients at gse_basis={basis_dtype}, gse_embed={embed_dtype} are not ported "
+            "(ROADMAP.md queue 1: training at the JAX precision point)")
     return _GSEFull.apply(w_d, b_d, w_a, b_a, points, ref_vectors, sigma_d, sigma_a,
                           n_valid, force)

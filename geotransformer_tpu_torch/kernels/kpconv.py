@@ -37,6 +37,20 @@ input conv's t1).
 
 Layouts are the JAX package's: stacked ``[ref | src]`` rows, sentinel
 neighbor index = number of support rows, weights (K, C_in, C_out).
+
+``mxu_dtype`` (``PrecisionConfig.kpconv_mxu``) is the contraction operands'
+point, float32 or bfloat16, on the kernel and the plain route alike: at
+C_in > 1 the influences and the gathered features round to it before the
+neighbor sum (the JAX ``_kpconv_kernel_body``, ``kernels/kpconv.py:269-273``;
+the product with W stays float32), at C_in = 1 t1 and W before t1 W
+(``:249-256``, ``:1123-1127``, ``:1374-1378``, ``:1667-1671``; a split
+table's t1 whole, as the JAX split conv rounds it once). On the card the
+edge pass rounds each staged influence and each loaded feature, and the
+C_in = 1 products round t1 and W as they read them; a product of two
+bfloat16 values is exact in float32, so the sums are float32 sums as before.
+The training path takes float32 only: :class:`models.kpconv.KPConv` raises
+``NotImplementedError`` for a gradient at a bfloat16 point (the JAX backward
+is another function there, ``kernels/kpconv.py:699-715``).
 """
 
 import collections
@@ -50,10 +64,10 @@ from geotransformer_tpu_torch.ops.gather import gather_with_shadow
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "kpconv_conv_launch": [_P] * 18 + [_I] * 17 + [_F, _P],
+    "kpconv_conv_launch": [_P] * 18 + [_I] * 18 + [_F, _P],
     "kpconv_conv_workspace": [_I] * 4,
-    "kpconv_stream_launch": [_P] * 6 + [_I] * 6 + [_F, _P],
-    "kpconv_union_launch": [_P] * 10 + [_I] * 9 + [_F, _P],
+    "kpconv_stream_launch": [_P] * 6 + [_I] * 7 + [_F, _P],
+    "kpconv_union_launch": [_P] * 10 + [_I] * 10 + [_F, _P],
 }
 _BWD_SIGNATURES = {
     "kpconv_bwd_launch": [_P] * 18 + [_I] * 15 + [_F, _P],
@@ -185,10 +199,12 @@ def _outputs(out, pooled, count, ties, t1, residuals, normalize, return_t1):
 def kpconv_fused_plain(s_feats, q_points, s_points, neighbor_indices,
                        kernel_points, weights, sigma, bias=None,
                        pool_feats=None, pool_cols=None, q_mask=None,
-                       residuals=False, normalize=True, return_t1=False):
+                       residuals=False, normalize=True, return_t1=False,
+                       mxu_dtype=torch.float32):
     """Plain PyTorch version of :func:`kpconv_fused` (the JAX XLA KPConv,
     ``models/kpconv.py:198-240``, with the influence distance taken
-    directly)."""
+    directly; its operands rounded to ``mxu_dtype`` where the JAX kernel
+    rounds them)."""
     n = s_points.shape[0]
     nbr = neighbor_indices.long()
     if q_mask is not None:
@@ -197,8 +213,16 @@ def kpconv_fused_plain(s_feats, q_points, s_points, neighbor_indices,
     offsets = gather_with_shadow(s_points, nbr, 0.0) - q_points[:, None, :]
     influence = _influence(offsets, kernel_points, sigma) * valid[..., None]  # (M, H, K)
     neighbor_feats = gather_with_shadow(s_feats, nbr, 0.0)  # (M, H, C)
+    input_layer = s_feats.shape[1] == 1
+    if not input_layer:
+        influence = cuda.round_to(influence, mxu_dtype)
+        neighbor_feats = cuda.round_to(neighbor_feats, mxu_dtype)
     weighted = torch.einsum("mhk,mhc->mkc", influence, neighbor_feats)
-    out = torch.einsum("mkc,kcd->md", weighted, weights)
+    if input_layer:
+        out = torch.einsum("mkc,kcd->md", cuda.round_to(weighted, mxu_dtype),
+                           cuda.round_to(weights, mxu_dtype))
+    else:
+        out = torch.einsum("mkc,kcd->md", weighted, weights)
     # divisor: neighbors whose feature sum is positive, at least 1
     # (reference kpconv.py:113-116); the raw count unnormalized
     posflag = (torch.sum(s_feats, dim=-1) > 0.0).to(out.dtype)
@@ -220,7 +244,8 @@ def kpconv_fused_plain(s_feats, q_points, s_points, neighbor_indices,
 
 def kpconv_fused(s_feats, q_points, s_points, neighbor_indices, kernel_points,
                  weights, sigma, bias=None, pool_feats=None, pool_cols=None,
-                 q_mask=None, force=None, residuals=False, return_t1=False):
+                 q_mask=None, force=None, residuals=False, return_t1=False,
+                 mxu_dtype=torch.float32):
     """Fused KPConv forward.
 
     Args:
@@ -242,7 +267,9 @@ def kpconv_fused(s_feats, q_points, s_points, neighbor_indices, kernel_points,
             divisor and, with the pool, the (M, C_pool) number of pooled
             columns equal to the max (shadows count, at least 1).
         return_t1: (C_in == 1) also return t1 (M, K) = sum_h infl * feat,
-            the input conv's weight-gradient residual.
+            the input conv's weight-gradient residual (unrounded).
+        mxu_dtype: the contraction operands' point (see the module
+            docstring).
 
     Returns:
         (M, C_out) float32 [, (M, C_pool) pooled] [, count [, ties]] [, t1].
@@ -253,12 +280,12 @@ def kpconv_fused(s_feats, q_points, s_points, neighbor_indices, kernel_points,
         return kpconv_fused_plain(
             s_feats, q_points, s_points, neighbor_indices, kernel_points,
             weights, sigma, bias, pool_feats, pool_cols, q_mask, residuals,
-            return_t1=return_t1)
+            return_t1=return_t1, mxu_dtype=mxu_dtype)
     h = neighbor_indices.shape[1]
     out, pooled, count, ties, t1 = _conv_launch(
         "kpconv_fused", s_feats, q_points, s_points, neighbor_indices, None, None, kernel_points,
         weights, sigma, pool_feats, h if pool_cols is None else int(pool_cols), 0, q_mask,
-        residuals)
+        residuals, mxu_dtype)
     if bias is not None:
         out = out + bias
     return _outputs(out, pooled, count, ties, t1 if return_t1 else None, residuals, True,
@@ -266,11 +293,13 @@ def kpconv_fused(s_feats, q_points, s_points, neighbor_indices, kernel_points,
 
 
 def _conv_launch(name, s_feats, q_points, s_points, head, tail, tail_rank, kernel_points,
-                 weights, sigma, pool_feats, pool_head, pool_tail, q_mask, with_count):
+                 weights, sigma, pool_feats, pool_head, pool_tail, q_mask, with_count,
+                 mxu_dtype):
     """One conv on the card (``kpconv_conv_launch``: the edge pass, then the
-    contraction) over a whole table (``tail`` None) or a split one; counted
-    as one launch of ``name``. Returns out, pooled, count, ties and the
-    (M, K C) workspace T, which is t1 at C_in == 1 (None where not asked)."""
+    contraction, at ``mxu_dtype``) over a whole table (``tail`` None) or a
+    split one; counted as one launch of ``name``. Returns out, pooled,
+    count, ties and the (M, K C) workspace T, which is t1 at C_in == 1
+    (None where not asked)."""
     dev = s_feats.device
     m, h1 = head.shape
     n, c_in = s_feats.shape
@@ -312,7 +341,8 @@ def _conv_launch(name, s_feats, q_points, s_points, head, tail, tail_rank, kerne
         cuda.ptr(weights), cuda.ptr(q_mask), cuda.ptr(pool_feats), cuda.ptr(t), cuda.ptr(div),
         cuda.ptr(part), cuda.ptr(out), cuda.ptr(pooled), cuda.ptr(count), cuda.ptr(ties),
         m, n, h1, h2, m2, k, c_in, c_out, c_pool, int(pool_head), int(pool_tail), pool_chunk,
-        *edge_route(k, c_in), float(sigma), cuda.stream_of(s_feats))
+        cuda.operand_dtype(mxu_dtype, "kpconv_mxu"), *edge_route(k, c_in), float(sigma),
+        cuda.stream_of(s_feats))
     cuda.check(lib, code, name)
     cuda.launches[name] += 1
     return out, pooled, count, ties, t
@@ -321,7 +351,7 @@ def _conv_launch(name, s_feats, q_points, s_points, head, tail, tail_rank, kerne
 def kpconv_split_fused(s_feats, q_points, s_points, head_table, tail_table, tail_q, tail_rank,
                        kernel_points, weights, sigma, bias=None, pool_feats=None,
                        pool_cols=None, q_mask=None, force=None, residuals=False,
-                       return_t1=False):
+                       return_t1=False, mxu_dtype=torch.float32):
     """KPConv over a split neighbor table (JAX ``kpconv_split_fused``).
 
     The head (M, H1) covers the first columns of every query, the tail
@@ -335,7 +365,9 @@ def kpconv_split_fused(s_feats, q_points, s_points, head_table, tail_table, tail
     query's head columns, then its tail row through ``tail_rank``; the
     plain version runs each part unnormalized (raw sums, raw count) and
     brings the tail back through ``tail_rank`` with a zero row for the
-    queries that have none.
+    queries that have none; at C_in = 1 and a bfloat16 ``mxu_dtype`` it
+    takes t1 W from the whole t1 rounded once (the JAX split conv's
+    ``kernels/kpconv.py:1367-1378``), as the kernel does.
 
     Args:
         head_table: (M, H1) int32; tail_table: (M2, H - H1) int32, both
@@ -359,12 +391,15 @@ def kpconv_split_fused(s_feats, q_points, s_points, head_table, tail_table, tail
             "kpconv_split_fused", s_feats, q_points, s_points, head_table, tail_table, tail_rank,
             kernel_points, weights, sigma, pool_feats,
             h1 if pool_cols is None else min(pool_cols, h1),
-            h2 if pool_cols is None else max(pool_cols - h1, 1), q_mask, residuals)
+            h2 if pool_cols is None else max(pool_cols - h1, 1), q_mask, residuals, mxu_dtype)
         if bias is not None:
             out = out + bias
         return _outputs(out, pooled, count, ties, t1 if return_t1 else None, residuals, True,
                         return_t1)
-    common = dict(pool_feats=pool_feats, residuals=True, normalize=False, return_t1=return_t1)
+    # the input conv at a bfloat16 point rounds the whole t1, not each part's
+    whole_t1 = weights.shape[1] == 1 and mxu_dtype != torch.float32
+    common = dict(pool_feats=pool_feats, residuals=True, normalize=False,
+                  return_t1=return_t1 or whole_t1, mxu_dtype=mxu_dtype)
     head = kpconv_fused_plain(s_feats, q_points, s_points, head_table, kernel_points, weights,
                               sigma, pool_cols=None if pool_cols is None else min(pool_cols, h1),
                               q_mask=q_mask, **common)
@@ -374,7 +409,7 @@ def kpconv_split_fused(s_feats, q_points, s_points, head_table, tail_table, tail
                               pool_cols=None if pool_cols is None else max(pool_cols - h1, 1),
                               q_mask=None if q_mask is None else q_mask[rows], **common)
     names = ("acc",) + (("pooled",) if pool_feats is not None else ()) + ("count",) + (
-        ("ties",) if pool_feats is not None else ()) + (("t1",) if return_t1 else ())
+        ("ties",) if pool_feats is not None else ()) + (("t1",) if common["return_t1"] else ())
     h = dict(zip(names, head))
     t = {name: v if v.dim() == 2 else v[:, None] for name, v in zip(names, tail)}
     # one rank gather of every tail quantity, a zero row for the sentinel
@@ -383,7 +418,12 @@ def kpconv_split_fused(s_feats, q_points, s_points, head_table, tail_table, tail
     t = dict(zip(names, torch.split(packed[tail_rank.long()],
                                     [v.shape[1] for v in t.values()], dim=1)))
     count = torch.clamp(h["count"] + t["count"][:, 0], min=1.0)
-    out = (h["acc"] + t["acc"]) / count[:, None]
+    if whole_t1:
+        acc = cuda.round_to(h["t1"] + t["t1"], mxu_dtype) @ cuda.round_to(weights[:, 0, :],
+                                                                          mxu_dtype)
+    else:
+        acc = h["acc"] + t["acc"]
+    out = acc / count[:, None]
     if bias is not None:
         out = out + bias
     pooled = ties = t1 = None
@@ -414,12 +454,12 @@ def input_conv_variant(k):
 
 
 def kpconv_stream_fused_plain(stream, kernel_points, weights, sigma, bias=None,
-                              residuals=False):
+                              residuals=False, mxu_dtype=torch.float32):
     """Plain PyTorch version of :func:`kpconv_stream_fused`."""
     offsets = stream[:3].permute(1, 2, 0)  # (M, H, 3)
     influence = _influence(offsets, kernel_points, sigma)  # (M, H, K)
     t1 = torch.einsum("mhk,mh->mk", influence, stream[4])
-    out = t1 @ weights[:, 0, :]
+    out = cuda.round_to(t1, mxu_dtype) @ cuda.round_to(weights[:, 0, :], mxu_dtype)
     count = torch.clamp(stream[3].sum(dim=1), min=1.0)
     out = out / count[:, None]
     if bias is not None:
@@ -428,7 +468,7 @@ def kpconv_stream_fused_plain(stream, kernel_points, weights, sigma, bias=None,
 
 
 def kpconv_stream_fused(stream, kernel_points, weights, sigma, bias=None,
-                        force=None, residuals=False):
+                        force=None, residuals=False, mxu_dtype=torch.float32):
     """Gather-free input-layer KPConv (c_in == 1) from the edge stream.
 
     Args:
@@ -442,12 +482,14 @@ def kpconv_stream_fused(stream, kernel_points, weights, sigma, bias=None,
         force: ``ModelConfig.force_pallas``.
         residuals: also return t1 (M, K) = sum_h infl * feat and the (M,)
             count divisor, the weight gradient's residuals.
+        mxu_dtype: t1 and W round to it before t1 W.
 
     Returns:
         (M, C_out) float32 [, t1, count].
     """
     if not cuda.use_kernel(stream, force):
-        return kpconv_stream_fused_plain(stream, kernel_points, weights, sigma, bias, residuals)
+        return kpconv_stream_fused_plain(stream, kernel_points, weights, sigma, bias, residuals,
+                                         mxu_dtype)
 
     dev = stream.device
     _, m, h = stream.shape
@@ -463,8 +505,8 @@ def kpconv_stream_fused(stream, kernel_points, weights, sigma, bias=None,
     code = lib.kpconv_stream_launch(
         cuda.ptr(stream), cuda.ptr(kernel_points), cuda.ptr(weights), cuda.ptr(out),
         cuda.ptr(t1), cuda.ptr(count), m, h, k, c_out, input_conv_variant(k),
-        int(stream_route(h, k, c_out, device_block_bytes(dev)) == "shared"), float(sigma),
-        cuda.stream_of(stream))
+        int(stream_route(h, k, c_out, device_block_bytes(dev)) == "shared"),
+        cuda.operand_dtype(mxu_dtype, "kpconv_mxu"), float(sigma), cuda.stream_of(stream))
     cuda.check(lib, code, "kpconv_stream_fused")
     cuda.launches["kpconv_stream_fused"] += 1
     if bias is not None:
@@ -474,7 +516,7 @@ def kpconv_stream_fused(stream, kernel_points, weights, sigma, bias=None,
 
 def kpconv_union_input_fused_plain(s_feats, q_points, s_points, union_rows, union_sel,
                                    kernel_points, weights, sigma, bias=None, tile=128,
-                                   residuals=False):
+                                   residuals=False, mxu_dtype=torch.float32):
     """Plain version of :func:`kpconv_union_input_fused`: the neighbor table
     rebuilt from the unions (table[q, h] = union_rows[q // tile, sel[q, h]],
     the sentinel where sel is), then the plain KPConv."""
@@ -485,12 +527,14 @@ def kpconv_union_input_fused_plain(s_feats, q_points, s_points, union_rows, unio
     rows = torch.cat([union_rows.long(), torch.full_like(union_rows[:, :1], n).long()], dim=1)
     table = rows[tiles, sel.clamp(max=u)]
     out, count, t1 = kpconv_fused_plain(s_feats, q_points, s_points, table, kernel_points,
-                                        weights, sigma, bias, residuals=True, return_t1=True)
+                                        weights, sigma, bias, residuals=True, return_t1=True,
+                                        mxu_dtype=mxu_dtype)
     return (out, count, t1) if residuals else out
 
 
 def kpconv_union_input_fused(s_feats, q_points, s_points, union_rows, union_sel, kernel_points,
-                             weights, sigma, bias=None, tile=128, force=None, residuals=False):
+                             weights, sigma, bias=None, tile=128, force=None, residuals=False,
+                             mxu_dtype=torch.float32):
     """Union-gather input-layer KPConv (c_in == 1; JAX
     ``kpconv_union_input_fused``).
 
@@ -504,6 +548,7 @@ def kpconv_union_input_fused(s_feats, q_points, s_points, union_rows, union_sel,
             sigma, bias as :func:`kpconv_fused` (any union, sel width and
             K D: :func:`union_route`).
         residuals: also return the (M,) count divisor and t1 (M, K).
+        mxu_dtype: t1 and W round to it before t1 W.
 
     Returns:
         (M, C_out) float32 [, count, t1].
@@ -517,7 +562,7 @@ def kpconv_union_input_fused(s_feats, q_points, s_points, union_rows, union_sel,
     if not cuda.use_kernel(s_feats, force):
         return kpconv_union_input_fused_plain(s_feats, q_points, s_points, union_rows,
                                               union_sel, kernel_points, weights, sigma, bias,
-                                              tile, residuals)
+                                              tile, residuals, mxu_dtype)
     dev = s_feats.device
     n = s_points.shape[0]
     h = union_sel.shape[1]
@@ -538,8 +583,8 @@ def kpconv_union_input_fused(s_feats, q_points, s_points, union_rows, union_sel,
         cuda.ptr(s_feats), cuda.ptr(s_points), cuda.ptr(q_points), cuda.ptr(union_rows),
         cuda.ptr(union_sel), cuda.ptr(kernel_points), cuda.ptr(weights), cuda.ptr(out),
         cuda.ptr(count), cuda.ptr(t1), m, n, u, h, k, c_out, int(tile), input_conv_variant(k),
-        int(union_route(u, h, k, c_out, device_block_bytes(dev)) == "shared"), float(sigma),
-        cuda.stream_of(s_feats))
+        int(union_route(u, h, k, c_out, device_block_bytes(dev)) == "shared"),
+        cuda.operand_dtype(mxu_dtype, "kpconv_mxu"), float(sigma), cuda.stream_of(s_feats))
     cuda.check(lib, code, "kpconv_union_input_fused")
     cuda.launches["kpconv_union_input_fused"] += 1
     if bias is not None:

@@ -10,7 +10,8 @@ stream (the default PairBatch), the per-tile neighbor unions
 (``union_rows0``, ``union_sel0``), the split stage-0 table, or the neighbor
 table; every later conv reads its split table where the batch has one
 (``neighbors_split``, and ``subsampling_split`` for the strided convs). The
-strided blocks fuse their shortcut max-pool into the conv. Training batches
+strided blocks fuse their shortcut max-pool into the conv. Every conv takes
+``mxu_dtype``, the contraction point (``PrecisionConfig.kpconv_mxu``). Training batches
 carry the inverse neighbor tables (``neighbors_inv``, ``subsampling_inv``,
 whole or split), which every conv but the input conv hands to its backward
 (JAX ``models/backbone.py:63-123``). Returns ``feats_list`` finest-first.
@@ -31,30 +32,31 @@ from geotransformer_tpu_torch.models.kpconv import (
 class KPConvFPN(nn.Module):
     def __init__(self, input_dim, output_dim, init_dim, kernel_size, init_radius,
                  init_sigma, group_norm, num_stages=4, first_fine_stage=1,
-                 neighbor_limits=(), force=None):
+                 neighbor_limits=(), force=None, mxu_dtype=torch.float32):
         super().__init__()
         self.input_dim = input_dim
         self.num_stages = num_stages
         self.first_fine_stage = first_fine_stage
         d, k = init_dim, kernel_size
+        point = dict(force=force, mxu_dtype=mxu_dtype)
         for i in range(num_stages):
             radius = init_radius * (2**i)
             sigma = init_sigma * (2**i)
             cdim = d * (2**i)
             if i == 0:
-                self.encoder1_1 = ConvBlock(input_dim, d, k, radius, sigma, group_norm, force=force)
-                self.encoder1_2 = ResidualBlock(d, 2 * d, k, radius, sigma, group_norm, force=force)
+                self.encoder1_1 = ConvBlock(input_dim, d, k, radius, sigma, group_norm, **point)
+                self.encoder1_2 = ResidualBlock(d, 2 * d, k, radius, sigma, group_norm, **point)
             else:
                 # the shortcut pool is bounded by the true neighbor limit,
                 # not the sentinel-padded table width
                 pool_cols = neighbor_limits[i - 1] if neighbor_limits else None
                 setattr(self, f"encoder{i + 1}_1", ResidualBlock(
                     cdim, cdim, k, radius / 2, sigma / 2, group_norm, strided=True,
-                    pool_cols=pool_cols, force=force))
+                    pool_cols=pool_cols, **point))
                 setattr(self, f"encoder{i + 1}_2", ResidualBlock(
-                    cdim, 2 * cdim, k, radius, sigma, group_norm, force=force))
+                    cdim, 2 * cdim, k, radius, sigma, group_norm, **point))
                 setattr(self, f"encoder{i + 1}_3", ResidualBlock(
-                    2 * cdim, 2 * cdim, k, radius, sigma, group_norm, force=force))
+                    2 * cdim, 2 * cdim, k, radius, sigma, group_norm, **point))
         latent_dim = d * 2**num_stages
         for j in range(num_stages - 2, first_fine_stage - 1, -1):
             in_dim = latent_dim + d * 2 ** (j + 1)

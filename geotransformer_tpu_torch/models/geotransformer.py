@@ -12,6 +12,13 @@ feeds the fine head sampled GT node pairs instead of the predicted ones and
 keeps the autograd graph (the CUDA kernels' autograd Functions). As in the
 JAX model, superpoint matching and LGR see no gradient, and a batch may
 carry the partition and GT tables precomputed (:func:`precompute_gt_targets`).
+
+``cfg.precision`` (:class:`~geotransformer_tpu_torch.configs.PrecisionConfig`)
+goes down the module tree with the config, as ``force_pallas`` does: every
+KPConv takes ``kpconv_mxu``, the GSE module ``gse_basis`` and ``gse_embed``,
+and the RPE attention reads the embedding in its dtype. No process-wide
+state is set. A bfloat16 point serves inference; ``kpconv_table="bfloat16"``
+and gradients at a bfloat16 point raise ``NotImplementedError``.
 """
 
 import math
@@ -19,7 +26,7 @@ import math
 import torch
 from torch import nn
 
-from geotransformer_tpu_torch.configs import GeoTransformerConfig
+from geotransformer_tpu_torch.configs import GeoTransformerConfig, knob_dtype
 from geotransformer_tpu_torch.models.backbone import KPConvFPN
 from geotransformer_tpu_torch.models.kpconv import KPConv
 from geotransformer_tpu_torch.models.lgr import local_to_global_registration
@@ -120,16 +127,24 @@ class GeoTransformer(nn.Module):
         super().__init__()
         self.cfg = cfg
         force = cfg.model.force_pallas
+        precision = cfg.precision
+        if knob_dtype(precision, "kpconv_table") != torch.float32:
+            raise NotImplementedError(
+                "kpconv_table='bfloat16' (bfloat16 gathered tables) is not ported (ROADMAP.md "
+                "queue 1: training at the JAX precision point)")
         bb = cfg.backbone
         self.backbone = KPConvFPN(
             bb.input_dim, bb.output_dim, bb.init_dim, bb.kernel_size, bb.init_radius,
             bb.init_sigma, bb.group_norm, num_stages=bb.num_stages,
             first_fine_stage=cfg.model.fine_level,
-            neighbor_limits=tuple(cfg.caps.neighbor_limits), force=force)
+            neighbor_limits=tuple(cfg.caps.neighbor_limits), force=force,
+            mxu_dtype=knob_dtype(precision, "kpconv_mxu"))
         gt = cfg.geotransformer
         self.transformer = GeometricTransformer(
             gt.input_dim, gt.output_dim, gt.hidden_dim, gt.num_heads, gt.blocks,
-            gt.sigma_d, gt.sigma_a, gt.angle_k, reduction_a=gt.reduction_a, force=force)
+            gt.sigma_d, gt.sigma_a, gt.angle_k, reduction_a=gt.reduction_a, force=force,
+            basis_dtype=knob_dtype(precision, "gse_basis"),
+            embed_dtype=knob_dtype(precision, "gse_embed"))
         self.optimal_transport = LearnableLogOptimalTransport(
             cfg.model.num_sinkhorn_iterations, force=force)
 

@@ -14,7 +14,10 @@ table; every other conv takes its split table where the batch has one. With
 gradients enabled the convs take the autograd Functions of the training
 path: the inverse-table backward where the batch has inverse tables, else
 the scatter backward of the JAX XLA rules, and the weight-only backward for
-the input conv.
+the input conv. ``mxu_dtype`` (``PrecisionConfig.kpconv_mxu``) is every
+conv's contraction point, on the kernel and the plain route; the training
+path takes float32 only (a gradient at a bfloat16 point raises
+``NotImplementedError``).
 Parameter names are the reference torch ones (``KPConv.weights`` (K, C_in,
 C_out), ``KPConv.bias``, the ``kernel_points`` buffer).
 """
@@ -52,10 +55,11 @@ UNION_TILE = 128
 
 class KPConv(nn.Module):
     def __init__(self, in_channels, out_channels, kernel_size, radius, sigma,
-                 bias=False, force=None):
+                 bias=False, force=None, mxu_dtype=torch.float32):
         super().__init__()
         self.sigma = sigma
         self.force = force
+        self.mxu_dtype = mxu_dtype
         self.weights = nn.Parameter(torch.zeros(kernel_size, in_channels, out_channels))
         self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
         self.register_buffer(
@@ -88,16 +92,21 @@ class KPConv(nn.Module):
             (M, C_out) features, or (features, pooled) with ``pool_feats``.
         """
         grad = torch.is_grad_enabled()
+        if grad and self.mxu_dtype != torch.float32:
+            raise NotImplementedError(
+                f"KPConv gradients at kpconv_mxu={self.mxu_dtype} are not ported (ROADMAP.md "
+                "queue 1: training at the JAX precision point)")
         kp, w, sigma, bias, force = (self.kernel_points, self.weights, self.sigma, self.bias,
                                      self.force)
+        point = {} if grad else dict(mxu_dtype=self.mxu_dtype)  # the *_diff forms take float32
         input_layer = w.shape[1] == 1 and pool_feats is None
         if input_layer and stream is not None:
             conv = kpconv_stream_input_diff if grad else kpconv_stream_fused
-            return conv(stream, kp, w, sigma, bias, force=force)
+            return conv(stream, kp, w, sigma, bias, force=force, **point)
         if input_layer and union_tables is not None:
             conv = kpconv_union_input_fused_diff if grad else kpconv_union_input_fused
             return conv(s_feats, q_points, s_points, *union_tables, kp, w, sigma, bias,
-                        tile=UNION_TILE, force=force)
+                        tile=UNION_TILE, force=force, **point)
         pool = {} if pool_feats is None else dict(pool_feats=pool_feats, pool_cols=pool_cols)
         if split_tables is not None:
             h1 = neighbor_indices.shape[1] - split_tables[0].shape[1]
@@ -123,7 +132,8 @@ class KPConv(nn.Module):
                                                  split_tables, kp, w, sigma, bias,
                                                  q_mask=q_mask, force=force)
             return kpconv_split_fused(s_feats, q_points, s_points, head, *split_tables, kp, w,
-                                      sigma, bias, q_mask=q_mask, force=force, **pool)
+                                      sigma, bias, q_mask=q_mask, force=force, **point,
+                                      **pool)
         if input_layer and grad:
             return kpconv_input_diff(s_feats, q_points, s_points, neighbor_indices, kp, w, sigma,
                                      bias, q_mask=q_mask, force=force)
@@ -143,7 +153,7 @@ class KPConv(nn.Module):
             return kpconv_fused_diff(s_feats, q_points, s_points, neighbor_indices, kp, w, sigma,
                                      bias, q_mask=q_mask, force=force)
         return kpconv_fused(s_feats, q_points, s_points, neighbor_indices, kp, w, sigma, bias,
-                            q_mask=q_mask, force=force, **pool)
+                            q_mask=q_mask, force=force, **point, **pool)
 
 
 def leaky_relu(x):
@@ -209,10 +219,10 @@ class LastUnaryBlock(nn.Module):
 
 class ConvBlock(nn.Module):
     def __init__(self, in_channels, out_channels, kernel_size, radius, sigma,
-                 group_norm, force=None):
+                 group_norm, force=None, mxu_dtype=torch.float32):
         super().__init__()
         self.KPConv = KPConv(in_channels, out_channels, kernel_size, radius, sigma,
-                             bias=True, force=force)
+                             bias=True, force=force, mxu_dtype=mxu_dtype)
         self.norm = GroupNorm(group_norm, out_channels)
 
     def forward(self, s_feats, q_points, s_points, neighbor_indices, q_mask=None,
@@ -225,7 +235,8 @@ class ConvBlock(nn.Module):
 
 class ResidualBlock(nn.Module):
     def __init__(self, in_channels, out_channels, kernel_size, radius, sigma,
-                 group_norm, strided=False, pool_cols=None, force=None):
+                 group_norm, strided=False, pool_cols=None, force=None,
+                 mxu_dtype=torch.float32):
         super().__init__()
         mid_channels = out_channels // 4
         self.strided = strided
@@ -233,7 +244,7 @@ class ResidualBlock(nn.Module):
         self.unary1 = (UnaryBlock(in_channels, mid_channels, group_norm)
                        if in_channels != mid_channels else None)
         self.KPConv = KPConv(mid_channels, mid_channels, kernel_size, radius, sigma,
-                             bias=True, force=force)
+                             bias=True, force=force, mxu_dtype=mxu_dtype)
         self.norm_conv = GroupNorm(group_norm, mid_channels)
         self.unary2 = UnaryBlock(mid_channels, out_channels, group_norm, has_relu=False)
         self.unary_shortcut = (UnaryBlock(in_channels, out_channels, group_norm, has_relu=False)

@@ -17,7 +17,9 @@ environment switch that guards a TPU hang of their clamped DMA index maps;
 the CUDA kernels have no such mechanism, so the port has no flag: what
 admits them on the card is ``chip_smoke.py`` holding each against its plain
 version. Padded tokens are excluded from keys; their query outputs are
-zeroed at the stack output.
+zeroed at the stack output. The embedding's precision point
+(``PrecisionConfig.gse_basis``, ``gse_embed``) is the GSE module's; the RPE
+attention reads the embedding in the dtype it comes in.
 Module and parameter names follow the flax tree, so the state_dict keys are
 the reference torch keys.
 """
@@ -61,10 +63,14 @@ class GeometricStructureEmbedding(nn.Module):
     "mean" raises rather than quietly taking the einsum route. Unlike the
     kernel, the mean route leaves pairs outside the valid rectangle as they
     come, as the XLA path does.
+
+    ``basis_dtype`` and ``embed_dtype`` are the fused embedding's precision
+    point (:func:`gse_embedding_full`) on the kernel and the plain route.
+    The mean route ignores them, as the JAX package's XLA mean does.
     """
 
     def __init__(self, hidden_dim, sigma_d, sigma_a, angle_k, reduction_a="max",
-                 force=None):
+                 force=None, basis_dtype=torch.float32, embed_dtype=torch.float32):
         super().__init__()
         if reduction_a not in ("max", "mean"):
             raise ValueError(f"Unsupported reduction mode: {reduction_a}")
@@ -77,6 +83,7 @@ class GeometricStructureEmbedding(nn.Module):
         self.sigma_a = sigma_a
         self.angle_k = angle_k
         self.force = force
+        self.basis_dtype, self.embed_dtype = basis_dtype, embed_dtype
         self.proj_d = nn.Linear(hidden_dim, hidden_dim)
         self.proj_a = nn.Linear(hidden_dim, hidden_dim)
 
@@ -108,7 +115,7 @@ class GeometricStructureEmbedding(nn.Module):
         return torch.stack([
             embed(points[b].contiguous(), ref_vectors[b].contiguous(), w_d, self.proj_d.bias,
                   w_a, self.proj_a.bias, self.sigma_d, self.sigma_a, n_valid[b],
-                  force=self.force)
+                  force=self.force, basis_dtype=self.basis_dtype, embed_dtype=self.embed_dtype)
             for b in range(batch_size)
         ])
 
@@ -204,7 +211,8 @@ class RPEMultiHeadAttention(nn.Module):
             return _fused_attention(q, k, v, (embed_qk, qw), key_masks, key_masks, d_head,
                                     self.force)
         qw = torch.einsum("bhnc,dhc->bhnd", q, w)
-        scores_p = torch.einsum("bnmd,bhnd->bhnm", embed_qk, qw)
+        # a bfloat16 embedding widens exactly (the JAX einsum promotes it)
+        scores_p = torch.einsum("bnmd,bhnd->bhnm", embed_qk.to(qw.dtype), qw)
         qb = torch.einsum("bhnc,hc->bhn", q, self.proj_p.bias.reshape(self.num_heads, d_head))
         scores_e = torch.einsum("bhnc,bhmc->bhnm", q, k)
         scores = (scores_e + scores_p + qb[..., None]) / math.sqrt(d_head)
@@ -388,10 +396,12 @@ class GeometricTransformer(nn.Module):
     (reference geotransformer.py:75-155)."""
 
     def __init__(self, input_dim, output_dim, hidden_dim, num_heads, blocks, sigma_d,
-                 sigma_a, angle_k, reduction_a="max", force=None):
+                 sigma_a, angle_k, reduction_a="max", force=None, basis_dtype=torch.float32,
+                 embed_dtype=torch.float32):
         super().__init__()
         self.embedding = GeometricStructureEmbedding(
-            hidden_dim, sigma_d, sigma_a, angle_k, reduction_a, force=force)
+            hidden_dim, sigma_d, sigma_a, angle_k, reduction_a, force=force,
+            basis_dtype=basis_dtype, embed_dtype=embed_dtype)
         self.in_proj = nn.Linear(input_dim, hidden_dim)
         self.transformer = RPEConditionalTransformer(blocks, hidden_dim, num_heads, force=force)
         self.out_proj = nn.Linear(hidden_dim, output_dim)

@@ -23,6 +23,7 @@ import math
 
 import torch
 
+from geotransformer_tpu_torch.configs import is_float32_point
 from geotransformer_tpu_torch.losses.overall import evaluate, overall_loss
 from geotransformer_tpu_torch.parallel import mesh
 from geotransformer_tpu_torch.preprocess.device import build_pyramid_device
@@ -200,6 +201,9 @@ def make_train_step(model, cfg, optimizer, scheduler, device="cuda", pyramid_spe
     where it took no part). With :class:`MultiSteps` a step that passes the
     guard is a mini-step; the schedule counts applied updates.
 
+    ``cfg.precision`` must be float32 throughout: training at a bfloat16
+    point raises ``NotImplementedError`` here.
+
     With ``pyramid_spec`` (the keywords of ``build_pyramid_device``,
     ``DevicePreprocessPlan.spec``), a raw batch is built on the card first.
     Where a capacity overflowed, nothing runs further: neither the
@@ -207,6 +211,10 @@ def make_train_step(model, cfg, optimizer, scheduler, device="cuda", pyramid_spe
     retry is exact; the metrics are then ``pyramid_overflow`` 1.0 and
     ``grad_finite`` 0.0. A built batch reports ``pyramid_overflow`` 0.0.
     """
+    if not is_float32_point(cfg.precision):
+        raise NotImplementedError(
+            f"training at {cfg.precision} is not ported (ROADMAP.md queue 1: training at the "
+            "JAX precision point)")
     params = [p for p in model.parameters() if p.requires_grad]
 
     def step(batch, generator=None):

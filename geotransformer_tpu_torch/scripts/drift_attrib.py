@@ -11,22 +11,32 @@ their kernels, TF32 off), each against the float64 plain route: coarse and
 fine feature drift, the coarse rows' median cosine, the
 superpoint-correspondence Jaccard and a digest of the fine features' bits.
 A family's share is the part of the kernel route's drift (above the plain
-float32 route's) that routing it to its plain version removes. The JAX
-tool sweeps its precision knobs; the port has none (its kernels keep
-float32 accuracy through 3xTF32 products, ``configs.py``), so the
-attribution is by kernel: within ``drift.plain_wrappers`` each chosen
-wrapper is replaced, in every module of the package that holds it, by a
-call of it with ``force=False`` (as ``chip_smoke.py``'s
-``capture_kernel_calls`` wraps the wrappers), and each row checks that the chosen wrappers launched
-nothing and, on the card, the others launched their kernels.
+float32 route's) that routing it to its plain version removes: within
+``drift.plain_wrappers`` each chosen wrapper is replaced, in every module
+of the package that holds it, by a call of it with ``force=False`` (as
+``chip_smoke.py``'s ``capture_kernel_calls`` wraps the wrappers), and each
+row checks that the chosen wrappers launched nothing and, on the card, the
+others launched their kernels.
+
+Then the JAX tool's sweep of the precision knobs (``PrecisionConfig``'s
+``kpconv_mxu``, ``gse_basis`` and ``gse_embed``; ``kpconv_table`` is not
+ported): the kernel route at each of the seven points with one or more of
+them in bfloat16, the last the JAX package's default point, each against
+the float64 plain route as above (plus the transform's RRE and RTE against
+the float64 route's), under ``points`` in the result line. The weights were
+trained at the float32 point (``scripts.drift``); the sweep is inference
+only.
 """
 
 import argparse
 import collections
+import dataclasses
+import itertools
 import zlib
 
 import torch
 
+from geotransformer_tpu_torch.configs import PrecisionConfig
 from geotransformer_tpu_torch.kernels import cuda
 from geotransformer_tpu_torch.models import create_model
 from geotransformer_tpu_torch.scripts import drift, train_smoke
@@ -71,6 +81,24 @@ def outputs(weights, cfg, pairs, device, plain):
     return outs
 
 
+# the knobs the sweep turns to bfloat16 (kpconv_table stays float32)
+KNOBS = ("kpconv_mxu", "gse_basis", "gse_embed")
+
+
+def knob_sweep(weights, cfg, pairs, device, refs, gts):
+    """The kernel route at every point with some of ``KNOBS`` in bfloat16,
+    each against the float64 route ``refs``: {name: drift.compare's row},
+    named by the bfloat16 knobs."""
+    points = {}
+    for values in itertools.product(("float32", "bfloat16"), repeat=len(KNOBS)):
+        if "bfloat16" not in values:
+            continue  # the float32 point: the "all kernels" row
+        point = dataclasses.replace(cfg, precision=PrecisionConfig(**dict(zip(KNOBS, values))))
+        name = "+".join(k for k, v in zip(KNOBS, values) if v == "bfloat16")
+        points[name] = drift.compare(outputs(weights, point, pairs, device, ()), refs, gts)
+    return points
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--weights", default="output/drift/weights.pt")
@@ -102,7 +130,12 @@ def main(argv=None):
         print(f"{name:18s} coarse {rec['feats_c']:.4e}  fine {rec['feats_f']:.4e}  cos_med "
               f"{rec['cos_med']:.7f}  jaccard {rec['jaccard']:.3f}  bits {rec['digest']}  "
               f"share of the drift (coarse, fine) {shares}", flush=True)
-    print_result("drift_attrib", {"rows": rows})
+    points = knob_sweep(weights, cfg, pairs, device, refs, gts)
+    for name, rec in points.items():
+        print(f"bfloat16 {name:31s} coarse {rec['feats_c']:.4e}  fine {rec['feats_f']:.4e}  "
+              f"jaccard {rec['jaccard']:.3f}  vs f64 RRE {rec['rre_delta']:.4f} deg, RTE "
+              f"{rec['rte_delta'] * 1000:.3f} mm", flush=True)
+    print_result("drift_attrib", {"rows": rows, "points": points})
     return rows
 
 

@@ -37,6 +37,7 @@ from geotransformer_tpu_torch.models import procrustes as port_procrustes
 from geotransformer_tpu_torch.models import create_model as create_torch_model
 from geotransformer_tpu_torch.preprocess import batch_to_torch
 from test_torch_model import make_batch, narrow_config
+from torch_routes import jax_precision_kept  # noqa: F401  (JAX precision globals restored)
 
 
 def _both(jax_fn, port_fn, *args, **kwargs):

@@ -2336,3 +2336,216 @@ def test_rows_and_heads_past_the_launch_grid(device):
         lambda: fused_masked_attention(q, k, v, bias, None, nv_k, 0.3), "fused_masked_attention")
     want = fused_masked_attention_plain(q, k, v, bias, None, nv_k, 0.3)
     assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+# --- the bfloat16 instances (PrecisionConfig at the JAX package's point) ------
+
+BF16 = torch.bfloat16
+
+
+def assert_bf16_close(got, want, f32, bound):
+    """A bfloat16 instance against its plain version at the same point:
+    every entry within the row's float32 ``bound`` plus 2^-7 of the largest
+    |want| (a value within an ulp of a rounding boundary may round the other
+    way on the two, moving one term by a bfloat16 ulp), at least 99 % within
+    ``bound``, and |got - want| under a quarter of |f32 - want| (``f32``: the
+    plain version at float32): the kernel rounds where the plain version
+    does."""
+    got, want, f32 = got.float(), want.float(), f32.float()
+    diff = (got - want).abs()
+    assert bool((diff <= bound + 2.0**-7 * want.abs().max()).all()), diff.max().item()
+    assert (diff <= bound).float().mean().item() >= 0.99
+    assert (got - want).norm().item() <= 0.25 * (f32 - want).norm().item()
+
+
+def kpconv_bound(want):
+    return 1e-4 * want.abs() + 1e-5 * want.abs().max()
+
+
+@pytest.mark.parametrize("c, k", [(64, 15), (6, 15), (1, 15), (64, 20)],
+                         ids=["four-channels", "one-channel", "c_in_1", "K20-chunks"])
+def test_kpconv_fused_bf16_matches_plain(device, c, k):
+    """Row 1 at kpconv_mxu="bfloat16": the edge pass's rounding instances
+    (four channels a thread, one, K in chunks of 16) and at C_in = 1 the
+    CUDA-core product rounding t1 and W; the pool, the count and t1 as at
+    float32, bit for bit; repeats and replays."""
+    args, bias, pool, q_mask = kpconv_case(device, c, c_pool=8)
+    if c == 1:
+        args[0] = args[0].abs()  # the network input: non-negative
+    if k != 15:
+        g = torch.Generator().manual_seed(k)
+        args[4] = ((torch.rand(k, 3, generator=g) - 0.5) * 0.1).to(device)
+        args[5] = (torch.randn(k, c, c, generator=g) / c).to(device)
+    kw = dict(pool_feats=pool, pool_cols=38, q_mask=q_mask, residuals=True,
+              return_t1=c == 1)
+    got = launches_once_repeats_and_replays(
+        lambda: kpconv_fused(*args, 0.05, bias, mxu_dtype=BF16, **kw), "kpconv_fused")
+    want = kpconv_fused_plain(*args, 0.05, bias, mxu_dtype=BF16, **kw)
+    f32 = kpconv_fused_plain(*args, 0.05, bias, **kw)
+    torch.cuda.synchronize()
+    assert_bf16_close(got[0], want[0], f32[0], kpconv_bound(want[0]))
+    for i in (1, 2, 3):  # pooled, count, ties: no rounding touches them
+        assert torch.equal(got[i], want[i])
+    if c == 1:
+        assert_kpconv_close(got[4], want[4])  # t1, unrounded
+        assert_kpconv_close(got[4], f32[4])
+
+
+@pytest.mark.parametrize("c", [32, 1])
+def test_kpconv_split_bf16_matches_plain(device, c):
+    """Row 5 at kpconv_mxu="bfloat16" on a split table: one pass rounds each
+    edge's operands (C_in > 1) or the whole t1 once (C_in = 1), as the
+    plain version's combine does."""
+    args, bias, _, q_mask = kpconv_case(device, c, m=301, h=40)
+    if c == 1:
+        args[0] = args[0].abs()
+    table = args[3].cpu().numpy()
+    n = args[2].shape[0]
+    m2 = int((table[:, 16:] < n).any(axis=1).sum())
+    split = [torch.from_numpy(x).to(device) for x in build_split_tables(table, n, 16, m2 + 8)]
+    call = (args[0], args[1], args[2], args[3][:, :16].contiguous(), *split, args[4], args[5],
+            0.05, bias)
+    got = launches_once_repeats_and_replays(
+        lambda: kpconv_split_fused(*call, q_mask=q_mask, mxu_dtype=BF16), "kpconv_split_fused")
+    want = kpconv_split_fused_plain(*call, q_mask=q_mask, mxu_dtype=BF16)
+    f32 = kpconv_split_fused_plain(*call, q_mask=q_mask)
+    torch.cuda.synchronize()
+    assert_bf16_close(got, want, f32, kpconv_bound(want))
+
+
+@pytest.mark.parametrize("m, h, k", [(50002, 38, 15), (4000, 512, 15), (20004, 65, 20)],
+                         ids=["shared", "global", "K20-chunks"])
+def test_kpconv_stream_bf16_matches_plain(device, m, h, k):
+    """Row 2 at kpconv_mxu="bfloat16" on its staged route, its general
+    route and in chunks of 16 kernel points: t1 and W rounded in the
+    epilogue, the t1 residual and the count unrounded, bit for bit with
+    the float32 instance's."""
+    from geotransformer_tpu_torch.kernels.kpconv import stream_route
+
+    stream, kp, w = stream_case(device, m, h, k if k <= 15 else 15)
+    if k > 15:
+        g = torch.Generator().manual_seed(k)
+        kp = ((torch.rand(k, 3, generator=g) - 0.5) * 0.1).to(device)
+        w = torch.randn(k, 1, 64, generator=g).to(device)
+    budget = sinkhorn_kernels.device_block_bytes(device)
+    assert stream_route(h, k, 64, budget) == ("global" if h == 512 else "shared")
+    got = launches_once_repeats_and_replays(
+        lambda: kpconv_stream_fused(stream, kp, w, 0.05, residuals=True, mxu_dtype=BF16),
+        "kpconv_stream_fused")
+    f32_kernel = kpconv_stream_fused(stream, kp, w, 0.05, residuals=True)
+    want = kpconv_stream_fused_plain(stream, kp, w, 0.05, residuals=True, mxu_dtype=BF16)
+    f32 = kpconv_stream_fused_plain(stream, kp, w, 0.05, residuals=True)
+    torch.cuda.synchronize()
+    assert_bf16_close(got[0], want[0], f32[0], kpconv_bound(want[0]))
+    assert torch.equal(got[1], f32_kernel[1]) and torch.equal(got[2], f32_kernel[2])
+
+
+@pytest.mark.parametrize("d, k", [(64, 15), (4096, 15), (64, 20)],
+                         ids=["shared", "global", "K20-chunks"])
+def test_kpconv_union_bf16_matches_plain(device, d, k):
+    """Row 7 at kpconv_mxu="bfloat16" on its staged route, its general route
+    (K D = 61,440) and in chunks of 16 kernel points."""
+    from geotransformer_tpu_torch.kernels.kpconv import union_route
+
+    call, _ = union_case(device, 700, 900, 38, 128)
+    g = torch.Generator().manual_seed(d + k)
+    kp = call[5] if k == 15 else ((torch.rand(k, 3, generator=g) - 0.5) * 0.1).to(device)
+    w = torch.randn(k, 1, d, generator=g).to(device)
+    bias = torch.randn(d, generator=g).to(device)
+    call = call[:5] + (kp, w, 0.05, bias)
+    budget = sinkhorn_kernels.device_block_bytes(device)
+    route = union_route(call[3].shape[1], call[4].shape[1], k, d, budget)
+    assert route == ("global" if d == 4096 else "shared")
+    got = launches_once_repeats_and_replays(
+        lambda: kpconv_union_input_fused(*call, tile=128, residuals=True, mxu_dtype=BF16),
+        "kpconv_union_input_fused")
+    want = kpconv_union_input_fused_plain(*call, tile=128, residuals=True, mxu_dtype=BF16)
+    f32 = kpconv_union_input_fused_plain(*call, tile=128, residuals=True)
+    torch.cuda.synchronize()
+    assert_bf16_close(got[0], want[0], f32[0], kpconv_bound(want[0]))
+    assert torch.equal(got[1], want[1])  # count
+    assert_kpconv_close(got[2], f32[2])  # t1, unrounded
+
+
+@pytest.mark.parametrize("c, angles, basis, embed", [
+    (256, 3, BF16, BF16), (128, 3, BF16, BF16), (32, 4, BF16, BF16), (48, 5, BF16, BF16),
+    (512, 3, BF16, BF16), (96, 3, torch.float32, BF16), (96, 3, BF16, torch.float32)],
+    ids=["C256", "C128", "C32-A4", "C48-A5-general", "C512-two-blocks", "embed-only",
+         "basis-only"])
+def test_gse_bf16_matches_plain(device, c, angles, basis, embed):
+    """Row 3 at the bfloat16 points: the BF16 instances (bases rounded as
+    built, weights once, one TF32 pass) of gse_kernel<C> and of
+    gse_general_kernel, and the bfloat16 embedding store, against the plain
+    version at the same point; exact zeros outside the valid rectangle;
+    repeats and replays."""
+    g = torch.Generator().manual_seed(c + angles)
+    n, n_valid = 100, 90
+    points = torch.rand(n, 3, generator=g)
+    ref_vectors = torch.randn(n, angles, 3, generator=g) * 0.1
+    w_d, w_a = (torch.randn(c, c, generator=g) / c**0.5 for _ in range(2))
+    b_d, b_a = torch.randn(c, generator=g), torch.randn(c, generator=g)
+    args = [t.to(device) for t in (points, ref_vectors, w_d, b_d, w_a, b_a)]
+    nv = torch.tensor(n_valid, dtype=torch.int32, device=device)
+    point = dict(basis_dtype=basis, embed_dtype=embed)
+    got = launches_once_repeats_and_replays(
+        lambda: gse_embedding_full(*args, 0.2, 15.0, nv, **point), "gse_embedding_full")
+    want = gse_embedding_full_plain(*args, 0.2, 15.0, nv, **point)
+    f32 = gse_embedding_full_plain(*args, 0.2, 15.0, nv)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == embed
+    v = n_valid
+    got_v, want_v = got[:v, :v], want[:v, :v]
+    assert_bf16_close(got_v, want_v, f32[:v, :v], torch.full_like(want_v.float(), 1e-3))
+    assert not got[v:].any() and not got[:, v:].any()
+
+
+@pytest.mark.parametrize("c, h, aligned", [(256, 4, True), (130, 4, True), (64, 4, False)],
+                         ids=["float4", "scalar", "misaligned"])
+def test_rpe_pair_scores_on_a_bf16_embedding_matches_plain(device, c, h, aligned):
+    """Row 12 on a bfloat16 embedding (widened exactly; qw and the scores in
+    float32) on both routes: within 1e-5 x max|plain| of the plain version,
+    which is the float32 function of the widened embedding; half the
+    embedding's bytes."""
+    from geotransformer_tpu_torch.kernels.attention import pair_scores_route
+
+    g = torch.Generator().manual_seed(c)
+    n = 300
+    embed = torch.randn(n, n, c, generator=g).to(device).to(BF16)
+    qw = torch.randn(n, h, c, generator=g).to(device)
+    if not aligned:
+        embed = torch.empty(n * n * c + 1, dtype=BF16, device=device)[1:].view(n, n, c).copy_(
+            embed)
+    nv = torch.tensor(281, dtype=torch.int32, device=device)
+    route = pair_scores_route(c, h, embed.data_ptr() % 16 == 0 and qw.data_ptr() % 16 == 0, n)
+    assert route == ("float4" if c == 256 else "scalar")
+    got = launches_once_repeats_and_replays(lambda: rpe_pair_scores(embed, qw, nv, nv),
+                                            "rpe_pair_scores")
+    want = rpe_pair_scores_plain(embed, qw, nv, nv)
+    torch.cuda.synchronize()
+    assert torch.equal(want, rpe_pair_scores_plain(embed.float(), qw, nv, nv))
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+    assert not got[281:].any() and not got[:, :, 281:].any()
+
+
+def test_bf16_gradients_raise(device):
+    """Training at the bfloat16 point is not ported: a KPConv at that point
+    and the differentiable GSE and pair-score forms raise on the card too,
+    before any launch."""
+    from geotransformer_tpu_torch.kernels.attention import rpe_pair_scores_diff
+    from geotransformer_tpu_torch.kernels.gse import gse_embedding_full_diff
+    from geotransformer_tpu_torch.models.kpconv import KPConv
+
+    args, _, _, _ = kpconv_case(device, 32)
+    conv = KPConv(32, 32, 15, 0.0625, 0.05, mxu_dtype=BF16).to(device)
+    before = cuda.launches["kpconv_fused"]
+    with pytest.raises(NotImplementedError):
+        conv(args[0], *args[1:4])  # gradients are on
+    assert cuda.launches["kpconv_fused"] == before
+    points = torch.rand(10, 3, device=device)
+    vectors = torch.randn(10, 3, 3, device=device)
+    w, b = torch.randn(32, 32, device=device), torch.randn(32, device=device)
+    with pytest.raises(NotImplementedError):
+        gse_embedding_full_diff(points, vectors, w, b, w, b, 0.2, 15.0, basis_dtype=BF16)
+    with pytest.raises(NotImplementedError):
+        rpe_pair_scores_diff(torch.zeros(4, 4, 8, dtype=BF16, device=device),
+                             torch.zeros(4, 2, 8, device=device))

@@ -50,6 +50,7 @@ from test_torch_model import make_pair
 from test_torch_scripts import narrow_config as script_config
 from test_torch_scripts import write_threedmatch
 from torch_routes import numpy_pyramids  # noqa: F401  (both packages on numpy)
+from torch_routes import jax_precision_kept  # noqa: F401  (JAX precision globals restored)
 
 CAPS = (512, 128, 64, 32)
 
@@ -78,7 +79,11 @@ def narrow(configs, stage_caps=CAPS, max_epoch=1):
         caps=configs.CapsConfig(stage_caps=stage_caps, neighbor_limits=(12, 12, 12, 12),
                                 inverse_limits=(40, 40, 40, 40), gt_candidates=8,
                                 gt_chunk_size=8, correspondence_capacity=256),
-        optim=dataclasses.replace(cfg.optim, max_epoch=max_epoch))
+        optim=dataclasses.replace(cfg.optim, max_epoch=max_epoch),
+        # the float32 point: the port honours a config's precision, the JAX
+        # XLA path computes in float32
+        precision=configs.PrecisionConfig(kpconv_mxu="float32", gse_basis="float32",
+                                          gse_embed="float32"))
 
 
 class PairSet:

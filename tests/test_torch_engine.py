@@ -30,19 +30,23 @@ from geotransformer_tpu_torch.engine import (
     Timer,
     Trainer,
 )
+from geotransformer_tpu_torch.configs import PrecisionConfig
 from geotransformer_tpu_torch.models import create_model
 from geotransformer_tpu_torch.parallel import make_lr_schedule
 from geotransformer_tpu_torch.preprocess import DevicePreprocessPlan, calibrate_stage_caps
 from geotransformer_tpu_torch.preprocess.loader import PairLoader, prepare_pair
 from test_modelnet_schedule import tiny_modelnet_config
 from test_torch_modelnet import REFERENCE_SETTINGS, write_modelnet_pickle
+from torch_routes import jax_precision_kept  # noqa: F401  (JAX precision globals restored)
 
 
 @pytest.fixture(scope="module")
 def setup(tmp_path_factory):
     root = write_modelnet_pickle(tmp_path_factory.mktemp("modelnet"), seed=5, entries=3)
     dataset = ModelNetPairDataset(root, "train", deterministic=True, **REFERENCE_SETTINGS)
-    cfg = tiny_modelnet_config()
+    # the JAX package's tiny configuration at the float32 point, the only
+    # one the port trains at
+    cfg = dataclasses.replace(tiny_modelnet_config(), precision=PrecisionConfig())
     bb = cfg.backbone
     caps = tuple(calibrate_stage_caps(
         (dataset[i] for i in range(len(dataset))), bb.num_stages, bb.init_voxel_size,

@@ -35,6 +35,7 @@ from geotransformer_tpu.configs import (
     CoarseMatchingConfig,
     GeoTransformerModuleConfig,
     ModelConfig,
+    PrecisionConfig,
     make_kitti_config,
 )
 from geotransformer_tpu.losses.overall import evaluate as jax_evaluate
@@ -55,6 +56,7 @@ from geotransformer_tpu_torch.preprocess import (
 )
 from geotransformer_tpu_torch.preprocess.voxel import grid_subsample_single
 from geotransformer_tpu_torch.utils.convert import gradients_to_state_dict, variables_to_state_dict
+from torch_routes import jax_precision_kept  # noqa: F401  (JAX precision globals restored)
 
 VOXEL = 0.125  # stage 1 subsamples at 2 x VOXEL
 CELL = 2 * VOXEL
@@ -91,6 +93,10 @@ def kitti_narrow_config():
             num_heads=2, sigma_d=4.8),
         caps=CapsConfig(neighbor_limits=(16,) * 5, gt_candidates=GT_CANDIDATES,
                         gt_chunk_size=8, correspondence_capacity=256),
+        # the float32 point, which the port honours and the JAX XLA path
+        # computes in
+        precision=PrecisionConfig(kpconv_mxu="float32", gse_basis="float32",
+                                  gse_embed="float32"),
     )
 
 

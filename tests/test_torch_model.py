@@ -24,6 +24,7 @@ from geotransformer_tpu.configs import (
     CoarseMatchingConfig,
     GeoTransformerModuleConfig,
     ModelConfig,
+    PrecisionConfig,
     make_3dmatch_config,
 )
 from geotransformer_tpu.utils.convert import torch_state_dict_to_variables
@@ -36,6 +37,7 @@ from geotransformer_tpu_torch.preprocess import (
     pad_registration_batch,
 )
 from geotransformer_tpu_torch.utils.convert import variables_to_state_dict
+from torch_routes import jax_precision_kept  # noqa: F401  (JAX precision globals restored)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -53,7 +55,13 @@ def narrow_config():
             input_dim=256, hidden_dim=32, output_dim=32, blocks=("self", "cross"), num_heads=2),
         caps=CapsConfig(stage_caps=(512, 128, 64, 32), neighbor_limits=(12, 12, 12, 12),
                         correspondence_capacity=256),
+        # the float32 point: the port honours a config's precision, and the
+        # JAX XLA path these tests hold it to computes in float32
+        precision=F32_POINT,
     )
+
+
+F32_POINT = PrecisionConfig(kpconv_mxu="float32", gse_basis="float32", gse_embed="float32")
 
 
 def make_pair(seed, n=500):

@@ -29,7 +29,7 @@ import numpy as np
 import pytest
 import torch
 
-from geotransformer_tpu.configs import CoarseMatchingConfig, make_modelnet_config
+from geotransformer_tpu.configs import CoarseMatchingConfig, PrecisionConfig, make_modelnet_config
 from geotransformer_tpu.datasets.modelnet import ModelNetPairDataset as JaxModelNetPairDataset
 from geotransformer_tpu.losses.overall import overall_loss as jax_overall_loss
 from geotransformer_tpu.models import create_model as create_jax_model
@@ -46,6 +46,7 @@ from geotransformer_tpu_torch.utils.convert import gradients_to_state_dict, vari
 from test_modelnet_schedule import tiny_modelnet_config
 from test_torch_kitti import kitti_batch
 from test_torch_train import make_training_batch, train_config
+from torch_routes import jax_precision_kept  # noqa: F401  (JAX precision globals restored)
 
 
 def write_modelnet_pickle(root, seed=3, entries=4, num_points=1500):
@@ -104,8 +105,10 @@ def modelnet_test_config():
     """The tiny ModelNet configuration of tests/test_modelnet_schedule.py
     (3 stages, fine_level=0) with every GT pair trained on."""
     cfg = tiny_modelnet_config()
+    # the float32 point, which the port honours and the JAX XLA path computes in
     cfg = dataclasses.replace(
-        cfg, coarse_matching=CoarseMatchingConfig(num_targets=256, num_correspondences=32))
+        cfg, coarse_matching=CoarseMatchingConfig(num_targets=256, num_correspondences=32),
+        precision=PrecisionConfig(kpconv_mxu="float32", gse_basis="float32", gse_embed="float32"))
     return cfg.with_model(force_pallas=False)
 
 
@@ -258,6 +261,8 @@ def test_kernel_and_einsum_routes_take_the_same_step_in_float64(modelnet_root, p
 def test_full_width_modelnet_config_matches_jax():
     want = dataclasses.asdict(make_modelnet_config())
     got = dataclasses.asdict(port_modelnet_config())
+    # the one difference: the port's precision point defaults to float32
+    assert got.pop("precision") == {knob: "float32" for knob in want.pop("precision")}
     assert got == {k: v for k, v in want.items() if k in got}
     assert got["model"]["fine_level"] == 0 and got["caps"]["stage_caps"] == (768, 384, 192)
 

@@ -277,8 +277,10 @@ def test_tester_refuses_a_device_plan(tmp_path):
 @pytest.mark.parametrize("name", ["3dmatch", "kitti", "modelnet"])
 def test_make_config_matches_jax(name):
     want = dataclasses.asdict(jax_configs.make_config(name))
-    want.pop("precision")  # the JAX kernels' dtypes; the port's kernels run in f32
-    assert dataclasses.asdict(port_configs.make_config(name)) == want
+    got = dataclasses.asdict(port_configs.make_config(name))
+    # the one difference: the port's precision point defaults to float32
+    assert got.pop("precision") == {knob: "float32" for knob in want.pop("precision")}
+    assert got == want
 
 
 def test_test_refuses_device_preprocess():

@@ -9,8 +9,9 @@ hygiene.
     path: partition tables equal, candidate indices equal as masked sets per
     ref node (top-k tie order is not part of the contract), overlaps to 1e-6;
   * ``candidates_to_dense_overlaps`` equal;
-  * configs equal field by field (``dataclasses.asdict``, the JAX-only
-    ``precision`` left out), the disposition file byte-identical;
+  * configs equal field by field (``dataclasses.asdict``) but for the one
+    stated difference, the precision point's float32 defaults; the
+    disposition file byte-identical;
   * no module of the port, and not ``chip_smoke.py``, imports jax, flax or
     the JAX package (the walk names the native binding, the model extras,
     the visualization helpers and every script).
@@ -43,6 +44,7 @@ from geotransformer_tpu_torch.models.matching import candidates_to_dense_overlap
 from geotransformer_tpu_torch.preprocess import pyramid as port_pyramid
 from geotransformer_tpu_torch.preprocess import batch_to_torch
 from test_torch_model import make_pair, narrow_config
+from torch_routes import jax_precision_kept  # noqa: F401  (JAX precision globals restored)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NEIGHBOR_LIMITS = [38, 36, 36, 38]
@@ -159,20 +161,28 @@ def test_targets_on_tensors_and_default_device(targets):
             precompute_gt_targets(cfg, batch)
 
 
+def assert_one_stated_difference(got, want):
+    """Two configurations as dicts equal but for the precision point's
+    values: float32 throughout in the port, the JAX package's bfloat16
+    defaults there (the same fields)."""
+    got, want = dict(got), dict(want)
+    port_point, jax_point = got.pop("precision"), want.pop("precision")
+    assert port_point == {name: "float32" for name in jax_point}
+    assert jax_point == dataclasses.asdict(port_configs.JAX_PRECISION)
+    assert got == want
+
+
 @pytest.mark.parametrize("factory", ["make_3dmatch_config", "make_kitti_config",
                                      "make_modelnet_config"])
 def test_config_copy_matches_jax(factory):
     got = dataclasses.asdict(getattr(port_configs, factory)())
     want = dataclasses.asdict(getattr(jax_configs, factory)())
-    want.pop("precision")  # JAX kernel globals, not part of the port's copy
-    assert got == want
+    assert_one_stated_difference(got, want)
     port_cfg = getattr(port_configs, factory)().with_caps(stage_caps=(1, 2)).with_model(
         force_pallas=False)
     jax_cfg = getattr(jax_configs, factory)().with_caps(stage_caps=(1, 2)).with_model(
         force_pallas=False)
-    want = dataclasses.asdict(jax_cfg)
-    want.pop("precision")
-    assert dataclasses.asdict(port_cfg) == want
+    assert_one_stated_difference(dataclasses.asdict(port_cfg), dataclasses.asdict(jax_cfg))
     assert port_cfg.backbone.init_radius == jax_cfg.backbone.init_radius
     assert port_cfg.first_fine_stage == jax_cfg.first_fine_stage
 

@@ -41,6 +41,7 @@ from geotransformer_tpu_torch.scripts import eval as port_eval
 from geotransformer_tpu_torch.scripts.common import pipeline_config
 from geotransformer_tpu_torch.utils.convert import variables_to_state_dict
 from test_torch_model import narrow_config
+from torch_routes import jax_precision_kept  # noqa: F401  (JAX precision globals restored)
 
 
 @pytest.fixture(autouse=True, scope="module")

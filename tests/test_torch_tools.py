@@ -270,10 +270,16 @@ def test_drift_kernels_route_is_the_f32_route_on_the_cpu(tiny_tools, tmp_path, c
             np.testing.assert_array_equal(got[key], want[key])
     assert report["kernels"]["feats_c"] == report["f32"]["feats_c"] > 0.0
     assert report["f64"]["feats_c"] == 0.0
+    capsys.readouterr()
     rows = drift_attrib.main(["--device", "cpu", "--weights", weights])
     assert set(rows) == {"all kernels", "kpconv plain", "gse plain", "attention plain",
                          "sinkhorn plain", "all plain (f32)"}
     assert len({row["digest"] for row in rows.values()}) == 1  # every route the plain one here
+    # the precision knobs' sweep: seven bfloat16 points, each farther from
+    # float64 than the float32 point (the plain versions round here too)
+    points = json.loads(capsys.readouterr().out.strip().splitlines()[-1])["points"]
+    assert len(points) == 7 and "kpconv_mxu+gse_basis+gse_embed" in points
+    assert all(p["feats_c"] > rows["all kernels"]["feats_c"] for p in points.values())
 
 
 def test_drift_routes_check_their_launches():
@@ -400,6 +406,26 @@ def test_shell_drivers_parse(script):
     # the repository root from the script's own path, the port's scripts by module
     assert 'ROOT=$(cd "$(dirname "${BASH_SOURCE[0]}")/../.." && pwd)' in text
     assert "geotransformer_tpu_torch.scripts." in text
+
+
+def test_convergence_suite_runs_jobs_at_once(tmp_path):
+    """JOBS=4 starts the four runs before any ends; a failing run fails the
+    suite either way."""
+    shim = tmp_path / "python"
+    shim.write_text("#!/usr/bin/env bash\nsleep 0.5\nexit ${SHIM_EXIT:-0}\n")
+    shim.chmod(0o755)
+    script = os.path.join(SCRIPTS, "run_convergence_suite.sh")
+    for jobs, code in (("4", "0"), ("4", "1"), ("1", "1")):
+        out = tmp_path / f"suite_{jobs}_{code}"
+        res = subprocess.run(["bash", script, str(out), "1"], capture_output=True, text=True,
+                             timeout=60, env=dict(os.environ, PYTHON=str(shim), JOBS=jobs,
+                                                  SHIM_EXIT=code))
+        assert res.returncode == int(code), res.stderr
+        events = [line.split()[2] for line in (out / "suite.log").read_text().splitlines()
+                  if line.startswith("===")]
+        assert sorted(events) == ["exit"] * 4 + ["start"] * 4
+        if jobs == "4":
+            assert events[:4] == ["start"] * 4
 
 
 # --- synthetic_benchmark's restored flags -------------------------------------

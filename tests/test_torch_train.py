@@ -54,6 +54,7 @@ from geotransformer_tpu_torch.preprocess import (
 )
 from geotransformer_tpu_torch.utils.convert import gradients_to_state_dict, variables_to_state_dict
 from test_torch_model import make_pair, narrow_config
+from torch_routes import jax_precision_kept  # noqa: F401  (JAX precision globals restored)
 
 
 def train_config():

@@ -31,6 +31,7 @@ from geotransformer_tpu_torch.models import create_model, precompute_gt_targets
 from geotransformer_tpu_torch.preprocess import batch_to_torch
 from geotransformer_tpu_torch.utils.convert import gradients_to_state_dict, variables_to_state_dict
 from test_torch_train import assert_gradients_match, make_training_batch, train_config
+from torch_routes import jax_precision_kept  # noqa: F401  (JAX precision globals restored)
 
 HIDDEN_DIM, ANGLE_K = 48, 4
 

@@ -1,5 +1,7 @@
-"""A shared fixture of the port's tests that build batches in both
-packages and compare them.
+"""Shared fixtures of the port's tests that run both packages.
+
+``numpy_pyramids``, for the tests that build batches in both packages and
+compare them:
 
 Both packages read ``GEOTRANSFORMER_TPU_NATIVE``; the port takes its native
 library unless it is ``0``, the JAX package takes its own whenever it
@@ -24,3 +26,19 @@ def numpy_pyramids():
         os.environ.pop("GEOTRANSFORMER_TPU_NATIVE", None)
     else:
         os.environ["GEOTRANSFORMER_TPU_NATIVE"] = saved
+
+
+@pytest.fixture(autouse=True, scope="module")
+def jax_precision_kept():
+    """The JAX kernel modules' precision globals put back as they were
+    before the module ran. The port's tests hand the JAX package
+    configurations pinned to the float32 point (the port's default, which
+    the port honours); the JAX ``create_model`` and ``prepare_pair`` install
+    a configuration's point process-wide (``apply_precision``), so without
+    this a later module in the same worker would run the JAX kernels at
+    float32 instead of their bfloat16 defaults."""
+    from geotransformer_tpu.kernels import gse, kpconv
+
+    saved = kpconv.TABLE_DTYPE, kpconv.MXU_DTYPE, gse.BASIS_DTYPE, gse.EMBED_DTYPE
+    yield
+    kpconv.TABLE_DTYPE, kpconv.MXU_DTYPE, gse.BASIS_DTYPE, gse.EMBED_DTYPE = saved
