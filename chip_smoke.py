@@ -134,6 +134,24 @@ fused_masked_attention twice a block).
                graph beside the same calls at float32 (paths
                precision_3dmatch, precision_3dmatch_union, precision_kitti,
                precision_kitti_untrained; "precision" in the kernels line).
+ 11t. precision training (after 11p) — training at the JAX point on the
+               phases' trained weights: the 3DMatch cell's pair 0 with its
+               inverse tables (path precision_3dmatch_train) and the KITTI
+               cell's pair 0 with its split inverse tables (path
+               precision_kitti_train), two make_train_step steps each,
+               counted (paths *_precision_train), finite, none skipped; and
+               all four knobs bfloat16 (kpconv_table too) on the 3DMatch
+               pair padded at the table point's 16 columns: one counted
+               forward and one step (path precision_table). Every bfloat16
+               call of a step's training kernels (rows 6 and 8, the input
+               conv's residuals, Sinkhorn) and of the table point's forward
+               against its plain version at the same point (the bfloat16
+               rule above), rounding_witness below 0.25 on rows 6 and 8
+               and the table instances, each row's calls beside the same
+               calls at float32 (graph); the kernel step's gradients
+               nearer the plain step at the same point than that step is to
+               the float32 plain step (relative norm, whole step; each
+               tensor reported).
  12. ModelNet batch — a synthetic ModelNet pickle written from a seed into a
                temporary directory (4 entries of 2048 points with normals on
                random boxes and cylinders, asymmetric labels), read by the
@@ -227,7 +245,9 @@ fused_masked_attention twice a block).
                index_reduce_ "mean" for the segment mean, by_call, paths
                device_pyramid_3dmatch and device_pyramid_kitti); the whole
                build's events and graph time per pair against the host
-               pyramid's seconds; (b) the raw mode at full width on the
+               pyramid's seconds, and pair 0's build profiled by kernel in
+               a fresh process (chip_smoke.py --profile-builds, which must
+               lose no event; chiprun_out/<path>_profile.txt); (b) the raw mode at full width on the
                synthetic workflow's configuration with a deliberately small
                first bucket (stage-1 cap 256) that every pair takes,
                overflows and escalates from: 8 steps through PairLoader (2
@@ -411,6 +431,7 @@ from geotransformer_tpu_torch.preprocess import (
     caps_for_pyramid,
     pad_registration_batch,
     round_up,
+    table_align,
 )
 from geotransformer_tpu_torch.preprocess import device as preprocess_device
 from geotransformer_tpu_torch.preprocess.calibrate import largest_cell_population
@@ -856,9 +877,9 @@ def _plain_kwargs(kwargs):
     return {k: v for k, v in kwargs.items() if k != "force"}
 
 
-# the wrappers' precision keywords (PrecisionConfig's kpconv_mxu, gse_basis,
-# gse_embed)
-DTYPE_KEYS = ("mxu_dtype", "basis_dtype", "embed_dtype")
+# the wrappers' precision keywords (PrecisionConfig's kpconv_mxu,
+# kpconv_table, gse_basis, gse_embed)
+DTYPE_KEYS = ("mxu_dtype", "table_dtype", "basis_dtype", "embed_dtype")
 
 
 def bf16_call(args, kwargs):
@@ -1073,15 +1094,35 @@ def cost_kpconv_bwd_fused(args, kwargs, out):
     # support row, as on the whole table
     if isinstance(inv, (tuple, list)):
         inv = _whole_table(inv[0], inv[1], inv[3], m)
+    split = isinstance(inv, (tuple, list))
+    if split:
+        inv = _whole_table(inv[0], inv[1], inv[3], m)
     valid = inv < m
     edges = int(valid.sum())
     active = int(valid.any(dim=1).sum())
-    ops, tf32 = _contraction(4 * active * k * d * c, c, d)  # d_s, dW
-    ops += 10 * edges * k + 2 * edges * k * d  # the u pass
+    product = 2 * active * k * d * c  # d_s, and dW
+    u_pass = 2 * edges * k * d
+    if _mxu_bf16(kwargs):
+        # the bfloat16 point: the u pass's and dW's products of rounded
+        # operands (a split table's u is a sum of two rounded parts: dW's
+        # other operand rounded only) at the bfloat16 rate; d_s of rounded u
+        # and f32 W two TF32 products (three on the split route)
+        tensor_cores = c >= 8 and d >= 8 and c % 4 == 0 and d % 4 == 0
+        ops, tf32, low = 10 * edges * k, 0, u_pass
+        if not tensor_cores:
+            ops += product + (product if split else 0)
+            low += 0 if split else product
+        else:
+            tf32 = (3 if split else 2) * product + (2 * product if split else 0)
+            low += 0 if split else product
+    else:
+        ops, tf32 = _contraction(2 * product, c, d)  # d_s, dW
+        ops += 10 * edges * k + u_pass  # the u pass
+        low = 0
     pool = kwargs.get("pool_feats")
     if pool is not None:
         ops += 2 * edges * pool.shape[1]
-    return _nbytes(*args[:7], *kwargs.values(), *out), ops, tf32
+    return _nbytes(*args[:7], *kwargs.values(), *out), ops, tf32, 0, low
 
 
 def cost_gse_full_bwd(args, kwargs, out):
@@ -1093,7 +1134,12 @@ def cost_gse_full_bwd(args, kwargs, out):
     de = args[5]
     nv = int(args[6]) if len(args) > 6 and args[6] is not None else points.shape[0]
     c, a = w_a.shape[0], ref_vectors.shape[1]
-    return _nbytes(points, ref_vectors, w_a, de, *out[:3]), 0, 3 * nv * nv * 2 * c * c * (a + 2)
+    products = nv * nv * 2 * c * c * (a + 2)
+    if kwargs.get("basis_dtype") == torch.bfloat16:
+        # the bfloat16 basis point: bases, W_a and de rounded, every
+        # product of bfloat16 operands (one TF32 pass in the kernel)
+        return _nbytes(points, ref_vectors, w_a, de, *out[:3]), 0, 0, 0, products
+    return _nbytes(points, ref_vectors, w_a, de, *out[:3]), 0, 3 * products
 
 
 def cost_patch_overlaps(args, kwargs, out):
@@ -1784,18 +1830,19 @@ def witness(record, replay=(), inputs=False):
     pending = []
 
     def bwd_pass(s_feats, s_points, q_points, gdiv, inverse_table, kernel_points, weights, sigma,
-                 pool_feats=None, pooled=None, dpool_over_ties=None):  # _bwd_pass_plain
+                 pool_feats=None, pooled=None, dpool_over_ties=None, **point):  # _bwd_pass_plain
         if pool_feats is None or "pool" not in replay:
             return saved["bwd_pass"](s_feats, s_points, q_points, gdiv, inverse_table,
                                      kernel_points, weights, sigma, pool_feats, pooled,
-                                     dpool_over_ties)
+                                     dpool_over_ties, **point)
         # the backward walks the convs in reverse, each conv's passes in order
         if not pending:
             position["pool"] += 1
             pending.extend(record["pool"][len(record["pool"]) - position["pool"]])
         is_max = pending.pop(0)
         d_s_feats, d_weights = saved["bwd_pass"](s_feats, s_points, q_points, gdiv,
-                                                 inverse_table, kernel_points, weights, sigma)
+                                                 inverse_table, kernel_points, weights, sigma,
+                                                 **point)
         d_pool = torch.sum(is_max.to(gdiv.dtype)
                            * gather_with_shadow(dpool_over_ties, inverse_table.long(), 0.0), dim=1)
         return d_s_feats, d_weights, d_pool
@@ -2234,7 +2281,8 @@ def kitti_phases(device, launches, report):
 # the rows whose bfloat16 instance rounds inside the kernel (row 12 reads a
 # bfloat16 embedding and rounds nothing)
 ROUNDING_ROWS = ("kpconv_fused", "kpconv_split_fused", "kpconv_stream_fused",
-                 "kpconv_union_input_fused", "gse_embedding_full")
+                 "kpconv_union_input_fused", "gse_embedding_full", "kpconv_bwd_fused",
+                 "gse_full_bwd")
 BF16_ROWS = ROUNDING_ROWS + ("rpe_pair_scores",)
 # the precision path's whole-forward bar on the phases' trained weights, the
 # float32 path's: two forwards at a bfloat16 point whose float32 sums differ
@@ -2417,6 +2465,123 @@ def precision_phase(device, launches, report):
     seconds = time.perf_counter() - start
     print(f"precision path: {seconds:.1f} s", flush=True)
     report["precision"] = dict(summary, seconds=seconds)
+    return results
+
+
+# every knob bfloat16: the JAX point and the bfloat16 gathered table
+TABLE_POINT = dataclasses.replace(JAX_PRECISION, kpconv_table="bfloat16")
+PRECISION_TRAIN_STEPS = 2
+
+
+def precision_train_phase(device, launches, report):
+    """Training at the JAX point (after the precision path): the 3DMatch
+    cell's pair 0 with its inverse tables and the KITTI cell's pair 0 with
+    its split inverse tables at JAX_PRECISION, and the 3DMatch pair again at
+    TABLE_POINT (kpconv_table too; the pair padded at the point's 16
+    columns, one forward first), each on the phases' trained weights:
+    PRECISION_TRAIN_STEPS make_train_step steps counted against what the
+    batch implies (finite losses, no step skipped); each training kernel's
+    calls of one step (and the table point's forward kernels) against
+    their plain versions at the same point, rounding_witness below 0.25 on
+    the rows that round, each row's bfloat16 calls replayed beside the same
+    calls at float32; the kernel step's gradients nearer the
+    force_pallas=False step at the same point than that step is to the
+    float32 plain step (relative norm; each tensor reported). Returns
+    paths precision_3dmatch_train, precision_kitti_train and
+    precision_table."""
+    start = time.perf_counter()
+    results, summary = {}, {}
+    cfg3, model3, batches3 = SHARED["3dmatch_train"]
+    cfgk, modelk, batchesk = SHARED["kitti_train"]
+    pyramid, n, transform = SHARED["3dmatch"][0]
+    table_batch = batch_to_torch(pad_registration_batch(
+        pyramid, np.ones((n, 1), np.float32), transform, cfg3.caps.stage_caps,
+        inverse_limits=cfg3.caps.inverse_limits, align=table_align(TABLE_POINT)), device)
+    table_batch.update(precompute_gt_targets(cfg3, table_batch, device=device))
+    runs = (("3dmatch_train", cfg3, JAX_PRECISION, model3, batches3[0]),
+            ("kitti_train", cfgk, JAX_PRECISION, modelk, batchesk[0]),
+            ("table", cfg3, TABLE_POINT, model3, table_batch))
+    for path, cfg, precision, trained, batch in runs:
+        point = dataclasses.replace(cfg, precision=precision)
+        blocks = cfg.geotransformer.blocks
+        models = {}
+        for route, model_cfg in (("kernel", point), ("plain", point.with_model(force_pallas=False)),
+                                 ("plain_f32", cfg.with_model(force_pallas=False))):
+            models[route] = create_model(model_cfg, device=device)
+            models[route].load_state_dict(trained.state_dict())
+        model = models["kernel"]
+        # without precomputed targets (KITTI) every route takes its GT
+        # overlaps from row 11, which is exact: the same targets
+        names = list(TRAINING) + (["patch_overlaps"] if "gt_cand_indices" not in batch else [])
+        step_names = list(names)
+        records = {}
+        if path == "table":
+            # the table point's forward instances (rows 1 and 5 round the
+            # gathered features and pool values), counted
+            forward = [name for name in INFERENCE + ["kpconv_split_fused"]
+                       if expected_launches(batch, "inference", blocks)[name]]
+            with torch.no_grad():
+                (ms, out), counts = counted(lambda: forward_ms(model, batch))
+                expect_launches(counts, [batch], "inference", "precision table forward", blocks)
+                launches["table_precision_inference"] = counts
+                check_output(out, cfg, cfg.caps.stage_caps)
+                compare_coarse_features(out, models["plain"](batch), "precision table: the "
+                                        "table point, kernels vs force_pallas=False")
+                with capture_kernel_calls(forward) as forward_records:
+                    model(batch)
+            records.update(forward_records)
+            names = forward + names
+        with capture_kernel_calls(step_names) as step_records:
+            loss, grads = step_gradients(model, point, batch, 0)
+        records.update(step_records)
+        _, grads_plain = step_gradients(models["plain"], point, batch, 0)
+        _, grads_f32 = step_gradients(models["plain_f32"], cfg, batch, 0)
+        near, per_near = relative_errors(grads, grads_plain)
+        far, per_far = relative_errors(grads_plain, grads_f32)
+        expect(near <= far, f"precision {path}: the kernel step is {near:.2e} from the plain "
+                            f"step at its point, farther than that step from float32 "
+                            f"({far:.2e})")
+        optimizer, scheduler = make_optimizer(model, point, steps_per_epoch=1)
+        step = make_train_step(model, point, optimizer, scheduler, device=DEVICE)
+        losses, total = [], collections.Counter()
+        for i in range(PRECISION_TRAIN_STEPS):
+            metrics, counts = counted(lambda: step(batch, target_generator(SEEDS[i])))
+            total.update(counts)
+            expect_launches(counts, [batch], "train", f"precision {path} step {i}", blocks)
+            expect(metrics["grad_finite"].item() == 1.0,
+                   f"precision {path} step {i} skipped by the guard")
+            losses.append(metrics["loss"].item())
+            expect(np.isfinite(losses[-1]), f"precision {path} step {i}: loss {losses[-1]}")
+        launches[f"{path.removesuffix('_train')}_precision_train"] = dict(total)
+        results[f"precision_{path}"] = compare_kernels(records, names, reps=3,
+                                                       stage_of=stages_of(batch))
+        witness = rounding_witness(records, names)
+        for name, ratio in witness.items():
+            expect(ratio <= 0.25, f"precision {path} {name}: |kernel - plain| is {ratio:.3f} of "
+                                  "|plain at float32 - plain|: the kernel does not round "
+                                  "where its plain version does")
+        beside = float32_beside(records, [n for n in names if any(
+            bf16_call(args, kwargs) for args, kwargs in records[n])])
+        worst = sorted(per_near, key=lambda k: -per_near[k] / max(per_far[k], 1e-30))[:5]
+        print(f"precision {path}: loss {loss:.6f}, steps {[round(x, 6) for x in losses]}; "
+              f"gradients kernel vs plain at the point {near:.3e}, plain at the point vs "
+              f"float32 {far:.3e} (relative norm, whole step); the five tensors nearest their "
+              f"plain-vs-float32 distance (kernel vs plain, plain vs float32; every tensor "
+              f"in chip_smoke.json) "
+              f"{json.dumps({k: [float(f'{per_near[k]:.3e}'), float(f'{per_far[k]:.3e}')] for k in worst})}; "
+              f"rounding witness {json.dumps({k: round(v, 5) for k, v in witness.items()})}; "
+              f"device ms bfloat16 / float32 (graph) "
+              f"{json.dumps({k: [round(v[0], 4), round(v[1], 4)] for k, v in beside.items()})}",
+              flush=True)
+        summary[path] = dict(loss=loss, step_losses=losses, kernel_vs_plain=near,
+                             plain_vs_float32=far,
+                             per_tensor={k: (per_near[k], per_far[k]) for k in per_near},
+                             witness=witness, beside=beside)
+        del models, model, step, optimizer
+    seconds = time.perf_counter() - start
+    print(f"precision training: {seconds:.1f} s", flush=True)
+    report["precision"].update(summary)
+    report["precision"]["train_seconds"] = seconds
     return results
 
 
@@ -2990,6 +3155,34 @@ def profile_build(path, raw, spec):
     return [(op.name[:60], round(op.ms, 3), op.count) for op in kernels[:5]]
 
 
+def profile_builds_worker(inputs, out):
+    """``chip_smoke.py --profile-builds INPUTS OUT``: :func:`profile_build`
+    in a fresh process (a long process's profiler sessions lose events,
+    PERF.md §7) for each {path: (raw, spec)} of the torch file INPUTS; each
+    path's five largest items into the JSON file OUT."""
+    top = {path: profile_build(path, [t.to(DEVICE) for t in raw], spec)
+           for path, (raw, spec) in torch.load(inputs).items()}
+    with open(out, "w") as f:
+        json.dump(top, f)
+
+
+def profile_builds_phase(builds, report, tmp):
+    """Phase 17 (a)'s profiles: ``builds``, {path: (raw, spec)}, profiled by
+    ``--profile-builds`` in one process of its own; each path's largest
+    items printed and recorded (report[path]["top"])."""
+    inputs, out = os.path.join(tmp, "profile_builds.pt"), os.path.join(tmp, "profile_builds.json")
+    torch.save({path: ([t.cpu() for t in raw], spec) for path, (raw, spec) in builds.items()},
+               inputs)
+    run_script([sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--profile-builds", inputs,
+                out], dict(os.environ), "chip_smoke.py --profile-builds")
+    with open(out) as f:
+        top = json.load(f)
+    for path in builds:
+        print(f"{path}: the build's largest device items (torch.profiler, a process of its own, "
+              f"ms): {top[path]}", flush=True)
+        report[path]["top"] = top[path]
+
+
 def device_build(cfg, pyramids):
     """The device build of a path's host pyramids: symmetric caps (each
     stage's largest cloud over the pairs, a multiple of 256), the largest
@@ -3009,7 +3202,8 @@ def device_pyramid_path(path, cfg, pyramids, device, report):
     256) with the candidate capacity calibrated on the host, against the
     host pyramid at the same caps; each kernel call against its plain
     version (bit for bit; the segment means within 1e-6 x max|coordinate|),
-    timed on pair 0's build; the whole build's time against the host's."""
+    timed on pair 0's build; the whole build's time against the host's.
+    Returns the comparisons and pair 0's (raw, spec) for its profile."""
     caps, largest, knn_cand_cap, spec = device_build(cfg, pyramids)
     print(f"{path}: caps {caps}, knn_cand_cap {knn_cand_cap} (the largest 27-cell population "
           f"{largest}, calibrated on the host over the {len(pyramids)} pairs)", flush=True)
@@ -3039,7 +3233,6 @@ def device_pyramid_path(path, cfg, pyramids, device, report):
     raw = raw_inputs(pyramids[0][0], pyramids[0][2], caps[0], device)
     build_ms = time_ms(lambda: build_pyramid_device(*raw, **spec), 5)
     build_device_ms = graph_ms(lambda: build_pyramid_device(*raw, **spec))
-    top = profile_build(path, raw, spec)
     p, n, transform = pyramids[0]
     start = time.perf_counter()
     bb = cfg.backbone
@@ -3051,14 +3244,13 @@ def device_pyramid_path(path, cfg, pyramids, device, report):
     skipped = sum(bb.num_stages - g for g in compared)
     print(f"{path}: device build {build_ms:.3f} ms a pair (CUDA events, host dispatch "
           f"included), {build_device_ms:.3f} ms on the device (graph) vs the host pyramid "
-          f"{host_s:.3f} s a pair (pair 0: build_pyramid + pad_registration_batch); the "
-          f"build's largest device items (torch.profiler, ms): {top}; stages "
+          f"{host_s:.3f} s a pair (pair 0: build_pyramid + pad_registration_batch); stages "
           f"compared {compared} of {bb.num_stages} ({skipped} left out on a float32 voxel "
           f"boundary); tie rows {all_ties}", flush=True)
     report[path] = dict(caps=caps, knn_cand_cap=knn_cand_cap, largest_population=largest,
                         build_ms=build_ms, build_device_ms=build_device_ms, host_s=host_s,
                         stages_compared=compared, ties=all_ties)
-    return results
+    return results, (raw, spec)
 
 
 def device_pyramid_phases(device, launches, report, tmp):
@@ -3071,12 +3263,11 @@ def device_pyramid_phases(device, launches, report, tmp):
     --device_preprocess from the checkpoint (its buckets too). Returns the kernels' comparisons
     ("device_pyramid_3dmatch", "device_pyramid_kitti")."""
     phase_start = time.perf_counter()
-    results = {
-        "device_pyramid_3dmatch": device_pyramid_path(
-            "device_pyramid_3dmatch", make_3dmatch_config(), SHARED["3dmatch"], device, report),
-        "device_pyramid_kitti": device_pyramid_path(
-            "device_pyramid_kitti", make_kitti_config(), SHARED["kitti"], device, report),
-    }
+    results, builds = {}, {}
+    for path, cfg, key in (("device_pyramid_3dmatch", make_3dmatch_config(), "3dmatch"),
+                           ("device_pyramid_kitti", make_kitti_config(), "kitti")):
+        results[path], builds[path] = device_pyramid_path(path, cfg, SHARED[key], device, report)
+    profile_builds_phase(builds, report, tmp)
 
     shared = SHARED["synthetic"]
     cfg, train_set, test_set = shared["cfg"], shared["train_set"], shared["test_set"]
@@ -4743,6 +4934,9 @@ def main():
     if sys.argv[1:2] == ["--profiler-sessions"]:
         profiler_sessions_worker(sys.argv[2])
         return
+    if sys.argv[1:2] == ["--profile-builds"]:
+        profile_builds_worker(*sys.argv[2:4])
+        return
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device (torch.cuda.is_available() is False)")
     script_start = time.perf_counter()
@@ -4771,6 +4965,7 @@ def main():
     by_path.update(phase("kitti", kitti_phases, device, launches, report))
     # the precision path: the JAX package's default point on the same pairs
     by_path.update(phase("precision", precision_phase, device, launches, report))
+    by_path.update(phase("precision train", precision_train_phase, device, launches, report))
     # 18. the training engine on the phases' pairs and weights
     phase("engine", engine_phase, launches, report)
     with tempfile.TemporaryDirectory() as tmp:

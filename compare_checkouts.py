@@ -28,12 +28,16 @@ and one JSON line of them (more than two checkouts compare to the first).
 ``--paths`` and ``--kernels`` restrict what ``capture`` records; the paths
 3dmatch_jax and kitti_jax, which it records only when asked, are the
 3DMatch and KITTI forwards at the JAX package's default point
-(configs.JAX_PRECISION: the bfloat16 instances). Every run also records the
-card's name and power limit.
+(configs.JAX_PRECISION: the bfloat16 instances) and the row 6 and row 8
+calls of a training step there. ``time`` skips a call whose keywords the
+checkout's wrapper does not take (a checkout from before a bfloat16
+instance), and reports how many. Every run also records the card's name and
+power limit.
 """
 
 import argparse
 import collections
+import inspect
 import json
 import os
 import subprocess
@@ -137,8 +141,10 @@ def capture(out_path, paths, kernels):
                 continue
             cfg, batch = launch_profile.path_batch(path, tmp)
             record(path, cfg, batch, ROWS)
-            record(f"{path}_jax", dataclasses.replace(cfg, precision=JAX_PRECISION), batch, ROWS,
-                   train=False)
+            jax_point = dataclasses.replace(cfg, precision=JAX_PRECISION)
+            record(f"{path}_jax", jax_point, batch, ROWS, train=False)
+            # the training step's backward rows at the JAX point
+            record(f"{path}_jax", jax_point, batch, ("kpconv_bwd_fused", "gse_full_bwd"))
             if path == "3dmatch" and path in paths and UNION in kernels:
                 record_union(cfg)
             if path in ("3dmatch", "kitti") and path in paths and SEARCH in kernels:
@@ -165,10 +171,15 @@ def time_calls(calls_path, out_path, root, reps):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     build_s = cuda.build()
-    result = []
+    result, skipped = [], collections.Counter()
     for path, name, args, kwargs in torch.load(calls_path, weights_only=False):
         args, kwargs = moved(args, "cuda"), moved(kwargs, "cuda")
         fn = getattr(modules[MODULES[name]], name)
+        try:
+            inspect.signature(fn).bind(*args, **kwargs)
+        except TypeError:  # a keyword this checkout's wrapper does not take
+            skipped[path, name] += 1
+            continue
         before = cuda.launches[name]
         fn(*args, **kwargs)
         launches = cuda.launches[name] - before
@@ -178,8 +189,10 @@ def time_calls(calls_path, out_path, root, reps):
         result.append({"path": path, "kernel": name, "device_ms": ms})
     with open(out_path, "w") as f:
         json.dump({"root": os.path.abspath(root), "card": card(), "build_s": build_s,
-                   "calls": result}, f)
-    print(f"{root}: {len(result)} calls timed, build {build_s:.1f} s", flush=True)
+                   "calls": result,
+                   "skipped": [[p, n, c] for (p, n), c in sorted(skipped.items())]}, f)
+    print(f"{root}: {len(result)} calls timed, build {build_s:.1f} s, skipped "
+          f"{dict((f'{p} {n}', c) for (p, n), c in skipped.items())}", flush=True)
 
 
 def report(paths):
@@ -200,6 +213,9 @@ def report(paths):
     first = roots[0]
     rows = []
     for key in sums[first]:
+        if any(key not in sums[root] for root in roots):
+            print(f"{key[0]:12s} {key[1]:20s} not timed by every checkout")
+            continue
         runs_ms = [sums[root][key] for root in roots]
         means = [sum(r) / len(r) for r in runs_ms]
         rows.append({"path": key[0], "kernel": key[1], "ms": runs_ms,

@@ -173,9 +173,11 @@ class PrecisionConfig:
     (3xTF32), at which every card check is set. The JAX package's defaults
     (:data:`JAX_PRECISION`) round the last three to bfloat16 (round to
     nearest even). Both the kernels and their plain versions honour the
-    point, on the card and on the CPU. ``kpconv_table="bfloat16"`` and any
-    bfloat16 point with gradients enabled raise ``NotImplementedError``
-    (ROADMAP.md queue 1: training at the JAX precision point).
+    point, on the card and on the CPU, forward and backward: the model
+    trains at every point the JAX package computes. A batch for a
+    ``kpconv_table="bfloat16"`` model pads its forward tables to
+    ``preprocess.table_align(precision)`` columns, as the JAX host batch
+    does.
     """
 
     kpconv_table: str = "float32"
@@ -202,11 +204,6 @@ def knob_dtype(precision, name):
     if value not in DTYPE_NAMES:
         raise ValueError(f"precision.{name} = {value!r}: one of {DTYPE_NAMES}")
     return torch.float32 if value == "float32" else torch.bfloat16
-
-
-def is_float32_point(precision):
-    """Every knob of ``precision`` at float32 (the only point training takes)."""
-    return all(getattr(precision, name) == "float32" for name in PRECISION_KNOBS)
 
 
 # the JAX package's default point (geotransformer_tpu/configs.py:181-184)

@@ -64,7 +64,8 @@ class Tester:
 
         def run_bucket(bucket, group):
             spec = plan.spec(bucket, with_inverse=False)
-            built, overflowed = build_raw_batch(batch_to_torch(group[0], self.device), spec)
+            built, overflowed = build_raw_batch(batch_to_torch(group[0], self.device), spec,
+                                                self.cfg.precision)
             return None if overflowed else self._forward(built), overflowed
 
         def run_host(host_group):

@@ -18,8 +18,10 @@ has no mask and treats a non-prefix one as all valid).
 The pair scores read the embedding in its own dtype, float32 or, at the
 bfloat16 embedding point (``PrecisionConfig.gse_embed``), bfloat16, widened
 exactly to float32; ``qw`` and the scores stay float32, as the JAX model's
-XLA einsum promotes its bfloat16 embedding. Their differentiable form takes
-a float32 embedding only (the gradient of a bfloat16 one is not ported).
+XLA einsum promotes its bfloat16 embedding. Their differentiable form
+returns a bfloat16 embedding's gradient in bfloat16, taken in float32 (the
+JAX ``_pair_scores_bwd``); autograd adds the "self" blocks' bfloat16
+gradients in bfloat16, last block first, as JAX adds its cotangents.
 
 Neither JAX kernel has a Pallas backward, and neither has a CUDA one here:
 the ``*_diff`` forms run the kernel forward and differentiate the plain
@@ -164,20 +166,23 @@ class _PairScores(torch.autograd.Function):
         embed, qw, nv_q, nv_k = ctx.saved_tensors
         n, m, _ = embed.shape
         ds = torch.where(_rectangle(n, m, nv_q, nv_k, ds.device), ds, 0.0)
-        d_embed = torch.einsum("nhm,nhc->nmc", ds, qw) if ctx.needs_input_grad[0] else None
-        d_qw = torch.einsum("nhm,nmc->nhc", ds, embed) if ctx.needs_input_grad[1] else None
+        # a bfloat16 embedding: d_embed in float32, stored in the embedding's
+        # dtype, and d_qw from the widened embedding (JAX _pair_scores_bwd,
+        # kernels/attention.py:201-207, the transpose of the XLA einsum's
+        # promotion alike)
+        d_embed = d_qw = None
+        if ctx.needs_input_grad[0]:
+            d_embed = torch.einsum("nhm,nhc->nmc", ds, qw).to(embed.dtype)
+        if ctx.needs_input_grad[1]:
+            d_qw = torch.einsum("nhm,nmc->nhc", ds, embed.to(qw.dtype))
         return d_embed, d_qw, None, None, None
 
 
 def rpe_pair_scores_diff(embed, qw, n_valid_q=None, n_valid_k=None, force=None):
     """Differentiable :func:`rpe_pair_scores` (JAX ``rpe_pair_scores_diff``):
     the kernel forward, the plain einsums' gradients (zero outside the
-    valid rectangle, where the forward is zero). A bfloat16 embedding
-    raises ``NotImplementedError``."""
-    if embed.dtype == torch.bfloat16:
-        raise NotImplementedError(
-            "pair-score gradients of a bfloat16 embedding are not ported (ROADMAP.md queue 1: "
-            "training at the JAX precision point)")
+    valid rectangle, where the forward is zero); a bfloat16 embedding's
+    gradient in bfloat16, taken in float32."""
     n, m, _ = embed.shape
     return _PairScores.apply(embed, qw, _count(n_valid_q, n, embed.device),
                              _count(n_valid_k, m, embed.device), force)

@@ -66,6 +66,22 @@
 // pair; past one chunk or one group twice, and the projections once a row
 // chunk). de is read once a row chunk.
 //
+// The bfloat16 basis point (PrecisionConfig.gse_basis, the JAX kernel's
+// BASIS_DTYPE: geotransformer_tpu/kernels/gse.py:322-372, 386-387) is an
+// instance of each kernel (BF): every basis value and W_a rounded to
+// bfloat16 as built and staged, so the projections and the first argmax
+// over k are the rounded operands'; de rounded before both weight products
+// (the JAX wgrad's cot.astype(BASIS_DTYPE), :344), db summed from de as it
+// comes. Bases, W_a and de are then TF32 values and every product exact, so
+// each takes one TF32 pass of mma.sync (mma_tf32_grid) where 3xTF32 takes
+// three. Entries whose best two projections lie within the band settle in
+// float64 on the rounded operands: the f64 sines and cosines rounded to f32
+// and then to bfloat16, the staged W_a rounded, so the settled k* is the
+// rounded projections' argmax, as the plain version's. A bfloat16
+// embedding's cotangent arrives widened to f32 by the wrapper; at
+// gse_basis float32 it runs the float32 instance, as the JAX kernel's f32
+// wgrad does.
+//
 // Geometry is the forward's: v = p_j - p_i by subtraction, angles by atan2f
 // of the cross and dot products with the +0 that makes the diagonal angle 0
 // (all k tie there, their bases are equal, and first-argmax and an even
@@ -144,7 +160,7 @@ struct Layout {
   static constexpr int words = kstar + kTile * BC * static_cast<int>(sizeof(KStar<RESIDENT>)) / 4;
 };
 
-template <int FC, bool RESIDENT>
+template <int FC, bool RESIDENT, bool BF>
 __global__ void __launch_bounds__(kThreads, 1) gse_bwd_kernel(
     const float* __restrict__ w_a,          // (C, C)
     const float* __restrict__ div_term,     // (C / 2,)
@@ -206,7 +222,8 @@ __global__ void __launch_bounds__(kThreads, 1) gse_bwd_kernel(
   auto stage_w = [&](int q) {
     for (int e = tid; e < FC * BC; e += kThreads) {
       const int f = q * FC + e / BC, c = c0 + e % BC;
-      w_s[(e / BC) * RS + e % BC] = f < C && c < C ? w_a[static_cast<size_t>(f) * C + c] : 0.0f;
+      const float x = f < C && c < C ? w_a[static_cast<size_t>(f) * C + c] : 0.0f;
+      w_s[(e / BC) * RS + e % BC] = BF ? round_bf16(x) : x;
     }
   };
   // chunk q's frequencies (zeros past C / 2)
@@ -220,7 +237,10 @@ __global__ void __launch_bounds__(kThreads, 1) gse_bwd_kernel(
   if (tid < BC) {
     float sum = 0.0f;
     if (c0 + tid < C) {
-      for (int f = 0; f < C; ++f) sum += fabsf(w_a[static_cast<size_t>(f) * C + c0 + tid]);
+      for (int f = 0; f < C; ++f) {
+        const float x = w_a[static_cast<size_t>(f) * C + c0 + tid];
+        sum += fabsf(BF ? round_bf16(x) : x);
+      }
     }
     wabs_s[tid] = sum;
   }
@@ -282,6 +302,10 @@ __global__ void __launch_bounds__(kThreads, 1) gse_bwd_kernel(
         const float x = idx_s[row];
         sincosf(x * freq_s[2 * j], &v[0], &v[1]);
         sincosf(x * freq_s[2 * j + 1], &v[2], &v[3]);
+        if constexpr (BF) {
+#pragma unroll
+          for (int e2 = 0; e2 < 4; ++e2) v[e2] = round_bf16(v[e2]);
+        }
       }
       uint4 big, small;
       split_tf32(v[0], big.x, small.x);
@@ -316,7 +340,8 @@ __global__ void __launch_bounds__(kThreads, 1) gse_bwd_kernel(
 #pragma unroll
     for (int i = 0; i < DC; ++i) {
       db[i] += de_next[i];
-      store_split(de_big, de_small, (tid / 16) * RS + DC * (tid % 16) + i, de_next[i]);
+      store_split(de_big, de_small, (tid / 16) * RS + DC * (tid % 16) + i,
+                  BF ? round_bf16(de_next[i]) : de_next[i]);
     }
     if (q0 + kTile < end) fetch(q0 + kTile);
     __syncthreads();
@@ -376,7 +401,11 @@ __global__ void __launch_bounds__(kThreads, 1) gse_bwd_kernel(
               as[k][2] = bs[g * BS + f + 4];
               as[k][3] = bs[(g + 8) * BS + f + 4];
             }
-            mma_3xtf32_grid<G, 1>(proj, ab, as, wb, ws);
+            if constexpr (BF) {
+              mma_tf32_grid<G, 1>(proj, ab, wb);
+            } else {
+              mma_3xtf32_grid<G, 1>(proj, ab, as, wb, ws);
+            }
           }
         }
       }
@@ -433,9 +462,15 @@ __global__ void __launch_bounds__(kThreads, 1) gse_bwd_kernel(
           for (int fr = lane; fr < half; fr += 32) {
             double sn, cs;
             sincos(static_cast<double>(x * (CH == 1 ? freq_s[fr] : div_term[fr])), &sn, &cs);
-            const float w0 = CH == 1 ? w_s[2 * fr * RS + c] : w_col[static_cast<size_t>(2 * fr) * C];
-            const float w1 =
+            float w0 = CH == 1 ? w_s[2 * fr * RS + c] : w_col[static_cast<size_t>(2 * fr) * C];
+            float w1 =
                 CH == 1 ? w_s[(2 * fr + 1) * RS + c] : w_col[static_cast<size_t>(2 * fr + 1) * C];
+            if constexpr (BF) {  // the rounded operands (w_s holds them already)
+              sn = round_bf16(__double2float_rn(sn));
+              cs = round_bf16(__double2float_rn(cs));
+              w0 = round_bf16(w0);
+              w1 = round_bf16(w1);
+            }
             sum = fma(sn, static_cast<double>(w0), sum);
             sum = fma(cs, static_cast<double>(w1), sum);
           }
@@ -522,7 +557,11 @@ __global__ void __launch_bounds__(kThreads, 1) gse_bwd_kernel(
 #pragma unroll
               for (int e = 0; e < 4; ++e) tile[i][e] = 0.0f;
             }
-            mma_3xtf32_grid<MW, 4>(tile, ab, as, db_, ds_);
+            if constexpr (BF) {
+              mma_tf32_grid<MW, 4>(tile, ab, db_);
+            } else {
+              mma_3xtf32_grid<MW, 4>(tile, ab, as, db_, ds_);
+            }
 #pragma unroll
             for (int m = 0; m < MW; ++m) {
 #pragma unroll
@@ -625,7 +664,7 @@ inline Route route_of(int C, int A) {
   return r;
 }
 
-template <int FC, bool RESIDENT>
+template <int FC, bool RESIDENT, bool BF>
 int launch(const float* points, const float* ref_vectors, const float* w_a, const float* div_term,
            const int32_t* n_valid, const float* de, float* pair_idx, float* part_d, float* part_a,
            float* part_b, int32_t* part_ties, float* dw_d, float* dw_a, float* db,
@@ -638,10 +677,10 @@ int launch(const float* points, const float* ref_vectors, const float* w_a, cons
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t smem = sizeof(uint32_t) * Layout<FC, RESIDENT>::words;
-  err = cudaFuncSetAttribute(gse_bwd_kernel<FC, RESIDENT>,
+  err = cudaFuncSetAttribute(gse_bwd_kernel<FC, RESIDENT, BF>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  gse_bwd_kernel<FC, RESIDENT><<<dim3(CB * CH, S), kThreads, smem, stream>>>(
+  gse_bwd_kernel<FC, RESIDENT, BF><<<dim3(CB * CH, S), kThreads, smem, stream>>>(
       w_a, div_term, n_valid, pair_idx, de, part_d, part_a, part_b, part_ties, N, C, A, CH);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -675,13 +714,14 @@ int gse_bwd_slices(int N, int blocks) {
 // kernels/gse.py:gse_route computes it. C even, 1 <= A < 0xFFFF (k* is a
 // byte in the resident instance, whose A is 3, 16 bits in the general one,
 // the largest value undecided); pair_idx holds N^2 (A + 1) floats, the
-// partials S slices of (C, C), (C,) and (CB,).
+// partials S slices of (C, C), (C,) and (CB,). basis_bf16: the bfloat16
+// basis point's instance.
 int gse_bwd_launch(const float* points, const float* ref_vectors, const float* w_a,
                    const float* div_term, const int32_t* n_valid, const float* de,
                    float* pair_idx, float* part_d, float* part_a, float* part_b,
                    int32_t* part_ties, float* dw_d, float* dw_a, float* db, int32_t* settled,
                    int N, int A, int C, int FC, int CH, int CB, int resident, int S, int words,
-                   float sigma_d, float factor_a, void* stream) {
+                   int basis_bf16, float sigma_d, float factor_a, void* stream) {
   const Route r = route_of(C, A);
   if (A < 1 || A >= undecided(r.resident) || C < 2 || C % 2 != 0 || S < 1 || FC != r.FC ||
       CH != r.CH || CB != r.CB || (resident != 0) != r.resident) {
@@ -694,10 +734,15 @@ int gse_bwd_launch(const float* points, const float* ref_vectors, const float* w
     cudaMemsetAsync(settled, 0, sizeof(int32_t), s);
     return static_cast<int>(cudaMemsetAsync(db, 0, sizeof(float) * C, s));
   }
+#define GSE_BWD_ARGS                                                                         \
+  points, ref_vectors, w_a, div_term, n_valid, de, pair_idx, part_d, part_a, part_b, part_ties, \
+      dw_d, dw_a, db, settled, N, C, A, CH, CB, S, words, sigma_d, factor_a, s
 #define GSE_BWD_ROWS(W) \
-  case 2 * W: return launch<W, false>(points, ref_vectors, w_a, div_term, n_valid, de, pair_idx, part_d, part_a, part_b, part_ties, dw_d, dw_a, db, settled, N, C, A, CH, CB, S, words, sigma_d, factor_a, s); \
-  case 2 * W + 1: return launch<W, true>(points, ref_vectors, w_a, div_term, n_valid, de, pair_idx, part_d, part_a, part_b, part_ties, dw_d, dw_a, db, settled, N, C, A, CH, CB, S, words, sigma_d, factor_a, s)
-  switch (2 * FC + (r.resident ? 1 : 0)) {
+  case 4 * W: return launch<W, false, false>(GSE_BWD_ARGS); \
+  case 4 * W + 1: return launch<W, true, false>(GSE_BWD_ARGS); \
+  case 4 * W + 2: return launch<W, false, true>(GSE_BWD_ARGS); \
+  case 4 * W + 3: return launch<W, true, true>(GSE_BWD_ARGS)
+  switch (4 * FC + (r.resident ? 1 : 0) + (basis_bf16 != 0 ? 2 : 0)) {
     GSE_BWD_ROWS(32);
     GSE_BWD_ROWS(64);
     GSE_BWD_ROWS(96);
@@ -709,6 +754,7 @@ int gse_bwd_launch(const float* points, const float* ref_vectors, const float* w
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef GSE_BWD_ROWS
+#undef GSE_BWD_ARGS
 }
 
 }  // extern "C"

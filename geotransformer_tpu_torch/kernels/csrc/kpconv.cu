@@ -96,6 +96,12 @@
 // shared memory and each W value as it loads it, and sums the exact
 // products in the same order. An instance of its own (a flag read at run
 // time measured 2-4 % slower on the float32 point's 3DMatch calls).
+// kpconv_table (the JAX TABLE_DTYPE, :342-365): the gathered table's
+// features and pool features are bfloat16 there, its coordinates an exact
+// hi/mid/lo split of the f32 ones and its neighbour count the f32 feature
+// sums' posflag lane; so the edge pass rounds each gathered feature and
+// each pool value (at either kpconv_mxu: at float32 the influences stay
+// f32, an instance of its own), the count and the geometry stay f32.
 //
 // Geometry is exact f32 but for the input convs' sqrt.approx (above):
 // offsets by direct subtraction, |off - kp_k| by a direct sqrt (the
@@ -757,8 +763,8 @@ int kpconv_conv_launch(const float* s_feats, const float* q_points, const float*
                        float* div_ws, float* part_ws, float* out, float* pooled,
                        float* count_out, float* ties_out, int M, int N, int H1, int H2, int M2,
                        int K, int C, int D, int P, int pool_head, int pool_tail, int pool_chunk,
-                       int mxu_bf16, int edge_v, int edge_tpr, int edge_tr, int edge_kp_chunks,
-                       int edge_passes, float sigma, void* stream) {
+                       int mxu_bf16, int table_bf16, int edge_v, int edge_tpr, int edge_tr,
+                       int edge_kp_chunks, int edge_passes, float sigma, void* stream) {
   if (D < 1 || H1 < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (M == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -793,8 +799,10 @@ int kpconv_conv_launch(const float* s_feats, const float* q_points, const float*
   const int pool_width = pool_feats == nullptr ? 0
                          : min(pool_head, H1) + (tail != nullptr ? min(pool_tail, H2) : 0);
   const kpconv::EdgeRoute route{edge_v, edge_tpr, edge_tr, edge_kp_chunks, edge_passes};
-  int err = kpconv::launch_edges<false>(e, x, pool_width, pool_chunk, route, st,
-                                        mxu_bf16 != 0 && C > 1);
+  const int round_mode =
+      (mxu_bf16 != 0 && C > 1 ? kpconv::kRoundInfl | kpconv::kRoundFeats : 0) |
+      (table_bf16 != 0 ? kpconv::kRoundFeats | kpconv::kRoundPool : 0);
+  int err = kpconv::launch_edges<false>(e, x, pool_width, pool_chunk, route, st, round_mode);
   if (err != 0) return err;
   kpconv::GemmArgs g{};
   g.a = t_ws;

@@ -36,6 +36,19 @@
 // gradient evenly (the forward's tie count, as XLA's reduce-max VJP does),
 // shadow columns' shares are dropped; equality is exact because the pooled
 // values are f32 copies of the pool features.
+//
+// The bfloat16 points, as instances (kpconv_common.cuh's kRound* bits).
+// kpconv_mxu, the JAX kernel's MXU_DTYPE (geotransformer_tpu/kernels/
+// kpconv.py:699-725): the influences and gdiv rounded before u, u rounded
+// before both weight products (d_s = round(u) Wt with Wt f32: a bfloat16
+// value is a TF32 value, so only Wt is split, two products a k8 step; dW =
+// round(s)^T round(u): one TF32 pass of exact products). The JAX backward
+// runs a split inverse table as two calls, each rounding its own u
+// (:760-766, :778-802), so the u pass rounds the head's sums and the
+// tail's sums apart and adds them; that sum is no bfloat16 value, and the
+// split route's d_s takes the three products of the float32 point and its
+// dW two. kpconv_table (:842-845): a row's own pool features rounded for
+// the tie equality, as the forward pooled the rounded table values.
 
 #include <cuda_runtime.h>
 
@@ -66,13 +79,26 @@ int dw_rows_per_slice(int N, int K, int C, int D) {
   return (rows + 31) & ~31;
 }
 
-int launch_dw(const kpconv::GemmArgs& p, int K, int slices, cudaStream_t s) {
-  if (!kpconv::tensor_core_widths(p.M, p.N)) return kpconv::launch_gemm_f32(p, 1, K, slices, s);
+template <int EXACT>
+int launch_dw_tc(const kpconv::GemmArgs& p, int K, int slices, cudaStream_t s) {
+  using kpconv::launch_gemm_tc;
   const int bm = dw_tile(p.M), bn = dw_tile(p.N);
-  if (bm == 64 && bn == 64) return kpconv::launch_gemm_tc<64, 64, 2, 4, true>(p, K, slices, s);
-  if (bm == 64) return kpconv::launch_gemm_tc<64, 32, 4, 2, true>(p, K, slices, s);
-  if (bn == 64) return kpconv::launch_gemm_tc<32, 64, 2, 4, true>(p, K, slices, s);
-  return kpconv::launch_gemm_tc<32, 32, 2, 4, true>(p, K, slices, s);
+  if (bm == 64 && bn == 64) return launch_gemm_tc<64, 64, 2, 4, true, EXACT>(p, K, slices, s);
+  if (bm == 64) return launch_gemm_tc<64, 32, 4, 2, true, EXACT>(p, K, slices, s);
+  if (bn == 64) return launch_gemm_tc<32, 64, 2, 4, true, EXACT>(p, K, slices, s);
+  return launch_gemm_tc<32, 32, 2, 4, true, EXACT>(p, K, slices, s);
+}
+
+// exact: 0 at the float32 point; at the bfloat16 point s rounded as read,
+// 2 where u is bfloat16-valued (a whole inverse table), else 1 (a split
+// one's u is the sum of two rounded parts)
+int launch_dw(const kpconv::GemmArgs& p, int K, int slices, int exact, cudaStream_t s) {
+  if (!kpconv::tensor_core_widths(p.M, p.N)) {
+    return kpconv::launch_gemm_f32(p, 1, K, slices, s, exact != 0 ? 1 : 0);
+  }
+  if (exact == 2) return launch_dw_tc<2>(p, K, slices, s);
+  if (exact == 1) return launch_dw_tc<1>(p, K, slices, s);
+  return launch_dw_tc<0>(p, K, slices, s);
 }
 
 }  // namespace
@@ -104,14 +130,18 @@ long long kpconv_ds_workspace(int N, int K, int C, int D) {
 // with the pool, d_pool (N, P), the inverse table's columns pool_chunk at a
 // time (kernels/kpconv.py:pool_route); edge_*: the u pass's route
 // (kernels/kpconv.py:edge_route(K, D)). Any K, C and D, any table width.
+// mxu_bf16: the influences, gdiv and u rounded to bfloat16 (u a part of the
+// table at a time), s rounded for dW (kpconv_mxu); table_bf16: the rows' own
+// pool features rounded for the tie equality (kpconv_table).
 int kpconv_bwd_launch(const float* s_feats, const float* s_points, const float* q_points,
                       const float* gdiv, const int32_t* head, const int32_t* tail,
                       const int32_t* rank, const float* kp, const float* wt,
                       const float* pool_feats, const float* pooled, const float* dpt, float* u,
                       float* part_ds, float* part, float* d_s, float* dw, float* d_pool,
                       int N, int M, int J1, int J2, int N2, int K, int C, int D, int P,
-                      int pool_chunk, int edge_v, int edge_tpr, int edge_tr, int edge_kp_chunks,
-                      int edge_passes, float sigma, void* stream) {
+                      int pool_chunk, int mxu_bf16, int table_bf16, int edge_v, int edge_tpr,
+                      int edge_tr, int edge_kp_chunks, int edge_passes, float sigma,
+                      void* stream) {
   if (K < 1 || J1 < 1 || C < 1 || D < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -145,10 +175,14 @@ int kpconv_bwd_launch(const float* s_feats, const float* s_points, const float* 
   x.P = P;
   const int pool_width = pool_feats == nullptr ? 0 : J1 + (tail != nullptr ? J2 : 0);
   const kpconv::EdgeRoute route{edge_v, edge_tpr, edge_tr, edge_kp_chunks, edge_passes};
-  int err = kpconv::launch_edges<true>(e, x, pool_width, pool_chunk, route, st);
+  const int round_mode =
+      (mxu_bf16 != 0 ? kpconv::kRoundInfl | kpconv::kRoundFeats | kpconv::kRoundSums : 0) |
+      (table_bf16 != 0 && pool_feats != nullptr ? kpconv::kRoundPool : 0);
+  int err = kpconv::launch_edges<true>(e, x, pool_width, pool_chunk, route, st, round_mode);
   if (err != 0) return err;
 
-  // d_s = u (N, K D) Wt (K D, C)
+  // d_s = u (N, K D) Wt (K D, C); at the bfloat16 point a whole table's u
+  // is bfloat16-valued: two products a k8 step (Wt stays f32)
   kpconv::GemmArgs g{};
   g.a = u;
   g.lda = K * D;
@@ -160,7 +194,8 @@ int kpconv_bwd_launch(const float* s_feats, const float* s_points, const float* 
   g.N = C;
   g.Kdim = K * D;
   g.k_per_z = K * D;
-  err = kpconv::launch_contraction(g, kpconv::tensor_core_widths(C, D), part_ds, st);
+  err = kpconv::launch_contraction(g, kpconv::tensor_core_widths(C, D), part_ds, st, false,
+                                   mxu_bf16 != 0 && tail == nullptr);
   if (err != 0) return err;
 
   // dW[k] = s^T u[:, k, :], one slice of the rows a block (grid y: k, z: slice)
@@ -180,7 +215,7 @@ int kpconv_bwd_launch(const float* s_feats, const float* s_points, const float* 
   w.N = D;
   w.Kdim = N;
   w.k_per_z = rows;
-  err = launch_dw(w, K, slices, st);
+  err = launch_dw(w, K, slices, mxu_bf16 == 0 ? 0 : tail == nullptr ? 2 : 1, st);
   if (err != 0 || slices == 1) return err;
   // dW[e] = sum_s part[s, e], slices added in order
   kpconv::reduce_slices_kernel<<<(K * C * D + kThreads - 1) / kThreads, kThreads, 0, st>>>(

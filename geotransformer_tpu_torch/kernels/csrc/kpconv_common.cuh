@@ -50,14 +50,28 @@
 // the plain versions). Sentinel indices (>= the gathered row count) and
 // masked queries contribute nothing.
 //
-// The bfloat16 point (PrecisionConfig.kpconv_mxu, the JAX kernel's
-// MXU_DTYPE at geotransformer_tpu/kernels/kpconv.py:249-256, :269-273):
-// edge_kernel<.., RB = true> rounds each staged influence and each loaded
-// feature to bfloat16 (round to nearest even) before the neighbour sum, the
-// forward at C_in > 1; gemm_f32_kernel<true> rounds both operands as it
-// reads them, the C_in = 1 product t1 W. A product of two bfloat16 values
-// is exact in f32, so the FMAs sum exact products as before; the 3xTF32
-// contraction T W is f32 at either point, as the JAX kernel's t @ W[k].
+// The bfloat16 points (PrecisionConfig.kpconv_mxu and kpconv_table, the
+// JAX kernels' MXU_DTYPE and TABLE_DTYPE at geotransformer_tpu/kernels/
+// kpconv.py:249-256, :269-273, :342-365, :699-725, :842-845) are instances,
+// never flags read at run time: edge_kernel<.., RM> takes a set of kRound*
+// bits (round to nearest even, as the values are read): the forward at
+// C_in > 1 and kpconv_mxu rounds each staged influence and each loaded
+// feature (kRoundInfl | kRoundFeats); kpconv_table rounds each loaded
+// feature and each pool value (kRoundFeats | kRoundPool: the gathered
+// table's own rounding; the count stays the f32 posflag's); the backward at
+// kpconv_mxu rounds the influences, each gdiv value and each u sum
+// (kRoundSums: a split inverse table's head sum and tail sum each rounded
+// before they add, as the JAX backward's two calls do), at kpconv_table the
+// row's own pool features for the tie equality. gemm_f32_kernel<ROUND>
+// rounds A (bit 1) and B (bit 2) as it reads them: the C_in = 1 product
+// t1 W both, the backward's dW = round(s)^T u A only. gemm_3xtf32_kernel<..,
+// EXACT> takes bfloat16-valued operands as the TF32 values they are:
+// EXACT 1 rounds A as it reads it and runs two products a k8 step (A W at
+// f32 W: the backward's d_s = round(u) Wt; the split route's dW), EXACT 2
+// rounds A and B and runs one (dW = round(s)^T round(u), exact products). A
+// product of two bfloat16 values is exact in f32, so the FMAs sum exact
+// products as before; the forward's 3xTF32 contraction T W is f32 at either
+// point, as the JAX kernel's t @ W[k].
 
 #pragma once
 
@@ -65,6 +79,7 @@
 
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 #include "launch_common.cuh"
 #include "tf32_mma.cuh"
@@ -74,6 +89,12 @@ namespace kpconv {
 constexpr int kThreads = 256;
 constexpr int kMaxKernelPoints = 16;
 constexpr int kSMs = 132;  // H100 SXM
+
+// the edge pass's rounding instances: bits of edge_kernel's RM
+constexpr int kRoundInfl = 1;   // each staged influence
+constexpr int kRoundFeats = 2;  // each value of a gathered row (features; gdiv)
+constexpr int kRoundPool = 4;   // each pool value (forward: gathered; backward: the row's own)
+constexpr int kRoundSums = 8;   // the backward's sums: head and tail rounded apart, then added
 
 // ---- the contraction --------------------------------------------------------
 
@@ -102,7 +123,9 @@ struct GemmSmem {
   static constexpr int kBytes = kStages * kStage * static_cast<int>(sizeof(float));
 };
 
-template <int BM, int BN, int WARPS_M, int WARPS_N, bool KMAJOR>
+// EXACT: 0 3xTF32; 1 A rounded to bfloat16 as read, its small half 0, two
+// products a k8 step; 2 A and B rounded, one (see the header)
+template <int BM, int BN, int WARPS_M, int WARPS_N, bool KMAJOR, int EXACT = 0>
 __global__ void __launch_bounds__(kThreads) gemm_3xtf32_kernel(GemmArgs p) {
   static_assert(WARPS_M * WARPS_N * 32 == kThreads, "8 warps");
   constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N;
@@ -221,20 +244,28 @@ __global__ void __launch_bounds__(kThreads) gemm_3xtf32_kernel(GemmArgs p) {
           v[3] = sa[(r + 8) * (kBK + 4) + kk + t + 4];
         }
 #pragma unroll
-        for (int e = 0; e < 4; ++e) split_tf32(v[e], a_big[i][e], a_small[i][e]);
+        for (int e = 0; e < 4; ++e) {
+          if constexpr (EXACT >= 1) v[e] = round_bf16(v[e]);
+          split_tf32(v[e], a_big[i][e], a_small[i][e]);
+        }
       }
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
         const int col = wn0 + 8 * j + g;
-        split_tf32(sb[(kk + t) * (BN + 8) + col], b_big[j][0], b_small[j][0]);
-        split_tf32(sb[(kk + t + 4) * (BN + 8) + col], b_big[j][1], b_small[j][1]);
+        float w0 = sb[(kk + t) * (BN + 8) + col], w1 = sb[(kk + t + 4) * (BN + 8) + col];
+        if constexpr (EXACT == 2) {
+          w0 = round_bf16(w0);
+          w1 = round_bf16(w1);
+        }
+        split_tf32(w0, b_big[j][0], b_small[j][0]);
+        split_tf32(w1, b_big[j][1], b_small[j][1]);
       }
 #pragma unroll
       for (int i = 0; i < MT; ++i) {
 #pragma unroll
         for (int j = 0; j < NT; ++j) {
-          mma_tf32(tile[i][j], a_small[i], b_big[j]);
-          mma_tf32(tile[i][j], a_big[i], b_small[j]);
+          if constexpr (EXACT == 0) mma_tf32(tile[i][j], a_small[i], b_big[j]);
+          if constexpr (EXACT <= 1) mma_tf32(tile[i][j], a_big[i], b_small[j]);
           mma_tf32(tile[i][j], a_big[i], b_big[j]);
         }
       }
@@ -272,8 +303,8 @@ __global__ void __launch_bounds__(kThreads) gemm_3xtf32_kernel(GemmArgs p) {
 }
 
 // The CUDA-core form: one thread an output, the k range summed in order;
-// RB: both operands rounded to bfloat16 as they are read.
-template <bool RB>
+// ROUND: bit 1 A, bit 2 B rounded to bfloat16 as they are read.
+template <int ROUND>
 __global__ void __launch_bounds__(kThreads) gemm_f32_kernel(GemmArgs p, int kmajor) {
   const long long idx = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   if (idx >= static_cast<long long>(p.M) * p.N) return;
@@ -287,10 +318,8 @@ __global__ void __launch_bounds__(kThreads) gemm_f32_kernel(GemmArgs p, int kmaj
     float a = kmajor ? p.a[static_cast<size_t>(k) * p.lda + m]
                      : p.a[static_cast<size_t>(m) * p.lda + k];
     float w = b[static_cast<size_t>(k) * p.ldb + n];
-    if constexpr (RB) {
-      a = round_bf16(a);
-      w = round_bf16(w);
-    }
+    if constexpr ((ROUND & 1) != 0) a = round_bf16(a);
+    if constexpr ((ROUND & 2) != 0) w = round_bf16(w);
     acc = fmaf(a, w, acc);
   }
   if (p.div != nullptr) {
@@ -305,10 +334,10 @@ inline bool tensor_core_widths(int c, int d) {
   return c >= 8 && d >= 8 && c % 4 == 0 && d % 4 == 0;
 }
 
-template <int BM, int BN, int WARPS_M, int WARPS_N, bool KMAJOR>
+template <int BM, int BN, int WARPS_M, int WARPS_N, bool KMAJOR, int EXACT = 0>
 int launch_gemm_tc(const GemmArgs& p, int grid_y, int grid_z, cudaStream_t stream) {
   constexpr int bytes = GemmSmem<BM, BN, KMAJOR>::kBytes;
-  auto kernel = gemm_3xtf32_kernel<BM, BN, WARPS_M, WARPS_N, KMAJOR>;
+  auto kernel = gemm_3xtf32_kernel<BM, BN, WARPS_M, WARPS_N, KMAJOR, EXACT>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -317,14 +346,19 @@ int launch_gemm_tc(const GemmArgs& p, int grid_y, int grid_z, cudaStream_t strea
   return static_cast<int>(cudaGetLastError());
 }
 
+// round: gemm_f32_kernel's ROUND (0, 1 or 3)
 inline int launch_gemm_f32(const GemmArgs& p, int kmajor, int grid_y, int grid_z,
-                           cudaStream_t stream, bool round_operands = false) {
+                           cudaStream_t stream, int round = 0) {
   const long long outputs = static_cast<long long>(p.M) * p.N;
   const dim3 grid(static_cast<unsigned>((outputs + kThreads - 1) / kThreads), grid_y, grid_z);
-  if (round_operands) {
-    gemm_f32_kernel<true><<<grid, kThreads, 0, stream>>>(p, kmajor);
+  if (round == 3) {
+    gemm_f32_kernel<3><<<grid, kThreads, 0, stream>>>(p, kmajor);
+  } else if (round == 1) {
+    gemm_f32_kernel<1><<<grid, kThreads, 0, stream>>>(p, kmajor);
+  } else if (round == 0) {
+    gemm_f32_kernel<0><<<grid, kThreads, 0, stream>>>(p, kmajor);
   } else {
-    gemm_f32_kernel<false><<<grid, kThreads, 0, stream>>>(p, kmajor);
+    return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -377,11 +411,14 @@ inline long long contraction_workspace(int M, int N, int Kdim, bool tensor_cores
 // C (M x N) = A (M x Kdim, m-major) B [/ div]: the forward's out = T W /
 // count and the backward's d_s = u Wt. ``part`` holds the split-K partial
 // sums (contraction_workspace floats). round_operands: A and B rounded to
-// bfloat16 (the C_in = 1 product at the bfloat16 point; CUDA cores only).
+// bfloat16 (the C_in = 1 product at the bfloat16 point; CUDA cores only);
+// exact_a: A is bfloat16-valued (the backward's rounded u at the bfloat16
+// point), two products a k8 step on the tensor cores, the plain f32 product
+// on the CUDA cores.
 inline int launch_contraction(GemmArgs p, bool tensor_cores, float* part, cudaStream_t stream,
-                              bool round_operands = false) {
+                              bool round_operands = false, bool exact_a = false) {
   if (p.M == 0 || p.N == 0) return 0;
-  if (!tensor_cores) return launch_gemm_f32(p, 0, 1, 1, stream, round_operands);
+  if (!tensor_cores) return launch_gemm_f32(p, 0, 1, 1, stream, round_operands ? 3 : 0);
   if (round_operands) return static_cast<int>(cudaErrorInvalidValue);
   const ContractionPlan plan = plan_contraction(p.M, p.N, p.Kdim);
   float* out = p.c;
@@ -395,7 +432,15 @@ inline int launch_contraction(GemmArgs p, bool tensor_cores, float* part, cudaSt
     p.div = nullptr;
   }
   int err;
-  if (plan.bn == 64) {
+  if (exact_a) {
+    if (plan.bn == 64) {
+      err = plan.bm == 128 ? launch_gemm_tc<128, 64, 4, 2, false, 1>(p, 1, plan.slices, stream)
+                           : launch_gemm_tc<64, 64, 2, 4, false, 1>(p, 1, plan.slices, stream);
+    } else {
+      err = plan.bm == 128 ? launch_gemm_tc<128, 32, 4, 2, false, 1>(p, 1, plan.slices, stream)
+                           : launch_gemm_tc<64, 32, 4, 2, false, 1>(p, 1, plan.slices, stream);
+    }
+  } else if (plan.bn == 64) {
     err = plan.bm == 128 ? launch_gemm_tc<128, 64, 4, 2, false>(p, 1, plan.slices, stream)
                          : launch_gemm_tc<64, 64, 2, 4, false>(p, 1, plan.slices, stream);
   } else {
@@ -507,8 +552,9 @@ struct EdgeSmem {
 // the running max and tie count that the last one left in pooled and ties
 // (each (row, channel) has one thread throughout), and only the last
 // settles them, so the max is the same bits and the count the same number
-// as in one pass.
-template <int VP>
+// as in one pass. RP: each pool value rounded to bfloat16 as it is read
+// (kpconv_table: the max and its ties over the gathered table's values).
+template <int VP, bool RP>
 __device__ void pool_rows(const EdgeArgs& p, const FwdExtras& x, const int32_t* cols_s,
                           const int32_t* tails_s, int r0, int W, bool first, bool last) {
   const int groups = x.P / VP;
@@ -533,6 +579,10 @@ __device__ void pool_rows(const EdgeArgs& p, const FwdExtras& x, const int32_t* 
         has[u] = n >= 0;
         load_row<VP>(x.pool_feats + static_cast<size_t>(n >= 0 && n < p.n_other ? n : 0) * x.P + ch,
                      n >= 0 && n < p.n_other, val[u]);
+        if constexpr (RP) {
+#pragma unroll
+          for (int v = 0; v < VP; ++v) val[u][v] = round_bf16(val[u][v]);
+        }
       }
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
@@ -575,8 +625,10 @@ __device__ void pool_rows(const EdgeArgs& p, const FwdExtras& x, const int32_t* 
 // from every query whose pooled value equals its own feature (equality is
 // exact: the pooled values are f32 copies of the pool features). A chunk
 // of W columns after the first resumes the sum the last one left in d_pool:
-// the same sum in the same order as in one pass.
-template <int VP>
+// the same sum in the same order as in one pass. RP: the row's own pool
+// features rounded to bfloat16 (kpconv_table: the forward pooled rounded
+// values).
+template <int VP, bool RP>
 __device__ void pool_grad_rows(const EdgeArgs& p, const BwdExtras& x, const int32_t* cols_s,
                                int r0, int W, bool first) {
   const int groups = x.P / VP;
@@ -589,6 +641,7 @@ __device__ void pool_grad_rows(const EdgeArgs& p, const BwdExtras& x, const int3
     load_row<VP>(x.pool_feats + static_cast<size_t>(r) * x.P + ch, true, own);
 #pragma unroll
     for (int v = 0; v < VP; ++v) {
+      if constexpr (RP) own[v] = round_bf16(own[v]);
       sum[v] = first ? 0.0f : x.d_pool[static_cast<size_t>(r) * x.P + ch + v];
     }
     for (int h = 0; h < W; h += 4) {
@@ -615,10 +668,12 @@ __device__ void pool_grad_rows(const EdgeArgs& p, const BwdExtras& x, const int3
   }
 }
 
-// RB: the influences and the features rounded to bfloat16 (the forward's
-// bfloat16 point at C_in > 1).
-template <int V, bool BWD, typename Extras, bool RB = false>
+// RM: the kRound* bits of the instance (0: the float32 point).
+template <int V, bool BWD, typename Extras, int RM = 0>
 __global__ void __launch_bounds__(kThreads) edge_kernel(EdgeArgs p, Extras x) {
+  // the backward's u rounded a part of the table at a time: the head's
+  // columns, then (where a row of the block has one) the tail's
+  constexpr bool kParts = BWD && (RM & kRoundSums) != 0;
   extern __shared__ __align__(16) float smem[];
   const int E = p.chunk, TR = p.tr;
   const EdgeSmem L(TR, E, p.pool_chunk);
@@ -670,110 +725,147 @@ __global__ void __launch_bounds__(kThreads) edge_kernel(EdgeArgs p, Extras x) {
       for (int v = 0; v < V; ++v) acc[k][v] = 0.0f;
     }
 
-    for (int c0 = 0; c0 < cols; c0 += E) {
-      // indices and influences of edges [c0, c0 + E) of every row of the
-      // block (at most two a thread: their loads are issued together); the
-      // forward also counts each row's edges here, in the first pass
-      int any = 0;
-      int slot[2], nn[2];
+    // the edges of columns [lo, hi) of the block's rows into acc
+    auto walk = [&](int lo, int hi) {
+      for (int c0 = lo; c0 < hi; c0 += E) {
+        // indices and influences of edges [c0, c0 + E) of every row of the
+        // block (at most two a thread: their loads are issued together); the
+        // forward also counts each row's edges here, in the first pass
+        int any = 0;
+        int slot[2], nn[2];
 #pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int i = tid + u * kThreads;
-        slot[u] = i;
-        nn[u] = p.n_other;
-        if (i < TR * E) {
-          const int ql = i / E, h = c0 + i % E;
-          const int r = r0 + ql;
-          if (r < p.R && h < cols && (p.mask == nullptr || p.mask[r])) {
-            nn[u] = edge_at(p, r, tails_s[ql], h);
+        for (int u = 0; u < 2; ++u) {
+          const int i = tid + u * kThreads;
+          slot[u] = i;
+          nn[u] = p.n_other;
+          if (i < TR * E) {
+            const int ql = i / E, h = c0 + i % E;
+            const int r = r0 + ql;
+            if (r < p.R && h < hi && (p.mask == nullptr || p.mask[r])) {
+              nn[u] = edge_at(p, r, tails_s[ql], h);
+            }
           }
         }
-      }
 #pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int i = slot[u];
-        if (i >= TR * E) continue;
-        const int ql = i / E, e = i % E;
-        const int r = r0 + ql, n = nn[u];
-        idx_s[i] = n;
-        float4* dst = reinterpret_cast<float4*>(infl_s + ql * L.row_stride + e * kMaxKernelPoints);
-        if (n < p.n_other) {
-          any = 1;
-          if constexpr (!BWD) {
-            if (pass == 0) {
-              atomicAdd(cnt_s + ql, x.posflag[n]);  // 0s and 1s: exact in any order
-              live_s[ql] = 1;
+        for (int u = 0; u < 2; ++u) {
+          const int i = slot[u];
+          if (i >= TR * E) continue;
+          const int ql = i / E, e = i % E;
+          const int r = r0 + ql, n = nn[u];
+          idx_s[i] = n;
+          float4* dst =
+              reinterpret_cast<float4*>(infl_s + ql * L.row_stride + e * kMaxKernelPoints);
+          if (n < p.n_other) {
+            any = 1;
+            if constexpr (!BWD) {
+              if (pass == 0) {
+                atomicAdd(cnt_s + ql, x.posflag[n]);  // 0s and 1s: exact in any order
+                live_s[ql] = 1;
+              }
             }
-          }
-          const float sx = BWD ? p.self_pts[3 * r + 0] : p.other_pts[3 * n + 0];
-          const float sy = BWD ? p.self_pts[3 * r + 1] : p.other_pts[3 * n + 1];
-          const float sz = BWD ? p.self_pts[3 * r + 2] : p.other_pts[3 * n + 2];
-          const float qx = BWD ? p.other_pts[3 * n + 0] : p.self_pts[3 * r + 0];
-          const float qy = BWD ? p.other_pts[3 * n + 1] : p.self_pts[3 * r + 1];
-          const float qz = BWD ? p.other_pts[3 * n + 2] : p.self_pts[3 * r + 2];
-          const float ox = sx - qx, oy = sy - qy, oz = sz - qz;  // support - query
-          float w[kMaxKernelPoints];
+            const float sx = BWD ? p.self_pts[3 * r + 0] : p.other_pts[3 * n + 0];
+            const float sy = BWD ? p.self_pts[3 * r + 1] : p.other_pts[3 * n + 1];
+            const float sz = BWD ? p.self_pts[3 * r + 2] : p.other_pts[3 * n + 2];
+            const float qx = BWD ? p.other_pts[3 * n + 0] : p.self_pts[3 * r + 0];
+            const float qy = BWD ? p.other_pts[3 * n + 1] : p.self_pts[3 * r + 1];
+            const float qz = BWD ? p.other_pts[3 * n + 2] : p.self_pts[3 * r + 2];
+            const float ox = sx - qx, oy = sy - qy, oz = sz - qz;  // support - query
+            float w[kMaxKernelPoints];
 #pragma unroll
-          for (int k = 0; k < kMaxKernelPoints; ++k) {
-            w[k] = 0.0f;
-            if (k0 + k < p.K) {
-              const float dx = ox - kp_s[3 * k + 0];
-              const float dy = oy - kp_s[3 * k + 1];
-              const float dz = oz - kp_s[3 * k + 2];
-              const float d = sqrtf(dx * dx + dy * dy + dz * dz);
-              w[k] = fmaxf(1.0f - d / p.sigma, 0.0f);
-              if constexpr (RB) w[k] = round_bf16(w[k]);
+            for (int k = 0; k < kMaxKernelPoints; ++k) {
+              w[k] = 0.0f;
+              if (k0 + k < p.K) {
+                const float dx = ox - kp_s[3 * k + 0];
+                const float dy = oy - kp_s[3 * k + 1];
+                const float dz = oz - kp_s[3 * k + 2];
+                const float d = sqrtf(dx * dx + dy * dy + dz * dz);
+                w[k] = fmaxf(1.0f - d / p.sigma, 0.0f);
+                if constexpr ((RM & kRoundInfl) != 0) w[k] = round_bf16(w[k]);
+              }
             }
-          }
-#pragma unroll
-          for (int q = 0; q < kMaxKernelPoints / 4; ++q) {
-            dst[q] = make_float4(w[4 * q], w[4 * q + 1], w[4 * q + 2], w[4 * q + 3]);
-          }
-        } else {
-#pragma unroll
-          for (int q = 0; q < kMaxKernelPoints / 4; ++q) dst[q] = make_float4(0.f, 0.f, 0.f, 0.f);
-        }
-      }
-      if (!__syncthreads_or(any)) continue;  // no edge of the block in this chunk
-
-      if (mine) {
-        const int32_t* iv = idx_s + rl * E;
-        const float4* inf = reinterpret_cast<const float4*>(infl_s + rl * L.row_stride);
-        for (int e = 0; e < E; e += 4) {
-          int n[4];
-#pragma unroll
-          for (int u = 0; u < 4; ++u) n[u] = iv[e + u];
-          if (n[0] >= p.n_other && n[1] >= p.n_other && n[2] >= p.n_other &&
-              n[3] >= p.n_other) {
-            continue;
-          }
-          float f[4][V];
-#pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            const bool ok = n[u] < p.n_other;
-            load_row<V>(p.feats + static_cast<size_t>(ok ? n[u] : 0) * p.C + cg * V, ok, f[u]);
-            if constexpr (RB) {
-#pragma unroll
-              for (int v = 0; v < V; ++v) f[u][v] = round_bf16(f[u][v]);
-            }
-          }
-#pragma unroll
-          for (int u = 0; u < 4; ++u) {
 #pragma unroll
             for (int q = 0; q < kMaxKernelPoints / 4; ++q) {
-              const float4 w = inf[(e + u) * (kMaxKernelPoints / 4) + q];
+              dst[q] = make_float4(w[4 * q], w[4 * q + 1], w[4 * q + 2], w[4 * q + 3]);
+            }
+          } else {
 #pragma unroll
-              for (int v = 0; v < V; ++v) {
-                acc[4 * q + 0][v] = fmaf(w.x, f[u][v], acc[4 * q + 0][v]);
-                acc[4 * q + 1][v] = fmaf(w.y, f[u][v], acc[4 * q + 1][v]);
-                acc[4 * q + 2][v] = fmaf(w.z, f[u][v], acc[4 * q + 2][v]);
-                acc[4 * q + 3][v] = fmaf(w.w, f[u][v], acc[4 * q + 3][v]);
+            for (int q = 0; q < kMaxKernelPoints / 4; ++q) dst[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+          }
+        }
+        if (!__syncthreads_or(any)) continue;  // no edge of the block in this chunk
+
+        if (mine) {
+          const int32_t* iv = idx_s + rl * E;
+          const float4* inf = reinterpret_cast<const float4*>(infl_s + rl * L.row_stride);
+          for (int e = 0; e < E; e += 4) {
+            int n[4];
+#pragma unroll
+            for (int u = 0; u < 4; ++u) n[u] = iv[e + u];
+            if (n[0] >= p.n_other && n[1] >= p.n_other && n[2] >= p.n_other &&
+                n[3] >= p.n_other) {
+              continue;
+            }
+            float f[4][V];
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              const bool ok = n[u] < p.n_other;
+              load_row<V>(p.feats + static_cast<size_t>(ok ? n[u] : 0) * p.C + cg * V, ok, f[u]);
+              if constexpr ((RM & kRoundFeats) != 0) {
+#pragma unroll
+                for (int v = 0; v < V; ++v) f[u][v] = round_bf16(f[u][v]);
+              }
+            }
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+#pragma unroll
+              for (int q = 0; q < kMaxKernelPoints / 4; ++q) {
+                const float4 w = inf[(e + u) * (kMaxKernelPoints / 4) + q];
+#pragma unroll
+                for (int v = 0; v < V; ++v) {
+                  acc[4 * q + 0][v] = fmaf(w.x, f[u][v], acc[4 * q + 0][v]);
+                  acc[4 * q + 1][v] = fmaf(w.y, f[u][v], acc[4 * q + 1][v]);
+                  acc[4 * q + 2][v] = fmaf(w.z, f[u][v], acc[4 * q + 2][v]);
+                  acc[4 * q + 3][v] = fmaf(w.w, f[u][v], acc[4 * q + 3][v]);
+                }
               }
             }
           }
         }
+        __syncthreads();  // the chunk is read before the next one is staged
       }
-      __syncthreads();  // the chunk is read before the next one is staged
+    };
+
+    if constexpr (kParts) {
+      // each part's sums rounded to bfloat16, the tail's added to the head's
+      // (the thread reads back only what it wrote)
+      auto store_rounded = [&](bool add) {
+        if (!mine) return;
+        float* dst = p.t_out + static_cast<size_t>(row) * p.K * p.C + cg * V;
+#pragma unroll
+        for (int k = 0; k < kMaxKernelPoints; ++k) {
+          if (k0 + k >= p.K) break;
+#pragma unroll
+          for (int v = 0; v < V; ++v) {
+            const float x = round_bf16(acc[k][v]);
+            dst[(k0 + k) * p.C + v] = add ? dst[(k0 + k) * p.C + v] + x : x;
+          }
+        }
+      };
+      const bool two = cols > p.h1;  // the same for the whole block
+      walk(0, two ? p.h1 : cols);
+      store_rounded(false);
+      if (two) {
+#pragma unroll
+        for (int k = 0; k < kMaxKernelPoints; ++k) {
+#pragma unroll
+          for (int v = 0; v < V; ++v) acc[k][v] = 0.0f;
+        }
+        walk(p.h1, cols);
+        store_rounded(true);
+      }
+      continue;
+    } else {
+      walk(0, cols);
     }
 
     if (mine) {
@@ -834,10 +926,11 @@ __global__ void __launch_bounds__(kThreads) edge_kernel(EdgeArgs p, Extras x) {
         cols_s[i] = n;
       }
       __syncthreads();
+      constexpr bool RP = (RM & kRoundPool) != 0;
       if (x.P % 4 == 0) {
-        pool_rows<4>(p, x, cols_s, tails_s, r0, W, first, last);
+        pool_rows<4, RP>(p, x, cols_s, tails_s, r0, W, first, last);
       } else {
-        pool_rows<1>(p, x, cols_s, tails_s, r0, W, first, last);
+        pool_rows<1, RP>(p, x, cols_s, tails_s, r0, W, first, last);
       }
     } else {
       for (int i = tid; i < TR * W; i += kThreads) {
@@ -846,10 +939,11 @@ __global__ void __launch_bounds__(kThreads) edge_kernel(EdgeArgs p, Extras x) {
         cols_s[i] = r < p.R ? edge_at(p, r, tails_s[ql], h) : p.n_other;
       }
       __syncthreads();
+      constexpr bool RP = (RM & kRoundPool) != 0;
       if (x.P % 4 == 0) {
-        pool_grad_rows<4>(p, x, cols_s, r0, W, first);
+        pool_grad_rows<4, RP>(p, x, cols_s, r0, W, first);
       } else {
-        pool_grad_rows<1>(p, x, cols_s, r0, W, first);
+        pool_grad_rows<1, RP>(p, x, cols_s, r0, W, first);
       }
     }
   }
@@ -899,11 +993,14 @@ inline int pool_chunk_of(int tr, int width, int pool_width, int block_bytes) {
 
 // The pool phase stages pool_chunk of a row's pool_width columns at a time.
 // `route` must be edge_route(K, C)'s and pool_chunk pool_chunk_of's.
-// round_operands: the instance that rounds influences and features to
-// bfloat16 (the forward only).
+// round_mode: the instance's kRound* bits, one of the forward's 0,
+// kRoundInfl | kRoundFeats (kpconv_mxu at C_in > 1), kRoundFeats |
+// kRoundPool (kpconv_table) and all three, or the backward's 0,
+// kRoundInfl | kRoundFeats | kRoundSums (kpconv_mxu), kRoundPool
+// (kpconv_table) and all four.
 template <bool BWD, typename Extras>
 int launch_edges(EdgeArgs p, const Extras& x, int pool_width, int pool_chunk,
-                 const EdgeRoute& route, cudaStream_t stream, bool round_operands = false) {
+                 const EdgeRoute& route, cudaStream_t stream, int round_mode = 0) {
   if (p.K < 1 || p.C < 1 || p.h1 < 0 || (p.tail != nullptr && p.h2 < 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -938,15 +1035,19 @@ int launch_edges(EdgeArgs p, const Extras& x, int pool_width, int pool_chunk,
     if (err == cudaSuccess) kernel<<<blocks, kThreads, smem, stream>>>(p, x);
     return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
   };
-  if constexpr (!BWD) {
-    if (round_operands) {
-      return v == 4 ? run(edge_kernel<4, false, Extras, true>)
-                    : run(edge_kernel<1, false, Extras, true>);
-    }
-  } else {
-    if (round_operands) return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return v == 4 ? run(edge_kernel<4, BWD, Extras>) : run(edge_kernel<1, BWD, Extras>);
+  auto instance = [&](auto rm) {
+    constexpr int RM = decltype(rm)::value;
+    return v == 4 ? run(edge_kernel<4, BWD, Extras, RM>) : run(edge_kernel<1, BWD, Extras, RM>);
+  };
+  using MxuBits = std::integral_constant<int, BWD ? kRoundInfl | kRoundFeats | kRoundSums
+                                                  : kRoundInfl | kRoundFeats>;
+  using TableBits = std::integral_constant<int, BWD ? kRoundPool : kRoundFeats | kRoundPool>;
+  using AllBits = std::integral_constant<int, MxuBits::value | TableBits::value>;
+  if (round_mode == 0) return instance(std::integral_constant<int, 0>{});
+  if (round_mode == MxuBits::value) return instance(MxuBits{});
+  if (round_mode == TableBits::value) return instance(TableBits{});
+  if (round_mode == AllBits::value) return instance(AllBits{});
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace kpconv

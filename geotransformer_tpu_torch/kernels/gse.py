@@ -11,10 +11,13 @@ bfloat16), the JAX kernel's ``BASIS_DTYPE`` and ``EMBED_DTYPE``
 the sin/cos bases and the projection weights (the products and their sums,
 the max over the angles and the bias stay float32), ``embed_dtype`` is the
 stored embedding's dtype. The kernel and its plain version honour both;
-at float32 the plain version computes what it always did. The backward is
-float32 only: the differentiable form raises ``NotImplementedError`` at a
-bfloat16 point. Pairs outside the valid rectangle ``[0, n_valid)^2`` are
-zero, so they get no gradient either.
+at float32 the plain version computes what it always did. The backward
+takes ``basis_dtype`` too (the JAX ``_gse_full_bwd_kernel`` at its
+``BASIS_DTYPE``, ``kernels/gse.py:322-372, 386-387``): the bases and W_a
+rounded, the first argmax over the rounded projections, the cotangent
+rounded before both weight gradients; a bfloat16 embedding's cotangent
+comes in bfloat16 and is read widened. Pairs outside the valid rectangle
+``[0, n_valid)^2`` are zero, so they get no gradient either.
 
 Both kernels take every shape the JAX kernels take: any even width C and
 any number of angles A (:func:`gse_route` picks the instance, the launchers
@@ -35,7 +38,7 @@ from geotransformer_tpu_torch.ops.embedding import div_term, sinusoidal_embeddin
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {"gse_embedding_launch": [_P] * 9 + [_I] * 10 + [_F, _F, _P]}
 _BWD_SIGNATURES = {
-    "gse_bwd_launch": [_P] * 15 + [_I] * 9 + [_F, _F, _P],
+    "gse_bwd_launch": [_P] * 15 + [_I] * 10 + [_F, _F, _P],
     "gse_bwd_slices": [_I] * 2,
 }
 
@@ -231,7 +234,8 @@ def gse_embedding_full(points, ref_vectors, w_d, b_d, w_a, b_a, sigma_d,
     return out
 
 
-def gse_full_bwd_plain(points, ref_vectors, w_a, sigma_d, sigma_a, de, n_valid=None):
+def gse_full_bwd_plain(points, ref_vectors, w_a, sigma_d, sigma_a, de, n_valid=None,
+                       basis_dtype=torch.float32):
     """Plain PyTorch version of :func:`gse_full_bwd` (the math of the JAX
     ``_gse_full_bwd_kernel``, ``kernels/gse.py:290-375``: bases recomputed,
     the angle gradient routed to the first k attaining the max).
@@ -243,51 +247,74 @@ def gse_full_bwd_plain(points, ref_vectors, w_a, sigma_d, sigma_a, de, n_valid=N
     sum over every valid pair, loses digits in f32 where the weight
     gradients are small. The float64 argmax is the one exact
     arithmetic takes on these f32 indices; the kernel settles its ties the
-    same way (``csrc/gse_bwd.cu``)."""
+    same way (``csrc/gse_bwd.cu``). At a bfloat16 ``basis_dtype`` the
+    operands are rounded first (the bases, float64 values rounded to f32 and
+    then to bfloat16 for the routing, W_a, and de for the weight gradients;
+    db sums de as it comes): their products are exact, so the float64 sums
+    are the rounded operands' exact sums, and the argmax the rounded
+    projections'. Returns ``de``'s dtype, float32 for a bfloat16 ``de``."""
     n, angle_k, _ = ref_vectors.shape
     hidden = w_a.shape[0]
+    dtype = torch.float32 if de.dtype == torch.bfloat16 else de.dtype
+    de = de.to(dtype)
     if n_valid is not None:
         de = de * _valid_pairs(n, n_valid, de.device)
     d_idx, a_idx = _pair_indices(points, ref_vectors, sigma_d, sigma_a)
     exact = torch.float64
-    basis_a = _exact_bases(a_idx, hidden)  # (N, N, k, C)
+
+    def rounded(x):
+        return cuda.round_to(x, basis_dtype)
+
+    basis_a = _exact_bases(a_idx, hidden, basis_dtype)  # (N, N, k, C)
     # (N, N, C): the first maximal k (reduced over a contiguous last axis,
     # which the CPU's argmax takes several times faster than dim 2)
-    first = torch.argmax((basis_a @ w_a.to(exact)).movedim(2, -1).contiguous(), dim=-1)
-    de64 = de.to(exact)
-    dw_d = torch.einsum("ijf,ijc->fc", sinusoidal_embedding(d_idx, hidden).to(exact), de64)
-    dw_a = sum(torch.einsum("ijf,ijc->fc", sinusoidal_embedding(a_idx[:, :, k], hidden).to(exact),
+    first = torch.argmax((basis_a @ rounded(w_a).to(exact)).movedim(2, -1).contiguous(), dim=-1)
+    de64 = rounded(de).to(exact)
+    dw_d = torch.einsum("ijf,ijc->fc", rounded(sinusoidal_embedding(d_idx, hidden)).to(exact),
+                        de64)
+    dw_a = sum(torch.einsum("ijf,ijc->fc",
+                            rounded(sinusoidal_embedding(a_idx[:, :, k], hidden)).to(exact),
                             (first == k).to(exact) * de64) for k in range(angle_k))
-    db = de64.sum(dim=(0, 1))
-    dtype = de.dtype
+    db = de.to(exact).sum(dim=(0, 1))
     return dw_d.to(dtype), db.to(dtype), dw_a.to(dtype), db.to(dtype)
 
 
-def _exact_bases(idx, hidden):
+def _exact_bases(idx, hidden, basis_dtype=torch.float32):
     """Interleaved sin/cos bases of ``idx`` in float64: the arguments
     idx * div_term rounded as the f32 bases' are, their sines and cosines
-    exact to float64 (the kernel's tie-break takes the same)."""
+    exact to float64 (the kernel's tie-break takes the same); at a bfloat16
+    ``basis_dtype`` those rounded to f32 and then to bfloat16, as the
+    kernel's float64 tie-break rounds them."""
     omegas = (idx[..., None] * div_term(hidden, idx.device).to(idx.dtype)).to(torch.float64)
-    return torch.stack([torch.sin(omegas), torch.cos(omegas)], dim=-1).reshape(
+    bases = torch.stack([torch.sin(omegas), torch.cos(omegas)], dim=-1).reshape(
         idx.shape + (hidden,))
+    if basis_dtype == torch.float32:
+        return bases
+    return bases.to(torch.float32).to(basis_dtype).to(torch.float64)
 
 
-def gse_full_bwd(points, ref_vectors, w_a, sigma_d, sigma_a, de, n_valid=None, force=None):
+def gse_full_bwd(points, ref_vectors, w_a, sigma_d, sigma_a, de, n_valid=None, force=None,
+                 basis_dtype=torch.float32):
     """Projection-parameter gradients of :func:`gse_embedding_full`.
 
     Args:
         points, ref_vectors, w_a, sigma_d, sigma_a, n_valid: as the forward.
-        de: (N, N, C) gradient of the embedding.
+        de: (N, N, C) gradient of the embedding, float32 or bfloat16 (the
+            cotangent of a bfloat16 embedding; read widened).
         force: ``ModelConfig.force_pallas``.
+        basis_dtype: the forward's basis point (see the module docstring).
 
     Returns:
-        dW_d (C, C), db_d (C,), dW_a (C, C), db_a (C,), with
+        dW_d (C, C), db_d (C,), dW_a (C, C), db_a (C,) in ``de``'s dtype
+        (float32 for a bfloat16 ``de``), with
         db_d = db_a = de summed over the valid rectangle.
     """
     if not cuda.use_kernel(points, force):
-        return gse_full_bwd_plain(points, ref_vectors, w_a, sigma_d, sigma_a, de, n_valid)
+        return gse_full_bwd_plain(points, ref_vectors, w_a, sigma_d, sigma_a, de, n_valid,
+                                  basis_dtype)
 
     dev = points.device
+    de = de.float().contiguous()
     n, angle_k, _ = ref_vectors.shape
     hidden = w_a.shape[0]
     f32 = torch.float32
@@ -317,8 +344,8 @@ def gse_full_bwd(points, ref_vectors, w_a, sigma_d, sigma_a, de, n_valid=None, f
         cuda.ptr(part_b), cuda.ptr(part_ties), cuda.ptr(dw_d), cuda.ptr(dw_a), cuda.ptr(db),
         cuda.ptr(settled),
         n, angle_k, hidden, route.rows, route.chunks, route.channel_blocks, int(route.resident),
-        slices, route.words, float(sigma_d), float(_angle_factor(sigma_a)),
-        cuda.stream_of(points))
+        slices, route.words, cuda.operand_dtype(basis_dtype, "gse_basis"), float(sigma_d),
+        float(_angle_factor(sigma_a)), cuda.stream_of(points))
     cuda.check(lib, code, "gse_full_bwd")
     cuda.launches["gse_full_bwd"] += 1
     global last_settled
@@ -329,11 +356,13 @@ def gse_full_bwd(points, ref_vectors, w_a, sigma_d, sigma_a, de, n_valid=None, f
 class _GSEFull(torch.autograd.Function):
     @staticmethod
     def forward(ctx, w_d, b_d, w_a, b_a, points, ref_vectors, sigma_d, sigma_a, n_valid,
-                force):
+                force, basis_dtype, embed_dtype):
         out = gse_embedding_full(points, ref_vectors, w_d, b_d, w_a, b_a, sigma_d, sigma_a,
-                                 n_valid, force=force)
+                                 n_valid, force=force, basis_dtype=basis_dtype,
+                                 embed_dtype=embed_dtype)
         ctx.save_for_backward(points, ref_vectors, w_a, n_valid)
         ctx.sigma_d, ctx.sigma_a, ctx.force = sigma_d, sigma_a, force
+        ctx.basis_dtype = basis_dtype
         return out
 
     @staticmethod
@@ -341,8 +370,8 @@ class _GSEFull(torch.autograd.Function):
         points, ref_vectors, w_a, n_valid = ctx.saved_tensors
         dw_d, db_d, dw_a, db_a = gse_full_bwd(points, ref_vectors, w_a, ctx.sigma_d,
                                               ctx.sigma_a, de.contiguous(), n_valid,
-                                              force=ctx.force)
-        return (dw_d, db_d, dw_a, db_a) + (None,) * 6
+                                              force=ctx.force, basis_dtype=ctx.basis_dtype)
+        return (dw_d, db_d, dw_a, db_a) + (None,) * 8
 
 
 def gse_embedding_full_diff(points, ref_vectors, w_d, b_d, w_a, b_a, sigma_d, sigma_a,
@@ -351,11 +380,8 @@ def gse_embedding_full_diff(points, ref_vectors, w_d, b_d, w_a, b_a, sigma_d, si
     """Differentiable :func:`gse_embedding_full` (JAX
     ``gse_embedding_full_diff``): gradients reach the projections only;
     points and reference vectors are constants (the reference computes the
-    embedding indices under no_grad). Float32 only: the JAX backward at a
-    bfloat16 point is another function (``kernels/gse.py:327, 344``)."""
-    if basis_dtype != torch.float32 or embed_dtype != torch.float32:
-        raise NotImplementedError(
-            f"GSE gradients at gse_basis={basis_dtype}, gse_embed={embed_dtype} are not ported "
-            "(ROADMAP.md queue 1: training at the JAX precision point)")
+    embedding indices under no_grad). The forward and :func:`gse_full_bwd`
+    at ``basis_dtype``; the embedding, and so its cotangent, in
+    ``embed_dtype``."""
     return _GSEFull.apply(w_d, b_d, w_a, b_a, points, ref_vectors, sigma_d, sigma_a,
-                          n_valid, force)
+                          n_valid, force, basis_dtype, embed_dtype)

@@ -48,9 +48,23 @@ table's t1 whole, as the JAX split conv rounds it once). On the card the
 edge pass rounds each staged influence and each loaded feature, and the
 C_in = 1 products round t1 and W as they read them; a product of two
 bfloat16 values is exact in float32, so the sums are float32 sums as before.
-The training path takes float32 only: :class:`models.kpconv.KPConv` raises
-``NotImplementedError`` for a gradient at a bfloat16 point (the JAX backward
-is another function there, ``kernels/kpconv.py:699-715``).
+The backward over the inverse table (:func:`kpconv_bwd_fused`) takes
+``mxu_dtype`` too: the influences and gdiv round before u, u before both
+weight products, s for dW (the JAX ``_kpconv_bwd_kernel``,
+``kernels/kpconv.py:699-725``; W stays float32, a mixed product promotes),
+a split inverse table's head and tail each rounding its own u as the JAX
+backward's two calls do (``:778-802``). The scatter backward and the input
+convs' weight-only backward stay the JAX XLA rules in float32.
+
+``table_dtype`` (``PrecisionConfig.kpconv_table``) is the storage of the
+JAX gathered table (``kernels/kpconv.py:342-365``) of rows 1 and 5: at
+bfloat16 each gathered feature and each pool value rounds (the pooled max
+and its ties are the rounded values'), the neighbour count stays the float32
+feature sums' and the coordinates stay exact (the JAX hi/mid/lo split
+reproduces float32 coordinates bit for bit); the backward rounds its own
+pool features for the tie equality (``:842-845``) and the scatter backward
+takes dW from the rounded features (``:498-522``). The input convs over
+the edge stream and the unions read no gathered table.
 """
 
 import collections
@@ -64,13 +78,13 @@ from geotransformer_tpu_torch.ops.gather import gather_with_shadow
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "kpconv_conv_launch": [_P] * 18 + [_I] * 18 + [_F, _P],
+    "kpconv_conv_launch": [_P] * 18 + [_I] * 19 + [_F, _P],
     "kpconv_conv_workspace": [_I] * 4,
     "kpconv_stream_launch": [_P] * 6 + [_I] * 7 + [_F, _P],
     "kpconv_union_launch": [_P] * 10 + [_I] * 10 + [_F, _P],
 }
 _BWD_SIGNATURES = {
-    "kpconv_bwd_launch": [_P] * 18 + [_I] * 15 + [_F, _P],
+    "kpconv_bwd_launch": [_P] * 18 + [_I] * 17 + [_F, _P],
     "kpconv_ds_workspace": [_I] * 4,
     "kpconv_dw_slices": [_I] * 4,
 }
@@ -200,10 +214,11 @@ def kpconv_fused_plain(s_feats, q_points, s_points, neighbor_indices,
                        kernel_points, weights, sigma, bias=None,
                        pool_feats=None, pool_cols=None, q_mask=None,
                        residuals=False, normalize=True, return_t1=False,
-                       mxu_dtype=torch.float32):
+                       mxu_dtype=torch.float32, table_dtype=torch.float32):
     """Plain PyTorch version of :func:`kpconv_fused` (the JAX XLA KPConv,
     ``models/kpconv.py:198-240``, with the influence distance taken
-    directly; its operands rounded to ``mxu_dtype`` where the JAX kernel
+    directly; its operands rounded to ``mxu_dtype`` and its gathered
+    features and pool values to ``table_dtype`` where the JAX kernel
     rounds them)."""
     n = s_points.shape[0]
     nbr = neighbor_indices.long()
@@ -212,7 +227,7 @@ def kpconv_fused_plain(s_feats, q_points, s_points, neighbor_indices,
     valid = nbr < n
     offsets = gather_with_shadow(s_points, nbr, 0.0) - q_points[:, None, :]
     influence = _influence(offsets, kernel_points, sigma) * valid[..., None]  # (M, H, K)
-    neighbor_feats = gather_with_shadow(s_feats, nbr, 0.0)  # (M, H, C)
+    neighbor_feats = cuda.round_to(gather_with_shadow(s_feats, nbr, 0.0), table_dtype)  # (M, H, C)
     input_layer = s_feats.shape[1] == 1
     if not input_layer:
         influence = cuda.round_to(influence, mxu_dtype)
@@ -236,7 +251,7 @@ def kpconv_fused_plain(s_feats, q_points, s_points, neighbor_indices,
     pooled = ties = None
     if pool_feats is not None:
         cols = nbr if pool_cols is None else nbr[:, :pool_cols]
-        pool_block = gather_with_shadow(pool_feats, cols, 0.0)  # (M, cols, P)
+        pool_block = cuda.round_to(gather_with_shadow(pool_feats, cols, 0.0), table_dtype)
         pooled = pool_block.amax(dim=1)
         ties = torch.clamp((pool_block == pooled[:, None, :]).to(out.dtype).sum(dim=1), min=1.0)
     return _outputs(out, pooled, count, ties, t1, residuals, normalize, return_t1)
@@ -245,7 +260,7 @@ def kpconv_fused_plain(s_feats, q_points, s_points, neighbor_indices,
 def kpconv_fused(s_feats, q_points, s_points, neighbor_indices, kernel_points,
                  weights, sigma, bias=None, pool_feats=None, pool_cols=None,
                  q_mask=None, force=None, residuals=False, return_t1=False,
-                 mxu_dtype=torch.float32):
+                 mxu_dtype=torch.float32, table_dtype=torch.float32):
     """Fused KPConv forward.
 
     Args:
@@ -270,6 +285,8 @@ def kpconv_fused(s_feats, q_points, s_points, neighbor_indices, kernel_points,
             the input conv's weight-gradient residual (unrounded).
         mxu_dtype: the contraction operands' point (see the module
             docstring).
+        table_dtype: the gathered table's point (see the module
+            docstring).
 
     Returns:
         (M, C_out) float32 [, (M, C_pool) pooled] [, count [, ties]] [, t1].
@@ -280,12 +297,12 @@ def kpconv_fused(s_feats, q_points, s_points, neighbor_indices, kernel_points,
         return kpconv_fused_plain(
             s_feats, q_points, s_points, neighbor_indices, kernel_points,
             weights, sigma, bias, pool_feats, pool_cols, q_mask, residuals,
-            return_t1=return_t1, mxu_dtype=mxu_dtype)
+            return_t1=return_t1, mxu_dtype=mxu_dtype, table_dtype=table_dtype)
     h = neighbor_indices.shape[1]
     out, pooled, count, ties, t1 = _conv_launch(
         "kpconv_fused", s_feats, q_points, s_points, neighbor_indices, None, None, kernel_points,
         weights, sigma, pool_feats, h if pool_cols is None else int(pool_cols), 0, q_mask,
-        residuals, mxu_dtype)
+        residuals, mxu_dtype, table_dtype)
     if bias is not None:
         out = out + bias
     return _outputs(out, pooled, count, ties, t1 if return_t1 else None, residuals, True,
@@ -294,9 +311,9 @@ def kpconv_fused(s_feats, q_points, s_points, neighbor_indices, kernel_points,
 
 def _conv_launch(name, s_feats, q_points, s_points, head, tail, tail_rank, kernel_points,
                  weights, sigma, pool_feats, pool_head, pool_tail, q_mask, with_count,
-                 mxu_dtype):
+                 mxu_dtype, table_dtype):
     """One conv on the card (``kpconv_conv_launch``: the edge pass, then the
-    contraction, at ``mxu_dtype``) over a whole table (``tail`` None) or a
+    contraction, at ``mxu_dtype`` and ``table_dtype``) over a whole table (``tail`` None) or a
     split one; counted as one launch of ``name``. Returns out, pooled,
     count, ties and the (M, K C) workspace T, which is t1 at C_in == 1
     (None where not asked)."""
@@ -341,8 +358,8 @@ def _conv_launch(name, s_feats, q_points, s_points, head, tail, tail_rank, kerne
         cuda.ptr(weights), cuda.ptr(q_mask), cuda.ptr(pool_feats), cuda.ptr(t), cuda.ptr(div),
         cuda.ptr(part), cuda.ptr(out), cuda.ptr(pooled), cuda.ptr(count), cuda.ptr(ties),
         m, n, h1, h2, m2, k, c_in, c_out, c_pool, int(pool_head), int(pool_tail), pool_chunk,
-        cuda.operand_dtype(mxu_dtype, "kpconv_mxu"), *edge_route(k, c_in), float(sigma),
-        cuda.stream_of(s_feats))
+        cuda.operand_dtype(mxu_dtype, "kpconv_mxu"), cuda.operand_dtype(table_dtype, "kpconv_table"),
+        *edge_route(k, c_in), float(sigma), cuda.stream_of(s_feats))
     cuda.check(lib, code, name)
     cuda.launches[name] += 1
     return out, pooled, count, ties, t
@@ -351,7 +368,7 @@ def _conv_launch(name, s_feats, q_points, s_points, head, tail, tail_rank, kerne
 def kpconv_split_fused(s_feats, q_points, s_points, head_table, tail_table, tail_q, tail_rank,
                        kernel_points, weights, sigma, bias=None, pool_feats=None,
                        pool_cols=None, q_mask=None, force=None, residuals=False,
-                       return_t1=False, mxu_dtype=torch.float32):
+                       return_t1=False, mxu_dtype=torch.float32, table_dtype=torch.float32):
     """KPConv over a split neighbor table (JAX ``kpconv_split_fused``).
 
     The head (M, H1) covers the first columns of every query, the tail
@@ -391,7 +408,8 @@ def kpconv_split_fused(s_feats, q_points, s_points, head_table, tail_table, tail
             "kpconv_split_fused", s_feats, q_points, s_points, head_table, tail_table, tail_rank,
             kernel_points, weights, sigma, pool_feats,
             h1 if pool_cols is None else min(pool_cols, h1),
-            h2 if pool_cols is None else max(pool_cols - h1, 1), q_mask, residuals, mxu_dtype)
+            h2 if pool_cols is None else max(pool_cols - h1, 1), q_mask, residuals, mxu_dtype,
+            table_dtype)
         if bias is not None:
             out = out + bias
         return _outputs(out, pooled, count, ties, t1 if return_t1 else None, residuals, True,
@@ -399,7 +417,7 @@ def kpconv_split_fused(s_feats, q_points, s_points, head_table, tail_table, tail
     # the input conv at a bfloat16 point rounds the whole t1, not each part's
     whole_t1 = weights.shape[1] == 1 and mxu_dtype != torch.float32
     common = dict(pool_feats=pool_feats, residuals=True, normalize=False,
-                  return_t1=return_t1 or whole_t1, mxu_dtype=mxu_dtype)
+                  return_t1=return_t1 or whole_t1, mxu_dtype=mxu_dtype, table_dtype=table_dtype)
     head = kpconv_fused_plain(s_feats, q_points, s_points, head_table, kernel_points, weights,
                               sigma, pool_cols=None if pool_cols is None else min(pool_cols, h1),
                               q_mask=q_mask, **common)
@@ -594,34 +612,41 @@ def kpconv_union_input_fused(s_feats, q_points, s_points, union_rows, union_sel,
 
 def kpconv_bwd_fused_plain(s_feats, s_points, q_points, gdiv, inverse_table,
                            kernel_points, weights, sigma, pool_feats=None,
-                           pooled=None, dpool_over_ties=None):
+                           pooled=None, dpool_over_ties=None, mxu_dtype=torch.float32,
+                           table_dtype=torch.float32):
     """Plain PyTorch version of :func:`kpconv_bwd_fused` (the math of the JAX
     ``_kpconv_bwd_kernel``, ``kernels/kpconv.py:651-741``)."""
     return kpconv_bwd_fused(s_feats, s_points, q_points, gdiv, inverse_table, kernel_points,
-                            weights, sigma, pool_feats, pooled, dpool_over_ties, force=False)
+                            weights, sigma, pool_feats, pooled, dpool_over_ties, force=False,
+                            mxu_dtype=mxu_dtype, table_dtype=table_dtype)
 
 
 def _bwd_pass_plain(s_feats, s_points, q_points, gdiv, inverse_table, kernel_points, weights,
-                    sigma, pool_feats=None, pooled=None, dpool_over_ties=None):
+                    sigma, pool_feats=None, pooled=None, dpool_over_ties=None,
+                    mxu_dtype=torch.float32, table_dtype=torch.float32):
     m = q_points.shape[0]
     inv = inverse_table.long()
     valid = inv < m  # (N, J)
     offsets = s_points[:, None, :] - gather_with_shadow(q_points, inv, 0.0)  # support - query
     influence = _influence(offsets, kernel_points, sigma) * valid[..., None]  # (N, J, K)
-    u = torch.einsum("njk,njd->nkd", influence, gather_with_shadow(gdiv, inv, 0.0))
+    u = torch.einsum("njk,njd->nkd", cuda.round_to(influence, mxu_dtype),
+                     cuda.round_to(gather_with_shadow(gdiv, inv, 0.0), mxu_dtype))
+    u = cuda.round_to(u, mxu_dtype)
     d_s_feats = torch.einsum("nkd,kcd->nc", u, weights)
-    d_weights = torch.einsum("nc,nkd->kcd", s_feats, u)
+    d_weights = torch.einsum("nc,nkd->kcd", cuda.round_to(s_feats, mxu_dtype), u)
     if pool_feats is None:
         return d_s_feats, d_weights
+    pool_feats = cuda.round_to(pool_feats, table_dtype)
     is_max = (pool_feats[:, None, :] == gather_with_shadow(pooled, inv, 0.0)) & valid[..., None]
     d_pool = torch.sum(is_max.to(gdiv.dtype) * gather_with_shadow(dpool_over_ties, inv, 0.0), dim=1)
     return d_s_feats, d_weights, d_pool
 
 
 def _bwd_launch(s_feats, s_points, q_points, gdiv, inverse_table, kernel_points, weights, sigma,
-                pool_feats, pooled, dpool_over_ties):
-    """One backward on the card (``kpconv_bwd_launch``: the u pass, d_s, dW)
-    over a whole inverse table or a split 4-tuple, walked in one pass."""
+                pool_feats, pooled, dpool_over_ties, mxu_dtype, table_dtype):
+    """One backward on the card (``kpconv_bwd_launch``: the u pass, d_s, dW,
+    at ``mxu_dtype`` and ``table_dtype``) over a whole inverse table or a
+    split 4-tuple, walked in one pass."""
     dev = s_feats.device
     n, c_in = s_feats.shape
     m, c_out = gdiv.shape
@@ -665,6 +690,7 @@ def _bwd_launch(s_feats, s_points, q_points, gdiv, inverse_table, kernel_points,
         cuda.ptr(d_pool), n, m, j1, j2, n2, k, c_in, c_out, c_pool,
         pool_route(k, c_out, j1 + j2, j1 + j2 if pool_feats is not None else 0,
                    device_block_bytes(dev)),
+        cuda.operand_dtype(mxu_dtype, "kpconv_mxu"), cuda.operand_dtype(table_dtype, "kpconv_table"),
         *edge_route(k, c_out), float(sigma), cuda.stream_of(s_feats))
     cuda.check(lib, code, "kpconv_bwd_fused")
     cuda.launches["kpconv_bwd_fused"] += 1
@@ -675,7 +701,8 @@ def _bwd_launch(s_feats, s_points, q_points, gdiv, inverse_table, kernel_points,
 
 def kpconv_bwd_fused(s_feats, s_points, q_points, gdiv, inverse_table,
                      kernel_points, weights, sigma, pool_feats=None, pooled=None,
-                     dpool_over_ties=None, force=None):
+                     dpool_over_ties=None, force=None, mxu_dtype=torch.float32,
+                     table_dtype=torch.float32):
     """KPConv backward over the inverse neighbor table (no scatter).
 
     Args:
@@ -696,24 +723,27 @@ def kpconv_bwd_fused(s_feats, s_points, q_points, gdiv, inverse_table,
             must have covered every real edge of the table (columns beyond
             ``pool_cols`` sentinel-only), as the JAX kernel requires.
         force: ``ModelConfig.force_pallas``.
+        mxu_dtype, table_dtype: the precision point (see the module
+            docstring); a split table's head and tail round their own u.
 
     Returns:
         d_s_feats (N, C_in), d_weights (K, C_in, C_out) [, d_pool (N, C_p)].
     """
+    point = dict(mxu_dtype=mxu_dtype, table_dtype=table_dtype)
     if cuda.use_kernel(s_feats, force):
         return _bwd_launch(s_feats, s_points, q_points, gdiv, inverse_table, kernel_points,
-                           weights, sigma, pool_feats, pooled, dpool_over_ties)
+                           weights, sigma, pool_feats, pooled, dpool_over_ties, **point)
     if not isinstance(inverse_table, (tuple, list)):
         return _bwd_pass_plain(s_feats, s_points, q_points, gdiv, inverse_table, kernel_points,
-                               weights, sigma, pool_feats, pooled, dpool_over_ties)
+                               weights, sigma, pool_feats, pooled, dpool_over_ties, **point)
     head, tail, tail_s, rank = inverse_table
     first = _bwd_pass_plain(s_feats, s_points, q_points, gdiv, head, kernel_points, weights,
-                            sigma, pool_feats, pooled, dpool_over_ties)
+                            sigma, pool_feats, pooled, dpool_over_ties, **point)
     # the tail's padding rows (tail_s 0) hold only sentinels: exact zeros
     rows = tail_s.long()
     second = _bwd_pass_plain(s_feats[rows], s_points[rows], q_points, gdiv, tail, kernel_points,
                              weights, sigma, None if pool_feats is None else pool_feats[rows],
-                             pooled, dpool_over_ties)
+                             pooled, dpool_over_ties, **point)
     rank = rank.long()
 
     def by_rank(x):
@@ -729,16 +759,17 @@ class _KPConvInv(torch.autograd.Function):
     """KPConv [+ shortcut max-pool] with the inverse-table backward. ``conv``
     (s_feats, weights, pool_feats) -> (out [, pooled], count [, ties]) is
     the forward with its residuals, over a whole or a split table; the bias
-    stays outside (its gradient is dout summed over queries)."""
+    stays outside (its gradient is dout summed over queries). ``point``:
+    the backward's ``mxu_dtype`` and ``table_dtype``."""
 
     @staticmethod
     def forward(ctx, s_feats, weights, pool_feats, conv, q_points, s_points, inverse_table,
-                kernel_points, sigma, force):
+                kernel_points, sigma, force, point):
         res = conv(s_feats, weights, pool_feats)
         out, pooled, count, ties = res if pool_feats is not None else (res[0], None, res[1], None)
         ctx.save_for_backward(s_feats, weights, pool_feats, q_points, s_points, kernel_points,
                               count, pooled, ties)
-        ctx.inverse_table, ctx.sigma, ctx.force = inverse_table, sigma, force
+        ctx.inverse_table, ctx.sigma, ctx.force, ctx.point = inverse_table, sigma, force, point
         return out if pool_feats is None else (out, pooled)
 
     @staticmethod
@@ -751,9 +782,10 @@ class _KPConvInv(torch.autograd.Function):
             pool = dict(pool_feats=pool_feats, pooled=pooled,
                         dpool_over_ties=(dpool / ties).contiguous())
         grads = kpconv_bwd_fused(s_feats, s_points, q_points, gdiv, ctx.inverse_table,
-                                 kernel_points, weights, ctx.sigma, force=ctx.force, **pool)
+                                 kernel_points, weights, ctx.sigma, force=ctx.force, **pool,
+                                 **ctx.point)
         d_pool = grads[2] if pool_feats is not None else None
-        return (grads[0], grads[1], d_pool) + (None,) * 7
+        return (grads[0], grads[1], d_pool) + (None,) * 8
 
 
 def _with_bias(out, bias):
@@ -766,63 +798,74 @@ def _with_bias(out, bias):
 
 def kpconv_inv_fused_diff(s_feats, q_points, s_points, neighbor_indices, inverse_table,
                           kernel_points, weights, sigma, bias=None, q_mask=None,
-                          force=None):
+                          force=None, mxu_dtype=torch.float32, table_dtype=torch.float32):
     """Differentiable KPConv (JAX ``kpconv_inv_fused_diff``): the fused
     forward, and :func:`kpconv_bwd_fused` over ``inverse_table`` (the
     inverse of ``neighbor_indices``, whole or split, sentinel M) for
-    d_s_feats and d_weights. Points, tables and kernel points get no
-    gradient."""
+    d_s_feats and d_weights, both at ``mxu_dtype`` and ``table_dtype``.
+    Points, tables and kernel points get no gradient."""
+    point = dict(mxu_dtype=mxu_dtype, table_dtype=table_dtype)
+
     def conv(sf, w, _):
         return kpconv_fused(sf, q_points, s_points, neighbor_indices, kernel_points, w, sigma,
-                            q_mask=q_mask, force=force, residuals=True)
+                            q_mask=q_mask, force=force, residuals=True, **point)
 
     return _with_bias(_KPConvInv.apply(s_feats, weights, None, conv, q_points, s_points,
-                                       inverse_table, kernel_points, sigma, force), bias)
+                                       inverse_table, kernel_points, sigma, force, point), bias)
 
 
 def kpconv_pool_inv_fused_diff(s_feats, pool_feats, q_points, s_points, neighbor_indices,
                                inverse_table, kernel_points, weights, sigma, bias=None,
-                               pool_cols=None, q_mask=None, force=None):
+                               pool_cols=None, q_mask=None, force=None,
+                               mxu_dtype=torch.float32, table_dtype=torch.float32):
     """:func:`kpconv_inv_fused_diff` with the fused strided-shortcut max-pool
     (JAX ``kpconv_pool_inv_fused_diff``); the pool's gradient is split
     evenly over tied maxima. Returns (out, pooled)."""
+    point = dict(mxu_dtype=mxu_dtype, table_dtype=table_dtype)
+
     def conv(sf, w, pf):
         return kpconv_fused(sf, q_points, s_points, neighbor_indices, kernel_points, w, sigma,
                             pool_feats=pf, pool_cols=pool_cols, q_mask=q_mask, force=force,
-                            residuals=True)
+                            residuals=True, **point)
 
     return _with_bias(_KPConvInv.apply(s_feats, weights, pool_feats, conv, q_points, s_points,
-                                       inverse_table, kernel_points, sigma, force), bias)
+                                       inverse_table, kernel_points, sigma, force, point), bias)
 
 
 def kpconv_split_diff(s_feats, q_points, s_points, head_table, split_tables, inverse_table,
-                      kernel_points, weights, sigma, bias=None, q_mask=None, force=None):
+                      kernel_points, weights, sigma, bias=None, q_mask=None, force=None,
+                      mxu_dtype=torch.float32, table_dtype=torch.float32):
     """Differentiable split-table KPConv (JAX ``kpconv_split_diff``):
     :func:`kpconv_split_fused` forward, :func:`kpconv_bwd_fused` over the
     inverse table (whole or split; it covers every edge of both parts).
     ``split_tables`` is (tail, tail_q, tail_rank)."""
+    point = dict(mxu_dtype=mxu_dtype, table_dtype=table_dtype)
+
     def conv(sf, w, _):
         return kpconv_split_fused(sf, q_points, s_points, head_table, *split_tables,
                                   kernel_points, w, sigma, q_mask=q_mask, force=force,
-                                  residuals=True)
+                                  residuals=True, **point)
 
     return _with_bias(_KPConvInv.apply(s_feats, weights, None, conv, q_points, s_points,
-                                       inverse_table, kernel_points, sigma, force), bias)
+                                       inverse_table, kernel_points, sigma, force, point), bias)
 
 
 def kpconv_split_pool_diff(s_feats, pool_feats, q_points, s_points, head_table, split_tables,
                            inverse_table, kernel_points, weights, sigma, bias=None,
-                           pool_cols=None, q_mask=None, force=None):
+                           pool_cols=None, q_mask=None, force=None, mxu_dtype=torch.float32,
+                           table_dtype=torch.float32):
     """:func:`kpconv_split_diff` with the fused strided-shortcut max-pool
     (JAX ``kpconv_split_pool_diff``; the tie counts are the combined max's,
     ``_split_pool_ties``). Returns (out, pooled)."""
+    point = dict(mxu_dtype=mxu_dtype, table_dtype=table_dtype)
+
     def conv(sf, w, pf):
         return kpconv_split_fused(sf, q_points, s_points, head_table, *split_tables,
                                   kernel_points, w, sigma, pool_feats=pf, pool_cols=pool_cols,
-                                  q_mask=q_mask, force=force, residuals=True)
+                                  q_mask=q_mask, force=force, residuals=True, **point)
 
     return _with_bias(_KPConvInv.apply(s_feats, weights, pool_feats, conv, q_points, s_points,
-                                       inverse_table, kernel_points, sigma, force), bias)
+                                       inverse_table, kernel_points, sigma, force, point), bias)
 
 
 def _scatter_rows(rows, index, n):
@@ -841,27 +884,31 @@ def _scatter_rows(rows, index, n):
     return out[:n]
 
 
-def _scatter_pass(s_feats, s_points, q_points, table, kernel_points, weights, sigma, gdiv):
+def _scatter_pass(s_feats, s_points, q_points, table, kernel_points, weights, sigma, gdiv,
+                  table_dtype=torch.float32):
     """One neighbor table's part of the scatter backward (JAX
     ``_kpconv_diff_bwd``): the influences recomputed from the points, d_weights
-    = sum_m t[m] (x) gdiv[m] with t = sum_h infl x feat, and each edge's
-    feature gradient infl . (W gdiv) scattered onto its support row."""
+    = sum_m t[m] (x) gdiv[m] with t = sum_h infl x feat (the gathered
+    features at ``table_dtype``, as the JAX residual block holds them), and
+    each edge's feature gradient infl . (W gdiv) scattered onto its support
+    row."""
     n = s_points.shape[0]
     valid = table < n
     offsets = gather_with_shadow(s_points, table, 0.0) - q_points[:, None, :]
     influence = _influence(offsets, kernel_points, sigma) * valid[..., None]  # (M, H, K)
-    t = torch.einsum("mhk,mhc->mkc", influence, gather_with_shadow(s_feats, table, 0.0))
+    t = torch.einsum("mhk,mhc->mkc", influence,
+                     cuda.round_to(gather_with_shadow(s_feats, table, 0.0), table_dtype))
     d_weights = torch.einsum("mkc,md->kcd", t, gdiv)
     d_edges = torch.einsum("mhk,mkc->mhc", influence, torch.einsum("kcd,md->mkc", weights, gdiv))
     return _scatter_rows(d_edges, table, n), d_weights
 
 
-def _pool_scatter(pool_feats, pooled, dpool_over_ties, cols):
+def _pool_scatter(pool_feats, pooled, dpool_over_ties, cols, table_dtype=torch.float32):
     """The max-pool's gradient over the (M', cols) table ``cols``: each pooled
     value's gradient over its ties (``dpool_over_ties``), onto every column
     that attains the max (JAX ``_kpconv_pool_diff_bwd``; shadows read 0 and
-    their share is dropped)."""
-    block = gather_with_shadow(pool_feats, cols, 0.0)  # (M', cols, P)
+    their share is dropped; the values at ``table_dtype``, as pooled)."""
+    block = cuda.round_to(gather_with_shadow(pool_feats, cols, 0.0), table_dtype)
     rows = (block == pooled[:, None, :]).to(dpool_over_ties.dtype) * dpool_over_ties[:, None, :]
     return _scatter_rows(rows, cols, pool_feats.shape[0])
 
@@ -875,16 +922,18 @@ class _KPConvScatter(torch.autograd.Function):
     forward walked, each (table (M', H) long with the query mask applied,
     its query rows (None: all M), its pool columns): one for a whole table,
     the head and the tail of a split one. The backward recomputes the
-    influences from the points (no gathered block is kept)."""
+    influences from the points (no gathered block is kept) and reads the
+    features at ``table_dtype``; it rounds nothing at a bfloat16
+    ``kpconv_mxu`` (the JAX XLA rules are float32)."""
 
     @staticmethod
     def forward(ctx, s_feats, weights, pool_feats, conv, q_points, s_points, passes,
-                kernel_points, sigma):
+                kernel_points, sigma, table_dtype):
         res = conv(s_feats, weights, pool_feats)
         out, pooled, count, ties = res if pool_feats is not None else (res[0], None, res[1], None)
         ctx.save_for_backward(s_feats, weights, pool_feats, q_points, s_points, kernel_points,
                               count, pooled, ties)
-        ctx.passes, ctx.sigma = passes, sigma
+        ctx.passes, ctx.sigma, ctx.table_dtype = passes, sigma, table_dtype
         return out if pool_feats is None else (out, pooled)
 
     @staticmethod
@@ -898,14 +947,14 @@ class _KPConvScatter(torch.autograd.Function):
             def of_rows(x):
                 return x if rows is None else x[rows]
             d_s, d_w = _scatter_pass(s_feats, s_points, of_rows(q_points), table, kernel_points,
-                                     weights, ctx.sigma, of_rows(gdiv))
+                                     weights, ctx.sigma, of_rows(gdiv), ctx.table_dtype)
             d_s_feats = d_s if d_s_feats is None else d_s_feats + d_s
             d_weights = d_w if d_weights is None else d_weights + d_w
             if pool_feats is not None:
                 d_p = _pool_scatter(pool_feats, of_rows(pooled), of_rows(dpool_over_ties),
-                                    table[:, :cols])
+                                    table[:, :cols], ctx.table_dtype)
                 d_pool = d_p if d_pool is None else d_pool + d_p
-        return (d_s_feats, d_weights, d_pool) + (None,) * 6
+        return (d_s_feats, d_weights, d_pool) + (None,) * 7
 
 
 def _masked(table, n, q_mask):
@@ -915,34 +964,41 @@ def _masked(table, n, q_mask):
 
 
 def kpconv_fused_diff(s_feats, q_points, s_points, neighbor_indices, kernel_points, weights,
-                      sigma, bias=None, q_mask=None, force=None):
+                      sigma, bias=None, q_mask=None, force=None, mxu_dtype=torch.float32,
+                      table_dtype=torch.float32):
     """Differentiable KPConv without an inverse table (JAX
     ``kpconv_fused_diff``): the fused forward, the scatter backward over
-    ``neighbor_indices`` for d_s_feats and d_weights."""
+    ``neighbor_indices`` for d_s_feats and d_weights (the forward at
+    ``mxu_dtype`` and ``table_dtype``, the backward the JAX XLA rules in
+    float32 over the features at ``table_dtype``)."""
+    point = dict(mxu_dtype=mxu_dtype, table_dtype=table_dtype)
+
     def conv(sf, w, _):
         return kpconv_fused(sf, q_points, s_points, neighbor_indices, kernel_points, w, sigma,
-                            q_mask=q_mask, force=force, residuals=True)
+                            q_mask=q_mask, force=force, residuals=True, **point)
 
     passes = [(_masked(neighbor_indices, s_points.shape[0], q_mask), None, None)]
     return _with_bias(_KPConvScatter.apply(s_feats, weights, None, conv, q_points, s_points,
-                                           passes, kernel_points, sigma), bias)
+                                           passes, kernel_points, sigma, table_dtype), bias)
 
 
 def kpconv_pool_fused_diff(s_feats, pool_feats, q_points, s_points, neighbor_indices,
                            kernel_points, weights, sigma, bias=None, pool_cols=None, q_mask=None,
-                           force=None):
+                           force=None, mxu_dtype=torch.float32, table_dtype=torch.float32):
     """:func:`kpconv_fused_diff` with the fused strided-shortcut max-pool
     (JAX ``kpconv_pool_fused_diff``); the pool's gradient is split evenly
     over tied maxima. Returns (out, pooled)."""
+    point = dict(mxu_dtype=mxu_dtype, table_dtype=table_dtype)
+
     def conv(sf, w, pf):
         return kpconv_fused(sf, q_points, s_points, neighbor_indices, kernel_points, w, sigma,
                             pool_feats=pf, pool_cols=pool_cols, q_mask=q_mask, force=force,
-                            residuals=True)
+                            residuals=True, **point)
 
     cols = neighbor_indices.shape[1] if pool_cols is None else pool_cols
     passes = [(_masked(neighbor_indices, s_points.shape[0], q_mask), None, cols)]
     return _with_bias(_KPConvScatter.apply(s_feats, weights, pool_feats, conv, q_points,
-                                           s_points, passes, kernel_points, sigma), bias)
+                                           s_points, passes, kernel_points, sigma, table_dtype), bias)
 
 
 def _split_passes(n, head_table, split_tables, pool_cols, q_mask):
@@ -959,35 +1015,41 @@ def _split_passes(n, head_table, split_tables, pool_cols, q_mask):
 
 
 def kpconv_split_scatter_diff(s_feats, q_points, s_points, head_table, split_tables,
-                              kernel_points, weights, sigma, bias=None, q_mask=None, force=None):
+                              kernel_points, weights, sigma, bias=None, q_mask=None, force=None,
+                              mxu_dtype=torch.float32, table_dtype=torch.float32):
     """Differentiable split-table KPConv without an inverse table (JAX
     ``kpconv_split_diff`` with ``inverse_table=None``: the two-block scatter
     backward, ``_split_blocks_bwd``). ``split_tables`` is (tail, tail_q,
     tail_rank)."""
+    point = dict(mxu_dtype=mxu_dtype, table_dtype=table_dtype)
+
     def conv(sf, w, _):
         return kpconv_split_fused(sf, q_points, s_points, head_table, *split_tables,
                                   kernel_points, w, sigma, q_mask=q_mask, force=force,
-                                  residuals=True)
+                                  residuals=True, **point)
 
     passes = _split_passes(s_points.shape[0], head_table, split_tables, None, q_mask)
     return _with_bias(_KPConvScatter.apply(s_feats, weights, None, conv, q_points, s_points,
-                                           passes, kernel_points, sigma), bias)
+                                           passes, kernel_points, sigma, table_dtype), bias)
 
 
 def kpconv_split_pool_scatter_diff(s_feats, pool_feats, q_points, s_points, head_table,
                                    split_tables, kernel_points, weights, sigma, bias=None,
-                                   pool_cols=None, q_mask=None, force=None):
+                                   pool_cols=None, q_mask=None, force=None,
+                                   mxu_dtype=torch.float32, table_dtype=torch.float32):
     """:func:`kpconv_split_scatter_diff` with the fused strided-shortcut
     max-pool (JAX ``kpconv_split_pool_diff`` with ``inverse_table=None``;
     the tie counts are the combined max's). Returns (out, pooled)."""
+    point = dict(mxu_dtype=mxu_dtype, table_dtype=table_dtype)
+
     def conv(sf, w, pf):
         return kpconv_split_fused(sf, q_points, s_points, head_table, *split_tables,
                                   kernel_points, w, sigma, pool_feats=pf, pool_cols=pool_cols,
-                                  q_mask=q_mask, force=force, residuals=True)
+                                  q_mask=q_mask, force=force, residuals=True, **point)
 
     passes = _split_passes(s_points.shape[0], head_table, split_tables, pool_cols, q_mask)
     return _with_bias(_KPConvScatter.apply(s_feats, weights, pool_feats, conv, q_points,
-                                           s_points, passes, kernel_points, sigma), bias)
+                                           s_points, passes, kernel_points, sigma, table_dtype), bias)
 
 
 class _KPConvInputT1(torch.autograd.Function):
@@ -1010,53 +1072,63 @@ class _KPConvInputT1(torch.autograd.Function):
         return (t1.t() @ (dout / count[:, None]))[:, None, :], None
 
 
-def kpconv_stream_input_diff(stream, kernel_points, weights, sigma, bias=None, force=None):
+def kpconv_stream_input_diff(stream, kernel_points, weights, sigma, bias=None, force=None,
+                             mxu_dtype=torch.float32):
     """Differentiable edge-stream input conv (JAX ``kpconv_stream_input_diff``):
-    gradients reach ``weights`` and ``bias`` only."""
+    gradients reach ``weights`` and ``bias`` only. The forward at
+    ``mxu_dtype``; the weight gradient from the unrounded t1 in float32, as
+    the JAX rule's."""
     def conv(w):
-        return kpconv_stream_fused(stream, kernel_points, w, sigma, force=force, residuals=True)
+        return kpconv_stream_fused(stream, kernel_points, w, sigma, force=force, residuals=True,
+                                   mxu_dtype=mxu_dtype)
 
     return _with_bias(_KPConvInputT1.apply(weights, conv), bias)
 
 
 def kpconv_union_input_fused_diff(s_feats, q_points, s_points, union_rows, union_sel,
                                   kernel_points, weights, sigma, bias=None, tile=128,
-                                  force=None):
+                                  force=None, mxu_dtype=torch.float32):
     """Differentiable union-gather input conv (JAX
     ``kpconv_union_input_fused_diff``): gradients reach ``weights`` and
-    ``bias`` only."""
+    ``bias`` only (as :func:`kpconv_stream_input_diff`)."""
     def conv(w):
         out, count, t1 = kpconv_union_input_fused(s_feats, q_points, s_points, union_rows,
                                                   union_sel, kernel_points, w, sigma, tile=tile,
-                                                  force=force, residuals=True)
+                                                  force=force, residuals=True,
+                                                  mxu_dtype=mxu_dtype)
         return out, t1, count
 
     return _with_bias(_KPConvInputT1.apply(weights, conv), bias)
 
 
 def kpconv_split_input_diff(s_feats, q_points, s_points, head_table, split_tables, kernel_points,
-                            weights, sigma, bias=None, q_mask=None, force=None):
+                            weights, sigma, bias=None, q_mask=None, force=None,
+                            mxu_dtype=torch.float32, table_dtype=torch.float32):
     """Differentiable split-table input conv (JAX ``kpconv_split_input_diff``,
-    c_in == 1): gradients reach ``weights`` and ``bias`` only."""
+    c_in == 1): gradients reach ``weights`` and ``bias`` only (as
+    :func:`kpconv_stream_input_diff`)."""
     def conv(w):
         out, count, t1 = kpconv_split_fused(s_feats, q_points, s_points, head_table,
                                             *split_tables, kernel_points, w, sigma,
                                             q_mask=q_mask, force=force, residuals=True,
-                                            return_t1=True)
+                                            return_t1=True, mxu_dtype=mxu_dtype,
+                                            table_dtype=table_dtype)
         return out, t1, count
 
     return _with_bias(_KPConvInputT1.apply(weights, conv), bias)
 
 
 def kpconv_input_diff(s_feats, q_points, s_points, neighbor_indices, kernel_points, weights,
-                      sigma, bias=None, q_mask=None, force=None):
+                      sigma, bias=None, q_mask=None, force=None, mxu_dtype=torch.float32,
+                      table_dtype=torch.float32):
     """Differentiable input conv over the neighbor table (JAX
     ``kpconv_input_fused_diff``, c_in == 1): gradients reach ``weights`` and
-    ``bias`` only."""
+    ``bias`` only (as :func:`kpconv_stream_input_diff`)."""
     def conv(w):
         out, count, t1 = kpconv_fused(s_feats, q_points, s_points, neighbor_indices,
                                       kernel_points, w, sigma, q_mask=q_mask, force=force,
-                                      residuals=True, return_t1=True)
+                                      residuals=True, return_t1=True, mxu_dtype=mxu_dtype,
+                                      table_dtype=table_dtype)
         return out, t1, count
 
     return _with_bias(_KPConvInputT1.apply(weights, conv), bias)

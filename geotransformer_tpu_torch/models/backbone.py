@@ -11,7 +11,8 @@ stream (the default PairBatch), the per-tile neighbor unions
 table; every later conv reads its split table where the batch has one
 (``neighbors_split``, and ``subsampling_split`` for the strided convs). The
 strided blocks fuse their shortcut max-pool into the conv. Every conv takes
-``mxu_dtype``, the contraction point (``PrecisionConfig.kpconv_mxu``). Training batches
+``mxu_dtype``, the contraction point (``PrecisionConfig.kpconv_mxu``), and
+``table_dtype``, the gathered table's (``kpconv_table``). Training batches
 carry the inverse neighbor tables (``neighbors_inv``, ``subsampling_inv``,
 whole or split), which every conv but the input conv hands to its backward
 (JAX ``models/backbone.py:63-123``). Returns ``feats_list`` finest-first.
@@ -32,13 +33,14 @@ from geotransformer_tpu_torch.models.kpconv import (
 class KPConvFPN(nn.Module):
     def __init__(self, input_dim, output_dim, init_dim, kernel_size, init_radius,
                  init_sigma, group_norm, num_stages=4, first_fine_stage=1,
-                 neighbor_limits=(), force=None, mxu_dtype=torch.float32):
+                 neighbor_limits=(), force=None, mxu_dtype=torch.float32,
+                 table_dtype=torch.float32):
         super().__init__()
         self.input_dim = input_dim
         self.num_stages = num_stages
         self.first_fine_stage = first_fine_stage
         d, k = init_dim, kernel_size
-        point = dict(force=force, mxu_dtype=mxu_dtype)
+        point = dict(force=force, mxu_dtype=mxu_dtype, table_dtype=table_dtype)
         for i in range(num_stages):
             radius = init_radius * (2**i)
             sigma = init_sigma * (2**i)

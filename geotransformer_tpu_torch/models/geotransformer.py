@@ -17,8 +17,8 @@ carry the partition and GT tables precomputed (:func:`precompute_gt_targets`).
 goes down the module tree with the config, as ``force_pallas`` does: every
 KPConv takes ``kpconv_mxu``, the GSE module ``gse_basis`` and ``gse_embed``,
 and the RPE attention reads the embedding in its dtype. No process-wide
-state is set. A bfloat16 point serves inference; ``kpconv_table="bfloat16"``
-and gradients at a bfloat16 point raise ``NotImplementedError``.
+state is set. Every point serves inference and training (the kernels'
+backward at the point, as the JAX package's custom_vjps take it).
 """
 
 import math
@@ -128,17 +128,14 @@ class GeoTransformer(nn.Module):
         self.cfg = cfg
         force = cfg.model.force_pallas
         precision = cfg.precision
-        if knob_dtype(precision, "kpconv_table") != torch.float32:
-            raise NotImplementedError(
-                "kpconv_table='bfloat16' (bfloat16 gathered tables) is not ported (ROADMAP.md "
-                "queue 1: training at the JAX precision point)")
         bb = cfg.backbone
         self.backbone = KPConvFPN(
             bb.input_dim, bb.output_dim, bb.init_dim, bb.kernel_size, bb.init_radius,
             bb.init_sigma, bb.group_norm, num_stages=bb.num_stages,
             first_fine_stage=cfg.model.fine_level,
             neighbor_limits=tuple(cfg.caps.neighbor_limits), force=force,
-            mxu_dtype=knob_dtype(precision, "kpconv_mxu"))
+            mxu_dtype=knob_dtype(precision, "kpconv_mxu"),
+            table_dtype=knob_dtype(precision, "kpconv_table"))
         gt = cfg.geotransformer
         self.transformer = GeometricTransformer(
             gt.input_dim, gt.output_dim, gt.hidden_dim, gt.num_heads, gt.blocks,

@@ -23,11 +23,10 @@ import math
 
 import torch
 
-from geotransformer_tpu_torch.configs import is_float32_point
 from geotransformer_tpu_torch.losses.overall import evaluate, overall_loss
 from geotransformer_tpu_torch.parallel import mesh
 from geotransformer_tpu_torch.preprocess.device import build_pyramid_device
-from geotransformer_tpu_torch.preprocess.pyramid import batch_to_torch
+from geotransformer_tpu_torch.preprocess.pyramid import batch_to_torch, table_align
 
 
 def make_lr_schedule(cfg, steps_per_epoch, world_size=1):
@@ -173,15 +172,16 @@ def mean_metrics(metrics):
     return dict(zip(keys, flat.unbind()))
 
 
-def build_raw_batch(batch, pyramid_spec):
+def build_raw_batch(batch, pyramid_spec, precision=None):
     """A raw batch (``raw_points``, ``raw_lengths``, ``raw_feats``,
-    ``transform``, on the card) built into its pyramid there; returns
-    (batch, overflowed), the overflow vector read once to a bool, the
-    largest over the process group's ranks (the reference's CPU collate,
-    `utils/data.py:13-77`, in the step)."""
+    ``transform``, on the card) built into its pyramid there, its tables
+    aligned for ``precision`` (``preprocess.table_align``, as the JAX build
+    follows the installed point); returns (batch, overflowed), the overflow
+    vector read once to a bool, the largest over the process group's ranks
+    (the reference's CPU collate, `utils/data.py:13-77`, in the step)."""
     built, overflow = build_pyramid_device(batch["raw_points"], batch["raw_lengths"],
                                            batch["raw_feats"], batch["transform"],
-                                           **pyramid_spec)
+                                           **pyramid_spec, align=table_align(precision))
     # an overflow on any rank skips the step on every rank (pmax)
     return built, bool(mesh.max_(overflow.any().float()))
 
@@ -201,8 +201,8 @@ def make_train_step(model, cfg, optimizer, scheduler, device="cuda", pyramid_spe
     where it took no part). With :class:`MultiSteps` a step that passes the
     guard is a mini-step; the schedule counts applied updates.
 
-    ``cfg.precision`` must be float32 throughout: training at a bfloat16
-    point raises ``NotImplementedError`` here.
+    ``cfg.precision`` is the model's: the step trains at any point (each
+    kernel's backward at the point, as the JAX custom_vjps take it).
 
     With ``pyramid_spec`` (the keywords of ``build_pyramid_device``,
     ``DevicePreprocessPlan.spec``), a raw batch is built on the card first.
@@ -211,17 +211,13 @@ def make_train_step(model, cfg, optimizer, scheduler, device="cuda", pyramid_spe
     retry is exact; the metrics are then ``pyramid_overflow`` 1.0 and
     ``grad_finite`` 0.0. A built batch reports ``pyramid_overflow`` 0.0.
     """
-    if not is_float32_point(cfg.precision):
-        raise NotImplementedError(
-            f"training at {cfg.precision} is not ported (ROADMAP.md queue 1: training at the "
-            "JAX precision point)")
     params = [p for p in model.parameters() if p.requires_grad]
 
     def step(batch, generator=None):
         batch = batch_to_torch(batch, device)
         overflowed = None
         if pyramid_spec is not None and "raw_points" in batch:
-            batch, overflowed = build_raw_batch(batch, pyramid_spec)
+            batch, overflowed = build_raw_batch(batch, pyramid_spec, cfg.precision)
             if overflowed:
                 return {"pyramid_overflow": torch.tensor(1.0), "grad_finite": torch.tensor(0.0)}
         model.train()
@@ -253,7 +249,7 @@ def make_eval_step(model, cfg, device="cuda", pyramid_spec=None):
         batch = batch_to_torch(batch, device)
         overflowed = None
         if pyramid_spec is not None and "raw_points" in batch:
-            batch, overflowed = build_raw_batch(batch, pyramid_spec)
+            batch, overflowed = build_raw_batch(batch, pyramid_spec, cfg.precision)
             if overflowed:
                 return {"pyramid_overflow": torch.tensor(1.0)}
         model.eval()

@@ -24,6 +24,7 @@ from geotransformer_tpu_torch.preprocess.pyramid import (  # noqa: F401
     fit_split_for_table,
     pad_registration_batch,
     round_up,
+    table_align,
 )
 from geotransformer_tpu_torch.preprocess.device import (  # noqa: F401
     DevicePreprocessPlan,

@@ -81,11 +81,14 @@ def calibrate_stage_cap_buckets(sample_iter, num_stages, voxel_size, search_radi
 
 
 def calibrate_split_specs(sample_iter, num_stages, voxel_size, search_radius, neighbor_limits,
-                          num_samples=64, multiple=128, headroom=0.1, min_saving=0.08):
+                          num_samples=64, multiple=128, headroom=0.1, min_saving=0.08,
+                          align=TABLE_ALIGN):
     """Split specs of the neighbor and subsampling tables (deep-column
     compaction, ``preprocess.build_split_tables``).
 
-    For each table, every head width h1 (a multiple of 8) and the samples'
+    For each table, every head width h1 (a multiple of ``align``, the
+    tables' column alignment: ``pyramid.table_align`` of the model's
+    precision point, as the JAX calibration's) and the samples'
     largest M2(h1), the number of queries with more than h1 valid neighbors,
     the spec minimizing M h1 + m2_cap (W - h1) rows is kept (m2_cap = M2
     with ``headroom``, rounded up to ``multiple``); a table whose best split
@@ -94,7 +97,7 @@ def calibrate_split_specs(sample_iter, num_stages, voxel_size, search_radius, ne
     Returns:
         (neighbor_splits, subsampling_splits): per-stage (h1, m2_cap) or None.
     """
-    nb_w = [round_up(int(l), TABLE_ALIGN) for l in neighbor_limits]
+    nb_w = [round_up(int(l), align) for l in neighbor_limits]
     nb_m2 = [dict() for _ in range(num_stages)]
     sub_m2 = [dict() for _ in range(max(num_stages - 1, 0))]
     nb_rows = [0] * num_stages
@@ -108,7 +111,7 @@ def calibrate_split_specs(sample_iter, num_stages, voxel_size, search_radius, ne
             for i, table in enumerate(tables):
                 vc = np.sum(table < totals[i], axis=1)
                 rows[i] = max(rows[i], len(vc))
-                for h1 in range(TABLE_ALIGN, nb_w[i], TABLE_ALIGN):
+                for h1 in range(align, nb_w[i], align):
                     m2s[i][h1] = max(m2s[i].get(h1, 0), int(np.sum(vc > h1)))
 
     def pick(m2_by_h1, m_rows, width):

@@ -42,6 +42,7 @@ from geotransformer_tpu_torch.preprocess.pyramid import (
     build_pyramid,
     caps_for_pyramid,
     pad_registration_batch,
+    table_align,
 )
 
 _INT_MAX = 2**31 - 1
@@ -188,7 +189,7 @@ def _pad_cols(table, sentinel, multiple=TABLE_ALIGN):
 
 
 def _pair_search(points_a, lengths_a, points_b, lengths_b, cap_a, cap_b, radius, k,
-                 cand_cap=512):
+                 cand_cap=512, align=TABLE_ALIGN):
     """Radius KNN for both clouds of a pair in the padded pair frame:
     ``points_a`` (2, cap_a, 3) queries, ``points_b`` supports. The grid
     search for supports of at least ``_GRID_MIN_SUPPORT`` rows, else the
@@ -204,7 +205,7 @@ def _pair_search(points_a, lengths_a, points_b, lengths_b, cap_a, cap_b, radius,
         idx = _radius_search_cloud(points_a, lengths_a, points_b, lengths_b, radius, k)
         ovf = torch.zeros((), dtype=torch.bool, device=points_a.device)
     idx = _to_pair_frame(idx, cap_b).reshape(2 * cap_a, k)
-    return _pad_cols(idx, 2 * cap_b), ovf
+    return _pad_cols(idx, 2 * cap_b, align), ovf
 
 
 def build_inverse_table_device(table, num_support, j_cap):
@@ -252,7 +253,7 @@ def input_stream_device(table, points, feats):
 
 def build_pyramid_device(points, lengths, feats, transform, num_stages, voxel_size, radius,
                          neighbor_limits, stage_caps, inverse_limits=None,
-                         sub_inverse_limits=None, knn_cand_cap=512):
+                         sub_inverse_limits=None, knn_cand_cap=512, align=TABLE_ALIGN):
     """The whole fixed-capacity pyramid on the device of ``points``.
 
     Mirrors the host ``build_pyramid`` + ``pad_registration_batch``
@@ -274,6 +275,9 @@ def build_pyramid_device(points, lengths, feats, transform, num_stages, voxel_si
             adds ``neighbors_inv`` and ``subsampling_inv`` as
             ``pad_registration_batch`` does; their overflows join the vector.
         knn_cand_cap: the grid search's candidate capacity.
+        align: the neighbor, subsampling and upsampling tables' column
+            alignment (``pyramid.table_align`` of the model's precision
+            point; the JAX device build pads all three to it).
 
     Returns:
         (batch, overflow): ``batch`` has ``pad_registration_batch``'s keys
@@ -319,18 +323,20 @@ def build_pyramid_device(points, lengths, feats, transform, num_stages, voxel_si
             (torch.arange(cap, device=dev)[None, :] < stage_lens[i][:, None]).reshape(2 * cap))
         out["lengths"].append(stage_lens[i])
         nbrs, ov = _pair_search(stage_pts[i], stage_lens[i], stage_pts[i], stage_lens[i], cap,
-                                cap, r, int(neighbor_limits[i]), cand_cap=knn_cand_cap)
+                                cap, r, int(neighbor_limits[i]), cand_cap=knn_cand_cap,
+                                align=align)
         out["neighbors"].append(nbrs)
         overflow[i] = overflow[i] | ov
         if i < num_stages - 1:
             cap_sub = int(stage_caps[i + 1])
             sub, ov = _pair_search(stage_pts[i + 1], stage_lens[i + 1], stage_pts[i],
                                    stage_lens[i], cap_sub, cap, r, int(neighbor_limits[i]),
-                                   cand_cap=knn_cand_cap)
+                                   cand_cap=knn_cand_cap, align=align)
             out["subsampling"].append(sub)
             up, ov2 = _pair_search(stage_pts[i], stage_lens[i], stage_pts[i + 1],
                                    stage_lens[i + 1], cap, cap_sub, r * 2.0,
-                                   int(neighbor_limits[i + 1]), cand_cap=knn_cand_cap)
+                                   int(neighbor_limits[i + 1]), cand_cap=knn_cand_cap,
+                                   align=align)
             out["upsampling"].append(up)
             overflow[i] = overflow[i] | ov | ov2
         r *= 2.0
@@ -505,7 +511,8 @@ class DevicePreprocessPlan:
         out = []
         for raw_batch, pyramid, feats in unpacked:
             batch = pad_registration_batch(pyramid, feats, np.asarray(raw_batch["transform"]),
-                                           tuple(caps), inverse_limits=spec["inverse_limits"])
+                                           tuple(caps), inverse_limits=spec["inverse_limits"],
+                                           align=table_align(self.cfg.precision))
             if "meta" in raw_batch:
                 batch["meta"] = raw_batch["meta"]
             out.append(batch)

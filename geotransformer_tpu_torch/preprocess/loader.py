@@ -20,7 +20,11 @@ import numpy as np
 import torch
 
 from geotransformer_tpu_torch.preprocess.device import prepare_raw_pair
-from geotransformer_tpu_torch.preprocess.pyramid import build_pyramid, pad_registration_batch
+from geotransformer_tpu_torch.preprocess.pyramid import (
+    build_pyramid,
+    pad_registration_batch,
+    table_align,
+)
 
 _WORKER_STATE = {}
 
@@ -80,8 +84,10 @@ def prepare_pair(sample, num_stages, voxel_size, search_radius, neighbor_limits,
     ('ref_points', 'src_points' (N, 3), 'transform' (4, 4), optionally
     'ref_feats' / 'src_feats'). ``stage_caps`` may be a list of capacity
     buckets: the smallest that fits is taken. With ``precompute_targets``
-    the batch carries the GT targets of ``model_cfg``. Scalar sample fields
-    go to ``batch["meta"]``."""
+    the batch carries the GT targets of ``model_cfg``, and its forward
+    tables the column alignment of ``model_cfg``'s precision point
+    (:func:`..pyramid.table_align`, as the JAX ``prepare_pair`` pads at the
+    point it installs). Scalar sample fields go to ``batch["meta"]``."""
     ref_points = np.asarray(sample["ref_points"], np.float32)
     src_points = np.asarray(sample["src_points"], np.float32)
     points = np.concatenate([ref_points, src_points], axis=0)
@@ -107,7 +113,8 @@ def prepare_pair(sample, num_stages, voxel_size, search_radius, neighbor_limits,
         pyramid, feats, transform, stage_caps, inverse_limits=inverse_limits,
         neighbor_splits=neighbor_splits, subsampling_splits=subsampling_splits,
         inverse_splits=inverse_splits, sub_inverse_splits=sub_inverse_splits,
-        input_stream=input_stream)
+        input_stream=input_stream,
+        align=table_align(None if model_cfg is None else model_cfg.precision))
     if precompute_targets:
         if model_cfg is None:
             raise ValueError("precompute_targets=True requires model_cfg")

@@ -34,9 +34,19 @@ from geotransformer_tpu_torch import native
 from geotransformer_tpu_torch.preprocess import neighbors, voxel
 
 PAD_COORD = 1.0e6
-# Neighbor-column alignment of the forward tables: what f32 tables give in
-# the JAX package (kernels/kpconv.py:table_align), kept so batches match.
+# Neighbor-column alignment of the forward tables at a float32 kpconv_table
+# (the JAX package's kernels/kpconv.py:table_align), kept so batches match;
+# the inverse and upsampling tables always take it.
 TABLE_ALIGN = 8
+
+
+def table_align(precision=None):
+    """The forward tables' (neighbors, subsampling) column alignment at
+    ``precision`` (a ``PrecisionConfig``, read by field name): 16 where
+    ``kpconv_table`` is "bfloat16", else 8, as the JAX host batch pads them
+    (``kernels/kpconv.py:70-78``, ``preprocess/pyramid.py:445-464``)."""
+    bf16 = precision is not None and getattr(precision, "kpconv_table") == "bfloat16"
+    return 16 if bf16 else TABLE_ALIGN
 
 
 def use_native():
@@ -291,7 +301,8 @@ def _split_inverse(inv, query_rows, spec):
 def pad_registration_batch(pyramid, feats, transform, stage_caps, inverse_limits=None,
                            sub_inverse_limits=None, union_cap=None, union_tile=128,
                            neighbor_splits=None, subsampling_splits=None,
-                           inverse_splits=None, sub_inverse_splits=None, input_stream=True):
+                           inverse_splits=None, sub_inverse_splits=None, input_stream=True,
+                           align=TABLE_ALIGN):
     """Convert an unpadded pyramid into a fixed-capacity PairBatch (numpy).
 
     Args:
@@ -317,6 +328,8 @@ def pad_registration_batch(pyramid, feats, transform, stage_caps, inverse_limits
             None; the inverse tables become (head, tail, tail_s, rank).
         input_stream: with 1-channel features, also build the
             ``input_stream`` edge planes of the input conv.
+        align: the neighbor and subsampling tables' column alignment
+            (:func:`table_align` of the model's precision point).
 
     Returns:
         dict of numpy arrays (T_i = cap_ref_i + cap_src_i):
@@ -356,7 +369,7 @@ def pad_registration_batch(pyramid, feats, transform, stage_caps, inverse_limits
         out["points"].append(pts)
         out["masks"].append(mask)
         out["lengths"].append(np.asarray([ref_len, src_len], dtype=np.int32))
-        out["neighbors"].append(_pad_cols(nbrs, np.int32(cap_r + cap_s)))
+        out["neighbors"].append(_pad_cols(nbrs, np.int32(cap_r + cap_s), align))
 
     for i in range(num_stages - 1):
         cap_cur, cap_sub = _cloud_caps(stage_caps[i]), _cloud_caps(stage_caps[i + 1])
@@ -366,7 +379,7 @@ def pad_registration_batch(pyramid, feats, transform, stage_caps, inverse_limits
         sub = _pad_rows(sub, ref_lens[i + 1], src_lens[i + 1], cap_sub, sent_cur)
         # the strided block's shortcut maxpool is bounded by the true neighbor
         # limit (KPConvFPN.neighbor_limits), not by this padded width
-        out["subsampling"].append(_pad_cols(sub, sent_cur))
+        out["subsampling"].append(_pad_cols(sub, sent_cur, align))
         up = _remap_indices(pyramid["upsampling"][i], ref_lens[i + 1], src_lens[i + 1], cap_sub)
         up = _pad_rows(up, ref_lens[i], src_lens[i], cap_cur, sent_sub)
         out["upsampling"].append(_pad_cols(up, sent_sub))

@@ -8,7 +8,9 @@
 # Usage: run_convergence_suite.sh <out_dir> [steps] [lr_decay] [scale] [options]
 #   steps: 3510 (45 epochs of 78 pairs); lr_decay: 0.90 (the terminal lr of a
 #   90-epoch 0.95 schedule); scale: full | small. The arguments from the first
-#   one that starts with -- on go to every run (e.g. --num_workers 2).
+#   one that starts with -- on go to every run (e.g. --num_workers 2, or
+#   --precision jax: every run, kernels and plain, trained and tested at the
+#   JAX package's precision point).
 #   Each run writes <out_dir>/<name>/ and <out_dir>/<name>.log; the
 #   starts and exit codes go to <out_dir>/suite.log. Exits 1 if a run failed.
 #   JOBS (default 1) runs that many at once: the runs share the card and the

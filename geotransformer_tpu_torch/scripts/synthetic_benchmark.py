@@ -6,6 +6,8 @@ eval.py 3DMatch protocol, producing an RR/IR/FMR table.
     python -m geotransformer_tpu_torch.scripts.synthetic_benchmark --out output/synth --steps 2000
     python -m geotransformer_tpu_torch.scripts.synthetic_benchmark --scale small --steps 60 \
         --device cpu   # CI-size
+    python -m geotransformer_tpu_torch.scripts.synthetic_benchmark --force_pallas true \
+        --precision jax   # the JAX package's precision point, trained and tested
 
 The reference workflow (`trainval.py` -> `test.py` -> `eval.py`, reference
 `experiments/...3dmatch.../`) as one loop on a procedural multi-scene
@@ -28,9 +30,11 @@ import geotransformer_tpu_torch
 from geotransformer_tpu_torch.configs import (
     BackboneConfig,
     CapsConfig,
+    JAX_PRECISION,
     CoarseMatchingConfig,
     GeoTransformerModuleConfig,
     ModelConfig,
+    PrecisionConfig,
     make_3dmatch_config,
 )
 from geotransformer_tpu_torch.datasets.synthetic import SyntheticSceneBenchmark
@@ -46,6 +50,8 @@ from geotransformer_tpu_torch.scripts.common import (
 
 # training pairs of the capacity calibration (every test pair is added)
 CALIBRATION_TRAIN_PAIRS = 32
+# --precision: the port's default point, or the JAX package's
+PRECISIONS = {"float32": PrecisionConfig(), "jax": JAX_PRECISION}
 
 
 def small_config():
@@ -118,19 +124,22 @@ def pipelines(cfg):
 
 
 def training_config(cfg, steps, train_pairs, lr=None, lr_decay=None, model_seed=None,
-                    force_pallas=None):
+                    force_pallas=None, precision="float32"):
     """``cfg`` trained for whole epochs covering ``steps`` steps: at ``lr``,
     by default 3e-4 for a short run (at most 4000 steps) else the config's;
     at ``lr_decay`` an epoch, by default the config's; ``model_seed`` (the
     weights' and the shuffle's seed), by default the config's;
-    ``force_pallas`` as ``ModelConfig.force_pallas``."""
+    ``force_pallas`` as ``ModelConfig.force_pallas``; ``precision`` a key of
+    ``PRECISIONS`` (the model's ``PrecisionConfig``, trained and tested at
+    that point)."""
     max_epoch = -(-steps // max(train_pairs, 1))
     if lr is None:
         lr = 3e-4 if steps <= 4000 else cfg.optim.lr
     optim = dataclasses.replace(cfg.optim, max_epoch=max_epoch, lr=lr,
                                 lr_decay=cfg.optim.lr_decay if lr_decay is None else lr_decay)
     cfg = dataclasses.replace(cfg, optim=optim,
-                              model=dataclasses.replace(cfg.model, force_pallas=force_pallas))
+                              model=dataclasses.replace(cfg.model, force_pallas=force_pallas),
+                              precision=PRECISIONS[precision])
     return cfg if model_seed is None else dataclasses.replace(cfg, seed=model_seed)
 
 
@@ -171,6 +180,11 @@ def main(argv=None):
     parser.add_argument("--force_pallas", choices=("auto", "true", "false"), default="auto",
                         help="the kernel route: auto (the kernels on the card), true (the "
                              "kernels, else an error), false (the plain PyTorch modules)")
+    parser.add_argument("--precision", choices=tuple(PRECISIONS), default="float32",
+                        help="the kernels' precision point: float32 (the port's default) or "
+                             "jax (the JAX package's default, configs.JAX_PRECISION: bfloat16 "
+                             "KPConv operands, GSE bases and embedding), to price its drift in "
+                             "RR/IR/FMR")
     add_device_argument(parser)
     args = parser.parse_args(argv)
     device = resolve_device(args.device)
@@ -193,7 +207,7 @@ def main(argv=None):
     # ---- train (whole epochs covering --steps) ----
     force = {"auto": None, "true": True, "false": False}[args.force_pallas]
     cfg = training_config(cfg, args.steps, len(train_set), args.lr, args.lr_decay,
-                          args.model_seed, force)
+                          args.model_seed, force, args.precision)
     model = create_model(cfg, device=device)
     train_loader = PairLoader(train_set, train_pipeline, batch_size=1, shuffle=True,
                               num_workers=args.num_workers, seed=cfg.seed)

@@ -82,7 +82,15 @@ the search at cand_cap 32,768 and brute over 40,000 rows with K = 40 and
 1,500 (bit-equal), the pair scores at 65,540 rows and the attention at
 65,540 heads: each launches once, agrees with its plain version, repeats
 bit for bit and replays from a CUDA graph; the shipped shapes keep their
-instances.
+instances. The bfloat16 instances (``-k bf16``) against their plain
+versions at the same point by the flip rule (``assert_bf16_close``), each
+repeating and replaying from a CUDA graph: the forwards of rows 1, 2, 3, 5,
+7 and 12 at the JAX point, rows 1 and 5 at ``kpconv_table="bfloat16"``
+(pooled values, ties and counts bit for bit), row 6 at ``kpconv_mxu`` on
+whole and split inverse tables at tensor-core and CUDA-core widths and its
+pool gradient at the table point, row 8 on its resident and general
+routes with ties settled in float64; and a KPConv module, the GSE and the
+pair scores take gradients at a bfloat16 point.
 """
 
 import numpy as np
@@ -304,7 +312,10 @@ def test_kpconv_fused_residuals_match_plain(device, c, with_pool):
     assert_kpconv_close(got[0], want[0])
 
 
-def kpconv_bwd_case(device, c_in, c_out, n, m, j, c_pool=0, seed=0):
+def kpconv_bwd_case(device, c_in, c_out, n, m, j, c_pool=0, seed=0, table_dtype=None):
+    """A backward's arguments; with ``table_dtype`` the pool features are
+    normal values pooled by the plain forward at that table point (else
+    small integers: tied maxima)."""
     g = torch.Generator().manual_seed(seed)
     s_points = torch.rand(n, 3, generator=g) * 0.3
     q_points = torch.rand(m, 3, generator=g) * 0.3
@@ -320,10 +331,13 @@ def kpconv_bwd_case(device, c_in, c_out, n, m, j, c_pool=0, seed=0):
     args = [feats, s_points, q_points, gdiv, inv, kp, w]
     kw = {}
     if c_pool:
-        pool = torch.randint(-2, 2, (n, c_pool), generator=g).float()  # tied maxima
+        if table_dtype is None:
+            pool = torch.randint(-2, 2, (n, c_pool), generator=g).float()  # tied maxima
+        else:
+            pool = torch.randn(n, c_pool, generator=g)
         _, pooled, _, ties = kpconv_fused_plain(
             torch.ones(n, 1), q_points, s_points, nbrs, kp, torch.zeros(15, 1, 1), 0.05,
-            pool_feats=pool, residuals=True)
+            pool_feats=pool, residuals=True, table_dtype=table_dtype or torch.float32)
         kw = dict(pool_feats=pool, pooled=pooled,
                   dpool_over_ties=torch.randn(m, c_pool, generator=g) / ties)
     return [t.to(device) for t in args], {k: v.to(device) for k, v in kw.items()}
@@ -2528,24 +2542,202 @@ def test_rpe_pair_scores_on_a_bf16_embedding_matches_plain(device, c, h, aligned
 
 
 def test_bf16_gradients_raise(device):
-    """Training at the bfloat16 point is not ported: a KPConv at that point
-    and the differentiable GSE and pair-score forms raise on the card too,
-    before any launch."""
+    """Training at the bfloat16 point on the card (the test kept its name
+    from when these calls raised): a KPConv module at kpconv_mxu="bfloat16"
+    with gradients on launches its forward and its inverse-table backward
+    once each, the differentiable GSE at the bfloat16 basis and embedding
+    point its forward and backward, and the pair scores' gradient of a
+    bfloat16 embedding is bfloat16; each within the flip rule of its
+    plain twin (force=False) at the same point."""
     from geotransformer_tpu_torch.kernels.attention import rpe_pair_scores_diff
     from geotransformer_tpu_torch.kernels.gse import gse_embedding_full_diff
     from geotransformer_tpu_torch.models.kpconv import KPConv
 
     args, _, _, _ = kpconv_case(device, 32)
-    conv = KPConv(32, 32, 15, 0.0625, 0.05, mxu_dtype=BF16).to(device)
-    before = cuda.launches["kpconv_fused"]
-    with pytest.raises(NotImplementedError):
-        conv(args[0], *args[1:4])  # gradients are on
-    assert cuda.launches["kpconv_fused"] == before
-    points = torch.rand(10, 3, device=device)
-    vectors = torch.randn(10, 3, 3, device=device)
-    w, b = torch.randn(32, 32, device=device), torch.randn(32, device=device)
-    with pytest.raises(NotImplementedError):
-        gse_embedding_full_diff(points, vectors, w, b, w, b, 0.2, 15.0, basis_dtype=BF16)
-    with pytest.raises(NotImplementedError):
-        rpe_pair_scores_diff(torch.zeros(4, 4, 8, dtype=BF16, device=device),
-                             torch.zeros(4, 2, 8, device=device))
+    n, m = args[2].shape[0], args[1].shape[0]
+    inv = torch.from_numpy(build_inverse_table(args[3].cpu().numpy(), n, 80)).to(device)
+    g = torch.Generator().manual_seed(3)
+    dout = torch.randn(m, 32, generator=g).to(device)
+    grads = {}
+    for force in (None, False):
+        conv = KPConv(32, 32, 15, 0.0625, 0.05, bias=True, force=force, mxu_dtype=BF16).to(device)
+        with torch.no_grad():
+            conv.weights.copy_(args[5])
+        feats = args[0].clone().requires_grad_()
+        before = (cuda.launches["kpconv_fused"], cuda.launches["kpconv_bwd_fused"])
+        (conv(feats, *args[1:4], inverse_table=inv) * dout).sum().backward()
+        launched = (cuda.launches["kpconv_fused"] - before[0],
+                    cuda.launches["kpconv_bwd_fused"] - before[1])
+        assert launched == ((1, 1) if force is None else (0, 0))
+        grads[force] = (feats.grad, conv.weights.grad)
+    f32 = kpconv_bwd_fused_plain(args[0], args[2], args[1], dout / torch.clamp(
+        kpconv_fused_plain(*args, 0.05, residuals=True)[1], min=1.0)[:, None], inv, args[4],
+        args[5], 0.05)
+    for got, want, ref in zip(grads[None], grads[False], f32):
+        assert_bf16_close(got, want, ref, kpconv_bound(want))
+
+    points = torch.rand(40, 3, generator=g).to(device)
+    vectors = (torch.randn(40, 3, 3, generator=g) * 0.1).to(device)
+    nv = torch.tensor(37, dtype=torch.int32, device=device)
+    r = torch.randn(40, 40, 64, generator=g).to(device)
+    gse_grads = {}
+    for force in (None, False):
+        w_d, w_a = (torch.randn(64, 64, generator=torch.Generator().manual_seed(i)).to(device)
+                    .div(8).requires_grad_() for i in (1, 2))
+        b = torch.zeros(64, device=device, requires_grad=True)
+        before = cuda.launches["gse_full_bwd"]
+        out = gse_embedding_full_diff(points, vectors, w_d, b, w_a, b, 0.2, 15.0, nv,
+                                      force=force, basis_dtype=BF16, embed_dtype=BF16)
+        assert out.dtype == BF16
+        (out.float() * r).sum().backward()
+        assert cuda.launches["gse_full_bwd"] - before == (1 if force is None else 0)
+        gse_grads[force] = (w_d.grad, w_a.grad)
+    for got, want in zip(gse_grads[None], gse_grads[False]):
+        assert (got - want).abs().max().item() <= 1e-3 * want.abs().max().item()
+
+    embed = torch.randn(30, 30, 16, generator=g).to(device).to(BF16).requires_grad_()
+    qw = torch.randn(30, 2, 16, generator=g).to(device).requires_grad_()
+    rpe_pair_scores_diff(embed, qw).sum().backward()
+    assert embed.grad.dtype == BF16 and qw.grad.dtype == torch.float32
+    assert torch.isfinite(embed.grad.float()).all()
+
+
+@pytest.mark.parametrize("c_in, c_out, split", [
+    (32, 32, False), (64, 128, False), (32, 32, True), (64, 128, True), (6, 4, False),
+    (6, 4, True)], ids=["C32", "C64-128", "C32-split", "C64-128-split", "narrow", "narrow-split"])
+@pytest.mark.parametrize("with_pool", [False, True])
+def test_kpconv_bwd_bf16_matches_plain(device, c_in, c_out, split, with_pool):
+    """Row 6 at kpconv_mxu="bfloat16": the u pass's rounding instance
+    (influences, gdiv and u rounded; a split inverse table's head and tail
+    sums rounded apart and added), d_s in two products a k8 step (u exact,
+    Wt f32; the split route three), dW in one (s and u exact; the split
+    route two), the CUDA-core forms at narrow widths; against the plain
+    version at the same point by the flip rule, the pool's gradient (no
+    rounding) within the KPConv tolerance; repeats and replays."""
+    n, m = 1000, 997
+    args, kw = kpconv_bwd_case(device, c_in, c_out, n, m, 80, c_pool=2 * c_in if with_pool else 0)
+    call = args
+    if split:
+        inv = args[4].cpu().numpy()
+        m2 = int((inv[:, 8:] < m).any(axis=1).sum())
+        tail, tail_s, rank = build_split_tables(inv, m, 8, m2 + 3)
+        call = args[:4] + [(args[4][:, :8].contiguous(),) + tuple(
+            torch.from_numpy(x).to(device) for x in (tail, tail_s, rank))] + args[5:]
+    got = launches_once_repeats_and_replays(
+        lambda: kpconv_bwd_fused(*call, 0.05, mxu_dtype=BF16, **kw), "kpconv_bwd_fused")
+    want = kpconv_bwd_fused_plain(*call, 0.05, mxu_dtype=BF16, **kw)
+    f32 = kpconv_bwd_fused_plain(*call, 0.05, **kw)
+    torch.cuda.synchronize()
+    for a, b, c in zip(got[:2], want[:2], f32[:2]):
+        assert_bf16_close(a, b, c, kpconv_bound(b))
+    if with_pool:
+        assert_kpconv_close(got[2], want[2])
+
+
+@pytest.mark.parametrize("mxu", [torch.float32, BF16], ids=["table-only", "all-knobs"])
+@pytest.mark.parametrize("split", [False, True], ids=["whole", "split"])
+def test_kpconv_bwd_table_bf16_pool_matches_plain(device, mxu, split):
+    """Row 6 at kpconv_table="bfloat16": the rows' own pool features rounded
+    for the tie equality with the pooled rounded values (normal values, so
+    the rounding decides which columns tie), at either kpconv_mxu; the pool
+    gradient within the KPConv tolerance of the plain version's, d_s and dW
+    those of kpconv_mxu alone, bit for bit."""
+    n, m = 700, 650
+    args, kw = kpconv_bwd_case(device, 32, 32, n, m, 80, c_pool=64, table_dtype=BF16)
+    call = args
+    if split:
+        inv = args[4].cpu().numpy()
+        m2 = int((inv[:, 16:] < m).any(axis=1).sum())
+        tail, tail_s, rank = build_split_tables(inv, m, 16, m2 + 3)
+        call = args[:4] + [(args[4][:, :16].contiguous(),) + tuple(
+            torch.from_numpy(x).to(device) for x in (tail, tail_s, rank))] + args[5:]
+    point = dict(mxu_dtype=mxu, table_dtype=BF16)
+    got = launches_once_repeats_and_replays(
+        lambda: kpconv_bwd_fused(*call, 0.05, **point, **kw), "kpconv_bwd_fused")
+    want = kpconv_bwd_fused_plain(*call, 0.05, **point, **kw)
+    unrounded = kpconv_bwd_fused_plain(*call, 0.05, mxu_dtype=mxu, **kw)
+    torch.cuda.synchronize()
+    assert_kpconv_close(got[2], want[2])
+    assert (want[2] != unrounded[2]).any()  # the table's rounding decides ties here
+    # the table point rounds nothing else in the backward: d_s and dW are the
+    # kpconv_mxu instance's, bit for bit
+    same_mxu = kpconv_bwd_fused(*call, 0.05, mxu_dtype=mxu, **kw)
+    for a, b in zip(got[:2], same_mxu[:2]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("c, mxu, split", [
+    (64, torch.float32, False), (64, BF16, False), (6, torch.float32, False), (1, BF16, False),
+    (64, torch.float32, True), (64, BF16, True)],
+    ids=["C64", "C64-mxu", "one-channel", "c_in_1-mxu", "C64-split", "C64-mxu-split"])
+def test_kpconv_fused_table_bf16_matches_plain(device, c, mxu, split):
+    """Rows 1 and 5 at kpconv_table="bfloat16": each gathered feature and
+    each pool value rounded as read (at kpconv_mxu float32 the influences
+    stay f32: an instance of its own), the count from the f32 feature sums;
+    the pooled max, its ties and the count bit for bit with the plain
+    version, the output by the flip rule against the plain version at the
+    same point; repeats and replays."""
+    args, bias, pool, q_mask = kpconv_case(device, c, c_pool=0 if c == 1 else 8)
+    if c == 1:
+        args[0] = args[0].abs()
+    kw = dict(q_mask=q_mask, residuals=True)
+    if pool is not None:
+        kw.update(pool_feats=pool, pool_cols=38)
+    if split:
+        table = args[3].cpu().numpy()
+        n = args[2].shape[0]
+        m2 = int((table[:, 16:] < n).any(axis=1).sum())
+        parts = [torch.from_numpy(x).to(device) for x in build_split_tables(table, n, 16, m2 + 8)]
+        call = (args[0], args[1], args[2], args[3][:, :16].contiguous(), *parts, args[4],
+                args[5], 0.05, bias)
+        fn, plain, name = kpconv_split_fused, kpconv_split_fused_plain, "kpconv_split_fused"
+    else:
+        call = (*args, 0.05, bias)
+        fn, plain, name = kpconv_fused, kpconv_fused_plain, "kpconv_fused"
+    got = launches_once_repeats_and_replays(
+        lambda: fn(*call, mxu_dtype=mxu, table_dtype=BF16, **kw), name)
+    want = plain(*call, mxu_dtype=mxu, table_dtype=BF16, **kw)
+    unrounded = plain(*call, **kw)  # the float32 point
+    torch.cuda.synchronize()
+    assert_bf16_close(got[0], want[0], unrounded[0], kpconv_bound(want[0]))
+    for a, b in zip(got[1:], want[1:]):  # pooled, count, ties
+        assert torch.equal(a, b)
+    if pool is not None:
+        assert (want[1] != unrounded[1]).any()
+
+
+@pytest.mark.parametrize("c, angles, tied", [
+    (256, 3, False), (128, 3, False), (96, 3, False), (128, 3, True), (48, 5, False),
+    (160, 3, False), (512, 3, False)],
+    ids=["C256", "C128", "C96", "C128-tied", "C48-A5-general", "C160-general", "C512-chunks"])
+def test_gse_bwd_bf16_matches_plain(device, c, angles, tied):
+    """Row 8 at gse_basis="bfloat16": the BF instances (bases and W_a
+    rounded as built, the argmax over the rounded projections, de rounded,
+    one TF32 pass of exact products), the resident and the general route,
+    near-ties settled in float64 on the rounded operands (two equal
+    reference vectors: every off-diagonal entry); a bfloat16 embedding's
+    cotangent read widened; dW_d and dW_a by the flip rule against the
+    plain version at the same point (the float32 point's gradients the far
+    reference), db within 1e-4 x max; repeats and replays."""
+    g = torch.Generator().manual_seed(c + angles)
+    n, n_valid = 53, 47
+    points = torch.rand(n, 3, generator=g)
+    ref_vectors = torch.randn(n, angles, 3, generator=g) * 0.1
+    if tied:
+        ref_vectors[:, 2] = ref_vectors[:, 0]
+    w_a = torch.randn(c, c, generator=g) / c**0.5
+    de = torch.randn(n, n, c, generator=g).to(BF16)
+    args = [x.to(device) for x in (points, ref_vectors, w_a)]
+    de, nv = de.to(device), torch.tensor(n_valid, dtype=torch.int32, device=device)
+    got = launches_once_repeats_and_replays(
+        lambda: gse_full_bwd(*args, 0.2, 15.0, de, nv, basis_dtype=BF16), "gse_full_bwd")
+    settled = int(gse_kernels.last_settled)
+    want = gse_full_bwd_plain(*args, 0.2, 15.0, de, nv, basis_dtype=BF16)
+    f32 = gse_full_bwd_plain(*args, 0.2, 15.0, de, nv)
+    torch.cuda.synchronize()
+    assert all(x.dtype == torch.float32 for x in got)
+    for i in (0, 2):
+        assert_bf16_close(got[i], want[i], f32[i], 1e-4 * want[i].abs().max())
+    assert (got[1] - want[1]).abs().max().item() <= 1e-4 * want[1].abs().max().item()
+    if tied:
+        assert settled > 0

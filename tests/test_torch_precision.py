@@ -24,9 +24,13 @@ rounding happens at the same points). The modules (a KPConv, the GSE, the
 RPE attention) and the whole small-config forward at the JAX point against
 the JAX modules and model with ``use_pallas`` / ``force_pallas=True``: the
 bars stated at each test, from the runs. And: the float32 point computes
-what the default arguments compute, bit for bit; gradients and the
-training step refuse a bfloat16 point and ``kpconv_table="bfloat16"``;
-``PrecisionConfig`` has the JAX fields and value names.
+what the default arguments compute, bit for bit; a KPConv module at a
+bfloat16 point takes gradients as the JAX module's custom_vjps do, the
+GSE and pair-score gradients and the training step compute there, and a
+model at ``kpconv_table="bfloat16"`` builds and convolves as the JAX
+module at that point (the backward kernels themselves against the JAX
+ones: ``tests/test_torch_precision_train.py``); ``PrecisionConfig`` has the
+JAX fields and value names.
 """
 
 import dataclasses
@@ -490,44 +494,137 @@ def test_small_config_forward_at_the_jax_point_matches_jax_pallas_model(jax_poin
     assert torch.isfinite(out_t["estimated_transform"]).all()
 
 
-# ---- what is refused -------------------------------------------------------
+# ---- gradients and the bfloat16 table (refused before training was ported) ----
 
-def test_gradients_and_the_training_step_refuse_a_bf16_point():
+def jax_conv_vjp(c, c_in, dout, **tables):
+    """The JAX ``KPConv(use_pallas=True)`` module's output and the vjp of
+    ``dout`` to its features and weights (its custom_vjps)."""
+    jax_conv = JaxKPConv(c_in, 24, 15, 0.3, SIGMA, use_bias=True, use_pallas=True,
+                         input_layer=c_in == 1)
+
+    def apply(f, w):
+        variables = {"constants": {"kernel_points": jnp.asarray(c["kp"])},
+                     "params": {"weights": w, "bias": jnp.asarray(c["bias"])}}
+        return jax_conv.apply(variables, f, *map(jnp.asarray, (c["q"], c["s"], c["table"])),
+                              **{k: jnp.asarray(v) for k, v in tables.items()})
+
+    out, vjp = jax.vjp(apply, jnp.asarray(c["f"][:, :c_in]), jnp.asarray(c["w"][:, :c_in]))
+    return np.asarray(out), [np.asarray(g) for g in vjp(jnp.asarray(dout))]
+
+
+def port_conv_grads(c, c_in, dout, **tables):
+    conv = KPConv(c_in, 24, 15, 0.3, SIGMA, bias=True, mxu_dtype=BF16)
+    with torch.no_grad():
+        conv.weights.copy_(t(c["w"][:, :c_in]))
+        conv.bias.copy_(t(c["bias"]))
+        conv.kernel_points.copy_(t(c["kp"]))
+    feats = t(c["f"][:, :c_in]).requires_grad_()
+    out = conv(feats, *map(t, (c["q"], c["s"], c["table"])),
+               **{k: t(v) for k, v in tables.items()})
+    out.backward(t(dout))
+    d_feats = np.zeros_like(c["f"][:, :c_in]) if feats.grad is None else feats.grad.numpy()
+    return out.detach().numpy(), [d_feats, conv.weights.grad.numpy()]
+
+
+def test_gradients_and_the_training_step_refuse_a_bf16_point(jax_point):
+    """Gradients at a bfloat16 point compute (the test kept its name from
+    when they were refused). A KPConv module at kpconv_mxu="bfloat16" with
+    gradients on, against ``jax.vjp`` of the JAX module at its point: with
+    an inverse table (row 6 at bfloat16: the flip bars over |u| |W| and
+    |s| |u|), without one (the scatter backward, float32: 1e-5 of the
+    largest gradient), and the input convs (c_in = 1 over the neighbor
+    table and the edge stream: the weight gradient from the unrounded t1,
+    1e-5). The output by the flip bars. The GSE and pair-score gradients
+    at the bfloat16 point equal their plain backward's, and
+    ``make_train_step`` takes a finite step at ``JAX_PRECISION``."""
+    from geotransformer_tpu_torch.preprocess import build_inverse_table
+
     c = conv_case(10, 8)
-    tables = list(map(t, (c["q"], c["s"], c["table"])))
-    stream, _, _, _ = stream_case(11, 15)
-    # a KPConv at a bfloat16 point refuses a gradient-enabled forward on
-    # every table it reads (the *_diff forms it would take compute float32)
-    for c_in, kw in ((8, {}), (1, {}), (1, dict(stream=t(stream)))):
-        conv = KPConv(c_in, 24, 15, 1.0, SIGMA, mxu_dtype=BF16)
-        feats = t(c["f"])[:, :c_in]
-        with pytest.raises(NotImplementedError, match="kpconv_mxu"):
-            conv(feats, *tables, **kw)
-        with torch.no_grad():
-            assert torch.isfinite(conv(feats, *tables, **kw)).all()
+    dout = np.random.default_rng(4).normal(size=(96, 24)).astype(np.float32)
+    inv = build_inverse_table(c["table"], c["n"], 40)
+    scale = conv_scale(dict(c, f=c["f"][:, :8], w=c["w"][:, :8]))
+    for tables in ({"inverse_table": inv}, {}):
+        want_out, want = jax_conv_vjp(c, 8, dout, **tables)
+        got_out, got = port_conv_grads(c, 8, dout, **tables)
+        assert_flip_bars(got_out - c["bias"], want_out - c["bias"], scale, "KPConv out")
+        if tables:
+            s_ds, s_dw = port_kpconv.kpconv_bwd_fused_plain(
+                t(np.abs(c["f"])), t(c["s"]), t(c["q"]),
+                t(np.abs(dout)) / torch.clamp(port_kpconv.kpconv_fused_plain(
+                    *map(t, (c["f"], c["q"], c["s"], c["table"], c["kp"], c["w"])), SIGMA,
+                    residuals=True)[1], min=1.0)[:, None],
+                t(inv), t(c["kp"]), t(np.abs(c["w"])), SIGMA)
+            assert_flip_bars(got[0], want[0], s_ds.numpy(), "KPConv d_s (row 6)")
+            assert_flip_bars(got[1], want[1], s_dw.numpy(), "KPConv dW (row 6)")
+        else:
+            for g, w in zip(got, want):
+                np.testing.assert_allclose(g, w, rtol=0, atol=1e-5 * np.abs(w).max())
+    c1 = conv_case(11, 1)
+    stream, _, _, _ = stream_case(11, 15, m=96, h=24)
+    for tables in ({}, {"stream": stream}):
+        want = jax_conv_vjp(c1, 1, dout, **tables)[1][1]
+        got = port_conv_grads(c1, 1, dout, **tables)[1][1]
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max())
+
     case = list(map(t, gse_case(32, 3)))
-    with pytest.raises(NotImplementedError, match="gse_basis"):
-        port_gse.gse_embedding_full_diff(*case, 0.2, 15.0, embed_dtype=BF16)
-    with pytest.raises(NotImplementedError, match="bfloat16 embedding"):
-        port_attention.rpe_pair_scores_diff(torch.zeros(4, 4, 8, dtype=BF16), torch.zeros(4, 2, 8))
-    # a model at the JAX point refuses a gradient-enabled forward and the step
-    cfg = dataclasses.replace(port_configs.make_3dmatch_config(),
-                              precision=port_configs.JAX_PRECISION)
+    nv = torch.tensor(GSE_VALID, dtype=torch.int32)
+    for w in (case[2], case[4]):
+        w.requires_grad_()
+    out = port_gse.gse_embedding_full_diff(*case, 0.2, 15.0, nv, basis_dtype=BF16,
+                                           embed_dtype=BF16)
+    de = torch.randn(out.shape, generator=torch.Generator().manual_seed(1)).to(BF16)
+    out.backward(de)
+    want = port_gse.gse_full_bwd_plain(case[0], case[1], case[4].detach(), 0.2, 15.0, de, nv,
+                                       basis_dtype=BF16)
+    assert torch.equal(case[2].grad, want[0]) and torch.equal(case[4].grad, want[2])
+    embed = torch.randn(4, 4, 8).to(BF16).requires_grad_()
+    qw = torch.randn(4, 2, 8, requires_grad=True)
+    port_attention.rpe_pair_scores_diff(embed, qw).sum().backward()
+    assert embed.grad.dtype == BF16
+    assert torch.equal(embed.grad, torch.einsum("nhm,nhc->nmc", torch.ones(4, 2, 4),
+                                                qw.detach()).to(BF16))
+
+    from test_torch_train import make_training_batch, train_config
+
+    cfg, batch = make_training_batch(train_config())
+    cfg = dataclasses.replace(cfg, precision=port_configs.JAX_PRECISION)
     model = create_model(cfg, device="cpu")
     optimizer, scheduler = make_optimizer(model, cfg, steps_per_epoch=1)
-    with pytest.raises(NotImplementedError, match="training at"):
-        make_train_step(model, cfg, optimizer, scheduler, device="cpu")
-    conv = model.backbone.encoder1_2.KPConv
-    x = torch.zeros(c["n"], conv.weights.shape[1])
-    with pytest.raises(NotImplementedError, match="kpconv_mxu"):
-        conv(x, t(c["q"]), t(c["s"]), t(c["table"]))  # gradients are on
+    step = make_train_step(model, cfg, optimizer, scheduler, device="cpu")
+    metrics = step(batch, generator=torch.Generator().manual_seed(5))
+    assert metrics["grad_finite"].item() == 1.0 and np.isfinite(metrics["loss"].item())
 
 
-def test_bf16_tables_are_refused():
+def test_bf16_tables_are_refused(jax_point, monkeypatch):
+    """A model at kpconv_table="bfloat16" builds (the test kept its name
+    from when it was refused): its convs take the table point, and a conv
+    at that point matches the JAX module at ``TABLE_DTYPE`` bfloat16 (the
+    flip bars; the pooled values bit for bit). An unknown dtype name still
+    raises ValueError."""
+    monkeypatch.setattr(jax_kpconv, "TABLE_DTYPE", jnp.bfloat16)
     cfg = dataclasses.replace(port_configs.make_3dmatch_config(),
                               precision=port_configs.PrecisionConfig(kpconv_table="bfloat16"))
-    with pytest.raises(NotImplementedError, match="kpconv_table"):
-        create_model(cfg, device="cpu")
+    model = create_model(cfg, device="cpu")
+    conv = model.backbone.encoder2_1.KPConv
+    assert conv.table_dtype == BF16 and conv.mxu_dtype == torch.float32
+    c = conv_case(12, 32, c_out=32)
+    c["pool"] = np.random.default_rng(2).normal(size=(c["n"], 16)).astype(np.float32)
+    monkeypatch.setattr(jax_kpconv, "MXU_DTYPE", jnp.float32)
+    jax_conv = JaxKPConv(32, 32, 15, 0.3, SIGMA, use_bias=True, use_pallas=True)
+    variables = {"constants": {"kernel_points": jnp.asarray(c["kp"])},
+                 "params": {"weights": jnp.asarray(c["w"]), "bias": jnp.asarray(c["bias"])}}
+    want = jax_conv.apply(variables, *map(jnp.asarray, (c["f"], c["q"], c["s"], c["table"])),
+                          pool_feats=jnp.asarray(c["pool"]), pool_cols=20)
+    port = KPConv(32, 32, 15, 0.3, SIGMA, bias=True, table_dtype=BF16)
+    with torch.no_grad():
+        port.weights.copy_(t(c["w"]))
+        port.bias.copy_(t(c["bias"]))
+        port.kernel_points.copy_(t(c["kp"]))
+        got = port(*map(t, (c["f"], c["q"], c["s"], c["table"])), pool_feats=t(c["pool"]),
+                   pool_cols=20)
+    assert_flip_bars(got[0].numpy() - c["bias"], np.asarray(want[0]) - c["bias"], conv_scale(c),
+                     "KPConv at the table point")
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
     with pytest.raises(ValueError, match="float16"):
         port_configs.PrecisionConfig(gse_embed="float16")
 
@@ -546,5 +643,6 @@ def test_precision_config_has_the_jax_fields_and_value_names():
         assert {port_configs.knob_dtype(point, f) for f in port_fields} == {
             {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]}
     # the port's one stated difference: float32 throughout by default
-    assert port_configs.is_float32_point(port_configs.PrecisionConfig())
+    assert port_configs.PrecisionConfig() == port_configs.PrecisionConfig(
+        **{f: "float32" for f in port_fields})
     assert port_configs.make_3dmatch_config().precision == port_configs.PrecisionConfig()
